@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the port's serving path on one CUDA card and check it.
+"""Drive the port's serving and training paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the checks below
+    python3 chip_smoke.py --profile   # build, then only a torch.profiler
+                                      # trace of the 200k / 800x800 train step
 
-Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` with `nvcc`,
-holds each kernel against its plain PyTorch version on the card, renders
-the golden scene through the kernel, renders the 200k-Gaussian / 800x800
-scene of `bench.py` and times it, and finally runs the user's entry point
-(`wast3d_tpu_torch.cli.render`) on a small Blender-format dataset with the
-kernels' launch counts reset just before and read just after. Every phase
-prints one JSON line with its numbers and seconds; any failure raises and
-the script exits non-zero. The last lines are the card's name and power
-limit as nvidia-smi prints them, one `{"kernels": [...]}` line, and
+Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` with one
+`nvcc` call and holds each kernel against its plain PyTorch version on the
+card: K1 (blend forward), K2 (blend backward) and K3 (per-Gaussian gradient
+segment sum), each on small seeded cases, K2 and K3 also run twice for
+bitwise equality. Then the serving path: the golden scene through the
+kernel, the 200k-Gaussian / 800x800 scene of `bench.py` timed, and the
+user's render entry point (`wast3d_tpu_torch.cli.render`). Then the
+training path: 20 timed train steps on the same scene with a stage split,
+K2 and K3 against their plain versions at that size, and the user's train
+entry point (`wast3d_tpu_torch.cli.train`, ~300 iterations with densify) on
+a Blender-format dataset. Each entry point runs with the kernels' launch
+counts set to 0 just before it and read just after. Every phase prints one
+JSON line with its numbers and seconds; any failure raises and the script
+exits non-zero. The last lines are the card's name and power limit as
+nvidia-smi prints them, one `{"kernels": [...]}` line, and
 `{"ok": true, "device": {...}}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
@@ -42,6 +50,19 @@ F32_OPS_PER_S = 67e12
 # K1 per evaluated (pixel, entry) pair: ~25 f32 operations plus one expf,
 # counted as one more (csrc/blend_fwd.cu).
 K1_OPS_PER_PAIR = 26
+# K2 per evaluated pair (csrc/blend_bwd.cu): the recompute of power, alpha
+# and T (~18 with the expf), q and its prefix (9), dL/dpower with its
+# division (7), the ten per-pixel values (12), their sum over the tile's
+# pixels (10 additions), and ~4 compares and selects.
+K2_OPS_PER_PAIR = 60
+K2_TOL = 1e-3  # K2 vs plain: max error per column over that column's max |value|
+# K3 vs float64 index_add_: each row within the worst-case error of a float32
+# sum of its segment (`compare_k3`); a single rounding can reach the bound,
+# so the slack only covers the float64 reference's own rounding.
+K3_BOUND_SLACK = 1.0 + 1e-6
+GRAD_COLS = 10  # gradient columns of the [K, 12] rows that K3 reduces
+TRAIN_ITERS = 300  # train entry point: densify at 200 and 300
+N_INIT = 100_000  # train entry point: random init cloud, as the Blender loader makes it
 
 FULL_N = 200_000  # bench.py's scene at BENCH_N=200000, BENCH_RES=800x800
 FULL_RES = 800
@@ -206,6 +227,142 @@ def phase_k1_cases(device):
                                                    "mean": TOL_MEAN, "depth_max": TOL_DEPTH})
 
 
+# ---- K2 and K3 against their plain versions -------------------------------
+
+def k2_cotangents(h, w, device, seed):
+    """Seeded cotangents of colour, depth and final_T."""
+    from wast3d_tpu_torch.ops.rasterizer.blend import BlendOutput
+
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(h, w, 3)), rng.normal(size=(h, w)) * 0.1,
+              rng.normal(size=(h, w)))
+    return BlendOutput(*(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays))
+
+
+def compare_k2(inputs, bg, grads):
+    """K2 twice and its plain version on the same inputs (K1's output as
+    the forward); raises past K2_TOL or if the two kernel runs differ in any
+    bit. Returns (max error over columns, relative to each column's max;
+    the kernel's output)."""
+    from wast3d_tpu_torch.ops.rasterizer.blend import (
+        blend_bwd, blend_bwd_reference, blend_fwd)
+
+    rows, starts, ends, w, h, offsets = inputs
+    out = blend_fwd(rows, starts, ends, w, h, bg, offsets)
+    k = blend_bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
+    k_again = blend_bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
+    p = blend_bwd_reference(rows, starts, ends, w, h, bg, offsets, out, grads)
+    torch.cuda.synchronize()
+    if not torch.isfinite(k).all():
+        raise AssertionError("K2: non-finite values")
+    if not torch.equal(k, k_again):
+        raise AssertionError("K2: two runs on the same inputs differ")
+    if k.numel() and (k[:, GRAD_COLS:] != 0).any():
+        raise AssertionError("K2: padding columns not zero")
+    rel = 0.0
+    for col in range(GRAD_COLS):
+        scale = float(p[:, col].abs().max()) if p.numel() else 0.0
+        err = float((k[:, col] - p[:, col]).abs().max()) if p.numel() else 0.0
+        rel = max(rel, err / scale if scale > 0 else err)
+    if rel > K2_TOL:
+        raise AssertionError(f"K2 vs plain: {rel} of the column max (limit {K2_TOL})")
+    return rel, k
+
+
+def phase_k2_cases(device):
+    t0 = time.perf_counter()
+    _, cases = k1_cases(device)
+    out = {}
+    for bg_value in (0.0, 1.0):
+        bg = torch.full((3,), bg_value, device=device)
+        for i, (name, inputs) in enumerate(cases.items()):
+            rows, _, _, w, h, _ = inputs
+            rel, k = compare_k2(inputs, bg, k2_cotangents(h, w, device, seed=i))
+            out[f"{name}_bg{int(bg_value)}"] = {
+                "K": int(rows.shape[0]), "max_rel_err": rel,
+                "max_abs_grad": float(k.abs().max()) if k.numel() else 0.0}
+    emit("k2_vs_plain", t0, cases=out, tolerance_rel_to_column_max=K2_TOL,
+         runs_bitwise_equal=True)
+
+
+def k3_case_arrays():
+    """Seeded edge cases of `tests/test_grad_reduce.py` (d, ranks, n1)."""
+    rng = np.random.default_rng(0)
+    cases = {}
+    for k, n1 in ((64, 40), (1000, 300), (5000, 4000)):
+        cases[f"random_{k}_{n1}"] = (rng.normal(size=(k, GRAD_COLS)),
+                                     rng.integers(0, n1, k), n1)
+    cases["giant_segment"] = (np.ones((2000, GRAD_COLS)) * np.linspace(0.5, 1.5, GRAD_COLS),
+                              np.full(2000, 7), 100)
+    ranks = np.sort(rng.choice(100_000, size=512, replace=False))
+    rng.shuffle(ranks)
+    cases["sparse_jumps"] = (rng.normal(size=(512, GRAD_COLS)), ranks, 100_000)
+    cases["n1_multiple_of_128"] = (rng.normal(size=(300, GRAD_COLS)),
+                                   rng.integers(0, 256, 300), 256)
+    cases["k_zero"] = (np.zeros((0, GRAD_COLS)), np.zeros(0), 50)
+    return cases
+
+
+def compare_k3(d, rank, n1, mode):
+    """One rank-major wrapper twice against float64 `index_add_`; raises
+    if the two runs differ in any bit or if a row's error exceeds the
+    worst-case bound of summing its segment in float32 in some order,
+    gamma_(n-1) sum |values| with gamma_m = m u / (1 - m u), u = 2^-24 and
+    n the segment's length (times K3_BOUND_SLACK). The bf16
+    wrapper is held to the float64 sum of the bf16-rounded values. Returns
+    the largest error as a fraction of that bound."""
+    from wast3d_tpu_torch.ops.rasterizer import grad_reduce
+
+    fn = grad_reduce.REDUCERS[mode]
+    a = fn(d, rank, n1)
+    b = fn(d, rank, n1)
+    ref_in = d.to(torch.bfloat16).to(torch.float32) if mode == "segsum_sortpacked" else d
+    ref = torch.zeros((n1, d.shape[1]), dtype=torch.float64, device=d.device)
+    ref.index_add_(0, rank, ref_in.to(torch.float64))
+    mag = torch.zeros_like(ref).index_add_(0, rank, ref_in.to(torch.float64).abs())
+    count = torch.zeros(n1, dtype=torch.float64, device=d.device).index_add_(
+        0, rank, torch.ones_like(rank, dtype=torch.float64))
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"K3 ({mode}): two runs on the same inputs differ")
+    nu = (count - 1).clamp_min(1)[:, None] * 2.0 ** -24
+    bound = nu / (1.0 - nu) * mag  # gamma_(n-1), the recursive-summation bound
+    err = (a.to(torch.float64) - ref).abs()
+    if bool((err[mag == 0] != 0).any()):
+        raise AssertionError(f"K3 ({mode}): a row with no duplicates is not zero")
+    ratio = float((err[mag > 0] / bound[mag > 0]).max()) if bool((mag > 0).any()) else 0.0
+    if ratio > K3_BOUND_SLACK:
+        raise AssertionError(f"K3 ({mode}) vs float64 index_add_: {ratio} of the float32 "
+                             f"summation bound (limit {K3_BOUND_SLACK})")
+    return ratio
+
+
+def phase_k3_cases(device):
+    from wast3d_tpu_torch.ops.rasterizer import grad_reduce
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, (d, ranks, n1) in k3_case_arrays().items():
+        dt = torch.from_numpy(d.astype(np.float32)).to(device)
+        rt = torch.from_numpy(ranks.astype(np.int64)).to(device)
+        out[name] = {"K": int(d.shape[0]), "n1": n1, **{
+            mode: compare_k3(dt, rt, n1, mode)
+            for mode in ("segsum", "segsum_sortpayload", "segsum_sortpacked")}}
+    # The render path's layout: 10 of 12 columns (row stride 12) through the sort's perm.
+    rng = np.random.default_rng(1)
+    full = torch.from_numpy(rng.normal(size=(3000, 12)).astype(np.float32)).to(device)
+    rank = torch.from_numpy(rng.integers(0, 700, 3000)).to(device)
+    sorted_ranks, perm = grad_reduce.sort_ranks(rank)
+    a = grad_reduce.segment_sum(full[:, :GRAD_COLS], sorted_ranks, 700, perm=perm)
+    b = grad_reduce.segment_sum_reference(full[:, :GRAD_COLS], sorted_ranks, 700, perm=perm)
+    strided_err = float((a - b).abs().max())
+    if strided_err > 1e-4:
+        raise AssertionError(f"K3 on strided rows: {strided_err}")
+    emit("k3_vs_index_add_f64", t0, cases=out, strided_perm_max_abs_err=strided_err,
+         error_as_fraction_of_f32_summation_bound=True, limit=K3_BOUND_SLACK,
+         runs_bitwise_equal=True)
+
+
 # ---- golden scene ------------------------------------------------------------
 
 def psnr(a, b) -> float:
@@ -366,10 +523,9 @@ def write_blender_dataset(src, scene, device, res, n_train=4, n_test=2, fovx=0.9
 
 
 def phase_entry_point(device, n=FULL_N, res=FULL_RES):
-    """The user's entry point, with every kernel's count set to 0 just
-    before and read just after. Returns {kernel name: launches}."""
+    """The user's render entry point, with every kernel's count set to 0
+    just before and read just after. Returns {kernel name: launches}."""
     from wast3d_tpu_torch.cli import render as cli
-    from wast3d_tpu_torch.ops.rasterizer.blend import blend_fwd
     from wast3d_tpu_torch.scene.ply import save_ply
     from wast3d_tpu_torch.utils.png import read_png
 
@@ -381,12 +537,12 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
         save_ply(scene, os.path.join(model, "point_cloud", "iteration_1", "point_cloud.ply"))
         t_setup = time.perf_counter() - t0
 
-        blend_fwd.launches = 0
+        reset_kernel_counts()
         t1 = time.perf_counter()
         cli.main(["-m", model, "-s", src, "--device", device.type])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t1
-        launches = {"blend_fwd": blend_fwd.launches}
+        launches = kernel_counts()
 
         worst_diff, psnrs, written = 0, [], {}
         for split, count in (("train", views - 2), ("test", 2)):
@@ -404,8 +560,8 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
                 worst_diff = max(worst_diff, int(np.abs(a - b).max()))
                 if (a != b).any():
                     psnrs.append(psnr(a / 255.0, b / 255.0))
-    if launches["blend_fwd"] != views:
-        raise AssertionError(f"K1 launched {launches['blend_fwd']} times for {views} views")
+    if launches != {"blend_fwd": views, "blend_bwd": 0, "segment_sum": 0}:
+        raise AssertionError(f"launches {launches} for {views} views (want K1 once each)")
     if worst_diff > 2:
         raise AssertionError(f"entry point renders differ from the plain renders by {worst_diff}/255")
     emit("entry_point", t0, views=views, width=res, height=res, launches=launches,
@@ -413,6 +569,330 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
          min_psnr_vs_plain=min(psnrs) if psnrs else None,  # None: all identical
          setup_s=t_setup, cli_s=cli_s)
     return launches
+
+
+# ---- training at full width -----------------------------------------------
+
+def perturbed(arrays, seed=1, sigma=0.002):
+    rng = np.random.default_rng(seed)
+    out = dict(arrays)
+    out["xyz"] = (arrays["xyz"] + rng.normal(size=arrays["xyz"].shape) * sigma).astype(np.float32)
+    return out
+
+
+def instrumented_step(state, cam, gt, bg, opt_cfg, settings, res):
+    """One train step written out as `train.reconstruct.train_step` runs
+    it, with CUDA events between its stages and gradient hooks marking the
+    stages inside the backward. Returns {stage: ms}."""
+    from wast3d_tpu_torch.ops.image_losses import photometric_loss
+    from wast3d_tpu_torch.ops.rasterizer import api, blend as blend_mod, render_path
+    from wast3d_tpu_torch.train import densify as densify_mod
+    from wast3d_tpu_torch.train.optim import make_optimizer
+
+    names = ("start", "forward", "loss", "loss_bwd", "k2_blend_bwd",
+             "gather_bwd_k3", "preprocess_bwd", "adam_stats")
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in names}
+    scene = state.scene
+    opt = make_optimizer(opt_cfg, 1.0)
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+    m2d = torch.zeros((scene.capacity, 2), device=scene.device, requires_grad=True)
+    ev["start"].record()
+    prep = api.preprocess_scene(cam, scene.with_params(params))
+    prep = prep._replace(means2d=prep.means2d + m2d)
+    binning, rows = render_path.bin_and_pack(prep, res, res, grad_reduce=settings.grad_reduce)
+    out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, res, res, bg)
+    ev["forward"].record()
+    loss = photometric_loss(out.color, gt, opt_cfg.lambda_dssim)
+    ev["loss"].record()
+    out.color.register_hook(lambda g: ev["loss_bwd"].record())
+    rows.register_hook(lambda g: ev["k2_blend_bwd"].record())
+    prep.conics.register_hook(lambda g: ev["gather_bwd_k3"].record())
+    leaves = list(params.values()) + [m2d]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    ev["preprocess_bwd"].record()
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    opt.update(dict(zip(params, grads[:-1])), state.opt_state, scene.params(), state.step + 1)
+    densify_mod.add_stats(state.stats, grads[-1], prep.radii, prep.radii > 0, res, res)
+    ev["adam_stats"].record()
+    torch.cuda.synchronize()
+    return {b: ev[a].elapsed_time(ev[b]) for a, b in zip(names[:-1], names[1:])}
+
+
+def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=FRAMES):
+    """`train_step` on the 200k / 800x800 scene (jitter off, as `bench.py`
+    times it), then K2 and K3 alone at that step's inputs against their
+    plain versions and bounds. Returns the kernels-line entries of K2, K3."""
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.image_losses import photometric_loss
+    from wast3d_tpu_torch.ops.rasterizer import api, grad_reduce, render_path
+    from wast3d_tpu_torch.ops.rasterizer.blend import (
+        BlendOutput, blend_bwd, blend_bwd_reference, blend_fwd, evaluated_pairs)
+    from wast3d_tpu_torch.train import reconstruct as R
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    settings = api.RasterizeSettings(renderer="cuda")
+    opt_cfg = OptimizationConfig()
+    with torch.no_grad():
+        gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
+                        settings=settings, device=device)["render"]
+    state = R.init_train_state(scene, opt_cfg, 1.0)
+    t_setup = time.perf_counter() - t0
+
+    counts = kernel_counts()
+    step_ms, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        f0 = time.perf_counter()
+        state, aux = R.train_step(state, cam, gt, bg, None, opt_cfg=opt_cfg, settings=settings,
+                                  width=res, height=res, jitter=False)
+        torch.cuda.synchronize()
+        losses.append(float(aux["loss"]))
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - f0) * 1e3)
+    launched = {k: v - counts[k] for k, v in kernel_counts().items()}
+    if any(v != warmup + steps for v in launched.values()):
+        raise AssertionError(f"launches {launched} for {warmup + steps} train steps")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, t in state.scene.params().items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite {name} after {warmup + steps} steps")
+
+    stages = [instrumented_step(state, cam, gt, bg, opt_cfg, settings, res) for _ in range(5)]
+    stage_ms = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+
+    # K2 and K3 alone, at this step's inputs.
+    prep = api.preprocess_scene(cam, state.scene)
+    binning, rows = render_path.bin_and_pack(prep, res, res)
+    starts, ends = binning.tile_start, binning.tile_end
+    out = blend_fwd(rows, starts, ends, res, res, bg)
+    color = out.color.clone().requires_grad_(True)
+    (dcolor,) = torch.autograd.grad(photometric_loss(color, gt, opt_cfg.lambda_dssim), [color])
+    grads = BlendOutput(dcolor.contiguous(), torch.zeros_like(out.depth),
+                        torch.zeros_like(out.final_T))
+    k2_args = (rows, starts, ends, res, res, bg, None, out, grads)
+    k2_ms = cuda_time_ms(lambda: blend_bwd(*k2_args), 20)
+    k2_plain_ms = cuda_time_ms(lambda: blend_bwd_reference(*k2_args), 2)
+    k2_err, drows = compare_k2((rows, starts, ends, res, res, None), bg, grads)
+    pairs = evaluated_pairs(rows, starts, ends, res, res)
+    K, tiles = int(rows.shape[0]), int(starts.shape[0])
+    k2_bytes = 48 * K * 2 + 40 * res * res + 8 * tiles + 12
+    k2_bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
+    k2_ops_ms = K2_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
+
+    d = drows[:, :GRAD_COLS]
+    rank = binning.rank
+    n1 = int(state.scene.capacity)
+    sorted_ranks, perm = grad_reduce.sort_ranks(rank)
+    k3_ms = cuda_time_ms(lambda: grad_reduce.segment_sum(d, sorted_ranks, n1, perm=perm), 50)
+    k3_plain_ms = cuda_time_ms(
+        lambda: grad_reduce.segment_sum_reference(d, sorted_ranks, n1, perm=perm), 5)
+    sort_ms = cuda_time_ms(lambda: grad_reduce.sort_ranks(rank), 20)
+    wrapper_ms = cuda_time_ms(
+        lambda: grad_reduce.segment_reduce_by_rank_sortpayload(d, rank, n1), 20)
+    index_add_ms = cuda_time_ms(lambda: torch.zeros((n1, GRAD_COLS), device=device)
+                                .index_add_(0, rank, d), 20)
+    k3_contiguous_ms = cuda_time_ms(  # K3a / K3c read gathered, contiguous rows
+        lambda rm=d[perm].contiguous(): grad_reduce.segment_sum(rm, sorted_ranks, n1), 50)
+    reduce_ms = {mode: cuda_time_ms(lambda m=mode: grad_reduce.reduce(d, rank, n1, m), 20)
+                 for mode in grad_reduce.GRAD_REDUCES}
+    k3_err = compare_k3(d.contiguous(), rank, n1, "segsum_sortpayload")
+    k3_bytes = K * (4 * GRAD_COLS + 4 + 8) + 4 * GRAD_COLS * n1
+    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
+    k3_ops_ms = K * GRAD_COLS / F32_OPS_PER_S * 1e3
+    median = statistics.median(step_ms)
+    emit("train_full_width", t0, n_gaussians=n, width=res, height=res, sh_degree=3,
+         jitter=False, grad_reduce=settings.grad_reduce, setup_s=t_setup, warmup=warmup,
+         steps=steps, step_ms_median=median, step_ms_min=min(step_ms),
+         step_ms_max=max(step_ms), steps_per_s=1e3 / median, loss_first=losses[0],
+         loss_last=losses[-1], launches_in_steps=launched,
+         stage_ms_median=stage_ms, duplicates_K=K, evaluated_pairs=pairs,
+         k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound_bytes_ms=k2_bytes_ms,
+         k2_bound_ops_ms=k2_ops_ms, k2_max_rel_err=k2_err,
+         k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_sort_ms=sort_ms,
+         k3_wrapper_sort_plus_kernel_ms=wrapper_ms, index_add_ms=index_add_ms,
+         k3_contiguous_rows_ms=k3_contiguous_ms, reduce_ms_by_mode=reduce_ms,
+         k3_bound_bytes_ms=k3_bytes_ms, k3_bound_ops_ms=k3_ops_ms, k3_err_fraction_of_f32_bound=k3_err)
+    k2 = {"name": "blend_bwd", "route": "cuda", "source": "wast3d_tpu_torch/csrc/blend_bwd.cu",
+          "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:543", "launches": None,
+          "max_abs_err": float((drows - blend_bwd_reference(*k2_args)).abs().max()),
+          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": max(k2_bytes_ms, k2_ops_ms),
+          "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
+          "library_ms": None}
+    k3_out = grad_reduce.segment_sum(d, sorted_ranks, n1, perm=perm)
+    k3_ref = torch.zeros((n1, GRAD_COLS), dtype=torch.float64, device=device).index_add_(
+        0, rank, d.to(torch.float64))
+    k3 = {"name": "segment_sum", "route": "cuda", "source": "wast3d_tpu_torch/csrc/segsum.cu",
+          "replaces": "wast3d_tpu/ops/rasterizer/grad_reduce.py:65", "launches": None,
+          "max_abs_err": float((k3_out.to(torch.float64) - k3_ref).abs().max()),
+          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": max(k3_bytes_ms, k3_ops_ms),
+          "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+          "library_ms": index_add_ms}
+    return k2, k3
+
+
+def kernel_counts():
+    from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, blend_fwd
+    from wast3d_tpu_torch.ops.rasterizer.grad_reduce import segment_sum
+
+    return {"blend_fwd": blend_fwd.launches, "blend_bwd": blend_bwd.launches,
+            "segment_sum": segment_sum.launches}
+
+
+def reset_kernel_counts():
+    from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, blend_fwd
+    from wast3d_tpu_torch.ops.rasterizer.grad_reduce import segment_sum
+
+    blend_fwd.launches = blend_bwd.launches = segment_sum.launches = 0
+
+
+def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
+    """`cli.train` on a 6-view 800x800 Blender dataset of the bench scene,
+    from a random 100k-point init, with densify at 200 and 300.
+    Every kernel's count is set to 0 just before and read just after.
+    Returns {kernel name: launches}."""
+    from wast3d_tpu_torch.cli import train as cli
+    from wast3d_tpu_torch.core.sh import sh_to_rgb
+    from wast3d_tpu_torch.scene.datasets import store_ply_points
+    from wast3d_tpu_torch.scene.ply import load_ply
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_train_") as tmp:
+        src, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+        views = write_blender_dataset(src, scene, device, res)
+        del scene
+        # The Blender loader's random init (a 100k-point cube of side 2.6 with
+        # near-grey colours), written here from a seed so that runs repeat.
+        rng = np.random.default_rng(2)
+        store_ply_points(os.path.join(src, "points3d.ply"),
+                         rng.random((N_INIT, 3)) * 2.6 - 1.3,
+                         sh_to_rgb(rng.random((N_INIT, 3)) / 255.0) * 255)
+        t_setup = time.perf_counter() - t0
+
+        reset_kernel_counts()
+        t1 = time.perf_counter()
+        cli.main(["-s", src, "-m", model, "--iterations", str(iters),
+                  "--save_iterations", str(iters), "--densify_from_iter", "100",
+                  "--densification_interval", "100", "--quiet", "--device", device.type])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        launches = kernel_counts()
+
+        log = [json.loads(line) for line in open(os.path.join(model, "log.jsonl"))]
+        losses = [(e["iter"], e["loss"]) for e in log if "loss" in e]
+        densify = [(e["iter"], e["n"]) for e in log if e.get("event") == "densify"]
+        report = [e for e in log if "psnr_train" in e]
+        ply = os.path.join(model, "point_cloud", f"iteration_{iters}", "point_cloud.ply")
+        final = load_ply(ply, device=device)
+        n_final = final.capacity
+        finite = all(bool(torch.isfinite(getattr(final, f)).all())
+                     for f in ("xyz", "scaling", "rotation", "opacity", "features_dc"))
+    report_renders = min(5, views)  # report(): PSNR over train_cams[:5] (no test split)
+    if [it for it, _ in densify] != [200, 300]:
+        raise AssertionError(f"densify fired at {densify}, want iterations 200 and 300")
+    if not (len(losses) >= 2 and losses[-1][1] < losses[0][1]):
+        raise AssertionError(f"train loss did not fall: {losses}")
+    if n_final == N_INIT or not finite:
+        raise AssertionError(f"N {N_INIT} -> {n_final}, finite {finite}")
+    want = {"blend_fwd": iters + report_renders, "blend_bwd": iters, "segment_sum": iters}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want} (one K1, K2, K3 per step, "
+                             f"plus K1 for {report_renders} report renders)")
+    emit("train_entry_point", t0, views=views, width=res, height=res, iterations=iters,
+         launches=launches, launches_per_step={k: (v - (report_renders if k == "blend_fwd"
+                                                       else 0)) / iters
+                                               for k, v in launches.items()},
+         losses=losses, densify_n=densify, n_init=N_INIT, n_final=n_final,
+         psnr_train=report[-1]["psnr_train"] if report else None,
+         setup_s=t_setup, cli_s=cli_s, iters_per_s=iters / cli_s)
+    return launches
+
+
+# ---- profile (python3 chip_smoke.py --profile) --------------------------------
+
+def kernel_group(name: str) -> str:
+    for key, group in (("blend_fwd_kernel", "K1 blend_fwd"), ("blend_bwd_kernel", "K2 blend_bwd"),
+                       ("segsum_kernel", "K3 segsum"), ("radix", "sort"), ("Sort", "sort"),
+                       ("index", "gather/scatter/index"), ("gather", "gather/scatter/index"),
+                       ("scatter", "gather/scatter/index"), ("reduce", "reductions"),
+                       ("cumsum", "scan"), ("scan", "scan"), ("Scan", "scan"),
+                       ("elementwise", "elementwise"), ("Memset", "memset/memcpy"),
+                       ("Memcpy", "memset/memcpy"), ("memcpy", "memset/memcpy")):
+        if key in name:
+            return group
+    return "other"
+
+
+def phase_profile_train(device, n=FULL_N, res=FULL_RES, warmup=5, steps=10):
+    """`torch.profiler` over `steps` train steps at 200k / 800x800 (jitter
+    off): device busy and idle share of the window, kernels per step, and
+    device time by kernel group and by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.train import reconstruct as R
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    settings = api.RasterizeSettings(renderer="cuda")
+    opt_cfg = OptimizationConfig()
+    with torch.no_grad():
+        gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
+                        settings=settings, device=device)["render"]
+    state = R.init_train_state(scene, opt_cfg, 1.0)
+
+    def step(st):
+        return R.train_step(st, cam, gt, bg, None, opt_cfg=opt_cfg, settings=settings,
+                            width=res, height=res, jitter=False)[0]
+
+    for _ in range(warmup):
+        state = step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(steps):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - w0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    by_group, by_name = {}, {}
+    for e in kernels:
+        d = e.time_range.end - e.time_range.start
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + d
+        by_name[e.name] = by_name.get(e.name, 0.0) + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    emit("profile_train", t0, n_gaussians=n, width=res, height=res, steps=steps,
+         wall_ms_per_step=wall_us / steps / 1e3,
+         device_busy_ms_per_step=busy / steps / 1e3,
+         device_idle_share_of_wall=1.0 - busy / wall_us,
+         device_idle_share_of_kernel_window=1.0 - busy / window,
+         kernels_per_step=len(kernels) / steps,
+         group_ms_per_step={g: v / steps / 1e3 for g, v in
+                            sorted(by_group.items(), key=lambda kv: -kv[1])},
+         top_kernels_ms_per_step=[[k[:90], v / steps / 1e3] for k, v in top])
 
 
 def main() -> int:
@@ -443,17 +923,30 @@ def main() -> int:
     emit("build", t0, nvcc_s=built.seconds, library=os.path.relpath(built.path, ROOT),
          ptxas=[ln.strip() for ln in built.log.splitlines() if "ptxas" in ln])
 
+    if "--profile" in sys.argv[1:]:
+        phase_profile_train(device)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
+
     phase_k1_cases(device)
+    phase_k2_cases(device)
+    phase_k3_cases(device)
     phase_golden(device)
     k1 = phase_full_width(device)
-    launches = phase_entry_point(device)
-    k1["launches"] = launches[k1["name"]]
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    serve = phase_entry_point(device)
+    if serve["blend_fwd"] == 0:
+        raise AssertionError(f"K1 was never launched on the serving path: {serve}")
+    k2, k3 = phase_train_full_width(device)
+    train = phase_train_entry_point(device)
+    if any(v == 0 for v in train.values()):
+        raise AssertionError(f"a kernel of the training path was never launched: {train}")
+    kernels = [k1, k2, k3]
+    for k in kernels:
+        k["launches"] = train[k["name"]]
 
     print(json.dumps({"total_seconds": time.perf_counter() - t_start}), flush=True)
     print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

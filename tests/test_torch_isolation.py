@@ -132,3 +132,54 @@ def test_chip_smoke_fails_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_cli_train_import_pulls_in_no_jax_or_pil():
+    code = ("import sys, wast3d_tpu_torch.cli.train, wast3d_tpu_torch.train.driver; "
+            "print(sorted(m for m in ('jax', 'PIL', 'wast3d_tpu', 'orbax') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_train_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-CUDA error cannot occur")
+    from wast3d_tpu_torch.cli import train as cli
+    from wast3d_tpu_torch.train.driver import train_scene
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_scene(str(tmp_path), str(tmp_path / "m"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m")])
+
+
+def test_cpu_train_step_leaves_launch_counts_alone():
+    from tests.test_rasterizer import _random_scene
+    from tests.test_torch_scene import port_scene
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.rasterizer import grad_reduce
+    from wast3d_tpu_torch.train import reconstruct as R
+
+    cam = look_at_camera(eye=[0, 0, -5], target=[0, 0, 0], up=[0, -1, 0], fovx=0.8,
+                         fovy=0.8, width=32, height=32, device="cpu")
+    state = R.init_train_state(port_scene(_random_scene(n=50, seed=2)), OptimizationConfig(), 1.0)
+    before = (blend.blend_fwd.launches, blend.blend_bwd.launches,
+              grad_reduce.segment_sum.launches)
+    state, aux = R.train_step(state, cam, torch.rand(32, 32, 3), torch.zeros(3),
+                              torch.Generator().manual_seed(0), OptimizationConfig(),
+                              api.RasterizeSettings(renderer="cuda"), 32, 32)
+    assert torch.isfinite(aux["loss"]) and state.step == 1
+    assert (blend.blend_fwd.launches, blend.blend_bwd.launches,
+            grad_reduce.segment_sum.launches) == before == (0, 0, 0)
+
+
+@pytest.mark.parametrize("name", ["w3d_blend_bwd", "w3d_segsum"])
+def test_new_kernels_are_declared_with_pointer_argtypes(name):
+    argtypes, restype = _build.SIGNATURES[name]
+    assert restype is ctypes.c_int and argtypes[-1] is ctypes.c_void_p
+    assert set(argtypes) <= {ctypes.c_void_p, ctypes.c_int}
+    src = (_build.SOURCE_DIR / {"w3d_blend_bwd": "blend_bwd.cu",
+                                "w3d_segsum": "segsum.cu"}[name]).read_text()
+    assert f"int {name}(" in src and "atomicAdd" not in src

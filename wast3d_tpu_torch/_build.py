@@ -37,6 +37,8 @@ _i = ctypes.c_int
 # cuts 64-bit pointers.
 SIGNATURES = {
     "w3d_blend_fwd": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
+    "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
+    "w3d_segsum": ([_p, _i, _p, _p, _i, _i, _i, _p, _i, _p], _i),
     "w3d_error_string": ([_i], ctypes.c_char_p),
 }
 

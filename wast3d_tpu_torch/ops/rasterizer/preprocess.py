@@ -14,6 +14,14 @@ ops on the device of the inputs:
   intersected with the 3-sigma box, +1 pixel,
 - ndc2Pix pixel mapping ((v+1)*S - 1)/2,
 - SH -> RGB with +0.5 offset and clamp.
+
+It is differentiable by autograd: gradients reach means, scales,
+rotations, opacities and SH, and depth gradients reach the means through
+the view matrix. Near-culled Gaussians take a safe depth of 1 inside the
+EWA chain (as `det_safe` does for the determinant), so culled and masked
+Gaussians get zero, not NaN, gradients; they are not drawn, so no output
+that is drawn changes. Radii and tile extents are integers and are taken
+from detached values.
 """
 
 from __future__ import annotations
@@ -78,7 +86,9 @@ def preprocess(
     cx = x * Pm[0, 0] + y * Pm[1, 0] + z * Pm[2, 0] + Pm[3, 0]
     cy = x * Pm[0, 1] + y * Pm[1, 1] + z * Pm[2, 1] + Pm[3, 1]
     cw = x * Pm[0, 3] + y * Pm[1, 3] + z * Pm[2, 3] + Pm[3, 3]
-    p_w = 1.0 / (cw + 1e-7)
+    near_ok = depths > NEAR_CULL_Z
+    one = torch.ones_like(cw)
+    p_w = 1.0 / (torch.where(near_ok, cw, one) + 1e-7)
     mean_x = ((cx * p_w + 1.0) * width - 1.0) * 0.5
     mean_y = ((cy * p_w + 1.0) * height - 1.0) * 0.5
     means2d = torch.stack([mean_x, mean_y], dim=1)
@@ -106,7 +116,7 @@ def preprocess(
     szz = l20 * l20 + l21 * l21 + l22 * l22
 
     # EWA projection: clamp view x/y to the dilated frustum.
-    tz = depths
+    tz = torch.where(near_ok, depths, one)
     inv_z = 1.0 / tz
     lim_x = float(np.float32(1.3) * np.float32(tan_fovx))
     lim_y = float(np.float32(1.3) * np.float32(tan_fovy))
@@ -139,6 +149,8 @@ def preprocess(
     det_safe = torch.where(det == 0.0, torch.ones_like(det), det)
     conics = torch.stack([cyy / det_safe, -cxy / det_safe, cxx / det_safe], dim=1)
 
+    # Integer outputs only from here to the colours: no gradient.
+    cxx, cyy, det = cxx.detach(), cyy.detach(), det.detach()
     mid = 0.5 * (cxx + cyy)
     lambda1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp_min(lambda1, 0.0)))
@@ -148,8 +160,9 @@ def preprocess(
     # tau = ln(255 min(opa, 0.99)); AABB half-extents sqrt(2 tau Sigma_ii),
     # intersected with the 3-sigma box, +1 pixel for jitter and rounding.
     opa = opacities.reshape(n)
-    tau = torch.clamp_min(torch.log(255.0 * torch.clamp(opa, 0.0, 0.99)), 0.0)
-    no_pix = opa * 255.0 <= 1.0
+    opa_d = opa.detach()
+    tau = torch.clamp_min(torch.log(255.0 * torch.clamp(opa_d, 0.0, 0.99)), 0.0)
+    no_pix = opa_d * 255.0 <= 1.0
     zero = torch.zeros_like(radius_f)
     ext_x = torch.minimum(radius_f, torch.ceil(
         torch.sqrt(2.0 * tau * torch.clamp_min(cxx, 0.0)) + 1.0))
@@ -158,7 +171,7 @@ def preprocess(
     ext_x = torch.where(no_pix, zero, ext_x)
     ext_y = torch.where(no_pix, zero, ext_y)
 
-    valid = (depths > NEAR_CULL_Z) & (det > 0.0)
+    valid = near_ok & (det > 0.0)
     if mask is not None:
         valid = valid & mask
 

@@ -2,17 +2,21 @@
 
 `scene_from_numpy` takes the fields of a `wast3d_tpu` GaussianScene as
 numpy arrays (for example `{f: np.asarray(getattr(s, f)) for f in ...}`)
-and returns the port's scene. Nothing here imports JAX: the caller does
-the conversion to numpy.
+and returns the port's scene; `train_state_from_numpy` does the same for
+a whole training state (scene, Adam moments, densification statistics,
+step). Nothing here imports JAX: the caller does the conversion to numpy.
 """
 
 from __future__ import annotations
 
-from wast3d_tpu_torch.device import DeviceLike
-from wast3d_tpu_torch.scene.gaussians import GaussianScene, from_arrays
+import numpy as np
+import torch
 
-FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
-          "opacity", "mask")
+from wast3d_tpu_torch.device import DeviceLike, resolve_device
+from wast3d_tpu_torch.scene.gaussians import FIELDS, GaussianScene, from_arrays
+from wast3d_tpu_torch.train.densify import DensifyStats
+from wast3d_tpu_torch.train.optim import AdamState
+from wast3d_tpu_torch.train.reconstruct import TrainState
 
 
 def scene_from_numpy(d: dict, device: DeviceLike = None) -> GaussianScene:
@@ -26,3 +30,32 @@ def scene_from_numpy(d: dict, device: DeviceLike = None) -> GaussianScene:
         active_sh_degree=int(d["active_sh_degree"]),
         device=device,
     )
+
+
+def train_state_from_numpy(params: dict, mu: dict, nu: dict, count: int,
+                           stats, step: int, mask, active_sh_degree: int = 0,
+                           max_sh_degree: int = 3, device: DeviceLike = None) -> TrainState:
+    """The port's `TrainState` from a JAX `TrainState` given as numpy:
+    `params`, `mu` and `nu` keyed by the optimizer groups (`xyz`, `f_dc`,
+    `f_rest`, `opacity`, `scaling`, `rotation`), `stats` the three arrays
+    of `DensifyStats` (a tuple in field order, or a dict), `count` the Adam
+    step count, `step` the train step and `mask` the validity mask. Every
+    row of the JAX capacity is kept; masked-out rows stay masked."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    scene = from_arrays(
+        xyz=params["xyz"], features_dc=params["f_dc"], features_rest=params["f_rest"],
+        scaling=params["scaling"], rotation=params["rotation"],
+        opacity=params["opacity"], mask=mask, max_sh_degree=max_sh_degree,
+        active_sh_degree=active_sh_degree, device=dev)
+    if isinstance(stats, dict):
+        stats = [stats[f] for f in DensifyStats._fields]
+    return TrainState(
+        scene=scene,
+        opt_state=AdamState(mu={k: t(v) for k, v in mu.items()},
+                            nu={k: t(v) for k, v in nu.items()}, count=int(count)),
+        stats=DensifyStats(*(t(a) for a in stats)),
+        step=int(step))
