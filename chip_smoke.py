@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the port's serving and training paths on one CUDA card and check them.
+"""Drive the port's serving, training and stylization paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py             # the checks below
     python3 chip_smoke.py --profile   # build, then only a torch.profiler
                                       # trace of the 200k / 800x800 train step
+    python3 chip_smoke.py --only k4k5_cases,k4k5_full_width
+                                      # build, then only the named phases
+                                      # (no result line)
 
 Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` with one
 `nvcc` call and holds each kernel against its plain PyTorch version on the
@@ -15,8 +19,14 @@ user's render entry point (`wast3d_tpu_torch.cli.render`). Then the
 training path: 20 timed train steps on the same scene with a stage split,
 K2 and K3 against their plain versions at that size, and the user's train
 entry point (`wast3d_tpu_torch.cli.train`, ~300 iterations with densify) on
-a Blender-format dataset. Each entry point runs with the kernels' launch
-counts set to 0 just before it and read just after. Every phase prints one
+a Blender-format dataset. Then the stylization path: K4 (pair-descriptor
+loss) and K5 (its gradient) against their plain versions on seeded cases,
+twice each for bitwise equality, alone at the production shape
+(Mp = 16384, 8 balls), and against float64 where points nearly coincide; a port-only mirror of `tools/stylize_gate.py` at the
+JAX record's configuration; and the user's stylize entry point
+(`wast3d_tpu_torch.cli.stylize`) at Mp = 16384, where K4/K5 carry the fit.
+Each entry point runs with the kernels' launch counts set to 0 just before
+it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
 exits non-zero. The last lines are the card's name and power limit as
 nvidia-smi prints them, one `{"kernels": [...]}` line, and
@@ -62,6 +72,34 @@ K2_TOL = 1e-3  # K2 vs plain: max error per column over that column's max |value
 K3_BOUND_SLACK = 1.0 + 1e-6
 GRAD_COLS = 10  # gradient columns of the [K, 12] rows that K3 reduces
 TRAIN_ITERS = 300  # train entry point: densify at 200 and 300
+# K4 / K5 vs plain: the JAX package's own tolerances for its kernel against
+# the streaming path (tests/test_stylize.py::test_desc_kernel_matches_streaming).
+K45_LOSS_RTOL = 1e-5
+K45_GRAD_ATOL_REL = 1e-4  # of the plain gradient's max |value|
+# K4 / K5 vs float64 on near-coincident points: each kernel and its plain
+# version are one float32 evaluation of the same formula, so either may land
+# nearer the float64 value by a few roundings; the kernel may exceed the
+# plain version's error by this much (of max |g|, or relative for the loss).
+NEAR_SLACK_REL = 1e-6
+# Float operations per nonzero pair, counted in the sources: K4 (csrc/
+# desc_loss.cu) spends ~14 on W (2 conversions, 2 products, a sum) and T
+# (3 differences, 3 squares, 2 sums, a root) once per pair and ~13 per ball
+# on D and the weighted square; K5 (csrc/desc_grad.cu) ~20 on W (both
+# directions) and T, ~20 per ball on the differences, D, R and the three
+# products and sums.
+K4_OPS_PER_PAIR, K4_OPS_PER_PAIR_BALL = 14, 13
+K5_OPS_PER_PAIR, K5_OPS_PER_PAIR_BALL = 20, 20
+STYLE_MP = 16384  # cli.stylize's default --max_style_points
+STYLE_BATCH = 8  # cli.stylize's default --batch_size
+STYLE_FIT_STEPS = 1000
+# The JAX stylize gate's record (runs/stylegate_r5_head/stylize_gate.json,
+# TPU v5e; quality numbers of the reference, not the port's): 12 balls,
+# descriptor loss 16.6x lower, edge-length W1 2.3x lower, coverage 1.000.
+JAX_GATE = {"balls": 12, "desc_loss_reduction_x": 16.6, "edge_w1_reduction_x": 2.3,
+            "domain_coverage_frac": 1.0}
+GATE_MIN = {"desc_loss_reduction_x": 12.0, "edge_w1_reduction_x": 1.5,
+            "domain_coverage_frac": 0.99}
+ENTRY_STYLE_M = 18_000  # cleaning keeps ~16.6k, cli.stylize subsamples to 16384
 N_INIT = 100_000  # train entry point: random init cloud, as the Blender loader makes it
 
 FULL_N = 200_000  # bench.py's scene at BENCH_N=200000, BENCH_RES=800x800
@@ -560,7 +598,8 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
                 worst_diff = max(worst_diff, int(np.abs(a - b).max()))
                 if (a != b).any():
                     psnrs.append(psnr(a / 255.0, b / 255.0))
-    if launches != {"blend_fwd": views, "blend_bwd": 0, "segment_sum": 0}:
+    if launches != {"blend_fwd": views, "blend_bwd": 0, "segment_sum": 0, "desc_loss": 0,
+                    "desc_grad": 0}:
         raise AssertionError(f"launches {launches} for {views} views (want K1 once each)")
     if worst_diff > 2:
         raise AssertionError(f"entry point renders differ from the plain renders by {worst_diff}/255")
@@ -652,7 +691,7 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
         losses.append(float(aux["loss"]))
         if i >= warmup:
             step_ms.append((time.perf_counter() - f0) * 1e3)
-    launched = {k: v - counts[k] for k, v in kernel_counts().items()}
+    launched = {k: v - counts[k] for k, v in kernel_counts().items() if k in TRAIN_KERNELS}
     if any(v != warmup + steps for v in launched.values()):
         raise AssertionError(f"launches {launched} for {warmup + steps} train steps")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -734,19 +773,25 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     return k2, k3
 
 
-def kernel_counts():
+TRAIN_KERNELS = ("blend_fwd", "blend_bwd", "segment_sum")
+
+
+def _counted():
     from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, blend_fwd
     from wast3d_tpu_torch.ops.rasterizer.grad_reduce import segment_sum
+    from wast3d_tpu_torch.stylize.desc_kernel import desc_grad, desc_loss
 
-    return {"blend_fwd": blend_fwd.launches, "blend_bwd": blend_bwd.launches,
-            "segment_sum": segment_sum.launches}
+    return {"blend_fwd": blend_fwd, "blend_bwd": blend_bwd, "segment_sum": segment_sum,
+            "desc_loss": desc_loss, "desc_grad": desc_grad}
+
+
+def kernel_counts():
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def reset_kernel_counts():
-    from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, blend_fwd
-    from wast3d_tpu_torch.ops.rasterizer.grad_reduce import segment_sum
-
-    blend_fwd.launches = blend_bwd.launches = segment_sum.launches = 0
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
@@ -798,7 +843,8 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
         raise AssertionError(f"train loss did not fall: {losses}")
     if n_final == N_INIT or not finite:
         raise AssertionError(f"N {N_INIT} -> {n_final}, finite {finite}")
-    want = {"blend_fwd": iters + report_renders, "blend_bwd": iters, "segment_sum": iters}
+    want = {"blend_fwd": iters + report_renders, "blend_bwd": iters, "segment_sum": iters,
+            "desc_loss": 0, "desc_grad": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want} (one K1, K2, K3 per step, "
                              f"plus K1 for {report_renders} report renders)")
@@ -810,6 +856,484 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
          psnr_train=report[-1]["psnr_train"] if report else None,
          setup_s=t_setup, cli_s=cli_s, iters_per_s=iters / cli_s)
     return launches
+
+
+# ---- stylization: K4 / K5 against their plain versions ------------------------
+
+def k45_case(mp, balls, m, seed, density=0.02):
+    """Seeded K4/K5 inputs: m real points of mp (the rest padded rows, which
+    coincide and carry no code), two coincident real pairs with nonzero
+    code, and a random code with every value of {0, 1, 2, 3}."""
+    rng = np.random.default_rng(seed)
+    tp = np.zeros((mp, 3), np.float32)
+    tp[:m] = rng.normal(size=(m, 3)) * 0.5
+    x = np.zeros((balls, mp, 3), np.float32)
+    x[:, :m] = tp[:m] * 1.3 + rng.normal(size=(balls, m, 3)) * 0.05
+    x[:, m:] = rng.normal(size=(balls, 1, 3))
+    x[:, 5], x[:, 17] = x[:, 9], x[:, 40]
+    code = np.zeros((mp, mp), np.uint8)
+    code[:m, :m] = np.where(rng.random((m, m)) < density, rng.integers(1, 4, (m, m)), 0)
+    code[5, 9], code[9, 5], code[17, 40] = 3, 1, 2
+    return x, tp, code, 0.7, 1.9
+
+
+def compare_k45(x, tp, code, cg, cl):
+    """K4 and K5 twice each and their plain versions on the same inputs;
+    raises past tolerance or if two runs differ in any bit. Returns
+    (loss relative error, gradient error over the plain max |g|, K4 and K5
+    max absolute errors)."""
+    from wast3d_tpu_torch.stylize import desc_kernel as dk
+
+    loss, loss2 = dk.desc_loss(x, tp, code, cg, cl), dk.desc_loss(x, tp, code, cg, cl)
+    grad, grad2 = dk.desc_grad(x, tp, code, cg, cl), dk.desc_grad(x, tp, code, cg, cl)
+    ref_loss = dk.pair_loss_reference(x, tp, code, cg, cl)
+    ref_grad = dk.pair_grad_reference(x, tp, code, cg, cl)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
+        raise AssertionError("K4/K5: two runs on the same inputs differ")
+    if not (torch.isfinite(loss).all() and torch.isfinite(grad).all()):
+        raise AssertionError("K4/K5: non-finite values")
+    loss_err = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+    gmax = float(ref_grad.abs().max())
+    grad_err = float((grad - ref_grad).abs().max()) / gmax
+    if loss_err > K45_LOSS_RTOL:
+        raise AssertionError(f"K4 vs plain: relative error {loss_err} (limit {K45_LOSS_RTOL})")
+    if grad_err > K45_GRAD_ATOL_REL:
+        raise AssertionError(f"K5 vs plain: {grad_err} of max |g| (limit {K45_GRAD_ATOL_REL})")
+    return (loss_err, grad_err, float((loss - ref_loss).abs().max()),
+            float((grad - ref_grad).abs().max()))
+
+
+def phase_k45_cases(device):
+    from wast3d_tpu_torch.stylize.desc_kernel import desc_grad
+
+    t0 = time.perf_counter()
+    out = {}
+    for mp in (1024, 2048, 4096):
+        for balls in (1, 3):
+            m = mp - 100 + balls
+            x, tp, code, cg, cl = k45_case(mp, balls, m=m, seed=mp + balls)
+            xt, tpt, ct = (torch.from_numpy(a).to(device) for a in (x, tp, code))
+            loss_err, grad_err, _, _ = compare_k45(xt, tpt, ct, cg, cl)
+            pad_grad = float(desc_grad(xt, tpt, ct, cg, cl)[:, m:].abs().max())
+            if pad_grad != 0.0:
+                raise AssertionError(f"K5: padded rows got gradient {pad_grad}")
+            out[f"mp{mp}_b{balls}"] = {"nonzero_pairs": int((code != 0).sum()),
+                                       "loss_rel_err": loss_err,
+                                       "grad_err_of_max": grad_err}
+    emit("k4k5_cases", t0, cases=out, loss_rtol=K45_LOSS_RTOL,
+         grad_atol_of_max=K45_GRAD_ATOL_REL, runs_bitwise_equal=True,
+         padded_rows_grad_zero=True)
+
+
+def crystal_points(m, device, seed=1, edge_scale=None):
+    """`tools/stylize_gate.py::make_style_patch`'s points: a jittered cubic
+    crystal with vacancies, scaled so its median 1-NN edge is edge_scale."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(m ** (1 / 3)))
+    i, j, k = np.meshgrid(*[np.arange(side)] * 3, indexing="ij")
+    lat = np.stack([i, j, k], -1).reshape(-1, 3).astype(np.float32)
+    lat = lat[rng.permutation(len(lat))[:m]]
+    pts = lat + rng.normal(size=lat.shape).astype(np.float32) * 0.08
+    if edge_scale is not None:
+        med = np.median(edge_lengths(pts, device, k=1))
+        pts *= float(edge_scale / max(med, 1e-12))
+    return pts.astype(np.float32), rng
+
+
+def crystal_patch(m, device, seed=1, edge_scale=None):
+    """`make_style_patch`: the crystal with its attribute arrays."""
+    from wast3d_tpu_torch.stylize.cluster import StylePatch
+
+    pts, rng = crystal_points(m, device, seed, edge_scale)
+    return StylePatch({
+        "_xyz": pts,
+        "_features_dc": rng.uniform(0.2, 0.8, (m, 1, 3)).astype(np.float32),
+        "_features_rest": np.zeros((m, 15, 3), np.float32),
+        "_rotation": np.tile([[1, 0, 0, 0]], (m, 1)).astype(np.float32),
+        "_scaling": np.full((m, 3), -5.0, np.float32),
+        "_opacity": np.full((m, 1), 2.0, np.float32),
+    })
+
+
+def edge_lengths(points, device, k=5):
+    """k-NN edge lengths (self excluded), absolute units."""
+    from wast3d_tpu_torch.ops.knn import knn_sq_dists
+
+    p = torch.as_tensor(np.asarray(points, np.float32), device=device)
+    d, _ = knn_sq_dists(p, p, k=k, exclude_self=True)
+    return np.sqrt(np.maximum(d.cpu().numpy(), 0.0)).ravel()
+
+
+def w1(a, b, q=256):
+    """Wasserstein-1 between 1-D samples by quantile matching."""
+    qs = np.linspace(0, 1, q)
+    return float(np.mean(np.abs(np.quantile(a, qs) - np.quantile(b, qs))))
+
+
+def cuda_times_ms(fn, warmup, reps):
+    """Per-launch CUDA-event times of `reps` calls after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def k45_bounds(code, balls, mp):
+    """(K4 bytes ms, K4 ops ms, K5 bytes ms, K5 ops ms) for these inputs:
+    each input byte read once and each output byte written once; operations
+    on the pairs this code makes the kernels evaluate."""
+    nz = code != 0
+    pairs_k4 = int(nz.sum())
+    pairs_k5 = int((nz | nz.T).sum())
+    in_bytes = mp * mp + 12 * mp * balls + 12 * mp
+    k4_bytes, k5_bytes = in_bytes + 4 * balls, in_bytes + 12 * mp * balls
+    k4_ops = pairs_k4 * (K4_OPS_PER_PAIR + K4_OPS_PER_PAIR_BALL * balls)
+    k5_ops = pairs_k5 * (K5_OPS_PER_PAIR + K5_OPS_PER_PAIR_BALL * balls)
+    ms = lambda v, rate: v / rate * 1e3  # noqa: E731
+    return (ms(k4_bytes, HBM_BYTES_PER_S), ms(k4_ops, F32_OPS_PER_S),
+            ms(k5_bytes, HBM_BYTES_PER_S), ms(k5_ops, F32_OPS_PER_S), pairs_k4, pairs_k5)
+
+
+def stretched_balls(pts, balls, rng, device):
+    """Balls as the fit sees them: the patch stretched by 0.8-1.6 per axis
+    (point spacing near the style's, as from the init placement on), moved,
+    and jittered by ~6% of the 0.085 edge. Returns [balls, M, 3] on `device`
+    and the per-ball scales [balls, 1, 3]."""
+    scale = rng.uniform(0.8, 1.6, (balls, 1, 3)).astype(np.float32)
+    x = pts[None] * scale + rng.normal(size=(balls, 1, 3)).astype(np.float32) \
+        + rng.normal(size=(balls, len(pts), 3)).astype(np.float32) * 0.005
+    return torch.from_numpy(x.astype(np.float32)).to(device), scale
+
+
+def phase_k45_full_width(device, mp=STYLE_MP, balls=STYLE_BATCH):
+    """K4 and K5 alone at the production shape: a real pair code from the
+    port's `compute_target_descriptors` of a 16384-point crystal patch,
+    8 balls of perturbed, rescaled copies. Returns their kernels-line entries."""
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.stylize import desc_kernel as dk
+    from wast3d_tpu_torch.stylize.fit import compute_target_descriptors, packbits
+
+    t0 = time.perf_counter()
+    pts, _ = crystal_points(mp, device, edge_scale=0.085)
+    b0 = time.perf_counter()
+    td = compute_target_descriptors(pts, StylizeConfig(), device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - b0
+    if td.pair_code is None or tuple(td.pair_code.shape) != (mp, mp):
+        raise AssertionError(f"no [{mp}, {mp}] pair code on the kernel path")
+    if not (torch.equal(packbits(td.pair_code & 1), td.bits_global)
+            and torch.equal(packbits(td.pair_code >> 1), td.bits_local)):
+        raise AssertionError("pair code: bit 0 is not the global mask or bit 1 the local one")
+    x, _ = stretched_balls(pts, balls, np.random.default_rng(11), device)
+    args = (x, td.points, td.pair_code, td.coef_global, td.coef_local)
+    k4 = cuda_times_ms(lambda: dk.desc_loss(*args), 3, 20)
+    k5 = cuda_times_ms(lambda: dk.desc_grad(*args), 3, 20)
+    k4_plain = cuda_times_ms(lambda: dk.pair_loss_reference(*args), 0, 1)[0]
+    k5_plain = cuda_times_ms(lambda: dk.pair_grad_reference(*args), 0, 1)[0]
+    loss_err, grad_err, k4_abs, k5_abs = compare_k45(*args)
+    code_np = td.pair_code.cpu().numpy()
+    k4_b, k4_o, k5_b, k5_o, pairs_k4, pairs_k5 = k45_bounds(code_np, balls, mp)
+    k4_ms, k5_ms = statistics.median(k4), statistics.median(k5)
+    emit("k4k5_full_width", t0, mp=mp, balls=balls, descriptor_build_s=build_s,
+         code_values={int(v): int((code_np == v).sum()) for v in range(4)},
+         nonzero_pairs_k4=pairs_k4, symmetric_pairs_k5=pairs_k5,
+         k4_ms_median=k4_ms, k4_ms_min=min(k4), k4_ms_max=max(k4), k4_plain_ms=k4_plain,
+         k5_ms_median=k5_ms, k5_ms_min=min(k5), k5_ms_max=max(k5), k5_plain_ms=k5_plain,
+         k4_bound_bytes_ms=k4_b, k4_bound_ops_ms=k4_o, k5_bound_bytes_ms=k5_b,
+         k5_bound_ops_ms=k5_o, k4_loss_rel_err=loss_err, k5_grad_err_of_max=grad_err,
+         warmup=3, reps=20)
+
+    def entry(name, src, replaces, ms, plain, err, b, o):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations",
+                "library_ms": None}
+
+    return (entry("desc_loss", "wast3d_tpu_torch/csrc/desc_loss.cu",
+                  "wast3d_tpu/stylize/desc_kernel.py:65", k4_ms, k4_plain, k4_abs, k4_b, k4_o),
+            entry("desc_grad", "wast3d_tpu_torch/csrc/desc_grad.cu",
+                  "wast3d_tpu/stylize/desc_kernel.py:88", k5_ms, k5_plain, k5_abs, k5_b, k5_o))
+
+
+def phase_k45_near_coincident(device, mp=STYLE_MP, balls=STYLE_BATCH, dup_frac=0.01):
+    """K4 and K5 where points nearly coincide, as near-duplicate Gaussians of
+    a trained scene do: 1% of the 16384-point crystal replaced by copies of
+    other points moved by 1e-6 to 1e-2 of the 0.085 edge (log-uniform), so
+    the pair code joins each copy to its original; the balls stretch the
+    patch and keep each copy beside its original at the ball's scale, as the
+    fit's initial placement does. Both kernels and both plain versions are
+    held to a float64 evaluation of the same formula on the same inputs."""
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.stylize import desc_kernel as dk
+    from wast3d_tpu_torch.stylize.fit import compute_target_descriptors
+
+    t0 = time.perf_counter()
+    pts, _ = crystal_points(mp, device, edge_scale=0.085)
+    rng = np.random.default_rng(13)
+    ndup = int(mp * dup_frac)
+    dup = rng.choice(mp, ndup, replace=False)
+    src = rng.choice(np.setdiff1d(np.arange(mp), dup), ndup, replace=False)
+    unit = rng.normal(size=(ndup, 3))
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    sep = 0.085 * 10.0 ** rng.uniform(-6, -2, ndup)
+    pts[dup] = pts[src] + (unit * sep[:, None]).astype(np.float32)
+    td = compute_target_descriptors(pts, StylizeConfig(), device=device)
+    x, scale = stretched_balls(pts, balls, rng, device)
+    x[:, dup] = x[:, src] + torch.from_numpy((pts[dup] - pts[src])[None] * scale).to(device)
+    code = td.pair_code
+    joined = int(((code[dup, src] | code[src, dup]) != 0).sum())
+    args = (x, td.points, code, td.coef_global, td.coef_local)
+    args64 = (x.double(), td.points.double(), code, td.coef_global, td.coef_local)
+    loss, grad = dk.desc_loss(*args), dk.desc_grad(*args)
+    loss_p, grad_p = dk.pair_loss_reference(*args), dk.pair_grad_reference(*args)
+    loss64, grad64 = dk.pair_loss_reference(*args64), dk.pair_grad_reference(*args64)
+    gmax = float(grad64.abs().max())
+    k5_err = float((grad.double() - grad64).abs().max()) / gmax
+    plain_grad_err = float((grad_p.double() - grad64).abs().max()) / gmax
+    k4_err = float(((loss.double() - loss64).abs() / loss64.abs()).max())
+    plain_loss_err = float(((loss_p.double() - loss64).abs() / loss64.abs()).max())
+    emit("k4k5_near_coincident", t0, mp=mp, balls=balls, near_pairs=ndup,
+         near_pairs_with_code=joined, separation_min=float(sep.min()),
+         separation_max=float(sep.max()), grad64_max=gmax,
+         k5_err_of_max=k5_err, plain_grad_err_of_max=plain_grad_err,
+         k4_loss_rel_err=k4_err, plain_loss_rel_err=plain_loss_err,
+         grad_limit_of_max=K45_GRAD_ATOL_REL, grad_slack_of_max=NEAR_SLACK_REL,
+         loss_rtol=K45_LOSS_RTOL)
+    if joined == 0:
+        raise AssertionError("no near-coincident pair carries a pair code")
+    if not (torch.isfinite(grad).all() and torch.isfinite(loss).all()):
+        raise AssertionError("K4/K5: non-finite values on near-coincident points")
+    if k5_err > K45_GRAD_ATOL_REL or k5_err > plain_grad_err + NEAR_SLACK_REL:
+        raise AssertionError(f"K5 vs float64: {k5_err} of max |g| (plain version "
+                             f"{plain_grad_err}; limit {K45_GRAD_ATOL_REL}, and no more "
+                             f"than the plain version's + {NEAR_SLACK_REL})")
+    if k4_err > K45_LOSS_RTOL or k4_err > plain_loss_err + NEAR_SLACK_REL:
+        raise AssertionError(f"K4 vs float64: relative error {k4_err} (plain version "
+                             f"{plain_loss_err}; limit {K45_LOSS_RTOL})")
+
+
+# ---- stylization gate and entry point -------------------------------------------
+
+def content_domain(device, n=FULL_N):
+    """The 200k shell's content points and the prepared domain (as
+    `stylize_scene` prepares it), with the domain's median 1-NN spacing."""
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.stylize import prepare
+
+    cfg = StylizeConfig()
+    xyz = bench_scene(n)["xyz"]
+    domain = xyz[prepare.prepare_scene(xyz, num_clusters=cfg.num_content_clusters,
+                                       q=cfg.outlier_quantile, kth_neighbor=cfg.outlier_knn,
+                                       seed=0, device=device)]
+    dsub = domain[np.random.default_rng(3).choice(len(domain), min(10_000, len(domain)),
+                                                  replace=False)]
+    return domain, float(np.median(edge_lengths(dsub, device, k=1)))
+
+
+def style_metrics(cpatch, domain, circles, fitted, r_ball, cfg, device):
+    """`tools/stylize_gate.py`'s metrics: each ball's descriptor loss and
+    edge-length W1 at the reference init placement and after the fit (at
+    most 48 balls), and the share of the domain within r_ball of a fitted
+    point. The descriptor loss goes through `descriptor_loss` (K4 on the
+    kernel path)."""
+    from wast3d_tpu_torch.ops.knn import knn_sq_dists
+    from wast3d_tpu_torch.stylize.fit import compute_target_descriptors, descriptor_loss
+
+    td = compute_target_descriptors(cpatch.xyz, cfg, device=device)
+    m, mp = len(cpatch.xyz), td.points.shape[0]
+    rng = np.random.default_rng(0)
+    tp = np.asarray(cpatch.xyz)
+    sel = range(len(circles))
+    if len(circles) > 48:
+        sel = sorted(rng.choice(len(circles), 48, replace=False).tolist())
+    init = [tp * domain[circles[i]].std(0) * 5.0 + domain[circles[i]].mean(0) for i in sel]
+    final = [fitted[i] for i in sel]
+
+    def losses(point_sets):
+        x = torch.zeros((len(point_sets), mp, 3), device=device)
+        x[:, :m] = torch.as_tensor(np.stack(point_sets).astype(np.float32), device=device)
+        with torch.no_grad():
+            return descriptor_loss(x, td, cfg.desc_block).cpu().numpy()
+
+    style_edges = edge_lengths(tp, device)
+    w1_init = [w1(style_edges, edge_lengths(p, device)) for p in init]
+    w1_final = [w1(style_edges, edge_lengths(p, device)) for p in final]
+    l_init, l_final = losses(init), losses(final)
+    dsub = domain[rng.choice(len(domain), min(20_000, len(domain)), replace=False)]
+    dmin, _ = knn_sq_dists(torch.as_tensor(dsub, device=device),
+                           torch.as_tensor(np.concatenate(fitted).astype(np.float32),
+                                           device=device), k=1)
+    covered = float(np.mean(np.sqrt(np.maximum(dmin[:, 0].cpu().numpy(), 0)) < r_ball))
+    return {
+        "desc_loss_init": float(np.mean(l_init)), "desc_loss_final": float(np.mean(l_final)),
+        "desc_loss_reduction_x": float(np.mean(l_init) / max(np.mean(l_final), 1e-12)),
+        "edge_w1_init": float(np.mean(w1_init)), "edge_w1_final": float(np.mean(w1_final)),
+        "edge_w1_reduction_x": float(np.mean(w1_init) / max(np.mean(w1_final), 1e-12)),
+        "domain_coverage_frac": covered, "metric_balls": len(init),
+    }
+
+
+def phase_stylize_gate(device, domain, spacing, patch_m=2048, edge_ratio=1.5,
+                       fit_steps=STYLE_FIT_STEPS, n=FULL_N):
+    """`tools/stylize_gate.py` at the JAX record's configuration (200k
+    shell, 2048-point crystal at edge ratio 1.5, 1000 fit steps,
+    w_coverage 1.0, batch 8), port only. Its cleaned patch pads below 2048,
+    so the fit takes the single-block descriptor path, as the record did."""
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.stylize import coverage, fit
+    from wast3d_tpu_torch.stylize.pipeline import clean_style_patch
+
+    t0 = time.perf_counter()
+    cfg = StylizeConfig(fit_steps=fit_steps, w_coverage=1.0)
+    cpatch = clean_style_patch(crystal_patch(patch_m, device, edge_scale=edge_ratio * spacing),
+                               device=device)
+    _, d_outer = coverage.cluster_radius(cpatch.xyz, device=device)
+    r_ball = d_outer * cfg.ball_radius_factor
+    circles = coverage.filter_circles(
+        coverage.sample_circles(domain, r=r_ball, min_points_per_cluster=cfg.min_ball_points,
+                                device=device),
+        min_points=max(1, cfg.min_ball_points // 2))
+    t_cover = time.perf_counter() - t0
+    reset_kernel_counts()
+    f0 = time.perf_counter()
+    fitted = fit.fit_all_balls(cpatch.xyz, domain, circles, cfg=cfg, batch_size=STYLE_BATCH,
+                               device=device)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - f0
+    launches = kernel_counts()
+    mp = fit.padded_patch_size(len(cpatch.xyz), cfg.desc_block)
+    metrics = style_metrics(cpatch, domain, circles, fitted, r_ball, cfg, device)
+    for key, low in GATE_MIN.items():
+        if not metrics[key] >= low:
+            raise AssertionError(f"stylize gate: {key} {metrics[key]} below {low}")
+    if not all(np.isfinite(f).all() for f in fitted):
+        raise AssertionError("stylize gate: non-finite fitted points")
+    emit("stylize_gate", t0, content_n=n, patch_m=len(cpatch.xyz), padded_mp=mp,
+         balls=len(circles), fit_steps=fit_steps, batch_size=STYLE_BATCH, w_coverage=1.0,
+         edge_ratio=edge_ratio, domain_n=len(domain), domain_spacing_median=spacing,
+         r_ball=r_ball, cover_s=t_cover, fit_s=fit_s, launches_in_fit=launches,
+         **metrics, limits=GATE_MIN, jax_tpu_record=JAX_GATE)
+
+
+def phase_stylize_entry_point(device, domain, spacing, fit_steps=STYLE_FIT_STEPS,
+                              style_m=ENTRY_STYLE_M, max_style_points=STYLE_MP, n=FULL_N):
+    """`cli.stylize` on the 200k shell (a PLY saved by the port) and an
+    18,000-point crystal (npz) at edge ratio 1.5: cleaning keeps ~16.6k
+    points and `--max_style_points 16384` subsamples them, so Mp = 16384
+    and K4/K5 carry the fit. Every kernel's count is set to 0 just before
+    the CLI and read just after. Returns {kernel name: launches}."""
+    from wast3d_tpu_torch.cli import stylize as cli
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.scene.ply import load_ply, save_ply
+    from wast3d_tpu_torch.stylize import coverage, fit, prepare
+    from wast3d_tpu_torch.stylize.cluster import NPZ_KEYS
+    from wast3d_tpu_torch.stylize.pipeline import clean_style_patch
+
+    t0 = time.perf_counter()
+    cfg = StylizeConfig(fit_steps=fit_steps, w_coverage=1.0)
+    patch = crystal_patch(style_m, device, edge_scale=1.5 * spacing)
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_stylize_") as tmp:
+        content_ply, style_npz = os.path.join(tmp, "content.ply"), os.path.join(tmp, "style.npz")
+        out_ply = os.path.join(tmp, "stylized.ply")
+        save_ply(make_scene(bench_scene(n), device), content_ply)
+        np.savez(style_npz, **{k: getattr(patch, k[1:]) for k in NPZ_KEYS})
+        t_setup = time.perf_counter() - t0
+
+        reset_kernel_counts()
+        t1 = time.perf_counter()
+        cli.main(["--content", content_ply, "--style_cluster", style_npz, "--output", out_ply,
+                  "--fit_steps", str(fit_steps), "--w_coverage", "1.0",
+                  "--max_style_points", str(max_style_points), "--device", device.type])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        launches = kernel_counts()
+        out = load_ply(out_ply, device=device)
+        finite = bool(torch.isfinite(out.xyz).all())
+        merged_n = out.capacity
+
+    # What the CLI saw, rebuilt from the same seeds, for the checks below.
+    cpatch = clean_style_patch(patch, device=device)
+    if len(cpatch) > max_style_points:
+        cpatch = cpatch.select(np.random.default_rng(0).choice(len(cpatch),
+                                                               size=max_style_points,
+                                                               replace=False))
+    _, d_outer = coverage.cluster_radius(cpatch.xyz, device=device)
+    circles = coverage.filter_circles(
+        coverage.sample_circles(domain, r=d_outer * cfg.ball_radius_factor,
+                                min_points_per_cluster=cfg.min_ball_points, device=device),
+        min_points=max(1, cfg.min_ball_points // 2))
+    batches = -(-len(circles) // STYLE_BATCH)
+    mp = fit.padded_patch_size(len(cpatch.xyz), cfg.desc_block)
+    want = {"blend_fwd": 0, "blend_bwd": 0, "segment_sum": 0,
+            "desc_loss": fit_steps * batches, "desc_grad": fit_steps * batches}
+    if mp != max_style_points or launches != want or launches["desc_loss"] == 0:
+        raise AssertionError(f"launches {launches} at Mp {mp}, want {want} (K4 and K5 once "
+                             f"per Adam step of each of {batches} batches)")
+    if not finite or merged_n == 0:
+        raise AssertionError(f"stylized PLY: {merged_n} Gaussians, finite {finite}")
+    # The fitted balls again, for the loss reduction through K4 (not counted above).
+    f0 = time.perf_counter()
+    fitted = fit.fit_all_balls(cpatch.xyz, domain, circles, cfg=cfg, batch_size=STYLE_BATCH,
+                               device=device)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - f0
+    step_ms = fit_step_split(cpatch, domain, circles[:STYLE_BATCH], cfg, device)
+    metrics = style_metrics(cpatch, domain, circles, fitted, d_outer * cfg.ball_radius_factor,
+                            cfg, device)
+    if not metrics["desc_loss_final"] < metrics["desc_loss_init"]:
+        raise AssertionError(f"entry point: descriptor loss did not fall: {metrics}")
+    emit("stylize_entry_point", t0, content_n=n, style_m=style_m,
+         patch_m=len(cpatch.xyz), padded_mp=mp, balls=len(circles), batches=batches,
+         fit_steps=fit_steps, w_coverage=1.0, launches=launches, merged_n=merged_n,
+         setup_s=t_setup, cli_s=cli_s, fit_all_balls_s=fit_s, fit_step_ms_median=step_ms,
+         **metrics)
+    return launches
+
+
+def fit_step_split(cpatch, domain, circles, cfg, device, reps=5):
+    """CUDA-event medians (ms) of the parts of one Adam step of `fit_balls`
+    on this batch of balls: each loss forward and backward, and the Adam
+    update."""
+    from wast3d_tpu_torch.stylize import fit
+
+    td = fit.compute_target_descriptors(cpatch.xyz, cfg, device=device)
+    m, mp = len(cpatch.xyz), td.points.shape[0]
+    cap = min(cfg.ball_capacity, max(len(c) for c in circles))
+    balls, mask = fit.pad_balls(np.asarray(domain, np.float32), circles, cap)
+    dom, mask = torch.as_tensor(balls, device=device), torch.as_tensor(mask, device=device)
+    x = torch.zeros((len(circles), mp, 3), device=device)
+    x[:, :m] = torch.as_tensor(cpatch.xyz, device=device) * 2.0 + dom[:, :1]
+    x.requires_grad_(True)
+
+    def fwd_bwd(loss_fn):
+        return lambda: torch.autograd.grad(loss_fn().sum(), [x])
+
+    parts = {
+        "descriptor_k4_k5": fwd_bwd(lambda: fit.descriptor_loss(x, td, cfg.desc_block)),
+        "domain_adaptation": fwd_bwd(lambda: fit.domain_adaptation_loss(
+            x, dom, mask, cfg.domain_knn, x_rows=m)),
+        "domain_coverage": fwd_bwd(lambda: fit.domain_coverage_loss(x, dom, mask, x_rows=m)),
+    }
+    out = {k: statistics.median(cuda_times_ms(fn, 1, reps)) for k, fn in parts.items()}
+    g = torch.randn_like(x)
+    mu, nu = torch.zeros_like(x), torch.zeros_like(x)
+
+    def adam():
+        a = 0.9 * mu + 0.1 * g
+        b = 0.999 * nu + 0.001 * g * g
+        return x.detach() - cfg.fit_lr * (a / 0.5) / (torch.sqrt(b / 0.5) + 1e-8)
+
+    out["adam"] = statistics.median(cuda_times_ms(adam, 1, reps))
+    out["balls"] = len(circles)
+    return out
 
 
 # ---- profile (python3 chip_smoke.py --profile) --------------------------------
@@ -927,6 +1451,22 @@ def main() -> int:
         phase_profile_train(device)
         faulthandler.cancel_dump_traceback_later()
         return 0
+    if "--only" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        domain = spacing = None
+        for name in only:
+            if name in ("stylize_gate", "stylize_entry_point") and domain is None:
+                domain, spacing = content_domain(device)
+            {"k4k5_cases": lambda: phase_k45_cases(device),
+             "k4k5_full_width": lambda: phase_k45_full_width(device),
+             "k4k5_near_coincident": lambda: phase_k45_near_coincident(device),
+             "stylize_gate": lambda: phase_stylize_gate(device, domain, spacing),
+             "stylize_entry_point": lambda: phase_stylize_entry_point(device, domain, spacing),
+             }[name]()
+        print(json.dumps({"partial_run": only,
+                          "total_seconds": time.perf_counter() - t_start}), flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
 
     phase_k1_cases(device)
     phase_k2_cases(device)
@@ -938,11 +1478,22 @@ def main() -> int:
         raise AssertionError(f"K1 was never launched on the serving path: {serve}")
     k2, k3 = phase_train_full_width(device)
     train = phase_train_entry_point(device)
-    if any(v == 0 for v in train.values()):
+    if any(train[k] == 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel of the training path was never launched: {train}")
-    kernels = [k1, k2, k3]
+    phase_k45_cases(device)
+    k4, k5 = phase_k45_full_width(device)
+    phase_k45_near_coincident(device)
+    t0 = time.perf_counter()
+    domain, spacing = content_domain(device)
+    emit("content_domain", t0, content_n=FULL_N, domain_n=len(domain),
+         domain_spacing_median=spacing)
+    phase_stylize_gate(device, domain, spacing)
+    style = phase_stylize_entry_point(device, domain, spacing)
+    if style["desc_loss"] == 0 or style["desc_grad"] == 0:
+        raise AssertionError(f"K4/K5 were never launched on the stylization path: {style}")
+    kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
-        k["launches"] = train[k["name"]]
+        k["launches"] = (style if k["name"] in ("desc_loss", "desc_grad") else train)[k["name"]]
 
     print(json.dumps({"total_seconds": time.perf_counter() - t_start}), flush=True)
     print(nvidia_smi_line(), flush=True)

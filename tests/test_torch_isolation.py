@@ -6,6 +6,7 @@ plain nvcc + ctypes one."""
 import ast
 import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -183,3 +184,61 @@ def test_new_kernels_are_declared_with_pointer_argtypes(name):
     src = (_build.SOURCE_DIR / {"w3d_blend_bwd": "blend_bwd.cu",
                                 "w3d_segsum": "segsum.cu"}[name]).read_text()
     assert f"int {name}(" in src and "atomicAdd" not in src
+
+
+def test_cli_stylize_import_pulls_in_no_jax_or_pil():
+    code = ("import sys, wast3d_tpu_torch.cli.stylize, wast3d_tpu_torch.cli.save_clusters, "
+            "wast3d_tpu_torch.stylize.pipeline; "
+            "print(sorted(m for m in ('jax', 'PIL', 'wast3d_tpu', 'orbax') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_stylize_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-CUDA error cannot occur")
+    from wast3d_tpu_torch.cli import save_clusters, stylize
+    from wast3d_tpu_torch.stylize.fit import compute_target_descriptors, fit_all_balls
+    from wast3d_tpu_torch.stylize.pipeline import stylize_from_files
+
+    pts = np.random.default_rng(0).normal(size=(20, 3)).astype(np.float32)
+    for call in (lambda: stylize_from_files("a.ply", "b.npz", "c.ply"),
+                 lambda: compute_target_descriptors(pts),
+                 lambda: fit_all_balls(pts, pts, [np.arange(20)]),
+                 lambda: stylize.main(["--content", "a.ply", "--style_cluster", "b.npz",
+                                       "--output", "c.ply"]),
+                 lambda: save_clusters.main(["--ckpt_path", "a.ply", "--output_dir",
+                                             str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+@pytest.mark.parametrize("name,source", [("w3d_desc_loss", "desc_loss.cu"),
+                                         ("w3d_desc_grad", "desc_grad.cu")])
+def test_stylize_kernels_are_declared_with_pointer_argtypes(name, source):
+    argtypes, restype = _build.SIGNATURES[name]
+    assert restype is ctypes.c_int and argtypes[-1] is ctypes.c_void_p
+    assert argtypes[:3] == [ctypes.c_void_p] * 3  # x, tp, code
+    assert argtypes.count(ctypes.c_float) == 2  # cg, cl
+    src = (_build.SOURCE_DIR / source).read_text()
+    assert f"int {name}(" in src and not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+
+
+def test_cpu_stylize_fit_leaves_launch_counts_alone():
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.stylize import desc_kernel
+    from tests.test_torch_stylize import kernel_path_descriptors
+    from wast3d_tpu_torch.stylize.fit import fit_balls
+
+    rng = np.random.default_rng(1)
+    pts = (rng.normal(size=(1100, 3)) * 0.3).astype(np.float32)
+    cfg = StylizeConfig(global_knn=8, global_stride=8, local_knn=4, fit_steps=2, domain_knn=3,
+                        desc_block=1024)
+    td = kernel_path_descriptors(pts, cfg)
+    assert td.pair_code is not None and td.points.shape[0] % desc_kernel.MP_ALIGN == 0
+    out = fit_balls(torch.from_numpy(pts), td, torch.randn(1, 50, 3), torch.ones(1, 50, dtype=bool),
+                    cfg)
+    assert out.shape == (1, 1100, 3) and bool(torch.isfinite(out).all())
+    assert desc_kernel.desc_loss.launches == desc_kernel.desc_grad.launches == 0

@@ -32,6 +32,7 @@ NVCC_TIMEOUT_S = 600
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
+_f = ctypes.c_float
 # name -> (argtypes, restype). Every pointer and the stream are c_void_p:
 # without explicit argtypes ctypes passes Python ints as 32-bit C ints and
 # cuts 64-bit pointers.
@@ -39,6 +40,9 @@ SIGNATURES = {
     "w3d_blend_fwd": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_segsum": ([_p, _i, _p, _p, _i, _i, _i, _p, _i, _p], _i),
+    "w3d_desc_loss": ([_p, _p, _p, _i, _i, _f, _f, _p, _p, _i, _p], _i),
+    "w3d_desc_loss_partials": ([_i, _i], _i),
+    "w3d_desc_grad": ([_p, _p, _p, _i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_error_string": ([_i], ctypes.c_char_p),
 }
 

@@ -1,9 +1,9 @@
 """Configuration: the reference's parameter groups and the `cfg_args` file.
 
-Port of `wast3d_tpu/config.py` for training: `ModelConfig`,
-`PipelineConfig` and `OptimizationConfig` with the same field names and
-defaults, so command lines and saved `cfg_args` stay interchangeable with
-the JAX package and the reference. `ModelConfig.data_device` keeps the JAX
+Port of `wast3d_tpu/config.py` for training and stylization: `ModelConfig`,
+`PipelineConfig`, `OptimizationConfig` and `StylizeConfig` with the same
+field names and defaults, so command lines and saved `cfg_args` stay
+interchangeable with the JAX package and the reference. `ModelConfig.data_device` keeps the JAX
 package's default "tpu": the port reads any value but "cpu" as "keep the
 ground-truth images on the training device".
 """
@@ -54,6 +54,42 @@ class OptimizationConfig:
     densify_from_iter: int = 500
     densify_until_iter: int = 30_000
     densify_grad_threshold: float = 0.0002
+
+
+@dataclass(frozen=True)
+class StylizeConfig:
+    """WaSt-3D stylization knobs (notebook 11 defaults), as in the JAX
+    package: content clusters, outlier quantile and subsample (cells 5-6),
+    ball radius factor and minimum ball size (cells 21-22), descriptor
+    scales, Adam steps / lr and loss weights (cell 28), merge scale factor
+    (cell 36).
+
+    `desc_kernel`: take K4/K5 (`stylize/desc_kernel.py`) for padded patches
+    of 2048 points or more on CUDA; it costs an [Mp, Mp] uint8 pair code.
+    `pallas_interpret` is accepted so that command lines stay the same and
+    has no effect in the port (there is no Pallas interpreter here)."""
+
+    num_content_clusters: int = 80
+    outlier_quantile: float = 0.975
+    outlier_knn: int = 30
+    ball_radius_factor: float = 0.45
+    min_ball_points: int = 40
+    fit_steps: int = 1000
+    fit_lr: float = 1e-3
+    global_knn: int = 2000
+    global_stride: int = 20
+    local_knn: int = 100
+    domain_knn: int = 20
+    w_global: float = 1.0
+    w_local: float = 2e2
+    w_domain: float = 3e1
+    w_coverage: float = 0.0  # loss_domain_coverage weight (multi-cluster notebook)
+    merge_scale_factor: float = 0.885
+    ball_capacity: int = 2048  # padded domain points per coverage ball
+    max_balls: int = 512
+    desc_block: int = 2048  # descriptor-loss column block (memory knob)
+    desc_kernel: bool = True
+    pallas_interpret: bool = False  # no effect in the port
 
 
 # Fields with single-letter shorthands in the reference CLI.

@@ -4,7 +4,10 @@
 numpy arrays (for example `{f: np.asarray(getattr(s, f)) for f in ...}`)
 and returns the port's scene; `train_state_from_numpy` does the same for
 a whole training state (scene, Adam moments, densification statistics,
-step). Nothing here imports JAX: the caller does the conversion to numpy.
+step), and `target_descriptors_from_numpy` for the stylization's frozen
+descriptor state (kNN ties at large k may order indices differently in
+the two packages, so tests start both from one state). Nothing here
+imports JAX: the caller does the conversion to numpy.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from wast3d_tpu_torch.device import DeviceLike, resolve_device
 from wast3d_tpu_torch.scene.gaussians import FIELDS, GaussianScene, from_arrays
+from wast3d_tpu_torch.stylize.fit import TargetDescriptors
 from wast3d_tpu_torch.train.densify import DensifyStats
 from wast3d_tpu_torch.train.optim import AdamState
 from wast3d_tpu_torch.train.reconstruct import TrainState
@@ -59,3 +63,23 @@ def train_state_from_numpy(params: dict, mu: dict, nu: dict, count: int,
                             nu={k: t(v) for k, v in nu.items()}, count=int(count)),
         stats=DensifyStats(*(t(a) for a in stats)),
         step=int(step))
+
+
+def target_descriptors_from_numpy(d: dict, device: DeviceLike = None) -> TargetDescriptors:
+    """The port's `TargetDescriptors` from the fields of a JAX one given as
+    numpy arrays (`pair_code` may be absent or None); indices become int64,
+    the coefficients float32 values."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.from_numpy(np.array(d[name], dtype=dtype)).to(dev)
+
+    code = d.get("pair_code")
+    return TargetDescriptors(
+        idx_global=t("idx_global", np.int64), desc_global=t("desc_global", np.float32),
+        idx_local=t("idx_local", np.int64), desc_local=t("desc_local", np.float32),
+        points=t("points", np.float32),
+        bits_global=t("bits_global", np.uint8), bits_local=t("bits_local", np.uint8),
+        coef_global=float(np.float32(d["coef_global"])),
+        coef_local=float(np.float32(d["coef_local"])),
+        pair_code=None if code is None else t("pair_code", np.uint8))

@@ -10,8 +10,10 @@ warm-up run on the reference's schedule (`train/schedule.py`).
 forward, the loss, then backward through K2 (blend), K3 (per-Gaussian
 gradient reduction) and autograd for preprocess, then Adam and the
 statistics. It returns a new state and leaves the old one as it was, as the
-JAX step does. Binning synchronises with the host once (the duplicate
-count); nothing else in the step does.
+JAX step does. Binning synchronises with the host twice
+(`ops/rasterizer/binning.py`): `repeat_interleave` sizes its output from
+the per-Gaussian tile counts, and the tile-cull's boolean `keep` mask sizes
+the kept entries; nothing else in the step does.
 """
 
 from __future__ import annotations
