@@ -5,7 +5,7 @@ and check them.
     python3 chip_smoke.py             # the checks below
     python3 chip_smoke.py --profile   # build, then only a torch.profiler
                                       # trace of the 200k / 800x800 train step
-    python3 chip_smoke.py --only k4k5_cases,k4k5_full_width
+    python3 chip_smoke.py --only k3_cases,k4k5_full_width
                                       # build, then only the named phases
                                       # (no result line)
 
@@ -13,14 +13,16 @@ Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` with one
 `nvcc` call and holds each kernel against its plain PyTorch version on the
 card: K1 (blend forward), K2 (blend backward) and K3 (per-Gaussian gradient
 segment sum), each on small seeded cases, K2 and K3 also run twice for
-bitwise equality. Then the serving path: the golden scene through the
+bitwise equality (K3 also on the render path's route, from the binning's
+own segments, against the bare-rank route: the same bits). Then the serving path: the golden scene through the
 kernel, the 200k-Gaussian / 800x800 scene of `bench.py` timed, and the
 user's render entry point (`wast3d_tpu_torch.cli.render`). Then the
 training path: 20 timed train steps on the same scene with a stage split,
 K2 and K3 against their plain versions at that size, and the user's train
 entry point (`wast3d_tpu_torch.cli.train`, ~300 iterations with densify) on
 a Blender-format dataset. Then the stylization path: K4 (pair-descriptor
-loss) and K5 (its gradient) against their plain versions on seeded cases,
+loss, on the pair code) and K5 (its gradient, on the fit's pair list)
+against their plain versions on seeded cases,
 twice each for bitwise equality, alone at the production shape
 (Mp = 16384, 8 balls), and against float64 where points nearly coincide; a port-only mirror of `tools/stylize_gate.py` at the
 JAX record's configuration; and the user's stylize entry point
@@ -341,8 +343,9 @@ def k3_case_arrays():
     return cases
 
 
-def compare_k3(d, rank, n1, mode):
-    """One rank-major wrapper twice against float64 `index_add_`; raises
+def compare_k3(d, rank, n1, mode, segments=None):
+    """One rank-major reduction twice (on the bare-rank route, or on
+    `segments`) against float64 `index_add_`; raises
     if the two runs differ in any bit or if a row's error exceeds the
     worst-case bound of summing its segment in float32 in some order,
     gamma_(n-1) sum |values| with gamma_m = m u / (1 - m u), u = 2^-24 and
@@ -351,9 +354,12 @@ def compare_k3(d, rank, n1, mode):
     the largest error as a fraction of that bound."""
     from wast3d_tpu_torch.ops.rasterizer import grad_reduce
 
-    fn = grad_reduce.REDUCERS[mode]
-    a = fn(d, rank, n1)
-    b = fn(d, rank, n1)
+    def run():
+        if segments is None:
+            return grad_reduce.reduce(d, rank, n1, mode)
+        return grad_reduce.reduce_segments(d, segments, mode)
+
+    a, b = run(), run()
     ref_in = d.to(torch.bfloat16).to(torch.float32) if mode == "segsum_sortpacked" else d
     ref = torch.zeros((n1, d.shape[1]), dtype=torch.float64, device=d.device)
     ref.index_add_(0, rank, ref_in.to(torch.float64))
@@ -386,17 +392,42 @@ def phase_k3_cases(device):
         out[name] = {"K": int(d.shape[0]), "n1": n1, **{
             mode: compare_k3(dt, rt, n1, mode)
             for mode in ("segsum", "segsum_sortpayload", "segsum_sortpacked")}}
-    # The render path's layout: 10 of 12 columns (row stride 12) through the sort's perm.
+    # The render path's layout: 10 of 12 columns (row stride 12, 16-byte
+    # loads) read through idx, against the gathered rows (stride 10, scalar
+    # loads): the same sums in the same order, so the same bits. Segments
+    # of 1 to 400 rows, so both the thread and the warp split run.
     rng = np.random.default_rng(1)
-    full = torch.from_numpy(rng.normal(size=(3000, 12)).astype(np.float32)).to(device)
-    rank = torch.from_numpy(rng.integers(0, 700, 3000)).to(device)
-    sorted_ranks, perm = grad_reduce.sort_ranks(rank)
-    a = grad_reduce.segment_sum(full[:, :GRAD_COLS], sorted_ranks, 700, perm=perm)
-    b = grad_reduce.segment_sum_reference(full[:, :GRAD_COLS], sorted_ranks, 700, perm=perm)
-    strided_err = float((a - b).abs().max())
+    full = torch.from_numpy(rng.normal(size=(30000, 12)).astype(np.float32)).to(device)
+    rank = torch.from_numpy(np.minimum(rng.geometric(0.004, 30000), 700) - 1).to(device)
+    seg = grad_reduce.rank_segments(rank, 700)
+    view = full[:, :GRAD_COLS]
+    if not grad_reduce._vector_rows(view):
+        raise AssertionError("K3: the render path's rows do not take 16-byte loads")
+    a = grad_reduce.segment_sum(view, seg)
+    b = grad_reduce.segment_sum(view[seg.idx].contiguous(), seg._replace(idx=None))
+    c = grad_reduce.segment_sum(view, seg._replace(idx=None, perm=torch.argsort(seg.idx)))
+    # The same segments as each position's segment (the binning route's
+    # form), output rows in a shuffled order.
+    shuffle = torch.from_numpy(rng.permutation(700)).to(device)
+    by_position = grad_reduce.Segments(None, shuffle, seg.idx, None,
+                                       rank[seg.idx.long()].contiguous())
+    e = grad_reduce.segment_sum(view, by_position)
+    none = grad_reduce.segment_sum(view, by_position._replace(
+        idx=None, segment_of=rank[:0].contiguous()))
+    ref = grad_reduce.segment_sum_reference(view, seg)
+    torch.cuda.synchronize()
+    if bool(none.any()):
+        raise AssertionError("K3: segments with no positions are not zero")
+    if not (torch.equal(a, b) and torch.equal(a, c) and torch.equal(a[shuffle], e)):
+        raise AssertionError("K3: 16-byte and scalar loads, idx and the inverse of perm, or "
+                             "offsets and segment_of give different bits")
+    strided_err = float((a - ref).abs().max())
     if strided_err > 1e-4:
         raise AssertionError(f"K3 on strided rows: {strided_err}")
-    emit("k3_vs_index_add_f64", t0, cases=out, strided_perm_max_abs_err=strided_err,
+    emit("k3_vs_index_add_f64", t0, cases=out, strided_idx_max_abs_err=strided_err,
+         longest_segment_strided_case=int(torch.diff(seg.offsets).max()),
+         vector_and_scalar_loads_bitwise_equal=True, idx_and_inverted_perm_bitwise_equal=True,
+         offsets_and_segment_of_bitwise_equal=True,
          error_as_fraction_of_f32_summation_bound=True, limit=K3_BOUND_SLACK,
          runs_bitwise_equal=True)
 
@@ -444,6 +475,19 @@ def cuda_time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """The host's time to issue one call of `fn`, the device left to run
+    behind it (no synchronisation inside the timed loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return issued
 
 
 def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
@@ -722,24 +766,64 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     k2_bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     k2_ops_ms = K2_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
 
+    # K3 on the render path's route (segments from the binning) and on the
+    # bare-rank route, same rows: the same bits.
     d = drows[:, :GRAD_COLS]
     rank = binning.rank
     n1 = int(state.scene.capacity)
-    sorted_ranks, perm = grad_reduce.sort_ranks(rank)
-    k3_ms = cuda_time_ms(lambda: grad_reduce.segment_sum(d, sorted_ranks, n1, perm=perm), 50)
-    k3_plain_ms = cuda_time_ms(
-        lambda: grad_reduce.segment_sum_reference(d, sorted_ranks, n1, perm=perm), 5)
-    sort_ms = cuda_time_ms(lambda: grad_reduce.sort_ranks(rank), 20)
-    wrapper_ms = cuda_time_ms(
-        lambda: grad_reduce.segment_reduce_by_rank_sortpayload(d, rank, n1), 20)
+
+    def binning_segments():
+        return grad_reduce.binning_segments(binning.sort_perm, binning.presort_gauss,
+                                            binning.depth_order)
+
+    seg, bare = binning_segments(), grad_reduce.rank_segments(rank, n1)
+    k3_out = grad_reduce.segment_sum(d, seg)
+    k3_out2 = grad_reduce.segment_sum(d, seg)
+    k3_bare = grad_reduce.segment_sum(d, bare)
+    routes_equal = {mode: bool(torch.equal(
+        grad_reduce.reduce_segments(d, seg, mode), grad_reduce.reduce(d, rank, n1, mode)))
+        for mode in ("segsum", "segsum_sortpayload", "segsum_sortpacked")}
+    torch.cuda.synchronize()
+    if not (torch.equal(k3_out, k3_out2) and torch.equal(k3_out, k3_bare)
+            and all(routes_equal.values())):
+        raise AssertionError(f"K3: the binning and bare-rank routes, or two runs, differ "
+                             f"in some bit ({routes_equal})")
+    seg_len = torch.diff(grad_reduce.segment_offsets(seg))
+    longest = int(seg_len.max())
+    # K3 on the binning route is the whole reduction: one call, two kernels
+    # (the segments' bounds and the inverse of the tile sort's permutation,
+    # then the sums) after zeroing the bounds.
+    k3_ms = cuda_time_ms(lambda: grad_reduce.segment_sum(d, binning_segments()), 50)
+    k3_kernels, k3_device_ms = device_ms(
+        lambda: grad_reduce.segment_sum(d, binning_segments()))
+    # Event times of a few small kernels hold the host's time to issue them.
+    k3_host_ms = host_ms(lambda: grad_reduce.segment_sum(d, binning_segments()), 50)
+    index_add_host_ms = host_ms(lambda: torch.zeros((n1, GRAD_COLS), device=device)
+                                .index_add_(0, rank, d), 50)
+    k3_bare_kernel_ms = kernel_device_ms(
+        lambda: grad_reduce.segment_sum(d, bare), "segsum_kernel")
+    k3_plain_ms = cuda_time_ms(lambda: grad_reduce.segment_sum_reference(d, seg), 5)
+    bare_whole_ms = cuda_time_ms(lambda: grad_reduce.reduce(d, rank, n1, grad_reduce.DEFAULT), 20)
     index_add_ms = cuda_time_ms(lambda: torch.zeros((n1, GRAD_COLS), device=device)
                                 .index_add_(0, rank, d), 20)
-    k3_contiguous_ms = cuda_time_ms(  # K3a / K3c read gathered, contiguous rows
-        lambda rm=d[perm].contiguous(): grad_reduce.segment_sum(rm, sorted_ranks, n1), 50)
-    reduce_ms = {mode: cuda_time_ms(lambda m=mode: grad_reduce.reduce(d, rank, n1, m), 20)
-                 for mode in grad_reduce.GRAD_REDUCES}
-    k3_err = compare_k3(d.contiguous(), rank, n1, "segsum_sortpayload")
-    k3_bytes = K * (4 * GRAD_COLS + 4 + 8) + 4 * GRAD_COLS * n1
+    k3_contiguous_ms = kernel_device_ms(  # "segsum" / "segsum_sortpacked" read gathered rows
+        lambda rm=d[grad_reduce.source_index(seg)].contiguous(): grad_reduce.segment_sum(
+            rm, seg._replace(perm=None)), "segsum_kernel")
+    # Device busy time of each whole reduction (the event times above also
+    # hold the host's launch gaps between small kernels).
+    busy = {name: device_ms(fn)[1] for name, fn in (
+        ("bare_rank_route_reduction", lambda: grad_reduce.reduce(
+            d, rank, n1, grad_reduce.DEFAULT)),
+        ("index_add_", lambda: torch.zeros((n1, GRAD_COLS), device=device)
+         .index_add_(0, rank, d)))}
+    reduce_ms = {mode: cuda_time_ms(
+        (lambda: grad_reduce.reduce(d, rank, n1, "scatter")) if mode == "scatter" else
+        (lambda m=mode: grad_reduce.reduce_segments(d, binning_segments(), m)), 20)
+        for mode in grad_reduce.GRAD_REDUCES}
+    k3_err = compare_k3(d, rank, n1, grad_reduce.DEFAULT, segments=seg)
+    # in: rows K x 40, the permutation K x 8, the pre-sort Gaussian indices
+    # K x 8, the depth order n1 x 8; out n1 x 40
+    k3_bytes = K * (4 * GRAD_COLS + 16) + n1 * (8 + 4 * GRAD_COLS)
     k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
     k3_ops_ms = K * GRAD_COLS / F32_OPS_PER_S * 1e3
     median = statistics.median(step_ms)
@@ -751,17 +835,22 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
          stage_ms_median=stage_ms, duplicates_K=K, evaluated_pairs=pairs,
          k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound_bytes_ms=k2_bytes_ms,
          k2_bound_ops_ms=k2_ops_ms, k2_max_rel_err=k2_err,
-         k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_sort_ms=sort_ms,
-         k3_wrapper_sort_plus_kernel_ms=wrapper_ms, index_add_ms=index_add_ms,
-         k3_contiguous_rows_ms=k3_contiguous_ms, reduce_ms_by_mode=reduce_ms,
-         k3_bound_bytes_ms=k3_bytes_ms, k3_bound_ops_ms=k3_ops_ms, k3_err_fraction_of_f32_bound=k3_err)
+         k3_ms=k3_ms, k3_device_ms=k3_device_ms, k3_device_ms_by_kernel=k3_kernels,
+         k3_host_issue_ms=k3_host_ms, index_add_host_issue_ms=index_add_host_ms,
+         k3_bare_rank_segments_kernel_ms=k3_bare_kernel_ms, device_busy_ms=busy,
+         k3_plain_ms=k3_plain_ms,
+         k3_bare_rank_whole_reduction_ms=bare_whole_ms,
+         index_add_ms=index_add_ms, k3_contiguous_rows_ms=k3_contiguous_ms,
+         reduce_ms_by_mode=reduce_ms, k3_routes_bitwise_equal=routes_equal,
+         k3_longest_segment=longest, k3_segments_over_32=int((seg_len > 32).sum()),
+         k3_bound_bytes_ms=k3_bytes_ms, k3_bound_ops_ms=k3_ops_ms,
+         k3_err_fraction_of_f32_bound=k3_err)
     k2 = {"name": "blend_bwd", "route": "cuda", "source": "wast3d_tpu_torch/csrc/blend_bwd.cu",
           "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:543", "launches": None,
           "max_abs_err": float((drows - blend_bwd_reference(*k2_args)).abs().max()),
           "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": max(k2_bytes_ms, k2_ops_ms),
           "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
           "library_ms": None}
-    k3_out = grad_reduce.segment_sum(d, sorted_ranks, n1, perm=perm)
     k3_ref = torch.zeros((n1, GRAD_COLS), dtype=torch.float64, device=device).index_add_(
         0, rank, d.to(torch.float64))
     k3 = {"name": "segment_sum", "route": "cuda", "source": "wast3d_tpu_torch/csrc/segsum.cu",
@@ -792,6 +881,28 @@ def kernel_counts():
 def reset_kernel_counts():
     for fn in _counted().values():
         fn.launches = 0
+
+
+def longest_segment(scene, src, device):
+    """The longest segment K3 sums for `scene` over the dataset's views:
+    the render path's segments, binned as a training step bins them (tile
+    cull, jitter margin 1). Run after the timed entry point, untimed."""
+    from wast3d_tpu_torch.ops.rasterizer import grad_reduce
+    from wast3d_tpu_torch.ops.rasterizer.api import preprocess_scene
+    from wast3d_tpu_torch.ops.rasterizer.binning import bin_gaussians
+    from wast3d_tpu_torch.scene import datasets
+
+    info = datasets.load_scene_info(src, eval_split=True)
+    longest = 0
+    for infos in (info.train_cameras, info.test_cameras):
+        for cam, _ in datasets.build_cameras(infos, device=device):
+            prep = preprocess_scene(cam, scene)
+            b = bin_gaussians(prep.means2d, prep.depths, prep.radii, cam.width, cam.height,
+                              ext_x=prep.extent_x, ext_y=prep.extent_y, conics=prep.conics,
+                              opacities=prep.opacities, jitter_margin=1.0)
+            seg = grad_reduce.binning_segments(b.sort_perm, b.presort_gauss, b.depth_order)
+            longest = max(longest, int(torch.diff(grad_reduce.segment_offsets(seg)).max()))
+    return longest
 
 
 def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
@@ -836,6 +947,7 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
         n_final = final.capacity
         finite = all(bool(torch.isfinite(getattr(final, f)).all())
                      for f in ("xyz", "scaling", "rotation", "opacity", "features_dc"))
+        longest = longest_segment(final, src, device)
     report_renders = min(5, views)  # report(): PSNR over train_cams[:5] (no test split)
     if [it for it, _ in densify] != [200, 300]:
         raise AssertionError(f"densify fired at {densify}, want iterations 200 and 300")
@@ -854,7 +966,8 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
                                                for k, v in launches.items()},
          losses=losses, densify_n=densify, n_init=N_INIT, n_final=n_final,
          psnr_train=report[-1]["psnr_train"] if report else None,
-         setup_s=t_setup, cli_s=cli_s, iters_per_s=iters / cli_s)
+         k3_longest_segment_final_model=longest, setup_s=t_setup, cli_s=cli_s,
+         iters_per_s=iters / cli_s)
     return launches
 
 
@@ -877,17 +990,18 @@ def k45_case(mp, balls, m, seed, density=0.02):
     return x, tp, code, 0.7, 1.9
 
 
-def compare_k45(x, tp, code, cg, cl):
-    """K4 and K5 twice each and their plain versions on the same inputs;
-    raises past tolerance or if two runs differ in any bit. Returns
+def compare_k45(x, tp, code, pairs, cg, cl):
+    """K4 (on the code) and K5 (on its pair list) twice each and their plain
+    versions on the same inputs; raises past tolerance or if two runs
+    differ in any bit. Returns
     (loss relative error, gradient error over the plain max |g|, K4 and K5
     max absolute errors)."""
     from wast3d_tpu_torch.stylize import desc_kernel as dk
 
     loss, loss2 = dk.desc_loss(x, tp, code, cg, cl), dk.desc_loss(x, tp, code, cg, cl)
-    grad, grad2 = dk.desc_grad(x, tp, code, cg, cl), dk.desc_grad(x, tp, code, cg, cl)
+    grad, grad2 = dk.desc_grad(x, tp, pairs, cg, cl), dk.desc_grad(x, tp, pairs, cg, cl)
     ref_loss = dk.pair_loss_reference(x, tp, code, cg, cl)
-    ref_grad = dk.pair_grad_reference(x, tp, code, cg, cl)
+    ref_grad = dk.pair_grad_list_reference(x, tp, pairs, cg, cl)
     torch.cuda.synchronize()
     if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
         raise AssertionError("K4/K5: two runs on the same inputs differ")
@@ -905,7 +1019,7 @@ def compare_k45(x, tp, code, cg, cl):
 
 
 def phase_k45_cases(device):
-    from wast3d_tpu_torch.stylize.desc_kernel import desc_grad
+    from wast3d_tpu_torch.stylize.desc_kernel import build_pair_list, desc_grad
 
     t0 = time.perf_counter()
     out = {}
@@ -914,8 +1028,9 @@ def phase_k45_cases(device):
             m = mp - 100 + balls
             x, tp, code, cg, cl = k45_case(mp, balls, m=m, seed=mp + balls)
             xt, tpt, ct = (torch.from_numpy(a).to(device) for a in (x, tp, code))
-            loss_err, grad_err, _, _ = compare_k45(xt, tpt, ct, cg, cl)
-            pad_grad = float(desc_grad(xt, tpt, ct, cg, cl)[:, m:].abs().max())
+            pairs = build_pair_list(ct)
+            loss_err, grad_err, _, _ = compare_k45(xt, tpt, ct, pairs, cg, cl)
+            pad_grad = float(desc_grad(xt, tpt, pairs, cg, cl)[:, m:].abs().max())
             if pad_grad != 0.0:
                 raise AssertionError(f"K5: padded rows got gradient {pad_grad}")
             out[f"mp{mp}_b{balls}"] = {"nonzero_pairs": int((code != 0).sum()),
@@ -987,14 +1102,16 @@ def cuda_times_ms(fn, warmup, reps):
 
 
 def k45_bounds(code, balls, mp):
-    """(K4 bytes ms, K4 ops ms, K5 bytes ms, K5 ops ms) for these inputs:
-    each input byte read once and each output byte written once; operations
-    on the pairs this code makes the kernels evaluate."""
+    """(K4 bytes ms, K4 ops ms, K5 bytes ms, K5 ops ms, pairs) for these
+    inputs: each input byte read once and each output byte written once
+    (K4 reads the code, K5 its pair list: row_ptr, row_order, 4 bytes an
+    entry); operations on the pairs the kernels evaluate."""
     nz = code != 0
     pairs_k4 = int(nz.sum())
     pairs_k5 = int((nz | nz.T).sum())
-    in_bytes = mp * mp + 12 * mp * balls + 12 * mp
-    k4_bytes, k5_bytes = in_bytes + 4 * balls, in_bytes + 12 * mp * balls
+    points_bytes = 12 * mp * balls + 12 * mp
+    k4_bytes = mp * mp + points_bytes + 4 * balls
+    k5_bytes = 8 * mp + 4 + 4 * pairs_k5 + points_bytes + 12 * mp * balls
     k4_ops = pairs_k4 * (K4_OPS_PER_PAIR + K4_OPS_PER_PAIR_BALL * balls)
     k5_ops = pairs_k5 * (K5_OPS_PER_PAIR + K5_OPS_PER_PAIR_BALL * balls)
     ms = lambda v, rate: v / rate * 1e3  # noqa: E731
@@ -1032,21 +1149,51 @@ def phase_k45_full_width(device, mp=STYLE_MP, balls=STYLE_BATCH):
     if not (torch.equal(packbits(td.pair_code & 1), td.bits_global)
             and torch.equal(packbits(td.pair_code >> 1), td.bits_local)):
         raise AssertionError("pair code: bit 0 is not the global mask or bit 1 the local one")
+    # The pair list, once per fit: its build again, alone (host clock; it syncs).
+    list_s = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        b0 = time.perf_counter()
+        pairs = dk.build_pair_list(td.pair_code)
+        torch.cuda.synchronize()
+        list_s.append(time.perf_counter() - b0)
+    if not all(torch.equal(a, b) for a, b in zip(pairs, td.pair_list)):
+        raise AssertionError("the pair list differs from one build to the next")
+    row_len = (pairs.row_ptr[1:] - pairs.row_ptr[:-1]).cpu().numpy()
     x, _ = stretched_balls(pts, balls, np.random.default_rng(11), device)
-    args = (x, td.points, td.pair_code, td.coef_global, td.coef_local)
-    k4 = cuda_times_ms(lambda: dk.desc_loss(*args), 3, 20)
-    k5 = cuda_times_ms(lambda: dk.desc_grad(*args), 3, 20)
-    k4_plain = cuda_times_ms(lambda: dk.pair_loss_reference(*args), 0, 1)[0]
-    k5_plain = cuda_times_ms(lambda: dk.pair_grad_reference(*args), 0, 1)[0]
-    loss_err, grad_err, k4_abs, k5_abs = compare_k45(*args)
+    coefs = (td.coef_global, td.coef_local)
+    loss_args = (x, td.points, td.pair_code) + coefs
+    grad_args = (x, td.points, pairs) + coefs
+    k4 = cuda_times_ms(lambda: dk.desc_loss(*loss_args), 3, 20)
+    k5 = cuda_times_ms(lambda: dk.desc_grad(*grad_args), 3, 20)
+    k5_again = cuda_times_ms(lambda: dk.desc_grad(*grad_args), 3, 20)
+    k5_device, _ = device_ms(lambda: dk.desc_grad(*grad_args))
+    k4_plain = cuda_times_ms(lambda: dk.pair_loss_reference(*loss_args), 0, 1)[0]
+    k5_plain = cuda_times_ms(lambda: dk.pair_grad_list_reference(*grad_args), 0, 1)[0]
+    k5_dense_plain = cuda_times_ms(lambda: dk.pair_grad_reference(*loss_args), 0, 1)[0]
+    loss_err, grad_err, k4_abs, k5_abs = compare_k45(x, td.points, td.pair_code, pairs, *coefs)
+    dense = dk.pair_grad_reference(*loss_args)
+    listed = dk.pair_grad_list_reference(*grad_args)
+    plain_vs_dense = float((listed - dense).abs().max() / dense.abs().max())
+    if plain_vs_dense > K45_GRAD_ATOL_REL:
+        raise AssertionError(f"K5's plain version on the list vs on the dense code: "
+                             f"{plain_vs_dense} of max |g|")
     code_np = td.pair_code.cpu().numpy()
     k4_b, k4_o, k5_b, k5_o, pairs_k4, pairs_k5 = k45_bounds(code_np, balls, mp)
+    if pairs_k5 != int(pairs.row_ptr[-1]):
+        raise AssertionError(f"the pair list holds {int(pairs.row_ptr[-1])} entries, the code "
+                             f"{pairs_k5} pairs")
     k4_ms, k5_ms = statistics.median(k4), statistics.median(k5)
     emit("k4k5_full_width", t0, mp=mp, balls=balls, descriptor_build_s=build_s,
+         pair_list_build_ms=[v * 1e3 for v in list_s],
+         pair_list_row_len={"min": int(row_len.min()), "median": float(np.median(row_len)),
+                            "max": int(row_len.max())},
          code_values={int(v): int((code_np == v).sum()) for v in range(4)},
          nonzero_pairs_k4=pairs_k4, symmetric_pairs_k5=pairs_k5,
          k4_ms_median=k4_ms, k4_ms_min=min(k4), k4_ms_max=max(k4), k4_plain_ms=k4_plain,
          k5_ms_median=k5_ms, k5_ms_min=min(k5), k5_ms_max=max(k5), k5_plain_ms=k5_plain,
+         k5_again_ms_median=statistics.median(k5_again), k5_device_ms_by_kernel=k5_device,
+         k5_dense_plain_ms=k5_dense_plain, k5_plain_list_vs_dense_of_max=plain_vs_dense,
          k4_bound_bytes_ms=k4_b, k4_bound_ops_ms=k4_o, k5_bound_bytes_ms=k5_b,
          k5_bound_ops_ms=k5_o, k4_loss_rel_err=loss_err, k5_grad_err_of_max=grad_err,
          warmup=3, reps=20)
@@ -1088,12 +1235,14 @@ def phase_k45_near_coincident(device, mp=STYLE_MP, balls=STYLE_BATCH, dup_frac=0
     td = compute_target_descriptors(pts, StylizeConfig(), device=device)
     x, scale = stretched_balls(pts, balls, rng, device)
     x[:, dup] = x[:, src] + torch.from_numpy((pts[dup] - pts[src])[None] * scale).to(device)
-    code = td.pair_code
+    code, pairs = td.pair_code, td.pair_list
     joined = int(((code[dup, src] | code[src, dup]) != 0).sum())
-    args = (x, td.points, code, td.coef_global, td.coef_local)
-    args64 = (x.double(), td.points.double(), code, td.coef_global, td.coef_local)
-    loss, grad = dk.desc_loss(*args), dk.desc_grad(*args)
-    loss_p, grad_p = dk.pair_loss_reference(*args), dk.pair_grad_reference(*args)
+    coefs = (td.coef_global, td.coef_local)
+    args = (x, td.points, code) + coefs
+    args64 = (x.double(), td.points.double(), code) + coefs
+    loss, grad = dk.desc_loss(*args), dk.desc_grad(x, td.points, pairs, *coefs)
+    loss_p = dk.pair_loss_reference(*args)
+    grad_p = dk.pair_grad_list_reference(x, td.points, pairs, *coefs)
     loss64, grad64 = dk.pair_loss_reference(*args64), dk.pair_grad_reference(*args64)
     gmax = float(grad64.abs().max())
     k5_err = float((grad.double() - grad64).abs().max()) / gmax
@@ -1338,6 +1487,56 @@ def fit_step_split(cpatch, domain, circles, cfg, device, reps=5):
 
 # ---- profile (python3 chip_smoke.py --profile) --------------------------------
 
+def device_events(prof):
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(spans):
+    """Length of the union of sorted (start, end) spans."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def device_ms(fn, reps=20):
+    """`fn` on the device, by `torch.profiler`, per call: ({kernel name: ms},
+    device busy ms). CUDA events around a call of small kernels measure the
+    host's launch rate as well; this is the device's own time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    if not events:
+        raise AssertionError("the profiler recorded no device activity")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    return ({k[:80]: v / reps / 1e3 for k, v in by_name.items()},
+            busy_us(spans) / reps / 1e3)
+
+
+def kernel_device_ms(fn, name, reps=20):
+    """The device time per call of the kernels of `fn` whose name holds `name`."""
+    by_name, _ = device_ms(fn, reps)
+    hits = [v for k, v in by_name.items() if name in k]
+    if not hits:
+        raise AssertionError(f"no kernel named like {name!r} ran: {sorted(by_name)}")
+    return sum(hits)
+
 def kernel_group(name: str) -> str:
     for key, group in (("blend_fwd_kernel", "K1 blend_fwd"), ("blend_bwd_kernel", "K2 blend_bwd"),
                        ("segsum_kernel", "K3 segsum"), ("radix", "sort"), ("Sort", "sort"),
@@ -1385,21 +1584,11 @@ def phase_profile_train(device, n=FULL_N, res=FULL_RES, warmup=5, steps=10):
             state = step(state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - w0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    kernels = device_events(prof)
     if not kernels:
         raise AssertionError("the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy = busy_us(spans)
     window = max(b for _, b in spans) - min(a for a, _ in spans)
     by_group, by_name = {}, {}
     for e in kernels:
@@ -1457,7 +1646,13 @@ def main() -> int:
         for name in only:
             if name in ("stylize_gate", "stylize_entry_point") and domain is None:
                 domain, spacing = content_domain(device)
-            {"k4k5_cases": lambda: phase_k45_cases(device),
+            {"k1_cases": lambda: phase_k1_cases(device),
+             "k2_cases": lambda: phase_k2_cases(device),
+             "k3_cases": lambda: phase_k3_cases(device),
+             "full_width": lambda: phase_full_width(device),
+             "train_full_width": lambda: phase_train_full_width(device),
+             "train_entry_point": lambda: phase_train_entry_point(device),
+             "k4k5_cases": lambda: phase_k45_cases(device),
              "k4k5_full_width": lambda: phase_k45_full_width(device),
              "k4k5_near_coincident": lambda: phase_k45_near_coincident(device),
              "stylize_gate": lambda: phase_stylize_gate(device, domain, spacing),

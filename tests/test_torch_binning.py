@@ -117,3 +117,40 @@ def test_rank_of_inverts_depth_order():
                     rng.integers(0, 12, n), 64, 64)
     assert torch.equal(t.depth_order[t.rank_of], torch.arange(n))
     assert torch.equal(t.gauss_idx, t.depth_order[t.rank])
+
+
+@pytest.mark.parametrize("tile_cull", [False, True])
+@pytest.mark.parametrize("jitter_margin", [0.0, 1.0])
+@pytest.mark.parametrize("scene", ["random", "aniso"])
+def test_gaussian_segments_follow_the_stable_rank_sort(tile_cull, jitter_margin, scene):
+    """The binning's own grouping (`sort_perm`, `presort_gauss`): every
+    rank's segment holds the same sorted positions, in the same order, as
+    the stable sort of `rank` gives it."""
+    from wast3d_tpu_torch.ops.rasterizer import grad_reduce as tgr
+
+    js = _random_scene(n=200, seed=11) if scene == "random" else _aniso_scene(n=120, seed=12)
+    prep, _ = run_both(js, _cam(w=80, h=48), port_cam(w=80, h=48))
+    cull = ((np.asarray(prep.conics), np.asarray(prep.opacities))
+            if tile_cull else None)
+    _, t = bin_both(np.asarray(prep.means2d), np.asarray(prep.depths),
+                    np.asarray(prep.radii), 80, 48,
+                    ext=(np.asarray(prep.extent_x), np.asarray(prep.extent_y)),
+                    cull=cull, jitter_margin=jitter_margin)
+    n, k = t.rank_of.shape[0], int(t.num_duplicates)
+    assert k > 0 and t.presort_gauss.shape == (k,)
+    assert bool((t.presort_gauss[1:] >= t.presort_gauss[:-1]).all())
+    assert torch.equal(torch.sort(t.sort_perm).values, torch.arange(k))
+    seg = tgr.binning_segments(t.sort_perm, t.presort_gauss, t.depth_order)
+    offsets = tgr.segment_offsets(seg)
+    assert offsets.dtype == torch.int32
+    assert int(offsets[0]) == 0 and int(offsets[-1]) == k
+    bare = tgr.rank_segments(t.rank, n)
+    (lo, hi), (blo, bhi) = tgr.segment_bounds(seg), tgr.segment_bounds(bare)
+    length = hi - lo
+    assert torch.equal(length, bhi - blo)
+    # the positions of every segment, row by row
+    row = torch.repeat_interleave(torch.arange(n), length)
+    p = lo[row] + torch.arange(k) - (torch.cumsum(length, 0) - length)[row]
+    idx = tgr.source_index(seg)
+    assert torch.equal(idx[p], bare.idx.long())
+    assert torch.equal(t.rank[idx[p]], row)

@@ -45,6 +45,13 @@ def _port(x, tp, code, cg, cl):
             tdk.pair_grad_reference(xt, tpt, ct, float(cg), float(cl)).numpy())
 
 
+def _port_list(x, tp, code, cg, cl):
+    """K5's plain version on its own inputs, the pair list of `code`."""
+    xt, tpt, ct = map(torch.from_numpy, (x, tp, code))
+    return tdk.pair_grad_list_reference(xt, tpt, tdk.build_pair_list(ct),
+                                        float(cg), float(cl)).numpy()
+
+
 def _assert_close(loss, grad, ref_loss, ref_grad):
     np.testing.assert_allclose(loss, ref_loss, rtol=LOSS_RTOL)
     np.testing.assert_allclose(grad, ref_grad, atol=GRAD_ATOL_REL * np.abs(ref_grad).max())
@@ -87,10 +94,12 @@ def test_pair_loss_op_takes_plain_versions_on_cpu():
     x, tp, code, cg, cl = _case(1024, 3, 700, seed=3)
     before = (tdk.desc_loss.launches, tdk.desc_grad.launches)
     xt = torch.from_numpy(x).requires_grad_(True)
-    out = tdk.pair_loss(xt, torch.from_numpy(tp), torch.from_numpy(code), cg, cl)
+    ct = torch.from_numpy(code)
+    out = tdk.pair_loss(xt, torch.from_numpy(tp), ct, tdk.build_pair_list(ct), cg, cl)
     w = torch.tensor([1.0, -2.0, 0.5])
     (g,) = torch.autograd.grad((out * w).sum(), [xt])
-    loss, grad = _port(x, tp, code, cg, cl)
+    loss, _ = _port(x, tp, code, cg, cl)
+    grad = _port_list(x, tp, code, cg, cl)
     np.testing.assert_array_equal(out.detach().numpy(), loss)
     np.testing.assert_allclose(g.numpy(), grad * w.numpy()[:, None, None], rtol=1e-6)
     assert (tdk.desc_loss.launches, tdk.desc_grad.launches) == before == (0, 0)
@@ -177,6 +186,109 @@ def test_wrappers_check_their_inputs(bad):
         tp = tp[:512]
     else:
         code = code.to(torch.int32)
-    for fn in (tdk.desc_loss, tdk.desc_grad):
+    pairs = tdk.build_pair_list(code.to(torch.uint8))
+    if bad == "code":  # K5's inputs: a list whose entries are int64
+        pairs = pairs._replace(entries=pairs.entries.long())
+    for fn, c in ((tdk.desc_loss, code), (tdk.desc_grad, pairs)):
         with pytest.raises(ValueError):
-            fn(x.contiguous(), tp.contiguous(), code.contiguous(), float(cg), float(cl))
+            fn(x.contiguous(), tp.contiguous(), c, float(cg), float(cl))
+    with pytest.raises(ValueError):  # K5 takes the list, not the code
+        tdk.desc_grad(x.contiguous(), tp.contiguous(), code, float(cg), float(cl))
+
+
+# ---- K5 on the pair list ---------------------------------------------------
+
+
+@pytest.mark.parametrize("mp,m,seed", [(1024, 1000, 20), (2048, 1500, 21)])
+def test_pair_list_round_trips_to_code_or_its_transpose(mp, m, seed):
+    """The list holds exactly the pairs of code | code^T, ascending within a
+    row, each entry's 4 bits code[i, j] | code[j, i] << 2 above its column;
+    padded rows have no entries; the schedule visits every row once,
+    longest first."""
+    _, _, code, _, _ = _case(mp, 1, m, seed=seed)
+    pl = tdk.build_pair_list(torch.from_numpy(code))
+    row_ptr = pl.row_ptr.numpy().astype(np.int64)
+    n = row_ptr[-1]
+    assert pl.entries.shape == (n,) and pl.entries.dtype == torch.int32
+    rows = np.repeat(np.arange(mp), np.diff(row_ptr))
+    raw = pl.entries.numpy().view(np.uint32)
+    cols, bits = raw & (2 ** tdk.COL_BITS - 1), (raw >> tdk.COL_BITS).astype(np.uint8)
+    unpacked = tdk.unpack_entries(pl.entries)
+    np.testing.assert_array_equal(unpacked[0].numpy(), cols)
+    np.testing.assert_array_equal(unpacked[1].numpy(), bits)
+    back = np.zeros((mp, mp), np.uint8)
+    back[rows, cols] = bits
+    np.testing.assert_array_equal(back & 3, code)
+    np.testing.assert_array_equal(back >> 2, code.T)
+    assert ((code | code.T) != 0).sum() == n and np.all(bits != 0)
+    assert np.all(np.diff(cols)[np.diff(rows) == 0] > 0)
+    assert np.all(np.diff(row_ptr)[m:] == 0)
+    order = pl.row_order.numpy()
+    np.testing.assert_array_equal(np.sort(order), np.arange(mp))
+    assert np.all(np.diff(np.diff(row_ptr)[order]) <= 0)
+
+
+def test_list_k5_matches_pallas_interpret_mp1024():
+    x, tp, code, cg, cl = _case(1024, 1, 1000, seed=0)
+    fn = lambda p: jdk.pair_loss(p, jnp.asarray(tp), jnp.asarray(code), cg, cl, True)  # noqa: E731
+    jg = jax.grad(fn)(jnp.asarray(x[0]))
+    grad = _port_list(x, tp, code, cg, cl)
+    assert grad.shape == (1, 1024, 3) and grad.dtype == np.float32
+    np.testing.assert_allclose(grad[0], np.asarray(jg),
+                               atol=GRAD_ATOL_REL * np.abs(np.asarray(jg)).max())
+
+
+def test_list_k5_matches_pallas_vmap_two_balls_and_dense_plain():
+    x, tp, code, cg, cl = _case(1024, 2, 900, seed=1)
+
+    def fn(p):
+        return jdk.pair_loss(p, jnp.asarray(tp), jnp.asarray(code), cg, cl, True)
+
+    jg = np.asarray(jax.vmap(jax.grad(fn))(jnp.asarray(x)))
+    grad = _port_list(x, tp, code, cg, cl)
+    np.testing.assert_allclose(grad, jg, atol=GRAD_ATOL_REL * np.abs(jg).max())
+    _, dense = _port(x, tp, code, cg, cl)
+    np.testing.assert_allclose(grad, dense, atol=GRAD_ATOL_REL * np.abs(dense).max())
+
+
+def test_list_k5_near_coincident_points_match_float64():
+    """`test_near_coincident_points_match_float64` on the list route."""
+    x, tp, code, cg, cl = _case(1024, 2, 1000, seed=9)
+    rng = np.random.default_rng(10)
+    near, orig = np.arange(100, 130), np.arange(200, 230)
+    step = rng.normal(size=(30, 3)) * 10.0 ** rng.uniform(-7, -3, (30, 1))
+    tp[near] = tp[orig] + step.astype(np.float32)
+    x[:, near] = x[:, orig] + (step * 1.3).astype(np.float32)
+    code[near, orig], code[orig, near] = 2, 3
+    grad = _port_list(x, tp, code, cg, cl)
+    pairs = tdk.build_pair_list(torch.from_numpy(code))
+    grad64 = tdk.pair_grad_list_reference(torch.from_numpy(x).double(),
+                                          torch.from_numpy(tp).double(), pairs,
+                                          float(cg), float(cl)).numpy()
+    dense64 = tdk.pair_grad_reference(torch.from_numpy(x).double(),
+                                      torch.from_numpy(tp).double(), torch.from_numpy(code),
+                                      float(cg), float(cl)).numpy()
+    assert np.isfinite(grad).all()
+    np.testing.assert_allclose(grad64, dense64, atol=1e-12 * np.abs(dense64).max())
+    np.testing.assert_allclose(grad, grad64, atol=GRAD_ATOL_REL * np.abs(grad64).max())
+
+
+def test_list_k5_padded_rows_contribute_nothing():
+    """`test_padded_rows_contribute_nothing` on the list route."""
+    x, tp, code, cg, cl = _case(1024, 2, 800, seed=5)
+    grad = _port_list(x, tp, code, cg, cl)
+    moved = x.copy()
+    moved[:, 800:] = np.random.default_rng(6).normal(size=(2, 224, 3))
+    grad2 = _port_list(moved, tp, code, cg, cl)
+    assert np.abs(grad2[:, 800:]).max() == 0.0 and np.abs(grad[:, 800:]).max() == 0.0
+    np.testing.assert_array_equal(grad2[:, :800], grad[:, :800])
+
+
+def test_list_k5_coincident_points_contribute_no_gradient():
+    """`test_coincident_points_contribute_no_gradient` on the list route:
+    the max(D, 1e-12) floor times x_i - x_j = 0 gives exactly 0."""
+    x, tp, code, cg, cl = _case(1024, 1, 1000, seed=4, coincident=True)
+    grad = _port_list(x, tp, code, cg, cl)
+    _, dense = _port(x, tp, code, cg, cl)
+    assert np.isfinite(grad).all()
+    np.testing.assert_allclose(grad, dense, atol=GRAD_ATOL_REL * np.abs(dense).max())

@@ -57,15 +57,17 @@ def _t(a):
 
 def kernel_path_descriptors(pts, cfg):
     """The port's descriptors on the kernel path, built on the CPU (where
-    JAX's rule leaves that path to CUDA): Mp padded to `MP_ALIGN` and the
-    pair code made from the bit masks, bit 0 global and bit 1 local."""
+    JAX's rule leaves that path to CUDA): Mp padded to `MP_ALIGN`, the
+    pair code made from the bit masks, bit 0 global and bit 1 local, and
+    its pair list as `compute_target_descriptors` builds it."""
     td = tfit.compute_target_descriptors(pts, cfg, device=CPU)
     pad = (-td.points.shape[0]) % tdk.MP_ALIGN
     bits = [torch.nn.functional.pad(b, (0, pad // 8, 0, pad))
             for b in (td.bits_global, td.bits_local)]
     code = (tfit.unpack_bits(bits[0]) + 2 * tfit.unpack_bits(bits[1])).to(torch.uint8)
     return td._replace(points=torch.nn.functional.pad(td.points, (0, 0, 0, pad)),
-                       bits_global=bits[0], bits_local=bits[1], pair_code=code)
+                       bits_global=bits[0], bits_local=bits[1], pair_code=code,
+                       pair_list=tdk.build_pair_list(code))
 
 
 def test_stylize_config_matches_jax():

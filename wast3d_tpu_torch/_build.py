@@ -39,10 +39,10 @@ _f = ctypes.c_float
 SIGNATURES = {
     "w3d_blend_fwd": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
-    "w3d_segsum": ([_p, _i, _p, _p, _i, _i, _i, _p, _i, _p], _i),
+    "w3d_segsum": ([_p, _i, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _i, _p], _i),
     "w3d_desc_loss": ([_p, _p, _p, _i, _i, _f, _f, _p, _p, _i, _p], _i),
     "w3d_desc_loss_partials": ([_i, _i], _i),
-    "w3d_desc_grad": ([_p, _p, _p, _i, _i, _f, _f, _p, _i, _p], _i),
+    "w3d_desc_grad": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_error_string": ([_i], ctypes.c_char_p),
 }
 

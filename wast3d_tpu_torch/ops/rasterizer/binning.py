@@ -14,8 +14,19 @@ size follows the data:
    alpha >= 1/255 anywhere in the tile's sample box is dropped (the blend
    skips it at every pixel, so the output is unchanged).
 4. One `torch.sort` on the int64 key `tile * N + rank`. The key is 64 bits
-   wide, so it cannot wrap the way a packed u32 key can.
+   wide, so it cannot wrap the way a packed u32 key can. Keys are unique
+   (a Gaussian covers a tile once), so the order is fixed.
 5. One `torch.searchsorted` of the needles `tile * N` for the tile ranges.
+
+Before the sort the kept duplicates are listed Gaussian-major: Gaussian by
+Gaussian in index order, each one's tiles in ascending tile id (its rect
+is row-major). That is the grouping the training backward needs: a
+Gaussian's duplicates, in the order a stable sort of `rank` would give
+them. `Binning` keeps it for `grad_reduce`'s binning route at no cost to
+serving: the sort's permutation (`sort_perm`, returned by `torch.sort`
+anyway) and the pre-sort list's Gaussian indices (`presort_gauss`, already
+computed). Each Gaussian's segment bounds and the inverse permutation are
+left to the backward (K3's first pass finds both).
 
 Nothing is ever truncated, so `overflow`, `overflow_emit`, `overflow_dup`
 and `overflow_rect` are always False; they stay in `Binning` so callers
@@ -45,6 +56,11 @@ class Binning(NamedTuple):
     depth_order: torch.Tensor  # [N] Gaussian index by depth (invalid last)
     rank: torch.Tensor  # [K] index into depth_order
     rank_of: torch.Tensor  # [N] inverse of depth_order
+    # Port only (module docstring): sorted position p holds pre-sort
+    # duplicate sort_perm[p]; pre-sort duplicate q is of Gaussian
+    # presort_gauss[q] (ascending).
+    sort_perm: torch.Tensor  # [K] int64
+    presort_gauss: torch.Tensor  # [K] int64
 
 
 def tile_grid(width: int, height: int) -> tuple:
@@ -153,7 +169,7 @@ def bin_gaussians(
         tx, ty, g = tx[keep], ty[keep], g[keep]
 
     key = (ty * grid_x + tx) * n + rank_of[g]
-    sorted_key, _ = torch.sort(key)
+    sorted_key, sort_perm = torch.sort(key)
     rank = sorted_key % n
     needles = torch.arange(num_tiles + 1, device=dev) * n
     bounds = torch.searchsorted(sorted_key, needles).to(torch.int32)
@@ -171,4 +187,6 @@ def bin_gaussians(
         depth_order=order,
         rank=rank,
         rank_of=rank_of,
+        sort_perm=sort_perm,
+        presort_gauss=g,
     )

@@ -8,10 +8,11 @@ image layout itself, so no untile pass follows.
 
 Gradients (JAX `_sorted_gather`, `pallas_path.py:24-97`): the blend's
 backward is K2 (`blend.blend`); the K-row gather's backward is the
-per-Gaussian reduction of `grad_reduce` (K3 by default), never autograd's
-`index_put_(accumulate=True)`, which would use float atomics on CUDA; the
-depth reorder is a permutation, so its backward is the exact inverse
-gather through `rank_of`.
+per-Gaussian reduction of `grad_reduce` (K3 by default) on the binning
+route (each Gaussian's duplicates as the binning listed them, no sort of
+the ranks), never autograd's `index_put_(accumulate=True)`, which would use
+float atomics on CUDA; the depth reorder is a permutation, so its backward
+is the exact inverse gather through `rank_of`.
 """
 
 from __future__ import annotations
@@ -52,20 +53,28 @@ class _Permute(torch.autograd.Function):
 
 
 class _SortedGather(torch.autograd.Function):
-    """source[rank], the K-row gather; the backward sums the duplicate rows
-    of each source row with `grad_reduce` (module docstring)."""
+    """source[binning.rank], the K-row gather; the backward sums the
+    duplicate rows of each source row with `grad_reduce` on the binning
+    route (module docstring), or with `index_add_` for "scatter". K3 finds
+    the segments' bounds and inverts the tile sort itself, so a render
+    without a backward never pays for them."""
 
     @staticmethod
-    def forward(ctx, source, rank, grad_reduce, plain):
-        ctx.save_for_backward(rank)
+    def forward(ctx, source, binning, grad_reduce, plain):
+        ctx.save_for_backward(binning.rank, binning.sort_perm, binning.presort_gauss,
+                              binning.depth_order)
         ctx.n1, ctx.grad_reduce, ctx.plain = source.shape[0], grad_reduce, plain
-        return source[rank]
+        return source[binning.rank]
 
     @staticmethod
     def backward(ctx, d_sorted):
-        (rank,) = ctx.saved_tensors
-        d = reduce_mod.reduce(d_sorted[:, :GRAD_COLS], rank, ctx.n1,
-                              ctx.grad_reduce, plain=ctx.plain)
+        rank, sort_perm, presort_gauss, depth_order = ctx.saved_tensors
+        if ctx.grad_reduce == "scatter":
+            d = reduce_mod.scatter_add(d_sorted[:, :GRAD_COLS], rank, ctx.n1)
+        else:
+            segments = reduce_mod.binning_segments(sort_perm, presort_gauss, depth_order)
+            d = reduce_mod.reduce_segments(d_sorted[:, :GRAD_COLS], segments,
+                                           ctx.grad_reduce, plain=ctx.plain)
         pad = d_sorted.shape[1] - GRAD_COLS
         return torch.nn.functional.pad(d, (0, pad)), None, None, None
 
@@ -84,7 +93,7 @@ def sorted_rows(prep: Preprocessed, binning: Binning,
          prep.colors[:, 0], prep.colors[:, 1], prep.colors[:, 2], zero, zero],
         dim=1)  # [N, 12]
     source = _Permute.apply(packed, binning.depth_order, binning.rank_of)
-    return _SortedGather.apply(source, binning.rank, grad_reduce, plain)
+    return _SortedGather.apply(source, binning, grad_reduce, plain)
 
 
 def bin_and_pack(prep: Preprocessed, width: int, height: int,

@@ -17,6 +17,7 @@ import torch
 
 from wast3d_tpu_torch.device import DeviceLike, resolve_device
 from wast3d_tpu_torch.scene.gaussians import FIELDS, GaussianScene, from_arrays
+from wast3d_tpu_torch.stylize.desc_kernel import build_pair_list
 from wast3d_tpu_torch.stylize.fit import TargetDescriptors
 from wast3d_tpu_torch.train.densify import DensifyStats
 from wast3d_tpu_torch.train.optim import AdamState
@@ -67,8 +68,8 @@ def train_state_from_numpy(params: dict, mu: dict, nu: dict, count: int,
 
 def target_descriptors_from_numpy(d: dict, device: DeviceLike = None) -> TargetDescriptors:
     """The port's `TargetDescriptors` from the fields of a JAX one given as
-    numpy arrays (`pair_code` may be absent or None); indices become int64,
-    the coefficients float32 values."""
+    numpy arrays (`pair_code` may be absent or None; with it, the pair list
+    is built from it); indices become int64, the coefficients float32 values."""
     dev = resolve_device(device)
 
     def t(name, dtype):
@@ -82,4 +83,5 @@ def target_descriptors_from_numpy(d: dict, device: DeviceLike = None) -> TargetD
         bits_global=t("bits_global", np.uint8), bits_local=t("bits_local", np.uint8),
         coef_global=float(np.float32(d["coef_global"])),
         coef_local=float(np.float32(d["coef_local"])),
-        pair_code=None if code is None else t("pair_code", np.uint8))
+        pair_code=None if code is None else t("pair_code", np.uint8),
+        pair_list=None if code is None else build_pair_list(t("pair_code", np.uint8)))

@@ -24,22 +24,71 @@ of ~1e5 x max |g| (`chip_smoke.py`, k4k5_near_coincident, on an H100);
 near-duplicate Gaussians of a trained scene make such pairs. The differences are exact there; elsewhere the two forms agree to
 float32 rounding.
 
+K4 reads the dense code. K5 reads a pair list instead (`PairList`, built
+once per fit by `build_pair_list`): CSR over code | code^T, each entry one
+int32 holding a column j and 4 bits, code[i, j] and code[j, i]. The code
+is the same for every step of a fit and ~1.2% nonzero, so the list is
+hoisted work, not skipped work.
+
 `desc_loss` (K4, `csrc/desc_loss.cu`) and `desc_grad` (K5,
 `csrc/desc_grad.cu`) launch their kernel for CUDA tensors (counted in
 `.launches`) and take the plain version, `pair_loss_reference` /
-`pair_grad_reference`, for CPU tensors. `pair_loss` is the autograd op:
-K4 forward, K5 backward; tp, code and the coefficients get no gradient.
+`pair_grad_list_reference`, for CPU tensors. `pair_grad_reference` is
+K5's formula on the dense code, the yardstick of the list version.
+`pair_loss` is the autograd op: K4 forward, K5 backward; tp, the code, the
+list and the coefficients get no gradient.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 MP_ALIGN = 1024  # K4's column block: Mp must be a multiple of it
 EPS = 1e-12  # K5's floor under D in R_ij
+COL_BITS = 28  # a list entry: column in the low 28 bits, the code's 4 bits above
 
 
-def _check(x, tp, code):
+class PairList(NamedTuple):
+    """The pairs with code[i, j] | code[j, i] != 0, row by row (module doc)."""
+
+    row_ptr: torch.Tensor  # [Mp + 1] int32: row i's entries are [row_ptr[i], row_ptr[i + 1])
+    # [P] int32, columns ascending within a row: j | code[i, j] << 28 | code[j, i] << 30
+    entries: torch.Tensor
+    row_order: torch.Tensor  # [Mp] int32: rows by entry count, longest first (K5's schedule)
+
+
+def build_pair_list(code: torch.Tensor) -> PairList:
+    """The pair list of a [Mp, Mp] uint8 code (values 0-3), on the code's
+    device; plain torch, once per fit."""
+    mp = code.shape[0]
+    if mp > 2 ** COL_BITS:
+        raise ValueError(f"Mp {mp} does not fit the list's {COL_BITS}-bit columns")
+    both = code | (code.t() << 2)
+    rows, cols = torch.nonzero(both, as_tuple=True)  # row-major order
+    if rows.shape[0] >= 2 ** 31:
+        raise ValueError(f"the pair list holds {rows.shape[0]} entries, more than int32 "
+                         f"indexes")
+    packed = cols | (both[rows, cols].to(torch.int64) << COL_BITS)
+    counts = torch.bincount(rows, minlength=mp)
+    row_ptr = torch.zeros(mp + 1, dtype=torch.int64, device=code.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    order = torch.sort(counts, descending=True, stable=True).indices
+    return PairList(
+        row_ptr=row_ptr.to(torch.int32),
+        entries=torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32),
+        row_order=order.to(torch.int32),
+    )
+
+
+def unpack_entries(entries: torch.Tensor):
+    """(columns int64, 4-bit codes int32) of list entries."""
+    e = entries.to(torch.int64) & 0xFFFFFFFF
+    return e & (2 ** COL_BITS - 1), (e >> COL_BITS).to(torch.int32)
+
+
+def _check(x, tp, code=None):
     if x.dim() != 3 or x.shape[2] != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be [B, Mp, 3] float32, got {x.dtype} {tuple(x.shape)}")
     b, mp = x.shape[0], x.shape[1]
@@ -48,13 +97,29 @@ def _check(x, tp, code):
                          f"{MP_ALIGN}, got {tuple(x.shape)}")
     if tuple(tp.shape) != (mp, 3) or tp.dtype != torch.float32:
         raise ValueError(f"tp must be [{mp}, 3] float32, got {tp.dtype} {tuple(tp.shape)}")
-    if tuple(code.shape) != (mp, mp) or code.dtype != torch.uint8:
+    if code is not None and (tuple(code.shape) != (mp, mp) or code.dtype != torch.uint8):
         raise ValueError(f"code must be [{mp}, {mp}] uint8, got {code.dtype} {tuple(code.shape)}")
     for name, t in (("x", x), ("tp", tp), ("code", code)):
+        if t is None:
+            continue
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if x.device.type == "cuda" and code.data_ptr() % 16 != 0:
-        raise ValueError("code must be 16-byte aligned (the kernels read it as uint4)")
+    if code is not None and x.device.type == "cuda" and code.data_ptr() % 16 != 0:
+        raise ValueError("code must be 16-byte aligned (K4 reads it as uint4)")
+
+
+def _check_list(x, pairs):
+    if not isinstance(pairs, PairList):
+        raise ValueError(f"pairs must be a PairList, got {type(pairs).__name__}")
+    mp = x.shape[1]
+    want = {"row_ptr": (mp + 1,), "row_order": (mp,), "entries": (pairs.entries.shape[0],)}
+    for name, shape in want.items():
+        t = getattr(pairs, name)
+        if t.dim() != 1 or tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"pairs.{name} must be {list(shape)} int32, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"pairs.{name} must be contiguous on {x.device}")
 
 
 def _launch(name, x, *args):
@@ -92,17 +157,22 @@ def desc_loss(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
 desc_loss.launches = 0
 
 
-def desc_grad(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
+def desc_grad(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
               cg: float, cl: float) -> torch.Tensor:
-    """K5. [B, Mp, 3] float32: d(sum_b loss[b]) / dx."""
-    _check(x, tp, code)
+    """K5. [B, Mp, 3] float32: d(sum_b loss[b]) / dx, over the pair list."""
+    _check(x, tp)
+    _check_list(x, pairs)
     if x.device.type == "cpu":
-        return pair_grad_reference(x, tp, code, cg, cl)
+        return pair_grad_list_reference(x, tp, pairs, cg, cl)
     if x.device.type != "cuda":
         raise ValueError(f"desc_grad runs on cuda or cpu, not {x.device}")
+    b, mp = x.shape[0], x.shape[1]
     dx = torch.empty_like(x)
-    _launch("w3d_desc_grad", x, x.data_ptr(), tp.data_ptr(), code.data_ptr(), x.shape[0],
-            x.shape[1], float(cg), float(cl), dx.data_ptr())
+    # the kernel's ball-interleaved copy of x and tp (`csrc/desc_grad.cu`)
+    scratch = torch.empty(-(-b // 8) * mp * 32, dtype=torch.float32, device=x.device)
+    _launch("w3d_desc_grad", x, x.data_ptr(), tp.data_ptr(), pairs.row_ptr.data_ptr(),
+            pairs.entries.data_ptr(), pairs.row_order.data_ptr(), scratch.data_ptr(), b, mp,
+            float(cg), float(cl), dx.data_ptr())
     desc_grad.launches += 1
     return dx
 
@@ -164,21 +234,45 @@ def pair_grad_reference(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
     return dx
 
 
+def pair_grad_list_reference(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
+                             cg: float, cl: float) -> torch.Tensor:
+    """Plain version of K5 on its own inputs, the pair list: per entry
+    (i, j), f = 2 (W_ij + W_ji)(D_ij - T_ij) / max(D_ij, 1e-12) and the
+    term f (x_i - x_j), in the dtype of x (float32 or float64), as K5 takes
+    them; each row's terms summed in float64 (`index_add_`) and rounded
+    once. A float32 sum in entry order would add ~1e-6 x max |g| of its
+    own over the ~2000-entry rows of the global descriptor."""
+    mp = x.shape[1]
+    n = int(pairs.row_ptr[-1])
+    counts = (pairs.row_ptr[1:] - pairs.row_ptr[:-1]).to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(mp, device=x.device), counts)
+    cols, bits = unpack_entries(pairs.entries[:n])
+    w = _weights(bits & 3, cg, cl).to(x.dtype) + _weights(bits >> 2, cg, cl).to(x.dtype)
+    diff = x[:, rows] - x[:, cols]  # [B, P, 3]
+    d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    tdiff = tp[rows] - tp[cols]
+    t = torch.sqrt(torch.sum(tdiff * tdiff, dim=-1))
+    f = 2.0 * w * (d - t) / torch.clamp_min(d, EPS)
+    dx = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    return dx.index_add_(1, rows, (f[..., None] * diff).to(torch.float64)).to(x.dtype)
+
+
 class _PairLoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp, code, cg, cl):
-        ctx.save_for_backward(x, tp, code)
-        ctx.coefs = (cg, cl)
+    def forward(ctx, x, tp, code, pairs, cg, cl):
+        ctx.save_for_backward(x, tp)
+        ctx.pairs, ctx.coefs = pairs, (cg, cl)
         return desc_loss(x, tp, code, cg, cl)
 
     @staticmethod
     def backward(ctx, g):
-        x, tp, code = ctx.saved_tensors
-        dx = desc_grad(x, tp, code, *ctx.coefs) * g[:, None, None]
-        return dx, None, None, None, None
+        x, tp = ctx.saved_tensors
+        dx = desc_grad(x, tp, ctx.pairs, *ctx.coefs) * g[:, None, None]
+        return dx, None, None, None, None, None
 
 
-def pair_loss(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
+def pair_loss(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor, pairs: PairList,
               cg: float, cl: float) -> torch.Tensor:
-    """[B] per-ball loss with K5 as its backward (module doc). x [B, Mp, 3]."""
-    return _PairLoss.apply(x.contiguous(), tp.contiguous(), code, float(cg), float(cl))
+    """[B] per-ball loss, K4 on the code, with K5 on the pair list of the
+    same code as its backward (module doc). x [B, Mp, 3]."""
+    return _PairLoss.apply(x.contiguous(), tp.contiguous(), code, pairs, float(cg), float(cl))

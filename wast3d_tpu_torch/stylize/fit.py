@@ -14,11 +14,12 @@ domain neighbours. Init: style points * domain std * 5 + domain mean. Adam
 Both descriptor scales are exactly sum_ij W_ij (D_ij - T_ij)^2, with W the
 per-pair weight and T the frozen target distances. W is stored as two
 bit-packed masks ([Mp, Mp/8] uint8, little-endian) and, for K4/K5, as one
-[Mp, Mp] uint8 pair code (bit 0 global, bit 1 local). `descriptor_loss`
+[Mp, Mp] uint8 pair code (bit 0 global, bit 1 local) and its pair list
+(`desc_kernel.PairList`, built once per fit with the code). `descriptor_loss`
 has three paths, chosen as in JAX:
   - kernel (the pair code exists: `cfg.desc_kernel`, Mp >= 2048, CUDA):
-    `desc_kernel.pair_loss`, K4 forward and K5 backward on CUDA, their
-    plain versions on the CPU;
+    `desc_kernel.pair_loss`, K4 (on the code) forward and K5 (on the list)
+    backward on CUDA, their plain versions on the CPU;
   - dense single block (Mp <= desc_block): (W, T) built once per fit;
   - streaming column blocks otherwise, each block recomputed in the
     backward (`torch.utils.checkpoint`, JAX's `jax.checkpoint`), so
@@ -63,6 +64,7 @@ class TargetDescriptors(NamedTuple):
     coef_global: float  # w_global / desc_global.size, a float32 value
     coef_local: float  # w_local / desc_local.size, a float32 value
     pair_code: Optional[torch.Tensor] = None  # [Mp, Mp] uint8, bits_g + 2 bits_l (kernel path)
+    pair_list: Optional[desc_kernel.PairList] = None  # the code's pairs, for K5 (kernel path)
 
 
 def descriptors_from_indices(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -134,6 +136,7 @@ def compute_target_descriptors(target_points, cfg: StylizeConfig = StylizeConfig
     dense_g = pair_dense(idx_g, rows_g, mp)
     dense_l = pair_dense(idx_l, rows_l, mp)
     pair_code = dense_g + 2 * dense_l if use_kernel else None
+    pair_list = desc_kernel.build_pair_list(pair_code) if use_kernel else None
     return TargetDescriptors(
         idx_g, desc_g, idx_l, desc_l,
         points=torch.nn.functional.pad(pts, (0, 0, 0, mp - m)),
@@ -142,6 +145,7 @@ def compute_target_descriptors(target_points, cfg: StylizeConfig = StylizeConfig
         coef_global=float(np.float32(cfg.w_global / desc_g.numel())),
         coef_local=float(np.float32(cfg.w_local / desc_l.numel())),
         pair_code=pair_code,
+        pair_list=pair_list,
     )
 
 
@@ -169,7 +173,7 @@ def descriptor_loss(points_pad: torch.Tensor, target: TargetDescriptors, block: 
     contribute nothing). dense_wt: `dense_pair_terms`, single block only."""
     if target.pair_code is not None:
         return desc_kernel.pair_loss(points_pad, target.points, target.pair_code,
-                                     target.coef_global, target.coef_local)
+                                     target.pair_list, target.coef_global, target.coef_local)
     mp = points_pad.shape[1]
 
     def block_term(x, xb, tb, bg, bl):
