@@ -21,8 +21,8 @@ training path: 20 timed train steps on the same scene with a stage split,
 K2 and K3 against their plain versions at that size, and the user's train
 entry point (`wast3d_tpu_torch.cli.train`, ~300 iterations with densify) on
 a Blender-format dataset. Then the stylization path: K4 (pair-descriptor
-loss, on the pair code) and K5 (its gradient, on the fit's pair list)
-against their plain versions on seeded cases,
+loss) and K5 (its gradient), both on the fit's pair list, against their
+plain versions on seeded cases (K4 also against the dense one),
 twice each for bitwise equality, alone at the production shape
 (Mp = 16384, 8 balls), and against float64 where points nearly coincide; a port-only mirror of `tools/stylize_gate.py` at the
 JAX record's configuration; and the user's stylize entry point
@@ -83,13 +83,14 @@ K45_GRAD_ATOL_REL = 1e-4  # of the plain gradient's max |value|
 # nearer the float64 value by a few roundings; the kernel may exceed the
 # plain version's error by this much (of max |g|, or relative for the loss).
 NEAR_SLACK_REL = 1e-6
-# Float operations per nonzero pair, counted in the sources: K4 (csrc/
-# desc_loss.cu) spends ~14 on W (2 conversions, 2 products, a sum) and T
-# (3 differences, 3 squares, 2 sums, a root) once per pair and ~13 per ball
-# on D and the weighted square; K5 (csrc/desc_grad.cu) ~20 on W (both
+# Float operations per pair, counted in the sources: K4 (csrc/desc_loss.cu,
+# the pairs j > i of the list) spends ~20 on W_ij + W_ji (4 conversions, 4
+# products, 3 sums) and T (3 differences, 3 squares, 2 sums, a root) once
+# per pair and ~13 per ball on D (9), the difference, its square, the
+# weight and the sum; K5 (csrc/desc_grad.cu, every entry) ~20 on W (both
 # directions) and T, ~20 per ball on the differences, D, R and the three
 # products and sums.
-K4_OPS_PER_PAIR, K4_OPS_PER_PAIR_BALL = 14, 13
+K4_OPS_PER_PAIR, K4_OPS_PER_PAIR_BALL = 20, 13
 K5_OPS_PER_PAIR, K5_OPS_PER_PAIR_BALL = 20, 20
 STYLE_MP = 16384  # cli.stylize's default --max_style_points
 STYLE_BATCH = 8  # cli.stylize's default --batch_size
@@ -758,6 +759,7 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
                         torch.zeros_like(out.final_T))
     k2_args = (rows, starts, ends, res, res, bg, None, out, grads)
     k2_ms = cuda_time_ms(lambda: blend_bwd(*k2_args), 20)
+    _, k2_device_ms = device_ms(lambda: blend_bwd(*k2_args))
     k2_plain_ms = cuda_time_ms(lambda: blend_bwd_reference(*k2_args), 2)
     k2_err, drows = compare_k2((rows, starts, ends, res, res, None), bg, grads)
     pairs = evaluated_pairs(rows, starts, ends, res, res)
@@ -833,8 +835,8 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
          step_ms_max=max(step_ms), steps_per_s=1e3 / median, loss_first=losses[0],
          loss_last=losses[-1], launches_in_steps=launched,
          stage_ms_median=stage_ms, duplicates_K=K, evaluated_pairs=pairs,
-         k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound_bytes_ms=k2_bytes_ms,
-         k2_bound_ops_ms=k2_ops_ms, k2_max_rel_err=k2_err,
+         k2_ms=k2_ms, k2_device_ms=k2_device_ms, k2_plain_ms=k2_plain_ms,
+         k2_bound_bytes_ms=k2_bytes_ms, k2_bound_ops_ms=k2_ops_ms, k2_max_rel_err=k2_err,
          k3_ms=k3_ms, k3_device_ms=k3_device_ms, k3_device_ms_by_kernel=k3_kernels,
          k3_host_issue_ms=k3_host_ms, index_add_host_issue_ms=index_add_host_ms,
          k3_bare_rank_segments_kernel_ms=k3_bare_kernel_ms, device_busy_ms=busy,
@@ -991,16 +993,18 @@ def k45_case(mp, balls, m, seed, density=0.02):
 
 
 def compare_k45(x, tp, code, pairs, cg, cl):
-    """K4 (on the code) and K5 (on its pair list) twice each and their plain
-    versions on the same inputs; raises past tolerance or if two runs
-    differ in any bit. Returns
-    (loss relative error, gradient error over the plain max |g|, K4 and K5
-    max absolute errors)."""
+    """K4 and K5 (both on the pair list of `code`) twice each and their
+    plain versions on the same inputs, K4 also against the dense plain
+    version on the code; raises past tolerance or if two runs differ in any
+    bit. Returns (loss relative error, gradient error over the plain max
+    |g|, K4 and K5 max absolute errors, K4's relative error against the
+    dense plain version)."""
     from wast3d_tpu_torch.stylize import desc_kernel as dk
 
-    loss, loss2 = dk.desc_loss(x, tp, code, cg, cl), dk.desc_loss(x, tp, code, cg, cl)
+    loss, loss2 = dk.desc_loss(x, tp, pairs, cg, cl), dk.desc_loss(x, tp, pairs, cg, cl)
     grad, grad2 = dk.desc_grad(x, tp, pairs, cg, cl), dk.desc_grad(x, tp, pairs, cg, cl)
-    ref_loss = dk.pair_loss_reference(x, tp, code, cg, cl)
+    ref_loss = dk.pair_loss_list_reference(x, tp, pairs, cg, cl)
+    dense_loss = dk.pair_loss_reference(x, tp, code, cg, cl)
     ref_grad = dk.pair_grad_list_reference(x, tp, pairs, cg, cl)
     torch.cuda.synchronize()
     if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
@@ -1008,14 +1012,16 @@ def compare_k45(x, tp, code, pairs, cg, cl):
     if not (torch.isfinite(loss).all() and torch.isfinite(grad).all()):
         raise AssertionError("K4/K5: non-finite values")
     loss_err = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+    dense_err = float(((loss - dense_loss).abs() / dense_loss.abs()).max())
     gmax = float(ref_grad.abs().max())
     grad_err = float((grad - ref_grad).abs().max()) / gmax
-    if loss_err > K45_LOSS_RTOL:
-        raise AssertionError(f"K4 vs plain: relative error {loss_err} (limit {K45_LOSS_RTOL})")
+    if loss_err > K45_LOSS_RTOL or dense_err > K45_LOSS_RTOL:
+        raise AssertionError(f"K4 vs plain: relative error {loss_err} on the list, {dense_err} "
+                             f"against the dense version (limit {K45_LOSS_RTOL})")
     if grad_err > K45_GRAD_ATOL_REL:
         raise AssertionError(f"K5 vs plain: {grad_err} of max |g| (limit {K45_GRAD_ATOL_REL})")
     return (loss_err, grad_err, float((loss - ref_loss).abs().max()),
-            float((grad - ref_grad).abs().max()))
+            float((grad - ref_grad).abs().max()), dense_err)
 
 
 def phase_k45_cases(device):
@@ -1024,17 +1030,22 @@ def phase_k45_cases(device):
     t0 = time.perf_counter()
     out = {}
     for mp in (1024, 2048, 4096):
-        for balls in (1, 3):
+        for balls in (1, 3, 9):  # 9: two passes of 8 balls over a row
             m = mp - 100 + balls
             x, tp, code, cg, cl = k45_case(mp, balls, m=m, seed=mp + balls)
             xt, tpt, ct = (torch.from_numpy(a).to(device) for a in (x, tp, code))
             pairs = build_pair_list(ct)
-            loss_err, grad_err, _, _ = compare_k45(xt, tpt, ct, pairs, cg, cl)
+            asymmetric = int((code != code.T).sum())
+            if asymmetric == 0:
+                raise AssertionError("the K4/K5 case's code is symmetric")
+            loss_err, grad_err, _, _, dense_err = compare_k45(xt, tpt, ct, pairs, cg, cl)
             pad_grad = float(desc_grad(xt, tpt, pairs, cg, cl)[:, m:].abs().max())
             if pad_grad != 0.0:
                 raise AssertionError(f"K5: padded rows got gradient {pad_grad}")
             out[f"mp{mp}_b{balls}"] = {"nonzero_pairs": int((code != 0).sum()),
+                                       "asymmetric_pairs": asymmetric,
                                        "loss_rel_err": loss_err,
+                                       "loss_rel_err_vs_dense": dense_err,
                                        "grad_err_of_max": grad_err}
     emit("k4k5_cases", t0, cases=out, loss_rtol=K45_LOSS_RTOL,
          grad_atol_of_max=K45_GRAD_ATOL_REL, runs_bitwise_equal=True,
@@ -1102,16 +1113,19 @@ def cuda_times_ms(fn, warmup, reps):
 
 
 def k45_bounds(code, balls, mp):
-    """(K4 bytes ms, K4 ops ms, K5 bytes ms, K5 ops ms, pairs) for these
-    inputs: each input byte read once and each output byte written once
-    (K4 reads the code, K5 its pair list: row_ptr, row_order, 4 bytes an
-    entry); operations on the pairs the kernels evaluate."""
-    nz = code != 0
-    pairs_k4 = int(nz.sum())
-    pairs_k5 = int((nz | nz.T).sum())
+    """(K4 bytes ms, K4 ops ms, K5 bytes ms, K5 ops ms, K4's pairs, K5's
+    pairs) for these inputs: each input byte read once and each output byte
+    written once (both read the pair list's row_ptr and row_order; K4 the 4
+    bytes of each entry with j > i, and writes its [B, Mp] partials and the
+    loss; K5 every entry, and writes dx); operations on the pairs each
+    kernel evaluates (K4 the pairs j > i, K5 every entry)."""
+    both = (code != 0) | (code != 0).T
+    pairs_k4 = int(np.triu(both, 1).sum())
+    pairs_k5 = int(both.sum())
     points_bytes = 12 * mp * balls + 12 * mp
-    k4_bytes = mp * mp + points_bytes + 4 * balls
-    k5_bytes = 8 * mp + 4 + 4 * pairs_k5 + points_bytes + 12 * mp * balls
+    list_bytes = 8 * mp + 4
+    k4_bytes = list_bytes + 4 * pairs_k4 + points_bytes + 4 * balls * mp + 4 * balls
+    k5_bytes = list_bytes + 4 * pairs_k5 + points_bytes + 12 * mp * balls
     k4_ops = pairs_k4 * (K4_OPS_PER_PAIR + K4_OPS_PER_PAIR_BALL * balls)
     k5_ops = pairs_k5 * (K5_OPS_PER_PAIR + K5_OPS_PER_PAIR_BALL * balls)
     ms = lambda v, rate: v / rate * 1e3  # noqa: E731
@@ -1162,18 +1176,22 @@ def phase_k45_full_width(device, mp=STYLE_MP, balls=STYLE_BATCH):
     row_len = (pairs.row_ptr[1:] - pairs.row_ptr[:-1]).cpu().numpy()
     x, _ = stretched_balls(pts, balls, np.random.default_rng(11), device)
     coefs = (td.coef_global, td.coef_local)
-    loss_args = (x, td.points, td.pair_code) + coefs
-    grad_args = (x, td.points, pairs) + coefs
-    k4 = cuda_times_ms(lambda: dk.desc_loss(*loss_args), 3, 20)
-    k5 = cuda_times_ms(lambda: dk.desc_grad(*grad_args), 3, 20)
-    k5_again = cuda_times_ms(lambda: dk.desc_grad(*grad_args), 3, 20)
-    k5_device, _ = device_ms(lambda: dk.desc_grad(*grad_args))
-    k4_plain = cuda_times_ms(lambda: dk.pair_loss_reference(*loss_args), 0, 1)[0]
-    k5_plain = cuda_times_ms(lambda: dk.pair_grad_list_reference(*grad_args), 0, 1)[0]
-    k5_dense_plain = cuda_times_ms(lambda: dk.pair_grad_reference(*loss_args), 0, 1)[0]
-    loss_err, grad_err, k4_abs, k5_abs = compare_k45(x, td.points, td.pair_code, pairs, *coefs)
-    dense = dk.pair_grad_reference(*loss_args)
-    listed = dk.pair_grad_list_reference(*grad_args)
+    dense_args = (x, td.points, td.pair_code) + coefs
+    list_args = (x, td.points, pairs) + coefs
+    k4 = cuda_times_ms(lambda: dk.desc_loss(*list_args), 3, 20)
+    k5 = cuda_times_ms(lambda: dk.desc_grad(*list_args), 3, 20)
+    k4_again = cuda_times_ms(lambda: dk.desc_loss(*list_args), 3, 20)
+    k5_again = cuda_times_ms(lambda: dk.desc_grad(*list_args), 3, 20)
+    k4_device, _ = device_ms(lambda: dk.desc_loss(*list_args))
+    k5_device, _ = device_ms(lambda: dk.desc_grad(*list_args))
+    k4_plain = cuda_times_ms(lambda: dk.pair_loss_list_reference(*list_args), 0, 1)[0]
+    k4_dense_plain = cuda_times_ms(lambda: dk.pair_loss_reference(*dense_args), 0, 1)[0]
+    k5_plain = cuda_times_ms(lambda: dk.pair_grad_list_reference(*list_args), 0, 1)[0]
+    k5_dense_plain = cuda_times_ms(lambda: dk.pair_grad_reference(*dense_args), 0, 1)[0]
+    loss_err, grad_err, k4_abs, k5_abs, k4_dense_err = compare_k45(
+        x, td.points, td.pair_code, pairs, *coefs)
+    dense = dk.pair_grad_reference(*dense_args)
+    listed = dk.pair_grad_list_reference(*list_args)
     plain_vs_dense = float((listed - dense).abs().max() / dense.abs().max())
     if plain_vs_dense > K45_GRAD_ATOL_REL:
         raise AssertionError(f"K5's plain version on the list vs on the dense code: "
@@ -1189,8 +1207,10 @@ def phase_k45_full_width(device, mp=STYLE_MP, balls=STYLE_BATCH):
          pair_list_row_len={"min": int(row_len.min()), "median": float(np.median(row_len)),
                             "max": int(row_len.max())},
          code_values={int(v): int((code_np == v).sum()) for v in range(4)},
-         nonzero_pairs_k4=pairs_k4, symmetric_pairs_k5=pairs_k5,
+         upper_pairs_k4=pairs_k4, symmetric_pairs_k5=pairs_k5,
          k4_ms_median=k4_ms, k4_ms_min=min(k4), k4_ms_max=max(k4), k4_plain_ms=k4_plain,
+         k4_again_ms_median=statistics.median(k4_again), k4_device_ms_by_kernel=k4_device,
+         k4_dense_plain_ms=k4_dense_plain, k4_loss_rel_err_vs_dense=k4_dense_err,
          k5_ms_median=k5_ms, k5_ms_min=min(k5), k5_ms_max=max(k5), k5_plain_ms=k5_plain,
          k5_again_ms_median=statistics.median(k5_again), k5_device_ms_by_kernel=k5_device,
          k5_dense_plain_ms=k5_dense_plain, k5_plain_list_vs_dense_of_max=plain_vs_dense,
@@ -1238,11 +1258,11 @@ def phase_k45_near_coincident(device, mp=STYLE_MP, balls=STYLE_BATCH, dup_frac=0
     code, pairs = td.pair_code, td.pair_list
     joined = int(((code[dup, src] | code[src, dup]) != 0).sum())
     coefs = (td.coef_global, td.coef_local)
-    args = (x, td.points, code) + coefs
+    args = (x, td.points, pairs) + coefs
     args64 = (x.double(), td.points.double(), code) + coefs
-    loss, grad = dk.desc_loss(*args), dk.desc_grad(x, td.points, pairs, *coefs)
-    loss_p = dk.pair_loss_reference(*args)
-    grad_p = dk.pair_grad_list_reference(x, td.points, pairs, *coefs)
+    loss, grad = dk.desc_loss(*args), dk.desc_grad(*args)
+    loss_p = dk.pair_loss_list_reference(*args)
+    grad_p = dk.pair_grad_list_reference(*args)
     loss64, grad64 = dk.pair_loss_reference(*args64), dk.pair_grad_reference(*args64)
     gmax = float(grad64.abs().max())
     k5_err = float((grad.double() - grad64).abs().max()) / gmax

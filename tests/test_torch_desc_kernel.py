@@ -1,6 +1,7 @@
-"""K4/K5 (the pair-descriptor loss and its gradient): the plain versions
-against the JAX Pallas kernels in interpret mode, and the cases where the
-port could easily differ from JAX, on the CPU. On a CUDA card the kernels
+"""K4/K5 (the pair-descriptor loss and its gradient): the plain versions,
+dense and on the pair list (the kernels' own input), against the JAX
+Pallas kernels in interpret mode, and the cases where the port could
+easily differ from JAX, on the CPU. On a CUDA card the kernels
 themselves are held to the plain versions by `chip_smoke.py` (k4k5_cases).
 
 Tolerances, with their reasons (the JAX package's own for its kernel
@@ -52,6 +53,13 @@ def _port_list(x, tp, code, cg, cl):
                                         float(cg), float(cl)).numpy()
 
 
+def _port_list_loss(x, tp, code, cg, cl):
+    """K4's plain version on its own inputs, the pair list of `code`."""
+    xt, tpt, ct = map(torch.from_numpy, (x, tp, code))
+    return tdk.pair_loss_list_reference(xt, tpt, tdk.build_pair_list(ct),
+                                        float(cg), float(cl)).numpy()
+
+
 def _assert_close(loss, grad, ref_loss, ref_grad):
     np.testing.assert_allclose(loss, ref_loss, rtol=LOSS_RTOL)
     np.testing.assert_allclose(grad, ref_grad, atol=GRAD_ATOL_REL * np.abs(ref_grad).max())
@@ -91,16 +99,19 @@ def test_plain_k5_matches_autograd_of_plain_k4():
 
 
 def test_pair_loss_op_takes_plain_versions_on_cpu():
+    """pair_loss on the list: the forward is K4's plain version on the list
+    (and within LOSS_RTOL of the dense one), autograd's gradient K5's."""
     x, tp, code, cg, cl = _case(1024, 3, 700, seed=3)
     before = (tdk.desc_loss.launches, tdk.desc_grad.launches)
     xt = torch.from_numpy(x).requires_grad_(True)
     ct = torch.from_numpy(code)
-    out = tdk.pair_loss(xt, torch.from_numpy(tp), ct, tdk.build_pair_list(ct), cg, cl)
+    out = tdk.pair_loss(xt, torch.from_numpy(tp), tdk.build_pair_list(ct), cg, cl)
     w = torch.tensor([1.0, -2.0, 0.5])
     (g,) = torch.autograd.grad((out * w).sum(), [xt])
-    loss, _ = _port(x, tp, code, cg, cl)
+    dense, _ = _port(x, tp, code, cg, cl)
     grad = _port_list(x, tp, code, cg, cl)
-    np.testing.assert_array_equal(out.detach().numpy(), loss)
+    np.testing.assert_array_equal(out.detach().numpy(), _port_list_loss(x, tp, code, cg, cl))
+    np.testing.assert_allclose(out.detach().numpy(), dense, rtol=LOSS_RTOL)
     np.testing.assert_allclose(g.numpy(), grad * w.numpy()[:, None, None], rtol=1e-6)
     assert (tdk.desc_loss.launches, tdk.desc_grad.launches) == before == (0, 0)
 
@@ -187,13 +198,13 @@ def test_wrappers_check_their_inputs(bad):
     else:
         code = code.to(torch.int32)
     pairs = tdk.build_pair_list(code.to(torch.uint8))
-    if bad == "code":  # K5's inputs: a list whose entries are int64
+    if bad == "code":  # the kernels' inputs: a list whose entries are int64
         pairs = pairs._replace(entries=pairs.entries.long())
-    for fn, c in ((tdk.desc_loss, code), (tdk.desc_grad, pairs)):
+    for fn in (tdk.desc_loss, tdk.desc_grad):
         with pytest.raises(ValueError):
-            fn(x.contiguous(), tp.contiguous(), c, float(cg), float(cl))
-    with pytest.raises(ValueError):  # K5 takes the list, not the code
-        tdk.desc_grad(x.contiguous(), tp.contiguous(), code, float(cg), float(cl))
+            fn(x.contiguous(), tp.contiguous(), pairs, float(cg), float(cl))
+        with pytest.raises(ValueError):  # K4 and K5 take the list, not the code
+            fn(x.contiguous(), tp.contiguous(), code, float(cg), float(cl))
 
 
 # ---- K5 on the pair list ---------------------------------------------------
@@ -292,3 +303,93 @@ def test_list_k5_coincident_points_contribute_no_gradient():
     _, dense = _port(x, tp, code, cg, cl)
     assert np.isfinite(grad).all()
     np.testing.assert_allclose(grad, dense, atol=GRAD_ATOL_REL * np.abs(dense).max())
+
+
+# ---- K4 on the pair list -----------------------------------------------------
+
+
+def test_list_k4_matches_pallas_interpret_mp1024():
+    x, tp, code, cg, cl = _case(1024, 1, 1000, seed=0)
+    jl = jdk.pair_loss(jnp.asarray(x[0]), jnp.asarray(tp), jnp.asarray(code), cg, cl, True)
+    loss = _port_list_loss(x, tp, code, cg, cl)
+    assert loss.shape == (1,) and loss.dtype == np.float32
+    np.testing.assert_allclose(loss[0], float(jl), rtol=LOSS_RTOL)
+
+
+def test_list_k4_matches_pallas_vmap_two_balls():
+    x, tp, code, cg, cl = _case(1024, 2, 900, seed=1)
+    jl = jax.vmap(lambda p: jdk.pair_loss(p, jnp.asarray(tp), jnp.asarray(code), cg, cl,
+                                          True))(jnp.asarray(x))
+    np.testing.assert_allclose(_port_list_loss(x, tp, code, cg, cl), np.asarray(jl),
+                               rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("mp,m,balls,seed", [(1024, 1000, 2, 30), (2048, 1900, 9, 31)])
+def test_list_k4_matches_dense_plain_on_an_asymmetric_code(mp, m, balls, seed):
+    """The list version sums j > i once with W_ij + W_ji; the dense one
+    every (i, j) with W_ij. On a code with code[i, j] != code[j, i] (and
+    diagonal entries, where D = T = 0) they agree within LOSS_RTOL: the
+    dense version sums its column blocks in float32. Nine balls take two
+    passes over a row in K4 (eight a pass)."""
+    x, tp, code, cg, cl = _case(mp, balls, m, seed=seed)
+    assert (code != code.T).sum() > 0 and np.diagonal(code).any()
+    dense, _ = _port(x, tp, code, cg, cl)
+    np.testing.assert_allclose(_port_list_loss(x, tp, code, cg, cl), dense, rtol=LOSS_RTOL)
+    # the same sum over the upper triangle, W_ij + W_ji, in float64
+    w = (code & 1) * np.float64(cg) + (code >> 1) * np.float64(cl)
+    upper = np.triu(w + w.T, 1)
+    tpd = tp.astype(np.float64)
+    t = np.linalg.norm(tpd[:, None] - tpd[None], axis=-1)
+    ref = [np.sum(upper * (np.linalg.norm(xb[:, None] - xb[None], axis=-1) - t) ** 2)
+           for xb in x.astype(np.float64)]
+    np.testing.assert_allclose(_port_list_loss(x, tp, code, cg, cl), ref, rtol=LOSS_RTOL)
+
+
+def test_list_k4_padded_rows_contribute_nothing():
+    x, tp, code, cg, cl = _case(1024, 2, 800, seed=5)
+    loss = _port_list_loss(x, tp, code, cg, cl)
+    moved = x.copy()
+    moved[:, 800:] = np.random.default_rng(6).normal(size=(2, 224, 3))
+    np.testing.assert_array_equal(_port_list_loss(moved, tp, code, cg, cl), loss)
+
+
+def test_list_k4_near_coincident_points_match_float64():
+    """`test_near_coincident_points_match_float64` for K4 on the list: the
+    float32 list version against the dense formula in float64."""
+    x, tp, code, cg, cl = _case(1024, 2, 1000, seed=9)
+    rng = np.random.default_rng(10)
+    near, orig = np.arange(100, 130), np.arange(200, 230)
+    step = rng.normal(size=(30, 3)) * 10.0 ** rng.uniform(-7, -3, (30, 1))
+    tp[near] = tp[orig] + step.astype(np.float32)
+    x[:, near] = x[:, orig] + (step * 1.3).astype(np.float32)
+    code[near, orig], code[orig, near] = 2, 3
+    loss = _port_list_loss(x, tp, code, cg, cl)
+    loss64 = tdk.pair_loss_reference(torch.from_numpy(x).double(),
+                                     torch.from_numpy(tp).double(), torch.from_numpy(code),
+                                     float(cg), float(cl)).numpy()
+    list64 = tdk.pair_loss_list_reference(
+        torch.from_numpy(x).double(), torch.from_numpy(tp).double(),
+        tdk.build_pair_list(torch.from_numpy(code)), float(cg), float(cl)).numpy()
+    np.testing.assert_allclose(list64, loss64, rtol=1e-12)
+    np.testing.assert_allclose(loss, loss64, rtol=LOSS_RTOL)
+
+
+def test_list_k4_rows_without_pairs_above_the_diagonal():
+    """A row whose entries all have j < i (the last real row of a random
+    code, and rows whose only pair is with an earlier point) adds nothing of
+    its own: moving the pair onto the earlier row's side of the list (code
+    on [j, i] instead of [i, j]) gives the same loss."""
+    x, tp, code, cg, cl = _case(1024, 1, 1000, seed=12, density=0.0)
+    code[900, 40], code[901, 41], code[41, 901] = 1, 2, 3
+    flipped = np.zeros_like(code)
+    flipped[40, 900], flipped[41, 901], flipped[901, 41] = 1, 2, 3
+    pl = tdk.build_pair_list(torch.from_numpy(code))
+    cols, _ = tdk.unpack_entries(pl.entries)
+    row_ptr = pl.row_ptr.numpy()
+    assert np.all(cols.numpy()[row_ptr[900]:row_ptr[901]] < 900)
+    a = _port_list_loss(x, tp, code, cg, cl)
+    b = _port_list_loss(x, tp, flipped, cg, cl)
+    dense, _ = _port(x, tp, code, cg, cl)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, dense, rtol=LOSS_RTOL)
+    assert a[0] > 0

@@ -220,7 +220,7 @@ def test_stylize_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
 def test_stylize_kernels_are_declared_with_pointer_argtypes(name, source):
     argtypes, restype = _build.SIGNATURES[name]
     assert restype is ctypes.c_int and argtypes[-1] is ctypes.c_void_p
-    assert argtypes[:3] == [ctypes.c_void_p] * 3  # x, tp, code
+    assert argtypes[:3] == [ctypes.c_void_p] * 3  # x, tp, the pair list's row_ptr
     assert argtypes.count(ctypes.c_float) == 2  # cg, cl
     src = (_build.SOURCE_DIR / source).read_text()
     assert f"int {name}(" in src and not re.search(r"\batomic[A-Z]\w*\s*\(", src)

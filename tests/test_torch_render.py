@@ -6,6 +6,7 @@
   the tolerances the JAX kernel is held to (`tests/test_pallas_blend.py`):
   3e-3 on colour and final_T, 3e-2 on depth; radii as in
   `test_torch_preprocess.py` (exact but for ceil() ties);
+- `render`'s positional order is JAX's (`render(cam, scene, bg, 0.5)`);
 - `render_sets` through the port's CLI writes the same file tree as JAX
   `render_sets`, with images within 2/255 (a float difference can move an
   8-bit truncation across one step)."""
@@ -81,6 +82,37 @@ def test_random_scene_matches_jax_tiled(seed, jitter, size):
     assert dr.max() <= 1 and np.count_nonzero(dr) <= 0.005 * dr.size
     np.testing.assert_array_equal(t["visibility_filter"].numpy(),
                                   np.asarray(j["visibility_filter"]))
+
+
+def test_positional_order_is_jaxs():
+    """`render(cam, scene, bg, 0.5)` scales the splats by 0.5, as JAX's
+    positional call does: the same image as the keyword call, and JAX's
+    within the tolerances of `test_random_scene_matches_jax_tiled`."""
+    w, h = 64, 48
+    js = _random_scene(n=200, seed=3)
+    bg = np.array([0.2, 0.4, 0.6], np.float32)
+    cam, scene = port_cam(w=w, h=h), port_scene(js)
+    pos = tapi.render(cam, scene, torch.from_numpy(bg), 0.5, None,
+                      tapi.RasterizeSettings(renderer="torch"), device="cpu")
+    kw = tapi.render(cam, scene, torch.from_numpy(bg), scaling_modifier=0.5,
+                     settings=tapi.RasterizeSettings(renderer="torch"), device="cpu")
+    full = tapi.render(cam, scene, torch.from_numpy(bg), device="cpu",
+                       settings=tapi.RasterizeSettings(renderer="torch"))
+    j = japi.render(_cam(w=w, h=h), js, jnp.asarray(bg), 0.5, None, TILED)
+    for key in ("render", "depth", "final_T", "radii"):
+        torch.testing.assert_close(pos[key], kw[key], rtol=0, atol=0)
+    assert not torch.equal(pos["render"], full["render"])
+    assert int(pos["radii"].sum()) < int(full["radii"].sum())
+    np.testing.assert_allclose(pos["render"].numpy(), np.asarray(j["render"]), atol=3e-3)
+    np.testing.assert_allclose(pos["final_T"].numpy(), np.asarray(j["final_T"]), atol=3e-3)
+    np.testing.assert_allclose(pos["depth"].numpy(), np.asarray(j["depth"]), atol=3e-2)
+
+
+def test_override_color_is_not_ported_yet():
+    js = _random_scene(n=20, seed=4)
+    with pytest.raises(NotImplementedError, match="override_color"):
+        tapi.render(port_cam(w=32, h=32), port_scene(js), torch.zeros(3), 1.0,
+                    torch.zeros((20, 3)), device="cpu")
 
 
 def test_random_sampling_offsets_range():

@@ -5,15 +5,18 @@ current one can be compared in one chip call:
     cd <checkout> && python3 <repo>/tools/chip_phases.py full_width,train_entry_point
     cd <checkout> && python3 <repo>/tools/chip_phases.py train_full_width --device-times
 
-Phases: k3_cases, full_width, train_full_width, train_entry_point. Each
-phase prints its JSON line as in `chip_smoke.py`. `--device-times` also
-times, by `torch.profiler`, every call that the phases time by CUDA events
-over 20 or more repetitions, and prints its device busy time beside the
-event time, numbered in call order.
+Phases: k2_cases, k3_cases, full_width, train_full_width, train_entry_point,
+k4k5_full_width, stylize_entry_point (after building the content domain).
+Each phase prints its JSON line as in `chip_smoke.py`. `--device-times`
+also times, by `torch.profiler`, every call that the phases time by CUDA
+events over 20 or more repetitions (`cuda_time_ms` over the whole run,
+`cuda_times_ms` launch by launch), and prints its device busy time beside
+the event time, numbered in call order.
 """
 
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -49,18 +52,28 @@ def busy_ms(fn, reps=20):
     return busy / reps / 1e3
 
 
-def with_device_times(event_ms):
+def with_device_times(event_ms, event_times_ms):
+    """`cuda_time_ms` and `cuda_times_ms` that also print the device busy
+    time of every call timed over 20 or more repetitions."""
     calls = []
 
-    def timed(fn, reps):
-        ms = event_ms(fn, reps)
+    def record(fn, ms, reps):
         if reps >= 20:
             calls.append({"call": len(calls), "event_ms": ms, "reps": reps,
                           "device_busy_ms": busy_ms(fn)})
             print(json.dumps({"device_time": calls[-1]}), flush=True)
+
+    def total(fn, reps):
+        ms = event_ms(fn, reps)
+        record(fn, ms, reps)
         return ms
 
-    return timed
+    def per_launch(fn, warmup, reps):
+        times = event_times_ms(fn, warmup, reps)
+        record(fn, statistics.median(times), reps)
+        return times
+
+    return total, per_launch
 
 
 def main() -> int:
@@ -71,14 +84,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     if "--device-times" in sys.argv[2:]:
-        cs.cuda_time_ms = with_device_times(cs.cuda_time_ms)
+        cs.cuda_time_ms, cs.cuda_times_ms = with_device_times(cs.cuda_time_ms,
+                                                               cs.cuda_times_ms)
     t0 = time.perf_counter()
     built = _build.build()
     _build.load_library()
     print(json.dumps({"phase": "build", "nvcc_s": built.seconds}), flush=True)
-    phases = {"k3_cases": cs.phase_k3_cases, "full_width": cs.phase_full_width,
+    phases = {"k2_cases": cs.phase_k2_cases, "k3_cases": cs.phase_k3_cases,
+              "full_width": cs.phase_full_width,
               "train_full_width": cs.phase_train_full_width,
-              "train_entry_point": cs.phase_train_entry_point}
+              "train_entry_point": cs.phase_train_entry_point,
+              "k4k5_full_width": cs.phase_k45_full_width,
+              "stylize_entry_point": lambda dev: cs.phase_stylize_entry_point(
+                  dev, *cs.content_domain(dev))}
     for name in sys.argv[1].split(","):
         phases[name](device)
     print(json.dumps({"total_seconds": time.perf_counter() - t0}), flush=True)

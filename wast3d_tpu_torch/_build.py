@@ -3,10 +3,10 @@
 Every source under `csrc/` has a plain C interface (no PyTorch headers, no
 pybind, no `torch.utils.cpp_extension`, no ninja). One `nvcc` call compiles
 them all into `_build/libw3d_kernels-<hash>.so`, where the hash covers the
-sources and the flags, so a changed source rebuilds and an unchanged one is
-reused. A file that includes PyTorch's headers takes minutes to compile;
-these take seconds, and the build runs at the first kernel call on a CUDA
-tensor, never at import. If `nvcc` fails, the error carries its output;
+sources, the headers beside them and the flags, so a changed source
+rebuilds and an unchanged one is reused. A file that includes PyTorch's
+headers takes minutes to compile; these take seconds, and the build runs
+at the first kernel call on a CUDA tensor, never at import. If `nvcc` fails, the error carries its output;
 nothing falls back.
 """
 
@@ -40,8 +40,7 @@ SIGNATURES = {
     "w3d_blend_fwd": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_segsum": ([_p, _i, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _i, _p], _i),
-    "w3d_desc_loss": ([_p, _p, _p, _i, _i, _f, _f, _p, _p, _i, _p], _i),
-    "w3d_desc_loss_partials": ([_i, _i], _i),
+    "w3d_desc_loss": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_desc_grad": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_error_string": ([_i], ctypes.c_char_p),
 }
@@ -71,7 +70,7 @@ def nvcc_command(out: Path) -> List[str]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(SOURCE_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libw3d_kernels-{h.hexdigest()[:16]}.so"

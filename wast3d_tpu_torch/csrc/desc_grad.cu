@@ -6,10 +6,11 @@
 //   dL/dx_i = sum_j (R_ij + R_ji) (x_i - x_j),
 //   R_ij = 2 W_ij (D_ij - T_ij) / max(D_ij, 1e-12)
 //
-// with D, T and W as in K4 (`desc_loss.cu`): D and T from the coordinate
-// differences, which are accurate where points nearly coincide (the
-// expansion the TPU kernel uses makes D noise there, and R_ij's 1 / D turns
-// that noise into gradient errors of ~1e5 x max |g|). D and T are symmetric,
+// with D, T and W as in K4 (`desc_loss.cu`; the helpers both use are in
+// `desc_common.cuh`): D and T from the coordinate differences, which are
+// accurate where points nearly coincide (the expansion the TPU kernel uses
+// makes D noise there, and R_ij's 1 / D turns that noise into gradient
+// errors of ~1e5 x max |g|). D and T are symmetric,
 // so R_ij + R_ji = 2 (W_ij + W_ji) (D_ij - T_ij) / max(D_ij, 1e-12), and the
 // differences x_i - x_j serve both D and the gradient.
 //
@@ -43,8 +44,7 @@
 // and ball, against a few bytes per entry (the list, 4 bytes an entry, is
 // read once; x and tp stay in the 50 MB L2): operations.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "desc_common.cuh"
 
 namespace {
 
@@ -52,64 +52,7 @@ constexpr int kWarps = 8;                   // rows (one per warp) per CTA
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 128;                 // entries per shared-memory stage
 constexpr int kPerLane = kChunk / 32;
-constexpr int kColBits = 28;                // an entry: column, then code[i, j], code[j, i]
-constexpr int kBalls = 8;                   // balls per pass over a row's entries
 constexpr float kEps = 1e-12f;
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
-
-// |a - b| from the coordinate differences (see the head of the file).
-__device__ __forceinline__ float dist(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by), dz = __fsub_rn(az, bz);
-  return sqrtf(dot3(dx, dy, dz, dx, dy, dz));
-}
-
-__device__ __forceinline__ float weight(uint32_t c, float cg, float cl) {
-  return __fadd_rn(__fmul_rn(cg, static_cast<float>(c & 1u)),
-                   __fmul_rn(cl, static_cast<float>((c >> 1) & 1u)));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// The "memory" clobbers keep the compiler from moving shared-memory reads
-// across the copies and the wait (no barrier follows the wait here).
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// xt [groups][Mp][kBalls] float4 from x [B, Mp, 3] and tp [Mp, 3] (see above);
-// slots of balls past B hold zeros.
-__global__ void interleave_kernel(const float* __restrict__ x, const float* __restrict__ tp,
-                                  int num_balls, int mp, long long total,
-                                  float4* __restrict__ xt) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int slot = static_cast<int>(t % kBalls);
-  const long long gj = t / kBalls;
-  const int j = static_cast<int>(gj % mp);
-  const int b = static_cast<int>(gj / mp) * kBalls + slot;
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (b < num_balls) {
-    const float* p = x + (static_cast<size_t>(b) * mp + j) * 3;
-    v.x = p[0];
-    v.y = p[1];
-    v.z = p[2];
-  }
-  if (slot < 3) v.w = tp[3 * j + slot];
-  xt[t] = v;
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 desc_grad_kernel(const float* __restrict__ tp,        // [Mp, 3]
@@ -164,12 +107,12 @@ desc_grad_kernel(const float* __restrict__ tp,        // [Mp, 3]
       for (int u = 0; u < kPerLane; ++u) {
         if (c + 32 * u + lane >= end) break;
         const uint32_t ent = s_list[warp][buf][32 * u + lane];
-        const int j = static_cast<int>(ent & ((1u << kColBits) - 1u));
+        const int j = static_cast<int>(ent & kColMask);
         const uint32_t bits = ent >> kColBits;
         float4 q[kBalls];  // x_j of each ball; tp_j in the w of q[0..2]
 #pragma unroll
         for (int b = 0; b < kBalls; ++b) q[b] = __ldg(xg + static_cast<size_t>(j) * kBalls + b);
-        const float wsum = __fadd_rn(weight(bits & 3u, cg, cl), weight((bits >> 2) & 3u, cg, cl));
+        const float wsum = weight_both(bits, cg, cl);
         const float t = dist(tix, tiy, tiz, q[0].w, q[1].w, q[2].w);
 #pragma unroll
         for (int b = 0; b < kBalls; ++b) {
@@ -232,10 +175,7 @@ int w3d_desc_grad(const void* x, const void* tp, const void* row_ptr, const void
   const float* xp = static_cast<const float*>(x);
   const float* tpp = static_cast<const float*>(tp);
   float4* xt = static_cast<float4*>(scratch);
-  const long long total = static_cast<long long>((num_balls + kBalls - 1) / kBalls) * mp * kBalls;
-  interleave_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      xp, tpp, num_balls, mp, total, xt);
-  err = cudaGetLastError();
+  err = launch_interleave(xp, tpp, num_balls, mp, xt, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   desc_grad_kernel<<<(mp + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       tpp, xt, static_cast<const int*>(row_ptr), static_cast<const uint32_t*>(entries),

@@ -6,218 +6,168 @@
 //   loss[b] = sum_ij W_ij (D_ij - T_ij)^2,
 //   D_ij = |x_i - x_j|                                     (x = x[b], [Mp, 3])
 //   T_ij = |tp_i - tp_j| for the frozen style points tp    ([Mp, 3], shared)
-//   W_ij = cg * bit0(code_ij) + cl * bit1(code_ij)        (code [Mp, Mp] u8, shared)
+//   W_ij = cg * bit0(code_ij) + cl * bit1(code_ij)        (the pair code, shared)
 //
 // The TPU kernel evaluates every pair of its 256 x 1024 blocks on the MXU
-// and VPU; here the work follows the code, which is sparse: a row has about
-// local_knn + global_knn / global_stride nonzero entries (~200 of 16384 at
-// the production patch), so this kernel reads the code once and does the
-// float work only where a byte is nonzero. W is exactly 0 elsewhere, so
-// skipping those pairs leaves the sum's value unchanged.
+// and VPU. Here the code's sparse structure is taken out of the kernel: W
+// is nonzero on ~1.2% of the pairs and the same for the whole fit, so the
+// fit lists its pairs once (`desc_kernel.build_pair_list`, the list K5
+// walks too; `desc_common.cuh` has its layout) and this kernel walks that
+// list, never the [Mp, Mp] code. D and T are exactly symmetric (both from
+// the coordinate differences, `desc_common.cuh`), so the sum is taken over
+// the pairs j > i only, each with the weight W_ij + W_ji from the entry's 4
+// bits: half the evaluations of the list, and the diagonal, where D = T = 0,
+// adds exactly 0. W is exactly 0 off the list, so the sum's value is that
+// of the dense one up to the order of the additions.
 //
-// Layout: one CTA of 256 threads per (32-row block, 1024-column block)
-// tile, walked in four chunks of 256 columns. In each chunk thread t reads
-// the 32 code bytes of row t / 8, columns 32 (t % 8) + [0, 32) (two uint4; a
-// warp reads 4 rows x 256 contiguous bytes), counts its nonzero bytes, and a
-// block-wide prefix sum gives every nonzero byte a slot in one list in
-// shared memory, in (row, column) order. Then the 256 threads take the
-// list's entries in turn, so the float work is spread over all lanes
-// instead of following the code's scattered nonzeros. T and W depend on
-// the pair only: each entry computes them once and loops over up to 8
-// balls, all of whose x_i, x_j loads are issued before any use (x is
-// 12 B x Mp x B = 1.5 MB at Mp = 16384, B = 8: L2-resident). The code is
-// read once per launch for B <= 8, once per 8 balls beyond.
+// One warp per row i, rows longest first (`row_order`). A row's columns
+// ascend, so its j > i entries are a suffix; a 32-way search (each lane
+// probes one entry, a ballot picks the bracket; three rounds for a
+// 2,000-entry row) finds where it starts. The suffix streams through
+// shared memory in 128-entry chunks, double-buffered with cp.async, as in
+// K5 (`desc_grad.cu`): lane l copies and takes entries l, l + 32, ...
+// Per entry it computes W_ij + W_ji and T once, then D and the weighted
+// square for up to 8 balls, reading x ball-interleaved (the entry's 8
+// balls and tp_j are one 128-byte line of the copy `interleave_kernel`
+// makes first).
 //
-// Determinism: the list's order is fixed by the prefix sum, each thread
-// adds its entries in that order, the warp sums by a fixed xor-shuffle tree,
-// the 8 warps in order through shared memory, into one partial per (ball,
-// tile); a second kernel sums each ball's partials in a fixed order. No
-// atomics: two runs give the same bits.
+// Determinism: each lane adds its entries in list order, the warp sums its
+// lanes by a fixed xor-shuffle tree and writes one partial per (ball,
+// row); a second kernel sums each ball's partials in row-index order by a
+// fixed tree. No atomics: two runs give the same bits.
 //
-// What bounds it on this card: the code's Mp^2 bytes (268 MB at Mp = 16384,
-// 0.08 ms at 3.35 TB/s); the float work is ~14 operations per nonzero pair
-// and ~13 more per ball, a few tens of millions of pairs.
-//
-// Distances come from the coordinate differences, with explicitly rounded
-// products and sums (no FMA contraction): D and T are exactly symmetric,
-// exactly 0 for coincident points, and accurate for near-coincident ones.
-// The TPU kernel uses the MXU's expansion |a|^2 + |b|^2 - 2 a.b, whose
-// float32 error of ~1e-7 |a|^2 in D^2 is all of D^2 for points 1e-4 apart;
-// through K5's 1 / D it put the gradient 1.85e5 x max |g| from a float64
-// evaluation (chip_smoke.py, k4k5_near_coincident, on an H100).
+// What bounds it on this card: ~20 operations per pair j > i and ~13 more
+// per ball (2.4 M pairs at the production patch, Mp = 16384), against 4
+// bytes of list per pair and 12 B per point and ball: operations, by a
+// little (both ~0.005 ms).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "desc_common.cuh"
 
 namespace {
 
-constexpr int kRows = 32;        // rows per CTA
-constexpr int kCols = 1024;      // columns per CTA; Mp must be a multiple
-constexpr int kChunk = 256;      // columns per compaction pass
-constexpr int kThreads = 256;    // 8 threads per row, 32 bytes each per chunk
-constexpr int kPerRow = kThreads / kRows;
-constexpr int kBytes = kChunk / kPerRow;  // 32
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBalls = 8;     // balls per pass over the code
+constexpr int kWarps = 8;        // rows (one per warp) per CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = 128;      // entries per shared-memory stage
+constexpr int kPerLane = kChunk / 32;
 constexpr int kSumThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
-}
-
-// |a - b| from the coordinate differences (see the head of the file).
-__device__ __forceinline__ float dist(float ax, float ay, float az, float bx, float by,
-                                      float bz) {
-  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by), dz = __fsub_rn(az, bz);
-  return sqrtf(dot3(dx, dy, dz, dx, dy, dz));
-}
-
-// Number of nonzero bytes of a word.
-__device__ __forceinline__ int nonzero_bytes(uint32_t w) {
-  uint32_t m = w | (w >> 4);
-  m |= m >> 2;
-  m |= m >> 1;
-  return __popc(m & 0x01010101u);
-}
-
-// Exclusive prefix sum of v over the block's threads, in thread order, and
-// the total. Integer adds: exact and order-free.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int x = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
+// First position p in [lo, hi) whose entry's column is above i, or hi
+// (the columns ascend). Every lane of the warp gets the same answer.
+__device__ __forceinline__ int first_above(const uint32_t* __restrict__ entries, int lo, int hi,
+                                           int i, int lane) {
+  // Invariant: entries before lo have columns <= i, those from hi on > i.
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + lane * step;
+    const bool above = p >= hi || static_cast<int>(__ldg(entries + p) & kColMask) > i;
+    const unsigned m = __ballot_sync(kFull, above);
+    if (m == 0u) {  // all 32 probes at or below i: the answer is past the last
+      lo += 31 * step + 1;
+    } else {
+      const int f = __ffs(static_cast<int>(m)) - 1;
+      hi = min(hi, lo + f * step);
+      if (f > 0) lo += (f - 1) * step + 1;
+    }
   }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    before += w < warp ? s_warp[w] : 0;
-    all += s_warp[w];
-  }
-  *total = all;
-  return before + x - v;
+  return lo;
 }
 
 __global__ void __launch_bounds__(kThreads)
-desc_loss_kernel(const float* __restrict__ x,        // [B, Mp, 3]
-                 const float* __restrict__ tp,       // [Mp, 3]
-                 const uint8_t* __restrict__ code,   // [Mp, Mp]
+desc_loss_kernel(const float* __restrict__ tp,          // [Mp, 3]
+                 const float4* __restrict__ xt,         // [groups, Mp, kBalls]
+                 const int* __restrict__ row_ptr,       // [Mp + 1]
+                 const uint32_t* __restrict__ entries,  // [P]
+                 const int* __restrict__ row_order,     // [Mp]
                  int num_balls, int mp, float cg, float cl,
-                 float* __restrict__ partial) {      // [B, tiles]
-  // One entry per nonzero code byte of the chunk: row << 16 | column << 8 | code.
-  __shared__ uint32_t s_list[kRows * kChunk];
-  __shared__ int s_warp[kWarps];
-  __shared__ float red[kWarps][kMaxBalls];
+                 float* __restrict__ partial) {         // [B, Mp]
+  __shared__ uint32_t s_list[kWarps][2][kChunk];  // slot 32 u + l: lane l's entry u
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r = threadIdx.x / kPerRow;
-  const int seg = threadIdx.x % kPerRow;
-  const int i0 = blockIdx.y * kRows;
-  const int j0 = blockIdx.x * kCols;
-  const int tiles = gridDim.x * gridDim.y;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const size_t ball_stride = static_cast<size_t>(mp) * 3;
+  const int w = blockIdx.x * kWarps + warp;
+  if (w >= mp) return;  // the whole warp
+  const int i = row_order[w];
+  const int end = row_ptr[i + 1];
+  const int start = first_above(entries, row_ptr[i], end, i, lane);
+  const float tix = tp[3 * i], tiy = tp[3 * i + 1], tiz = tp[3 * i + 2];
 
-  for (int b0 = 0; b0 < num_balls; b0 += kMaxBalls) {
-    const int nb = min(kMaxBalls, num_balls - b0);
-    const float* xb0 = x + static_cast<size_t>(b0) * ball_stride;
-    float acc[kMaxBalls];
+  // The row's entries base + lane + 32 u, u < kPerLane, into buffer `buf`.
+  // Each lane reads back only the slots it copied, so its own
+  // cp.async.wait_group makes them visible; no warp barrier is needed.
+  auto stage = [&](int base, int buf) {
 #pragma unroll
-    for (int b = 0; b < kMaxBalls; ++b) acc[b] = 0.0f;
+    for (int u = 0; u < kPerLane; ++u) {
+      const int e = base + 32 * u + lane;
+      if (e < end) cp_async4(&s_list[warp][buf][32 * u + lane], entries + e);
+    }
+  };
 
-    for (int c0 = 0; c0 < kCols; c0 += kChunk) {
-      const uint8_t* src = code + static_cast<size_t>(i0 + r) * mp + j0 + c0 + seg * kBytes;
-      const uint4 v0 = __ldg(reinterpret_cast<const uint4*>(src));
-      const uint4 v1 = __ldg(reinterpret_cast<const uint4*>(src + 16));
-      const uint32_t words[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-      int n = 0;
+  for (int b0 = 0; b0 < num_balls; b0 += kBalls) {
+    const int nb = min(kBalls, num_balls - b0);
+    const float4* xg = xt + static_cast<size_t>(b0 / kBalls) * mp * kBalls;
+    float xi[kBalls][3], acc[kBalls];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) n += nonzero_bytes(words[q]);
-      int total;
-      int slot = block_exclusive_scan(n, s_warp, &total);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        uint32_t wd = words[q];
-        while (wd != 0u) {  // this word's nonzero bytes, lowest first
-          const int byte = (__ffs(static_cast<int>(wd)) - 1) >> 3;
-          const uint32_t c = (wd >> (8 * byte)) & 0xffu;
-          wd &= ~(0xffu << (8 * byte));
-          s_list[slot++] = (static_cast<uint32_t>(r) << 16) |
-                           (static_cast<uint32_t>(seg * kBytes + 4 * q + byte) << 8) | c;
-        }
-      }
-      __syncthreads();
+    for (int b = 0; b < kBalls; ++b) {
+      const float4 q = xg[static_cast<size_t>(i) * kBalls + b];
+      xi[b][0] = q.x;
+      xi[b][1] = q.y;
+      xi[b][2] = q.z;
+      acc[b] = 0.0f;
+    }
 
-      for (int e = threadIdx.x; e < total; e += kThreads) {
-        const uint32_t ent = s_list[e];
-        const int i = i0 + static_cast<int>(ent >> 16);
-        const int j = j0 + c0 + static_cast<int>((ent >> 8) & 0xffu);
-        const uint32_t c = ent & 0xffu;
-        float xi[kMaxBalls][3], xj[kMaxBalls][3];
+    stage(start, 0);
+    cp_async_commit();
+    int buf = 0;
+    for (int c = start; c < end; c += kChunk, buf ^= 1) {
+      if (c + kChunk < end) stage(c + kChunk, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this lane's copies of chunk c are done
 #pragma unroll
-        for (int b = 0; b < kMaxBalls; ++b) {  // every load first, then the math
-          const int bb = b < nb ? b : 0;
-          const float* pi = xb0 + bb * ball_stride + 3 * i;
-          const float* pj = xb0 + bb * ball_stride + 3 * j;
-          xi[b][0] = __ldg(pi);
-          xi[b][1] = __ldg(pi + 1);
-          xi[b][2] = __ldg(pi + 2);
-          xj[b][0] = __ldg(pj);
-          xj[b][1] = __ldg(pj + 1);
-          xj[b][2] = __ldg(pj + 2);
-        }
-        const float tix = __ldg(tp + 3 * i), tiy = __ldg(tp + 3 * i + 1),
-                    tiz = __ldg(tp + 3 * i + 2);
-        const float tjx = __ldg(tp + 3 * j), tjy = __ldg(tp + 3 * j + 1),
-                    tjz = __ldg(tp + 3 * j + 2);
-        const float w = __fadd_rn(__fmul_rn(cg, static_cast<float>(c & 1u)),
-                                  __fmul_rn(cl, static_cast<float>((c >> 1) & 1u)));
-        const float t = dist(tix, tiy, tiz, tjx, tjy, tjz);
+      for (int u = 0; u < kPerLane; ++u) {
+        if (c + 32 * u + lane >= end) break;
+        const uint32_t ent = s_list[warp][buf][32 * u + lane];
+        const int j = static_cast<int>(ent & kColMask);
+        float4 q[kBalls];  // x_j of each ball; tp_j in the w of q[0..2]
 #pragma unroll
-        for (int b = 0; b < kMaxBalls; ++b) {
+        for (int b = 0; b < kBalls; ++b) q[b] = __ldg(xg + static_cast<size_t>(j) * kBalls + b);
+        const float wsum = weight_both(ent >> kColBits, cg, cl);
+        const float t = dist(tix, tiy, tiz, q[0].w, q[1].w, q[2].w);
+#pragma unroll
+        for (int b = 0; b < kBalls; ++b) {
           if (b < nb) {
-            const float d = dist(xi[b][0], xi[b][1], xi[b][2], xj[b][0], xj[b][1], xj[b][2]);
+            const float d = dist(xi[b][0], xi[b][1], xi[b][2], q[b].x, q[b].y, q[b].z);
             const float diff = __fsub_rn(d, t);
-            acc[b] = __fadd_rn(acc[b], __fmul_rn(w, __fmul_rn(diff, diff)));
+            acc[b] = __fadd_rn(acc[b], __fmul_rn(wsum, __fmul_rn(diff, diff)));
           }
         }
       }
-      __syncthreads();  // s_list and s_warp are reused by the next chunk
     }
+    cp_async_wait<0>();
 
-    // Fixed-order sums: xor tree over the warp, then the 8 warps in order.
+    // The 32 lanes' sums, by a fixed xor tree (every lane ends with the total).
 #pragma unroll
-    for (int b = 0; b < kMaxBalls; ++b) {
+    for (int b = 0; b < kBalls; ++b) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        acc[b] = __fadd_rn(acc[b], __shfl_xor_sync(0xffffffffu, acc[b], off));
+        acc[b] = __fadd_rn(acc[b], __shfl_xor_sync(kFull, acc[b], off));
       }
     }
-    if (lane == 0) {
+    if (lane < nb) {
+      float v = 0.0f;
 #pragma unroll
-      for (int b = 0; b < kMaxBalls; ++b) red[warp][b] = acc[b];
+      for (int b = 0; b < kBalls; ++b) v = lane == b ? acc[b] : v;
+      partial[static_cast<size_t>(b0 + lane) * mp + i] = v;
     }
-    __syncthreads();
-    if (threadIdx.x < nb) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w][threadIdx.x]);
-      partial[static_cast<size_t>(b0 + threadIdx.x) * tiles + tile] = s;
-    }
-    __syncthreads();
   }
 }
 
-// loss[b] = sum over tiles of partial[b, tile], in a fixed order.
+// loss[b] = sum over rows of partial[b, row], in a fixed order.
 __global__ void __launch_bounds__(kSumThreads)
-desc_loss_sum_kernel(const float* __restrict__ partial, int tiles, float* __restrict__ loss) {
+desc_loss_sum_kernel(const float* __restrict__ partial, int rows, float* __restrict__ loss) {
   __shared__ float s[kSumThreads];
-  const float* p = partial + static_cast<size_t>(blockIdx.x) * tiles;
+  const float* p = partial + static_cast<size_t>(blockIdx.x) * rows;
   float acc = 0.0f;
-  for (int t = threadIdx.x; t < tiles; t += kSumThreads) acc = __fadd_rn(acc, p[t]);
+  for (int t = threadIdx.x; t < rows; t += kSumThreads) acc = __fadd_rn(acc, p[t]);
   s[threadIdx.x] = acc;
   __syncthreads();
   for (int half = kSumThreads / 2; half > 0; half >>= 1) {
@@ -231,32 +181,34 @@ desc_loss_sum_kernel(const float* __restrict__ partial, int tiles, float* __rest
 
 extern "C" {
 
-// Number of floats of scratch `w3d_desc_loss` needs for `partial`.
-int w3d_desc_loss_partials(int num_balls, int mp) {
-  return num_balls * (mp / kCols) * (mp / kRows);
-}
-
 // loss [B] = per-ball pair-descriptor loss (see above). x [B, Mp, 3],
-// tp [Mp, 3] float32; code [Mp, Mp] uint8, 16-byte aligned; Mp a multiple of
-// 1024; partial: w3d_desc_loss_partials(B, Mp) floats of scratch. Launches
-// both kernels on `stream` and returns cudaGetLastError() (0 = success).
-int w3d_desc_loss(const void* x, const void* tp, const void* code, int num_balls, int mp,
-                  float cg, float cl, void* partial, void* loss, int device, void* stream) {
+// tp [Mp, 3] float32; the pair list: row_ptr [Mp + 1], entries [P] and
+// row_order [Mp], int32; scratch: ceil(B / 8) * Mp * 32 + B * Mp floats,
+// 16-byte aligned (the interleaved copy of x, then the per-row partials).
+// Launches the copy and both kernels on `stream` and returns
+// cudaGetLastError() (0 = success).
+int w3d_desc_loss(const void* x, const void* tp, const void* row_ptr, const void* entries,
+                  const void* row_order, void* scratch, int num_balls, int mp, float cg,
+                  float cl, void* loss, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (mp <= 0 || mp % kCols != 0 || num_balls <= 0) {
+  if (mp <= 0 || num_balls <= 0 || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(mp / kCols, mp / kRows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  desc_loss_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(tp),
-      static_cast<const uint8_t*>(code), num_balls, mp, cg, cl, static_cast<float*>(partial));
+  const float* tpp = static_cast<const float*>(tp);
+  float4* xt = static_cast<float4*>(scratch);
+  float* partial = static_cast<float*>(scratch) +
+                   static_cast<size_t>((num_balls + kBalls - 1) / kBalls) * mp * kBalls * 4;
+  err = launch_interleave(static_cast<const float*>(x), tpp, num_balls, mp, xt, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  desc_loss_kernel<<<(mp + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      tpp, xt, static_cast<const int*>(row_ptr), static_cast<const uint32_t*>(entries),
+      static_cast<const int*>(row_order), num_balls, mp, cg, cl, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  desc_loss_sum_kernel<<<num_balls, kSumThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<int>(grid.x * grid.y),
-      static_cast<float*>(loss));
+  desc_loss_sum_kernel<<<num_balls, kSumThreads, 0, s>>>(partial, mp,
+                                                         static_cast<float*>(loss));
   return static_cast<int>(cudaGetLastError());
 }
 

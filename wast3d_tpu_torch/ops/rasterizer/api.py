@@ -12,7 +12,8 @@ to the projected means; its gradient is the view-space positional gradient
 that densification accumulates) and `view_depth_offset` ([N] zeros added to
 the view depths; its gradient is the per-Gaussian expected-depth gradient).
 Depth gradients reach the means through the view matrix by autograd. The
-precomputed-colour / precomputed-covariance options are not ported.
+precomputed-colour / precomputed-covariance options are not ported
+(`override_color` raises).
 """
 
 from __future__ import annotations
@@ -80,18 +81,28 @@ def render(
     camera: Camera,
     scene: GaussianScene,
     bg_color,
+    scaling_modifier: float = 1.0,
+    override_color: Optional[torch.Tensor] = None,
     settings: RasterizeSettings = RasterizeSettings(),
     sampling_offsets: Optional[torch.Tensor] = None,
-    scaling_modifier: float = 1.0,
-    device: DeviceLike = None,
     means2d_offset: Optional[torch.Tensor] = None,
     view_depth_offset: Optional[torch.Tensor] = None,
+    *,
+    device: DeviceLike = None,
 ) -> dict:
     """Render `scene` from `camera` on `device` (None means CUDA). Returns
     render [H,W,3], depth [H,W], final_T [H,W], radii [N] int32,
     visibility_filter [N] bool, and overflow / overflow_emit / overflow_rect
     (always False: binning has no capacities to overflow). The gradient
-    taps are described in the module docstring."""
+    taps are described in the module docstring.
+
+    The positional order is the JAX package's; `device` is the port's own
+    and keyword-only. `override_color` (precomputed colours) is not ported
+    yet: any value but None raises."""
+    if override_color is not None:
+        raise NotImplementedError(
+            "render(override_color=...) is not ported yet (ROADMAP queue 1 item 8, "
+            "rasterizer API completeness)")
     if settings.renderer not in RENDERERS:
         raise ValueError(f"renderer must be one of {RENDERERS}, got "
                          f"{settings.renderer!r}")

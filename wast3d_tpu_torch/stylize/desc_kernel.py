@@ -13,9 +13,9 @@ every distance |a - b| from the coordinate differences, and
     R_ij = 2 W_ij (D_ij - T_ij) / max(D_ij, 1e-12).
 
 x is [B, Mp, 3] (the JAX kernel takes one ball and `vmap` adds the batch;
-here the batch is a tensor dimension), tp [Mp, 3] and code [Mp, Mp] uint8
-are shared by the batch, Mp is a multiple of `MP_ALIGN`. No [Mp, Mp] float
-is ever materialised.
+here the batch is a tensor dimension), tp [Mp, 3] and the code's pairs are
+shared by the batch, Mp is a multiple of `MP_ALIGN`. No [Mp, Mp] float is
+ever materialised.
 
 The TPU kernel takes each distance as sqrt(max(|a|^2 + |b|^2 - 2 a.b, 0))
 (its MXU form). In float32 that has an error of ~1e-7 |a|^2 in D^2, all of
@@ -24,19 +24,21 @@ of ~1e5 x max |g| (`chip_smoke.py`, k4k5_near_coincident, on an H100);
 near-duplicate Gaussians of a trained scene make such pairs. The differences are exact there; elsewhere the two forms agree to
 float32 rounding.
 
-K4 reads the dense code. K5 reads a pair list instead (`PairList`, built
-once per fit by `build_pair_list`): CSR over code | code^T, each entry one
-int32 holding a column j and 4 bits, code[i, j] and code[j, i]. The code
-is the same for every step of a fit and ~1.2% nonzero, so the list is
-hoisted work, not skipped work.
+Neither kernel reads the [Mp, Mp] uint8 code: both take its pair list
+(`PairList`, built once per fit by `build_pair_list`): CSR over
+code | code^T, each entry one int32 holding a column j and 4 bits,
+code[i, j] and code[j, i]. The code is the same for every step of a fit
+and ~1.2% nonzero, so the list is hoisted work, not skipped work. D and T
+are symmetric, so K4 sums the pairs j > i only, each weighted
+W_ij + W_ji.
 
 `desc_loss` (K4, `csrc/desc_loss.cu`) and `desc_grad` (K5,
 `csrc/desc_grad.cu`) launch their kernel for CUDA tensors (counted in
-`.launches`) and take the plain version, `pair_loss_reference` /
-`pair_grad_list_reference`, for CPU tensors. `pair_grad_reference` is
-K5's formula on the dense code, the yardstick of the list version.
-`pair_loss` is the autograd op: K4 forward, K5 backward; tp, the code, the
-list and the coefficients get no gradient.
+`.launches`) and take the plain version, `pair_loss_list_reference` /
+`pair_grad_list_reference`, for CPU tensors. `pair_loss_reference` and
+`pair_grad_reference` are the formulas on the dense code, the yardsticks
+of the list versions. `pair_loss` is the autograd op: K4 forward, K5
+backward; tp, the list and the coefficients get no gradient.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from typing import NamedTuple
 
 import torch
 
-MP_ALIGN = 1024  # K4's column block: Mp must be a multiple of it
+MP_ALIGN = 1024  # the JAX kernels' column block: Mp must be a multiple of it
 EPS = 1e-12  # K5's floor under D in R_ij
 COL_BITS = 28  # a list entry: column in the low 28 bits, the code's 4 bits above
 
@@ -56,7 +58,7 @@ class PairList(NamedTuple):
     row_ptr: torch.Tensor  # [Mp + 1] int32: row i's entries are [row_ptr[i], row_ptr[i + 1])
     # [P] int32, columns ascending within a row: j | code[i, j] << 28 | code[j, i] << 30
     entries: torch.Tensor
-    row_order: torch.Tensor  # [Mp] int32: rows by entry count, longest first (K5's schedule)
+    row_order: torch.Tensor  # [Mp] int32: rows by entry count, longest first (the schedule)
 
 
 def build_pair_list(code: torch.Tensor) -> PairList:
@@ -88,7 +90,7 @@ def unpack_entries(entries: torch.Tensor):
     return e & (2 ** COL_BITS - 1), (e >> COL_BITS).to(torch.int32)
 
 
-def _check(x, tp, code=None):
+def _check(x, tp, pairs):
     if x.dim() != 3 or x.shape[2] != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be [B, Mp, 3] float32, got {x.dtype} {tuple(x.shape)}")
     b, mp = x.shape[0], x.shape[1]
@@ -97,15 +99,10 @@ def _check(x, tp, code=None):
                          f"{MP_ALIGN}, got {tuple(x.shape)}")
     if tuple(tp.shape) != (mp, 3) or tp.dtype != torch.float32:
         raise ValueError(f"tp must be [{mp}, 3] float32, got {tp.dtype} {tuple(tp.shape)}")
-    if code is not None and (tuple(code.shape) != (mp, mp) or code.dtype != torch.uint8):
-        raise ValueError(f"code must be [{mp}, {mp}] uint8, got {code.dtype} {tuple(code.shape)}")
-    for name, t in (("x", x), ("tp", tp), ("code", code)):
-        if t is None:
-            continue
+    for name, t in (("x", x), ("tp", tp)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if code is not None and x.device.type == "cuda" and code.data_ptr() % 16 != 0:
-        raise ValueError("code must be 16-byte aligned (K4 reads it as uint4)")
+    _check_list(x, pairs)
 
 
 def _check_list(x, pairs):
@@ -134,22 +131,28 @@ def _launch(name, x, *args):
                            f"({lib.w3d_error_string(err).decode()})")
 
 
-def desc_loss(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
+def _interleaved_floats(b: int, mp: int) -> int:
+    """Floats of the kernels' ball-interleaved copy of x and tp
+    (`csrc/desc_common.cuh`): [ceil(B / 8), Mp, 8] float4."""
+    return -(-b // 8) * mp * 32
+
+
+def desc_loss(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
               cg: float, cl: float) -> torch.Tensor:
-    """K4. [B] float32: each ball's loss (module doc)."""
-    _check(x, tp, code)
+    """K4. [B] float32: each ball's loss (module doc), over the pair list."""
+    _check(x, tp, pairs)
     if x.device.type == "cpu":
-        return pair_loss_reference(x, tp, code, cg, cl)
+        return pair_loss_list_reference(x, tp, pairs, cg, cl)
     if x.device.type != "cuda":
         raise ValueError(f"desc_loss runs on cuda or cpu, not {x.device}")
-    from wast3d_tpu_torch import _build
-
     b, mp = x.shape[0], x.shape[1]
-    partial = torch.empty(_build.load_library().w3d_desc_loss_partials(b, mp),
-                          dtype=torch.float32, device=x.device)
     loss = torch.empty(b, dtype=torch.float32, device=x.device)
-    _launch("w3d_desc_loss", x, x.data_ptr(), tp.data_ptr(), code.data_ptr(), b, mp,
-            float(cg), float(cl), partial.data_ptr(), loss.data_ptr())
+    # the interleaved copy, then one partial per (ball, row) (`csrc/desc_loss.cu`)
+    scratch = torch.empty(_interleaved_floats(b, mp) + b * mp, dtype=torch.float32,
+                          device=x.device)
+    _launch("w3d_desc_loss", x, x.data_ptr(), tp.data_ptr(), pairs.row_ptr.data_ptr(),
+            pairs.entries.data_ptr(), pairs.row_order.data_ptr(), scratch.data_ptr(), b, mp,
+            float(cg), float(cl), loss.data_ptr())
     desc_loss.launches += 1
     return loss
 
@@ -160,16 +163,14 @@ desc_loss.launches = 0
 def desc_grad(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
               cg: float, cl: float) -> torch.Tensor:
     """K5. [B, Mp, 3] float32: d(sum_b loss[b]) / dx, over the pair list."""
-    _check(x, tp)
-    _check_list(x, pairs)
+    _check(x, tp, pairs)
     if x.device.type == "cpu":
         return pair_grad_list_reference(x, tp, pairs, cg, cl)
     if x.device.type != "cuda":
         raise ValueError(f"desc_grad runs on cuda or cpu, not {x.device}")
     b, mp = x.shape[0], x.shape[1]
     dx = torch.empty_like(x)
-    # the kernel's ball-interleaved copy of x and tp (`csrc/desc_grad.cu`)
-    scratch = torch.empty(-(-b // 8) * mp * 32, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(_interleaved_floats(b, mp), dtype=torch.float32, device=x.device)
     _launch("w3d_desc_grad", x, x.data_ptr(), tp.data_ptr(), pairs.row_ptr.data_ptr(),
             pairs.entries.data_ptr(), pairs.row_order.data_ptr(), scratch.data_ptr(), b, mp,
             float(cg), float(cl), dx.data_ptr())
@@ -214,6 +215,32 @@ def pair_loss_reference(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
     return loss
 
 
+def _list_pairs(x: torch.Tensor, pairs: PairList):
+    """(rows, columns, 4-bit codes) of every list entry, int64 / int32."""
+    n = int(pairs.row_ptr[-1])
+    counts = (pairs.row_ptr[1:] - pairs.row_ptr[:-1]).to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(x.shape[1], device=x.device), counts)
+    cols, bits = unpack_entries(pairs.entries[:n])
+    return rows, cols, bits
+
+
+def pair_loss_list_reference(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
+                             cg: float, cl: float) -> torch.Tensor:
+    """Plain version of K4 on its own inputs, the pair list: the entries
+    with j > i, each term (W_ij + W_ji)(D_ij - T_ij)^2 in the dtype of x
+    (float32 or float64), as K4 takes them; each ball's terms summed in
+    float64 and rounded once."""
+    rows, cols, bits = _list_pairs(x, pairs)
+    upper = cols > rows
+    rows, cols, bits = rows[upper], cols[upper], bits[upper]
+    w = _weights(bits & 3, cg, cl).to(x.dtype) + _weights(bits >> 2, cg, cl).to(x.dtype)
+    diff = x[:, rows] - x[:, cols]  # [B, P, 3]
+    d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    tdiff = tp[rows] - tp[cols]
+    t = torch.sqrt(torch.sum(tdiff * tdiff, dim=-1))
+    return torch.sum((w * ((d - t) * (d - t))).to(torch.float64), dim=1).to(x.dtype)
+
+
 def pair_grad_reference(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor,
                         cg: float, cl: float, block: int = 256) -> torch.Tensor:
     """Plain version of K5, its formula written out by column blocks:
@@ -242,11 +269,7 @@ def pair_grad_list_reference(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
     them; each row's terms summed in float64 (`index_add_`) and rounded
     once. A float32 sum in entry order would add ~1e-6 x max |g| of its
     own over the ~2000-entry rows of the global descriptor."""
-    mp = x.shape[1]
-    n = int(pairs.row_ptr[-1])
-    counts = (pairs.row_ptr[1:] - pairs.row_ptr[:-1]).to(torch.int64)
-    rows = torch.repeat_interleave(torch.arange(mp, device=x.device), counts)
-    cols, bits = unpack_entries(pairs.entries[:n])
+    rows, cols, bits = _list_pairs(x, pairs)
     w = _weights(bits & 3, cg, cl).to(x.dtype) + _weights(bits >> 2, cg, cl).to(x.dtype)
     diff = x[:, rows] - x[:, cols]  # [B, P, 3]
     d = torch.sqrt(torch.sum(diff * diff, dim=-1))
@@ -259,20 +282,20 @@ def pair_grad_list_reference(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
 
 class _PairLoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp, code, pairs, cg, cl):
+    def forward(ctx, x, tp, pairs, cg, cl):
         ctx.save_for_backward(x, tp)
         ctx.pairs, ctx.coefs = pairs, (cg, cl)
-        return desc_loss(x, tp, code, cg, cl)
+        return desc_loss(x, tp, pairs, cg, cl)
 
     @staticmethod
     def backward(ctx, g):
         x, tp = ctx.saved_tensors
         dx = desc_grad(x, tp, ctx.pairs, *ctx.coefs) * g[:, None, None]
-        return dx, None, None, None, None, None
+        return dx, None, None, None, None
 
 
-def pair_loss(x: torch.Tensor, tp: torch.Tensor, code: torch.Tensor, pairs: PairList,
+def pair_loss(x: torch.Tensor, tp: torch.Tensor, pairs: PairList,
               cg: float, cl: float) -> torch.Tensor:
-    """[B] per-ball loss, K4 on the code, with K5 on the pair list of the
-    same code as its backward (module doc). x [B, Mp, 3]."""
-    return _PairLoss.apply(x.contiguous(), tp.contiguous(), code, pairs, float(cg), float(cl))
+    """[B] per-ball loss, K4 forward and K5 backward, both on the pair list
+    (module doc). x [B, Mp, 3]."""
+    return _PairLoss.apply(x.contiguous(), tp.contiguous(), pairs, float(cg), float(cl))

@@ -15,11 +15,11 @@ Both descriptor scales are exactly sum_ij W_ij (D_ij - T_ij)^2, with W the
 per-pair weight and T the frozen target distances. W is stored as two
 bit-packed masks ([Mp, Mp/8] uint8, little-endian) and, for K4/K5, as one
 [Mp, Mp] uint8 pair code (bit 0 global, bit 1 local) and its pair list
-(`desc_kernel.PairList`, built once per fit with the code). `descriptor_loss`
-has three paths, chosen as in JAX:
-  - kernel (the pair code exists: `cfg.desc_kernel`, Mp >= 2048, CUDA):
-    `desc_kernel.pair_loss`, K4 (on the code) forward and K5 (on the list)
-    backward on CUDA, their plain versions on the CPU;
+(`desc_kernel.PairList`, built once per fit from the code; the kernels read
+only the list). `descriptor_loss` has three paths, chosen as in JAX:
+  - kernel (the pair list exists: `cfg.desc_kernel`, Mp >= 2048, CUDA):
+    `desc_kernel.pair_loss`, K4 forward and K5 backward on the list on
+    CUDA, their plain versions on the CPU;
   - dense single block (Mp <= desc_block): (W, T) built once per fit;
   - streaming column blocks otherwise, each block recomputed in the
     backward (`torch.utils.checkpoint`, JAX's `jax.checkpoint`), so
@@ -64,7 +64,7 @@ class TargetDescriptors(NamedTuple):
     coef_global: float  # w_global / desc_global.size, a float32 value
     coef_local: float  # w_local / desc_local.size, a float32 value
     pair_code: Optional[torch.Tensor] = None  # [Mp, Mp] uint8, bits_g + 2 bits_l (kernel path)
-    pair_list: Optional[desc_kernel.PairList] = None  # the code's pairs, for K5 (kernel path)
+    pair_list: Optional[desc_kernel.PairList] = None  # the code's pairs, for K4/K5 (kernel path)
 
 
 def descriptors_from_indices(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -171,9 +171,9 @@ def descriptor_loss(points_pad: torch.Tensor, target: TargetDescriptors, block: 
     """[B] sum_ij W_ij (D_ij - T_ij)^2 of each ball's points [B, Mp, 3]
     (padded like target.points; padded rows carry no pair bits, so they
     contribute nothing). dense_wt: `dense_pair_terms`, single block only."""
-    if target.pair_code is not None:
-        return desc_kernel.pair_loss(points_pad, target.points, target.pair_code,
-                                     target.pair_list, target.coef_global, target.coef_local)
+    if target.pair_list is not None:
+        return desc_kernel.pair_loss(points_pad, target.points, target.pair_list,
+                                     target.coef_global, target.coef_local)
     mp = points_pad.shape[1]
 
     def block_term(x, xb, tb, bg, bl):
@@ -269,7 +269,7 @@ def fit_balls(target_points: torch.Tensor, target_desc: TargetDescriptors,
     mp = target_desc.points.shape[0]
     tp_pad = torch.nn.functional.pad(target_points.to(torch.float32), (0, 0, 0, mp - m))
     dense_wt = (dense_pair_terms(target_desc)
-                if mp <= cfg.desc_block and target_desc.pair_code is None else None)
+                if mp <= cfg.desc_block and target_desc.pair_list is None else None)
     mask = domain_mask.to(torch.bool)
     mk = mask.to(torch.float32)[..., None]
     n = torch.clamp_min(mk.sum(dim=1), 2.0)  # [B, 1]
