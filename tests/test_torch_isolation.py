@@ -242,3 +242,20 @@ def test_cpu_stylize_fit_leaves_launch_counts_alone():
                     cfg)
     assert out.shape == (1, 1100, 3) and bool(torch.isfinite(out).all())
     assert desc_kernel.desc_loss.launches == desc_kernel.desc_grad.launches == 0
+
+
+def test_blend_fwd_walk_all_is_a_test_hook_only():
+    """K1 with its cull off has an entry of K1's signature, and the port's
+    blend wrapper never reaches it (only chip_smoke.py calls it)."""
+    assert _build.SIGNATURES["w3d_blend_fwd_walk_all"] == _build.SIGNATURES["w3d_blend_fwd"]
+    argtypes, restype = _build.SIGNATURES["w3d_blend_fwd_walk_all"]
+    assert argtypes[:8] == [ctypes.c_void_p] * 8 and argtypes[8:13] == [ctypes.c_int] * 5
+    assert argtypes[-1] is ctypes.c_void_p and restype is ctypes.c_int
+    src = (_build.SOURCE_DIR / "blend_fwd.cu").read_text()
+    assert "int w3d_blend_fwd_walk_all(" in src and not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+    assert "walk_all" not in (PORT / "ops" / "rasterizer" / "blend.py").read_text()
+    # By name, so that a call through getattr or a string is caught too.
+    files = PY_FILES + sorted((ROOT / "tools").glob("*.py")) + sorted(ROOT.glob("*.py"))
+    naming = {p.relative_to(ROOT).as_posix() for p in files
+              if "w3d_blend_fwd_walk_all" in p.read_text()}
+    assert naming == {"wast3d_tpu_torch/_build.py", "chip_smoke.py"}

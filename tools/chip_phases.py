@@ -4,16 +4,21 @@ current one can be compared in one chip call:
 
     cd <checkout> && python3 <repo>/tools/chip_phases.py full_width,train_entry_point
     cd <checkout> && python3 <repo>/tools/chip_phases.py train_full_width --device-times
+    cd <checkout> && python3 <repo>/tools/chip_phases.py k1_bits --save-k1 <file.pt>
 
-Phases: k2_cases, k3_cases, full_width, train_full_width, train_entry_point,
-k4k5_full_width, stylize_entry_point (after building the content domain).
-Each phase prints its JSON line as in `chip_smoke.py`. `--device-times`
-also times, by `torch.profiler`, every call that the phases time by CUDA
-events over 20 or more repetitions (`cuda_time_ms` over the whole run,
-`cuda_times_ms` launch by launch), and prints its device busy time beside
-the event time, numbered in call order.
+Phases: k1_bits, k2_cases, k3_cases, full_width, train_full_width,
+train_entry_point, k4k5_full_width, stylize_entry_point (after building the
+content domain). Each phase prints its JSON line as in `chip_smoke.py`;
+`k1_bits` (below) prints SHA-256 hashes of K1's inputs and outputs, and
+`--save-k1 <file.pt>` also saves its 200k / 800x800 outputs there, so that
+two checkouts' K1 can be compared bit for bit and by their largest
+difference. `--device-times` also times, by `torch.profiler`, every call
+that the phases time by CUDA events over 20 or more repetitions
+(`cuda_time_ms` over the whole run, `cuda_times_ms` launch by launch), and
+prints its device busy time beside the event time, numbered in call order.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -76,6 +81,40 @@ def with_device_times(event_ms, event_times_ms):
     return total, per_launch
 
 
+def sha256_of(tensors):
+    """As `chip_smoke.sha256_of`, which an older checkout lacks."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_k1_bits(device, save=None):
+    """K1 (`blend_fwd`) once on the checkout's own `k1_cases` and on the
+    200k / 800x800 frame's inputs, as `full_width` builds them; prints the
+    hashes of each case's inputs and K1's three outputs. Uses only what
+    every checkout's `chip_smoke.py` has since the port began."""
+    from wast3d_tpu_torch.ops.rasterizer.blend import blend_fwd
+
+    t0 = time.perf_counter()
+    bg, cases = cs.k1_cases(device)
+    scene = cs.make_scene(cs.bench_scene(cs.FULL_N), device)
+    cam = cs.view_camera(cs.FULL_RES, cs.FULL_RES, device, eye=(0, 0, -3), fov=0.9)
+    cases["full_width"] = cs.kernel_inputs(scene, cam)
+    out = {}
+    for name, (rows, starts, ends, w, h, offsets) in cases.items():
+        case_bg = torch.zeros(3, device=device) if name == "full_width" else bg
+        k = blend_fwd(rows, starts, ends, w, h, case_bg, offsets)
+        torch.cuda.synchronize()
+        inputs = [rows, starts, ends] + ([] if offsets is None else [offsets])
+        out[name] = {"K": int(rows.shape[0]), "rows_sha256": sha256_of(inputs),
+                     "output_sha256": sha256_of(k)}
+        if name == "full_width" and save:
+            torch.save({f: t.cpu() for f, t in zip(("color", "depth", "final_T"), k)}, save)
+    print(json.dumps({"phase": "k1_bits", "cases": out,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_phases: CUDA is not available", file=sys.stderr)
@@ -90,7 +129,9 @@ def main() -> int:
     built = _build.build()
     _build.load_library()
     print(json.dumps({"phase": "build", "nvcc_s": built.seconds}), flush=True)
-    phases = {"k2_cases": cs.phase_k2_cases, "k3_cases": cs.phase_k3_cases,
+    save = sys.argv[sys.argv.index("--save-k1") + 1] if "--save-k1" in sys.argv else None
+    phases = {"k1_bits": lambda dev: phase_k1_bits(dev, save),
+              "k2_cases": cs.phase_k2_cases, "k3_cases": cs.phase_k3_cases,
               "full_width": cs.phase_full_width,
               "train_full_width": cs.phase_train_full_width,
               "train_entry_point": cs.phase_train_entry_point,

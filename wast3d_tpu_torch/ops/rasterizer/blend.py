@@ -37,6 +37,7 @@ entries and entries at or after the stop get no alpha gradient.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -51,6 +52,20 @@ ALPHA_MIN = 1.0 / 255.0
 T_EPS = 1e-4
 PIXELS = TILE * TILE
 CHUNK = 32  # entry slots per step of the plain version
+WARP = 32
+WARPS = PIXELS // WARP  # K1's warps per tile
+WARP_W, WARP_H = 8, 4  # each warp's pixels
+# [WARPS, WARP]: the tile pixel (row-major, 16 y + x) of each of K1's
+# threads; warp w holds the 8 x 4 pixels at (8 (w % 2), 4 (w // 2)).
+WARP_PIXELS = torch.stack([
+    (WARP_H * (w // 2) + torch.arange(WARP) // WARP_W) * TILE
+    + WARP_W * (w % 2) + torch.arange(WARP) % WARP_W for w in range(WARPS)])
+# K1's cull constants (csrc/blend_fwd.cu), as float32 values.
+U = 2.0 ** -24  # the unit roundoff of f32
+OPA_CULL = float(torch.tensor(1.0 / 255.0, dtype=torch.float32)
+                 * torch.tensor(1.0 - 64.0 * U, dtype=torch.float32))
+CONIC_MIN = float(torch.tensor(1e-30, dtype=torch.float32))
+TERM_MAX = float(torch.tensor(1e30, dtype=torch.float32))
 
 
 class BlendOutput(NamedTuple):
@@ -144,11 +159,20 @@ def _pixel_coords(width, height, offsets, device):
     return px, py, inside
 
 
-def _walk(rows, starts, ends, width, height, offsets):
+class WalkCounts(NamedTuple):
+    """What K1's walk does on given inputs (`warp_walk_counts`)."""
+    evaluated_pairs: int  # (pixel, entry) pairs evaluated: up to and including the stop
+    warp_iterations: int  # (warp, entry) iterations with every entry walked
+    warp_iterations_culled: int  # the same, the culled entries left out
+    contributing_pairs: int  # (pixel, entry) pairs that add weight alpha T
+
+
+def _walk(rows, starts, ends, width, height, offsets, keep=None):
     """The plain blend over all pixels of all tiles at once, CHUNK entry
     slots per step: a cumprod gives T inside a chunk, and T and `done` carry
-    from chunk to chunk. Returns per-tile colour, depth, T and the number of
-    (pixel, entry) pairs the walk evaluates."""
+    from chunk to chunk. Returns per-tile colour, depth, T and the
+    `WalkCounts` (the warp counts only when `keep`, [K, WARPS] bool from
+    `warp_keep_reference`, is given; else 0)."""
     dev = rows.device
     px, py, inside = _pixel_coords(width, height, offsets, dev)
     num_tiles = px.shape[0]
@@ -159,6 +183,9 @@ def _walk(rows, starts, ends, width, height, offsets):
     color = torch.zeros((num_tiles, PIXELS, 3), dtype=rows.dtype, device=dev)
     depth = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    contributing = torch.zeros((), dtype=torch.int64, device=dev)
+    iters = torch.zeros((), dtype=torch.int64, device=dev)
+    iters_culled = torch.zeros((), dtype=torch.int64, device=dev)
     slot = torch.arange(CHUNK, device=dev)
     max_len = int(lengths.max()) if num_tiles else 0
     for c0 in range(0, max_len, CHUNK):
@@ -193,9 +220,18 @@ def _walk(rows, starts, ends, width, height, offsets):
         # an entry is evaluated unless the pixel stopped at an earlier one
         stopped_earlier = done_before | torch.cat(
             [torch.zeros_like(stop[..., :1]), stop[..., :-1]], dim=-1)
-        pairs += (~stopped_earlier & in_range[:, None, :]).sum()
+        evaluated = ~stopped_earlier & in_range[:, None, :]  # [A, P, G]
+        pairs += evaluated.sum()
+        contributing += (~skip & ~done_g).sum()
+        if keep is not None:
+            # a warp issues an entry while any of its 32 pixels walks
+            live = evaluated[:, WARP_PIXELS.to(dev)].any(dim=2)  # [A, W, G]
+            kept = keep[torch.minimum(idx, ends[ti, None] - 1)].permute(0, 2, 1)
+            iters += live.sum()
+            iters_culled += (live & kept).sum()
         done[ti] = done_g[..., -1]
-    return color, depth, t_run, pairs
+    counts = WalkCounts(int(pairs), int(iters), int(iters_culled), int(contributing))
+    return color, depth, t_run, counts
 
 
 def _untile(x, width, height):
@@ -228,7 +264,96 @@ def evaluated_pairs(rows: torch.Tensor, starts: torch.Tensor,
     """Number of (pixel, entry) pairs K1 evaluates on these inputs: every
     entry in range up to and including the one where the pixel stops. Used
     to state the kernel's operation count."""
-    return int(_walk(rows, starts, ends, width, height, offsets)[3])
+    return _walk(rows, starts, ends, width, height, offsets)[3].evaluated_pairs
+
+
+# ---- K1's per-warp cull, plain ----------------------------------------------
+
+def warp_boxes(width: int, height: int,
+               offsets: Optional[torch.Tensor] = None,
+               device=None) -> torch.Tensor:
+    """[T, WARPS, 4] f32 sample box of each warp of each tile: x0, x1, y0,
+    y1, the least and greatest sample position (pixel plus offset) over the
+    warp's pixels (`WARP_PIXELS`) inside the image; (inf, -inf, inf, -inf)
+    for a warp with no pixel inside."""
+    dev = offsets.device if offsets is not None else device
+    px, py, inside = (v[:, WARP_PIXELS.to(dev)]
+                      for v in _pixel_coords(width, height, offsets, dev))  # [T, W, 32]
+    inf = torch.full_like(px, float("inf"))
+    return torch.stack([torch.where(inside, px, inf).amin(-1),
+                        torch.where(inside, px, -inf).amax(-1),
+                        torch.where(inside, py, inf).amin(-1),
+                        torch.where(inside, py, -inf).amax(-1)], dim=-1)
+
+
+def _culled(r, box):
+    """K1's cull (`cull_prelude` and `culled` in csrc/blend_fwd.cu, where the
+    margin is derived), in float32 in the kernel's order of operations: r
+    [E, 12] rows, box [E, W, 4]; [E, W] True where no sample of the box can
+    take the entry."""
+    # per entry: 1/A, 1/C and tau' (+inf: never culled; -inf: culled by opa)
+    mx, my, a, b, c, opa = (r[:, i, None] for i in range(6))
+    cullable = (torch.isfinite(r[:, :6]).all(dim=1)[:, None] & (a > CONIC_MIN)
+                & (c > CONIC_MIN) & (a * c * (1.0 - 16.0 * U) > b * b))
+    tau = 2.0 * torch.log(255.0 * opa)
+    tau = tau + 8.0 * U * tau.abs()
+    tau = torch.where(cullable, torch.where(opa < OPA_CULL, -math.inf, tau), math.inf)
+    ia, ic = 1.0 / a, 1.0 / c
+    # per box
+    x0, x1, y0, y1 = box.unbind(-1)
+    dx0, dx1 = mx - x1, mx - x0
+    dy0, dy1 = my - y1, my - y0
+    ex = torch.maximum(dx0.abs(), dx1.abs())
+    ey = torch.maximum(dy0.abs(), dy1.abs())
+    tmax = a * ex * ex + c * ey * ey + 2.0 * b.abs() * ex * ey
+
+    def quad(dx, dy):
+        return a * dx * dx + 2.0 * b * dx * dy + c * dy * dy
+
+    def clamp(v, lo, hi):
+        return torch.fmin(torch.fmax(v, lo), hi)
+
+    qmin = torch.fmin(
+        torch.fmin(quad(dx0, clamp(-b * dx0 * ic, dy0, dy1)),
+                   quad(dx1, clamp(-b * dx1 * ic, dy0, dy1))),
+        torch.fmin(quad(clamp(-b * dy0 * ia, dx0, dx1), dy0),
+                   quad(clamp(-b * dy1 * ia, dx0, dx1), dy1)))
+    mean_inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+    qmin = torch.where(mean_inside, torch.zeros_like(qmin), qmin)
+    return (tmax < TERM_MAX) & (qmin > tau + 64.0 * U * (tmax + 1.0))
+
+
+def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
+                        ends: torch.Tensor, width: int, height: int,
+                        offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[K, WARPS] bool: K1's cull, plain. keep[k, w] is True where entry k
+    lies in a tile's range, warp w of that tile has a pixel inside the
+    image, and the entry is not culled for the warp's sample box (`_culled`):
+    the (entry, warp) pairs K1 walks until the warp's pixels stop."""
+    rows = rows.to(torch.float32)
+    dev = rows.device
+    starts, ends = starts.long(), ends.long()
+    counts = ends - starts
+    tile = torch.repeat_interleave(torch.arange(len(starts), device=dev), counts)
+    # the rows of every range, in order: start + position within the range
+    first = torch.cumsum(counts, 0) - counts  # each range's first position
+    entry = starts[tile] + torch.arange(len(tile), device=dev) - first[tile]
+    boxes = warp_boxes(width, height, offsets, dev)[tile]  # [E, W, 4]
+    live = boxes[..., 0] <= boxes[..., 1]  # the warp has a pixel inside
+    keep = torch.zeros((rows.shape[0], WARPS), dtype=torch.bool, device=dev)
+    keep[entry] = live & ~_culled(rows[entry], boxes)
+    return keep
+
+
+def warp_walk_counts(rows: torch.Tensor, starts: torch.Tensor,
+                     ends: torch.Tensor, width: int, height: int,
+                     offsets: Optional[torch.Tensor] = None) -> WalkCounts:
+    """K1's work on these inputs (`WalkCounts`), from its plain versions:
+    (warp, entry) iterations without and with the cull, and the (pixel,
+    entry) pairs evaluated and contributing. For PERF.md's counts and the
+    kernel's bounds."""
+    keep = warp_keep_reference(rows, starts, ends, width, height, offsets)
+    return _walk(rows, starts, ends, width, height, offsets, keep)[3]
 
 
 # ---- K2: backward -----------------------------------------------------------
