@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's serving, training and stylization paths on one CUDA card
-and check them.
+"""Drive the port's serving, training, stylization and WaSt-3D pipeline paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py             # the checks below
     python3 chip_smoke.py --profile   # build, then only a torch.profiler
@@ -9,29 +9,37 @@ and check them.
                                       # build, then only the named phases
                                       # (no result line)
 
-Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` with one
-`nvcc` call and holds each kernel against its plain PyTorch version on the
-card: K1 (blend forward), K2 (blend backward) and K3 (per-Gaussian gradient
-segment sum), each on small seeded cases, each also run twice for bitwise
-equality (K1 also against itself with its per-warp cull off,
-`w3d_blend_fwd_walk_all`: the same bits, and on `cull_edges`, rows built to
-test the cull at its edges; K3 also on the render path's route, from the
-binning's own segments, against the bare-rank route: the same bits). Then
-the serving path: the golden scene through the kernel, the 200k-Gaussian /
-800x800 scene of `bench.py` timed (K1 with its counts of walked entries and
-a hash of its output, and held to less than 0.85 of its device time with
-the cull off), and the user's render entry point
-(`wast3d_tpu_torch.cli.render`). Then the
-training path: 20 timed train steps on the same scene with a stage split,
-K2 and K3 against their plain versions at that size, and the user's train
-entry point (`wast3d_tpu_torch.cli.train`, ~300 iterations with densify) on
-a Blender-format dataset. Then the stylization path: K4 (pair-descriptor
+Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` (one `nvcc`
+per source, all started together, then a link) and holds each kernel
+against its plain PyTorch version on the card: K1 (blend forward), K2
+(blend backward), their bf16 tier K1f and K2f (`fast_chain`), and K3
+(per-Gaussian gradient segment sum), each on small seeded cases, each also
+run twice for bitwise equality (K1 and K1f also against themselves with the
+per-warp cull off, `w3d_blend_fwd_walk_all` and
+`w3d_blend_fwd_fast_walk_all`: the same bits, and on `cull_edges`, rows
+built to test the cull at its edges; K3 also on the render path's route,
+from the binning's own segments, against the bare-rank route: the same
+bits). Then the serving path: the golden scene through the kernel, the
+200k-Gaussian / 800x800 scene of `bench.py` timed (K1 with its counts of
+walked entries and a hash of its output, and held to less than 0.85 of its
+device time with the cull off; then in the bf16 tier, K1f and K1 timed in
+one call, K1f held to the same share of its own walk of every entry), and
+the user's render entry point (`wast3d_tpu_torch.cli.render`, by default
+in the bf16 tier, then with `--no-fast`). Then the training
+path: 20 timed train steps on the same scene with a stage split, K2 and K3
+against their plain versions at that size, the same steps in the bf16 tier
+(K2f and K2 timed in one call), and the user's train entry point
+(`wast3d_tpu_torch.cli.train`, ~300 iterations with densify) on a
+Blender-format dataset. Then the stylization path: K4 (pair-descriptor
 loss) and K5 (its gradient), both on the fit's pair list, against their
 plain versions on seeded cases (K4 also against the dense one),
 twice each for bitwise equality, alone at the production shape
 (Mp = 16384, 8 balls), and against float64 where points nearly coincide; a port-only mirror of `tools/stylize_gate.py` at the
 JAX record's configuration; and the user's stylize entry point
 (`wast3d_tpu_torch.cli.stylize`) at Mp = 16384, where K4/K5 carry the fit.
+Last, the WaSt-3D run (`wast3d_tpu_torch.cli.pipeline`: content and
+sphere-regularised style training, cluster export, stylization, turntable)
+on two 800x800 datasets, which launches K1 to K5.
 Each entry point runs with the kernels' launch counts set to 0 just before
 it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
@@ -120,6 +128,26 @@ FULL_N = 200_000  # bench.py's scene at BENCH_N=200000, BENCH_RES=800x800
 FULL_RES = 800
 WARMUP, FRAMES = 3, 20
 TOL_MAX, TOL_MEAN, TOL_DEPTH = 2e-3, 1e-5, 2e-2
+# The bf16 tier (K1f, K2f) against its plain versions: the two round at the
+# same points, so they differ where a last-bit difference of f32 (expf, the
+# order of the sums) moves a bf16 rounding by one step (2^-8 relative), or a
+# stop across T = 1e-4.
+FAST_TOL_MAX, FAST_TOL_MEAN, FAST_TOL_DEPTH = 1e-2, 1e-4, 2e-2
+K2F_TOL = 1e-2  # of each gradient column's max |value|
+CLI_TIER_TOL = 3e-2  # `cli.render` --fast against --no-fast, the tier's own bound
+# K1f and K2f per pair: the operations of the function, not of the kernels'
+# way of computing it. The bf16 tier keeps T as log T, so each pair adds the
+# negation and log1pf of alpha, the running sum of log T and the expf that
+# gives T back: K1's 26 + 4 and K2's 60 + 4. The roundings to bf16 are not
+# counted: they exist only because these kernels compute a bf16 function in
+# f32 (a kernel on bf16 operands has them for free). Both bounds use the f32
+# rate, as neither kernel uses the bf16x2 instructions.
+K1F_OPS_PER_PAIR = 30
+K2F_OPS_PER_PAIR = 64
+PIPELINE_ITERS = 300  # cli.pipeline: iterations of each reconstruction
+PIPELINE_FRAMES = 8  # cli.pipeline: turntable frames
+PIPELINE_CLUSTERS = 12  # style clusters: cluster 0 holds ~3,500 of the 60,000 points
+STYLE_SCENE_N = 60_000  # the pipeline's style scene: a seeded torus
 
 
 # `device_ms`'s profiler sessions since the last emitted line: all, and those
@@ -222,10 +250,11 @@ def kernel_inputs(scene, cam, offsets=None):
     return rows, binning.tile_start, binning.tile_end, cam.width, cam.height, offsets
 
 
-def k1_walk_all(rows, starts, ends, w, h, bg, offsets):
-    """K1 with its cull off (`w3d_blend_fwd_walk_all`: every warp walks
-    every entry), on inputs `blend_fwd` has checked. Launched only here, to
-    show that the cull changes no bit; counted nowhere."""
+def k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast=False):
+    """K1 (K1f with `fast`) with its cull off (`w3d_blend_fwd_walk_all`,
+    `w3d_blend_fwd_fast_walk_all`: every warp walks every entry), on inputs
+    the wrapper has checked. Launched only here, to show that the cull
+    changes no bit; counted nowhere."""
     from wast3d_tpu_torch import _build
     from wast3d_tpu_torch.ops.rasterizer.binning import tile_grid
     from wast3d_tpu_torch.ops.rasterizer.blend import BlendOutput
@@ -234,7 +263,8 @@ def k1_walk_all(rows, starts, ends, w, h, bg, offsets):
     dev = rows.device
     out = BlendOutput(*(torch.empty(shape, device=dev) for shape in ((h, w, 3), (h, w), (h, w))))
     grid_x, grid_y = tile_grid(w, h)
-    err = lib.w3d_blend_fwd_walk_all(
+    entry = lib.w3d_blend_fwd_fast_walk_all if fast else lib.w3d_blend_fwd_walk_all
+    err = entry(
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         None if offsets is None else offsets.data_ptr(), bg.data_ptr(),
         *(t.data_ptr() for t in out), w, h, grid_x, grid_x * grid_y,
@@ -256,36 +286,48 @@ def sha256_of(tensors) -> str:
     return h.hexdigest()
 
 
-def compare_k1(inputs, bg):
-    """Kernel twice, the kernel with its cull off, and the plain version on
-    the same inputs; raises past tolerance, or if the two kernel runs or the
-    kernel and its walk-all differ in any bit. Returns ({field: (max,
-    mean)} absolute errors, the kernel's output)."""
-    from wast3d_tpu_torch.ops.rasterizer.blend import blend_fwd, blend_fwd_reference
+def k1_pair(fast):
+    """(kernel wrapper, plain version, name, (max, mean, depth) tolerances)
+    of K1, or of K1f with `fast`."""
+    from wast3d_tpu_torch.ops.rasterizer import blend
 
+    if fast:
+        return (blend.blend_fwd_fast, blend.blend_fwd_fast_reference, "K1f",
+                (FAST_TOL_MAX, FAST_TOL_MEAN, FAST_TOL_DEPTH))
+    return blend.blend_fwd, blend.blend_fwd_reference, "K1", (TOL_MAX, TOL_MEAN, TOL_DEPTH)
+
+
+def compare_k1(inputs, bg, fast=False):
+    """Kernel twice, the kernel with its cull off, and the plain version on
+    the same inputs (K1, or K1f with `fast`); raises past tolerance, or if
+    the two kernel runs or the kernel and its walk-all differ in any bit.
+    Returns ({field: (max, mean)} absolute errors, the kernel's output)."""
+    fwd, plain, name, (tol_max, tol_mean, tol_depth) = k1_pair(fast)
     rows, starts, ends, w, h, offsets = inputs
-    k = blend_fwd(rows, starts, ends, w, h, bg, offsets)
-    k_again = blend_fwd(rows, starts, ends, w, h, bg, offsets)
-    walk_all = k1_walk_all(rows, starts, ends, w, h, bg, offsets)
-    p = blend_fwd_reference(rows, starts, ends, w, h, bg, offsets)
+    k = fwd(rows, starts, ends, w, h, bg, offsets)
+    k_again = fwd(rows, starts, ends, w, h, bg, offsets)
+    walk_all = k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast)
+    p = plain(rows, starts, ends, w, h, bg, offsets)
     torch.cuda.synchronize()
     if not bitwise_equal(k, k_again):
-        raise AssertionError("K1: two runs on the same inputs differ")
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
     if not bitwise_equal(k, walk_all):
-        raise AssertionError("K1: the culled walk and the walk of every entry differ")
+        raise AssertionError(f"{name}: the culled walk and the walk of every entry differ")
     errs = {}
-    for name, a, b in zip(("color", "depth", "final_T"), k, p):
+    for field, a, b in zip(("color", "depth", "final_T"), k, p):
         if not torch.isfinite(a).all():
-            raise AssertionError(f"K1 {name}: non-finite values")
+            raise AssertionError(f"{name} {field}: non-finite values")
         d = (a - b).abs()
-        errs[name] = (float(d.max()) if d.numel() else 0.0, float(d.mean()) if d.numel() else 0.0)
-    for name in ("color", "final_T"):
-        mx, mean = errs[name]
-        if mx > TOL_MAX or mean > TOL_MEAN:
-            raise AssertionError(f"K1 {name} vs plain: max {mx} mean {mean} "
-                                 f"(limits {TOL_MAX}, {TOL_MEAN})")
-    if errs["depth"][0] > TOL_DEPTH:
-        raise AssertionError(f"K1 depth vs plain: max {errs['depth'][0]} (limit {TOL_DEPTH})")
+        errs[field] = (float(d.max()) if d.numel() else 0.0,
+                       float(d.mean()) if d.numel() else 0.0)
+    for field in ("color", "final_T"):
+        mx, mean = errs[field]
+        if mx > tol_max or mean > tol_mean:
+            raise AssertionError(f"{name} {field} vs plain: max {mx} mean {mean} "
+                                 f"(limits {tol_max}, {tol_mean})")
+    if errs["depth"][0] > tol_depth:
+        raise AssertionError(f"{name} depth vs plain: max {errs['depth'][0]} "
+                             f"(limit {tol_depth})")
     return errs, k
 
 
@@ -373,7 +415,8 @@ def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9):
     return inputs, torch.from_numpy(np.asarray(special, np.int64)).to(device)
 
 
-def phase_k1_cases(device):
+def phase_k1_cases(device, fast=False):
+    """K1 (K1f with `fast`) against its plain version on the seven cases."""
     from wast3d_tpu_torch.ops.rasterizer.blend import warp_boxes, warp_keep_reference
 
     t0 = time.perf_counter()
@@ -382,7 +425,7 @@ def phase_k1_cases(device):
     out = {}
     for name, inputs in cases.items():
         rows, starts, ends = inputs[:3]
-        errs, k = compare_k1(inputs, bg)
+        errs, k = compare_k1(inputs, bg, fast)
         out[name] = {"K": int(rows.shape[0]),
                      "empty_tiles": int((ends == starts).sum()),
                      "final_T_min": float(k.final_T.min()),
@@ -395,7 +438,7 @@ def phase_k1_cases(device):
     # The cull on the edge case, by its plain version: it must cull some
     # (entry, warp) pairs, keep some, and keep every hand-made row.
     rows, starts, ends, w, h, offsets = cases["cull_edges"]
-    keep = warp_keep_reference(rows, starts, ends, w, h, offsets)
+    keep = warp_keep_reference(rows, starts, ends, w, h, offsets, fast)
     tiles = torch.repeat_interleave(torch.arange(len(starts), device=device),
                                     (ends - starts).long())  # the rows are the tiles' ranges
     boxes = warp_boxes(w, h, offsets, device)
@@ -408,8 +451,9 @@ def phase_k1_cases(device):
         raise AssertionError("cull_edges: a hand-made row the cull must keep is culled")
     out["cull_edges"].update(pairs_kept=kept, pairs_culled=culled,
                              hand_made_rows=int(special.numel()))
-    emit("k1_vs_plain", t0, cases=out, tolerance={"color_final_T_max": TOL_MAX,
-                                                   "mean": TOL_MEAN, "depth_max": TOL_DEPTH},
+    tol_max, tol_mean, tol_depth = k1_pair(fast)[3]
+    emit("k1_fast_vs_plain" if fast else "k1_vs_plain", t0, cases=out,
+         tolerance={"color_final_T_max": tol_max, "mean": tol_mean, "depth_max": tol_depth},
          runs_bitwise_equal=True, walk_all_bitwise_equal=True)
 
 
@@ -425,37 +469,48 @@ def k2_cotangents(h, w, device, seed):
     return BlendOutput(*(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays))
 
 
-def compare_k2(inputs, bg, grads):
-    """K2 twice and its plain version on the same inputs (K1's output as
-    the forward); raises past K2_TOL or if the two kernel runs differ in any
-    bit. Returns (max error over columns, relative to each column's max;
-    the kernel's output)."""
-    from wast3d_tpu_torch.ops.rasterizer.blend import (
-        blend_bwd, blend_bwd_reference, blend_fwd)
+def k2_pair(fast):
+    """(forward kernel, backward kernel, backward plain version, name,
+    tolerance) of K2, or of K2f with `fast`."""
+    from wast3d_tpu_torch.ops.rasterizer import blend
 
+    if fast:
+        return (blend.blend_fwd_fast, blend.blend_bwd_fast, blend.blend_bwd_fast_reference,
+                "K2f", K2F_TOL)
+    return blend.blend_fwd, blend.blend_bwd, blend.blend_bwd_reference, "K2", K2_TOL
+
+
+def compare_k2(inputs, bg, grads, fast=False):
+    """K2 (K2f with `fast`) twice and its plain version on the same inputs
+    (K1's, or K1f's, output as the forward); raises past its tolerance or
+    if the two kernel runs differ in any bit. Returns (max error over
+    columns, relative to each column's max; the kernel's output)."""
+    fwd, bwd, plain, name, tol = k2_pair(fast)
     rows, starts, ends, w, h, offsets = inputs
-    out = blend_fwd(rows, starts, ends, w, h, bg, offsets)
-    k = blend_bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
-    k_again = blend_bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
-    p = blend_bwd_reference(rows, starts, ends, w, h, bg, offsets, out, grads)
+    out = fwd(rows, starts, ends, w, h, bg, offsets)
+    k = bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
+    k_again = bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
+    p = plain(rows, starts, ends, w, h, bg, offsets, out, grads)
     torch.cuda.synchronize()
     if not torch.isfinite(k).all():
-        raise AssertionError("K2: non-finite values")
+        raise AssertionError(f"{name}: non-finite values")
     if not torch.equal(k, k_again):
-        raise AssertionError("K2: two runs on the same inputs differ")
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
     if k.numel() and (k[:, GRAD_COLS:] != 0).any():
-        raise AssertionError("K2: padding columns not zero")
+        raise AssertionError(f"{name}: padding columns not zero")
     rel = 0.0
     for col in range(GRAD_COLS):
         scale = float(p[:, col].abs().max()) if p.numel() else 0.0
         err = float((k[:, col] - p[:, col]).abs().max()) if p.numel() else 0.0
         rel = max(rel, err / scale if scale > 0 else err)
-    if rel > K2_TOL:
-        raise AssertionError(f"K2 vs plain: {rel} of the column max (limit {K2_TOL})")
+    if rel > tol:
+        raise AssertionError(f"{name} vs plain: {rel} of the column max (limit {tol})")
     return rel, k
 
 
-def phase_k2_cases(device):
+def phase_k2_cases(device, fast=False):
+    """K2 (K2f with `fast`) against its plain version on the six K1 cases
+    that have finite rows, over two backgrounds."""
     t0 = time.perf_counter()
     _, cases = k1_cases(device)
     out = {}
@@ -463,12 +518,12 @@ def phase_k2_cases(device):
         bg = torch.full((3,), bg_value, device=device)
         for i, (name, inputs) in enumerate(cases.items()):
             rows, _, _, w, h, _ = inputs
-            rel, k = compare_k2(inputs, bg, k2_cotangents(h, w, device, seed=i))
+            rel, k = compare_k2(inputs, bg, k2_cotangents(h, w, device, seed=i), fast)
             out[f"{name}_bg{int(bg_value)}"] = {
                 "K": int(rows.shape[0]), "max_rel_err": rel,
                 "max_abs_grad": float(k.abs().max()) if k.numel() else 0.0}
-    emit("k2_vs_plain", t0, cases=out, tolerance_rel_to_column_max=K2_TOL,
-         runs_bitwise_equal=True)
+    emit("k2_fast_vs_plain" if fast else "k2_vs_plain", t0, cases=out,
+         tolerance_rel_to_column_max=k2_pair(fast)[4], runs_bitwise_equal=True)
 
 
 def k3_case_arrays():
@@ -727,6 +782,84 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
             "library_ms": None}
 
 
+def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
+    """Frames through `api.render` in the bf16 tier (`fast_chain`), then K1f
+    alone at this frame's inputs: against K1 and its plain version, both
+    kernels timed in this call by events and by device. Returns K1f's
+    kernels-line entry."""
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+    from wast3d_tpu_torch.ops.rasterizer.blend import (
+        blend_fwd, blend_fwd_fast, blend_fwd_fast_reference, warp_walk_counts)
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    settings = api.RasterizeSettings(renderer="cuda", fast_chain=True)
+
+    before = dict(kernel_counts())
+    frame_ms = []
+    for i in range(warmup + frames):
+        torch.cuda.synchronize()
+        f0 = time.perf_counter()
+        out = api.render(cam, scene, bg, settings=settings, device=device)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            frame_ms.append((time.perf_counter() - f0) * 1e3)
+    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    if launched != only(blend_fwd_fast=warmup + frames):
+        raise AssertionError(f"launches {launched} for {warmup + frames} fast frames")
+    img = out["render"]
+    if img.shape != (res, res, 3) or not torch.isfinite(img).all():
+        raise AssertionError(f"fast frame: shape {tuple(img.shape)} or non-finite values")
+
+    prep = api.preprocess_scene(cam, scene)
+    binning, rows = render_path.bin_and_pack(prep, res, res)
+    inputs = (rows, binning.tile_start, binning.tile_end, res, res, bg)
+    k1_ms = cuda_time_ms(lambda: blend_fwd(*inputs), 50)
+    k1f_ms = cuda_time_ms(lambda: blend_fwd_fast(*inputs), 50)
+    k1_device_ms = kernel_device_ms(lambda: blend_fwd(*inputs), "blend_fwd_kernel")
+    k1f_device_ms = kernel_device_ms(lambda: blend_fwd_fast(*inputs), "blend_fwd_kernel")
+    walk_all_device_ms = kernel_device_ms(lambda: k1_walk_all(*inputs, None, True),
+                                          "blend_fwd_kernel")
+    plain_ms = cuda_time_ms(lambda: blend_fwd_fast_reference(*inputs), 3)
+    errs, kf = compare_k1(inputs[:5] + (None,), bg, fast=True)
+    k = blend_fwd(*inputs)
+    vs_k1 = {f: (float((a - b).abs().max()), float((a - b).abs().mean()))
+             for f, a, b in zip(("color", "depth", "final_T"), kf, k)}
+    counts = warp_walk_counts(*inputs[:5], fast=True)
+    K, tiles = int(rows.shape[0]), int(binning.tile_start.shape[0])
+    bytes_ms = (48 * K + 8 * tiles + 12 + 20 * res * res) / HBM_BYTES_PER_S * 1e3
+    ops_ms = K1F_OPS_PER_PAIR * counts.contributing_pairs / F32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    emit("full_width_fast", t0, n_gaussians=n, width=res, height=res, duplicates_K=K,
+         frame_ms_median=statistics.median(frame_ms), frame_ms_min=min(frame_ms),
+         frame_ms_max=max(frame_ms), frames=frames, launches_in_frames=launched,
+         k1f_ms=k1f_ms, k1f_device_ms=k1f_device_ms, k1_ms_same_call=k1_ms,
+         k1_device_ms_same_call=k1_device_ms, k1f_walk_all_device_ms=walk_all_device_ms,
+         plain_ms=plain_ms, k1f_bound_ms=bound_ms, k1f_bound_bytes_ms=bytes_ms,
+         k1f_bound_ops_ms=ops_ms, evaluated_pairs=counts.evaluated_pairs,
+         contributing_pairs=counts.contributing_pairs,
+         warp_iterations=counts.warp_iterations,
+         warp_iterations_culled=counts.warp_iterations_culled,
+         k1f_output_sha256=sha256_of(kf),
+         **{f"k1f_vs_plain_{f}_max": e[0] for f, e in errs.items()},
+         **{f"k1f_vs_plain_{f}_mean": e[1] for f, e in errs.items()},
+         **{f"k1f_vs_k1_{f}_max": e[0] for f, e in vs_k1.items()},
+         **{f"k1f_vs_k1_{f}_mean": e[1] for f, e in vs_k1.items()})
+    # K1f's own cull at work, held as K1's is in `full_width`
+    if not k1f_device_ms < K1_CULL_MAX_TIME_SHARE * walk_all_device_ms:
+        raise AssertionError(f"K1f {k1f_device_ms:.4f} ms against {walk_all_device_ms:.4f} ms "
+                             "with its cull off: the cull culls nothing on the card")
+    return {"name": "blend_fwd_fast", "route": "cuda",
+            "source": "wast3d_tpu_torch/csrc/blend_fwd.cu",
+            "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:276",
+            "launches": None, "max_abs_err": max(e[0] for e in errs.values()),
+            "ms": k1f_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
 # ---- entry point -------------------------------------------------------------
 
 def write_blender_dataset(src, scene, device, res, n_train=4, n_test=2, fovx=0.9):
@@ -767,54 +900,100 @@ def write_blender_dataset(src, scene, device, res, n_train=4, n_test=2, fovx=0.9
     return n_train + n_test
 
 
+def rendered_pngs(model, split, count, res):
+    """The renders and ground truth `cli.render` wrote for a split, as
+    {file: (render, gt)} int32 arrays."""
+    from wast3d_tpu_torch.utils.png import read_png
+
+    base = os.path.join(model, split, "ours_1")
+    ren = sorted(os.listdir(os.path.join(base, "renders")))
+    gt = sorted(os.listdir(os.path.join(base, "gt")))
+    if len(ren) != count or ren != gt:
+        raise AssertionError(f"{split}: renders {ren} gt {gt} (want {count} each)")
+    out = {}
+    for f in ren:
+        a = read_png(os.path.join(base, "renders", f)).astype(np.int32)
+        if a.shape != (res, res, 3):
+            raise AssertionError(f"{split}/{f}: shape {a.shape}")
+        out[f] = (a, read_png(os.path.join(base, "gt", f)).astype(np.int32))
+    return out
+
+
 def phase_entry_point(device, n=FULL_N, res=FULL_RES):
-    """The user's render entry point, with every kernel's count set to 0
-    just before and read just after. Returns {kernel name: launches}."""
+    """The user's render entry point in both tiers: `cli.render` as a user
+    calls it (the bf16 tier, K1f, by default), then with `--no-fast` (K1),
+    with every kernel's count set to 0 just before each and read just
+    after. Each tier's PNGs are held to its plain renders (the dataset's
+    ground truth for K1; the plain fast render of each camera for K1f),
+    and the two tiers to each other. Returns ({kernel name: launches} of
+    the default run, of the --no-fast run)."""
+    import shutil
+
     from wast3d_tpu_torch.cli import render as cli
+    from wast3d_tpu_torch.eval.render_sets import save_image
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.scene import datasets
     from wast3d_tpu_torch.scene.ply import save_ply
     from wast3d_tpu_torch.utils.png import read_png
 
     t0 = time.perf_counter()
     scene = make_scene(bench_scene(n), device)
     with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_") as tmp:
-        src, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+        src = os.path.join(tmp, "scene")
+        models = {tier: os.path.join(tmp, f"model_{tier}") for tier in ("fast", "f32")}
         views = write_blender_dataset(src, scene, device, res)
-        save_ply(scene, os.path.join(model, "point_cloud", "iteration_1", "point_cloud.ply"))
+        save_ply(scene, os.path.join(models["fast"], "point_cloud", "iteration_1",
+                                     "point_cloud.ply"))
+        shutil.copytree(models["fast"], models["f32"])
+        # the plain fast renders of the same cameras, as PNG bytes
+        info = datasets.load_scene_info(src, eval_split=True)
+        plain_fast = {}
+        for split, infos in (("train", info.train_cameras), ("test", info.test_cameras)):
+            for i, (cam, _) in enumerate(datasets.build_cameras(infos, device=device)):
+                out = api.render(cam, scene, torch.zeros(3), device=device,
+                                 settings=api.RasterizeSettings(renderer="torch",
+                                                                fast_chain=True))
+                path = os.path.join(tmp, f"plain_fast_{split}_{i}.png")
+                save_image(path, out["render"].cpu().numpy())
+                plain_fast[split, f"{i:05d}.png"] = read_png(path).astype(np.int32)
         t_setup = time.perf_counter() - t0
 
-        reset_kernel_counts()
-        t1 = time.perf_counter()
-        cli.main(["-m", model, "-s", src, "--device", device.type])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t1
-        launches = kernel_counts()
+        launches, cli_s = {}, {}
+        for tier, extra in (("fast", []), ("f32", ["--no-fast"])):
+            reset_kernel_counts()
+            t1 = time.perf_counter()
+            cli.main(["-m", models[tier], "-s", src, *extra, "--device", device.type])
+            torch.cuda.synchronize()
+            cli_s[tier] = time.perf_counter() - t1
+            launches[tier] = kernel_counts()
 
-        worst_diff, psnrs, written = 0, [], {}
+        worst, tiers_worst, psnrs, written = {"fast": 0, "f32": 0}, 0, [], {}
         for split, count in (("train", views - 2), ("test", 2)):
-            base = os.path.join(model, split, "ours_1")
-            ren = sorted(os.listdir(os.path.join(base, "renders")))
-            gt = sorted(os.listdir(os.path.join(base, "gt")))
-            written[split] = (len(ren), len(gt))
-            if len(ren) != count or ren != gt:
-                raise AssertionError(f"{split}: renders {ren} gt {gt} (want {count} each)")
-            for f in ren:
-                a = read_png(os.path.join(base, "renders", f)).astype(np.int32)
-                b = read_png(os.path.join(base, "gt", f)).astype(np.int32)
-                if a.shape != (res, res, 3):
-                    raise AssertionError(f"{split}/{f}: shape {a.shape}")
-                worst_diff = max(worst_diff, int(np.abs(a - b).max()))
-                if (a != b).any():
-                    psnrs.append(psnr(a / 255.0, b / 255.0))
-    if launches != {"blend_fwd": views, "blend_bwd": 0, "segment_sum": 0, "desc_loss": 0,
-                    "desc_grad": 0}:
-        raise AssertionError(f"launches {launches} for {views} views (want K1 once each)")
-    if worst_diff > 2:
-        raise AssertionError(f"entry point renders differ from the plain renders by {worst_diff}/255")
+            fast = rendered_pngs(models["fast"], split, count, res)
+            f32 = rendered_pngs(models["f32"], split, count, res)
+            written[split] = len(fast)
+            for f, (a, gt) in f32.items():
+                worst["f32"] = max(worst["f32"], int(np.abs(a - gt).max()))
+                if (a != gt).any():
+                    psnrs.append(psnr(a / 255.0, gt / 255.0))
+                b = fast[f][0]
+                worst["fast"] = max(worst["fast"], int(np.abs(b - plain_fast[split, f]).max()))
+                tiers_worst = max(tiers_worst, int(np.abs(a - b).max()))
+    if (launches["fast"] != only(blend_fwd_fast=views)
+            or launches["f32"] != only(blend_fwd=views)):
+        raise AssertionError(f"launches {launches} for {views} views (want K1f, then K1, "
+                             f"once each)")
+    if max(worst.values()) > 2:
+        raise AssertionError(f"entry point renders differ from the plain renders by "
+                             f"{worst}/255")
+    if tiers_worst / 255.0 > CLI_TIER_TOL:
+        raise AssertionError(f"--fast and --no-fast renders differ by {tiers_worst}/255 "
+                             f"(limit {CLI_TIER_TOL})")
     emit("entry_point", t0, views=views, width=res, height=res, launches=launches,
-         written=written, max_png_diff_vs_plain=worst_diff,
-         min_psnr_vs_plain=min(psnrs) if psnrs else None,  # None: all identical
+         written=written, max_png_diff_vs_plain=worst, max_png_diff_fast_vs_f32=tiers_worst,
+         min_psnr_f32_vs_plain=min(psnrs) if psnrs else None,  # None: all identical
          setup_s=t_setup, cli_s=cli_s)
-    return launches
+    return launches["fast"], launches["f32"]
 
 
 # ---- training at full width -----------------------------------------------
@@ -1026,16 +1205,107 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     return k2, k3
 
 
+def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=FRAMES):
+    """`train_step` in the bf16 tier (K1f forward, K2f backward, K3) on the
+    200k / 800x800 scene, jitter off, with every kernel's count set to 0
+    just before the steps and read just after; then K2f alone at that
+    step's inputs, timed as K2 is (and K2 beside it), against its plain
+    version and bound. Returns K2f's kernels-line entry, with its launches
+    from the steps."""
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.image_losses import photometric_loss
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+    from wast3d_tpu_torch.ops.rasterizer.blend import (
+        BlendOutput, blend_bwd, blend_bwd_fast, blend_bwd_fast_reference, blend_fwd,
+        blend_fwd_fast, evaluated_pairs)
+    from wast3d_tpu_torch.train import reconstruct as R
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    settings = api.RasterizeSettings(renderer="cuda", fast_chain=True)
+    opt_cfg = OptimizationConfig()
+    with torch.no_grad():
+        gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
+                        settings=api.RasterizeSettings(renderer="cuda"), device=device)["render"]
+    state = R.init_train_state(scene, opt_cfg, 1.0)
+
+    reset_kernel_counts()
+    step_ms, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        f0 = time.perf_counter()
+        state, aux = R.train_step(state, cam, gt, bg, None, opt_cfg=opt_cfg, settings=settings,
+                                  width=res, height=res, jitter=False)
+        torch.cuda.synchronize()
+        losses.append(float(aux["loss"]))
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - f0) * 1e3)
+    launched = kernel_counts()
+    want = only(blend_fwd_fast=warmup + steps, blend_bwd_fast=warmup + steps,
+                segment_sum=warmup + steps)
+    if launched != want:
+        raise AssertionError(f"launches {launched} for {warmup + steps} fast train steps, "
+                             f"want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fast train loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    prep = api.preprocess_scene(cam, state.scene)
+    binning, rows = render_path.bin_and_pack(prep, res, res)
+    starts, ends = binning.tile_start, binning.tile_end
+    out = blend_fwd_fast(rows, starts, ends, res, res, bg)
+    color = out.color.clone().requires_grad_(True)
+    (dcolor,) = torch.autograd.grad(photometric_loss(color, gt, opt_cfg.lambda_dssim), [color])
+    grads = BlendOutput(dcolor.contiguous(), torch.zeros_like(out.depth),
+                        torch.zeros_like(out.final_T))
+    args = (rows, starts, ends, res, res, bg, None, out, grads)
+    k2f_ms = cuda_time_ms(lambda: blend_bwd_fast(*args), 20)
+    _, k2f_device_ms = device_ms(lambda: blend_bwd_fast(*args))
+    out32 = blend_fwd(rows, starts, ends, res, res, bg)
+    args32 = args[:7] + (out32, grads)
+    k2_ms = cuda_time_ms(lambda: blend_bwd(*args32), 20)
+    _, k2_device_ms = device_ms(lambda: blend_bwd(*args32))
+    plain_ms = cuda_time_ms(lambda: blend_bwd_fast_reference(*args), 2)
+    rel, drows = compare_k2((rows, starts, ends, res, res, None), bg, grads, fast=True)
+    plain = blend_bwd_fast_reference(*args)
+    pairs = evaluated_pairs(rows, starts, ends, res, res, fast=True)
+    K, tiles = int(rows.shape[0]), int(starts.shape[0])
+    bytes_ms = (48 * K * 2 + 40 * res * res + 8 * tiles + 12) / HBM_BYTES_PER_S * 1e3
+    ops_ms = K2F_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
+    emit("train_full_width_fast", t0, n_gaussians=n, width=res, height=res, jitter=False,
+         steps=steps, warmup=warmup, step_ms_median=statistics.median(step_ms),
+         step_ms_min=min(step_ms), step_ms_max=max(step_ms), loss_first=losses[0],
+         loss_last=losses[-1], launches_in_steps=launched, duplicates_K=K,
+         evaluated_pairs=pairs, k2f_ms=k2f_ms, k2f_device_ms=k2f_device_ms,
+         k2_ms_same_call=k2_ms, k2_device_ms_same_call=k2_device_ms, k2f_plain_ms=plain_ms,
+         k2f_bound_bytes_ms=bytes_ms, k2f_bound_ops_ms=ops_ms, k2f_max_rel_err=rel)
+    return {"name": "blend_bwd_fast", "route": "cuda",
+            "source": "wast3d_tpu_torch/csrc/blend_bwd.cu",
+            "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:644",
+            "launches": launched["blend_bwd_fast"],
+            "max_abs_err": float((drows - plain).abs().max()),
+            "ms": k2f_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
 TRAIN_KERNELS = ("blend_fwd", "blend_bwd", "segment_sum")
 
 
 def _counted():
-    from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, blend_fwd
+    from wast3d_tpu_torch.ops.rasterizer import blend
     from wast3d_tpu_torch.ops.rasterizer.grad_reduce import segment_sum
     from wast3d_tpu_torch.stylize.desc_kernel import desc_grad, desc_loss
 
-    return {"blend_fwd": blend_fwd, "blend_bwd": blend_bwd, "segment_sum": segment_sum,
-            "desc_loss": desc_loss, "desc_grad": desc_grad}
+    return {"blend_fwd": blend.blend_fwd, "blend_bwd": blend.blend_bwd,
+            "blend_fwd_fast": blend.blend_fwd_fast, "blend_bwd_fast": blend.blend_bwd_fast,
+            "segment_sum": segment_sum, "desc_loss": desc_loss, "desc_grad": desc_grad}
+
+
+def only(**launches):
+    """Every counted kernel's launches: those given, the rest 0."""
+    return {k: launches.get(k, 0) for k in _counted()}
 
 
 def kernel_counts():
@@ -1119,8 +1389,7 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
         raise AssertionError(f"train loss did not fall: {losses}")
     if n_final == N_INIT or not finite:
         raise AssertionError(f"N {N_INIT} -> {n_final}, finite {finite}")
-    want = {"blend_fwd": iters + report_renders, "blend_bwd": iters, "segment_sum": iters,
-            "desc_loss": 0, "desc_grad": 0}
+    want = only(blend_fwd=iters + report_renders, blend_bwd=iters, segment_sum=iters)
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want} (one K1, K2, K3 per step, "
                              f"plus K1 for {report_renders} report renders)")
@@ -1132,6 +1401,94 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
          psnr_train=report[-1]["psnr_train"] if report else None,
          k3_longest_segment_final_model=longest, setup_s=t_setup, cli_s=cli_s,
          iters_per_s=iters / cli_s)
+    return launches
+
+
+# ---- the WaSt-3D pipeline -----------------------------------------------------
+
+def torus_scene(n=STYLE_SCENE_N, seed=3, major=1.0, minor=0.35):
+    """A seeded torus about the y axis: the pipeline's style scene, of
+    another shape than the content shell."""
+    rng = np.random.default_rng(seed)
+    u, v = rng.uniform(0, 2 * np.pi, n), rng.uniform(0, 2 * np.pi, n)
+    ring = major + minor * np.cos(v)
+    xyz = np.stack([ring * np.cos(u), minor * np.sin(v), ring * np.sin(u)], 1)
+    rgb = np.stack([0.5 + 0.4 * np.cos(u), 0.5 + 0.4 * np.sin(3 * v), 0.5 + 0.3 * np.sin(u)], 1)
+    return scene_arrays(xyz=xyz, rgb=rgb, scale=rng.uniform(0.006, 0.015, (n, 3)),
+                        opacity=rng.uniform(0.5, 0.9, (n, 1)))
+
+
+def phase_pipeline_entry_point(device, iters=PIPELINE_ITERS, frames=PIPELINE_FRAMES,
+                               clusters=PIPELINE_CLUSTERS, n=FULL_N, style_n=STYLE_SCENE_N,
+                               res=FULL_RES):
+    """`cli.pipeline`, the WaSt-3D run, on two 6-view 800x800 Blender
+    datasets: the 200k shell as content and a 60k-point torus as style, each
+    with its own points as the initial cloud. Cut from 30k iterations to
+    `iters` each and from 60 turntable frames to `frames`; `clusters` style
+    clusters, so that cluster 0 holds more than 2,048 points and K4/K5 carry
+    its fit. Every kernel's count is set to 0 just before the CLI and read
+    just after: K1, K2, K3 (training, report renders, turntable), K4, K5
+    (stylization). Returns {kernel name: launches}."""
+    from wast3d_tpu_torch.cli import pipeline as cli
+    from wast3d_tpu_torch.core.sh import sh_to_rgb
+    from wast3d_tpu_torch.scene.datasets import store_ply_points
+    from wast3d_tpu_torch.scene.ply import load_ply
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.stylize.cluster import load_cluster
+    from wast3d_tpu_torch.stylize.fit import KERNEL_MIN_MP, padded_patch_size
+    from wast3d_tpu_torch.stylize.pipeline import clean_style_patch
+    from wast3d_tpu_torch.utils.png import read_png
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_pipeline_") as tmp:
+        data = {}
+        for name, arrays in (("content", bench_scene(n)), ("style", torus_scene(style_n))):
+            data[name] = os.path.join(tmp, name)
+            write_blender_dataset(data[name], make_scene(arrays, device), device, res)
+            rgb = np.clip(sh_to_rgb(arrays["features_dc"][:, 0, :]), 0.0, 1.0) * 255.0
+            store_ply_points(os.path.join(data[name], "points3d.ply"), arrays["xyz"], rgb)
+        work = os.path.join(tmp, "work")
+        t_setup = time.perf_counter() - t0
+
+        reset_kernel_counts()
+        t1 = time.perf_counter()
+        report = cli.main(["--content_data", data["content"], "--style_data", data["style"],
+                           "--workdir", work, "--iterations", str(iters),
+                           "--num_clusters", str(clusters),
+                           "--turntable_frames", str(frames), "--device", device.type])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        launches = kernel_counts()
+
+        patch = load_cluster(os.path.join(work, "style_clusters", "cluster_0.npz"))
+        cluster0 = len(patch)
+        # the patch the fit saw (cleaned as stylize_scene cleans it) and its padded size
+        cleaned = len(clean_style_patch(patch, device=device))
+        mp = padded_patch_size(cleaned, StylizeConfig().desc_block)
+        out = load_ply(os.path.join(work, "stylized.ply"), device=device)
+        finite = bool(torch.isfinite(out.xyz).all())
+        turntable = os.path.join(work, "turntable")
+        written = sorted(os.listdir(turntable))
+        lit = [int(read_png(os.path.join(turntable, f)).max()) for f in written]
+        shapes = {read_png(os.path.join(turntable, f)).shape for f in written}
+    want_zero = ("blend_fwd_fast", "blend_bwd_fast")
+    if (any(launches[k] == 0 for k in launches if k not in want_zero)
+            or any(launches[k] for k in want_zero)
+            or not launches["blend_bwd"] == launches["segment_sum"] == 2 * iters):
+        raise AssertionError(f"launches {launches}: want K1-K5 all launched, K2 = K3 = "
+                             f"{2 * iters} (two reconstructions), no bf16-tier kernel")
+    if cluster0 <= KERNEL_MIN_MP or not finite or out.capacity == 0:
+        raise AssertionError(f"cluster 0 has {cluster0} points (want > {KERNEL_MIN_MP}); stylized "
+                             f"{out.capacity} Gaussians, finite {finite}")
+    # 800 x 800: spiral_path's default size
+    if len(written) != frames or shapes != {(800, 800, 3)} or min(lit) == 0:
+        raise AssertionError(f"turntable: {written}, shapes {shapes}, brightest {lit}")
+    emit("pipeline_entry_point", t0, iterations=iters, num_clusters=clusters,
+         turntable_frames=frames, width=res, height=res, content_n=report["content_n"],
+         style_n_after_stage_2=report["style_n"], cluster_0_n=cluster0,
+         patch_cleaned_n=cleaned, padded_mp=mp, stylized_n=report["stylized_n"],
+         frames_written=len(written), stage_s=report["stage_s"], launches=launches,
+         setup_s=t_setup, cli_s=cli_s)
     return launches
 
 
@@ -1603,8 +1960,7 @@ def phase_stylize_entry_point(device, domain, spacing, fit_steps=STYLE_FIT_STEPS
         min_points=max(1, cfg.min_ball_points // 2))
     batches = -(-len(circles) // STYLE_BATCH)
     mp = fit.padded_patch_size(len(cpatch.xyz), cfg.desc_block)
-    want = {"blend_fwd": 0, "blend_bwd": 0, "segment_sum": 0,
-            "desc_loss": fit_steps * batches, "desc_grad": fit_steps * batches}
+    want = only(desc_loss=fit_steps * batches, desc_grad=fit_steps * batches)
     if mp != max_style_points or launches != want or launches["desc_loss"] == 0:
         raise AssertionError(f"launches {launches} at Mp {mp}, want {want} (K4 and K5 once "
                              f"per Adam step of each of {batches} batches)")
@@ -1828,37 +2184,48 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         return 0
     if "--only" in sys.argv[1:]:
-        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        names = sys.argv[sys.argv.index("--only") + 1].split(",")
         domain = spacing = None
-        for name in only:
+        for name in names:
             if name in ("stylize_gate", "stylize_entry_point") and domain is None:
                 domain, spacing = content_domain(device)
             {"k1_cases": lambda: phase_k1_cases(device),
+             "k1_fast_cases": lambda: phase_k1_cases(device, fast=True),
              "k2_cases": lambda: phase_k2_cases(device),
+             "k2_fast_cases": lambda: phase_k2_cases(device, fast=True),
              "k3_cases": lambda: phase_k3_cases(device),
              "full_width": lambda: phase_full_width(device),
+             "full_width_fast": lambda: phase_full_width_fast(device),
+             "entry_point": lambda: phase_entry_point(device),
              "train_full_width": lambda: phase_train_full_width(device),
+             "train_full_width_fast": lambda: phase_train_full_width_fast(device),
              "train_entry_point": lambda: phase_train_entry_point(device),
+             "pipeline_entry_point": lambda: phase_pipeline_entry_point(device),
              "k4k5_cases": lambda: phase_k45_cases(device),
              "k4k5_full_width": lambda: phase_k45_full_width(device),
              "k4k5_near_coincident": lambda: phase_k45_near_coincident(device),
              "stylize_gate": lambda: phase_stylize_gate(device, domain, spacing),
              "stylize_entry_point": lambda: phase_stylize_entry_point(device, domain, spacing),
              }[name]()
-        print(json.dumps({"partial_run": only,
+        print(json.dumps({"partial_run": names,
                           "total_seconds": time.perf_counter() - t_start}), flush=True)
         faulthandler.cancel_dump_traceback_later()
         return 0
 
     phase_k1_cases(device)
+    phase_k1_cases(device, fast=True)
     phase_k2_cases(device)
+    phase_k2_cases(device, fast=True)
     phase_k3_cases(device)
     phase_golden(device)
     k1 = phase_full_width(device)
-    serve = phase_entry_point(device)
-    if serve["blend_fwd"] == 0:
-        raise AssertionError(f"K1 was never launched on the serving path: {serve}")
+    k1f = phase_full_width_fast(device)
+    serve_fast, serve = phase_entry_point(device)
+    if serve_fast["blend_fwd_fast"] == 0 or serve["blend_fwd"] == 0:
+        raise AssertionError(f"K1f or K1 was never launched on the serving path: "
+                             f"{serve_fast}, {serve}")
     k2, k3 = phase_train_full_width(device)
+    k2f = phase_train_full_width_fast(device)
     train = phase_train_entry_point(device)
     if any(train[k] == 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel of the training path was never launched: {train}")
@@ -1873,8 +2240,10 @@ def main() -> int:
     style = phase_stylize_entry_point(device, domain, spacing)
     if style["desc_loss"] == 0 or style["desc_grad"] == 0:
         raise AssertionError(f"K4/K5 were never launched on the stylization path: {style}")
-    kernels = [k1, k2, k3, k4, k5]
-    for k in kernels:
+    phase_pipeline_entry_point(device)
+    kernels = [k1, k1f, k2, k2f, k3, k4, k5]
+    k1f["launches"] = serve_fast["blend_fwd_fast"]  # K2f's: from its train steps
+    for k in (k1, k2, k3, k4, k5):
         k["launches"] = (style if k["name"] in ("desc_loss", "desc_grad") else train)[k["name"]]
 
     print(json.dumps({"total_seconds": time.perf_counter() - t_start}), flush=True)

@@ -93,12 +93,18 @@ def test_cpu_path_leaves_launch_count_alone():
 
 
 def test_build_command_is_plain_nvcc_for_sm90a():
-    cmd = _build.nvcc_command(Path("/x/lib.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    assert "--use_fast_math" not in cmd
+    """One plain `nvcc -c` per source for sm_90a (started together), then
+    one `nvcc -shared` over the objects."""
+    compiles, link = _build.nvcc_commands(Path("/x/lib.so"))
+    for cmd in compiles + [link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd and "--use_fast_math" not in cmd
+    for cmd in compiles:
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+    assert "-shared" in link and link[link.index("-o") + 1] == "/x/lib.so"
     srcs = _build.sources()
-    assert srcs and all(str(s) in cmd for s in srcs)
+    assert srcs and [cmd[-1] for cmd in compiles] == [str(s) for s in srcs]
+    objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert link[link.index("-o") + 2:] == objects and len(set(objects)) == len(srcs)
     for s in srcs:
         text = s.read_text()
         assert "torch/extension.h" not in text and "pybind" not in text
@@ -259,3 +265,89 @@ def test_blend_fwd_walk_all_is_a_test_hook_only():
     naming = {p.relative_to(ROOT).as_posix() for p in files
               if "w3d_blend_fwd_walk_all" in p.read_text()}
     assert naming == {"wast3d_tpu_torch/_build.py", "chip_smoke.py"}
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_runs_each_compile_then_the_link(tmp_path, monkeypatch, fail):
+    """`build()` with a stand-in `nvcc` that records its arguments and
+    writes its `-o` file: every source compiled, then one link, the library
+    moved into place and the objects gone; a failing compile raises with
+    its output and leaves no library."""
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$*\" >> {log}\n"
+                    + ("case \"$*\" in *blend_bwd.cu*) echo broken; exit 3;; esac\n" if fail else "")
+                    + 'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match=r"exit 3\):\nbroken"):
+            _build.build()
+    else:
+        built = _build.build()
+        assert built.path == _build.library_path() and built.path.exists()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == len(_build.sources())
+    assert len(calls) == len(compiles) + (not fail) and ("-shared" in calls[-1]) != fail
+    assert [p.name for p in (tmp_path / "build").iterdir()] == ([] if fail else [built.path.name])
+
+
+def test_blend_fwd_fast_walk_all_is_a_test_hook_only():
+    """K1f with its cull off has an entry of K1f's signature, and the port's
+    blend wrapper never reaches it (only chip_smoke.py calls it)."""
+    fast = _build.SIGNATURES["w3d_blend_fwd_fast"]
+    assert _build.SIGNATURES["w3d_blend_fwd_fast_walk_all"] == fast == \
+        _build.SIGNATURES["w3d_blend_fwd"]
+    assert _build.SIGNATURES["w3d_blend_bwd_fast"] == _build.SIGNATURES["w3d_blend_bwd"]
+    src = (_build.SOURCE_DIR / "blend_fwd.cu").read_text()
+    assert "int w3d_blend_fwd_fast(" in src and "int w3d_blend_fwd_fast_walk_all(" in src
+    assert "int w3d_blend_bwd_fast(" in (_build.SOURCE_DIR / "blend_bwd.cu").read_text()
+    files = PY_FILES + sorted((ROOT / "tools").glob("*.py")) + sorted(ROOT.glob("*.py"))
+    naming = {p.relative_to(ROOT).as_posix() for p in files
+              if "w3d_blend_fwd_fast_walk_all" in p.read_text()}
+    assert naming == {"wast3d_tpu_torch/_build.py", "chip_smoke.py"}
+
+
+def test_cli_pipeline_import_pulls_in_no_jax_or_pil():
+    code = ("import sys, wast3d_tpu_torch.cli.pipeline, wast3d_tpu_torch.eval.camera_path, "
+            "wast3d_tpu_torch.train.spheres; "
+            "print(sorted(m for m in ('jax', 'PIL', 'wast3d_tpu', 'orbax') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_pipeline_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-CUDA error cannot occur")
+    from wast3d_tpu_torch.cli import pipeline as cli
+    from wast3d_tpu_torch.eval import camera_path
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--content_data", str(tmp_path), "--style_data", str(tmp_path),
+                  "--workdir", str(tmp_path / "w")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        camera_path.spiral_path(np.zeros(3), 3.0, 0.5, num_frames=2)
+    cams = camera_path.spiral_path(np.zeros(3), 3.0, 0.5, num_frames=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        camera_path.render_path(None, cams, str(tmp_path / "frames"))
+
+
+def test_cpu_fast_tier_leaves_launch_counts_alone():
+    from tests.test_rasterizer import _random_scene
+    from tests.test_torch_scene import port_scene
+
+    cam = look_at_camera(eye=[0, 0, -5], target=[0, 0, 0], up=[0, -1, 0], fovx=0.8,
+                         fovy=0.8, width=32, height=32, device="cpu")
+    scene = port_scene(_random_scene(n=50, seed=3))
+    xyz = scene.xyz.clone().requires_grad_(True)
+    out = api.render(cam, scene.replace(xyz=xyz), torch.zeros(3), device="cpu",
+                     settings=api.RasterizeSettings(renderer="cuda", fast_chain=True))
+    out["render"].sum().backward()
+    assert float(out["render"].detach().max()) > 0 and bool(xyz.grad.abs().sum() > 0)
+    assert (blend.blend_fwd_fast.launches, blend.blend_bwd_fast.launches,
+            blend.blend_fwd.launches, blend.blend_bwd.launches) == (0, 0, 0, 0)

@@ -7,7 +7,8 @@
   3e-3 on colour and final_T, 3e-2 on depth; radii as in
   `test_torch_preprocess.py` (exact but for ceil() ties);
 - `render`'s positional order is JAX's (`render(cam, scene, bg, 0.5)`);
-- `render_sets` through the port's CLI writes the same file tree as JAX
+- `render_sets` through the port's CLI (`--no-fast`, the f32 tier) writes
+  the same file tree as JAX
   `render_sets`, with images within 2/255 (a float difference can move an
   8-bit truncation across one step)."""
 
@@ -146,7 +147,7 @@ def test_render_sets_tree_matches_jax(tmp_path):
     from wast3d_tpu.eval.render_sets import render_sets as jax_render_sets
 
     jax_render_sets(jmodel, src, settings=TILED, autoplan=False)
-    tcli.main(["-m", tmodel, "-s", src, "--device", "cpu"])
+    tcli.main(["-m", tmodel, "-s", src, "--no-fast", "--device", "cpu"])  # the f32 tier
     files = _tree(jmodel)
     assert files == _tree(tmodel)
     pngs = [f for f in files if f.endswith(".png")]
@@ -157,8 +158,3 @@ def test_render_sets_tree_matches_jax(tmp_path):
         assert np.abs(a - b).max() <= 2, f
     ren = np.asarray(Image.open(os.path.join(tmodel, "train/ours_7/renders/00000.png")))
     assert ren.max() > 50  # the splats are in view, not an empty frame
-
-
-def test_cli_fast_tier_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["-m", str(tmp_path), "-s", str(tmp_path), "--fast", "--device", "cpu"])

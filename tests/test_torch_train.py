@@ -346,11 +346,6 @@ def test_cli_train_flags_match_jax():
     assert ns.renderer == "cuda" and ns.device == "cuda" and ns.data_device == "tpu"
 
 
-def test_cli_train_sphere_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tcli.main(["-s", "x", "-m", "y", "--sphere_mode", "isotropic", "--device", "cpu"])
-
-
 def test_cli_train_on_cpu_with_checkpoint(tmp_path):
     src = str(tmp_path / "scene")
     blender_scene(src)

@@ -6,10 +6,11 @@ current one can be compared in one chip call:
     cd <checkout> && python3 <repo>/tools/chip_phases.py train_full_width --device-times
     cd <checkout> && python3 <repo>/tools/chip_phases.py k1_bits --save-k1 <file.pt>
 
-Phases: k1_bits, k2_cases, k3_cases, full_width, train_full_width,
+Phases: k1_bits, k2_bits, k2_cases, k3_cases, full_width, train_full_width,
 train_entry_point, k4k5_full_width, stylize_entry_point (after building the
 content domain). Each phase prints its JSON line as in `chip_smoke.py`;
-`k1_bits` (below) prints SHA-256 hashes of K1's inputs and outputs, and
+`k1_bits` and `k2_bits` (below) print SHA-256 hashes of K1's inputs and
+outputs and of K2's outputs, and
 `--save-k1 <file.pt>` also saves its 200k / 800x800 outputs there, so that
 two checkouts' K1 can be compared bit for bit and by their largest
 difference. `--device-times` also times, by `torch.profiler`, every call
@@ -115,6 +116,33 @@ def phase_k1_bits(device, save=None):
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
+def phase_k2_bits(device):
+    """K2 (`blend_bwd`) once on the checkout's own `k1_cases` (K1's output
+    as the forward, `k2_cotangents` as the cotangents, background 0 and 1)
+    and at the 200k / 800x800 frame's inputs; prints the hashes of each
+    case's output. Uses only what every checkout's `chip_smoke.py` has
+    since K2 was ported."""
+    from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, blend_fwd
+
+    t0 = time.perf_counter()
+    _, cases = cs.k1_cases(device)
+    scene = cs.make_scene(cs.bench_scene(cs.FULL_N), device)
+    cam = cs.view_camera(cs.FULL_RES, cs.FULL_RES, device, eye=(0, 0, -3), fov=0.9)
+    cases["full_width"] = cs.kernel_inputs(scene, cam)
+    out = {}
+    for bg_value in (0.0, 1.0):
+        bg = torch.full((3,), bg_value, device=device)
+        for i, (name, (rows, starts, ends, w, h, offsets)) in enumerate(cases.items()):
+            fwd = blend_fwd(rows, starts, ends, w, h, bg, offsets)
+            grads = cs.k2_cotangents(h, w, device, seed=i)
+            d = blend_bwd(rows, starts, ends, w, h, bg, offsets, fwd, grads)
+            torch.cuda.synchronize()
+            out[f"{name}_bg{int(bg_value)}"] = {"K": int(rows.shape[0]),
+                                                 "output_sha256": sha256_of([d])}
+    print(json.dumps({"phase": "k2_bits", "cases": out,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_phases: CUDA is not available", file=sys.stderr)
@@ -130,7 +158,7 @@ def main() -> int:
     _build.load_library()
     print(json.dumps({"phase": "build", "nvcc_s": built.seconds}), flush=True)
     save = sys.argv[sys.argv.index("--save-k1") + 1] if "--save-k1" in sys.argv else None
-    phases = {"k1_bits": lambda dev: phase_k1_bits(dev, save),
+    phases = {"k1_bits": lambda dev: phase_k1_bits(dev, save), "k2_bits": phase_k2_bits,
               "k2_cases": cs.phase_k2_cases, "k3_cases": cs.phase_k3_cases,
               "full_width": cs.phase_full_width,
               "train_full_width": cs.phase_train_full_width,

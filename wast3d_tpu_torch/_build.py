@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels: plain `nvcc` + `ctypes`.
 
 Every source under `csrc/` has a plain C interface (no PyTorch headers, no
-pybind, no `torch.utils.cpp_extension`, no ninja). One `nvcc` call compiles
-them all into `_build/libw3d_kernels-<hash>.so`, where the hash covers the
-sources, the headers beside them and the flags, so a changed source
+pybind, no `torch.utils.cpp_extension`, no ninja). One `nvcc -c` per
+source, all started together, compiles them to objects, and one more `nvcc`
+links those into `_build/libw3d_kernels-<hash>.so`, where the hash covers
+the sources, the headers beside them and the flags, so a changed source
 rebuilds and an unchanged one is reused. A file that includes PyTorch's
 headers takes minutes to compile; these take seconds, and the build runs
-at the first kernel call on a CUDA tensor, never at import. If `nvcc` fails, the error carries its output;
-nothing falls back.
+at the first kernel call on a CUDA tensor, never at import. If `nvcc`
+fails, the error carries its output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -18,16 +19,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-# -Xptxas -v reports each kernel's registers, shared memory and spills.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# Each source's flags; -Xptxas -v reports each kernel's registers, shared
+# memory and spills.
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600
 
 _p = ctypes.c_void_p
@@ -40,7 +44,13 @@ SIGNATURES = {
     "w3d_blend_fwd": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
     # K1 with its cull off; only chip_smoke.py calls it, to compare bits.
     "w3d_blend_fwd_walk_all": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
+    # K1f, the bf16 tier, and its walk of every entry (only chip_smoke.py
+    # calls the latter, as for K1).
+    "w3d_blend_fwd_fast": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
+    "w3d_blend_fwd_fast_walk_all": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+                                    _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
+    "w3d_blend_bwd_fast": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_segsum": ([_p, _i, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _i, _p], _i),
     "w3d_desc_loss": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_desc_grad": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
@@ -66,8 +76,13 @@ def nvcc_path() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def nvcc_command(out: Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_commands(out: Path) -> Tuple[List[List[str]], List[str]]:
+    """One compile command per source, into an object beside `out`, and the
+    command that links those objects into the shared library `out`."""
+    objects = [out.with_name(f"{out.name}.{src.stem}.o") for src in sources()]
+    compiles = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objects)]
+    return compiles, [nvcc_path(), *ARCH, "-shared", "-o", str(out), *map(str, objects)]
 
 
 def library_path() -> Path:
@@ -78,22 +93,29 @@ def library_path() -> Path:
     return BUILD_DIR / f"libw3d_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(cmd: List[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    return log
+
+
 def build() -> Built:
     """Compile the kernels unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return Built(out, seconds, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = Path(tmp) / out.name
+        compiles, link = nvcc_commands(lib)
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            logs = list(pool.map(_nvcc, compiles))
+        logs.append(_nvcc(link))
+        os.replace(lib, out)
+    return Built(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.lru_cache(maxsize=None)

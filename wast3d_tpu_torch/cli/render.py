@@ -3,8 +3,9 @@
 `python -m wast3d_tpu_torch.cli.render -m <model_path> [-s <source>]
 [--iteration N] [--device cuda|cpu]`. The same flags as
 `wast3d_tpu.cli.render`; the source path comes from the model's `cfg_args`
-when `-s` is not given. `--fast` (the bf16 serving tier) is not in the port
-yet and raises; `--batch` and `--autoplan` are accepted and do nothing
+when `-s` is not given. `--fast` (the default, as in the JAX package)
+renders with the bf16 tier of the blend (K1f), `--no-fast` with the exact
+f32 kernel (K1); `--batch` and `--autoplan` are accepted and do nothing
 (see `eval/render_sets.py`).
 """
 
@@ -26,10 +27,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--resolution", "-r", type=int, default=-1)
     parser.add_argument("--white_background", "-w", action="store_true")
     parser.add_argument("--fast", action=argparse.BooleanOptionalAction,
-                        default=False,
-                        help="bf16 serving tier of the blend kernel (not "
-                             "ported yet: raises; the default is the exact "
-                             "f32 kernel)")
+                        default=True,
+                        help="bf16 serving tier of the blend kernel (K1f, "
+                             "default on as in the JAX package; --no-fast "
+                             "for the exact f32 kernel)")
     parser.add_argument("--batch", type=int, default=1,
                         help="accepted; views render one after another")
     parser.add_argument("--autoplan", action=argparse.BooleanOptionalAction,
@@ -39,10 +40,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.fast:
-        raise NotImplementedError(
-            "--fast (the bf16 fast_chain tier of the blend kernel) is not "
-            "ported yet: see ROADMAP.md, queue 2, 'K1 bf16 tier'")
 
     source = args.source_path
     white_bg = args.white_background
@@ -60,7 +57,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         args.model_path, source, iteration=args.iteration,
         skip_train=args.skip_train, skip_test=args.skip_test,
         white_background=white_bg, resolution=args.resolution,
-        settings=api.RasterizeSettings(renderer="cuda"),
+        settings=api.RasterizeSettings(renderer="cuda", fast_chain=args.fast),
         batch=args.batch, autoplan=args.autoplan, device=args.device,
     )
 

@@ -4,11 +4,12 @@
 [--device cuda|cpu]`
 
 The flags of `wast3d_tpu.cli.train` (the reference `train.py` flags, from
-the same config groups), plus `--device` as `cli.render` has. Differences:
+the same config groups), plus `--device` as `cli.render` has.
+`--sphere_mode {isotropic,anisotropic,anisotropic_simple}` trains a style
+scene with the sphere regularisers (`train/spheres.py`), built as the JAX
+CLI builds them. Differences:
 - `--renderer` takes "cuda" (the hand-written kernels, the default) or
   "torch" (their plain PyTorch versions);
-- `--sphere_mode` other than "none" raises `NotImplementedError`: the
-  sphere regularisers are not ported yet (ROADMAP.md, queue 1 item 12);
 - `--ip` / `--port` are accepted and no viewer starts (queue 1 item 18);
   `--debug_from`, `--detect_anomaly` and `--test_iterations` are accepted
   and do nothing, as in the JAX package.
@@ -23,6 +24,7 @@ from wast3d_tpu_torch.config import (
     ModelConfig,
     OptimizationConfig,
     PipelineConfig,
+    SphereConfig,
     add_config_args,
     extract_config,
 )
@@ -55,12 +57,19 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def sphere_config(mode: str) -> Optional[SphereConfig]:
+    """The `SphereConfig` of a `--sphere_mode`, as `wast3d_tpu.cli.train`
+    builds it (None for "none")."""
+    if mode == "isotropic":
+        return SphereConfig()
+    if mode in ("anisotropic", "anisotropic_simple"):
+        return SphereConfig(anisotropic=True, anisotropy_ratio=1.3, lambda_anisotropy=0.1,
+                            lambda_min_scale=0.5 if mode == "anisotropic" else 0.0)
+    return None
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.sphere_mode != "none":
-        raise NotImplementedError(
-            f"--sphere_mode {args.sphere_mode}: the sphere regularisers are not "
-            "ported yet: see ROADMAP.md, queue 1 item 12")
     model = extract_config(ModelConfig, args)
     opt = extract_config(OptimizationConfig, args)
 
@@ -80,6 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         checkpoint_iterations=args.checkpoint_iterations,
         start_checkpoint=args.start_checkpoint,
         opt_cfg=opt,
+        sphere_cfg=sphere_config(args.sphere_mode),
         settings=RasterizeSettings(renderer=args.renderer),
         seed=args.seed,
         quiet=args.quiet,

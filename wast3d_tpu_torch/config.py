@@ -1,7 +1,8 @@
 """Configuration: the reference's parameter groups and the `cfg_args` file.
 
 Port of `wast3d_tpu/config.py` for training and stylization: `ModelConfig`,
-`PipelineConfig`, `OptimizationConfig` and `StylizeConfig` with the same
+`PipelineConfig`, `OptimizationConfig`, `SphereConfig` and `StylizeConfig`
+with the same
 field names and defaults, so command lines and saved `cfg_args` stay
 interchangeable with the JAX package and the reference. `ModelConfig.data_device` keeps the JAX
 package's default "tpu": the port reads any value but "cpu" as "keep the
@@ -57,6 +58,22 @@ class OptimizationConfig:
 
 
 @dataclass(frozen=True)
+class SphereConfig:
+    """Style-scene sphere regulariser weights (`train/spheres.py`), as in the
+    JAX package: isotropy / uniformity weights 1e-1 / 1e-2 of the
+    reference's `train_spheres.py:107-127`; the anisotropic hinge of
+    `train_spheres_anisotropic.py:97-145`."""
+
+    lambda_isotropy: float = 0.1
+    lambda_uniformity: float = 0.01
+    anisotropic: bool = False
+    anisotropy_ratio: float = 2.0
+    lambda_anisotropy: float = 0.1
+    min_scale: float = 0.0
+    lambda_min_scale: float = 0.0
+
+
+@dataclass(frozen=True)
 class StylizeConfig:
     """WaSt-3D stylization knobs (notebook 11 defaults), as in the JAX
     package: content clusters, outlier quantile and subsample (cells 5-6),
@@ -91,6 +108,15 @@ class StylizeConfig:
     desc_kernel: bool = True
     pallas_interpret: bool = False  # no effect in the port
 
+
+# The parameter groups, by the JAX package's names.
+_GROUPS = {
+    "model": ModelConfig,
+    "pipeline": PipelineConfig,
+    "optimization": OptimizationConfig,
+    "sphere": SphereConfig,
+    "stylize": StylizeConfig,
+}
 
 # Fields with single-letter shorthands in the reference CLI.
 _SHORTHANDS = {

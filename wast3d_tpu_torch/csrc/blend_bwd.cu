@@ -62,7 +62,21 @@
 // Built without --use_fast_math, so expf and the divisions are the accurate
 // ones, as in K1 and in the plain version
 // (`wast3d_tpu_torch/ops/rasterizer/blend.py::blend_bwd_reference`).
+//
+// K2f, the bf16 tier (`fast_chain`): the same kernel with kFast set replaces
+// the `fast=True` body of the same TPU kernel (`pallas_blend.py:543`, its
+// fast branches at :571 and :644-690). It recomputes alpha and T exactly as
+// K1f does (f32 power; alpha, log1p, T and the stop test rounded to bf16,
+// log T an f32 running sum), so its stops are K1f's, and rounds q =
+// dcolour . rgb + ddepth depth (each operand, product and sum, in the order
+// r, g, b, depth), q w (added to the f32 prefix) and q T to bf16; the
+// division, dL/dpower, the moment sums, the butterfly and the row gradient
+// stay f32, and so does the output. An alpha at the bf16 clamp gets no
+// gradient. Its plain version is `blend_bwd_fast_reference`. Its bytes are
+// K2's; it adds ~16 operations per evaluated pair (the roundings, log1pf and
+// a second expf), so like K1f it is no faster than the f32 kernel it mirrors.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,9 +91,13 @@ constexpr int kGroup = 3;    // entries per butterfly: kGroup * kVals <= 32 slot
 constexpr size_t kSmemBytes =
     2 * kBatch * kVecs * sizeof(float4) + kWarps * kBatch * kVals * sizeof(float);
 constexpr float kAlphaMax = 0.99f;
+constexpr float kAlphaMaxBf16 = 0.98828125f;  // 0.99 rounded to bfloat16
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// x rounded to bfloat16 (to nearest, ties to even) and back.
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -108,6 +126,7 @@ __device__ __forceinline__ void scatter_step(float (&v)[32], int lane) {
   }
 }
 
+template <bool kFast>
 __global__ void __launch_bounds__(kBlock)
 blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f32
                  const int* __restrict__ starts, const int* __restrict__ ends,
@@ -154,9 +173,12 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
               t_fin * dt_eff;
   }
 
+  // The bf16 tier's rounded cotangents (q's operands).
+  const float gr_b = bf(gr), gg_b = bf(gg), gb_b = bf(gb), gd_b = bf(gd);
+
   const int start = starts[tile];
   const int end = ends[tile];
-  float T = 1.0f;
+  float T = kFast ? 0.0f : 1.0f;  // log T in the bf16 tier
   float prefix = 0.0f;
   bool done = !inside;
 
@@ -201,19 +223,36 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
           const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
           // Written as K1's tests, negated, so that the two agree on every input.
           if (!(power > 0.0f)) {
-            const float alpha = fminf(kAlphaMax, b.y * expf(power));
+            const float alpha = kFast ? fminf(kAlphaMaxBf16, bf(bf(b.y) * bf(expf(power))))
+                                      : fminf(kAlphaMax, b.y * expf(power));
             if (!(alpha < kAlphaMin)) {
-              const float test_t = T * (1.0f - alpha);
+              // T before this entry, and the stop test (K1f's in the bf16 tier)
+              const float t_prev = kFast ? bf(expf(bf(T))) : T;
+              const float test_t = kFast ? bf(t_prev * bf(1.0f - alpha)) : T * (1.0f - alpha);
               if (test_t < kTEps) {
                 done = true;
               } else {
-                const float w = alpha * T;
-                const float q = gr * b.w + gg * c.x + gb * c.y + gd * b.z;
-                prefix += q * w;
-                const float dpow =
-                    alpha < kAlphaMax
-                        ? (q * T - (s_total - prefix) / (1.0f - alpha)) * alpha
-                        : 0.0f;
+                float w, dpow;
+                if (kFast) {
+                  w = bf(alpha * t_prev);
+                  const float q = bf(bf(bf(bf(gr_b * bf(b.w)) + bf(gg_b * bf(c.x))) +
+                                        bf(gb_b * bf(c.y))) +
+                                     bf(gd_b * bf(b.z)));
+                  prefix += bf(q * w);
+                  // JAX's clamp test, alpha < 0.99 in f32, which every
+                  // bf16 alpha passes: an alpha at the bf16 clamp keeps its
+                  // gradient (unlike the f32 tier's).
+                  dpow = alpha < kAlphaMax
+                             ? (bf(q * t_prev) - (s_total - prefix) / (1.0f - alpha)) * alpha
+                             : 0.0f;
+                } else {
+                  w = alpha * T;
+                  const float q = gr * b.w + gg * c.x + gb * c.y + gd * b.z;
+                  prefix += q * w;
+                  dpow = alpha < kAlphaMax
+                             ? (q * T - (s_total - prefix) / (1.0f - alpha)) * alpha
+                             : 0.0f;
+                }
                 v[kVals * e + 0] = dpow;
                 v[kVals * e + 1] = dpow * dx;
                 v[kVals * e + 2] = dpow * dy;
@@ -224,7 +263,7 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
                 v[kVals * e + 7] = w * gr;
                 v[kVals * e + 8] = w * gg;
                 v[kVals * e + 9] = w * gb;
-                T = test_t;
+                T = kFast ? T + bf(log1pf(-alpha)) : test_t;
                 live = true;
               }
             }
@@ -272,6 +311,37 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
   }
 }
 
+template <bool kFast>
+int launch(const void* rows, const void* starts, const void* ends, const void* offsets,
+           const void* bg, const void* color, const void* depth, const void* final_t,
+           const void* dcolor, const void* ddepth, const void* dfinal_t, void* drows,
+           int width, int height, int grid_x, int num_tiles, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Dynamic shared memory past 48 KB needs the attribute, set once per
+  // device and kernel (devices 0-31; any other on every call).
+  static unsigned configured = 0;
+  const unsigned bit = device < 32 ? 1u << device : 0u;
+  if (!(configured & bit) || bit == 0u) {
+    err = cudaFuncSetAttribute(blend_bwd_kernel<kFast>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured |= bit;
+  }
+  if (num_tiles > 0) {
+    blend_bwd_kernel<kFast><<<num_tiles, kBlock, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(rows), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(offsets),
+        static_cast<const float*>(bg), static_cast<const float*>(color),
+        static_cast<const float*>(depth), static_cast<const float*>(final_t),
+        static_cast<const float*>(dcolor), static_cast<const float*>(ddepth),
+        static_cast<const float*>(dfinal_t), static_cast<float4*>(drows), width,
+        height, grid_x);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -284,29 +354,19 @@ int w3d_blend_bwd(const void* rows, const void* starts, const void* ends,
                   const void* depth, const void* final_t, const void* dcolor,
                   const void* ddepth, const void* dfinal_t, void* drows, int width,
                   int height, int grid_x, int num_tiles, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Dynamic shared memory past 48 KB needs the attribute, set once per
-  // device (devices 0-31; any other on every call).
-  static unsigned configured = 0;
-  const unsigned bit = device < 32 ? 1u << device : 0u;
-  if (!(configured & bit) || bit == 0u) {
-    err = cudaFuncSetAttribute(blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured |= bit;
-  }
-  if (num_tiles > 0) {
-    blend_bwd_kernel<<<num_tiles, kBlock, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(rows), static_cast<const int*>(starts),
-        static_cast<const int*>(ends), static_cast<const float2*>(offsets),
-        static_cast<const float*>(bg), static_cast<const float*>(color),
-        static_cast<const float*>(depth), static_cast<const float*>(final_t),
-        static_cast<const float*>(dcolor), static_cast<const float*>(ddepth),
-        static_cast<const float*>(dfinal_t), static_cast<float4*>(drows), width,
-        height, grid_x);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(rows, starts, ends, offsets, bg, color, depth, final_t, dcolor, ddepth,
+                       dfinal_t, drows, width, height, grid_x, num_tiles, device, stream);
+}
+
+// K2f, the bf16 tier, with the same arguments (`color`, `depth`, `final_t`
+// from K1f).
+int w3d_blend_bwd_fast(const void* rows, const void* starts, const void* ends,
+                       const void* offsets, const void* bg, const void* color,
+                       const void* depth, const void* final_t, const void* dcolor,
+                       const void* ddepth, const void* dfinal_t, void* drows, int width,
+                       int height, int grid_x, int num_tiles, int device, void* stream) {
+  return launch<true>(rows, starts, ends, offsets, bg, color, depth, final_t, dcolor, ddepth,
+                      dfinal_t, drows, width, height, grid_x, num_tiles, device, stream);
 }
 
 }  // extern "C"

@@ -58,7 +58,28 @@
 // the kernel can be held tightly to its plain PyTorch version
 // (`wast3d_tpu_torch/ops/rasterizer/blend.py::blend_fwd_reference`; the cull's
 // plain version is `warp_keep_reference` there).
+//
+// K1f, the bf16 tier (`fast_chain`, JAX's serving default): the same kernel
+// with kFast set replaces the `fast=True` body of the same TPU kernel
+// (`_chunk_quantities_fast` / `_fast_quad`, `pallas_blend.py:276-400`). The
+// walk, batches and cull are K1's; per (pixel, entry) power stays f32 (as
+// JAX's serving route, `quad_power`, computes it at f32 class), and the
+// chain rounds to bfloat16 from alpha on, with __float2bfloat16_rn at the
+// points of `blend.py`'s module docstring: alpha = min(bf(0.99),
+// bf(bf(opa) bf(expf(power)))), s = bf(log1pf(-alpha)), T = bf(expf(bf(logT)))
+// from the f32 running sum logT of s, the stop on bf(T bf(1 - alpha)), and
+// w = bf(alpha T); compares, logT, final_T = expf(logT) and the sums stay
+// f32. No coordinate is rounded, so JAX's recentring on the tile origin
+// before its casts is not needed. Its cull widens the margin by the bf16
+// roundings (`cull_prelude`). Its plain versions are
+// `blend_fwd_fast_reference` and `warp_keep_reference(..., fast=True)`.
+// It reads and writes K1's bytes and adds a log1pf, an expf and seven
+// roundings per taken pair (~36 f32 operations a contributing pair, each
+// rounding and transcendental counted as one, against K1's ~26): as a simple
+// kernel that is right it computes in f32 and rounds, so it is no faster
+// than K1; two entries per bf16x2 op and bf16 rows are for later.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -80,6 +101,14 @@ constexpr float kU = 5.9604645e-8f;  // 2^-24, the unit roundoff of f32
 constexpr float kOpaCull = kAlphaMin * (1.0f - 64.0f * kU);
 constexpr float kConicMin = 1e-30f;
 constexpr float kTermMax = 1e30f;
+
+// The bf16 tier's clamp (0.99 rounded to bfloat16) and its cull's margins.
+constexpr float kAlphaMaxBf16 = 0.98828125f;
+constexpr float kOpaCullFast = kAlphaMin * (1.0f - 0.015625f);  // 1 - 2^-6
+constexpr float kTauFast = 0.03125f;                            // 2^-5
+
+// x rounded to bfloat16 (to nearest, ties to even) and back.
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -133,8 +162,19 @@ __device__ __forceinline__ float quad(float A, float B, float C, float dx, float
 // ~50u Tmax to spare. For opa alone: expf(power) <= 1 + 4u for power <= 0, so
 // opa < (1/255)(1 - 64u) gives alpha < 1/255.
 
-// Per entry: (1/A, 1/C, tau', C), where tau' is tau + 8u |tau|, or -inf where
-// opa alone culls, or +inf where the row is never culled.
+//
+// The bf16 tier (kFast) rounds opa, expf(power) and their product to bf16
+// (8 significant bits), each within 2^-8 relative, so a lane that takes the
+// entry has opa e^power >= (1/255) (1 - u) / ((1 + 4u) (1 + 2^-8)^3):
+// Q_lane <= tau + 6 2^-8 + 14u, about tau + 0.0234. K1f adds 2^-5 = 8 2^-8
+// to tau', 1.33 times the 6 2^-8 that needs, and culls by opa alone below
+// (1/255)(1 - 2^-6): bf(expf(power)) <= 1 for power <= 0, so there alpha <=
+// opa (1 + 2^-8)^2 < (1/255)(1 - 2^-7) < (1/255)(1 - u).
+
+// Per entry: (1/A, 1/C, tau', C), where tau' is tau + 8u |tau| (+ 2^-5 in
+// the bf16 tier), or -inf where opa alone culls, or +inf where the row is
+// never culled.
+template <bool kFast>
 __device__ __forceinline__ float4 cull_prelude(const float4 a, const float4 b) {
   const float mx = a.x, my = a.y, A = a.z, B = a.w, C = b.x, opa = b.y;
   const bool cullable = isfinite(mx) && isfinite(my) && isfinite(A) && isfinite(B) &&
@@ -142,9 +182,10 @@ __device__ __forceinline__ float4 cull_prelude(const float4 a, const float4 b) {
                         A * C * (1.0f - 16.0f * kU) > B * B;
   if (!cullable) return make_float4(0.0f, 0.0f, CUDART_INF_F, C);
   float tau = -CUDART_INF_F;
-  if (!(opa < kOpaCull)) {
+  if (!(opa < (kFast ? kOpaCullFast : kOpaCull))) {
     tau = 2.0f * logf(255.0f * opa);
     tau += 8.0f * kU * fabsf(tau);
+    if (kFast) tau += kTauFast;
   }
   return make_float4(1.0f / A, 1.0f / C, tau, C);
 }
@@ -192,14 +233,34 @@ __device__ __forceinline__ float power_at(const float4 a, const float4 b, float 
   return -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
 }
 
+// alpha before the skips: K1's f32 expression, or the bf16 tier's.
+template <bool kFast>
+__device__ __forceinline__ float alpha_of(float opa, float power) {
+  if (kFast) return fminf(kAlphaMaxBf16, bf(bf(opa) * bf(expf(power))));
+  return fminf(kAlphaMax, opa * expf(power));
+}
+
 // One entry applied to a pixel, the parent kernel's per-entry step (the same
 // expressions in the same order). `c` points at the row's third float4, read
 // only if the entry is taken. Returns false if the pixel stops at this entry,
-// which is then not added.
+// which is then not added. In the bf16 tier `T` holds log T (module note).
+template <bool kFast>
 __device__ __forceinline__ bool apply(float power, float alpha, const float4 b, const float4* c,
                                       float& T, float& acc_r, float& acc_g, float& acc_b,
                                       float& acc_d) {
   if (power > 0.0f || alpha < kAlphaMin) return true;
+  if (kFast) {
+    const float t = bf(expf(bf(T)));
+    if (bf(t * bf(1.0f - alpha)) < kTEps) return false;
+    const float4 g = *c;  // g, b, pad, pad
+    const float w = bf(alpha * t);
+    acc_d += b.z * w;
+    acc_r += b.w * w;
+    acc_g += g.x * w;
+    acc_b += g.y * w;
+    T += bf(log1pf(-alpha));
+    return true;
+  }
   const float test_t = T * (1.0f - alpha);
   if (test_t < kTEps) return false;
   const float4 g = *c;  // g, b, pad, pad
@@ -212,7 +273,7 @@ __device__ __forceinline__ bool apply(float power, float alpha, const float4 b, 
   return true;
 }
 
-template <bool kCull>
+template <bool kCull, bool kFast>
 __global__ void __launch_bounds__(kBlock)
 blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f32
                  const int* __restrict__ starts, const int* __restrict__ ends,
@@ -246,7 +307,7 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
 
   const int start = starts[tile];
   const int end = ends[tile];
-  float T = 1.0f;
+  float T = kFast ? 0.0f : 1.0f;  // log T in the bf16 tier
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   bool done = !inside;
 
@@ -273,7 +334,9 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
     const float4* batch = batches[which];
     if (kCull) {
       const int t = threadIdx.x;
-      if (t < count) prelude[t] = cull_prelude(batch[kVecs * t + 0], batch[kVecs * t + 1]);
+      if (t < count) {
+        prelude[t] = cull_prelude<kFast>(batch[kVecs * t + 0], batch[kVecs * t + 1]);
+      }
       __syncthreads();
     }
     if (__all_sync(kFull, done)) continue;
@@ -308,11 +371,12 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
         const float4 b2 = batch[kVecs * j2 + 1];
         const float power = power_at(a, b, px, py);
         const float power2 = power_at(a2, b2, px, py);
-        const float alpha = fminf(kAlphaMax, b.y * expf(power));
-        const float alpha2 = fminf(kAlphaMax, b2.y * expf(power2));
-        if (!apply(power, alpha, b, batch + kVecs * j + 2, T, acc_r, acc_g, acc_b, acc_d) ||
-            (two && !apply(power2, alpha2, b2, batch + kVecs * j2 + 2, T, acc_r, acc_g, acc_b,
-                           acc_d))) {
+        const float alpha = alpha_of<kFast>(b.y, power);
+        const float alpha2 = alpha_of<kFast>(b2.y, power2);
+        if (!apply<kFast>(power, alpha, b, batch + kVecs * j + 2, T, acc_r, acc_g, acc_b,
+                          acc_d) ||
+            (two && !apply<kFast>(power2, alpha2, b2, batch + kVecs * j2 + 2, T, acc_r, acc_g,
+                                  acc_b, acc_d))) {
           done = true;
           break;
         }
@@ -320,6 +384,7 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
     }
   }
 
+  if (kFast) T = expf(T);
   if (inside) {
     const size_t p = static_cast<size_t>(y) * width + x;
     color[3 * p + 0] = acc_r + T * bg[0];
@@ -330,14 +395,14 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
   }
 }
 
-template <bool kCull>
+template <bool kCull, bool kFast>
 int launch(const void* rows, const void* starts, const void* ends, const void* offsets,
            const void* bg, void* color, void* depth, void* final_t, int width, int height,
            int grid_x, int num_tiles, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles > 0) {
-    blend_fwd_kernel<kCull><<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+    blend_fwd_kernel<kCull, kFast><<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(rows), static_cast<const int*>(starts),
         static_cast<const int*>(ends), static_cast<const float2*>(offsets),
         static_cast<const float*>(bg), static_cast<float*>(color),
@@ -356,8 +421,8 @@ int w3d_blend_fwd(const void* rows, const void* starts, const void* ends,
                   const void* offsets, const void* bg, void* color, void* depth,
                   void* final_t, int width, int height, int grid_x, int num_tiles,
                   int device, void* stream) {
-  return launch<true>(rows, starts, ends, offsets, bg, color, depth, final_t, width, height,
-                      grid_x, num_tiles, device, stream);
+  return launch<true, false>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
+                             height, grid_x, num_tiles, device, stream);
 }
 
 // The same kernel with the cull off: every warp walks every entry. Only the
@@ -366,8 +431,26 @@ int w3d_blend_fwd_walk_all(const void* rows, const void* starts, const void* end
                            const void* offsets, const void* bg, void* color, void* depth,
                            void* final_t, int width, int height, int grid_x, int num_tiles,
                            int device, void* stream) {
-  return launch<false>(rows, starts, ends, offsets, bg, color, depth, final_t, width, height,
-                       grid_x, num_tiles, device, stream);
+  return launch<false, false>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
+                              height, grid_x, num_tiles, device, stream);
+}
+
+// K1f, the bf16 tier, with the same arguments.
+int w3d_blend_fwd_fast(const void* rows, const void* starts, const void* ends,
+                       const void* offsets, const void* bg, void* color, void* depth,
+                       void* final_t, int width, int height, int grid_x, int num_tiles,
+                       int device, void* stream) {
+  return launch<true, true>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
+                            height, grid_x, num_tiles, device, stream);
+}
+
+// K1f with its cull off; only the chip check calls it, as for K1.
+int w3d_blend_fwd_fast_walk_all(const void* rows, const void* starts, const void* ends,
+                                const void* offsets, const void* bg, void* color,
+                                void* depth, void* final_t, int width, int height,
+                                int grid_x, int num_tiles, int device, void* stream) {
+  return launch<false, true>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
+                             height, grid_x, num_tiles, device, stream);
 }
 
 const char* w3d_error_string(int err) {

@@ -40,12 +40,22 @@ class RasterizeSettings(NamedTuple):
     of `grad_reduce.GRAD_REDUCES`: "segsum_sortpayload" (default, exact
     f32), "segsum", "segsum_sortpacked" (bf16-rounded values), or "scatter"
     (plain `index_add_`, for tests and checks).
+    fast_chain: the bf16 tier of the blend, K1f forward and K2f backward
+    (`blend.py`); off by default, as in the JAX package, where the serving
+    CLIs turn it on.
+    quad_power, pack_gather: the JAX package's TPU speed tiers of the bf16
+    blend, accepted with its defaults; they change nothing here (K1f takes
+    power in f32, which is what `quad_power` computes at f32 class), except
+    that `pack_gather` without `fast_chain` raises, as in JAX.
     Binning has no static capacities here, so the JAX package's capacity
     knobs have no counterpart."""
 
     renderer: str = "cuda"
     tile_cull: bool = True
     grad_reduce: str = reduce_mod.DEFAULT
+    fast_chain: bool = False
+    quad_power: bool = True
+    pack_gather: bool = False
 
 
 def random_sampling_offsets(generator: torch.Generator, height: int,
@@ -109,6 +119,8 @@ def render(
     if settings.grad_reduce not in reduce_mod.GRAD_REDUCES:
         raise ValueError(f"grad_reduce must be one of {reduce_mod.GRAD_REDUCES}, got "
                          f"{settings.grad_reduce!r}")
+    if settings.pack_gather and not settings.fast_chain:
+        raise ValueError("pack_gather requires fast_chain (bf16 tier)")
     dev = resolve_device(device)
     camera = camera.to(dev)
     scene = scene.to(dev)
@@ -124,7 +136,8 @@ def render(
     out = render_sorted(prep, camera.width, camera.height, bg,
                         sampling_offsets, tile_cull=settings.tile_cull,
                         use_kernel=settings.renderer == "cuda",
-                        grad_reduce=settings.grad_reduce)
+                        grad_reduce=settings.grad_reduce,
+                        fast_chain=settings.fast_chain)
     b = out.binning
     return {
         "render": out.color,

@@ -33,6 +33,33 @@ walk order, and S_total = dcolor . acc + ddepth * depth + T_final * dT_eff,
 where acc = colour - T_final bg and dT_eff = dfinal_T + dcolor . bg undo the
 background composite that K1 does itself. The alpha clamp at 0.99, skipped
 entries and entries at or after the stop get no alpha gradient.
+
+The bf16 tier (`fast_chain`, JAX's serving default): `blend_fwd_fast` (K1f)
+and `blend_bwd_fast` (K2f) replace the `fast=True` bodies of the same two TPU
+kernels, with the plain versions `blend_fwd_fast_reference` and
+`blend_bwd_fast_reference`. Per (pixel, entry), in this order:
+  power   f32, the expression above (JAX's serving default, `quad_power`,
+          takes it at f32 class; no coordinate is rounded, so the tile-origin
+          recentring that JAX needs before its bf16 casts has nothing to do);
+  alpha = min(bf(0.99), bf(bf(opa) bf(exp(power)))), bf(0.99) = 0.98828125;
+          skipped, as above, where power > 0 or alpha < 1/255 (f32 compares);
+  s     = bf(log1p(-alpha)), taken in f32 and rounded;
+  T     = bf(exp(bf(logT))), logT the f32 running sum of s over the entries
+          taken so far, added in walk order;
+  the pixel stops before the entry where bf(T bf(1 - alpha)) < 1e-4;
+  w     = bf(alpha T); colour and depth add w rgb, w depth in f32.
+final_T = exp(logT) in f32. bf(x) rounds to bfloat16 (to nearest, ties to
+even) and back; the kernels round with `__float2bfloat16_rn` at the same
+points. The backward recomputes alpha and T exactly so (its stops are the
+forward's), and takes q = dcolour . rgb + ddepth depth with every operand,
+product and sum rounded (r, g, b, depth order), q w = bf(q w) and its
+prefix as an f32 running sum, q T = bf(q T); the division, dL/dpower, the
+moment sums and every accumulator stay f32, and the output is f32 (JAX
+rounds it to bf16 only because its packed rows are bf16). Rows stay f32:
+colour and depth are not rounded before the accumulation. The clamp test is
+JAX's in both tiers, alpha < 0.99 in f32, which the bf16 clamp 0.98828125
+always passes: in this tier an alpha at the clamp keeps its power and
+opacity gradient, as in JAX's fast backward (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -66,6 +93,13 @@ OPA_CULL = float(torch.tensor(1.0 / 255.0, dtype=torch.float32)
                  * torch.tensor(1.0 - 64.0 * U, dtype=torch.float32))
 CONIC_MIN = float(torch.tensor(1e-30, dtype=torch.float32))
 TERM_MAX = float(torch.tensor(1e30, dtype=torch.float32))
+# The bf16 tier: its clamp, and K1f's cull, whose margin grows by the bf16
+# roundings of opa, exp and their product (each within 2^-8 relative; see
+# `cull_prelude` in csrc/blend_fwd.cu).
+ALPHA_MAX_BF16 = float(torch.tensor(ALPHA_MAX).to(torch.bfloat16))  # 0.98828125
+OPA_CULL_FAST = float(torch.tensor(1.0 / 255.0, dtype=torch.float32)
+                      * torch.tensor(1.0 - 2.0 ** -6, dtype=torch.float32))
+TAU_FAST = 2.0 ** -5
 
 
 class BlendOutput(NamedTuple):
@@ -104,25 +138,19 @@ def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False):
     return num_tiles
 
 
-def blend_fwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
-              width: int, height: int, bg: torch.Tensor,
-              offsets: Optional[torch.Tensor] = None) -> BlendOutput:
-    """K1. CUDA tensors launch the kernel (counted in `blend_fwd.launches`);
-    CPU tensors take `blend_fwd_reference`."""
-    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
-    dev = rows.device
-    if dev.type == "cpu":
-        return blend_fwd_reference(rows, starts, ends, width, height, bg, offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"blend_fwd runs on cuda or cpu, not {dev}")
+def _launch_fwd(entry, rows, starts, ends, width, height, bg, offsets, num_tiles):
+    """Launch K1 or K1f (the C entry `entry`) on CUDA tensors."""
     from wast3d_tpu_torch import _build
 
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the blend kernels run on cuda or cpu, not {dev}")
     lib = _build.load_library()
     color = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    err = lib.w3d_blend_fwd(
+    err = getattr(lib, entry)(
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         None if offsets is None else offsets.data_ptr(), bg.data_ptr(),
         color.data_ptr(), depth.data_ptr(), final_t.data_ptr(),
@@ -131,13 +159,68 @@ def blend_fwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     )
     if err != 0:
         raise RuntimeError(
-            f"blend_fwd kernel launch failed: CUDA error {err} "
+            f"{entry} kernel launch failed: CUDA error {err} "
             f"({lib.w3d_error_string(err).decode()})")
-    blend_fwd.launches += 1
     return BlendOutput(color, depth, final_t)
 
 
+def blend_fwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+              width: int, height: int, bg: torch.Tensor,
+              offsets: Optional[torch.Tensor] = None) -> BlendOutput:
+    """K1. CUDA tensors launch the kernel (counted in `blend_fwd.launches`);
+    CPU tensors take `blend_fwd_reference`."""
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
+    if rows.device.type == "cpu":
+        return blend_fwd_reference(rows, starts, ends, width, height, bg, offsets)
+    out = _launch_fwd("w3d_blend_fwd", rows, starts, ends, width, height, bg, offsets,
+                      num_tiles)
+    blend_fwd.launches += 1
+    return out
+
+
 blend_fwd.launches = 0
+
+
+def blend_fwd_fast(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                   width: int, height: int, bg: torch.Tensor,
+                   offsets: Optional[torch.Tensor] = None) -> BlendOutput:
+    """K1f, the bf16 tier of K1 (module docstring). CUDA tensors launch the
+    kernel (counted in `blend_fwd_fast.launches`); CPU tensors take
+    `blend_fwd_fast_reference`."""
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
+    if rows.device.type == "cpu":
+        return blend_fwd_fast_reference(rows, starts, ends, width, height, bg, offsets)
+    out = _launch_fwd("w3d_blend_fwd_fast", rows, starts, ends, width, height, bg, offsets,
+                      num_tiles)
+    blend_fwd_fast.launches += 1
+    return out
+
+
+blend_fwd_fast.launches = 0
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest, ties to even) and back to x's
+    dtype: one rounding point of the bf16 tier."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _running_sum(init: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[..., G + 1]: init, init + x[..., 0], (init + x[..., 0]) + x[..., 1],
+    ..., added one at a time in x's dtype, as the kernels add (a cumsum may
+    add in another order or in a wider type)."""
+    out = [init]
+    for g in range(x.shape[-1]):
+        out.append(out[-1] + x[..., g])
+    return torch.stack(out, dim=-1)
+
+
+def _alpha(r, power, fast):
+    """[A, P, G] alpha of rows r [A, G, 12] at `power`, before the skips."""
+    opa = r[:, None, :, R_OPA]
+    if fast:
+        return torch.clamp_max(_bf(_bf(opa) * _bf(torch.exp(power))), ALPHA_MAX_BF16)
+    return torch.clamp_max(opa * torch.exp(power), ALPHA_MAX)
 
 
 def _pixel_coords(width, height, offsets, device):
@@ -167,9 +250,10 @@ class WalkCounts(NamedTuple):
     contributing_pairs: int  # (pixel, entry) pairs that add weight alpha T
 
 
-def _walk(rows, starts, ends, width, height, offsets, keep=None):
+def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False):
     """The plain blend over all pixels of all tiles at once, CHUNK entry
-    slots per step: a cumprod gives T inside a chunk, and T and `done` carry
+    slots per step: a cumprod gives T inside a chunk (with `fast`, the bf16
+    tier's T from the running log-transmittance), and T and `done` carry
     from chunk to chunk. Returns per-tile colour, depth, T and the
     `WalkCounts` (the warp counts only when `keep`, [K, WARPS] bool from
     `warp_keep_reference`, is given; else 0)."""
@@ -179,6 +263,7 @@ def _walk(rows, starts, ends, width, height, offsets, keep=None):
     starts, ends = starts.long(), ends.long()
     lengths = ends - starts
     t_run = torch.ones((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
+    log_t = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)  # fast only
     done = ~inside  # pixels beyond the image take part in nothing
     color = torch.zeros((num_tiles, PIXELS, 3), dtype=rows.dtype, device=dev)
     depth = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
@@ -201,22 +286,35 @@ def _walk(rows, starts, ends, width, height, offsets, keep=None):
         b = r[:, None, :, R_B]
         c = r[:, None, :, R_C]
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.clamp_max(r[:, None, :, R_OPA] * torch.exp(power), ALPHA_MAX)
+        alpha = _alpha(r, power, fast)
         skip = (power > 0.0) | (alpha < ALPHA_MIN) | ~in_range[:, None, :]
         alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
 
-        one_m = 1.0 - alpha
-        cp = torch.cumprod(one_m, dim=-1)
-        t_prev = t_run[ti][..., None] * torch.cat(
-            [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
-        stop = torch.cumsum((t_prev * one_m < T_EPS).to(torch.int32), dim=-1) > 0
         done_before = done[ti][..., None]
+        if fast:
+            log_prev = _running_sum(log_t[ti], _bf(torch.log1p(-alpha)))  # [A, P, G + 1]
+            t_prev = _bf(torch.exp(_bf(log_prev[..., :-1])))
+            test_t = _bf(t_prev * _bf(1.0 - alpha))
+        else:
+            one_m = 1.0 - alpha
+            cp = torch.cumprod(one_m, dim=-1)
+            t_prev = t_run[ti][..., None] * torch.cat(
+                [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+            test_t = t_prev * one_m
+        stop = torch.cumsum((test_t < T_EPS).to(torch.int32), dim=-1) > 0
         done_g = done_before | stop
-        w = torch.where(done_g, torch.zeros_like(alpha), alpha * t_prev)
+        w = alpha * t_prev
+        w = torch.where(done_g, torch.zeros_like(alpha), _bf(w) if fast else w)
         color[ti] += torch.einsum("apg,agc->apc", w, r[..., R_R:R_B2 + 1])
         depth[ti] += torch.einsum("apg,ag->ap", w, r[..., R_DEPTH])
-        kept = torch.where(done_g, torch.zeros_like(alpha), alpha)
-        t_run[ti] = t_run[ti] * torch.prod(1.0 - kept, dim=-1)
+        if fast:
+            # logT after the chunk: the sum up to the pixel's stop (done_g is
+            # a prefix of False then True along the chunk)
+            taken = (~done_g).sum(dim=-1, keepdim=True)
+            log_t[ti] = log_prev.gather(-1, taken)[..., 0]
+        else:
+            kept = torch.where(done_g, torch.zeros_like(alpha), alpha)
+            t_run[ti] = t_run[ti] * torch.prod(1.0 - kept, dim=-1)
         # an entry is evaluated unless the pixel stopped at an earlier one
         stopped_earlier = done_before | torch.cat(
             [torch.zeros_like(stop[..., :1]), stop[..., :-1]], dim=-1)
@@ -231,6 +329,8 @@ def _walk(rows, starts, ends, width, height, offsets, keep=None):
             iters_culled += (live & kept).sum()
         done[ti] = done_g[..., -1]
     counts = WalkCounts(int(pairs), int(iters), int(iters_culled), int(contributing))
+    if fast:
+        t_run = torch.exp(log_t)
     return color, depth, t_run, counts
 
 
@@ -248,8 +348,22 @@ def blend_fwd_reference(rows: torch.Tensor, starts: torch.Tensor,
     """Plain PyTorch version of K1: same inputs, same outputs, same skip and
     stop rules in the same order; runs on any device, in float32 or
     float64."""
+    return _blend_plain(rows, starts, ends, width, height, bg, offsets, fast=False)
+
+
+def blend_fwd_fast_reference(rows: torch.Tensor, starts: torch.Tensor,
+                             ends: torch.Tensor, width: int, height: int,
+                             bg: torch.Tensor,
+                             offsets: Optional[torch.Tensor] = None) -> BlendOutput:
+    """Plain PyTorch version of K1f: `blend_fwd_reference` with the bf16
+    tier's rounding points (module docstring), its sums of log-transmittance
+    added one entry at a time in walk order as the kernel adds them."""
+    return _blend_plain(rows, starts, ends, width, height, bg, offsets, fast=True)
+
+
+def _blend_plain(rows, starts, ends, width, height, bg, offsets, fast):
     _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True)
-    color, depth, t_run, _ = _walk(rows, starts, ends, width, height, offsets)
+    color, depth, t_run, _ = _walk(rows, starts, ends, width, height, offsets, fast=fast)
     color = color + t_run[..., None] * bg
     return BlendOutput(
         color=_untile(color, width, height).contiguous(),
@@ -260,11 +374,11 @@ def blend_fwd_reference(rows: torch.Tensor, starts: torch.Tensor,
 
 def evaluated_pairs(rows: torch.Tensor, starts: torch.Tensor,
                     ends: torch.Tensor, width: int, height: int,
-                    offsets: Optional[torch.Tensor] = None) -> int:
-    """Number of (pixel, entry) pairs K1 evaluates on these inputs: every
-    entry in range up to and including the one where the pixel stops. Used
-    to state the kernel's operation count."""
-    return _walk(rows, starts, ends, width, height, offsets)[3].evaluated_pairs
+                    offsets: Optional[torch.Tensor] = None, fast: bool = False) -> int:
+    """Number of (pixel, entry) pairs K1 (K1f with `fast`) evaluates on these
+    inputs: every entry in range up to and including the one where the pixel
+    stops. Used to state the kernel's operation count."""
+    return _walk(rows, starts, ends, width, height, offsets, fast=fast)[3].evaluated_pairs
 
 
 # ---- K1's per-warp cull, plain ----------------------------------------------
@@ -286,18 +400,21 @@ def warp_boxes(width: int, height: int,
                         torch.where(inside, py, -inf).amax(-1)], dim=-1)
 
 
-def _culled(r, box):
+def _culled(r, box, fast=False):
     """K1's cull (`cull_prelude` and `culled` in csrc/blend_fwd.cu, where the
     margin is derived), in float32 in the kernel's order of operations: r
     [E, 12] rows, box [E, W, 4]; [E, W] True where no sample of the box can
-    take the entry."""
+    take the entry. `fast`: K1f's cull, with the bf16 tier's wider margins."""
     # per entry: 1/A, 1/C and tau' (+inf: never culled; -inf: culled by opa)
     mx, my, a, b, c, opa = (r[:, i, None] for i in range(6))
     cullable = (torch.isfinite(r[:, :6]).all(dim=1)[:, None] & (a > CONIC_MIN)
                 & (c > CONIC_MIN) & (a * c * (1.0 - 16.0 * U) > b * b))
     tau = 2.0 * torch.log(255.0 * opa)
     tau = tau + 8.0 * U * tau.abs()
-    tau = torch.where(cullable, torch.where(opa < OPA_CULL, -math.inf, tau), math.inf)
+    if fast:
+        tau = tau + TAU_FAST
+    opa_cull = OPA_CULL_FAST if fast else OPA_CULL
+    tau = torch.where(cullable, torch.where(opa < opa_cull, -math.inf, tau), math.inf)
     ia, ic = 1.0 / a, 1.0 / c
     # per box
     x0, x1, y0, y1 = box.unbind(-1)
@@ -325,11 +442,13 @@ def _culled(r, box):
 
 def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
                         ends: torch.Tensor, width: int, height: int,
-                        offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[K, WARPS] bool: K1's cull, plain. keep[k, w] is True where entry k
-    lies in a tile's range, warp w of that tile has a pixel inside the
-    image, and the entry is not culled for the warp's sample box (`_culled`):
-    the (entry, warp) pairs K1 walks until the warp's pixels stop."""
+                        offsets: Optional[torch.Tensor] = None,
+                        fast: bool = False) -> torch.Tensor:
+    """[K, WARPS] bool: K1's cull (K1f's with `fast`), plain. keep[k, w] is
+    True where entry k lies in a tile's range, warp w of that tile has a
+    pixel inside the image, and the entry is not culled for the warp's
+    sample box (`_culled`): the (entry, warp) pairs the kernel walks until
+    the warp's pixels stop."""
     rows = rows.to(torch.float32)
     dev = rows.device
     starts, ends = starts.long(), ends.long()
@@ -341,19 +460,20 @@ def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
     boxes = warp_boxes(width, height, offsets, dev)[tile]  # [E, W, 4]
     live = boxes[..., 0] <= boxes[..., 1]  # the warp has a pixel inside
     keep = torch.zeros((rows.shape[0], WARPS), dtype=torch.bool, device=dev)
-    keep[entry] = live & ~_culled(rows[entry], boxes)
+    keep[entry] = live & ~_culled(rows[entry], boxes, fast)
     return keep
 
 
 def warp_walk_counts(rows: torch.Tensor, starts: torch.Tensor,
                      ends: torch.Tensor, width: int, height: int,
-                     offsets: Optional[torch.Tensor] = None) -> WalkCounts:
-    """K1's work on these inputs (`WalkCounts`), from its plain versions:
-    (warp, entry) iterations without and with the cull, and the (pixel,
-    entry) pairs evaluated and contributing. For PERF.md's counts and the
-    kernel's bounds."""
-    keep = warp_keep_reference(rows, starts, ends, width, height, offsets)
-    return _walk(rows, starts, ends, width, height, offsets, keep)[3]
+                     offsets: Optional[torch.Tensor] = None,
+                     fast: bool = False) -> WalkCounts:
+    """K1's (K1f's with `fast`) work on these inputs (`WalkCounts`), from its
+    plain versions: (warp, entry) iterations without and with the cull, and
+    the (pixel, entry) pairs evaluated and contributing. For PERF.md's
+    counts and the kernel's bounds."""
+    keep = warp_keep_reference(rows, starts, ends, width, height, offsets, fast)
+    return _walk(rows, starts, ends, width, height, offsets, keep, fast)[3]
 
 
 # ---- K2: backward -----------------------------------------------------------
@@ -366,29 +486,18 @@ def _check_outputs(name, t, dtype, width, height):
                              f"got {x.dtype} {tuple(x.shape)}")
 
 
-def blend_bwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
-              width: int, height: int, bg: torch.Tensor,
-              offsets: Optional[torch.Tensor], out: BlendOutput,
-              grads: BlendOutput) -> torch.Tensor:
-    """K2. `out` is K1's output on these inputs, `grads` the cotangents of
-    its three fields. Returns d rows [K, 12]. CUDA tensors launch the
-    kernel (counted in `blend_bwd.launches`); CPU tensors take
-    `blend_bwd_reference`."""
-    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
-    _check_outputs("out", out, rows.dtype, width, height)
-    _check_outputs("grads", grads, rows.dtype, width, height)
-    dev = rows.device
-    if dev.type == "cpu":
-        return blend_bwd_reference(rows, starts, ends, width, height, bg, offsets,
-                                   out, grads)
-    if dev.type != "cuda":
-        raise ValueError(f"blend_bwd runs on cuda or cpu, not {dev}")
+def _launch_bwd(entry, rows, starts, ends, width, height, bg, offsets, out, grads,
+                num_tiles):
+    """Launch K2 or K2f (the C entry `entry`) on CUDA tensors."""
     from wast3d_tpu_torch import _build
 
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the blend kernels run on cuda or cpu, not {dev}")
     lib = _build.load_library()
     drows = torch.zeros_like(rows)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    err = lib.w3d_blend_bwd(
+    err = getattr(lib, entry)(
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         None if offsets is None else offsets.data_ptr(), bg.data_ptr(),
         *(t.data_ptr() for t in out), *(t.data_ptr() for t in grads),
@@ -397,13 +506,57 @@ def blend_bwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     )
     if err != 0:
         raise RuntimeError(
-            f"blend_bwd kernel launch failed: CUDA error {err} "
+            f"{entry} kernel launch failed: CUDA error {err} "
             f"({lib.w3d_error_string(err).decode()})")
+    return drows
+
+
+def _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads):
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
+    _check_outputs("out", out, rows.dtype, width, height)
+    _check_outputs("grads", grads, rows.dtype, width, height)
+    return num_tiles
+
+
+def blend_bwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+              width: int, height: int, bg: torch.Tensor,
+              offsets: Optional[torch.Tensor], out: BlendOutput,
+              grads: BlendOutput) -> torch.Tensor:
+    """K2. `out` is K1's output on these inputs, `grads` the cotangents of
+    its three fields. Returns d rows [K, 12]. CUDA tensors launch the
+    kernel (counted in `blend_bwd.launches`); CPU tensors take
+    `blend_bwd_reference`."""
+    num_tiles = _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads)
+    if rows.device.type == "cpu":
+        return blend_bwd_reference(rows, starts, ends, width, height, bg, offsets,
+                                   out, grads)
+    drows = _launch_bwd("w3d_blend_bwd", rows, starts, ends, width, height, bg, offsets,
+                        out, grads, num_tiles)
     blend_bwd.launches += 1
     return drows
 
 
 blend_bwd.launches = 0
+
+
+def blend_bwd_fast(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                   width: int, height: int, bg: torch.Tensor,
+                   offsets: Optional[torch.Tensor], out: BlendOutput,
+                   grads: BlendOutput) -> torch.Tensor:
+    """K2f, the bf16 tier of K2 (module docstring); `out` is K1f's output on
+    these inputs. CUDA tensors launch the kernel (counted in
+    `blend_bwd_fast.launches`); CPU tensors take `blend_bwd_fast_reference`."""
+    num_tiles = _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads)
+    if rows.device.type == "cpu":
+        return blend_bwd_fast_reference(rows, starts, ends, width, height, bg, offsets,
+                                        out, grads)
+    drows = _launch_bwd("w3d_blend_bwd_fast", rows, starts, ends, width, height, bg,
+                        offsets, out, grads, num_tiles)
+    blend_bwd_fast.launches += 1
+    return drows
+
+
+blend_bwd_fast.launches = 0
 
 
 def _tile(img, width, height):
@@ -425,6 +578,21 @@ def blend_bwd_reference(rows: torch.Tensor, starts: torch.Tensor,
     (CHUNK entry slots per step, T and `done` carried), the same identity
     and the same per-entry sums; runs on any device, in float32 or
     float64."""
+    return _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast=False)
+
+
+def blend_bwd_fast_reference(rows: torch.Tensor, starts: torch.Tensor,
+                             ends: torch.Tensor, width: int, height: int,
+                             bg: torch.Tensor, offsets: Optional[torch.Tensor],
+                             out: BlendOutput, grads: BlendOutput) -> torch.Tensor:
+    """Plain PyTorch version of K2f: `blend_bwd_reference` with the bf16
+    tier's recompute (that of `blend_fwd_fast_reference`) and its rounding
+    of q, q w and q T (module docstring); log-transmittance and the q w
+    prefix are added one entry at a time in walk order."""
+    return _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast=True)
+
+
+def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast):
     _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True)
     _check_outputs("out", out, rows.dtype, width, height)
     _check_outputs("grads", grads, rows.dtype, width, height)
@@ -442,6 +610,7 @@ def blend_bwd_reference(rows: torch.Tensor, starts: torch.Tensor,
     starts, ends = starts.long(), ends.long()
     lengths = ends - starts
     t_run = torch.ones((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
+    log_t = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)  # fast only
     prefix = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
     done = ~inside
     drows = torch.zeros_like(rows)
@@ -460,28 +629,45 @@ def blend_bwd_reference(rows: torch.Tensor, starts: torch.Tensor,
         b = r[:, None, :, R_B]
         c = r[:, None, :, R_C]
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.clamp_max(r[:, None, :, R_OPA] * torch.exp(power), ALPHA_MAX)
+        alpha = _alpha(r, power, fast)
         skip = (power > 0.0) | (alpha < ALPHA_MIN) | ~in_range[:, None, :]
         alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
 
         one_m = 1.0 - alpha
-        cp = torch.cumprod(one_m, dim=-1)
-        t_prev = t_run[ti][..., None] * torch.cat(
-            [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
-        stop = torch.cumsum((t_prev * one_m < T_EPS).to(torch.int32), dim=-1) > 0
+        if fast:
+            log_prev = _running_sum(log_t[ti], _bf(torch.log1p(-alpha)))  # [A, P, G + 1]
+            t_prev = _bf(torch.exp(_bf(log_prev[..., :-1])))
+            test_t = _bf(t_prev * _bf(one_m))
+        else:
+            cp = torch.cumprod(one_m, dim=-1)
+            t_prev = t_run[ti][..., None] * torch.cat(
+                [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+            test_t = t_prev * one_m
+        stop = torch.cumsum((test_t < T_EPS).to(torch.int32), dim=-1) > 0
         done_g = done[ti][..., None] | stop
         live = ~done_g & ~skip
         zero = torch.zeros_like(alpha)
-        w = torch.where(live, alpha * t_prev, zero)
+        w = alpha * t_prev
+        w = torch.where(live, _bf(w) if fast else w, zero)
         rgb = r[:, None, :, R_R:R_B2 + 1]  # [A, 1, G, 3]
         g_c = gc[ti][:, :, None, :]  # [A, P, 1, 3]
         g_d = gd[ti][..., None]  # [A, P, 1]
-        q = (rgb * g_c).sum(-1) + r[:, None, :, R_DEPTH] * g_d
-        qw = q * w
-        prefix_incl = prefix[ti][..., None] + torch.cumsum(qw, dim=-1)
+        if fast:
+            # every operand, product and sum rounded, in the order r, g, b, depth
+            prod = _bf(_bf(rgb) * _bf(g_c))
+            q = _bf(_bf(_bf(prod[..., 0] + prod[..., 1]) + prod[..., 2])
+                    + _bf(_bf(r[:, None, :, R_DEPTH]) * _bf(g_d)))
+            qw = _bf(q * w)
+            prefix_incl = _running_sum(prefix[ti], qw)[..., 1:]
+            q_t = _bf(q * t_prev)
+        else:
+            q = (rgb * g_c).sum(-1) + r[:, None, :, R_DEPTH] * g_d
+            qw = q * w
+            prefix_incl = prefix[ti][..., None] + torch.cumsum(qw, dim=-1)
+            q_t = q * t_prev
         dpow = torch.where(
             live & (alpha < ALPHA_MAX),
-            (q * t_prev - (s_total[ti][..., None] - prefix_incl) / one_m) * alpha,
+            (q_t - (s_total[ti][..., None] - prefix_incl) / one_m) * alpha,
             zero)
         sd = dpow.sum(1)  # [A, G]
         sx = (dpow * dx).sum(1)
@@ -497,43 +683,52 @@ def blend_bwd_reference(rows: torch.Tensor, starts: torch.Tensor,
             (w * g_d).sum(1), *(w[..., None] * g_c).sum(1).unbind(-1),
         ], dim=-1)  # [A, G, 10]
         drows[idx[in_range], :10] = vals[in_range]
-        kept = torch.where(done_g, zero, alpha)
-        t_run[ti] = t_run[ti] * torch.prod(1.0 - kept, dim=-1)
+        if fast:
+            log_t[ti] = log_prev.gather(-1, (~done_g).sum(dim=-1, keepdim=True))[..., 0]
+        else:
+            kept = torch.where(done_g, zero, alpha)
+            t_run[ti] = t_run[ti] * torch.prod(1.0 - kept, dim=-1)
         prefix[ti] = prefix_incl[..., -1]
         done[ti] = done_g[..., -1]
     return drows
 
 
+# (forward, backward) by (use_kernel, fast)
+_PAIRS = {(True, False): (blend_fwd, blend_bwd),
+          (False, False): (blend_fwd_reference, blend_bwd_reference),
+          (True, True): (blend_fwd_fast, blend_bwd_fast),
+          (False, True): (blend_fwd_fast_reference, blend_bwd_fast_reference)}
+
+
 class _Blend(torch.autograd.Function):
-    """K1 forward, K2 backward (or their plain versions); see `blend`."""
+    """K1 forward, K2 backward (K1f, K2f with `fast`; or their plain
+    versions); see `blend`."""
 
     @staticmethod
-    def forward(ctx, rows, starts, ends, width, height, bg, offsets, use_kernel):
-        fwd = blend_fwd if use_kernel else blend_fwd_reference
-        out = fwd(rows, starts, ends, width, height, bg, offsets)
+    def forward(ctx, rows, starts, ends, width, height, bg, offsets, use_kernel, fast):
+        out = _PAIRS[use_kernel, fast][0](rows, starts, ends, width, height, bg, offsets)
         ctx.save_for_backward(rows, starts, ends, bg, offsets, *out)
-        ctx.width, ctx.height, ctx.use_kernel = width, height, use_kernel
+        ctx.width, ctx.height, ctx.pair = width, height, (use_kernel, fast)
         return tuple(out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dcolor, ddepth, dfinal_t):
         rows, starts, ends, bg, offsets, color, depth, final_t = ctx.saved_tensors
-        bwd = blend_bwd if ctx.use_kernel else blend_bwd_reference
-        drows = bwd(rows, starts, ends, ctx.width, ctx.height, bg, offsets,
-                    BlendOutput(color, depth, final_t),
-                    BlendOutput(dcolor.contiguous(), ddepth.contiguous(),
-                                dfinal_t.contiguous()))
-        return drows, None, None, None, None, None, None, None
+        drows = _PAIRS[ctx.pair][1](
+            rows, starts, ends, ctx.width, ctx.height, bg, offsets,
+            BlendOutput(color, depth, final_t),
+            BlendOutput(dcolor.contiguous(), ddepth.contiguous(), dfinal_t.contiguous()))
+        return drows, None, None, None, None, None, None, None, None
 
 
 def blend(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
           width: int, height: int, bg: torch.Tensor,
           offsets: Optional[torch.Tensor] = None,
-          use_kernel: bool = True) -> BlendOutput:
+          use_kernel: bool = True, fast: bool = False) -> BlendOutput:
     """The differentiable blend: K1 forward and K2 backward, gradient to
-    `rows` only. `use_kernel=False` runs both plain versions (on any
-    device); with `use_kernel=True` each wrapper still takes its plain
-    version for CPU tensors."""
+    `rows` only; `fast` takes the bf16 tier, K1f and K2f. `use_kernel=False`
+    runs the plain versions (on any device); with `use_kernel=True` each
+    wrapper still takes its plain version for CPU tensors."""
     return BlendOutput(*_Blend.apply(rows, starts, ends, width, height, bg,
-                                     offsets, use_kernel))
+                                     offsets, use_kernel, fast))

@@ -1,9 +1,10 @@
 """Render path: binning -> sorted rows -> K1 -> image, differentiable.
 
-Port of `wast3d_tpu/ops/rasterizer/pallas_path.py::render_pallas` for the
-exact f32 tier. Per-Gaussian rows are packed once, reordered by depth (one
-N-row gather), then gathered by rank into the sorted duplicate rows (one
-K-row gather) that K1 walks. K1 composites the background and writes the
+Port of `wast3d_tpu/ops/rasterizer/pallas_path.py::render_pallas`, in the
+exact f32 tier (K1, K2) and the bf16 tier (`fast_chain`: K1f, K2f; the rows
+stay f32 and unrecentred, see `blend.py`). Per-Gaussian rows are packed
+once, reordered by depth (one N-row gather), then gathered by rank into the
+sorted duplicate rows (one K-row gather) that K1 walks. K1 composites the background and writes the
 image layout itself, so no untile pass follows.
 
 Gradients (JAX `_sorted_gather`, `pallas_path.py:24-97`): the blend's
@@ -119,12 +120,14 @@ def render_sorted(
     tile_cull: bool = True,
     use_kernel: bool = True,
     grad_reduce: str = reduce_mod.DEFAULT,
+    fast_chain: bool = False,
 ) -> RenderOutput:
     """Bin, gather and blend. `use_kernel=False` calls the plain versions
-    of K1, K2 and K3 directly (renderer="torch")."""
+    of K1, K2 and K3 directly (renderer="torch"); `fast_chain` blends in the
+    bf16 tier."""
     binning, rows = bin_and_pack(prep, width, height,
                                  sampling_offsets is not None, tile_cull,
                                  grad_reduce, plain=not use_kernel)
     out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, width,
-                          height, bg_color, sampling_offsets, use_kernel)
+                          height, bg_color, sampling_offsets, use_kernel, fast_chain)
     return RenderOutput(out.color, out.depth, out.final_T, binning)

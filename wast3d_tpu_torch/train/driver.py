@@ -1,12 +1,13 @@
 """End-to-end scene training: the `train.py` entry point.
 
-Port of `wast3d_tpu/train/driver.py::train_scene`: load the dataset,
-initialise Gaussians from its point cloud (random 100k-point cube for a
-Blender scene without one), run the reconstruction schedule, write PLYs at
-`save_iterations` and checkpoints at `checkpoint_iterations`, and report
-test / train PSNR at each save (`<model_path>/log.jsonl`, plus `cfg_args`).
-The sphere regularisers (`sphere_cfg`) and the live viewer (`gui`) of the
-JAX driver are not ported (ROADMAP.md, queue 1).
+Port of `wast3d_tpu/train/driver.py::train_scene` (the reference's
+`train.py`, and with `sphere_cfg` its `train_spheres*.py` style-scene
+variants): load the dataset, initialise Gaussians from its point cloud
+(random 100k-point cube for a Blender scene without one), run the
+reconstruction schedule, write PLYs at `save_iterations` and checkpoints at
+`checkpoint_iterations`, and report test / train PSNR at each save
+(`<model_path>/log.jsonl`, plus `cfg_args`). The live viewer (`gui`) of the
+JAX driver is not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from wast3d_tpu_torch.config import ModelConfig, OptimizationConfig, save_cfg_args
+from wast3d_tpu_torch.config import (
+    ModelConfig, OptimizationConfig, SphereConfig, save_cfg_args)
 from wast3d_tpu_torch.device import DeviceLike, resolve_device
 from wast3d_tpu_torch.ops.image_losses import psnr
 from wast3d_tpu_torch.ops.rasterizer import api as raster_api
@@ -42,6 +44,7 @@ def train_scene(
     checkpoint_iterations: Optional[List[int]] = None,
     start_checkpoint: Optional[str] = None,
     opt_cfg: Optional[OptimizationConfig] = None,
+    sphere_cfg: Optional[SphereConfig] = None,
     settings: Optional[raster_api.RasterizeSettings] = None,
     seed: int = 0,
     quiet: bool = False,
@@ -83,8 +86,8 @@ def train_scene(
 
     trainer = Trainer(state, train_cams, opt_cfg=opt_cfg, settings=settings,
                       spatial_lr_scale=cameras_extent, cameras_extent=cameras_extent,
-                      seed=seed, white_background=white_background, jitter=jitter,
-                      data_device=data_device, device=dev)
+                      sphere_cfg=sphere_cfg, seed=seed, white_background=white_background,
+                      jitter=jitter, data_device=data_device, device=dev)
     trainer.history_sink = lambda e: (log_f.write(json.dumps(e) + "\n"), log_f.flush())
 
     def report(it):

@@ -2,9 +2,11 @@
 
 Port of `wast3d_tpu/train/reconstruct.py` (the reference `train.py:31-156`):
 per iteration a random camera (without replacement), render, (1 - lambda)
-L1 + lambda (1 - SSIM), backward, densification statistics, Adam with the
-xyz learning-rate schedule; densify / prune / opacity reset and the SH
-warm-up run on the reference's schedule (`train/schedule.py`).
+L1 + lambda (1 - SSIM) (plus the sphere regularisers of `train/spheres.py`
+when a `SphereConfig` is given, for style scenes), backward, densification
+statistics, Adam with the xyz learning-rate schedule; densify / prune /
+opacity reset and the SH warm-up run on the reference's schedule
+(`train/schedule.py`).
 
 `train_step` runs eagerly: preprocess, binning and the sorted gather, K1
 forward, the loss, then backward through K2 (blend), K3 (per-Gaussian
@@ -23,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from wast3d_tpu_torch.config import OptimizationConfig
+from wast3d_tpu_torch.config import OptimizationConfig, SphereConfig
 from wast3d_tpu_torch.core.camera import Camera
 from wast3d_tpu_torch.device import DeviceLike, resolve_device
 from wast3d_tpu_torch.ops.image_losses import photometric_loss
@@ -31,6 +33,7 @@ from wast3d_tpu_torch.ops.rasterizer import api as raster_api
 from wast3d_tpu_torch.scene.gaussians import GaussianScene
 from wast3d_tpu_torch.train import densify as densify_mod
 from wast3d_tpu_torch.train.optim import AdamState, make_optimizer
+from wast3d_tpu_torch.train.spheres import sphere_regularizer
 
 
 class TrainState(NamedTuple):
@@ -59,12 +62,13 @@ def train_step(
     width: int,
     height: int,
     spatial_lr_scale: float = 1.0,
+    sphere_cfg: Optional[SphereConfig] = None,
     jitter: bool = True,
 ) -> Tuple[TrainState, dict]:
     """One reconstruction step on the scene's device. `generator` draws the
-    sampling offsets when `jitter` is on. Returns (new_state, aux) with the
-    loss (a 0-d tensor, not synchronised), radii, visibility and
-    num_active."""
+    sampling offsets when `jitter` is on; `sphere_cfg` adds the sphere
+    regularisers to the loss. Returns (new_state, aux) with the loss (a 0-d
+    tensor, not synchronised), radii, visibility and num_active."""
     opt = make_optimizer(opt_cfg, spatial_lr_scale)
     scene = state.scene
     dev = scene.device
@@ -73,10 +77,12 @@ def train_step(
                       requires_grad=True)
     offsets = (raster_api.random_sampling_offsets(generator, height, width)
                if jitter else None)
-    out = raster_api.render(camera, scene.with_params(params), bg_color,
-                            settings=settings, sampling_offsets=offsets,
-                            device=dev, means2d_offset=m2d)
+    live = scene.with_params(params)
+    out = raster_api.render(camera, live, bg_color, settings=settings,
+                            sampling_offsets=offsets, device=dev, means2d_offset=m2d)
     loss = photometric_loss(out["render"], gt_image, opt_cfg.lambda_dssim)
+    if sphere_cfg is not None:
+        loss = loss + sphere_regularizer(live, sphere_cfg)
     leaves = list(params.values()) + [m2d]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
@@ -114,6 +120,7 @@ class Trainer:
         bg_color=None,
         spatial_lr_scale: float = 1.0,
         cameras_extent: float = 1.0,
+        sphere_cfg: Optional[SphereConfig] = None,
         seed: int = 0,
         white_background: bool = False,
         jitter: bool = True,
@@ -138,6 +145,7 @@ class Trainer:
         self.bg_color = torch.as_tensor(bg_color, dtype=torch.float32).to(self.device)
         self.spatial_lr_scale = spatial_lr_scale
         self.cameras_extent = cameras_extent
+        self.sphere_cfg = sphere_cfg
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.rng = np.random.default_rng(seed)
         self.jitter = jitter
@@ -160,7 +168,7 @@ class Trainer:
             self.state, cam, gt.to(self.device), self.bg_color, self.generator,
             opt_cfg=self.opt_cfg, settings=self.settings, width=cam.width,
             height=cam.height, spatial_lr_scale=self.spatial_lr_scale,
-            jitter=self.jitter)
+            sphere_cfg=self.sphere_cfg, jitter=self.jitter)
         return aux
 
     def run(self, iterations: int, log_every: int = 0) -> TrainState:
