@@ -12,14 +12,14 @@ on one CUDA card and check them.
 Builds the port's CUDA kernels from `wast3d_tpu_torch/csrc/` (one `nvcc`
 per source, all started together, then a link) and holds each kernel
 against its plain PyTorch version on the card: K1 (blend forward), K2
-(blend backward), their bf16 tier K1f and K2f (`fast_chain`), and K3
-(per-Gaussian gradient segment sum), each on small seeded cases, each also
-run twice for bitwise equality (K1 and K1f also against themselves with the
-per-warp cull off, `w3d_blend_fwd_walk_all` and
-`w3d_blend_fwd_fast_walk_all`: the same bits, and on `cull_edges`, rows
-built to test the cull at its edges; K3 also on the render path's route,
-from the binning's own segments, against the bare-rank route: the same
-bits). Then the serving path: the golden scene through the kernel, the
+(blend backward), their bf16 tier K1f and K2f (`fast_chain`, on the bf16
+rows that `render_path` builds; K1f bit for bit), and K3 (per-Gaussian
+gradient segment sum), each on small seeded cases, each also run twice for
+bitwise equality (K1 and K1f also against themselves with the per-warp
+cull off, `w3d_blend_fwd_walk_all` and `w3d_blend_fwd_fast_walk_all`: the
+same bits, and on `cull_edges`, rows built to test the cull at its edges;
+K3 also on the render path's route, from the binning's own segments,
+against the bare-rank route: the same bits). Then the serving path: the golden scene through the kernel, the
 200k-Gaussian / 800x800 scene of `bench.py` timed (K1 with its counts of
 walked entries and a hash of its output, and held to less than 0.85 of its
 device time with the cull off; then in the bf16 tier, K1f and K1 timed in
@@ -128,22 +128,39 @@ FULL_N = 200_000  # bench.py's scene at BENCH_N=200000, BENCH_RES=800x800
 FULL_RES = 800
 WARMUP, FRAMES = 3, 20
 TOL_MAX, TOL_MEAN, TOL_DEPTH = 2e-3, 1e-5, 2e-2
-# The bf16 tier (K1f, K2f) against its plain versions: the two round at the
-# same points, so they differ where a last-bit difference of f32 (expf, the
-# order of the sums) moves a bf16 rounding by one step (2^-8 relative), or a
-# stop across T = 1e-4.
-FAST_TOL_MAX, FAST_TOL_MEAN, FAST_TOL_DEPTH = 1e-2, 1e-4, 2e-2
+# The bf16 tier against its plain versions. K1f must equal its plain version
+# bit for bit (`compare_k1`): both round at the same points, in the same
+# order, and read the same tables. K2f sums its moments over the tile's
+# pixels in another order than its plain version, so a row gradient may land
+# one bf16 step (2^-8 of itself) away.
 K2F_TOL = 1e-2  # of each gradient column's max |value|
 CLI_TIER_TOL = 3e-2  # `cli.render` --fast against --no-fast, the tier's own bound
-# K1f and K2f per pair: the operations of the function, not of the kernels'
-# way of computing it. The bf16 tier keeps T as log T, so each pair adds the
-# negation and log1pf of alpha, the running sum of log T and the expf that
-# gives T back: K1's 26 + 4 and K2's 60 + 4. The roundings to bf16 are not
-# counted: they exist only because these kernels compute a bf16 function in
-# f32 (a kernel on bf16 operands has them for free). Both bounds use the f32
-# rate, as neither kernel uses the bf16x2 instructions.
-K1F_OPS_PER_PAIR = 30
-K2F_OPS_PER_PAIR = 64
+# K1f and K2f per pair: the operations of the function (`blend.py`'s module
+# docstring), each table lookup counted as one, those on two bf16 operands
+# (the products, min, 1 - alpha, q's sums, and rounding power) at the bf16x2
+# rate, twice the f32 rate (two lanes per instruction), the rest at the f32
+# rate. K1f per contributing pair: f32 dx, dy and power (11), the skip and
+# stop compares (3), three lookups (E[power], E[logT], L[alpha]), rounding
+# log T (1), four f32 multiply-adds (8) and the log T sum (1): 27; bf16:
+# rounding power, opa E, min, 1 - alpha, T (1 - alpha), alpha T: 6. K2f per
+# evaluated pair: the same recompute (f32 11 + 3 + 3 + 1 + 1, bf16 6), q (4
+# products, 3 sums) and q w, q T (bf16 9), the prefix sum, 1 - alpha, the
+# difference, division, subtraction and product of dL/dpower and the clamp
+# test (f32 7), the nine products of the ten values and their ten sums over
+# the tile's pixels (f32 19): f32 45, bf16 15.
+K1F_OPS_PER_PAIR = {"f32": 27, "bf16": 6}
+K2F_OPS_PER_PAIR = {"f32": 45, "bf16": 15}
+BF16X2_OPS_PER_S = 2 * F32_OPS_PER_S
+FAST_ROW_BYTES = 32  # [K, 16] bf16 rows
+
+
+def fast_ops_ms(ops_per_pair, pairs):
+    """Least time for `pairs` pairs of the bf16 tier's operations at the
+    card's f32 and bf16x2 rates."""
+    return (ops_per_pair["f32"] / F32_OPS_PER_S
+            + ops_per_pair["bf16"] / BF16X2_OPS_PER_S) * pairs * 1e3
+
+
 PIPELINE_ITERS = 300  # cli.pipeline: iterations of each reconstruction
 PIPELINE_FRAMES = 8  # cli.pipeline: turntable frames
 PIPELINE_CLUSTERS = 12  # style clusters: cluster 0 holds ~3,500 of the 60,000 points
@@ -240,13 +257,14 @@ def view_camera(w, h, device, eye=(0, 0, -5), fov=0.8):
 
 # ---- K1 against its plain version ----------------------------------------
 
-def kernel_inputs(scene, cam, offsets=None):
-    """The exact inputs the main path hands K1 for this view."""
+def kernel_inputs(scene, cam, offsets=None, fast=False):
+    """The exact inputs the main path hands K1 (K1f, on its bf16 rows, with
+    `fast`) for this view."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
 
     prep = api.preprocess_scene(cam, scene)
     binning, rows = render_path.bin_and_pack(prep, cam.width, cam.height,
-                                             jittered=offsets is not None)
+                                             jittered=offsets is not None, fast=fast)
     return rows, binning.tile_start, binning.tile_end, cam.width, cam.height, offsets
 
 
@@ -257,16 +275,17 @@ def k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast=False):
     changes no bit; counted nowhere."""
     from wast3d_tpu_torch import _build
     from wast3d_tpu_torch.ops.rasterizer.binning import tile_grid
-    from wast3d_tpu_torch.ops.rasterizer.blend import BlendOutput
+    from wast3d_tpu_torch.ops.rasterizer.blend import BlendOutput, fast_tables
 
     lib = _build.load_library()
     dev = rows.device
     out = BlendOutput(*(torch.empty(shape, device=dev) for shape in ((h, w, 3), (h, w), (h, w))))
     grid_x, grid_y = tile_grid(w, h)
     entry = lib.w3d_blend_fwd_fast_walk_all if fast else lib.w3d_blend_fwd_walk_all
+    tables = (fast_tables(dev).data_ptr(),) if fast else ()
     err = entry(
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        None if offsets is None else offsets.data_ptr(), bg.data_ptr(),
+        None if offsets is None else offsets.data_ptr(), bg.data_ptr(), *tables,
         *(t.data_ptr() for t in out), w, h, grid_x, grid_x * grid_y,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -288,20 +307,22 @@ def sha256_of(tensors) -> str:
 
 def k1_pair(fast):
     """(kernel wrapper, plain version, name, (max, mean, depth) tolerances)
-    of K1, or of K1f with `fast`."""
+    of K1, or of K1f with `fast`, whose tolerance is bitwise equality."""
     from wast3d_tpu_torch.ops.rasterizer import blend
 
     if fast:
-        return (blend.blend_fwd_fast, blend.blend_fwd_fast_reference, "K1f",
-                (FAST_TOL_MAX, FAST_TOL_MEAN, FAST_TOL_DEPTH))
+        return (blend.blend_fwd_fast, blend.blend_fwd_fast_reference, "K1f", (0.0, 0.0, 0.0))
     return blend.blend_fwd, blend.blend_fwd_reference, "K1", (TOL_MAX, TOL_MEAN, TOL_DEPTH)
 
 
 def compare_k1(inputs, bg, fast=False):
     """Kernel twice, the kernel with its cull off, and the plain version on
-    the same inputs (K1, or K1f with `fast`); raises past tolerance, or if
-    the two kernel runs or the kernel and its walk-all differ in any bit.
-    Returns ({field: (max, mean)} absolute errors, the kernel's output)."""
+    the same inputs (K1, or K1f with `fast`); raises past tolerance (for K1f,
+    on any bit that differs from its plain version: the two round at the
+    same points and read the same tables), or if the two kernel runs or the
+    kernel and its walk-all differ in any bit. Returns ({field: (max, mean)}
+    absolute errors, the kernel's output, whether kernel and plain version
+    agree bit for bit)."""
     fwd, plain, name, (tol_max, tol_mean, tol_depth) = k1_pair(fast)
     rows, starts, ends, w, h, offsets = inputs
     k = fwd(rows, starts, ends, w, h, bg, offsets)
@@ -328,31 +349,40 @@ def compare_k1(inputs, bg, fast=False):
     if errs["depth"][0] > tol_depth:
         raise AssertionError(f"{name} depth vs plain: max {errs['depth'][0]} "
                              f"(limit {tol_depth})")
-    return errs, k
+    bitwise = bitwise_equal(k, p)
+    if fast and not bitwise:
+        raise AssertionError(f"{name}: not bit-equal to its plain version")
+    return errs, k, bitwise
 
 
-def k1_cases(device):
+def k1_cases(device, fast=False):
+    """The small cases' background and {name: K1's inputs} (K1f's, with its
+    bf16 rows, with `fast`)."""
     bg = torch.tensor([0.2, 0.5, 0.9], device=device)
+
+    def inputs(scene, cam, offsets=None):
+        return kernel_inputs(scene, cam, offsets, fast)
+
     cases = {}
-    cases["random_64"] = kernel_inputs(make_scene(random_scene(), device), view_camera(64, 64, device))
-    cases["nonmultiple_50x34"] = kernel_inputs(make_scene(random_scene(seed=1), device),
-                                               view_camera(50, 34, device))
-    cases["saturating_32"] = kernel_inputs(make_scene(saturating_scene(), device),
-                                           view_camera(32, 32, device))
+    cases["random_64"] = inputs(make_scene(random_scene(), device), view_camera(64, 64, device))
+    cases["nonmultiple_50x34"] = inputs(make_scene(random_scene(seed=1), device),
+                                        view_camera(50, 34, device))
+    cases["saturating_32"] = inputs(make_scene(saturating_scene(), device),
+                                    view_camera(32, 32, device))
     off = -np.random.default_rng(7).uniform(0, 1, (48, 64, 2)).astype(np.float32)
-    cases["jitter_64x48"] = kernel_inputs(make_scene(random_scene(seed=2), device),
-                                          view_camera(64, 48, device),
-                                          torch.from_numpy(off).to(device))
-    cases["empty_tiles_96"] = kernel_inputs(make_scene(corner_scene(), device),
-                                            view_camera(96, 96, device))
+    cases["jitter_64x48"] = inputs(make_scene(random_scene(seed=2), device),
+                                   view_camera(64, 48, device), torch.from_numpy(off).to(device))
+    cases["empty_tiles_96"] = inputs(make_scene(corner_scene(), device),
+                                     view_camera(96, 96, device))
     behind = random_scene(seed=3)
     behind["xyz"][:, 2] = -9.0  # everything behind the camera: no rows at all
-    cases["no_rows_64"] = kernel_inputs(make_scene(behind, device), view_camera(64, 64, device))
+    cases["no_rows_64"] = inputs(make_scene(behind, device), view_camera(64, 64, device))
     return bg, cases
 
 
-def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9):
-    """K1 inputs built as rows, to test the cull at its edges: per tile,
+def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9, fast=False):
+    """K1 inputs (K1f's with `fast`: the same rows recentred and rounded by
+    `render_path.fast_rows`) built as rows, to test the cull at its edges: per tile,
     thin rotated splats (|B| near sqrt(AC)) with opacities from 1/255 to
     2/255, some exactly 1/255 and some just below, jitter offsets in
     [-1, 1], and hand-made rows the cull must keep: conics that are not
@@ -410,8 +440,14 @@ def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9):
         ends.append(starts[-1] + len(tile_rows))
     off = rng.uniform(-1, 1, (h, w, 2))
     as_t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(device)  # noqa: E731
-    inputs = (as_t(np.concatenate(rows), np.float32), as_t(starts, np.int32),
-              as_t(ends, np.int32), w, h, as_t(off, np.float32))
+    rows = as_t(np.concatenate(rows), np.float32)
+    if fast:
+        from wast3d_tpu_torch.ops.rasterizer.render_path import fast_rows
+
+        tiles = torch.repeat_interleave(torch.arange(len(starts), device=device),
+                                        torch.tensor(np.subtract(ends, starts), device=device))
+        rows = fast_rows(rows, tiles, w)
+    inputs = (rows, as_t(starts, np.int32), as_t(ends, np.int32), w, h, as_t(off, np.float32))
     return inputs, torch.from_numpy(np.asarray(special, np.int64)).to(device)
 
 
@@ -420,15 +456,16 @@ def phase_k1_cases(device, fast=False):
     from wast3d_tpu_torch.ops.rasterizer.blend import warp_boxes, warp_keep_reference
 
     t0 = time.perf_counter()
-    bg, cases = k1_cases(device)
-    cases["cull_edges"], special = cull_edges_case(device)
+    bg, cases = k1_cases(device, fast)
+    cases["cull_edges"], special = cull_edges_case(device, fast=fast)
     out = {}
     for name, inputs in cases.items():
         rows, starts, ends = inputs[:3]
-        errs, k = compare_k1(inputs, bg, fast)
+        errs, k, bitwise = compare_k1(inputs, bg, fast)
         out[name] = {"K": int(rows.shape[0]),
                      "empty_tiles": int((ends == starts).sum()),
                      "final_T_min": float(k.final_T.min()),
+                     "bitwise_equal_to_plain": bitwise,
                      **{f"{f}_max": e[0] for f, e in errs.items()},
                      **{f"{f}_mean": e[1] for f, e in errs.items()}}
     if out["empty_tiles_96"]["empty_tiles"] == 0:
@@ -441,7 +478,7 @@ def phase_k1_cases(device, fast=False):
     keep = warp_keep_reference(rows, starts, ends, w, h, offsets, fast)
     tiles = torch.repeat_interleave(torch.arange(len(starts), device=device),
                                     (ends - starts).long())  # the rows are the tiles' ranges
-    boxes = warp_boxes(w, h, offsets, device)
+    boxes = warp_boxes(w, h, offsets, device, local=fast)
     live = (boxes[..., 0] <= boxes[..., 1])[tiles]  # [K, warps]: the warp has a pixel inside
     kept, culled = int((keep & live).sum()), int((~keep & live).sum())
     if kept == 0 or culled == 0:
@@ -453,7 +490,8 @@ def phase_k1_cases(device, fast=False):
                              hand_made_rows=int(special.numel()))
     tol_max, tol_mean, tol_depth = k1_pair(fast)[3]
     emit("k1_fast_vs_plain" if fast else "k1_vs_plain", t0, cases=out,
-         tolerance={"color_final_T_max": tol_max, "mean": tol_mean, "depth_max": tol_depth},
+         tolerance="bitwise" if fast else {"color_final_T_max": tol_max, "mean": tol_mean,
+                                           "depth_max": tol_depth},
          runs_bitwise_equal=True, walk_all_bitwise_equal=True)
 
 
@@ -499,9 +537,10 @@ def compare_k2(inputs, bg, grads, fast=False):
     if k.numel() and (k[:, GRAD_COLS:] != 0).any():
         raise AssertionError(f"{name}: padding columns not zero")
     rel = 0.0
+    k32, p32 = k.float(), p.float()  # K2f's rows are bf16
     for col in range(GRAD_COLS):
-        scale = float(p[:, col].abs().max()) if p.numel() else 0.0
-        err = float((k[:, col] - p[:, col]).abs().max()) if p.numel() else 0.0
+        scale = float(p32[:, col].abs().max()) if p.numel() else 0.0
+        err = float((k32[:, col] - p32[:, col]).abs().max()) if p.numel() else 0.0
         rel = max(rel, err / scale if scale > 0 else err)
     if rel > tol:
         raise AssertionError(f"{name} vs plain: {rel} of the column max (limit {tol})")
@@ -512,7 +551,7 @@ def phase_k2_cases(device, fast=False):
     """K2 (K2f with `fast`) against its plain version on the six K1 cases
     that have finite rows, over two backgrounds."""
     t0 = time.perf_counter()
-    _, cases = k1_cases(device)
+    _, cases = k1_cases(device, fast)
     out = {}
     for bg_value in (0.0, 1.0):
         bg = torch.full((3,), bg_value, device=device)
@@ -743,7 +782,7 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
     walk_all_ms = cuda_time_ms(lambda: k1_walk_all(*inputs, None), 50)
     walk_all_device_ms = kernel_device_ms(lambda: k1_walk_all(*inputs, None), "blend_fwd_kernel")
     plain_ms = cuda_time_ms(lambda: blend_fwd_reference(*inputs), 3)
-    errs, k = compare_k1(inputs[:5] + (None,), bg)
+    errs, k, _ = compare_k1(inputs[:5] + (None,), bg)
     counts = warp_walk_counts(*inputs[:5])
     K, tiles = int(rows.shape[0]), int(binning.tile_start.shape[0])
     bytes_moved = 48 * K + 8 * tiles + 12 + 20 * res * res
@@ -784,18 +823,18 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
 
 def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
     """Frames through `api.render` in the bf16 tier (`fast_chain`), then K1f
-    alone at this frame's inputs: against K1 and its plain version, both
-    kernels timed in this call by events and by device. Returns K1f's
-    kernels-line entry."""
+    alone at this frame's inputs (its bf16 rows): against its plain version
+    and against K1 on the same frame's f32 rows, both kernels timed in this
+    call by events and by device. Returns K1f's kernels-line entry."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
     from wast3d_tpu_torch.ops.rasterizer.blend import (
-        blend_fwd, blend_fwd_fast, blend_fwd_fast_reference, warp_walk_counts)
+        blend_fwd, blend_fwd_fast, blend_fwd_fast_reference, fast_tables, warp_walk_counts)
 
     t0 = time.perf_counter()
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="cuda", fast_chain=True)
+    settings = api.RasterizeSettings(renderer="pallas", fast_chain=True)
 
     before = dict(kernel_counts())
     frame_ms = []
@@ -814,23 +853,26 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
         raise AssertionError(f"fast frame: shape {tuple(img.shape)} or non-finite values")
 
     prep = api.preprocess_scene(cam, scene)
-    binning, rows = render_path.bin_and_pack(prep, res, res)
+    binning, rows = render_path.bin_and_pack(prep, res, res, fast=True)
     inputs = (rows, binning.tile_start, binning.tile_end, res, res, bg)
-    k1_ms = cuda_time_ms(lambda: blend_fwd(*inputs), 50)
+    inputs32 = (render_path.bin_and_pack(prep, res, res)[1],) + inputs[1:]
+    k1_ms = cuda_time_ms(lambda: blend_fwd(*inputs32), 50)
     k1f_ms = cuda_time_ms(lambda: blend_fwd_fast(*inputs), 50)
-    k1_device_ms = kernel_device_ms(lambda: blend_fwd(*inputs), "blend_fwd_kernel")
-    k1f_device_ms = kernel_device_ms(lambda: blend_fwd_fast(*inputs), "blend_fwd_kernel")
+    k1_device_ms = kernel_device_ms(lambda: blend_fwd(*inputs32), "blend_fwd_kernel")
+    k1f_device_ms = kernel_device_ms(lambda: blend_fwd_fast(*inputs), "blend_fwd_fast_kernel")
     walk_all_device_ms = kernel_device_ms(lambda: k1_walk_all(*inputs, None, True),
-                                          "blend_fwd_kernel")
+                                          "blend_fwd_fast_kernel")
     plain_ms = cuda_time_ms(lambda: blend_fwd_fast_reference(*inputs), 3)
-    errs, kf = compare_k1(inputs[:5] + (None,), bg, fast=True)
-    k = blend_fwd(*inputs)
+    errs, kf, bitwise = compare_k1(inputs[:5] + (None,), bg, fast=True)
+    k = blend_fwd(*inputs32)
     vs_k1 = {f: (float((a - b).abs().max()), float((a - b).abs().mean()))
              for f, a, b in zip(("color", "depth", "final_T"), kf, k)}
     counts = warp_walk_counts(*inputs[:5], fast=True)
     K, tiles = int(rows.shape[0]), int(binning.tile_start.shape[0])
-    bytes_ms = (48 * K + 8 * tiles + 12 + 20 * res * res) / HBM_BYTES_PER_S * 1e3
-    ops_ms = K1F_OPS_PER_PAIR * counts.contributing_pairs / F32_OPS_PER_S * 1e3
+    table_bytes = fast_tables(device).numel() * 2
+    bytes_ms = ((FAST_ROW_BYTES * K + table_bytes + 8 * tiles + 12 + 20 * res * res)
+                / HBM_BYTES_PER_S * 1e3)
+    ops_ms = fast_ops_ms(K1F_OPS_PER_PAIR, counts.contributing_pairs)
     bound_ms = max(bytes_ms, ops_ms)
     emit("full_width_fast", t0, n_gaussians=n, width=res, height=res, duplicates_K=K,
          frame_ms_median=statistics.median(frame_ms), frame_ms_min=min(frame_ms),
@@ -842,7 +884,7 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
          contributing_pairs=counts.contributing_pairs,
          warp_iterations=counts.warp_iterations,
          warp_iterations_culled=counts.warp_iterations_culled,
-         k1f_output_sha256=sha256_of(kf),
+         k1f_output_sha256=sha256_of(kf), k1f_bitwise_equal_to_plain=bitwise,
          **{f"k1f_vs_plain_{f}_max": e[0] for f, e in errs.items()},
          **{f"k1f_vs_plain_{f}_mean": e[1] for f, e in errs.items()},
          **{f"k1f_vs_k1_{f}_max": e[0] for f, e in vs_k1.items()},
@@ -1217,14 +1259,14 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
     from wast3d_tpu_torch.ops.rasterizer.blend import (
         BlendOutput, blend_bwd, blend_bwd_fast, blend_bwd_fast_reference, blend_fwd,
-        blend_fwd_fast, evaluated_pairs)
+        blend_fwd_fast, evaluated_pairs, fast_tables)
     from wast3d_tpu_torch.train import reconstruct as R
 
     t0 = time.perf_counter()
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="cuda", fast_chain=True)
+    settings = api.RasterizeSettings(renderer="pallas", fast_chain=True)
     opt_cfg = OptimizationConfig()
     with torch.no_grad():
         gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
@@ -1252,7 +1294,8 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
         raise AssertionError(f"fast train loss did not fall: {losses[0]} -> {losses[-1]}")
 
     prep = api.preprocess_scene(cam, state.scene)
-    binning, rows = render_path.bin_and_pack(prep, res, res)
+    binning, rows = render_path.bin_and_pack(prep, res, res, fast=True)
+    rows32 = render_path.bin_and_pack(prep, res, res)[1]
     starts, ends = binning.tile_start, binning.tile_end
     out = blend_fwd_fast(rows, starts, ends, res, res, bg)
     color = out.color.clone().requires_grad_(True)
@@ -1262,8 +1305,8 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
     args = (rows, starts, ends, res, res, bg, None, out, grads)
     k2f_ms = cuda_time_ms(lambda: blend_bwd_fast(*args), 20)
     _, k2f_device_ms = device_ms(lambda: blend_bwd_fast(*args))
-    out32 = blend_fwd(rows, starts, ends, res, res, bg)
-    args32 = args[:7] + (out32, grads)
+    out32 = blend_fwd(rows32, starts, ends, res, res, bg)
+    args32 = (rows32,) + args[1:7] + (out32, grads)
     k2_ms = cuda_time_ms(lambda: blend_bwd(*args32), 20)
     _, k2_device_ms = device_ms(lambda: blend_bwd(*args32))
     plain_ms = cuda_time_ms(lambda: blend_bwd_fast_reference(*args), 2)
@@ -1271,8 +1314,10 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
     plain = blend_bwd_fast_reference(*args)
     pairs = evaluated_pairs(rows, starts, ends, res, res, fast=True)
     K, tiles = int(rows.shape[0]), int(starts.shape[0])
-    bytes_ms = (48 * K * 2 + 40 * res * res + 8 * tiles + 12) / HBM_BYTES_PER_S * 1e3
-    ops_ms = K2F_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
+    table_bytes = fast_tables(device).numel() * 2
+    bytes_ms = ((FAST_ROW_BYTES * K * 2 + table_bytes + 40 * res * res + 8 * tiles + 12)
+                / HBM_BYTES_PER_S * 1e3)
+    ops_ms = fast_ops_ms(K2F_OPS_PER_PAIR, pairs)
     emit("train_full_width_fast", t0, n_gaussians=n, width=res, height=res, jitter=False,
          steps=steps, warmup=warmup, step_ms_median=statistics.median(step_ms),
          step_ms_min=min(step_ms), step_ms_max=max(step_ms), loss_first=losses[0],
@@ -1284,7 +1329,7 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
             "source": "wast3d_tpu_torch/csrc/blend_bwd.cu",
             "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:644",
             "launches": launched["blend_bwd_fast"],
-            "max_abs_err": float((drows - plain).abs().max()),
+            "max_abs_err": float((drows.float() - plain.float()).abs().max()),
             "ms": k2f_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}

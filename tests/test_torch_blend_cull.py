@@ -310,3 +310,28 @@ def test_warp_walk_counts_match_brute_force(name):
     assert counts.evaluated_pairs == tblend.evaluated_pairs(rows, starts, ends, w, h, offsets)
     assert counts.contributing_pairs <= counts.evaluated_pairs
     assert 0 < counts.warp_iterations_culled < counts.warp_iterations
+
+
+@pytest.mark.parametrize("w,h", [(64, 64), (50, 34)])
+def test_fast_warp_boxes_are_tile_local(w, h):
+    """K1f's warp boxes (`local=True`): the image boxes less each tile's
+    origin, the jitter applied to the tile-local pixel in f32 as K1f adds
+    it."""
+    offsets = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, (h, w, 2))
+                               .astype(np.float32))
+    boxes = tblend.warp_boxes(w, h, offsets, device="cpu", local=True)
+    grid_x, grid_y = tile_grid(w, h)
+    off = offsets.numpy()
+    for t in range(grid_x * grid_y):
+        for warp in range(tblend.WARPS):
+            ly, lx = 4 * (warp // 2) + np.arange(4), 8 * (warp % 2) + np.arange(8)
+            ys, xs = (t // grid_x) * TILE + ly, (t % grid_x) * TILE + lx
+            keep_y, keep_x = ys < h, xs < w
+            if not keep_y.any() or not keep_x.any():
+                assert boxes[t, warp, 0] == np.inf
+                continue
+            ys, xs, ly, lx = ys[keep_y], xs[keep_x], ly[keep_y], lx[keep_x]
+            sx = lx[None, :].astype(np.float32) + off[ys][:, xs, 0]
+            sy = ly[:, None].astype(np.float32) + off[ys][:, xs, 1]
+            np.testing.assert_array_equal(boxes[t, warp].numpy(),
+                                          [sx.min(), sx.max(), sy.min(), sy.max()])

@@ -297,11 +297,14 @@ def test_build_runs_each_compile_then_the_link(tmp_path, monkeypatch, fail):
 
 def test_blend_fwd_fast_walk_all_is_a_test_hook_only():
     """K1f with its cull off has an entry of K1f's signature, and the port's
-    blend wrapper never reaches it (only chip_smoke.py calls it)."""
+    blend wrapper never reaches it (only chip_smoke.py calls it). K1f and K2f
+    take K1's and K2's arguments and, after `bg`, the tables' pointer."""
     fast = _build.SIGNATURES["w3d_blend_fwd_fast"]
-    assert _build.SIGNATURES["w3d_blend_fwd_fast_walk_all"] == fast == \
-        _build.SIGNATURES["w3d_blend_fwd"]
-    assert _build.SIGNATURES["w3d_blend_bwd_fast"] == _build.SIGNATURES["w3d_blend_bwd"]
+    assert _build.SIGNATURES["w3d_blend_fwd_fast_walk_all"] == fast
+    for tier, f32 in ((fast, _build.SIGNATURES["w3d_blend_fwd"]),
+                      (_build.SIGNATURES["w3d_blend_bwd_fast"],
+                       _build.SIGNATURES["w3d_blend_bwd"])):
+        assert tier[1] == f32[1] and tier[0] == f32[0][:5] + [ctypes.c_void_p] + f32[0][5:]
     src = (_build.SOURCE_DIR / "blend_fwd.cu").read_text()
     assert "int w3d_blend_fwd_fast(" in src and "int w3d_blend_fwd_fast_walk_all(" in src
     assert "int w3d_blend_bwd_fast(" in (_build.SOURCE_DIR / "blend_bwd.cu").read_text()

@@ -340,10 +340,9 @@ def test_cli_train_flags_match_jax():
     j, t = flags(jax_cli_parser()), flags(tcli.build_parser())
     assert set(t) - set(j) == {"--device"}
     for opt, val in j.items():
-        if opt != "--renderer":  # "pallas" there, "cuda" here
-            assert t[opt] == val, opt
+        assert t[opt] == val, opt
     ns = tcli.build_parser().parse_args(["-s", "x", "-m", "y"])
-    assert ns.renderer == "cuda" and ns.device == "cuda" and ns.data_device == "tpu"
+    assert ns.renderer == "pallas" and ns.device == "cuda" and ns.data_device == "tpu"
 
 
 def test_cli_train_on_cpu_with_checkpoint(tmp_path):

@@ -8,7 +8,8 @@ current one can be compared in one chip call:
 
 Phases: k1_bits, k2_bits, k2_cases, k3_cases, full_width, train_full_width,
 train_entry_point, k4k5_full_width, stylize_entry_point (after building the
-content domain). Each phase prints its JSON line as in `chip_smoke.py`;
+content domain), and the bf16 tier's k1_fast_cases, k2_fast_cases,
+full_width_fast and train_full_width_fast. Each phase prints its JSON line as in `chip_smoke.py`;
 `k1_bits` and `k2_bits` (below) print SHA-256 hashes of K1's inputs and
 outputs and of K2's outputs, and
 `--save-k1 <file.pt>` also saves its 200k / 800x800 outputs there, so that
@@ -164,6 +165,10 @@ def main() -> int:
               "train_full_width": cs.phase_train_full_width,
               "train_entry_point": cs.phase_train_entry_point,
               "k4k5_full_width": cs.phase_k45_full_width,
+              "k1_fast_cases": lambda dev: cs.phase_k1_cases(dev, fast=True),
+              "k2_fast_cases": lambda dev: cs.phase_k2_cases(dev, fast=True),
+              "full_width_fast": cs.phase_full_width_fast,
+              "train_full_width_fast": cs.phase_train_full_width_fast,
               "stylize_entry_point": lambda dev: cs.phase_stylize_entry_point(
                   dev, *cs.content_domain(dev))}
     for name in sys.argv[1].split(","):

@@ -44,13 +44,13 @@ SIGNATURES = {
     "w3d_blend_fwd": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
     # K1 with its cull off; only chip_smoke.py calls it, to compare bits.
     "w3d_blend_fwd_walk_all": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
-    # K1f, the bf16 tier, and its walk of every entry (only chip_smoke.py
-    # calls the latter, as for K1).
-    "w3d_blend_fwd_fast": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
-    "w3d_blend_fwd_fast_walk_all": ([_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
-                                    _i),
+    # K1f, the bf16 tier (K1's arguments with the tables after `bg`), and its
+    # walk of every entry (only chip_smoke.py calls the latter, as for K1).
+    "w3d_blend_fwd_fast": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
+    "w3d_blend_fwd_fast_walk_all": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
-    "w3d_blend_bwd_fast": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
+    # K2f: K2's arguments with the tables after `bg`, as K1f takes them.
+    "w3d_blend_bwd_fast": ([_p] * 13 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_segsum": ([_p, _i, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _i, _p], _i),
     "w3d_desc_loss": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_desc_grad": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
@@ -111,8 +111,11 @@ def build() -> Built:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         lib = Path(tmp) / out.name
         compiles, link = nvcc_commands(lib)
+        # Every compile runs to its end before the first failure is raised
+        # (`pool.map` would cancel those not yet started).
         with ThreadPoolExecutor(len(compiles)) as pool:
-            logs = list(pool.map(_nvcc, compiles))
+            futures = [pool.submit(_nvcc, cmd) for cmd in compiles]
+        logs = [f.result() for f in futures]
         logs.append(_nvcc(link))
         os.replace(lib, out)
     return Built(out, time.perf_counter() - t0, "".join(logs))

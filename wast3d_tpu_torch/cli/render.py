@@ -57,7 +57,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         args.model_path, source, iteration=args.iteration,
         skip_train=args.skip_train, skip_test=args.skip_test,
         white_background=white_bg, resolution=args.resolution,
-        settings=api.RasterizeSettings(renderer="cuda", fast_chain=args.fast),
+        settings=api.RasterizeSettings(renderer="pallas", dup_capacity=1 << 21,
+                                      fast_chain=args.fast),
         batch=args.batch, autoplan=args.autoplan, device=args.device,
     )
 

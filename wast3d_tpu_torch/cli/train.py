@@ -8,9 +8,12 @@ the same config groups), plus `--device` as `cli.render` has.
 `--sphere_mode {isotropic,anisotropic,anisotropic_simple}` trains a style
 scene with the sphere regularisers (`train/spheres.py`), built as the JAX
 CLI builds them. Differences:
-- `--renderer` takes "cuda" (the hand-written kernels, the default) or
-  "torch" (their plain PyTorch versions);
-- `--ip` / `--port` are accepted and no viewer starts (queue 1 item 18);
+- `--renderer` takes JAX's "pallas" (the hand-written kernels, the
+  default) and "tiled" (their plain PyTorch versions), and the port's
+  aliases "cuda" and "torch"; "oracle" is accepted and raises, as the
+  per-pixel oracle is not ported (ROADMAP queue 1 item 5);
+- `--ip` / `--port` are accepted and no viewer starts (ROADMAP queue 1
+  item 7, the viewer);
   `--debug_from`, `--detect_anomaly` and `--test_iterations` are accepted
   and do nothing, as in the JAX package.
 """
@@ -49,8 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sphere_mode", type=str, default="none",
                         choices=["none", "isotropic", "anisotropic",
                                  "anisotropic_simple"])
-    parser.add_argument("--renderer", type=str, default="cuda",
-                        choices=["cuda", "torch"])
+    parser.add_argument("--renderer", type=str, default="pallas",
+                        choices=["pallas", "tiled", "oracle", "cuda", "torch"])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")

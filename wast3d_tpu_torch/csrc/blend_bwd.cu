@@ -57,27 +57,33 @@
 // holds it above that bound (more resident warps did not make it faster on
 // the H100).
 // Left for later: splitting long tiles over several blocks (the forward
-// would have to store T at the split), the bf16 tier, tensor cores.
+// would have to store T at the split), tensor cores.
 //
 // Built without --use_fast_math, so expf and the divisions are the accurate
 // ones, as in K1 and in the plain version
 // (`wast3d_tpu_torch/ops/rasterizer/blend.py::blend_bwd_reference`).
 //
-// K2f, the bf16 tier (`fast_chain`): the same kernel with kFast set replaces
-// the `fast=True` body of the same TPU kernel (`pallas_blend.py:543`, its
-// fast branches at :571 and :644-690). It recomputes alpha and T exactly as
-// K1f does (f32 power; alpha, log1p, T and the stop test rounded to bf16,
-// log T an f32 running sum), so its stops are K1f's, and rounds q =
-// dcolour . rgb + ddepth depth (each operand, product and sum, in the order
-// r, g, b, depth), q w (added to the f32 prefix) and q T to bf16; the
-// division, dL/dpower, the moment sums, the butterfly and the row gradient
-// stay f32, and so does the output. An alpha at the bf16 clamp gets no
-// gradient. Its plain version is `blend_bwd_fast_reference`. Its bytes are
-// K2's; it adds ~16 operations per evaluated pair (the roundings, log1pf and
-// a second expf), so like K1f it is no faster than the f32 kernel it mirrors.
+// K2f, the bf16 tier (`fast_chain`), is its own kernel below,
+// `blend_bwd_fast_kernel`: it replaces the `fast=True` body of the same TPU
+// kernel (`pallas_blend.py:543`, its fast branches at :571 and :644-690) on
+// JAX's bf16 rows (`blend_fast.cuh`), with K2's walk, groups and butterfly.
+// It recomputes alpha, T and the stops with K1f's arithmetic and tables, so
+// its stops are K1f's, and rounds q = dcolour . rgb + ddepth depth (the four
+// products in two bf16x2 products of the row's (depth, r) and (g, b) words
+// with the rounded cotangents, then three sums, in the order r, g, b, depth),
+// and (q T, q w) in one bf16x2 product; q w is added to the f32 prefix. The
+// division, dL/dpower, the moment sums, the butterfly and the accumulators
+// stay f32, and the row gradient is rounded to bf16 into [K, 16] rows, half
+// of K2's output bytes (JAX rounds it to its rows' dtype). Like K1f it
+// converts each batch entry's geometry to f32 once per block, behind one more
+// barrier, and keeps the table's addresses in registers. The clamp test is
+// JAX's, alpha < 0.99 in f32, which every bf16 alpha passes: an alpha at the
+// bf16 clamp keeps its gradient (unlike the f32 tier's). Its plain version is
+// `blend_bwd_fast_reference`.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "blend_fast.cuh"
 
 namespace {
 
@@ -90,14 +96,14 @@ constexpr int kVals = 10;
 constexpr int kGroup = 3;    // entries per butterfly: kGroup * kVals <= 32 slots
 constexpr size_t kSmemBytes =
     2 * kBatch * kVecs * sizeof(float4) + kWarps * kBatch * kVals * sizeof(float);
+constexpr size_t kFastSmemBytes = 2 * kBatch * 2 * sizeof(uint4) + kBatch * sizeof(float4) +
+                                  kBatch * sizeof(float) +
+                                  kWarps * kBatch * kVals * sizeof(float) +
+                                  w3d_fast::kTableVecs * sizeof(uint4);
 constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMaxBf16 = 0.98828125f;  // 0.99 rounded to bfloat16
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// x rounded to bfloat16 (to nearest, ties to even) and back.
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -126,7 +132,6 @@ __device__ __forceinline__ void scatter_step(float (&v)[32], int lane) {
   }
 }
 
-template <bool kFast>
 __global__ void __launch_bounds__(kBlock)
 blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f32
                  const int* __restrict__ starts, const int* __restrict__ ends,
@@ -173,12 +178,9 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
               t_fin * dt_eff;
   }
 
-  // The bf16 tier's rounded cotangents (q's operands).
-  const float gr_b = bf(gr), gg_b = bf(gg), gb_b = bf(gb), gd_b = bf(gd);
-
   const int start = starts[tile];
   const int end = ends[tile];
-  float T = kFast ? 0.0f : 1.0f;  // log T in the bf16 tier
+  float T = 1.0f;
   float prefix = 0.0f;
   bool done = !inside;
 
@@ -223,36 +225,18 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
           const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
           // Written as K1's tests, negated, so that the two agree on every input.
           if (!(power > 0.0f)) {
-            const float alpha = kFast ? fminf(kAlphaMaxBf16, bf(bf(b.y) * bf(expf(power))))
-                                      : fminf(kAlphaMax, b.y * expf(power));
+            const float alpha = fminf(kAlphaMax, b.y * expf(power));
             if (!(alpha < kAlphaMin)) {
-              // T before this entry, and the stop test (K1f's in the bf16 tier)
-              const float t_prev = kFast ? bf(expf(bf(T))) : T;
-              const float test_t = kFast ? bf(t_prev * bf(1.0f - alpha)) : T * (1.0f - alpha);
+              const float test_t = T * (1.0f - alpha);
               if (test_t < kTEps) {
                 done = true;
               } else {
-                float w, dpow;
-                if (kFast) {
-                  w = bf(alpha * t_prev);
-                  const float q = bf(bf(bf(bf(gr_b * bf(b.w)) + bf(gg_b * bf(c.x))) +
-                                        bf(gb_b * bf(c.y))) +
-                                     bf(gd_b * bf(b.z)));
-                  prefix += bf(q * w);
-                  // JAX's clamp test, alpha < 0.99 in f32, which every
-                  // bf16 alpha passes: an alpha at the bf16 clamp keeps its
-                  // gradient (unlike the f32 tier's).
-                  dpow = alpha < kAlphaMax
-                             ? (bf(q * t_prev) - (s_total - prefix) / (1.0f - alpha)) * alpha
-                             : 0.0f;
-                } else {
-                  w = alpha * T;
-                  const float q = gr * b.w + gg * c.x + gb * c.y + gd * b.z;
-                  prefix += q * w;
-                  dpow = alpha < kAlphaMax
-                             ? (q * T - (s_total - prefix) / (1.0f - alpha)) * alpha
-                             : 0.0f;
-                }
+                const float w = alpha * T;
+                const float q = gr * b.w + gg * c.x + gb * c.y + gd * b.z;
+                prefix += q * w;
+                const float dpow = alpha < kAlphaMax
+                                       ? (q * T - (s_total - prefix) / (1.0f - alpha)) * alpha
+                                       : 0.0f;
                 v[kVals * e + 0] = dpow;
                 v[kVals * e + 1] = dpow * dx;
                 v[kVals * e + 2] = dpow * dy;
@@ -263,7 +247,7 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
                 v[kVals * e + 7] = w * gr;
                 v[kVals * e + 8] = w * gg;
                 v[kVals * e + 9] = w * gb;
-                T = kFast ? T + bf(log1pf(-alpha)) : test_t;
+                T = test_t;
                 live = true;
               }
             }
@@ -311,35 +295,209 @@ blend_bwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
   }
 }
 
-template <bool kFast>
-int launch(const void* rows, const void* starts, const void* ends, const void* offsets,
-           const void* bg, const void* color, const void* depth, const void* final_t,
-           const void* dcolor, const void* ddepth, const void* dfinal_t, void* drows,
-           int width, int height, int grid_x, int num_tiles, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Dynamic shared memory past 48 KB needs the attribute, set once per
-  // device and kernel (devices 0-31; any other on every call).
-  static unsigned configured = 0;
+// K2f (the file's head note): K2's walk on the bf16 tier's rows.
+__global__ void __launch_bounds__(kBlock)
+blend_bwd_fast_kernel(const uint4* __restrict__ rows,  // [K, 2] uint4 = [K, 16] bf16
+                      const int* __restrict__ starts, const int* __restrict__ ends,
+                      const float2* __restrict__ offsets,  // [H, W] or null
+                      const float* __restrict__ bg,        // [3]
+                      const uint4* __restrict__ tables,    // E and L, bf16
+                      const float* __restrict__ color,     // [H, W, 3] K1f's output
+                      const float* __restrict__ depth,     // [H, W]
+                      const float* __restrict__ final_t,   // [H, W]
+                      const float* __restrict__ dcolor,    // cotangents, same shapes
+                      const float* __restrict__ ddepth,
+                      const float* __restrict__ dfinal_t,
+                      uint4* __restrict__ drows,  // [K, 2] uint4 = [K, 16] bf16, zero on entry
+                      int width, int height, int grid_x) {
+  using namespace w3d_fast;
+  extern __shared__ uint4 smem_fast[];
+  __shared__ int s_live[kWarps];
+  uint4* const batches = smem_fast;  // [2][kBatch * 2]
+  // The batch's mx, my, Ah, Bn and Ch (`power_rn`) in f32, prepared once per block
+  float4* const geom = reinterpret_cast<float4*>(batches + 2 * kBatch * 2);  // [kBatch]
+  float* const ch = reinterpret_cast<float*>(geom + kBatch);                  // [kBatch]
+  float* const partial = ch + kBatch;  // [warp][entry][kVals]
+  uint4* const table = reinterpret_cast<uint4*>(partial + kWarps * kBatch * kVals);
+  const Tables tab(static_cast<uint32_t>(__cvta_generic_to_shared(table)));
+
+  const int tile = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int lx = threadIdx.x % kTile;
+  const int ly = threadIdx.x / kTile;
+  const int x = (tile % grid_x) * kTile + lx;
+  const int y = (tile / grid_x) * kTile + ly;
+  const bool inside = x < width && y < height;
+  float px = static_cast<float>(lx);  // tile-local, as K1f samples
+  float py = static_cast<float>(ly);
+  float gr = 0.0f, gg = 0.0f, gb = 0.0f, gd = 0.0f, s_total = 0.0f;
+  if (inside) {
+    const size_t p = static_cast<size_t>(y) * width + x;
+    if (offsets != nullptr) {
+      const float2 o = offsets[p];
+      px = __fadd_rn(px, o.x);
+      py = __fadd_rn(py, o.y);
+    }
+    gr = dcolor[3 * p + 0];
+    gg = dcolor[3 * p + 1];
+    gb = dcolor[3 * p + 2];
+    gd = ddepth[p];
+    const float t_fin = final_t[p];
+    const float dt_eff = dfinal_t[p] + gr * bg[0] + gg * bg[1] + gb * bg[2];
+    s_total = gr * (color[3 * p + 0] - t_fin * bg[0]) +
+              gg * (color[3 * p + 1] - t_fin * bg[1]) +
+              gb * (color[3 * p + 2] - t_fin * bg[2]) + gd * depth[p] +
+              t_fin * dt_eff;
+  }
+  // q's cotangents rounded to bf16, paired as the row's words (depth, r), (g, b)
+  const uint32_t gdr = pack_rn(gd, gr), ggb = pack_rn(gg, gb);
+
+  const int start = starts[tile];
+  const int end = ends[tile];
+  float log_t = 0.0f;
+  float prefix = 0.0f;
+  bool done = !inside;
+
+  auto stage = [&](int base, int which) {
+    const int n = 2 * min(kBatch, end - base);
+    uint4* dst = batches + which * kBatch * 2;
+    for (int t = threadIdx.x; t < n; t += kBlock) {
+      cp_async16(dst + t, rows + 2 * static_cast<size_t>(base) + t);
+    }
+    cp_async_commit();
+  };
+
+  if (start < end) {
+    for (int t = threadIdx.x; t < kTableVecs; t += kBlock) cp_async16(table + t, tables + t);
+    stage(start, 0);  // one commit group with the table's copies
+  }
+  int which = 0;
+  for (int base = start; base < end; base += kBatch, which ^= 1) {
+    cp_async_wait_all();
+    // As in K2; the geometry and partials of the previous batch are free.
+    if (__syncthreads_count(done) == kBlock) break;
+    const int count = min(kBatch, end - base);
+    if (base + kBatch < end) stage(base + kBatch, which ^ 1);
+    const uint4* batch = batches + which * kBatch * 2;
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(batch);
+    if (threadIdx.x < count) {
+      const uint4 v = batch[2 * threadIdx.x];
+      const float3 k = power_coefficients(v);
+      geom[threadIdx.x] = make_float4(lo_f(v.x), hi_f(v.x), k.x, k.y);
+      ch[threadIdx.x] = k.z;
+    }
+    const bool warp_live = __any_sync(kFull, !done);
+    if (lane == 0) s_live[warp] = warp_live;
+    __syncthreads();
+
+    for (int g = 0; warp_live && g < count; g += kGroup) {
+      float v[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) v[k] = 0.0f;
+      bool live = false;
+#pragma unroll
+      for (int e = 0; e < kGroup; ++e) {
+        const int j = g + e;
+        if (j < count && !done) {
+          const float4 gm = geom[j];  // mx, my, Ah, Bn
+          const uint32_t* w = words + kRowWords * j;
+          const uint32_t c = w[2];  // (C, opa)
+          const float dx = __fsub_rn(gm.x, px);
+          const float dy = __fsub_rn(gm.y, py);
+          const float power = power_rn(gm.z, gm.w, ch[j], dx, dy);
+          // Written as K1f's tests, negated, so that the two agree on every input.
+          if (!(power > 0.0f)) {
+            // alpha, then 1 - alpha, in the high halves (opa's half of `c`)
+            const uint32_t aw =
+                min2(mul2(c, static_cast<uint32_t>(tab.exp_one(bits_rn(power))) << 16),
+                     kAlphaMax2);
+            // alpha < 1/255 from alpha's bits, as K1f reads it
+            if (!(static_cast<int>(aw) < kAlphaMinBits)) {
+              const float alpha = hi_f(aw);
+              const unsigned short t = tab.exp_log_t(bits_rn(log_t));
+              const uint32_t pair = __byte_perm(sub2(kOne2, aw), aw, 0x7632);  // (1 - alpha, alpha)
+              const uint32_t tw = mul2_dup(t, pair);  // (T (1 - alpha), alpha T)
+              if (lo_f(tw) < kTEps) {
+                done = true;
+              } else {
+                const float wt = hi_f(tw);
+                const uint32_t p1 = mul2(w[3], gdr);  // (depth gd, r gr)
+                const uint32_t p2 = mul2(w[4], ggb);  // (g gg, b gb)
+                const uint32_t q = add_lo(add_lo(add_lo(p1 >> 16, p2), p2 >> 16), p1);
+                // (q T, q w)
+                const uint32_t qq =
+                    mul2_dup(static_cast<unsigned short>(q), (tw & 0xffff0000u) | t);
+                prefix = __fadd_rn(prefix, hi_f(qq));
+                // JAX's clamp test, alpha < 0.99 in f32, holds for every bf16
+                // alpha (at most 0.98828125; file head note), so it is left out.
+                const float dpow = (lo_f(qq) - (s_total - prefix) / (1.0f - alpha)) * alpha;
+                v[kVals * e + 0] = dpow;
+                v[kVals * e + 1] = dpow * dx;
+                v[kVals * e + 2] = dpow * dy;
+                v[kVals * e + 3] = dpow * dx * dx;
+                v[kVals * e + 4] = dpow * dx * dy;
+                v[kVals * e + 5] = dpow * dy * dy;
+                v[kVals * e + 6] = wt * gd;
+                v[kVals * e + 7] = wt * gr;
+                v[kVals * e + 8] = wt * gg;
+                v[kVals * e + 9] = wt * gb;
+                log_t = __fadd_rn(log_t, lo_f(tab.log1m_pair(pair)));
+                live = true;
+              }
+            }
+          }
+        }
+      }
+      if (__any_sync(kFull, live)) {
+        scatter_step<16>(v, lane);
+        scatter_step<8>(v, lane);
+        scatter_step<4>(v, lane);
+        scatter_step<2>(v, lane);
+        scatter_step<1>(v, lane);
+      }
+      const int j = g + lane / kVals;
+      if (lane < kGroup * kVals && j < count) {
+        partial[(warp * kBatch + j) * kVals + lane % kVals] = v[0];
+      }
+    }
+    __syncthreads();
+
+    if (threadIdx.x < count) {
+      const int j = threadIdx.x;
+      float s[kVals];
+#pragma unroll
+      for (int k = 0; k < kVals; ++k) {
+        float t = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          if (s_live[w]) t += partial[(w * kBatch + j) * kVals + k];
+        }
+        s[k] = t;
+      }
+      const uint32_t ab = words[kRowWords * j + 1], c = words[kRowWords * j + 2];
+      const float A = lo_f(ab), B = hi_f(ab), C = lo_f(c), opa = hi_f(c);
+      uint4* dst = drows + 2 * static_cast<size_t>(base + j);
+      // (mx, my), (A, B), (C, opa), (depth, r), (g, b), zeros
+      dst[0] = make_uint4(pack_rn(-(A * s[1] + B * s[2]), -(C * s[2] + B * s[1])),
+                          pack_rn(-0.5f * s[3], -s[4]),
+                          pack_rn(-0.5f * s[5], opa > 0.0f ? s[0] / opa : 0.0f),
+                          pack_rn(s[6], s[7]));
+      dst[1] = make_uint4(pack_rn(s[8], s[9]), 0u, 0u, 0u);
+    }
+  }
+}
+
+// Dynamic shared memory past 48 KB needs the attribute, set once per device
+// and kernel (devices 0-31; any other on every call).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int device, unsigned& configured) {
   const unsigned bit = device < 32 ? 1u << device : 0u;
-  if (!(configured & bit) || bit == 0u) {
-    err = cudaFuncSetAttribute(blend_bwd_kernel<kFast>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured |= bit;
-  }
-  if (num_tiles > 0) {
-    blend_bwd_kernel<kFast><<<num_tiles, kBlock, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(rows), static_cast<const int*>(starts),
-        static_cast<const int*>(ends), static_cast<const float2*>(offsets),
-        static_cast<const float*>(bg), static_cast<const float*>(color),
-        static_cast<const float*>(depth), static_cast<const float*>(final_t),
-        static_cast<const float*>(dcolor), static_cast<const float*>(ddepth),
-        static_cast<const float*>(dfinal_t), static_cast<float4*>(drows), width,
-        height, grid_x);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if ((configured & bit) && bit != 0u) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) configured |= bit;
+  return err;
 }
 
 }  // namespace
@@ -354,19 +512,50 @@ int w3d_blend_bwd(const void* rows, const void* starts, const void* ends,
                   const void* depth, const void* final_t, const void* dcolor,
                   const void* ddepth, const void* dfinal_t, void* drows, int width,
                   int height, int grid_x, int num_tiles, int device, void* stream) {
-  return launch<false>(rows, starts, ends, offsets, bg, color, depth, final_t, dcolor, ddepth,
-                       dfinal_t, drows, width, height, grid_x, num_tiles, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static unsigned configured = 0;
+  err = allow_smem(blend_bwd_kernel, kSmemBytes, device, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles > 0) {
+    blend_bwd_kernel<<<num_tiles, kBlock, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(rows), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(offsets),
+        static_cast<const float*>(bg), static_cast<const float*>(color),
+        static_cast<const float*>(depth), static_cast<const float*>(final_t),
+        static_cast<const float*>(dcolor), static_cast<const float*>(ddepth),
+        static_cast<const float*>(dfinal_t), static_cast<float4*>(drows), width,
+        height, grid_x);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K2f, the bf16 tier, with the same arguments (`color`, `depth`, `final_t`
-// from K1f).
+// K2f, the bf16 tier: K2's arguments on [K, 16] bf16 rows (`color`, `depth`,
+// `final_t` from K1f), with the tables E and L after `bg` (as K1f takes
+// them); `drows` is [K, 16] bf16, zero on entry.
 int w3d_blend_bwd_fast(const void* rows, const void* starts, const void* ends,
-                       const void* offsets, const void* bg, const void* color,
-                       const void* depth, const void* final_t, const void* dcolor,
-                       const void* ddepth, const void* dfinal_t, void* drows, int width,
-                       int height, int grid_x, int num_tiles, int device, void* stream) {
-  return launch<true>(rows, starts, ends, offsets, bg, color, depth, final_t, dcolor, ddepth,
-                      dfinal_t, drows, width, height, grid_x, num_tiles, device, stream);
+                       const void* offsets, const void* bg, const void* tables,
+                       const void* color, const void* depth, const void* final_t,
+                       const void* dcolor, const void* ddepth, const void* dfinal_t,
+                       void* drows, int width, int height, int grid_x, int num_tiles,
+                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static unsigned configured = 0;
+  err = allow_smem(blend_bwd_fast_kernel, kFastSmemBytes, device, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles > 0) {
+    blend_bwd_fast_kernel<<<num_tiles, kBlock, kFastSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(rows), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(offsets),
+        static_cast<const float*>(bg), static_cast<const uint4*>(tables),
+        static_cast<const float*>(color), static_cast<const float*>(depth),
+        static_cast<const float*>(final_t), static_cast<const float*>(dcolor),
+        static_cast<const float*>(ddepth), static_cast<const float*>(dfinal_t),
+        static_cast<uint4*>(drows), width, height, grid_x);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

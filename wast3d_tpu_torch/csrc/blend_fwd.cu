@@ -50,38 +50,44 @@
 // operations: bytes bound it. The kernel is held instead by instruction
 // issue: a warp iteration is ~49 instructions (three shared loads, the conic,
 // an accurate expf of ~10, the tests, four FMAs) for all 32 lanes, of which
-// only ~45% take the entry, and the tests add ~0.02 ms. Left for later: the
-// bf16 tier, and balancing long tiles across blocks (the stop rule makes
-// compositing split segments inexact).
+// only ~45% take the entry, and the tests add ~0.02 ms. Left for later:
+// balancing long tiles across blocks (the stop rule makes compositing split
+// segments inexact).
 //
 // Built without --use_fast_math, so expf and logf are the accurate ones and
 // the kernel can be held tightly to its plain PyTorch version
 // (`wast3d_tpu_torch/ops/rasterizer/blend.py::blend_fwd_reference`; the cull's
 // plain version is `warp_keep_reference` there).
 //
-// K1f, the bf16 tier (`fast_chain`, JAX's serving default): the same kernel
-// with kFast set replaces the `fast=True` body of the same TPU kernel
-// (`_chunk_quantities_fast` / `_fast_quad`, `pallas_blend.py:276-400`). The
-// walk, batches and cull are K1's; per (pixel, entry) power stays f32 (as
-// JAX's serving route, `quad_power`, computes it at f32 class), and the
-// chain rounds to bfloat16 from alpha on, with __float2bfloat16_rn at the
-// points of `blend.py`'s module docstring: alpha = min(bf(0.99),
-// bf(bf(opa) bf(expf(power)))), s = bf(log1pf(-alpha)), T = bf(expf(bf(logT)))
-// from the f32 running sum logT of s, the stop on bf(T bf(1 - alpha)), and
-// w = bf(alpha T); compares, logT, final_T = expf(logT) and the sums stay
-// f32. No coordinate is rounded, so JAX's recentring on the tile origin
-// before its casts is not needed. Its cull widens the margin by the bf16
-// roundings (`cull_prelude`). Its plain versions are
-// `blend_fwd_fast_reference` and `warp_keep_reference(..., fast=True)`.
-// It reads and writes K1's bytes and adds a log1pf, an expf and seven
-// roundings per taken pair (~36 f32 operations a contributing pair, each
-// rounding and transcendental counted as one, against K1's ~26): as a simple
-// kernel that is right it computes in f32 and rounds, so it is no faster
-// than K1; two entries per bf16x2 op and bf16 rows are for later.
+// K1f, the bf16 tier (`fast_chain`, JAX's serving default), is its own kernel
+// below, `blend_fwd_fast_kernel`: it replaces the `fast=True` body of the same
+// TPU kernel (`_chunk_quantities_fast` / `_fast_quad`, `pallas_blend.py:276-
+// 400`) and reads JAX's bf16 rows, 32 bytes, recentred on the tile
+// (`blend_fast.cuh`). It keeps K1's walk: one thread per pixel, the 8 x 4
+// warps, the per-warp cull and two kept entries per step. Per (pixel, entry)
+// it computes the function of `blend.py`'s module docstring: power in f32 in
+// the plain version's order of roundings, then bf(power); alpha = min(bf(0.99),
+// bf(opa E[bf(power)])); the stop on bf(T bf(1 - alpha)) with T = E[bf(logT)];
+// w = bf(alpha T); logT += L[alpha]. E and L are tables (in shared memory), so
+// no transcendental is evaluated per pair, and the bf16 products are bf16x2
+// instructions: both entries' opa E, min and 1 - alpha in one instruction
+// each, and (T (1 - alpha), alpha T) in one. Colour and depth add w c in f32
+// one entry at a time (each product is exact) and the background is composited
+// with separate roundings, as in the plain version
+// (`blend_fwd_fast_reference`), whose output K1f can equal bit for bit.
+//
+// K1f's batches hold 256 entries (8 KB of bf16 rows, where 128 of K1's take
+// 6 KB), so that each thread prepares one entry a batch in shared memory
+// (`FastEntry`): its geometry, power coefficients and colour in f32, converted
+// once per block rather than once per warp that walks the entry, and its cull
+// prelude. The table's addresses stay in registers (`Tables`). Its bytes
+// are 32 B x K of rows, the 5,376-byte table and 20 B x H x W of output:
+// 34 MB at the 200k / 800x800 scene, 0.010 ms at 3.35 TB/s.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "blend_fast.cuh"
 
 namespace {
 
@@ -102,13 +108,11 @@ constexpr float kOpaCull = kAlphaMin * (1.0f - 64.0f * kU);
 constexpr float kConicMin = 1e-30f;
 constexpr float kTermMax = 1e30f;
 
-// The bf16 tier's clamp (0.99 rounded to bfloat16) and its cull's margins.
-constexpr float kAlphaMaxBf16 = 0.98828125f;
-constexpr float kOpaCullFast = kAlphaMin * (1.0f - 0.015625f);  // 1 - 2^-6
-constexpr float kTauFast = 0.03125f;                            // 2^-5
-
-// x rounded to bfloat16 (to nearest, ties to even) and back.
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+// K1f: entries per batch, and its cull's margin (see `culled`).
+constexpr int kFastBatch = 256;
+constexpr int kFastWords = kFastBatch / 32;
+constexpr float kTauFast = 0.03125f;     // 2^-5
+constexpr float kTauFastRel = 0.0078125f;  // 2^-7
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -163,29 +167,34 @@ __device__ __forceinline__ float quad(float A, float B, float C, float dx, float
 // opa < (1/255)(1 - 64u) gives alpha < 1/255.
 
 //
-// The bf16 tier (kFast) rounds opa, expf(power) and their product to bf16
-// (8 significant bits), each within 2^-8 relative, so a lane that takes the
-// entry has opa e^power >= (1/255) (1 - u) / ((1 + 4u) (1 + 2^-8)^3):
-// Q_lane <= tau + 6 2^-8 + 14u, about tau + 0.0234. K1f adds 2^-5 = 8 2^-8
-// to tau', 1.33 times the 6 2^-8 that needs, and culls by opa alone below
-// (1/255)(1 - 2^-6): bf(expf(power)) <= 1 for power <= 0, so there alpha <=
-// opa (1 + 2^-8)^2 < (1/255)(1 - 2^-7) < (1/255)(1 - u).
+// K1f (kFast) rounds power, exp and the product with opacity to bf16 (8
+// significant bits, each within 2^-8 relative) and reads E from a table of
+// bf(exp) computed in f32 (within 4u before its rounding); opa is the row's
+// bf16 value, read as it is. A lane that takes the entry has bf(opa E) >=
+// (1/255)(1 - u), so opa e^(pb) (1 + 2^-8)^2 (1 + 4u) >= (1/255)(1 - u) for
+// pb = bf(power): -2 pb <= tau + 4 2^-8 + 10u. Rounding power moves it by at
+// most 2^-8 of itself, so Q_lane (1 - 2^-8) <= -2 pb and Q_lane <= (tau +
+// 4 2^-8 + 10u) / (1 - 2^-8) <= tau + 0.0158 + 0.004 max(tau, 0) (tau <=
+// 2 ln 255 = 11.1; tau >= -3u where opa >= 1/255). K1f adds 2^-5 + 2^-7 |tau|
+// to tau', twice that, and culls by opa alone below 1/255 itself: E <= 1, so
+// bf(opa E) <= opa, and an opa below the float 1/255 gives an alpha below it,
+// which the skip test drops.
 
-// Per entry: (1/A, 1/C, tau', C), where tau' is tau + 8u |tau| (+ 2^-5 in
-// the bf16 tier), or -inf where opa alone culls, or +inf where the row is
-// never culled.
+// Per entry: (1/A, 1/C, tau', C), where tau' is tau + 8u |tau| (+ 2^-5 +
+// 2^-7 |tau| in K1f), or -inf where opa alone culls, or +inf where the row is
+// never culled. `a` is the row's (mx, my, A, B).
 template <bool kFast>
-__device__ __forceinline__ float4 cull_prelude(const float4 a, const float4 b) {
-  const float mx = a.x, my = a.y, A = a.z, B = a.w, C = b.x, opa = b.y;
+__device__ __forceinline__ float4 cull_prelude(const float4 a, float C, float opa) {
+  const float mx = a.x, my = a.y, A = a.z, B = a.w;
   const bool cullable = isfinite(mx) && isfinite(my) && isfinite(A) && isfinite(B) &&
                         isfinite(C) && isfinite(opa) && A > kConicMin && C > kConicMin &&
                         A * C * (1.0f - 16.0f * kU) > B * B;
   if (!cullable) return make_float4(0.0f, 0.0f, CUDART_INF_F, C);
   float tau = -CUDART_INF_F;
-  if (!(opa < (kFast ? kOpaCullFast : kOpaCull))) {
+  if (!(opa < (kFast ? kAlphaMin : kOpaCull))) {
     tau = 2.0f * logf(255.0f * opa);
     tau += 8.0f * kU * fabsf(tau);
-    if (kFast) tau += kTauFast;
+    if (kFast) tau += kTauFast + kTauFastRel * fabsf(tau);
   }
   return make_float4(1.0f / A, 1.0f / C, tau, C);
 }
@@ -233,34 +242,14 @@ __device__ __forceinline__ float power_at(const float4 a, const float4 b, float 
   return -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
 }
 
-// alpha before the skips: K1's f32 expression, or the bf16 tier's.
-template <bool kFast>
-__device__ __forceinline__ float alpha_of(float opa, float power) {
-  if (kFast) return fminf(kAlphaMaxBf16, bf(bf(opa) * bf(expf(power))));
-  return fminf(kAlphaMax, opa * expf(power));
-}
-
 // One entry applied to a pixel, the parent kernel's per-entry step (the same
 // expressions in the same order). `c` points at the row's third float4, read
 // only if the entry is taken. Returns false if the pixel stops at this entry,
-// which is then not added. In the bf16 tier `T` holds log T (module note).
-template <bool kFast>
+// which is then not added.
 __device__ __forceinline__ bool apply(float power, float alpha, const float4 b, const float4* c,
                                       float& T, float& acc_r, float& acc_g, float& acc_b,
                                       float& acc_d) {
   if (power > 0.0f || alpha < kAlphaMin) return true;
-  if (kFast) {
-    const float t = bf(expf(bf(T)));
-    if (bf(t * bf(1.0f - alpha)) < kTEps) return false;
-    const float4 g = *c;  // g, b, pad, pad
-    const float w = bf(alpha * t);
-    acc_d += b.z * w;
-    acc_r += b.w * w;
-    acc_g += g.x * w;
-    acc_b += g.y * w;
-    T += bf(log1pf(-alpha));
-    return true;
-  }
   const float test_t = T * (1.0f - alpha);
   if (test_t < kTEps) return false;
   const float4 g = *c;  // g, b, pad, pad
@@ -273,7 +262,7 @@ __device__ __forceinline__ bool apply(float power, float alpha, const float4 b, 
   return true;
 }
 
-template <bool kCull, bool kFast>
+template <bool kCull>
 __global__ void __launch_bounds__(kBlock)
 blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f32
                  const int* __restrict__ starts, const int* __restrict__ ends,
@@ -307,7 +296,7 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
 
   const int start = starts[tile];
   const int end = ends[tile];
-  float T = kFast ? 0.0f : 1.0f;  // log T in the bf16 tier
+  float T = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   bool done = !inside;
 
@@ -335,7 +324,8 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
     if (kCull) {
       const int t = threadIdx.x;
       if (t < count) {
-        prelude[t] = cull_prelude<kFast>(batch[kVecs * t + 0], batch[kVecs * t + 1]);
+        const float4 b = batch[kVecs * t + 1];
+        prelude[t] = cull_prelude<false>(batch[kVecs * t + 0], b.x, b.y);
       }
       __syncthreads();
     }
@@ -371,12 +361,11 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
         const float4 b2 = batch[kVecs * j2 + 1];
         const float power = power_at(a, b, px, py);
         const float power2 = power_at(a2, b2, px, py);
-        const float alpha = alpha_of<kFast>(b.y, power);
-        const float alpha2 = alpha_of<kFast>(b2.y, power2);
-        if (!apply<kFast>(power, alpha, b, batch + kVecs * j + 2, T, acc_r, acc_g, acc_b,
-                          acc_d) ||
-            (two && !apply<kFast>(power2, alpha2, b2, batch + kVecs * j2 + 2, T, acc_r, acc_g,
-                                  acc_b, acc_d))) {
+        const float alpha = fminf(kAlphaMax, b.y * expf(power));
+        const float alpha2 = fminf(kAlphaMax, b2.y * expf(power2));
+        if (!apply(power, alpha, b, batch + kVecs * j + 2, T, acc_r, acc_g, acc_b, acc_d) ||
+            (two && !apply(power2, alpha2, b2, batch + kVecs * j2 + 2, T, acc_r, acc_g, acc_b,
+                           acc_d))) {
           done = true;
           break;
         }
@@ -384,7 +373,6 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
     }
   }
 
-  if (kFast) T = expf(T);
   if (inside) {
     const size_t p = static_cast<size_t>(y) * width + x;
     color[3 * p + 0] = acc_r + T * bg[0];
@@ -395,18 +383,204 @@ blend_fwd_kernel(const float4* __restrict__ rows,  // [K, 3] float4 = [K, 12] f3
   }
 }
 
-template <bool kCull, bool kFast>
+// A batch entry as K1f's walk reads it, prepared once per block (16-byte
+// fields, one base address).
+struct FastEntry {
+  float4 geom;   // mx, my, A, B: the cull's
+  float4 power;  // Ah, Bn, Ch (`power_rn`), and the row's (C, opa) word
+  float4 color;  // depth, r, g, b
+  float4 pre;    // `cull_prelude`
+};
+
+// K1f (the file's head note). Per batch, thread t prepares entry t: its f32
+// geometry, power coefficients and colour, and its cull prelude; then each
+// warp takes its keep words and walks its kept entries two at a time, as K1
+// does.
+template <bool kCull>
+__global__ void __launch_bounds__(kBlock)
+blend_fwd_fast_kernel(const uint4* __restrict__ rows,  // [K, 2] uint4 = [K, 16] bf16
+                      const int* __restrict__ starts, const int* __restrict__ ends,
+                      const float2* __restrict__ offsets,  // [H, W] or null
+                      const float* __restrict__ bg,        // [3]
+                      const uint4* __restrict__ tables,    // E and L, bf16
+                      float* __restrict__ color, float* __restrict__ depth,
+                      float* __restrict__ final_t, int width, int height, int grid_x) {
+  using namespace w3d_fast;
+  __shared__ uint4 batches[2][kFastBatch * 2];
+  __shared__ FastEntry entries[kFastBatch];
+  __shared__ uint4 table[kTableVecs];
+  const Tables tab(static_cast<uint32_t>(__cvta_generic_to_shared(table)));
+
+  const int tile = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // Warp w holds the 8 x 4 pixels at (8 (w % 2), 4 (w / 2)) of the tile,
+  // sampled at tile-local positions.
+  const int lx = kWarpW * (warp % 2) + lane % kWarpW;
+  const int ly = kWarpH * (warp / 2) + lane / kWarpW;
+  const int x = (tile % grid_x) * kTile + lx;
+  const int y = (tile / grid_x) * kTile + ly;
+  const bool inside = x < width && y < height;
+  float px = static_cast<float>(lx);
+  float py = static_cast<float>(ly);
+  if (inside && offsets != nullptr) {
+    const float2 o = offsets[static_cast<size_t>(y) * width + x];
+    px = __fadd_rn(px, o.x);
+    py = __fadd_rn(py, o.y);
+  }
+
+  const float x0 = warp_min(inside ? px : CUDART_INF_F);
+  const float x1 = warp_max(inside ? px : -CUDART_INF_F);
+  const float y0 = warp_min(inside ? py : CUDART_INF_F);
+  const float y1 = warp_max(inside ? py : -CUDART_INF_F);
+
+  const int start = starts[tile];
+  const int end = ends[tile];
+  float log_t = 0.0f;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
+  bool done = !inside;
+
+  // Rows [base, base + kFastBatch) into buffer `which`; one commit group per
+  // call on every thread.
+  auto stage = [&](int base, int which) {
+    const int n = 2 * min(kFastBatch, end - base);
+    uint4* dst = batches[which];
+    for (int t = threadIdx.x; t < n; t += kBlock) {
+      cp_async16(dst + t, rows + 2 * static_cast<size_t>(base) + t);
+    }
+    cp_async_commit();
+  };
+
+  if (start < end) {
+    for (int t = threadIdx.x; t < kTableVecs; t += kBlock) cp_async16(table + t, tables + t);
+    stage(start, 0);  // one commit group with the table's copies
+  }
+
+  // One entry applied to the pixel; `pair` holds the entry's bf16 1 - alpha
+  // (low half) and alpha (high half). Returns false if the pixel stops at
+  // this entry, which is then not added. alpha < 1/255 is read from alpha's
+  // bits (`kAlphaMinBits`).
+  auto take = [&](float power, uint32_t pair, const float4 c) {
+    if (power > 0.0f || static_cast<int>(pair) < kAlphaMinBits) return true;
+    // (T (1 - alpha), alpha T) in one bf16x2 product, T = E[bf(log T)]
+    const uint32_t tw = mul2_dup(tab.exp_log_t(bits_rn(log_t)), pair);
+    if (lo_f(tw) < kTEps) return false;
+    const float wt = hi_f(tw);
+    // c: depth, r, g, b; each product is exact: one rounding, as the plain sum
+    acc_d = fmaf(c.x, wt, acc_d);
+    acc_r = fmaf(c.y, wt, acc_r);
+    acc_g = fmaf(c.z, wt, acc_g);
+    acc_b = fmaf(c.w, wt, acc_b);
+    log_t = __fadd_rn(log_t, lo_f(tab.log1m_pair(pair)));
+    return true;
+  };
+
+  int which = 0;
+  for (int base = start; base < end; base += kFastBatch, which ^= 1) {
+    cp_async_wait_all();
+    if (__syncthreads_count(done) == kBlock) break;
+    const int count = min(kFastBatch, end - base);
+    if (base + kFastBatch < end) stage(base + kFastBatch, which ^ 1);
+    {
+      const int t = threadIdx.x;
+      if (t < count) {
+        const uint4 v = batches[which][2 * t];      // (mx, my), (A, B), (C, opa), (depth, r)
+        const uint4 v2 = batches[which][2 * t + 1];  // (g, b), zeros
+        const float4 g = geometry(v);
+        const float3 k = power_coefficients(v);
+        FastEntry& e = entries[t];
+        e.geom = g;
+        e.power = make_float4(k.x, k.y, k.z, __uint_as_float(v.z));
+        e.color = make_float4(lo_f(v.w), hi_f(v.w), lo_f(v2.x), hi_f(v2.x));
+        if (kCull) e.pre = cull_prelude<true>(g, lo_f(v.z), hi_f(v.z));
+      }
+      __syncthreads();
+    }
+    if (__all_sync(kFull, done)) continue;
+
+    unsigned keep[kFastWords];  // bit l of keep[k]: the warp walks entry 32 k + l
+#pragma unroll
+    for (int k = 0; k < kFastWords; ++k) {
+      const int j = 32 * k + lane;
+      bool take_it = j < count;
+      if (kCull && take_it) take_it = !culled(entries[j].geom, entries[j].pre, x0, x1, y0, y1);
+      keep[k] = __ballot_sync(kFull, take_it);
+    }
+
+#pragma unroll
+    for (int k = 0; k < kFastWords; ++k) {
+      unsigned bits = keep[k];
+      // Two kept entries per step: both powers and alphas first, in bf16x2
+      // pairs (an entry's alpha does not depend on T), then each entry
+      // applied in order. Per pixel these are the same values, in the same
+      // order, as one entry at a time.
+      while (bits != 0u && !done) {
+        const int j = 32 * k + __ffs(bits) - 1;
+        bits &= bits - 1u;
+        const bool two = bits != 0u;
+        const int j2 = two ? 32 * k + __ffs(bits) - 1 : j;
+        if (two) bits &= bits - 1u;
+        const FastEntry& e1 = entries[j];
+        const FastEntry& e2 = entries[j2];
+        const float4 p1 = e1.power, p2 = e2.power;
+        const float4 c1 = e1.color, c2 = e2.color;  // loaded here: cheaper than in `take`
+        const float power = power_rn(p1.x, p1.y, p1.z, __fsub_rn(e1.geom.x, px),
+                                     __fsub_rn(e1.geom.y, py));
+        const float power2 = power_rn(p2.x, p2.y, p2.z, __fsub_rn(e2.geom.x, px),
+                                      __fsub_rn(e2.geom.y, py));
+        const uint32_t ex = tab.exp_pair(pack_rn(power, power2));
+        const uint32_t opa = __byte_perm(__float_as_uint(p1.w), __float_as_uint(p2.w), 0x7632);
+        const uint32_t alpha = min2(mul2(opa, ex), kAlphaMax2);
+        const uint32_t om = sub2(kOne2, alpha);
+        if (!take(power, __byte_perm(om, alpha, 0x5410), c1) ||
+            (two && !take(power2, __byte_perm(om, alpha, 0x7632), c2))) {
+          done = true;
+          break;
+        }
+      }
+    }
+  }
+
+  if (inside) {
+    const float T = expf(log_t);
+    const size_t p = static_cast<size_t>(y) * width + x;
+    color[3 * p + 0] = __fadd_rn(acc_r, __fmul_rn(T, bg[0]));
+    color[3 * p + 1] = __fadd_rn(acc_g, __fmul_rn(T, bg[1]));
+    color[3 * p + 2] = __fadd_rn(acc_b, __fmul_rn(T, bg[2]));
+    depth[p] = acc_d;
+    final_t[p] = T;
+  }
+}
+
+template <bool kCull>
 int launch(const void* rows, const void* starts, const void* ends, const void* offsets,
            const void* bg, void* color, void* depth, void* final_t, int width, int height,
            int grid_x, int num_tiles, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles > 0) {
-    blend_fwd_kernel<kCull, kFast><<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+    blend_fwd_kernel<kCull><<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(rows), static_cast<const int*>(starts),
         static_cast<const int*>(ends), static_cast<const float2*>(offsets),
         static_cast<const float*>(bg), static_cast<float*>(color),
         static_cast<float*>(depth), static_cast<float*>(final_t), width, height, grid_x);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kCull>
+int launch_fast(const void* rows, const void* starts, const void* ends, const void* offsets,
+                const void* bg, const void* tables, void* color, void* depth, void* final_t,
+                int width, int height, int grid_x, int num_tiles, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles > 0) {
+    blend_fwd_fast_kernel<kCull><<<num_tiles, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(rows), static_cast<const int*>(starts),
+        static_cast<const int*>(ends), static_cast<const float2*>(offsets),
+        static_cast<const float*>(bg), static_cast<const uint4*>(tables),
+        static_cast<float*>(color), static_cast<float*>(depth), static_cast<float*>(final_t),
+        width, height, grid_x);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -421,8 +595,8 @@ int w3d_blend_fwd(const void* rows, const void* starts, const void* ends,
                   const void* offsets, const void* bg, void* color, void* depth,
                   void* final_t, int width, int height, int grid_x, int num_tiles,
                   int device, void* stream) {
-  return launch<true, false>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
-                             height, grid_x, num_tiles, device, stream);
+  return launch<true>(rows, starts, ends, offsets, bg, color, depth, final_t, width, height,
+                      grid_x, num_tiles, device, stream);
 }
 
 // The same kernel with the cull off: every warp walks every entry. Only the
@@ -431,26 +605,28 @@ int w3d_blend_fwd_walk_all(const void* rows, const void* starts, const void* end
                            const void* offsets, const void* bg, void* color, void* depth,
                            void* final_t, int width, int height, int grid_x, int num_tiles,
                            int device, void* stream) {
-  return launch<false, false>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
-                              height, grid_x, num_tiles, device, stream);
+  return launch<false>(rows, starts, ends, offsets, bg, color, depth, final_t, width, height,
+                       grid_x, num_tiles, device, stream);
 }
 
-// K1f, the bf16 tier, with the same arguments.
+// K1f, the bf16 tier: K1's arguments on [K, 16] bf16 rows, and after `bg`
+// the tables E and L (`blend.fast_tables`, 16-byte aligned).
 int w3d_blend_fwd_fast(const void* rows, const void* starts, const void* ends,
-                       const void* offsets, const void* bg, void* color, void* depth,
-                       void* final_t, int width, int height, int grid_x, int num_tiles,
-                       int device, void* stream) {
-  return launch<true, true>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
-                            height, grid_x, num_tiles, device, stream);
+                       const void* offsets, const void* bg, const void* tables, void* color,
+                       void* depth, void* final_t, int width, int height, int grid_x,
+                       int num_tiles, int device, void* stream) {
+  return launch_fast<true>(rows, starts, ends, offsets, bg, tables, color, depth, final_t,
+                           width, height, grid_x, num_tiles, device, stream);
 }
 
 // K1f with its cull off; only the chip check calls it, as for K1.
 int w3d_blend_fwd_fast_walk_all(const void* rows, const void* starts, const void* ends,
-                                const void* offsets, const void* bg, void* color,
-                                void* depth, void* final_t, int width, int height,
-                                int grid_x, int num_tiles, int device, void* stream) {
-  return launch<false, true>(rows, starts, ends, offsets, bg, color, depth, final_t, width,
-                             height, grid_x, num_tiles, device, stream);
+                                const void* offsets, const void* bg, const void* tables,
+                                void* color, void* depth, void* final_t, int width,
+                                int height, int grid_x, int num_tiles, int device,
+                                void* stream) {
+  return launch_fast<false>(rows, starts, ends, offsets, bg, tables, color, depth, final_t,
+                            width, height, grid_x, num_tiles, device, stream);
 }
 
 const char* w3d_error_string(int err) {

@@ -2,9 +2,11 @@
 
 Port of `wast3d_tpu/ops/rasterizer/api.py::render`: the same output keys
 and shapes ([H, W, C] images), random per-pixel sampling offsets in (-1, 0],
-and two renderers: "cuda" runs the hand-written kernels (K1 forward, K2
-blend backward, K3 gradient reduction; on CPU tensors each wrapper takes its
-plain version) and "torch" runs the plain PyTorch versions everywhere.
+and the JAX package's renderer names: "pallas" runs the hand-written kernels
+(K1 forward, K2 blend backward, K3 gradient reduction; on CPU tensors each
+wrapper takes its plain version) and "tiled", which JAX documents as the
+reference implementation for its kernel, runs their plain PyTorch versions
+everywhere. "cuda" and "torch" are the port's older names for the two.
 
 The output is differentiable with respect to the scene's tensors. Two
 gradient taps, as in the JAX package: `means2d_offset` ([N, 2] zeros added
@@ -29,17 +31,26 @@ from wast3d_tpu_torch.ops.rasterizer import grad_reduce as reduce_mod
 from wast3d_tpu_torch.ops.rasterizer.render_path import render_sorted
 from wast3d_tpu_torch.scene.gaussians import GaussianScene
 
-RENDERERS = ("cuda", "torch")
+# renderer name -> whether it runs the kernels (JAX's names, then the
+# port's older aliases)
+RENDERERS = {"pallas": True, "tiled": False, "cuda": True, "torch": False}
 
 
 class RasterizeSettings(NamedTuple):
-    """renderer: "cuda" (K1, K2, K3) or "torch" (their plain versions).
+    """The JAX package's fields, in its order.
+
+    renderer: "pallas" (K1, K2, K3; the default) or "tiled" (their plain
+    versions); "cuda" and "torch" are aliases of the two. JAX's default is
+    "tiled": the port's is the kernels, so that a plain version is never on
+    a path where a card is present. "oracle" (JAX's per-pixel renderer for
+    tests) is not ported and raises.
+    dup_capacity, max_per_tile, chunk, max_tiles_per_gaussian,
+    pallas_interpret, phase_a_tiles, big_budget_divisor, floor_band_budget,
+    phase_plan, route_capacity: the JAX package's static capacities and
+    TPU knobs, accepted with its defaults and read by nothing: binning has
+    no static capacities here, so nothing overflows.
     tile_cull: drop duplicates whose alpha stays below 1/255 over the whole
     tile at emission (exact; the blend skips them anyway).
-    grad_reduce: how the duplicates' gradients are summed per Gaussian, one
-    of `grad_reduce.GRAD_REDUCES`: "segsum_sortpayload" (default, exact
-    f32), "segsum", "segsum_sortpacked" (bf16-rounded values), or "scatter"
-    (plain `index_add_`, for tests and checks).
     fast_chain: the bf16 tier of the blend, K1f forward and K2f backward
     (`blend.py`); off by default, as in the JAX package, where the serving
     CLIs turn it on.
@@ -47,15 +58,39 @@ class RasterizeSettings(NamedTuple):
     blend, accepted with its defaults; they change nothing here (K1f takes
     power in f32, which is what `quad_power` computes at f32 class), except
     that `pack_gather` without `fast_chain` raises, as in JAX.
-    Binning has no static capacities here, so the JAX package's capacity
-    knobs have no counterpart."""
+    grad_reduce: how the duplicates' gradients are summed per Gaussian, one
+    of `grad_reduce.GRAD_REDUCES`: "segsum_sortpayload" (default, exact
+    f32), "segsum", "segsum_sortpacked" (bf16-rounded values), or "scatter"
+    (plain `index_add_`, for tests and checks)."""
 
-    renderer: str = "cuda"
+    renderer: str = "pallas"
+    dup_capacity: int = 1 << 18
+    max_per_tile: int = 1024
+    chunk: int = 32
+    max_tiles_per_gaussian: int = 512
+    pallas_interpret: bool = False
+    phase_a_tiles: int = 6
+    big_budget_divisor: int = 16
+    floor_band_budget: int = 256
+    phase_plan: tuple = ()
+    route_capacity: int = 0
     tile_cull: bool = True
-    grad_reduce: str = reduce_mod.DEFAULT
     fast_chain: bool = False
     quad_power: bool = True
     pack_gather: bool = False
+    grad_reduce: str = reduce_mod.DEFAULT
+
+
+def use_kernels(renderer: str) -> bool:
+    """Whether `renderer` runs the kernels (True) or their plain versions."""
+    if renderer == "oracle":
+        raise NotImplementedError(
+            'renderer="oracle" (the per-pixel oracle) is not ported yet (ROADMAP '
+            'queue 1 item 5, rasterizer API completeness); "tiled" is the plain path')
+    if renderer not in RENDERERS:
+        raise ValueError(f"renderer must be one of {sorted(RENDERERS)} or 'oracle', "
+                         f"got {renderer!r}")
+    return RENDERERS[renderer]
 
 
 def random_sampling_offsets(generator: torch.Generator, height: int,
@@ -111,11 +146,9 @@ def render(
     yet: any value but None raises."""
     if override_color is not None:
         raise NotImplementedError(
-            "render(override_color=...) is not ported yet (ROADMAP queue 1 item 8, "
+            "render(override_color=...) is not ported yet (ROADMAP queue 1 item 5, "
             "rasterizer API completeness)")
-    if settings.renderer not in RENDERERS:
-        raise ValueError(f"renderer must be one of {RENDERERS}, got "
-                         f"{settings.renderer!r}")
+    use_kernel = use_kernels(settings.renderer)
     if settings.grad_reduce not in reduce_mod.GRAD_REDUCES:
         raise ValueError(f"grad_reduce must be one of {reduce_mod.GRAD_REDUCES}, got "
                          f"{settings.grad_reduce!r}")
@@ -135,7 +168,7 @@ def render(
         prep = prep._replace(depths=prep.depths + view_depth_offset.reshape(-1))
     out = render_sorted(prep, camera.width, camera.height, bg,
                         sampling_offsets, tile_cull=settings.tile_cull,
-                        use_kernel=settings.renderer == "cuda",
+                        use_kernel=use_kernel,
                         grad_reduce=settings.grad_reduce,
                         fast_chain=settings.fast_chain)
     b = out.binning

@@ -9,7 +9,7 @@ runs its plain PyTorch version (`blend_fwd_reference`,
 `blend_bwd_reference`). Nothing falls back from one to the other. `blend`
 is the differentiable op: K1 forward, K2 backward (or both plain versions).
 
-Inputs (one layout for both):
+Inputs (one layout for both; the bf16 tier's rows below):
   rows    [K, 12] f32, the sorted duplicates: mx, my, A, B, C, opa, depth,
           r, g, b, pad, pad; means in image pixel coordinates.
   starts, ends  [T] int32, each tile's range [start, end) into `rows`;
@@ -37,29 +37,48 @@ entries and entries at or after the stop get no alpha gradient.
 The bf16 tier (`fast_chain`, JAX's serving default): `blend_fwd_fast` (K1f)
 and `blend_bwd_fast` (K2f) replace the `fast=True` bodies of the same two TPU
 kernels, with the plain versions `blend_fwd_fast_reference` and
-`blend_bwd_fast_reference`. Per (pixel, entry), in this order:
-  power   f32, the expression above (JAX's serving default, `quad_power`,
-          takes it at f32 class; no coordinate is rounded, so the tile-origin
-          recentring that JAX needs before its bf16 casts has nothing to do);
-  alpha = min(bf(0.99), bf(bf(opa) bf(exp(power)))), bf(0.99) = 0.98828125;
-          skipped, as above, where power > 0 or alpha < 1/255 (f32 compares);
-  s     = bf(log1p(-alpha)), taken in f32 and rounded;
-  T     = bf(exp(bf(logT))), logT the f32 running sum of s over the entries
-          taken so far, added in walk order;
+`blend_bwd_fast_reference`. They read JAX's bf16 rows
+(`pallas_path.py:205-229`):
+  rows    [K, 16] bfloat16: mx, my, A, B, C, opa, depth, r, g, b, six zeros
+          (32 bytes), the means recentred on the owning tile's pixel origin
+          in f32 before the rounding (`render_path.fast_rows`);
+and sample each pixel at its tile-local position (x - tile x, y - tile y,
+plus jitter, in f32). Per (pixel, entry), in this order, with bf(x) x rounded
+to bfloat16 (to nearest, ties to even) and E, L the tables below:
+  power   f32 from the row's values in JAX's direct form, (Ah dx) dx +
+          (Ch dy) dy + (Bn dx) dy with Ah = -A/2, Ch = -C/2, Bn = -B
+          (`pallas_blend.py:238-239`), then bf(power) (JAX's serving route,
+          `quad_power`, rounds power so, `pallas_blend.py:385`; the port
+          keeps the direct form of power);
+  alpha = min(bf(0.99), bf(opa E[bf(power)])), bf(0.99) = 0.98828125;
+          skipped where power > 0 or alpha < 1/255 (f32 compares);
+  s     = L[alpha];
+  T     = E[bf(logT)], logT the f32 running sum of s over the entries taken
+          so far, added in walk order;
   the pixel stops before the entry where bf(T bf(1 - alpha)) < 1e-4;
-  w     = bf(alpha T); colour and depth add w rgb, w depth in f32.
-final_T = exp(logT) in f32. bf(x) rounds to bfloat16 (to nearest, ties to
-even) and back; the kernels round with `__float2bfloat16_rn` at the same
-points. The backward recomputes alpha and T exactly so (its stops are the
-forward's), and takes q = dcolour . rgb + ddepth depth with every operand,
-product and sum rounded (r, g, b, depth order), q w = bf(q w) and its
-prefix as an f32 running sum, q T = bf(q T); the division, dL/dpower, the
-moment sums and every accumulator stay f32, and the output is f32 (JAX
-rounds it to bf16 only because its packed rows are bf16). Rows stay f32:
-colour and depth are not rounded before the accumulation. The clamp test is
-JAX's in both tiers, alpha < 0.99 in f32, which the bf16 clamp 0.98828125
-always passes: in this tier an alpha at the clamp keeps its power and
-opacity gradient, as in JAX's fast backward (ROADMAP queue 3).
+  w     = bf(alpha T); colour and depth add w rgb, w depth in f32, one entry
+          at a time (each product is exact in f32).
+final_T = exp(logT) in f32, and colour + final_T bg. Every product of two
+bf16 values is exact in f32, so one rounding of it is what a bf16 multiply
+does; the kernels round at these points with bf16x2 instructions and the
+plain versions with `.to(torch.bfloat16)`.
+  E[x] = bf(exp(x)) for bf16 x <= 0: 1 for |x| < 2^-9 (where exp rounds to
+         1), a table for 2^-9 <= |x| < 16, and 0 beyond (|x| >= 16, inf,
+         NaN: exp(-16) < 1.2e-7, so the entry is skipped, or the pixel stops,
+         as with exp itself).
+  L[a] = bf(log1p(-a)) for every bf16 alpha in [1/255, 0.98828125].
+`fast_tables` builds both once, in f32 with `torch.exp` / `torch.log1p`, and
+the kernels and the plain versions read the same tensor, so their
+transcendentals agree bit for bit. The backward recomputes alpha and T
+exactly so (its stops are the forward's), and takes q = dcolour . rgb +
+ddepth depth with every product and sum rounded (r, g, b, depth order; the
+cotangents rounded first), q w = bf(q w) and its prefix as an f32 running
+sum, q T = bf(q T); the division, dL/dpower, the moment sums and every
+accumulator stay f32, and the row gradient is rounded to bf16 into [K, 16]
+(JAX rounds it to its rows' dtype, `pallas_blend.py:934-937`). The clamp
+test is JAX's in both tiers, alpha < 0.99 in f32, which the bf16 clamp
+0.98828125 always passes: in this tier an alpha at the clamp keeps its power
+and opacity gradient, as in JAX's fast backward (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -93,13 +112,63 @@ OPA_CULL = float(torch.tensor(1.0 / 255.0, dtype=torch.float32)
                  * torch.tensor(1.0 - 64.0 * U, dtype=torch.float32))
 CONIC_MIN = float(torch.tensor(1e-30, dtype=torch.float32))
 TERM_MAX = float(torch.tensor(1e30, dtype=torch.float32))
-# The bf16 tier: its clamp, and K1f's cull, whose margin grows by the bf16
-# roundings of opa, exp and their product (each within 2^-8 relative; see
+# The bf16 tier: its rows, its clamp, and K1f's cull, whose margin covers the
+# bf16 roundings of power, exp and the product with opacity (derived beside
 # `cull_prelude` in csrc/blend_fwd.cu).
+ROW_FAST = 16
 ALPHA_MAX_BF16 = float(torch.tensor(ALPHA_MAX).to(torch.bfloat16))  # 0.98828125
-OPA_CULL_FAST = float(torch.tensor(1.0 / 255.0, dtype=torch.float32)
-                      * torch.tensor(1.0 - 2.0 ** -6, dtype=torch.float32))
-TAU_FAST = 2.0 ** -5
+TAU_FAST, TAU_FAST_REL = 2.0 ** -5, 2.0 ** -7
+# The tables (module docstring), one bf16 tensor: E at [0, EXP_SIZE), L at
+# [EXP_SIZE, TABLE_USED), zeros to TABLE_SIZE (a whole number of 16-byte
+# words). A bf16 value's bits: EXP_LO of 2^-9, EXP_HI of 16, LOG_LO of the
+# least bf16 >= 1/255, LOG_HI one past 0.98828125's. E[x] is
+# table[clamp((bits(x) & 0x7fff) - EXP_LO + 1, 0, EXP_SIZE - 1)], L[a] is
+# table[EXP_SIZE + bits(a) - LOG_LO].
+EXP_LO, EXP_HI = 0x3B00, 0x4180
+LOG_LO, LOG_HI = 0x3B81, 0x3F7E
+EXP_SIZE = EXP_HI - EXP_LO + 2  # 1 below the range, 0 above it
+TABLE_USED = EXP_SIZE + LOG_HI - LOG_LO
+TABLE_SIZE = -(-TABLE_USED // 8) * 8
+
+
+def _from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Non-negative bf16 values from their bit patterns (below 0x8000)."""
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns of bf16 values."""
+    return x.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+_TABLES = {}
+
+
+def fast_tables(device=None) -> torch.Tensor:
+    """[TABLE_SIZE] bfloat16: the tables E and L (module docstring), built in
+    f32 on the CPU and kept once per device; the kernels and the plain
+    versions read the same tensor."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev not in _TABLES:
+        x = -_from_bits(torch.arange(EXP_LO, EXP_HI)).to(torch.float32)
+        a = _from_bits(torch.arange(LOG_LO, LOG_HI)).to(torch.float32)
+        _TABLES[dev] = torch.cat([
+            torch.ones(1), torch.exp(x), torch.zeros(1), torch.log1p(-a),
+            torch.zeros(TABLE_SIZE - TABLE_USED)]).to(torch.bfloat16).to(dev)
+    return _TABLES[dev]
+
+
+def exp_table(x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """E[x] as f32 for bf16 x (any sign; the tier meets x <= 0)."""
+    idx = ((_bits(x) & 0x7FFF) - (EXP_LO - 1)).clamp(0, EXP_SIZE - 1)
+    return tables[idx.long()].to(torch.float32)
+
+
+def log1m_table(alpha: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """L[alpha] as f32 for bf16 alpha in [1/255, 0.98828125]; values
+    outside that range give the nearest end's entry."""
+    idx = (_bits(alpha) - LOG_LO).clamp(0, LOG_HI - LOG_LO - 1) + EXP_SIZE
+    return tables[idx.long()].to(torch.float32)
 
 
 class BlendOutput(NamedTuple):
@@ -108,23 +177,25 @@ class BlendOutput(NamedTuple):
     final_T: torch.Tensor  # [H, W]
 
 
-def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False):
-    """Validate the kernels' inputs; the plain versions (`plain=True`) also
+def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False, fast=False):
+    """Validate the kernels' inputs: [K, 12] f32 rows, or [K, 16] bf16 rows
+    in the bf16 tier (`fast`). The plain f32 versions (`plain=True`) also
     take float64 rows, bg and offsets, for finite-difference checks."""
     dev = rows.device
     grid_x, grid_y = tile_grid(width, height)
     num_tiles = grid_x * grid_y
-    real = (torch.float32, torch.float64) if plain else (torch.float32,)
+    real = (torch.float32, torch.float64) if plain and not fast else (torch.float32,)
+    row_types, row_width = ((torch.bfloat16,), ROW_FAST) if fast else (real, ROW)
     want = [
-        ("rows", rows, real, None),
+        ("rows", rows, row_types, None),
         ("starts", starts, (torch.int32,), (num_tiles,)),
         ("ends", ends, (torch.int32,), (num_tiles,)),
         ("bg", bg, real, (3,)),
     ]
     if offsets is not None:
         want.append(("offsets", offsets, real, (height, width, 2)))
-    if rows.dim() != 2 or rows.shape[1] != ROW:
-        raise ValueError(f"rows must be [K, {ROW}], got {tuple(rows.shape)}")
+    if rows.dim() != 2 or rows.shape[1] != row_width:
+        raise ValueError(f"rows must be [K, {row_width}], got {tuple(rows.shape)}")
     for name, t, dtypes, shape in want:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, rows on {dev}")
@@ -138,30 +209,37 @@ def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False):
     return num_tiles
 
 
-def _launch_fwd(entry, rows, starts, ends, width, height, bg, offsets, num_tiles):
-    """Launch K1 or K1f (the C entry `entry`) on CUDA tensors."""
+def _kernel_call(entry, rows, starts, ends, offsets, bg, fast, outs, width, height,
+                 num_tiles):
+    """Call the C entry `entry` of K1, K1f, K2 or K2f on CUDA tensors: the
+    inputs, the bf16 tier's tables, the tensors `outs`, then the sizes,
+    device and stream; raises on a failed launch."""
     from wast3d_tpu_torch import _build
 
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"the blend kernels run on cuda or cpu, not {dev}")
     lib = _build.load_library()
-    color = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tables = (fast_tables(dev).data_ptr(),) if fast else ()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = getattr(lib, entry)(
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        None if offsets is None else offsets.data_ptr(), bg.data_ptr(),
-        color.data_ptr(), depth.data_ptr(), final_t.data_ptr(),
-        width, height, tile_grid(width, height)[0], num_tiles, index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        None if offsets is None else offsets.data_ptr(), bg.data_ptr(), *tables,
+        *(t.data_ptr() for t in outs), width, height, tile_grid(width, height)[0],
+        num_tiles, index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"{entry} kernel launch failed: CUDA error {err} "
             f"({lib.w3d_error_string(err).decode()})")
-    return BlendOutput(color, depth, final_t)
+
+
+def _launch_fwd(entry, rows, starts, ends, width, height, bg, offsets, num_tiles, fast):
+    """Launch K1 or K1f (the C entry `entry`) on CUDA tensors."""
+    out = BlendOutput(*(torch.empty(shape, dtype=torch.float32, device=rows.device)
+                        for shape in ((height, width, 3), (height, width), (height, width))))
+    _kernel_call(entry, rows, starts, ends, offsets, bg, fast, out, width, height, num_tiles)
+    return out
 
 
 def blend_fwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
@@ -173,7 +251,7 @@ def blend_fwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if rows.device.type == "cpu":
         return blend_fwd_reference(rows, starts, ends, width, height, bg, offsets)
     out = _launch_fwd("w3d_blend_fwd", rows, starts, ends, width, height, bg, offsets,
-                      num_tiles)
+                      num_tiles, fast=False)
     blend_fwd.launches += 1
     return out
 
@@ -184,14 +262,14 @@ blend_fwd.launches = 0
 def blend_fwd_fast(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
                    width: int, height: int, bg: torch.Tensor,
                    offsets: Optional[torch.Tensor] = None) -> BlendOutput:
-    """K1f, the bf16 tier of K1 (module docstring). CUDA tensors launch the
-    kernel (counted in `blend_fwd_fast.launches`); CPU tensors take
-    `blend_fwd_fast_reference`."""
-    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
+    """K1f, the bf16 tier of K1 (module docstring), on [K, 16] bf16 rows.
+    CUDA tensors launch the kernel (counted in `blend_fwd_fast.launches`);
+    CPU tensors take `blend_fwd_fast_reference`."""
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets, fast=True)
     if rows.device.type == "cpu":
         return blend_fwd_fast_reference(rows, starts, ends, width, height, bg, offsets)
     out = _launch_fwd("w3d_blend_fwd_fast", rows, starts, ends, width, height, bg, offsets,
-                      num_tiles)
+                      num_tiles, fast=True)
     blend_fwd_fast.launches += 1
     return out
 
@@ -215,24 +293,22 @@ def _running_sum(init: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
-def _alpha(r, power, fast):
-    """[A, P, G] alpha of rows r [A, G, 12] at `power`, before the skips."""
-    opa = r[:, None, :, R_OPA]
-    if fast:
-        return torch.clamp_max(_bf(_bf(opa) * _bf(torch.exp(power))), ALPHA_MAX_BF16)
-    return torch.clamp_max(opa * torch.exp(power), ALPHA_MAX)
-
-
-def _pixel_coords(width, height, offsets, device):
+def _pixel_coords(width, height, offsets, device, local=False):
     """[T, 256] sample coordinates per tile pixel (image coordinates plus
-    jitter) and the [T, 256] mask of pixels inside the image."""
+    jitter; tile-local ones, x - tile x and y - tile y plus jitter, with
+    `local`, as the bf16 tier takes them) and the [T, 256] mask of pixels
+    inside the image."""
     grid_x, grid_y = tile_grid(width, height)
     t = torch.arange(grid_x * grid_y, device=device)
     p = torch.arange(PIXELS, device=device)
     x = (t % grid_x)[:, None] * TILE + (p % TILE)[None, :]
     y = (t // grid_x)[:, None] * TILE + (p // TILE)[None, :]
     inside = (x < width) & (y < height)
-    px, py = x.to(torch.float32), y.to(torch.float32)
+    if local:
+        px, py = (v.to(torch.float32).expand(len(t), PIXELS)
+                  for v in ((p % TILE)[None, :], (p // TILE)[None, :]))
+    else:
+        px, py = x.to(torch.float32), y.to(torch.float32)
     if offsets is not None:
         flat = (y.clamp(max=height - 1) * width + x.clamp(max=width - 1))
         off = offsets.reshape(-1, 2)[flat]
@@ -250,23 +326,66 @@ class WalkCounts(NamedTuple):
     contributing_pairs: int  # (pixel, entry) pairs that add weight alpha T
 
 
+def _chunk(rows, idx, in_range, px, py, state, fast):
+    """The recompute of one chunk of CHUNK entry slots for A tiles, shared by
+    the plain forward and backward. idx [A, G] entries, each tile's last
+    entry in place of those out of range (`in_range`), px, py [A, P] samples, state [A, P] the T carried in (log T
+    with `fast`). Returns the rows r [A, G, width] (f32 values in the bf16
+    tier), dx, dy, alpha (0 where skipped), skip, T before each entry and the
+    stop test, all [A, P, G], and in the bf16 tier the running log T
+    [A, P, G + 1] (else None)."""
+    r = rows[idx]
+    if fast:
+        r = r.to(torch.float32)
+    dx = r[:, None, :, R_MX] - px[:, :, None]  # [A, P, G]
+    dy = r[:, None, :, R_MY] - py[:, :, None]
+    a = r[:, None, :, R_A]
+    b = r[:, None, :, R_B]
+    c = r[:, None, :, R_C]
+    opa = r[:, None, :, R_OPA]
+    if fast:
+        ah, bn, ch = -0.5 * a, -b, -0.5 * c
+        power = (ah * dx) * dx + (ch * dy) * dy + (bn * dx) * dy
+    else:
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    if fast:
+        tables = fast_tables(rows.device)
+        alpha = torch.clamp_max(_bf(opa * exp_table(power.to(torch.bfloat16), tables)),
+                                ALPHA_MAX_BF16)
+    else:
+        alpha = torch.clamp_max(opa * torch.exp(power), ALPHA_MAX)
+    skip = (power > 0.0) | (alpha < ALPHA_MIN) | ~in_range[:, None, :]
+    zero = torch.zeros_like(alpha)
+    alpha = torch.where(skip, zero, alpha)
+    if fast:
+        s = torch.where(skip, zero, log1m_table(alpha.to(torch.bfloat16), tables))
+        log_prev = _running_sum(state, s)  # [A, P, G + 1]
+        t_prev = exp_table(log_prev[..., :-1].to(torch.bfloat16), tables)
+        test_t = _bf(t_prev * _bf(1.0 - alpha))
+        return r, dx, dy, alpha, skip, t_prev, test_t, log_prev
+    one_m = 1.0 - alpha
+    cp = torch.cumprod(one_m, dim=-1)
+    t_prev = state[..., None] * torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+    return r, dx, dy, alpha, skip, t_prev, t_prev * one_m, None
+
+
 def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False):
     """The plain blend over all pixels of all tiles at once, CHUNK entry
-    slots per step: a cumprod gives T inside a chunk (with `fast`, the bf16
-    tier's T from the running log-transmittance), and T and `done` carry
-    from chunk to chunk. Returns per-tile colour, depth, T and the
-    `WalkCounts` (the warp counts only when `keep`, [K, WARPS] bool from
+    slots per step (`_chunk`); T (log T with `fast`) and `done` carry from
+    chunk to chunk. Returns per-tile colour, depth, T and the `WalkCounts`
+    (the warp counts only when `keep`, [K, WARPS] bool from
     `warp_keep_reference`, is given; else 0)."""
     dev = rows.device
-    px, py, inside = _pixel_coords(width, height, offsets, dev)
+    dt = torch.float32 if fast else rows.dtype
+    px, py, inside = _pixel_coords(width, height, offsets, dev, local=fast)
     num_tiles = px.shape[0]
     starts, ends = starts.long(), ends.long()
     lengths = ends - starts
-    t_run = torch.ones((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
-    log_t = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)  # fast only
+    # T, or log T in the bf16 tier
+    t_run = torch.full((num_tiles, PIXELS), 0.0 if fast else 1.0, dtype=dt, device=dev)
     done = ~inside  # pixels beyond the image take part in nothing
-    color = torch.zeros((num_tiles, PIXELS, 3), dtype=rows.dtype, device=dev)
-    depth = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
+    color = torch.zeros((num_tiles, PIXELS, 3), dtype=dt, device=dev)
+    depth = torch.zeros((num_tiles, PIXELS), dtype=dt, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
     contributing = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int64, device=dev)
@@ -279,40 +398,28 @@ def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False):
             break
         idx = starts[ti, None] + c0 + slot[None, :]  # [A, G]
         in_range = idx < ends[ti, None]
-        r = rows[torch.minimum(idx, ends[ti, None] - 1)]  # [A, G, 12]
-        dx = r[:, None, :, R_MX] - px[ti][:, :, None]  # [A, P, G]
-        dy = r[:, None, :, R_MY] - py[ti][:, :, None]
-        a = r[:, None, :, R_A]
-        b = r[:, None, :, R_B]
-        c = r[:, None, :, R_C]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = _alpha(r, power, fast)
-        skip = (power > 0.0) | (alpha < ALPHA_MIN) | ~in_range[:, None, :]
-        alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
-
+        r, _, _, alpha, skip, t_prev, test_t, log_prev = _chunk(
+            rows, torch.minimum(idx, ends[ti, None] - 1), in_range, px[ti], py[ti],
+            t_run[ti], fast)
         done_before = done[ti][..., None]
-        if fast:
-            log_prev = _running_sum(log_t[ti], _bf(torch.log1p(-alpha)))  # [A, P, G + 1]
-            t_prev = _bf(torch.exp(_bf(log_prev[..., :-1])))
-            test_t = _bf(t_prev * _bf(1.0 - alpha))
-        else:
-            one_m = 1.0 - alpha
-            cp = torch.cumprod(one_m, dim=-1)
-            t_prev = t_run[ti][..., None] * torch.cat(
-                [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
-            test_t = t_prev * one_m
         stop = torch.cumsum((test_t < T_EPS).to(torch.int32), dim=-1) > 0
         done_g = done_before | stop
         w = alpha * t_prev
         w = torch.where(done_g, torch.zeros_like(alpha), _bf(w) if fast else w)
-        color[ti] += torch.einsum("apg,agc->apc", w, r[..., R_R:R_B2 + 1])
-        depth[ti] += torch.einsum("apg,ag->ap", w, r[..., R_DEPTH])
         if fast:
+            # one entry at a time, in walk order, as the kernel adds
+            rgbd = r[..., [R_R, R_G, R_B2, R_DEPTH]]  # [A, G, 4]
+            acc = torch.cat([color[ti], depth[ti][..., None]], dim=-1)  # [A, P, 4]
+            for g in range(w.shape[-1]):
+                acc = acc + w[..., g, None] * rgbd[:, None, g]
+            color[ti], depth[ti] = acc[..., :3], acc[..., 3]
             # logT after the chunk: the sum up to the pixel's stop (done_g is
             # a prefix of False then True along the chunk)
             taken = (~done_g).sum(dim=-1, keepdim=True)
-            log_t[ti] = log_prev.gather(-1, taken)[..., 0]
+            t_run[ti] = log_prev.gather(-1, taken)[..., 0]
         else:
+            color[ti] += torch.einsum("apg,agc->apc", w, r[..., R_R:R_B2 + 1])
+            depth[ti] += torch.einsum("apg,ag->ap", w, r[..., R_DEPTH])
             kept = torch.where(done_g, torch.zeros_like(alpha), alpha)
             t_run[ti] = t_run[ti] * torch.prod(1.0 - kept, dim=-1)
         # an entry is evaluated unless the pixel stopped at an earlier one
@@ -330,7 +437,7 @@ def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False):
         done[ti] = done_g[..., -1]
     counts = WalkCounts(int(pairs), int(iters), int(iters_culled), int(contributing))
     if fast:
-        t_run = torch.exp(log_t)
+        t_run = torch.exp(t_run)
     return color, depth, t_run, counts
 
 
@@ -355,14 +462,15 @@ def blend_fwd_fast_reference(rows: torch.Tensor, starts: torch.Tensor,
                              ends: torch.Tensor, width: int, height: int,
                              bg: torch.Tensor,
                              offsets: Optional[torch.Tensor] = None) -> BlendOutput:
-    """Plain PyTorch version of K1f: `blend_fwd_reference` with the bf16
-    tier's rounding points (module docstring), its sums of log-transmittance
-    added one entry at a time in walk order as the kernel adds them."""
+    """Plain PyTorch version of K1f: the bf16 tier's rows, tables and
+    rounding points (module docstring), its sums of log-transmittance, colour
+    and depth added one entry at a time in walk order as the kernel adds
+    them."""
     return _blend_plain(rows, starts, ends, width, height, bg, offsets, fast=True)
 
 
 def _blend_plain(rows, starts, ends, width, height, bg, offsets, fast):
-    _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True)
+    _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True, fast=fast)
     color, depth, t_run, _ = _walk(rows, starts, ends, width, height, offsets, fast=fast)
     color = color + t_run[..., None] * bg
     return BlendOutput(
@@ -385,14 +493,15 @@ def evaluated_pairs(rows: torch.Tensor, starts: torch.Tensor,
 
 def warp_boxes(width: int, height: int,
                offsets: Optional[torch.Tensor] = None,
-               device=None) -> torch.Tensor:
+               device=None, local: bool = False) -> torch.Tensor:
     """[T, WARPS, 4] f32 sample box of each warp of each tile: x0, x1, y0,
-    y1, the least and greatest sample position (pixel plus offset) over the
-    warp's pixels (`WARP_PIXELS`) inside the image; (inf, -inf, inf, -inf)
-    for a warp with no pixel inside."""
+    y1, the least and greatest sample position (pixel plus offset;
+    tile-local with `local`, as K1f samples) over the warp's pixels
+    (`WARP_PIXELS`) inside the image; (inf, -inf, inf, -inf) for a warp with
+    no pixel inside."""
     dev = offsets.device if offsets is not None else device
     px, py, inside = (v[:, WARP_PIXELS.to(dev)]
-                      for v in _pixel_coords(width, height, offsets, dev))  # [T, W, 32]
+                      for v in _pixel_coords(width, height, offsets, dev, local))  # [T, W, 32]
     inf = torch.full_like(px, float("inf"))
     return torch.stack([torch.where(inside, px, inf).amin(-1),
                         torch.where(inside, px, -inf).amax(-1),
@@ -403,8 +512,9 @@ def warp_boxes(width: int, height: int,
 def _culled(r, box, fast=False):
     """K1's cull (`cull_prelude` and `culled` in csrc/blend_fwd.cu, where the
     margin is derived), in float32 in the kernel's order of operations: r
-    [E, 12] rows, box [E, W, 4]; [E, W] True where no sample of the box can
-    take the entry. `fast`: K1f's cull, with the bf16 tier's wider margins."""
+    [E, >= 6] rows (f32 values), box [E, W, 4]; [E, W] True where no sample
+    of the box can take the entry. `fast`: K1f's cull, with the bf16 tier's
+    wider margin and its opacity threshold, 1/255 itself."""
     # per entry: 1/A, 1/C and tau' (+inf: never culled; -inf: culled by opa)
     mx, my, a, b, c, opa = (r[:, i, None] for i in range(6))
     cullable = (torch.isfinite(r[:, :6]).all(dim=1)[:, None] & (a > CONIC_MIN)
@@ -412,8 +522,8 @@ def _culled(r, box, fast=False):
     tau = 2.0 * torch.log(255.0 * opa)
     tau = tau + 8.0 * U * tau.abs()
     if fast:
-        tau = tau + TAU_FAST
-    opa_cull = OPA_CULL_FAST if fast else OPA_CULL
+        tau = tau + (TAU_FAST + TAU_FAST_REL * tau.abs())
+    opa_cull = ALPHA_MIN if fast else OPA_CULL
     tau = torch.where(cullable, torch.where(opa < opa_cull, -math.inf, tau), math.inf)
     ia, ic = 1.0 / a, 1.0 / c
     # per box
@@ -444,11 +554,11 @@ def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
                         ends: torch.Tensor, width: int, height: int,
                         offsets: Optional[torch.Tensor] = None,
                         fast: bool = False) -> torch.Tensor:
-    """[K, WARPS] bool: K1's cull (K1f's with `fast`), plain. keep[k, w] is
-    True where entry k lies in a tile's range, warp w of that tile has a
-    pixel inside the image, and the entry is not culled for the warp's
-    sample box (`_culled`): the (entry, warp) pairs the kernel walks until
-    the warp's pixels stop."""
+    """[K, WARPS] bool: K1's cull (K1f's with `fast`, on its bf16 rows and
+    tile-local samples), plain. keep[k, w] is True where entry k lies in a
+    tile's range, warp w of that tile has a pixel inside the image, and the
+    entry is not culled for the warp's sample box (`_culled`): the (entry,
+    warp) pairs the kernel walks until the warp's pixels stop."""
     rows = rows.to(torch.float32)
     dev = rows.device
     starts, ends = starts.long(), ends.long()
@@ -457,7 +567,7 @@ def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
     # the rows of every range, in order: start + position within the range
     first = torch.cumsum(counts, 0) - counts  # each range's first position
     entry = starts[tile] + torch.arange(len(tile), device=dev) - first[tile]
-    boxes = warp_boxes(width, height, offsets, dev)[tile]  # [E, W, 4]
+    boxes = warp_boxes(width, height, offsets, dev, local=fast)[tile]  # [E, W, 4]
     live = boxes[..., 0] <= boxes[..., 1]  # the warp has a pixel inside
     keep = torch.zeros((rows.shape[0], WARPS), dtype=torch.bool, device=dev)
     keep[entry] = live & ~_culled(rows[entry], boxes, fast)
@@ -486,35 +596,12 @@ def _check_outputs(name, t, dtype, width, height):
                              f"got {x.dtype} {tuple(x.shape)}")
 
 
-def _launch_bwd(entry, rows, starts, ends, width, height, bg, offsets, out, grads,
-                num_tiles):
-    """Launch K2 or K2f (the C entry `entry`) on CUDA tensors."""
-    from wast3d_tpu_torch import _build
-
-    dev = rows.device
-    if dev.type != "cuda":
-        raise ValueError(f"the blend kernels run on cuda or cpu, not {dev}")
-    lib = _build.load_library()
-    drows = torch.zeros_like(rows)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    err = getattr(lib, entry)(
-        rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        None if offsets is None else offsets.data_ptr(), bg.data_ptr(),
-        *(t.data_ptr() for t in out), *(t.data_ptr() for t in grads),
-        drows.data_ptr(), width, height, tile_grid(width, height)[0], num_tiles,
-        index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"{entry} kernel launch failed: CUDA error {err} "
-            f"({lib.w3d_error_string(err).decode()})")
-    return drows
-
-
-def _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads):
-    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets)
-    _check_outputs("out", out, rows.dtype, width, height)
-    _check_outputs("grads", grads, rows.dtype, width, height)
+def _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads, plain=False,
+               fast=False):
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets, plain, fast)
+    dtype = torch.float32 if fast else rows.dtype
+    _check_outputs("out", out, dtype, width, height)
+    _check_outputs("grads", grads, dtype, width, height)
     return num_tiles
 
 
@@ -530,8 +617,9 @@ def blend_bwd(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     if rows.device.type == "cpu":
         return blend_bwd_reference(rows, starts, ends, width, height, bg, offsets,
                                    out, grads)
-    drows = _launch_bwd("w3d_blend_bwd", rows, starts, ends, width, height, bg, offsets,
-                        out, grads, num_tiles)
+    drows = torch.zeros_like(rows)
+    _kernel_call("w3d_blend_bwd", rows, starts, ends, offsets, bg, False,
+                 (*out, *grads, drows), width, height, num_tiles)
     blend_bwd.launches += 1
     return drows
 
@@ -544,14 +632,17 @@ def blend_bwd_fast(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
                    offsets: Optional[torch.Tensor], out: BlendOutput,
                    grads: BlendOutput) -> torch.Tensor:
     """K2f, the bf16 tier of K2 (module docstring); `out` is K1f's output on
-    these inputs. CUDA tensors launch the kernel (counted in
-    `blend_bwd_fast.launches`); CPU tensors take `blend_bwd_fast_reference`."""
-    num_tiles = _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads)
+    these inputs. Returns d rows [K, 16] bf16 (columns 10-15 zero). CUDA
+    tensors launch the kernel (counted in `blend_bwd_fast.launches`); CPU
+    tensors take `blend_bwd_fast_reference`."""
+    num_tiles = _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads,
+                           fast=True)
     if rows.device.type == "cpu":
         return blend_bwd_fast_reference(rows, starts, ends, width, height, bg, offsets,
                                         out, grads)
-    drows = _launch_bwd("w3d_blend_bwd_fast", rows, starts, ends, width, height, bg,
-                        offsets, out, grads, num_tiles)
+    drows = torch.zeros_like(rows)
+    _kernel_call("w3d_blend_bwd_fast", rows, starts, ends, offsets, bg, True,
+                 (*out, *grads, drows), width, height, num_tiles)
     blend_bwd_fast.launches += 1
     return drows
 
@@ -586,18 +677,19 @@ def blend_bwd_fast_reference(rows: torch.Tensor, starts: torch.Tensor,
                              bg: torch.Tensor, offsets: Optional[torch.Tensor],
                              out: BlendOutput, grads: BlendOutput) -> torch.Tensor:
     """Plain PyTorch version of K2f: `blend_bwd_reference` with the bf16
-    tier's recompute (that of `blend_fwd_fast_reference`) and its rounding
-    of q, q w and q T (module docstring); log-transmittance and the q w
-    prefix are added one entry at a time in walk order."""
+    tier's recompute (that of `blend_fwd_fast_reference`), its rounding of
+    q, q w and q T, and its row gradient rounded into [K, 16] bf16 (module
+    docstring); log-transmittance and the q w prefix are added one entry at
+    a time in walk order."""
     return _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast=True)
 
 
 def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast):
-    _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True)
-    _check_outputs("out", out, rows.dtype, width, height)
-    _check_outputs("grads", grads, rows.dtype, width, height)
+    _check_bwd(rows, starts, ends, width, height, bg, offsets, out, grads, plain=True,
+               fast=fast)
     dev = rows.device
-    px, py, inside = _pixel_coords(width, height, offsets, dev)
+    dt = torch.float32 if fast else rows.dtype
+    px, py, inside = _pixel_coords(width, height, offsets, dev, local=fast)
     gc = _tile(grads.color, width, height)  # [T, P, 3]
     gd = _tile(grads.depth[..., None], width, height)[..., 0]
     t_fin = _tile(out.final_T[..., None], width, height)[..., 0]
@@ -609,11 +701,12 @@ def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast)
     num_tiles = px.shape[0]
     starts, ends = starts.long(), ends.long()
     lengths = ends - starts
-    t_run = torch.ones((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
-    log_t = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)  # fast only
-    prefix = torch.zeros((num_tiles, PIXELS), dtype=rows.dtype, device=dev)
+    # T, or log T in the bf16 tier
+    t_run = torch.full((num_tiles, PIXELS), 0.0 if fast else 1.0, dtype=dt, device=dev)
+    prefix = torch.zeros((num_tiles, PIXELS), dtype=dt, device=dev)
     done = ~inside
-    drows = torch.zeros_like(rows)
+    drows = torch.zeros((rows.shape[0], ROW_FAST if fast else rows.shape[1]),
+                        dtype=rows.dtype, device=dev)
     slot = torch.arange(CHUNK, device=dev)
     max_len = int(lengths.max()) if num_tiles else 0
     for c0 in range(0, max_len, CHUNK):
@@ -622,27 +715,10 @@ def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast)
             break
         idx = starts[ti, None] + c0 + slot[None, :]  # [A, G]
         in_range = idx < ends[ti, None]
-        r = rows[torch.minimum(idx, ends[ti, None] - 1)]  # [A, G, 12]
-        dx = r[:, None, :, R_MX] - px[ti][:, :, None]  # [A, P, G]
-        dy = r[:, None, :, R_MY] - py[ti][:, :, None]
-        a = r[:, None, :, R_A]
-        b = r[:, None, :, R_B]
-        c = r[:, None, :, R_C]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = _alpha(r, power, fast)
-        skip = (power > 0.0) | (alpha < ALPHA_MIN) | ~in_range[:, None, :]
-        alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
-
+        r, dx, dy, alpha, skip, t_prev, test_t, log_prev = _chunk(
+            rows, torch.minimum(idx, ends[ti, None] - 1), in_range, px[ti], py[ti],
+            t_run[ti], fast)
         one_m = 1.0 - alpha
-        if fast:
-            log_prev = _running_sum(log_t[ti], _bf(torch.log1p(-alpha)))  # [A, P, G + 1]
-            t_prev = _bf(torch.exp(_bf(log_prev[..., :-1])))
-            test_t = _bf(t_prev * _bf(one_m))
-        else:
-            cp = torch.cumprod(one_m, dim=-1)
-            t_prev = t_run[ti][..., None] * torch.cat(
-                [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
-            test_t = t_prev * one_m
         stop = torch.cumsum((test_t < T_EPS).to(torch.int32), dim=-1) > 0
         done_g = done[ti][..., None] | stop
         live = ~done_g & ~skip
@@ -653,10 +729,10 @@ def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast)
         g_c = gc[ti][:, :, None, :]  # [A, P, 1, 3]
         g_d = gd[ti][..., None]  # [A, P, 1]
         if fast:
-            # every operand, product and sum rounded, in the order r, g, b, depth
-            prod = _bf(_bf(rgb) * _bf(g_c))
+            # every product and sum rounded, in the order r, g, b, depth
+            prod = _bf(rgb * _bf(g_c))
             q = _bf(_bf(_bf(prod[..., 0] + prod[..., 1]) + prod[..., 2])
-                    + _bf(_bf(r[:, None, :, R_DEPTH]) * _bf(g_d)))
+                    + _bf(r[:, None, :, R_DEPTH] * _bf(g_d)))
             qw = _bf(q * w)
             prefix_incl = _running_sum(prefix[ti], qw)[..., 1:]
             q_t = _bf(q * t_prev)
@@ -682,9 +758,9 @@ def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast)
                         torch.zeros_like(sd)),
             (w * g_d).sum(1), *(w[..., None] * g_c).sum(1).unbind(-1),
         ], dim=-1)  # [A, G, 10]
-        drows[idx[in_range], :10] = vals[in_range]
+        drows[idx[in_range], :10] = vals[in_range].to(drows.dtype)
         if fast:
-            log_t[ti] = log_prev.gather(-1, (~done_g).sum(dim=-1, keepdim=True))[..., 0]
+            t_run[ti] = log_prev.gather(-1, (~done_g).sum(dim=-1, keepdim=True))[..., 0]
         else:
             kept = torch.where(done_g, zero, alpha)
             t_run[ti] = t_run[ti] * torch.prod(1.0 - kept, dim=-1)
@@ -727,7 +803,8 @@ def blend(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
           offsets: Optional[torch.Tensor] = None,
           use_kernel: bool = True, fast: bool = False) -> BlendOutput:
     """The differentiable blend: K1 forward and K2 backward, gradient to
-    `rows` only; `fast` takes the bf16 tier, K1f and K2f. `use_kernel=False`
+    `rows` only; `fast` takes the bf16 tier, K1f and K2f, on [K, 16] bf16
+    rows (whose gradient is bf16 too). `use_kernel=False`
     runs the plain versions (on any device); with `use_kernel=True` each
     wrapper still takes its plain version for CPU tensors."""
     return BlendOutput(*_Blend.apply(rows, starts, ends, width, height, bg,

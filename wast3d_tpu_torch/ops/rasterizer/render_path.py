@@ -1,11 +1,14 @@
 """Render path: binning -> sorted rows -> K1 -> image, differentiable.
 
 Port of `wast3d_tpu/ops/rasterizer/pallas_path.py::render_pallas`, in the
-exact f32 tier (K1, K2) and the bf16 tier (`fast_chain`: K1f, K2f; the rows
-stay f32 and unrecentred, see `blend.py`). Per-Gaussian rows are packed
-once, reordered by depth (one N-row gather), then gathered by rank into the
-sorted duplicate rows (one K-row gather) that K1 walks. K1 composites the background and writes the
-image layout itself, so no untile pass follows.
+exact f32 tier (K1, K2) and the bf16 tier (`fast_chain`: K1f, K2f).
+Per-Gaussian rows are packed once, reordered by depth (one N-row gather),
+then gathered by rank into the sorted duplicate rows (one K-row gather)
+that K1 walks. In the bf16 tier those rows are recentred on the owning
+tile's pixel origin in f32 and then rounded to bf16 (`fast_rows`, JAX
+`pallas_path.py:205-229`): rounding first would cost up to 2 pixels at
+x ~ 800, where bf16's spacing is 4. K1 composites the background and writes
+the image layout itself, so no untile pass follows.
 
 Gradients (JAX `_sorted_gather`, `pallas_path.py:24-97`): the blend's
 backward is K2 (`blend.blend`); the K-row gather's backward is the
@@ -13,7 +16,10 @@ per-Gaussian reduction of `grad_reduce` (K3 by default) on the binning
 route (each Gaussian's duplicates as the binning listed them, no sort of
 the ranks), never autograd's `index_put_(accumulate=True)`, which would use
 float atomics on CUDA; the depth reorder is a permutation, so its backward
-is the exact inverse gather through `rank_of`.
+is the exact inverse gather through `rank_of`. In the bf16 tier the
+rounding's backward makes the per-duplicate gradients bf16 values, as JAX's
+VJP does (`pallas_blend.py:934-937`); K3 and the gathers take them as they
+are.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from wast3d_tpu_torch.ops.rasterizer import blend as blend_mod
 from wast3d_tpu_torch.ops.rasterizer import grad_reduce as reduce_mod
-from wast3d_tpu_torch.ops.rasterizer.binning import Binning, bin_gaussians
+from wast3d_tpu_torch.ops.rasterizer.binning import TILE, Binning, bin_gaussians, tile_grid
 from wast3d_tpu_torch.ops.rasterizer.preprocess import Preprocessed
 
 
@@ -97,10 +103,24 @@ def sorted_rows(prep: Preprocessed, binning: Binning,
     return _SortedGather.apply(source, binning, grad_reduce, plain)
 
 
+def fast_rows(rows: torch.Tensor, tile_of_dup: torch.Tensor, width: int) -> torch.Tensor:
+    """The bf16 tier's rows (`blend.py`): [K, 12] f32 rows in image
+    coordinates, each of the tile `tile_of_dup` of a `width`-pixel-wide
+    grid, to [K, 16] bf16 with the means recentred on the tile's pixel
+    origin in f32 before the rounding, and six zero columns. Differentiable:
+    the gradient that comes back is rounded to bf16 values."""
+    grid_x = tile_grid(width, 1)[0]
+    origin = torch.stack([tile_of_dup % grid_x, tile_of_dup // grid_x], dim=1) * TILE
+    local = torch.cat([rows[:, :2] - origin.to(rows.dtype), rows[:, 2:10]], dim=1)
+    return torch.nn.functional.pad(local.to(torch.bfloat16), (0, blend_mod.ROW_FAST - 10))
+
+
 def bin_and_pack(prep: Preprocessed, width: int, height: int,
                  jittered: bool = False, tile_cull: bool = True,
-                 grad_reduce: str = reduce_mod.DEFAULT, plain: bool = False):
-    """Binning and the sorted rows: (Binning, rows [K, 12])."""
+                 grad_reduce: str = reduce_mod.DEFAULT, plain: bool = False,
+                 fast: bool = False):
+    """Binning and the sorted rows: (Binning, rows [K, 12] f32, or with
+    `fast` the bf16 tier's [K, 16] bf16 rows)."""
     binning = bin_gaussians(
         prep.means2d, prep.depths, prep.radii, width, height,
         ext_x=prep.extent_x, ext_y=prep.extent_y,
@@ -108,7 +128,10 @@ def bin_and_pack(prep: Preprocessed, width: int, height: int,
         opacities=prep.opacities if tile_cull else None,
         jitter_margin=1.0 if jittered else 0.0,
     )
-    return binning, sorted_rows(prep, binning, grad_reduce, plain)
+    rows = sorted_rows(prep, binning, grad_reduce, plain)
+    if fast:
+        rows = fast_rows(rows, binning.tile_of_dup, width)
+    return binning, rows
 
 
 def render_sorted(
@@ -127,7 +150,7 @@ def render_sorted(
     bf16 tier."""
     binning, rows = bin_and_pack(prep, width, height,
                                  sampling_offsets is not None, tile_cull,
-                                 grad_reduce, plain=not use_kernel)
+                                 grad_reduce, plain=not use_kernel, fast=fast_chain)
     out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, width,
                           height, bg_color, sampling_offsets, use_kernel, fast_chain)
     return RenderOutput(out.color, out.depth, out.final_T, binning)
