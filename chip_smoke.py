@@ -5,7 +5,7 @@ on one CUDA card and check them.
     python3 chip_smoke.py             # the checks below
     python3 chip_smoke.py --profile   # build, then only a torch.profiler
                                       # trace of the 200k / 800x800 train step
-    python3 chip_smoke.py --only k3_cases,k4k5_full_width
+    python3 chip_smoke.py --only k3_cases,eval_entry_point
                                       # build, then only the named phases
                                       # (no result line)
 
@@ -39,7 +39,13 @@ JAX record's configuration; and the user's stylize entry point
 (`wast3d_tpu_torch.cli.stylize`) at Mp = 16384, where K4/K5 carry the fit.
 Last, the WaSt-3D run (`wast3d_tpu_torch.cli.pipeline`: content and
 sphere-regularised style training, cluster export, stylization, turntable)
-on two 800x800 datasets, which launches K1 to K5.
+on two 800x800 datasets, which launches K1 to K5. Then evaluation, with the
+TF32 flags at PyTorch's defaults: `cli.render` in both tiers, `render_set`
+with depth PNGs and `cli.metrics` (`wast3d_tpu_torch.cli.metrics`), whose
+card numbers are held to the CPU's on the same PNGs; and image-space
+refinement (`wast3d_tpu_torch.refine.drivers.refine` in its five modes,
+K1, K2, K3 once a step each) with `cluster_teleport` and the intracluster
+statistics.
 Each entry point runs with the kernels' launch counts set to 0 just before
 it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
@@ -53,6 +59,7 @@ exits non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import hashlib
 import json
@@ -165,6 +172,27 @@ PIPELINE_ITERS = 300  # cli.pipeline: iterations of each reconstruction
 PIPELINE_FRAMES = 8  # cli.pipeline: turntable frames
 PIPELINE_CLUSTERS = 12  # style clusters: cluster 0 holds ~3,500 of the 60,000 points
 STYLE_SCENE_N = 60_000  # the pipeline's style scene: a seeded torus
+# cli.metrics on the card against evaluate_dir on the CPU, on the same PNGs:
+# the same float32 formulas in another summation order.
+EVAL_TOL = {"PSNR": 1e-3, "SSIM": 1e-5, "LPIPS_PROXY": 1e-5}
+# LPIPS_PROXY is ~2e-5 on these views, under its absolute limit whatever the
+# precision, so it is also held relative to its value. On these views an
+# NVIDIA H100 80GB HBM3 (700 W) gave a float32 LPIPS 1.6e-7 of itself from
+# the CPU's, and with its convolutions in TF32 4.7e-5
+# (`lpips_unguarded_tf32_vs_cpu_rel`); the limit sits ~15-20x from each.
+LPIPS_REL_TOL = 3e-6
+REFINE_STEPS = 10  # refine: steps of each mode
+REFINE_VIEWS = 3  # refine: views around the shell, each a K1 render of the jittered copy
+DEPTH_BLUR_SIGMA = 2.0  # refine: the target depth is the jittered copy's, blurred
+TELEPORT_K = 500  # refine: cluster_teleport's K, the reference's
+# A teleported style cluster's mean minus its content centre is its style
+# mean minus its style centre, up to two float32 roundings of coordinates
+# below 2.5 (ulp 2.4e-7): held to TELEPORT_SHIFT_TOL. That remainder is
+# Lloyd's own: after 100 iterations a member still switching clusters moves
+# its mean by about its distance from the centre over the count, below
+# 0.08 / 100 here: the mean must lie within TELEPORT_MEAN_TOL of the centre.
+TELEPORT_SHIFT_TOL = 1e-6
+TELEPORT_MEAN_TOL = 1e-3
 
 
 # `device_ms`'s profiler sessions since the last emitted line: all, and those
@@ -1537,6 +1565,308 @@ def phase_pipeline_entry_point(device, iters=PIPELINE_ITERS, frames=PIPELINE_FRA
     return launches
 
 
+# ---- evaluation and refinement ------------------------------------------------
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """cuDNN and matmul TF32 flags at PyTorch's defaults (cuDNN TF32 on,
+    matmul off) for the block, as a user's process has them; this script's
+    own (both off) come back after it."""
+    knobs = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [k.allow_tf32 for k in knobs]
+    for k, v in zip(knobs, (True, False)):
+        k.allow_tf32 = v
+    try:
+        yield
+    finally:
+        for k, v in zip(knobs, saved):
+            k.allow_tf32 = v
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+@contextlib.contextmanager
+def unguarded_convolutions():
+    """VGG / LPIPS convolutions under the caller's TF32 flags: `full_f32`
+    replaced by a no-op for the block (a diagnostic of what it guards)."""
+    from wast3d_tpu_torch.ops import vgg
+
+    guard = vgg.full_f32
+    vgg.full_f32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        vgg.full_f32 = guard
+
+
+def phase_eval_entry_point(device, n=FULL_N, res=FULL_RES):
+    """The evaluation chain as a user runs it, with the TF32 flags at
+    PyTorch's defaults: `cli.render` of the bench shell on a 6-view 800x800
+    Blender dataset of its jittered copy, in both tiers (K1f by default, K1 with --no-fast), then
+    `render_set(save_depth=True)` of the test split (K1), then `cli.metrics
+    -m` on both models. Each has the kernel counts set to 0 just before and
+    read just after. The card's metrics are held to `evaluate_dir` on the
+    CPU on the same PNGs (`EVAL_TOL`). Returns {step: launches}."""
+    import shutil
+
+    from wast3d_tpu_torch.cli import metrics as cli_metrics
+    from wast3d_tpu_torch.cli import render as cli_render
+    from wast3d_tpu_torch.eval.metrics import evaluate_dir
+    from wast3d_tpu_torch.eval.render_sets import render_set
+    from wast3d_tpu_torch.ops.lpips import LPIPS
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.scene import datasets
+    from wast3d_tpu_torch.scene.ply import save_ply
+    from wast3d_tpu_torch.utils.png import read_png
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_eval_") as tmp:
+        src = os.path.join(tmp, "scene")
+        models = {tier: os.path.join(tmp, f"model_{tier}") for tier in ("fast", "f32")}
+        # ground truth from the sigma = 0.002 jittered copy, so that every
+        # metric is finite and away from its limit
+        views = write_blender_dataset(src, make_scene(perturbed(bench_scene(n)), device),
+                                      device, res)
+        save_ply(scene, os.path.join(models["fast"], "point_cloud", "iteration_1",
+                                     "point_cloud.ply"))
+        shutil.copytree(models["fast"], models["f32"])
+        info = datasets.load_scene_info(src, eval_split=True)
+        test_cams = datasets.build_cameras(info.test_cameras, device=device)
+        t_setup = time.perf_counter() - t0
+
+        launches, step_s = {}, {}
+
+        def counted(step, fn):
+            reset_kernel_counts()
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            step_s[step] = time.perf_counter() - t1
+            launches[step] = kernel_counts()
+            return out
+
+        with torch_default_tf32():
+            flags = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                     "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+            for tier, extra in (("fast", []), ("f32", ["--no-fast"])):
+                counted(f"render_{tier}", lambda: cli_render.main(
+                    ["-m", models[tier], "-s", src, *extra, "--device", device.type]))
+            base = counted("render_set_depth", lambda: render_set(
+                models["f32"], "test", 1, test_cams, scene, torch.zeros(3, device=device),
+                api.RasterizeSettings(), save_depth=True, device=device))
+            results = counted("metrics", lambda: cli_metrics.main(
+                ["-m", models["fast"], models["f32"], "--device", device.type]))
+        depth_files = sorted(os.listdir(os.path.join(base, "depth")))
+        depth_pngs = [read_png(os.path.join(base, "depth", f)) for f in depth_files]
+        on_disk = {tier: [json.load(open(os.path.join(models[tier], name)))
+                          for name in ("results.json", "per_view.json")] for tier in models}
+        t1 = time.perf_counter()
+        cpu = {tier: evaluate_dir(os.path.join(models[tier], "test", "ours_1"), device="cpu")
+               for tier in models}
+        cpu_s = time.perf_counter() - t1
+        # what the guard prevents: the same LPIPS with `full_f32` bypassed,
+        # under the default flags (reported, not held)
+        view = os.path.join(models["f32"], "test", "ours_1")
+        pair = [read_png(os.path.join(view, d, "00000.png")).astype(np.float32) / 255.0
+                for d in ("renders", "gt")]
+        with torch_default_tf32(), unguarded_convolutions(), torch.no_grad():
+            unguarded = float(LPIPS(device=device)(*pair))
+        unguarded_rel = rel_diff(unguarded, cpu["f32"]["per_view"]["LPIPS_PROXY"]["00000.png"])
+    n_test = len(test_cams)
+    want = {"render_fast": only(blend_fwd_fast=views), "render_f32": only(blend_fwd=views),
+            "render_set_depth": only(blend_fwd=n_test), "metrics": only()}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if (depth_files != [f"{i:05d}.png" for i in range(n_test)]
+            or any(d.shape != (res, res, 3) or d.min() != 0 or d.max() < 254
+                   or not (d == d[..., :1]).all() for d in depth_pngs)):
+        raise AssertionError(f"depth PNGs {depth_files}: "
+                             f"{[(d.shape, int(d.min()), int(d.max())) for d in depth_pngs]}")
+    keys, names = list(EVAL_TOL), [f"{i:05d}.png" for i in range(n_test)]
+    worst, lpips_rel = dict.fromkeys(keys, 0.0), 0.0
+    for tier, (res_json, per_view) in on_disk.items():
+        if (res_json != results[models[tier]] or list(res_json) != ["ours_1"]
+                or list(res_json["ours_1"]) != ["SSIM", "PSNR", "LPIPS_PROXY"]
+                or list(per_view) != ["ours_1"]
+                or list(per_view["ours_1"]) != list(res_json["ours_1"])
+                or any(list(v) != names for v in per_view["ours_1"].values())):
+            raise AssertionError(f"{tier}: results.json {res_json}, per_view.json {per_view}")
+        for key in keys:
+            for name in names:
+                if not math.isfinite(per_view["ours_1"][key][name]):
+                    raise AssertionError(f"{tier}: {key} of {name} is not finite: {per_view}")
+                worst[key] = max(worst[key], abs(per_view["ours_1"][key][name]
+                                                 - cpu[tier]["per_view"][key][name]))
+            lpips_rel = max(lpips_rel, rel_diff(per_view["ours_1"]["LPIPS_PROXY"][name],
+                                                cpu[tier]["per_view"]["LPIPS_PROXY"][name]))
+    if any(worst[k] > EVAL_TOL[k] for k in keys) or lpips_rel > LPIPS_REL_TOL:
+        raise AssertionError(f"card metrics differ from the CPU's by {worst}, LPIPS by "
+                             f"{lpips_rel} of itself (limits {EVAL_TOL}, {LPIPS_REL_TOL})")
+    evaluated = len(models) * n_test
+    emit("eval_entry_point", t0, views=views, width=res, height=res, tf32_flags=flags,
+         launches=launches, step_s=step_s, results={t: results[m] for t, m in models.items()},
+         max_card_vs_cpu=worst, limits=EVAL_TOL, lpips_card_vs_cpu_rel=lpips_rel,
+         lpips_rel_limit=LPIPS_REL_TOL, lpips_unguarded_tf32_vs_cpu_rel=unguarded_rel,
+         views_evaluated=evaluated,
+         metrics_s_per_view=step_s["metrics"] / evaluated, cpu_metrics_s=cpu_s,
+         setup_s=t_setup)
+    return launches
+
+
+def procedural_style_image(res, seed=5):
+    """A seeded [res, res, 3] image: three oblique colour waves and noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:res, 0:res] / res
+    waves = [0.5 + 0.4 * np.sin(2 * np.pi * (f * x + g * y) + ph)
+             for f, g, ph in rng.uniform([2, -6, 0], [9, 6, 6], (3, 3))]
+    img = np.stack(waves, -1) + rng.normal(0, 0.05, (res, res, 3))
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def phase_refine_entry_point(device, n=FULL_N, res=FULL_RES, steps=REFINE_STEPS,
+                             k=TELEPORT_K, style_n=STYLE_SCENE_N):
+    """`refine.drivers.refine` in its five modes with the default settings
+    on the 200k shell at 800x800 (3 views; ground truth a K1 render of the
+    sigma = 0.002 jittered copy, the target depth that render's depth
+    blurred, a seeded procedural style image), `steps` steps each, with the
+    counts set to 0 just before each mode and read just after; then
+    `cluster_teleport` of the pipeline's 60k torus onto the shell (K = 500)
+    and `get_intracluster_stats` on the result. Each step's time is taken on
+    the host around a synchronised `refine_step`. Returns {mode: launches}."""
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.depth import gaussian_blur
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.refine import drivers, teleport
+    from wast3d_tpu_torch.refine.intracluster import get_intracluster_stats
+    from wast3d_tpu_torch.train.reconstruct import init_train_state
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    jittered = make_scene(perturbed(bench_scene(n)), device)
+    bg = torch.zeros(3, device=device)
+    cameras, depths = [], []
+    for i in range(REFINE_VIEWS):
+        a = 2 * math.pi * i / REFINE_VIEWS
+        cam = view_camera(res, res, device, eye=(3 * math.sin(a), 0.3, -3 * math.cos(a)),
+                          fov=0.9)
+        with torch.no_grad():
+            out = api.render(cam, jittered, bg, device=device)
+        cameras.append((cam, out["render"]))
+        depths.append(gaussian_blur(out["depth"], DEPTH_BLUR_SIGMA))
+    style = procedural_style_image(res)
+    opt_cfg = OptimizationConfig()
+
+    def depth_mse(sc):
+        with torch.no_grad():
+            return float(np.mean([float(torch.mean(
+                (api.render(cam, sc, bg, device=device)["depth"] - d) ** 2))
+                for (cam, _), d in zip(cameras, depths)]))
+
+    t_setup = time.perf_counter() - t0
+    plain_step, step_ms = drivers.refine_step, []
+
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = plain_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    modes, launches = {}, {}
+    drivers.refine_step = timed_step
+    try:
+        for mode in drivers.RefineMode:
+            state = init_train_state(scene, opt_cfg, 1.0)
+            before = depth_mse(state.scene) if mode is drivers.RefineMode.DEPTH_TARGET else None
+            step_ms.clear()
+            reset_kernel_counts()
+            state, losses = drivers.refine(state, cameras, mode, steps, style_image=style,
+                                           target_depths=depths, opt_cfg=opt_cfg)
+            torch.cuda.synchronize()
+            launches[mode.value] = kernel_counts()
+            finite = all(bool(torch.isfinite(v).all()) for v in state.scene.params().values())
+            modes[mode.value] = {"losses": losses, "step_ms_median": statistics.median(step_ms),
+                                 "step_ms": list(step_ms), "params_finite": finite}
+            if before is not None:
+                modes[mode.value]["depth_mse"] = [before, depth_mse(state.scene)]
+    finally:
+        drivers.refine_step = plain_step
+
+    want = only(blend_fwd=steps, blend_bwd=steps, segment_sum=steps)
+    bad = {m: v for m, v in launches.items() if v != want}
+    if bad:
+        raise AssertionError(f"launches {bad}, want {want} in every mode")
+    for m, r in modes.items():
+        if not (all(math.isfinite(x) for x in r["losses"]) and r["params_finite"]):
+            raise AssertionError(f"{m}: losses {r['losses']}, finite params {r['params_finite']}")
+    mse = modes[drivers.RefineMode.DEPTH_TARGET.value]["depth_mse"]
+    if not mse[1] < mse[0]:
+        raise AssertionError(f"depth_target: depth MSE {mse[0]} -> {mse[1]} did not fall")
+
+    # teleport, with k-means' centres caught on their way out
+    centres = []
+    plain_kmeans = teleport.kmeans
+
+    def caught_kmeans(*args, **kwargs):
+        out = plain_kmeans(*args, **kwargs)
+        centres.append(out[0])
+        return out
+
+    style_scene = make_scene(torus_scene(style_n), device)
+    teleport.kmeans = caught_kmeans
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tele, labels = teleport.cluster_teleport(scene, style_scene, num_clusters=k)
+        torch.cuda.synchronize()
+        teleport_s = time.perf_counter() - t1
+    finally:
+        teleport.kmeans = plain_kmeans
+    cnt_c, stl_c = (c.astype(np.float64) for c in centres)
+    before_xyz = style_scene.xyz.cpu().numpy().astype(np.float64)
+    after_xyz = tele.xyz.cpu().numpy().astype(np.float64)
+    shift_err, mean_err, clusters = 0.0, 0.0, 0
+    for i in range(k):
+        members = labels == i
+        if not members.any():
+            continue
+        clusters += 1
+        gap = after_xyz[members].mean(0) - cnt_c[i]
+        shift_err = max(shift_err, float(np.abs(gap - (before_xyz[members].mean(0)
+                                                       - stl_c[i])).max()))
+        mean_err = max(mean_err, float(np.linalg.norm(gap)))
+    if shift_err > TELEPORT_SHIFT_TOL or mean_err > TELEPORT_MEAN_TOL:
+        raise AssertionError(f"teleport: cluster mean - content centre off its shift by "
+                             f"{shift_err} (limit {TELEPORT_SHIFT_TOL}), from the centre by "
+                             f"{mean_err} (limit {TELEPORT_MEAN_TOL})")
+    t1 = time.perf_counter()
+    dists = get_intracluster_stats(tele, labels, ("xyz",), num_clusters=k)["xyz"]
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t1
+    big = int(np.bincount(labels, minlength=k).argmax())
+    pts = after_xyz[labels == big]
+    ref = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    m = len(pts)
+    got = dists[big, :m, :m].double().cpu().numpy() ** 2
+    stats_err = float(np.abs(got - ref).max())
+    padding_zero = bool((dists[big, m:] == 0).all()) and bool((dists[big, :, m:] == 0).all())
+    # matrix-product distances: float32 rounding of |a|^2 + |b|^2 - 2 a.b is
+    # ~1e-6 in d^2 at |x| < 2.5
+    if not (bool(torch.isfinite(dists).all()) and stats_err <= 1e-5 and padding_zero):
+        raise AssertionError(f"intracluster stats: squared distances off float64 by "
+                             f"{stats_err}, padding zero {padding_zero}")
+    emit("refine_entry_point", t0, views=REFINE_VIEWS, width=res, height=res, steps=steps,
+         launches=launches, modes=modes, teleport_k=k, teleport_s=teleport_s,
+         teleport_clusters=clusters, teleport_shift_err=shift_err, teleport_mean_err=mean_err,
+         intracluster_shape=list(dists.shape), intracluster_s=stats_s,
+         intracluster_sq_err_largest_cluster=stats_err, setup_s=t_setup)
+    return launches
+
+
 # ---- stylization: K4 / K5 against their plain versions ------------------------
 
 def k45_case(mp, balls, m, seed, density=0.02):
@@ -2251,6 +2581,8 @@ def main() -> int:
              "k4k5_near_coincident": lambda: phase_k45_near_coincident(device),
              "stylize_gate": lambda: phase_stylize_gate(device, domain, spacing),
              "stylize_entry_point": lambda: phase_stylize_entry_point(device, domain, spacing),
+             "eval_entry_point": lambda: phase_eval_entry_point(device),
+             "refine_entry_point": lambda: phase_refine_entry_point(device),
              }[name]()
         print(json.dumps({"partial_run": names,
                           "total_seconds": time.perf_counter() - t_start}), flush=True)
@@ -2286,6 +2618,8 @@ def main() -> int:
     if style["desc_loss"] == 0 or style["desc_grad"] == 0:
         raise AssertionError(f"K4/K5 were never launched on the stylization path: {style}")
     phase_pipeline_entry_point(device)
+    phase_eval_entry_point(device)
+    phase_refine_entry_point(device)
     kernels = [k1, k1f, k2, k2f, k3, k4, k5]
     k1f["launches"] = serve_fast["blend_fwd_fast"]  # K2f's: from its train steps
     for k in (k1, k2, k3, k4, k5):

@@ -23,7 +23,8 @@ from wast3d_tpu_torch.core.camera import look_at_camera
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "wast3d_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "wast3d_tpu")
-PY_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PY_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "quality_gate_torch.py"]
 
 
 def _imports(tree):
@@ -46,7 +47,9 @@ def test_no_forbidden_imports(path):
 
 
 def test_cli_import_pulls_in_no_jax_or_pil():
-    code = ("import sys, wast3d_tpu_torch.cli.render, wast3d_tpu_torch.eval.render_sets; "
+    code = ("import sys, wast3d_tpu_torch.cli.render, wast3d_tpu_torch.eval.render_sets, "
+            "wast3d_tpu_torch.cli.metrics, wast3d_tpu_torch.eval.metrics, "
+            "wast3d_tpu_torch.refine.drivers, wast3d_tpu_torch.models.nst; "
             "print(sorted(m for m in ('jax', 'PIL', 'wast3d_tpu') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)

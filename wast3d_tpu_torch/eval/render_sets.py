@@ -2,7 +2,9 @@
 
 Port of `wast3d_tpu/eval/render_sets.py`: loads a trained scene (PLY at the
 requested iteration), renders every view and writes `renders/NNNNN.png` +
-`gt/NNNNN.png` under `<model_path>/<split>/ours_<iteration>/`. Views render
+`gt/NNNNN.png` (with `save_depth`, also `depth/NNNNN.png`: the depth
+min-max normalised, in three channels) under
+`<model_path>/<split>/ours_<iteration>/`. Views render
 one after another: a CUDA launch is cheap, so the JAX package's batching of
 views per dispatch has nothing to amortise here, and `batch` is accepted for
 the same call signature only. The JAX package's `autoplan` sizes static
@@ -42,8 +44,12 @@ def render_set(
     scene: GaussianScene,
     bg_color: torch.Tensor,
     settings: raster_api.RasterizeSettings = raster_api.RasterizeSettings(),
+    save_depth: bool = False,
+    *,
     device: DeviceLike = None,
 ) -> str:
+    """Render each (camera, ground truth or None) view and write its PNGs;
+    returns the `ours_<iteration>` directory."""
     base = os.path.join(model_path, name, f"ours_{iteration}")
     for idx, (cam, gt) in enumerate(cameras):
         out = raster_api.render(cam, scene, bg_color, settings=settings,
@@ -52,6 +58,11 @@ def render_set(
                    out["render"].cpu().numpy())
         if gt is not None:
             save_image(os.path.join(base, "gt", f"{idx:05d}.png"), gt)
+        if save_depth:
+            d = out["depth"].cpu().numpy()
+            dn = (d - d.min()) / (np.ptp(d) + 1e-9)
+            save_image(os.path.join(base, "depth", f"{idx:05d}.png"),
+                       np.stack([dn] * 3, -1))
     return base
 
 

@@ -1,4 +1,4 @@
-"""Image-space losses: L1/L2, windowed SSIM, PSNR.
+"""Image-space losses: L1/L2, windowed SSIM, PSNR, total variation.
 
 Port of `wast3d_tpu/ops/image_losses.py` (the reference `loss_utils.py`):
 images are [H, W, C]; SSIM uses an 11-tap Gaussian window with sigma 1.5,
@@ -68,6 +68,23 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return torch.mean(ssim_map)
+
+
+def tv_loss(img: torch.Tensor) -> torch.Tensor:
+    """Total variation, absolute-value form, over the first two (spatial)
+    dims: 0.5 (mean |dy| + mean |dx|), the reference's second (winning)
+    definition."""
+    dy = img[1:, :] - img[:-1, :]
+    dx = img[:, 1:] - img[:, :-1]
+    return 0.5 * (torch.mean(torch.abs(dy)) + torch.mean(torch.abs(dx)))
+
+
+def tv_loss_sq(img: torch.Tensor) -> torch.Tensor:
+    """Squared-difference total variation: mean dy^2 + mean dx^2 (the
+    reference's shadowed first definition)."""
+    dy = img[1:, :] - img[:-1, :]
+    dx = img[:, 1:] - img[:, :-1]
+    return torch.mean(dy ** 2) + torch.mean(dx ** 2)
 
 
 def photometric_loss(pred: torch.Tensor, gt: torch.Tensor,
