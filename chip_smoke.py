@@ -19,13 +19,18 @@ bitwise equality (K1 and K1f also against themselves with the per-warp
 cull off, `w3d_blend_fwd_walk_all` and `w3d_blend_fwd_fast_walk_all`: the
 same bits, and on `cull_edges`, rows built to test the cull at its edges;
 K3 also on the render path's route, from the binning's own segments,
-against the bare-rank route: the same bits). Then the serving path: the golden scene through the kernel, the
+against the bare-rank route: the same bits). Then the serving path: the
+golden scene through the kernel and through the per-pixel oracle, K1 and
+the K2 + K3 gradient against the oracle (`oracle_cases`), the
 200k-Gaussian / 800x800 scene of `bench.py` timed (K1 with its counts of
 walked entries and a hash of its output, and held to less than 0.85 of its
 device time with the cull off; then in the bf16 tier, K1f and K1 timed in
 one call, K1f held to the same share of its own walk of every entry), and
 the user's render entry point (`wast3d_tpu_torch.cli.render`, by default
-in the bf16 tier, then with `--no-fast`). Then the training
+in the bf16 tier, then with `--no-fast`, then with `--batch 3`), and
+`api.render`'s colour and covariance options at that size, with the
+gradient of the precomputed colours through K2 and K3 (`api_options`).
+Then the training
 path: 20 timed train steps on the same scene with a stage split, K2 and K3
 against their plain versions at that size, the same steps in the bf16 tier
 (K2f and K2 timed in one call), and the user's train entry point
@@ -35,8 +40,11 @@ loss) and K5 (its gradient), both on the fit's pair list, against their
 plain versions on seeded cases (K4 also against the dense one),
 twice each for bitwise equality, alone at the production shape
 (Mp = 16384, 8 balls), and against float64 where points nearly coincide; a port-only mirror of `tools/stylize_gate.py` at the
-JAX record's configuration; and the user's stylize entry point
-(`wast3d_tpu_torch.cli.stylize`) at Mp = 16384, where K4/K5 carry the fit.
+JAX record's configuration; the user's stylize entry point
+(`wast3d_tpu_torch.cli.stylize`) at Mp = 16384, where K4/K5 carry the fit;
+the cluster geometry-transfer ladder (v0, v1, v4 at 4,096 points,
+`geom_transfer`); and the style sweep (`wast3d_tpu_torch.cli.sweep`, four
+styles at Mp = 16384 through K4/K5, `sweep_entry_point`).
 Last, the WaSt-3D run (`wast3d_tpu_torch.cli.pipeline`: content and
 sphere-regularised style training, cluster export, stylization, turntable)
 on two 800x800 datasets, which launches K1 to K5. Then evaluation, with the
@@ -731,6 +739,180 @@ def phase_golden(device, renderer="cuda"):
          n_gaussians=scene.capacity, width=cam.width, height=cam.height)
 
 
+# ---- the oracle and render's options ---------------------------------------
+
+ORACLE_N, ORACLE_RES = 2_000, 256  # K1 against the oracle
+ORACLE_GRAD_CASES = ((40, 32, 4), (200, 64, 5))  # (n, res, seed): JAX's case first
+ORACLE_GRAD_ATOL = 5e-5  # tests/test_rasterizer.py's tiled-vs-oracle gradient bound
+OPTION_GRAD_TOL = 1e-3  # override_color's gradient, K2 + K3 vs plain: of each column's max
+
+
+def xyz_grad(scene, cam, settings, device, target, bg):
+    """d mean((render - target)^2) / d xyz through `api.render`."""
+    from wast3d_tpu_torch.ops.rasterizer import api
+
+    xyz = scene.xyz.clone().requires_grad_(True)
+    out = api.render(cam, scene.replace(xyz=xyz), bg, settings=settings, device=device)
+    (g,) = torch.autograd.grad(torch.mean((out["render"] - target) ** 2), [xyz])
+    return g
+
+
+def tile_edge_pixels(h, w, device):
+    """[H, W] bool: the pixels in the first column or row of their tile."""
+    ys = torch.arange(h, device=device)[:, None] % 16 == 0
+    xs = torch.arange(w, device=device)[None, :] % 16 == 0
+    return ys | xs
+
+
+def phase_oracle_cases(device, n=ORACLE_N, res=ORACLE_RES):
+    """The per-pixel oracle on the card as a second check of K1 and K2 that
+    does not rest on their plain versions: the golden gate through the
+    oracle; K1 (`api.render`, renderer "pallas") against the oracle on
+    seeded scenes of `n` Gaussians at res x res, jitter off and on, within
+    K1's limits; and the xyz gradient through K2 and K3 against the
+    oracle's on JAX's own case (40 Gaussians at 32x32) within its 5e-5,
+    with the largest difference at 200 Gaussians / 64x64 reported.
+
+    Under jitter the binning (JAX's, reproduced) can leave out of a tile a
+    Gaussian whose 1/255 contour reaches that tile's first column or row
+    only through the jittered sample: the tight extent's +1 pixel for
+    jitter is lost to the rect's rounding (`binning.compute_rects` includes
+    tile t only if 16 t + 1 <= mean + extent). JAX's tiled renderer differs
+    from JAX's oracle the same way on the same scene. So under jitter K1's
+    limits hold on the pixels off the tiles' first column and row, and the
+    tile-edge pixels' largest difference is reported. Returns {kernel
+    name: launches} of the phase."""
+    from wast3d_tpu_torch.ops.rasterizer import api
+
+    t0 = time.perf_counter()
+    phase_golden(device, renderer="oracle")
+    reset_kernel_counts()
+    kernel, oracle = api.RasterizeSettings(), api.RasterizeSettings(renderer="oracle")
+    fwd = {}
+    for jitter in (False, True):
+        scene = make_scene(random_scene(n, seed=11 + int(jitter)), device, sh_degree=0)
+        cam = view_camera(res, res, device)
+        offsets = None
+        if jitter:
+            offsets = api.random_sampling_offsets(
+                torch.Generator(device=device).manual_seed(3), res, res)
+        bg = torch.tensor([0.2, 0.5, 0.8], device=device)
+        with torch.no_grad():
+            k = api.render(cam, scene, bg, settings=kernel, sampling_offsets=offsets,
+                           device=device)
+            o = api.render(cam, scene, bg, settings=oracle, sampling_offsets=offsets,
+                           device=device)
+        held = (~tile_edge_pixels(res, res, device) if jitter
+                else torch.ones((res, res), dtype=torch.bool, device=device))
+        errs = {key: float((k[key] - o[key]).abs()[held].max())
+                for key in ("render", "final_T", "depth")}
+        errs["render_mean"] = float((k["render"] - o["render"]).abs().mean())
+        errs["final_T_over_1e-3"] = int(((k["final_T"] - o["final_T"]).abs() > 1e-3).sum())
+        if jitter:
+            edge = ~held
+            errs["tile_edge_render_max"] = float((k["render"] - o["render"]).abs()[edge].max())
+            errs["tile_edge_over_limit"] = int(
+                ((k["render"] - o["render"]).abs().amax(-1) > TOL_MAX)[edge].sum())
+        errs["covered_share"] = float((o["final_T"] < 0.5).float().mean())
+        if not (errs["render"] <= TOL_MAX and errs["final_T"] <= TOL_MAX
+                and errs["depth"] <= TOL_DEPTH and errs["covered_share"] > 0.1):
+            raise AssertionError(f"K1 vs oracle, jitter {jitter}: {errs} (limits {TOL_MAX}, "
+                                 f"depth {TOL_DEPTH})")
+        fwd[f"jitter_{jitter}"] = errs
+    grads = {}
+    for gn, gres, seed in ORACLE_GRAD_CASES:
+        scene = make_scene(random_scene(gn, seed=seed), device, sh_degree=0)
+        cam = view_camera(gres, gres, device)
+        target = torch.zeros((gres, gres, 3), device=device)
+        bg = torch.zeros(3, device=device)
+        g_k = xyz_grad(scene, cam, kernel, device, target, bg)
+        g_o = xyz_grad(scene, cam, oracle, device, target, bg)
+        torch.cuda.synchronize()
+        grads[f"{gn}_at_{gres}"] = {"max_abs_diff": float((g_k - g_o).abs().max()),
+                                    "max_abs_grad": float(g_o.abs().max())}
+    jax_case = grads[f"{ORACLE_GRAD_CASES[0][0]}_at_{ORACLE_GRAD_CASES[0][1]}"]
+    if not (jax_case["max_abs_diff"] <= ORACLE_GRAD_ATOL and jax_case["max_abs_grad"] > 0):
+        raise AssertionError(f"K2 + K3 xyz gradient vs oracle: {grads} "
+                             f"(limit {ORACLE_GRAD_ATOL} on JAX's case)")
+    launches = kernel_counts()
+    if any(launches[k] == 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"oracle cases: a kernel was never launched: {launches}")
+    emit("oracle_cases", t0, n_gaussians=n, width=res, height=res, k1_vs_oracle=fwd,
+         limits={"color_final_T": TOL_MAX, "depth": TOL_DEPTH,
+                 "xyz_grad_abs_jax_case": ORACLE_GRAD_ATOL},
+         xyz_grad_vs_oracle=grads, launches=launches)
+    return launches
+
+
+def phase_api_options(device, n=FULL_N, res=FULL_RES):
+    """`api.render`'s colour and covariance options at 200k / 800x800
+    (bench.py's shell and camera): renders with `convert_shs_python`, with
+    `compute_cov3d_python` and with `override_color` set to the default
+    path's colours, each against the default render within K1's limits
+    (and whether they are bit-equal); then the gradient with respect to
+    `override_color` through K2 and K3 against renderer "tiled" on the
+    card, each column within OPTION_GRAD_TOL of its max. The counts are set
+    to 0 just before and read just after: K1, K2 and K3 must launch.
+    Returns {kernel name: launches}."""
+    from wast3d_tpu_torch.ops.rasterizer import api
+
+    t0 = time.perf_counter()
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        colors = api.preprocess_scene(cam, scene).colors.contiguous()
+    cot = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(res, res, 3)).astype(np.float32)).to(device)
+    t_setup = time.perf_counter() - t0
+
+    reset_kernel_counts()
+    with torch.no_grad():
+        base = api.render(cam, scene, bg, device=device)
+        variants = {"convert_shs_python": api.render(cam, scene, bg, convert_shs_python=True,
+                                                     device=device),
+                    "compute_cov3d_python": api.render(cam, scene, bg,
+                                                       compute_cov3d_python=True,
+                                                       device=device),
+                    "override_color": api.render(cam, scene, bg, 1.0, colors, device=device)}
+    renders = {}
+    for name, out in variants.items():
+        errs = {key: float((out[key] - base[key]).abs().max())
+                for key in ("render", "final_T", "depth")}
+        errs["bit_equal"] = all(torch.equal(out[key], base[key])
+                                for key in ("render", "final_T", "depth"))
+        if not (errs["render"] <= TOL_MAX and errs["final_T"] <= TOL_MAX
+                and errs["depth"] <= TOL_DEPTH):
+            raise AssertionError(f"{name} vs the default render: {errs}")
+        renders[name] = errs
+
+    def color_grad(renderer):
+        c = colors.clone().requires_grad_(True)
+        out = api.render(cam, scene, bg, 1.0, c, api.RasterizeSettings(renderer=renderer),
+                         device=device)
+        (g,) = torch.autograd.grad((out["render"] * cot).sum(), [c])
+        return g
+
+    g_k = color_grad("pallas")
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    g_p = color_grad("tiled")
+    rel = []
+    for col in range(3):
+        scale = float(g_p[:, col].abs().max())
+        rel.append(float((g_k[:, col] - g_p[:, col]).abs().max()) / scale)
+    if not (max(rel) <= OPTION_GRAD_TOL and bool(torch.isfinite(g_k).all())):
+        raise AssertionError(f"override_color gradient, K2 + K3 vs tiled: {rel} of the "
+                             f"column max (limit {OPTION_GRAD_TOL})")
+    if any(launches[k] == 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"api options: a kernel was never launched: {launches}")
+    emit("api_options", t0, n_gaussians=n, width=res, height=res,
+         vs_default_render=renders, override_color_grad_rel_err=rel,
+         grad_tolerance_rel_to_column_max=OPTION_GRAD_TOL, launches=launches,
+         setup_s=t_setup)
+    return launches
+
+
 # ---- full width --------------------------------------------------------------
 
 def cuda_time_ms(fn, reps):
@@ -992,11 +1174,13 @@ def rendered_pngs(model, split, count, res):
 def phase_entry_point(device, n=FULL_N, res=FULL_RES):
     """The user's render entry point in both tiers: `cli.render` as a user
     calls it (the bf16 tier, K1f, by default), then with `--no-fast` (K1),
-    with every kernel's count set to 0 just before each and read just
-    after. Each tier's PNGs are held to its plain renders (the dataset's
-    ground truth for K1; the plain fast render of each camera for K1f),
-    and the two tiers to each other. Returns ({kernel name: launches} of
-    the default run, of the --no-fast run)."""
+    then by default with `--batch 3` (views in groups of three through
+    `render_batch`), with every kernel's count set to 0 just before each
+    and read just after. Each tier's PNGs are held to its plain renders
+    (the dataset's ground truth for K1; the plain fast render of each
+    camera for K1f), the two tiers to each other, and `--batch 3`'s PNGs
+    must equal the default run's bit for bit. Returns ({kernel name:
+    launches} of the default run, of the --no-fast run)."""
     import shutil
 
     from wast3d_tpu_torch.cli import render as cli
@@ -1010,11 +1194,13 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
     scene = make_scene(bench_scene(n), device)
     with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_") as tmp:
         src = os.path.join(tmp, "scene")
-        models = {tier: os.path.join(tmp, f"model_{tier}") for tier in ("fast", "f32")}
+        models = {tier: os.path.join(tmp, f"model_{tier}")
+                  for tier in ("fast", "f32", "fast_batch3")}
         views = write_blender_dataset(src, scene, device, res)
         save_ply(scene, os.path.join(models["fast"], "point_cloud", "iteration_1",
                                      "point_cloud.ply"))
         shutil.copytree(models["fast"], models["f32"])
+        shutil.copytree(models["fast"], models["fast_batch3"])
         # the plain fast renders of the same cameras, as PNG bytes
         info = datasets.load_scene_info(src, eval_split=True)
         plain_fast = {}
@@ -1029,7 +1215,8 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
         t_setup = time.perf_counter() - t0
 
         launches, cli_s = {}, {}
-        for tier, extra in (("fast", []), ("f32", ["--no-fast"])):
+        for tier, extra in (("fast", []), ("f32", ["--no-fast"]),
+                            ("fast_batch3", ["--batch", "3"])):
             reset_kernel_counts()
             t1 = time.perf_counter()
             cli.main(["-m", models[tier], "-s", src, *extra, "--device", device.type])
@@ -1038,9 +1225,13 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
             launches[tier] = kernel_counts()
 
         worst, tiers_worst, psnrs, written = {"fast": 0, "f32": 0}, 0, [], {}
+        batch_equal = True
         for split, count in (("train", views - 2), ("test", 2)):
             fast = rendered_pngs(models["fast"], split, count, res)
             f32 = rendered_pngs(models["f32"], split, count, res)
+            batched = rendered_pngs(models["fast_batch3"], split, count, res)
+            batch_equal = batch_equal and all(np.array_equal(batched[f][0], fast[f][0])
+                                              for f in fast)
             written[split] = len(fast)
             for f, (a, gt) in f32.items():
                 worst["f32"] = max(worst["f32"], int(np.abs(a - gt).max()))
@@ -1050,9 +1241,12 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
                 worst["fast"] = max(worst["fast"], int(np.abs(b - plain_fast[split, f]).max()))
                 tiers_worst = max(tiers_worst, int(np.abs(a - b).max()))
     if (launches["fast"] != only(blend_fwd_fast=views)
-            or launches["f32"] != only(blend_fwd=views)):
+            or launches["f32"] != only(blend_fwd=views)
+            or launches["fast_batch3"] != only(blend_fwd_fast=views)):
         raise AssertionError(f"launches {launches} for {views} views (want K1f, then K1, "
-                             f"once each)")
+                             f"then K1f, once each)")
+    if not batch_equal:
+        raise AssertionError("cli.render --batch 3 wrote other PNGs than --batch 1")
     if max(worst.values()) > 2:
         raise AssertionError(f"entry point renders differ from the plain renders by "
                              f"{worst}/255")
@@ -1061,6 +1255,7 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
                              f"(limit {CLI_TIER_TOL})")
     emit("entry_point", t0, views=views, width=res, height=res, launches=launches,
          written=written, max_png_diff_vs_plain=worst, max_png_diff_fast_vs_f32=tiers_worst,
+         batch3_pngs_bit_equal=batch_equal,
          min_psnr_f32_vs_plain=min(psnrs) if psnrs else None,  # None: all identical
          setup_s=t_setup, cli_s=cli_s)
     return launches["fast"], launches["f32"]
@@ -2398,6 +2593,209 @@ def fit_step_split(cpatch, domain, circles, cfg, device, reps=5):
     return out
 
 
+# ---- geometry transfer and the style sweep -----------------------------------
+
+GEOM_N = 4096  # above cli.pipeline's ~3,500-point style cluster 0
+GEOM_K = 100  # compute_targets' default k
+GEOM_STEPS = 200  # cut from optimize_cluster_geometry's default 1000
+GEOM_PERTURB = 0.05  # of the cluster's extent
+GEOM_EVAL_DRAWS = 16  # v1: fixed draws its loss is compared on, start against end
+SWEEP_EDGE_RATIOS = (1.0, 1.5, 2.0, 2.5)  # x the domain's spacing; seeds 1-4
+SWEEP_FIT_STEPS = 200  # cut from StylizeConfig's default 1000
+
+
+def random_unit_quaternions(n, rng):
+    q = rng.normal(size=(n, 4))
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+def phase_geom_transfer(device, n=GEOM_N, k=GEOM_K, steps=GEOM_STEPS):
+    """`optimize_cluster_geometry` in its three variants (v0, v1, v4) at the
+    default lr on a seeded crystal cluster of n points (centred, with random
+    unit quaternions and scales), its xyz perturbed by GEOM_PERTURB of its
+    extent, against the unperturbed cluster's targets (k = 100) and n shape
+    points on a unit sphere (v1 scales them by the cluster's mean radius).
+    Each variant's loss must be finite and fall: v0 and v4 end below their
+    start. v1's OT term draws 100 new points of each cloud every step, and
+    that draw moves its loss by more than 200 steps at the default lr
+    lower it, so v1 is held on fixed draws: its mean loss over
+    GEOM_EVAL_DRAWS draws, the same at the start and at the end, must
+    fall; the mean of its last 10 steps against its first 10 is reported.
+    Times each step by CUDA events around the whole run."""
+    from wast3d_tpu_torch.stylize import geom_transfer as gt
+
+    t0 = time.perf_counter()
+    pts, rng = crystal_points(n, device)
+    pts = pts - pts.mean(0)
+    extent = float(np.ptp(pts, axis=0).max())
+    xyz = torch.as_tensor(pts, device=device)
+    rot = torch.as_tensor(random_unit_quaternions(n, rng), device=device)
+    scal = torch.as_tensor(rng.uniform(0.05, 0.5, (n, 3)).astype(np.float32), device=device)
+    shape = rng.normal(size=(n, 3))
+    shape = torch.as_tensor((shape / np.linalg.norm(shape, axis=1, keepdims=True))
+                            .astype(np.float32), device=device)
+    x0 = xyz + torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                               device=device) * (GEOM_PERTURB * extent)
+    targets = gt.compute_targets(xyz, rot, scal, k=k)
+    radius = torch.linalg.norm(xyz, dim=1).mean()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    eval_gen = torch.Generator(device=device).manual_seed(1)
+    draws = [gt.sample_indices(eval_gen, n, n, 100) for _ in range(GEOM_EVAL_DRAWS)]
+
+    def v1_on_draws(x):
+        with torch.no_grad():
+            return float(torch.stack([gt.loss_v1(x, rot, scal, targets, shape,
+                                                 target_mean_radius=radius, indices=d)
+                                      for d in draws]).mean())
+
+    out = {}
+    for variant in ("v0", "v1", "v4"):
+        losses = []
+        gen = torch.Generator(device=device).manual_seed(0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = gt.optimize_cluster_geometry(x0, rot, scal, targets, shape, gen, variant=variant,
+                                         steps=steps, target_mean_radius=radius,
+                                         losses=losses)
+        end.record()
+        torch.cuda.synchronize()
+        curve = torch.stack(losses).cpu().numpy().astype(np.float64)
+        row = {"loss_first": float(curve[0]), "loss_last": float(curve[-1]),
+               "loss_first10_mean": float(curve[:10].mean()),
+               "loss_last10_mean": float(curve[-10:].mean()),
+               "ms_per_step": start.elapsed_time(end) / steps,
+               "moved_max": float((x - x0).abs().max())}
+        if variant == "v1":
+            row.update(fixed_draws_start=v1_on_draws(x0), fixed_draws_end=v1_on_draws(x))
+            falls = row["fixed_draws_end"] < row["fixed_draws_start"]
+        else:
+            falls = curve[-1] < curve[0]
+        if not (np.isfinite(curve).all() and bool(torch.isfinite(x).all()) and falls):
+            raise AssertionError(f"geom_transfer {variant}: {row}")
+        out[variant] = row
+    emit("geom_transfer", t0, n_points=n, k=k, steps=steps, lr=1.6e-4, extent=extent,
+         perturbation=GEOM_PERTURB * extent, v1_eval_draws=GEOM_EVAL_DRAWS, variants=out,
+         setup_s=t_setup)
+
+
+def descriptor_loss_fall(patch_xyz, ball_points, fitted, cfg, device, max_balls=8):
+    """Mean descriptor loss (through K4 on the kernel path) of the first
+    `max_balls` balls at the fit's initial placement (the patch scaled by
+    5 x each ball's per-axis standard deviation, at its mean) and after the
+    fit. `ball_points`: each ball's domain points."""
+    from wast3d_tpu_torch.stylize.fit import compute_target_descriptors, descriptor_loss
+
+    td = compute_target_descriptors(patch_xyz, cfg, device=device)
+    m, mp = len(patch_xyz), td.points.shape[0]
+    sel = range(min(max_balls, len(ball_points)))
+    init = [patch_xyz * ball_points[i].std(0, ddof=1) * 5.0 + ball_points[i].mean(0)
+            for i in sel]
+    final = [fitted[i] for i in sel]
+
+    def mean_loss(point_sets):
+        x = torch.zeros((len(point_sets), mp, 3), device=device)
+        x[:, :m] = torch.as_tensor(np.stack(point_sets).astype(np.float32), device=device)
+        with torch.no_grad():
+            return float(descriptor_loss(x, td, cfg.desc_block).mean())
+
+    return mean_loss(init), mean_loss(final)
+
+
+def phase_sweep_entry_point(device, spacing, fit_steps=SWEEP_FIT_STEPS,
+                            style_m=ENTRY_STYLE_M, max_style_points=STYLE_MP, n=FULL_N):
+    """`cli.sweep` on the 200k shell (a PLY saved by the port) and four
+    18,000-point crystals (npz; seeds 1-4 at edge ratios 1.0, 1.5, 2.0 and
+    2.5 x the domain's spacing) at `--max_style_points 16384`: cleaning
+    keeps ~16.6k points of each and the sweep subsamples all four to one
+    count, so Mp = 16384 and K4/K5 carry every style's fit. The counts are
+    set to 0 just before the CLI and read just after: K4 = K5 = the sum over
+    styles of fit_steps x ceil(balls / 8). A spy on
+    `sweep.fit_balls_sweep` keeps the fit's inputs and outputs: each
+    style's descriptor loss must fall, and style 0's first batch must equal
+    `fit.fit_balls` run again on the same inputs bit for bit (after the
+    counts are read). Returns {kernel name: launches}."""
+    from wast3d_tpu_torch.cli import sweep as cli
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.scene.ply import load_ply, save_ply
+    from wast3d_tpu_torch.stylize import fit, sweep
+    from wast3d_tpu_torch.stylize.cluster import NPZ_KEYS
+
+    t0 = time.perf_counter()
+    cfg = StylizeConfig(fit_steps=fit_steps)
+    seen = {}
+    real = sweep.fit_balls_sweep
+
+    def spy(targets, descs, balls, mask, cfg, batch_size=8):
+        out = real(targets, descs, balls, mask, cfg, batch_size)
+        seen.update(targets=targets, descs=descs, balls=balls, mask=mask, out=out,
+                    batch_size=batch_size)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_sweep_") as tmp:
+        content_ply = os.path.join(tmp, "content.ply")
+        save_ply(make_scene(bench_scene(n), device), content_ply)
+        npzs = []
+        for i, ratio in enumerate(SWEEP_EDGE_RATIOS):
+            patch = crystal_patch(style_m, device, seed=i + 1, edge_scale=ratio * spacing)
+            npzs.append(os.path.join(tmp, f"crystal{i + 1}.npz"))
+            np.savez(npzs[-1], **{key: getattr(patch, key[1:]) for key in NPZ_KEYS})
+        out_dir = os.path.join(tmp, "out")
+        t_setup = time.perf_counter() - t0
+
+        sweep.fit_balls_sweep = spy
+        try:
+            reset_kernel_counts()
+            t1 = time.perf_counter()
+            cli.main(["--content", content_ply, "--style_clusters", *npzs,
+                      "--output_dir", out_dir, "--fit_steps", str(fit_steps),
+                      "--max_style_points", str(max_style_points), "--device", device.type])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t1
+            launches = kernel_counts()
+        finally:
+            sweep.fit_balls_sweep = real
+        plys = []
+        for i in range(len(SWEEP_EDGE_RATIOS)):
+            scene = load_ply(os.path.join(out_dir, f"stylized_crystal{i + 1}.ply"),
+                             device=device)
+            plys.append((scene.capacity, bool(torch.isfinite(scene.xyz).all())))
+
+    balls = [int(b.shape[0]) for b in seen["balls"]]
+    batches = sum(-(-b // STYLE_BATCH) for b in balls)
+    m = int(seen["targets"].shape[1])
+    mp = int(seen["descs"][0].points.shape[0])
+    want = only(desc_loss=fit_steps * batches, desc_grad=fit_steps * batches)
+    if mp != max_style_points or launches != want or launches["desc_loss"] == 0:
+        raise AssertionError(f"launches {launches} at Mp {mp}, want {want} (K4 and K5 once "
+                             f"per Adam step of each of {batches} batches over {balls} balls)")
+    if not all(cap > 0 and finite for cap, finite in plys):
+        raise AssertionError(f"stylized PLYs (Gaussians, finite): {plys}")
+    # What the sweep fitted, again, outside the counted run.
+    b = seen["batch_size"]
+    direct = fit.fit_balls(seen["targets"][0], seen["descs"][0], seen["balls"][0][:b],
+                           seen["mask"][0][:b], cfg)
+    style0_bit_equal = torch.equal(direct, seen["out"][0][:b])
+    if not style0_bit_equal:
+        raise AssertionError("style 0: the sweep's fit differs from fit.fit_balls on the "
+                             f"same inputs by {float((direct - seen['out'][0][:b]).abs().max())}")
+    falls = []
+    for s in range(len(balls)):
+        pts, keep = seen["balls"][s].cpu().numpy(), seen["mask"][s].cpu().numpy()
+        l_init, l_final = descriptor_loss_fall(
+            seen["targets"][s].cpu().numpy(), [pts[i][keep[i]] for i in range(balls[s])],
+            seen["out"][s].cpu().numpy(), cfg, device)
+        if not l_final < l_init:
+            raise AssertionError(f"style {s}: descriptor loss {l_init} -> {l_final}")
+        falls.append({"desc_loss_init": l_init, "desc_loss_final": l_final})
+    emit("sweep_entry_point", t0, content_n=n, style_m=style_m, styles=len(balls),
+         edge_ratios=list(SWEEP_EDGE_RATIOS), patch_m=m, padded_mp=mp, balls=balls,
+         batches=batches, ball_capacity=int(seen["balls"][0].shape[1]), fit_steps=fit_steps,
+         launches=launches, plys=plys, style0_fit_bit_equal=style0_bit_equal,
+         descriptor_loss=falls, setup_s=t_setup, cli_s=cli_s)
+    return launches
+
+
 # ---- profile (python3 chip_smoke.py --profile) --------------------------------
 
 def device_events(prof):
@@ -2562,7 +2960,8 @@ def main() -> int:
         names = sys.argv[sys.argv.index("--only") + 1].split(",")
         domain = spacing = None
         for name in names:
-            if name in ("stylize_gate", "stylize_entry_point") and domain is None:
+            if (name in ("stylize_gate", "stylize_entry_point", "sweep_entry_point")
+                    and domain is None):
                 domain, spacing = content_domain(device)
             {"k1_cases": lambda: phase_k1_cases(device),
              "k1_fast_cases": lambda: phase_k1_cases(device, fast=True),
@@ -2581,6 +2980,10 @@ def main() -> int:
              "k4k5_near_coincident": lambda: phase_k45_near_coincident(device),
              "stylize_gate": lambda: phase_stylize_gate(device, domain, spacing),
              "stylize_entry_point": lambda: phase_stylize_entry_point(device, domain, spacing),
+             "oracle_cases": lambda: phase_oracle_cases(device),
+             "api_options": lambda: phase_api_options(device),
+             "geom_transfer": lambda: phase_geom_transfer(device),
+             "sweep_entry_point": lambda: phase_sweep_entry_point(device, spacing),
              "eval_entry_point": lambda: phase_eval_entry_point(device),
              "refine_entry_point": lambda: phase_refine_entry_point(device),
              }[name]()
@@ -2595,12 +2998,14 @@ def main() -> int:
     phase_k2_cases(device, fast=True)
     phase_k3_cases(device)
     phase_golden(device)
+    phase_oracle_cases(device)
     k1 = phase_full_width(device)
     k1f = phase_full_width_fast(device)
     serve_fast, serve = phase_entry_point(device)
     if serve_fast["blend_fwd_fast"] == 0 or serve["blend_fwd"] == 0:
         raise AssertionError(f"K1f or K1 was never launched on the serving path: "
                              f"{serve_fast}, {serve}")
+    phase_api_options(device)
     k2, k3 = phase_train_full_width(device)
     k2f = phase_train_full_width_fast(device)
     train = phase_train_entry_point(device)
@@ -2617,6 +3022,8 @@ def main() -> int:
     style = phase_stylize_entry_point(device, domain, spacing)
     if style["desc_loss"] == 0 or style["desc_grad"] == 0:
         raise AssertionError(f"K4/K5 were never launched on the stylization path: {style}")
+    phase_geom_transfer(device)
+    phase_sweep_entry_point(device, spacing)
     phase_pipeline_entry_point(device)
     phase_eval_entry_point(device)
     phase_refine_entry_point(device)

@@ -109,11 +109,22 @@ def test_positional_order_is_jaxs():
     np.testing.assert_allclose(pos["depth"].numpy(), np.asarray(j["depth"]), atol=3e-2)
 
 
-def test_override_color_is_not_ported_yet():
-    js = _random_scene(n=20, seed=4)
-    with pytest.raises(NotImplementedError, match="override_color"):
-        tapi.render(port_cam(w=32, h=32), port_scene(js), torch.zeros(3), 1.0,
-                    torch.zeros((20, 3)), device="cpu")
+def test_override_color_matches_jax():
+    """Precomputed colours in the positional slot after the scaling
+    modifier, as in JAX: taken as given (one row negative, some above 1),
+    within the tolerances of `test_random_scene_matches_jax_tiled`."""
+    js = _random_scene(n=200, seed=4)
+    n = int(js.xyz.shape[0])
+    color = np.random.default_rng(4).uniform(-0.2, 1.3, (n, 3)).astype(np.float32)
+    bg = np.array([0.2, 0.4, 0.6], np.float32)
+    j = japi.render(_cam(w=64, h=48), js, jnp.asarray(bg), 1.0, jnp.asarray(color), TILED)
+    t = tapi.render(port_cam(w=64, h=48), port_scene(js), torch.from_numpy(bg), 1.0,
+                    torch.from_numpy(color), tapi.RasterizeSettings(renderer="torch"),
+                    device="cpu")
+    np.testing.assert_allclose(t["render"].numpy(), np.asarray(j["render"]), atol=3e-3)
+    np.testing.assert_allclose(t["final_T"].numpy(), np.asarray(j["final_T"]), atol=3e-3)
+    np.testing.assert_allclose(t["depth"].numpy(), np.asarray(j["depth"]), atol=3e-2)
+    assert float(t["render"].min()) < 0.0
 
 
 def test_random_sampling_offsets_range():

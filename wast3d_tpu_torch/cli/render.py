@@ -5,7 +5,10 @@
 `wast3d_tpu.cli.render`; the source path comes from the model's `cfg_args`
 when `-s` is not given. `--fast` (the default, as in the JAX package)
 renders with the bf16 tier of the blend (K1f), `--no-fast` with the exact
-f32 kernel (K1); `--batch` and `--autoplan` are accepted and do nothing
+f32 kernel (K1). `--batch B` renders the views in groups of B through
+`render_sets.render_batch` (the same images for any B); `--autoplan` is
+accepted and does nothing: the port's binning has no static capacities, so
+the tuner (`ops/rasterizer/autoplan.py`) is not called
 (see `eval/render_sets.py`).
 """
 
@@ -32,11 +35,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                              "default on as in the JAX package; --no-fast "
                              "for the exact f32 kernel)")
     parser.add_argument("--batch", type=int, default=1,
-                        help="accepted; views render one after another")
+                        help="views per render_batch call (the images do "
+                             "not depend on it)")
     parser.add_argument("--autoplan", action=argparse.BooleanOptionalAction,
                         default=True,
                         help="accepted and does nothing: binning has no "
-                             "static capacities to tune")
+                             "static capacities to tune, so the tuner is "
+                             "not called")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)

@@ -9,9 +9,9 @@ the same config groups), plus `--device` as `cli.render` has.
 scene with the sphere regularisers (`train/spheres.py`), built as the JAX
 CLI builds them. Differences:
 - `--renderer` takes JAX's "pallas" (the hand-written kernels, the
-  default) and "tiled" (their plain PyTorch versions), and the port's
-  aliases "cuda" and "torch"; "oracle" is accepted and raises, as the
-  per-pixel oracle is not ported (ROADMAP queue 1 item 5);
+  default), "tiled" (their plain PyTorch versions) and "oracle" (the
+  per-pixel oracle, `ops/rasterizer/oracle.py`: plain PyTorch, O(N·H·W),
+  for small test scenes), and the port's aliases "cuda" and "torch";
 - `--ip` / `--port` are accepted and no viewer starts (ROADMAP queue 1
   item 7, the viewer);
   `--debug_from`, `--detect_anomaly` and `--test_iterations` are accepted

@@ -38,15 +38,37 @@ def quat_to_rotmat(q: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     )
 
 
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s) [N,3,3]; `s` is the activated scale [N,3]."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
 def covariance_from_scaling_rotation(
     scaling: torch.Tensor, scaling_modifier: float, rotation: torch.Tensor
 ) -> torch.Tensor:
     """Sigma = L L^T with L = R diag(s), packed [N,6] as
     (xx, xy, xz, yy, yz, zz). `scaling` is the activated scale."""
-    L = quat_to_rotmat(rotation) * (scaling_modifier * scaling)[..., None, :]
-    cov = L @ L.transpose(-1, -2)
+    L = build_scaling_rotation(scaling_modifier * scaling, rotation)
+    return strip_symmetric(L @ L.transpose(-1, -2))
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """[N,3,3] symmetric -> [N,6] upper triangle (xx, xy, xz, yy, yz, zz)."""
     return torch.stack(
         [cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
          cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
         dim=-1,
+    )
+
+
+def unpack_symmetric(packed: torch.Tensor) -> torch.Tensor:
+    """[N,6] (xx, xy, xz, yy, yz, zz) -> [N,3,3] symmetric."""
+    xx, xy, xz, yy, yz, zz = (packed[..., i] for i in range(6))
+    return torch.stack(
+        [
+            torch.stack([xx, xy, xz], dim=-1),
+            torch.stack([xy, yy, yz], dim=-1),
+            torch.stack([xz, yz, zz], dim=-1),
+        ],
+        dim=-2,
     )

@@ -4,12 +4,14 @@ Port of `wast3d_tpu/eval/render_sets.py`: loads a trained scene (PLY at the
 requested iteration), renders every view and writes `renders/NNNNN.png` +
 `gt/NNNNN.png` (with `save_depth`, also `depth/NNNNN.png`: the depth
 min-max normalised, in three channels) under
-`<model_path>/<split>/ours_<iteration>/`. Views render
-one after another: a CUDA launch is cheap, so the JAX package's batching of
-views per dispatch has nothing to amortise here, and `batch` is accepted for
-the same call signature only. The JAX package's `autoplan` sizes static
-binning capacities to the scene; binning here has none, so `autoplan` is
-accepted and does nothing.
+`<model_path>/<split>/ours_<iteration>/`. `render_set` renders the views in
+groups of `batch` through `render_batch`, as JAX's does; JAX renders a group
+in one dispatch to amortise its dispatch latency, the port renders its views
+one after another (a CUDA launch is cheap) and stacks their outputs, so the
+images do not depend on `batch`. The JAX package's `autoplan` sizes static
+binning capacities to the scene (`ops/rasterizer/autoplan.py`); binning here
+has none and nothing would read the tuned settings, so `render_sets` does not
+call the tuner and `autoplan` does nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +38,25 @@ def save_image(path: str, img: np.ndarray) -> None:
     write_png(path, (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8))
 
 
+def render_batch(
+    cameras: List[Camera],
+    scene: GaussianScene,
+    bg_color: torch.Tensor,
+    settings: raster_api.RasterizeSettings = raster_api.RasterizeSettings(),
+    mode: str = "map",
+    *,
+    device: DeviceLike = None,
+) -> dict:
+    """Render B views and return `render`'s dict with a leading [B] axis on
+    every entry. `mode` is JAX's ("map" or "vmap"); both render the views
+    one after another here."""
+    if mode not in ("map", "vmap"):
+        raise ValueError(f"mode must be 'map' or 'vmap', got {mode!r}")
+    outs = [raster_api.render(cam, scene, bg_color, settings=settings, device=device)
+            for cam in cameras]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def render_set(
     model_path: str,
     name: str,
@@ -45,24 +66,29 @@ def render_set(
     bg_color: torch.Tensor,
     settings: raster_api.RasterizeSettings = raster_api.RasterizeSettings(),
     save_depth: bool = False,
+    batch: int = 1,
     *,
     device: DeviceLike = None,
 ) -> str:
-    """Render each (camera, ground truth or None) view and write its PNGs;
-    returns the `ours_<iteration>` directory."""
+    """Render the (camera, ground truth or None) views in groups of `batch`
+    and write their PNGs; returns the `ours_<iteration>` directory."""
     base = os.path.join(model_path, name, f"ours_{iteration}")
-    for idx, (cam, gt) in enumerate(cameras):
-        out = raster_api.render(cam, scene, bg_color, settings=settings,
-                                device=device)
-        save_image(os.path.join(base, "renders", f"{idx:05d}.png"),
-                   out["render"].cpu().numpy())
-        if gt is not None:
-            save_image(os.path.join(base, "gt", f"{idx:05d}.png"), gt)
-        if save_depth:
-            d = out["depth"].cpu().numpy()
-            dn = (d - d.min()) / (np.ptp(d) + 1e-9)
-            save_image(os.path.join(base, "depth", f"{idx:05d}.png"),
-                       np.stack([dn] * 3, -1))
+    for b0 in range(0, len(cameras), batch):
+        group = cameras[b0:b0 + batch]
+        out = render_batch([c for c, _ in group], scene, bg_color, settings=settings,
+                           device=device)
+        renders = out["render"].cpu().numpy()
+        depths = out["depth"].cpu().numpy() if save_depth else None
+        for j, (_, gt) in enumerate(group):
+            idx = b0 + j
+            save_image(os.path.join(base, "renders", f"{idx:05d}.png"), renders[j])
+            if gt is not None:
+                save_image(os.path.join(base, "gt", f"{idx:05d}.png"), gt)
+            if save_depth:
+                d = depths[j]
+                dn = (d - d.min()) / (np.ptp(d) + 1e-9)
+                save_image(os.path.join(base, "depth", f"{idx:05d}.png"),
+                           np.stack([dn] * 3, -1))
     return base
 
 
@@ -80,9 +106,10 @@ def render_sets(
     device: DeviceLike = None,
 ) -> None:
     """Render the train and test splits of `source_path` with the model in
-    `model_path` on `device` (None means CUDA). `batch` and `autoplan` are
-    accepted and do nothing (module docstring)."""
-    del batch, autoplan
+    `model_path` on `device` (None means CUDA), `batch` views to a
+    `render_batch` call. `autoplan` is accepted and does nothing: the tuner
+    is not called (module docstring)."""
+    del autoplan
     dev = resolve_device(device)
     if iteration == -1:
         iteration = find_max_iteration(model_path)
@@ -100,4 +127,4 @@ def render_sets(
     for name, infos in splits:
         render_set(model_path, name, iteration,
                    build_cameras(infos, resolution, device=dev), scene, bg,
-                   settings, device=dev)
+                   settings, batch=batch, device=dev)

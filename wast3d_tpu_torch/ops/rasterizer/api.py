@@ -6,16 +6,23 @@ and the JAX package's renderer names: "pallas" runs the hand-written kernels
 (K1 forward, K2 blend backward, K3 gradient reduction; on CPU tensors each
 wrapper takes its plain version) and "tiled", which JAX documents as the
 reference implementation for its kernel, runs their plain PyTorch versions
-everywhere. "cuda" and "torch" are the port's older names for the two.
+everywhere; "oracle" runs the per-pixel oracle (`oracle.py`, plain PyTorch,
+O(N·H·W), for tests). "cuda" and "torch" are the port's older names for the
+first two.
 
 The output is differentiable with respect to the scene's tensors. Two
 gradient taps, as in the JAX package: `means2d_offset` ([N, 2] zeros added
 to the projected means; its gradient is the view-space positional gradient
 that densification accumulates) and `view_depth_offset` ([N] zeros added to
 the view depths; its gradient is the per-Gaussian expected-depth gradient).
-Depth gradients reach the means through the view matrix by autograd. The
-precomputed-colour / precomputed-covariance options are not ported
-(`override_color` raises).
+Depth gradients reach the means through the view matrix by autograd.
+
+As in JAX, `override_color` ([N, 3], taken as given: no +0.5, no clamp)
+replaces the SH colours; `convert_shs_python` evaluates the SH colours
+outside preprocess (normalised view directions) and hands them in as
+precomputed colours; `compute_cov3d_python` hands in the scene's packed
+covariance instead of its scales and rotations. Gradients reach each of
+them through the same blend backward.
 """
 
 from __future__ import annotations
@@ -25,25 +32,28 @@ from typing import NamedTuple, Optional
 import torch
 
 from wast3d_tpu_torch.core.camera import Camera
+from wast3d_tpu_torch.core.sh import eval_sh_color
 from wast3d_tpu_torch.device import DeviceLike, resolve_device
-from wast3d_tpu_torch.ops.rasterizer import preprocess as prep_mod
 from wast3d_tpu_torch.ops.rasterizer import grad_reduce as reduce_mod
+from wast3d_tpu_torch.ops.rasterizer import oracle as oracle_mod
+from wast3d_tpu_torch.ops.rasterizer import preprocess as prep_mod
 from wast3d_tpu_torch.ops.rasterizer.render_path import render_sorted
 from wast3d_tpu_torch.scene.gaussians import GaussianScene
 
 # renderer name -> whether it runs the kernels (JAX's names, then the
-# port's older aliases)
-RENDERERS = {"pallas": True, "tiled": False, "cuda": True, "torch": False}
+# port's older aliases); the oracle is plain PyTorch of its own
+RENDERERS = {"pallas": True, "tiled": False, "oracle": False, "cuda": True,
+             "torch": False}
 
 
 class RasterizeSettings(NamedTuple):
     """The JAX package's fields, in its order.
 
-    renderer: "pallas" (K1, K2, K3; the default) or "tiled" (their plain
-    versions); "cuda" and "torch" are aliases of the two. JAX's default is
-    "tiled": the port's is the kernels, so that a plain version is never on
-    a path where a card is present. "oracle" (JAX's per-pixel renderer for
-    tests) is not ported and raises.
+    renderer: "pallas" (K1, K2, K3; the default), "tiled" (their plain
+    versions) or "oracle" (the per-pixel oracle, for tests); "cuda" and
+    "torch" are aliases of the first two. JAX's default is "tiled": the
+    port's is the kernels, so that a plain version is never on a path where
+    a card is present.
     dup_capacity, max_per_tile, chunk, max_tiles_per_gaussian,
     pallas_interpret, phase_a_tiles, big_budget_divisor, floor_band_budget,
     phase_plan, route_capacity: the JAX package's static capacities and
@@ -82,14 +92,9 @@ class RasterizeSettings(NamedTuple):
 
 
 def use_kernels(renderer: str) -> bool:
-    """Whether `renderer` runs the kernels (True) or their plain versions."""
-    if renderer == "oracle":
-        raise NotImplementedError(
-            'renderer="oracle" (the per-pixel oracle) is not ported yet (ROADMAP '
-            'queue 1 item 5, rasterizer API completeness); "tiled" is the plain path')
+    """Whether `renderer` runs the kernels (True) or plain PyTorch."""
     if renderer not in RENDERERS:
-        raise ValueError(f"renderer must be one of {sorted(RENDERERS)} or 'oracle', "
-                         f"got {renderer!r}")
+        raise ValueError(f"renderer must be one of {sorted(RENDERERS)}, got {renderer!r}")
     return RENDERERS[renderer]
 
 
@@ -101,8 +106,27 @@ def random_sampling_offsets(generator: torch.Generator, height: int,
 
 
 def preprocess_scene(camera: Camera, scene: GaussianScene,
-                     scaling_modifier: float = 1.0) -> prep_mod.Preprocessed:
-    """Project `scene` into `camera` (both on one device)."""
+                     scaling_modifier: float = 1.0,
+                     override_color: Optional[torch.Tensor] = None,
+                     convert_shs_python: bool = False,
+                     compute_cov3d_python: bool = False) -> prep_mod.Preprocessed:
+    """Project `scene` into `camera` (both on one device), with `render`'s
+    colour and covariance options."""
+    colors_precomp = shs = None
+    if override_color is not None:
+        colors_precomp = override_color
+    elif convert_shs_python:
+        dirs = scene.get_xyz - camera.camera_center[None, :]
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        colors_precomp = eval_sh_color(scene.active_sh_degree,
+                                       scene.get_features.transpose(1, 2), dirs)
+    else:
+        shs = scene.get_features
+    scales = rotations = cov3d_precomp = None
+    if compute_cov3d_python:
+        cov3d_precomp = scene.get_covariance(scaling_modifier)
+    else:
+        scales, rotations = scene.get_scaling, scene.get_rotation
     return prep_mod.preprocess(
         means3d=scene.get_xyz,
         opacities=scene.get_opacity,
@@ -114,9 +138,11 @@ def preprocess_scene(camera: Camera, scene: GaussianScene,
         width=camera.width,
         height=camera.height,
         sh_degree=scene.active_sh_degree,
-        shs=scene.get_features,
-        scales=scene.get_scaling,
-        rotations=scene.get_rotation,
+        shs=shs,
+        colors_precomp=colors_precomp,
+        scales=scales,
+        rotations=rotations,
+        cov3d_precomp=cov3d_precomp,
         scaling_modifier=scaling_modifier,
         mask=scene.mask,
     )
@@ -132,22 +158,20 @@ def render(
     sampling_offsets: Optional[torch.Tensor] = None,
     means2d_offset: Optional[torch.Tensor] = None,
     view_depth_offset: Optional[torch.Tensor] = None,
+    convert_shs_python: bool = False,
+    compute_cov3d_python: bool = False,
     *,
     device: DeviceLike = None,
 ) -> dict:
     """Render `scene` from `camera` on `device` (None means CUDA). Returns
     render [H,W,3], depth [H,W], final_T [H,W], radii [N] int32,
     visibility_filter [N] bool, and overflow / overflow_emit / overflow_rect
-    (always False: binning has no capacities to overflow). The gradient
-    taps are described in the module docstring.
+    (always False: binning has no capacities to overflow, and the oracle
+    none either). The gradient taps and the colour and covariance options
+    are described in the module docstring.
 
     The positional order is the JAX package's; `device` is the port's own
-    and keyword-only. `override_color` (precomputed colours) is not ported
-    yet: any value but None raises."""
-    if override_color is not None:
-        raise NotImplementedError(
-            "render(override_color=...) is not ported yet (ROADMAP queue 1 item 5, "
-            "rasterizer API completeness)")
+    and keyword-only."""
     use_kernel = use_kernels(settings.renderer)
     if settings.grad_reduce not in reduce_mod.GRAD_REDUCES:
         raise ValueError(f"grad_reduce must be one of {reduce_mod.GRAD_REDUCES}, got "
@@ -161,24 +185,35 @@ def render(
     if sampling_offsets is not None:
         sampling_offsets = sampling_offsets.to(dev, torch.float32).contiguous()
 
-    prep = preprocess_scene(camera, scene, scaling_modifier)
+    if override_color is not None:
+        override_color = override_color.to(dev)
+    prep = preprocess_scene(camera, scene, scaling_modifier, override_color,
+                            convert_shs_python, compute_cov3d_python)
     if means2d_offset is not None:
         prep = prep._replace(means2d=prep.means2d + means2d_offset)
     if view_depth_offset is not None:
         prep = prep._replace(depths=prep.depths + view_depth_offset.reshape(-1))
-    out = render_sorted(prep, camera.width, camera.height, bg,
-                        sampling_offsets, tile_cull=settings.tile_cull,
-                        use_kernel=use_kernel,
-                        grad_reduce=settings.grad_reduce,
-                        fast_chain=settings.fast_chain)
-    b = out.binning
+    if settings.renderer == "oracle":
+        color, depth, final_t = oracle_mod.render_oracle(
+            prep, camera.width, camera.height, bg, sampling_offsets)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        overflow = overflow_emit = overflow_rect = false
+    else:
+        out = render_sorted(prep, camera.width, camera.height, bg,
+                            sampling_offsets, tile_cull=settings.tile_cull,
+                            use_kernel=use_kernel,
+                            grad_reduce=settings.grad_reduce,
+                            fast_chain=settings.fast_chain)
+        color, depth, final_t = out.color, out.depth, out.final_T
+        b = out.binning
+        overflow, overflow_emit, overflow_rect = b.overflow, b.overflow_emit, b.overflow_rect
     return {
-        "render": out.color,
-        "depth": out.depth,
-        "final_T": out.final_T,
+        "render": color,
+        "depth": depth,
+        "final_T": final_t,
         "radii": prep.radii,
         "visibility_filter": prep.radii > 0,
-        "overflow": b.overflow,
-        "overflow_emit": b.overflow_emit,
-        "overflow_rect": b.overflow_rect,
+        "overflow": overflow,
+        "overflow_emit": overflow_emit,
+        "overflow_rect": overflow_rect,
     }

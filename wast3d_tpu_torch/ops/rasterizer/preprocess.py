@@ -15,8 +15,14 @@ ops on the device of the inputs:
 - ndc2Pix pixel mapping ((v+1)*S - 1)/2,
 - SH -> RGB with +0.5 offset and clamp.
 
+As in JAX, precomputed colours (`colors_precomp`, taken as given: no +0.5,
+no clamp) stand in for the SH, and a precomputed packed covariance
+(`cov3d_precomp`, [N, 6] as (xx, xy, xz, yy, yz, zz)) for the scales and
+rotations; exactly one of each pair is given.
+
 It is differentiable by autograd: gradients reach means, scales,
-rotations, opacities and SH, and depth gradients reach the means through
+rotations (or the precomputed covariance), opacities and SH (or the
+precomputed colours), and depth gradients reach the means through
 the view matrix. Near-culled Gaussians take a safe depth of 1 inside the
 EWA chain (as `det_safe` does for the determinant), so culled and masked
 Gaussians get zero, not NaN, gradients; they are not drawn, so no output
@@ -61,15 +67,23 @@ def preprocess(
     tan_fovy: float,
     width: int,
     height: int,
-    sh_degree: int,
-    shs: torch.Tensor,
-    scales: torch.Tensor,
-    rotations: torch.Tensor,
+    sh_degree: int = 0,
+    shs: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+    scales: Optional[torch.Tensor] = None,
+    rotations: Optional[torch.Tensor] = None,
+    cov3d_precomp: Optional[torch.Tensor] = None,
     scaling_modifier: float = 1.0,
     mask: Optional[torch.Tensor] = None,
 ) -> Preprocessed:
     """Project N Gaussians into a camera. `scales`/`rotations` are the
-    activated values (exp / normalised); `shs` is [N, K, 3]."""
+    activated values (exp / normalised); `shs` is [N, K, 3]. Give `shs` or
+    `colors_precomp` [N, 3], and `scales` with `rotations` or
+    `cov3d_precomp` [N, 6] (JAX's argument order)."""
+    if (shs is None) == (colors_precomp is None):
+        raise ValueError("give exactly one of shs and colors_precomp")
+    if (cov3d_precomp is None) == (scales is None or rotations is None):
+        raise ValueError("give exactly one of (scales, rotations) and cov3d_precomp")
     n = means3d.shape[0]
     # focal lengths in float32, as the JAX camera computes them on device
     focal_x = float(np.float32(width) / (np.float32(2.0) * np.float32(tan_fovx)))
@@ -94,26 +108,29 @@ def preprocess(
     means2d = torch.stack([mean_x, mean_y], dim=1)
 
     # 3D covariance Sigma = R S S^T R^T, componentwise.
-    qw, qx, qy, qz = (rotations[:, i] for i in range(4))
-    sx, sy, sz = (scaling_modifier * scales[:, i] for i in range(3))
-    r00 = 1.0 - 2.0 * (qy * qy + qz * qz)
-    r01 = 2.0 * (qx * qy - qw * qz)
-    r02 = 2.0 * (qx * qz + qw * qy)
-    r10 = 2.0 * (qx * qy + qw * qz)
-    r11 = 1.0 - 2.0 * (qx * qx + qz * qz)
-    r12 = 2.0 * (qy * qz - qw * qx)
-    r20 = 2.0 * (qx * qz - qw * qy)
-    r21 = 2.0 * (qy * qz + qw * qx)
-    r22 = 1.0 - 2.0 * (qx * qx + qy * qy)
-    l00, l01, l02 = r00 * sx, r01 * sy, r02 * sz
-    l10, l11, l12 = r10 * sx, r11 * sy, r12 * sz
-    l20, l21, l22 = r20 * sx, r21 * sy, r22 * sz
-    sxx = l00 * l00 + l01 * l01 + l02 * l02
-    sxy = l00 * l10 + l01 * l11 + l02 * l12
-    sxz = l00 * l20 + l01 * l21 + l02 * l22
-    syy = l10 * l10 + l11 * l11 + l12 * l12
-    syz = l10 * l20 + l11 * l21 + l12 * l22
-    szz = l20 * l20 + l21 * l21 + l22 * l22
+    if cov3d_precomp is not None:
+        sxx, sxy, sxz, syy, syz, szz = (cov3d_precomp[:, i] for i in range(6))
+    else:
+        qw, qx, qy, qz = (rotations[:, i] for i in range(4))
+        sx, sy, sz = (scaling_modifier * scales[:, i] for i in range(3))
+        r00 = 1.0 - 2.0 * (qy * qy + qz * qz)
+        r01 = 2.0 * (qx * qy - qw * qz)
+        r02 = 2.0 * (qx * qz + qw * qy)
+        r10 = 2.0 * (qx * qy + qw * qz)
+        r11 = 1.0 - 2.0 * (qx * qx + qz * qz)
+        r12 = 2.0 * (qy * qz - qw * qx)
+        r20 = 2.0 * (qx * qz - qw * qy)
+        r21 = 2.0 * (qy * qz + qw * qx)
+        r22 = 1.0 - 2.0 * (qx * qx + qy * qy)
+        l00, l01, l02 = r00 * sx, r01 * sy, r02 * sz
+        l10, l11, l12 = r10 * sx, r11 * sy, r12 * sz
+        l20, l21, l22 = r20 * sx, r21 * sy, r22 * sz
+        sxx = l00 * l00 + l01 * l01 + l02 * l02
+        sxy = l00 * l10 + l01 * l11 + l02 * l12
+        sxz = l00 * l20 + l01 * l21 + l02 * l22
+        syy = l10 * l10 + l11 * l11 + l12 * l12
+        syz = l10 * l20 + l11 * l21 + l12 * l22
+        szz = l20 * l20 + l21 * l21 + l22 * l22
 
     # EWA projection: clamp view x/y to the dilated frustum.
     tz = torch.where(near_ok, depths, one)
@@ -175,12 +192,15 @@ def preprocess(
     if mask is not None:
         valid = valid & mask
 
-    dx = x - camera_center[0]
-    dy = y - camera_center[1]
-    dz = z - camera_center[2]
-    inv_n = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-20)
-    dirs = torch.stack([dx * inv_n, dy * inv_n, dz * inv_n], dim=1)
-    colors = eval_sh_color(sh_degree, shs.transpose(1, 2), dirs)
+    if colors_precomp is not None:
+        colors = colors_precomp
+    else:
+        dx = x - camera_center[0]
+        dy = y - camera_center[1]
+        dz = z - camera_center[2]
+        inv_n = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-20)
+        dirs = torch.stack([dx * inv_n, dy * inv_n, dz * inv_n], dim=1)
+        colors = eval_sh_color(sh_degree, shs.transpose(1, 2), dirs)
 
     return Preprocessed(
         means2d=means2d,
