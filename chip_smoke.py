@@ -53,7 +53,16 @@ with depth PNGs and `cli.metrics` (`wast3d_tpu_torch.cli.metrics`), whose
 card numbers are held to the CPU's on the same PNGs; and image-space
 refinement (`wast3d_tpu_torch.refine.drivers.refine` in its five modes,
 K1, K2, K3 once a step each) with `cluster_teleport` and the intracluster
-statistics.
+statistics. Last, `parallel/` on two ranks sharing the card (spawned
+processes in a gloo group; NCCL refuses two ranks on one GPU): the
+tile-sharded frame in both tiers against `api.render`, a tile-sharded
+step's gradients against one device's, the ring 3-NN at 200k, the
+halo-exchange loss, and the frame on a one-rank nccl group
+(`parallel_cases`); then `ShardedTrainer` over the data axis on the train
+entry point's dataset, `fit_all_balls(mesh)` at Mp = 16384 and
+`stylize_sweep(mesh)` on four styles, each against the one-device path
+(`parallel_entry_point`). Their times are two ranks sharing one H100 through
+gloo's host staging, not scaling figures.
 Each entry point runs with the kernels' launch counts set to 0 just before
 it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
@@ -2726,8 +2735,8 @@ def phase_sweep_entry_point(device, spacing, fit_steps=SWEEP_FIT_STEPS,
     seen = {}
     real = sweep.fit_balls_sweep
 
-    def spy(targets, descs, balls, mask, cfg, batch_size=8):
-        out = real(targets, descs, balls, mask, cfg, batch_size)
+    def spy(targets, descs, balls, mask, cfg, batch_size=8, mesh=None):
+        out = real(targets, descs, balls, mask, cfg, batch_size, mesh)
         seen.update(targets=targets, descs=descs, balls=balls, mask=mask, out=out,
                     batch_size=batch_size)
         return out
@@ -2794,6 +2803,538 @@ def phase_sweep_entry_point(device, spacing, fit_steps=SWEEP_FIT_STEPS,
          launches=launches, plys=plys, style0_fit_bit_equal=style0_bit_equal,
          descriptor_loss=falls, setup_s=t_setup, cli_s=cli_s)
     return launches
+
+
+# ---- parallel/: two ranks sharing the card ---------------------------------------
+#
+# The ranks are spawned processes (`parallel.multihost.spawn`) that import this
+# file again; their functions (`_rank_*`) run on cuda:0 in a gloo group named
+# here, the one backend that lets two ranks share a card (NCCL refuses two ranks
+# on one GPU). Times in these phases are two ranks sharing one H100, gloo staging
+# through the host: none is a scaling figure.
+
+PAR_RANKS = 2
+PAR_REPS = 20  # timed frames / steps / routings, after PAR_WARMUP
+PAR_WARMUP = 3
+PAR_TRAIN_ITERS = 100  # ShardedTrainer: densify at 50 and 100
+PAR_FIT_STEPS = 200  # the ball fit and the sweep, cut from 1000
+RING_RTOL, RING_ATOL = 1e-4, 1e-6  # tests/test_parallel.py:49
+SHARDED_LOSS_RTOL = 1e-5  # tests/test_parallel.py:376
+# The ball fit over ranks against one device: each ball's fit is its own,
+# but a rank fits 4 of each batch's 8 balls, and kernels of another batch
+# size may round otherwise (Adam then moves a coordinate with a near-zero
+# gradient by up to its rate a step). Held to the bound that
+# tests/test_torch_stylize.py sets for one fit under two roundings.
+FIT_PARITY_RTOL, FIT_PARITY_ATOL = 1e-4, 1e-5
+
+
+def _median_host_ms(fn, reps=PAR_REPS, warmup=PAR_WARMUP):
+    """Median of `reps` host-clock times of fn() + synchronize, after `warmup`."""
+    times = []
+    for i in range(warmup + reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _gloo_cuda_probe(device):
+    """Which collectives gloo takes CUDA tensors for, with the right values,
+    on a group of its own with a short timeout: 'ok', 'wrong values' or the
+    error. Point-to-point is left out: a gloo send of a CUDA tensor aborts
+    the process (its transport writes from the device address: "writev ...
+    Bad address", an exception in gloo's own thread)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=60))
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def x(r=rank):
+        return torch.arange(4, dtype=torch.float32, device=device) + 10 * r
+
+    def broadcast():
+        t = x()
+        dist.broadcast(t, 0, group=group)
+        return t, x(0)
+
+    def all_reduce():
+        t = x()
+        dist.all_reduce(t, group=group)
+        return t, sum(x(r) for r in range(world))
+
+    def all_gather():
+        parts = [torch.empty_like(x()) for _ in range(world)]
+        dist.all_gather(parts, x(), group=group)
+        return torch.cat(parts), torch.cat([x(r) for r in range(world)])
+
+    def all_to_all_single():
+        t = torch.empty_like(x())
+        dist.all_to_all_single(t, x(), group=group)
+        chunk = 4 // world
+        return t, torch.cat([x(r)[rank * chunk:(rank + 1) * chunk] for r in range(world)])
+
+    out = {}
+    for op in (broadcast, all_reduce, all_gather, all_to_all_single):
+        try:
+            got, want = op()
+            torch.cuda.synchronize()
+            out[op.__name__] = "ok" if torch.equal(got, want) else "wrong values"
+        except (RuntimeError, ValueError) as e:
+            out[op.__name__] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    dist.destroy_process_group(group)
+    return out
+
+
+def _on(device):
+    """This rank's device (the card the ranks share)."""
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def _rank_parallel_cases(device, n, res, gt, target):
+    """`parallel_cases` on one gloo rank on `device`: the f32 and bf16 strips,
+    the tile-sharded gradients and 23 steps, the ring 3-NN, the sharded loss."""
+    import torch.distributed as dist
+
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+    from wast3d_tpu_torch.parallel import make_mesh, scene_sharding, shard_train_state
+    from wast3d_tpu_torch.parallel.losses import photometric_loss_sharded
+    from wast3d_tpu_torch.parallel.render_sharded import padded_grid, render_tile_sharded, route_rows
+    from wast3d_tpu_torch.parallel.ring import ring_mean_sq_dist_to_3nn
+    from wast3d_tpu_torch.parallel.train_sharded import make_tile_sharded_train_step
+    from wast3d_tpu_torch.train.reconstruct import init_train_state
+
+    device = _on(device)
+    out = {"gloo_cuda": _gloo_cuda_probe(device)}
+    mesh = make_mesh(data=1)
+    rows = scene_sharding(mesh, n)
+    arrays = {k: v[rows] for k, v in bench_scene(n).items()}
+    scene = make_scene(arrays, device)
+    cam = view_camera(res, res, device)
+    bg = torch.zeros(3, device=device)
+    gt = torch.from_numpy(gt).to(device)
+    settings = api.RasterizeSettings()
+
+    reset_kernel_counts()
+    frame = render_tile_sharded(cam, scene, bg, mesh, settings)
+    torch.cuda.synchronize()
+    out["frame_launches"] = kernel_counts()
+    out["frame"] = {k: frame[k].cpu().numpy() for k in ("render", "depth", "final_T")}
+    out["height_pad"] = frame["height_pad"]
+    fast = render_tile_sharded(cam, scene, bg, mesh, settings._replace(fast_chain=True))
+    out["frame_fast"] = fast["render"].cpu().numpy()
+    dist.barrier()
+    out["frame_ms"] = _median_host_ms(lambda: render_tile_sharded(cam, scene, bg, mesh, settings))
+    out["frame_fast_ms"] = _median_host_ms(
+        lambda: render_tile_sharded(cam, scene, bg, mesh, settings._replace(fast_chain=True)))
+    # The duplicate routing alone, on this frame's sorted rows.
+    grid_x, grid_y_pad = padded_grid(res, res, PAR_RANKS)
+    prep = api.preprocess_scene(cam, scene)
+    binning, sorted_rows = render_path.bin_and_pack(prep, res, grid_y_pad * 16)
+    group = mesh.get_group("model")
+    tiles_per_shard = grid_x * grid_y_pad // PAR_RANKS
+    got, _ = route_rows(sorted_rows, binning.tile_of_dup, tiles_per_shard, group)
+    out["a2a_sent_rows"] = int(sorted_rows.shape[0])
+    out["a2a_received_rows"] = int(got.shape[0])
+    out["a2a_bytes_sent"] = int(sorted_rows.shape[0]) * (sorted_rows.shape[1] * 4 + 8)
+    dist.barrier()
+    out["a2a_ms"] = _median_host_ms(
+        lambda: route_rows(sorted_rows, binning.tile_of_dup, tiles_per_shard, group))
+
+    # (b) the tile-sharded step's gradients, then 23 steps
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+    reset_kernel_counts()
+    live = render_tile_sharded(cam, scene.with_params(params), bg, mesh, settings)
+    loss = photometric_loss_sharded(live["render"], gt, mesh, res)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    out["grad_launches"] = kernel_counts()
+    out["grads"] = {k: g.cpu().numpy() for k, g in zip(params, grads)}
+    out["grad_loss"] = float(loss.detach())
+    full = make_scene(bench_scene(n), device)
+    state = shard_train_state(init_train_state(full, OptimizationConfig(), 1.0), mesh)
+    del full
+    step = make_tile_sharded_train_step(mesh, OptimizationConfig(), settings)
+    holder = {"state": state, "losses": []}
+
+    def one_step():
+        holder["state"], aux = step(holder["state"], cam, gt, bg)
+        holder["losses"].append(float(aux["loss"]))
+
+    dist.barrier()
+    reset_kernel_counts()
+    out["step_ms"] = _median_host_ms(one_step)
+    out["step_launches"] = kernel_counts()
+    out["step_losses"] = holder["losses"]
+
+    # (c) the ring 3-NN at n
+    dist.barrier()
+    t = time.perf_counter()
+    ring = ring_mean_sq_dist_to_3nn(scene.xyz, mesh)
+    torch.cuda.synchronize()
+    out["ring_s"] = time.perf_counter() - t
+    out["ring"] = ring.cpu().numpy()
+    # (d) the halo-exchange loss of the f32 strips against a random image
+    out["sharded_loss"] = float(photometric_loss_sharded(
+        frame["render"], torch.from_numpy(target).to(device), mesh, res))
+    return out
+
+
+def _rank_nccl_frame(device, n, res, target):
+    """The f32 frame through `render_tile_sharded`, and its sharded loss,
+    on a one-rank nccl group (every collective runs, on one rank)."""
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.parallel import make_mesh
+    from wast3d_tpu_torch.parallel.losses import photometric_loss_sharded
+    from wast3d_tpu_torch.parallel.render_sharded import render_tile_sharded
+
+    device = _on(device)
+    mesh = make_mesh(data=1)
+    scene = make_scene(bench_scene(n), device)
+    reset_kernel_counts()
+    frame = render_tile_sharded(view_camera(res, res, device), scene,
+                                torch.zeros(3, device=device), mesh, api.RasterizeSettings())
+    torch.cuda.synchronize()
+    loss = photometric_loss_sharded(frame["render"], torch.from_numpy(target).to(device),
+                                    mesh, res)
+    return {"frame": frame["render"].cpu().numpy(), "launches": kernel_counts(),
+            "mesh_device": str(mesh.device_type), "loss": float(loss),
+            "backend": torch.distributed.get_backend()}
+
+
+def _frame_diff(a, b):
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(d.max()), float(d.mean())
+
+
+def phase_parallel_cases(device, n=FULL_N, res=FULL_RES):
+    """`parallel/` on two gloo ranks sharing cuda:0, on the 200k / 800x800
+    shell (jitter off): (a) `render_tile_sharded`'s stitched strips against
+    `api.render` within K1's limits, bit equality reported, in the f32 tier
+    and (bf16) against the K1f frame; (b) one tile-sharded step's gradients
+    of every parameter, gathered, against the single-device step's within
+    K2's bound (1e-3 of each column's max), and 23 steps; (c)
+    `ring_mean_sq_dist_to_3nn` at 200k against `ops.knn.mean_sq_dist_to_3nn`
+    (rtol 1e-4, atol 1e-6); (d) `photometric_loss_sharded` of the strips
+    against `photometric_loss` of the frame, on a uniform random target as
+    JAX's test takes (rtol 1e-5); (e) the f32 frame on a one-rank nccl
+    group. K1, K2 and K3 must launch on each rank. Times are two ranks
+    sharing one H100 through gloo's host staging, not scaling figures."""
+    from wast3d_tpu_torch.ops.image_losses import photometric_loss
+    from wast3d_tpu_torch.ops.knn import mean_sq_dist_to_3nn
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    arrays = bench_scene(n)
+    scene = make_scene(arrays, device)
+    cam = view_camera(res, res, device)
+    bg = torch.zeros(3, device=device)
+    settings = api.RasterizeSettings()
+    single = api.render(cam, scene, bg, settings=settings, device=device)
+    single_fast = api.render(cam, scene, bg, settings=settings._replace(fast_chain=True),
+                             device=device)
+    gt = api.render(cam, make_scene(perturbed(arrays), device), bg, settings=settings,
+                    device=device)["render"].detach()
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+    out = api.render(cam, scene.with_params(params), bg, settings=settings, device=device)
+    loss = photometric_loss(out["render"], gt)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    single_ms = _median_host_ms(lambda: api.render(cam, scene, bg, settings=settings,
+                                                   device=device))
+    ring_ref = mean_sq_dist_to_3nn(scene.xyz).cpu().numpy()
+    # JAX's test_parallel.py holds its sharded loss on uniform images: there
+    # the loss is ~0.3, and rtol 1e-5 measures the sums, not a cancellation
+    target = np.random.default_rng(4).uniform(0, 1, (res, res, 3)).astype(np.float32)
+    loss_ref = float(photometric_loss(single["render"], torch.from_numpy(target).to(device)))
+    t_ref = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    ranks = multihost.spawn(_rank_parallel_cases, PAR_RANKS,
+                            (str(device), n, res, gt.cpu().numpy(), target), backend="gloo")
+    ranks_s = time.perf_counter() - t1
+
+    h = res
+    frame = {k: np.concatenate([r["frame"][k] for r in ranks])[:h]
+             for k in ("render", "depth", "final_T")}
+    want = {"render": single["render"], "depth": single["depth"], "final_T": single["final_T"]}
+    want = {k: v.detach().cpu().numpy() for k, v in want.items()}
+    color_max, color_mean = _frame_diff(frame["render"], want["render"])
+    t_max, t_mean = _frame_diff(frame["final_T"], want["final_T"])
+    depth_max, _ = _frame_diff(frame["depth"], want["depth"])
+    frame_bits = all(np.array_equal(frame[k], want[k]) for k in frame)
+    if not (color_max <= TOL_MAX and t_max <= TOL_MAX and color_mean <= TOL_MEAN
+            and depth_max <= TOL_DEPTH):
+        raise AssertionError(f"tile-sharded frame vs api.render: colour {color_max} / "
+                             f"{color_mean}, final_T {t_max}, depth {depth_max}")
+    fast = np.concatenate([r["frame_fast"] for r in ranks])[:h]
+    fast_want = single_fast["render"].cpu().numpy()
+    fast_max, fast_mean = _frame_diff(fast, fast_want)
+    fast_bits = bool(np.array_equal(fast, fast_want))
+    if not (fast_max <= TOL_MAX and fast_mean <= TOL_MEAN):
+        raise AssertionError(f"tile-sharded bf16 frame vs the K1f frame: {fast_max} / {fast_mean}")
+
+    grad_err = {}
+    for k, g in grads.items():
+        got = np.concatenate([r["grads"][k] for r in ranks]).reshape(g.shape[0], -1)
+        ref = g.cpu().numpy().reshape(g.shape[0], -1)
+        scale = np.maximum(np.abs(ref).max(0), 1e-30)
+        grad_err[k] = float((np.abs(got - ref).max(0) / scale).max())
+    if max(grad_err.values()) > K2_TOL:
+        raise AssertionError(f"tile-sharded gradients vs one device (of each column's max): "
+                             f"{grad_err}")
+    ring = np.concatenate([r["ring"] for r in ranks])
+    ring_ok = np.allclose(ring, ring_ref, rtol=RING_RTOL, atol=RING_ATOL)
+    ring_err = float(np.max(np.abs(ring - ring_ref) / (RING_ATOL + RING_RTOL * np.abs(ring_ref))))
+    if not ring_ok:
+        raise AssertionError(f"ring 3-NN vs ops.knn: {ring_err} of the bound")
+    loss_err = max(abs(r["sharded_loss"] - loss_ref) / abs(loss_ref) for r in ranks)
+    if loss_err > SHARDED_LOSS_RTOL:
+        raise AssertionError(f"sharded loss {[r['sharded_loss'] for r in ranks]} vs {loss_ref}")
+    steps = PAR_WARMUP + PAR_REPS
+    for r in ranks:
+        if r["frame_launches"] != only(blend_fwd=1):
+            raise AssertionError(f"a strip render launched {r['frame_launches']}, want K1 once")
+        if r["grad_launches"] != only(blend_fwd=1, blend_bwd=1, segment_sum=1):
+            raise AssertionError(f"a step's gradients launched {r['grad_launches']}, "
+                                 "want K1, K2, K3 once each")
+        if r["step_launches"] != only(blend_fwd=steps, blend_bwd=steps, segment_sum=steps):
+            raise AssertionError(f"{steps} steps launched {r['step_launches']}")
+    if not ranks[0]["step_losses"][-1] < ranks[0]["step_losses"][0]:
+        raise AssertionError(f"tile-sharded steps: loss {ranks[0]['step_losses']}")
+
+    t2 = time.perf_counter()
+    nccl = multihost.spawn(_rank_nccl_frame, 1, (str(device), n, res, target),
+                           backend="nccl")[0]
+    nccl_s = time.perf_counter() - t2
+    nccl_max, nccl_mean = _frame_diff(nccl["frame"][:h], want["render"])
+    nccl_bits = bool(np.array_equal(nccl["frame"][:h], want["render"]))
+    nccl_loss_rel = abs(nccl["loss"] - loss_ref) / abs(loss_ref)
+    if (not (nccl_max <= TOL_MAX and nccl_mean <= TOL_MEAN) or nccl_loss_rel > SHARDED_LOSS_RTOL
+            or nccl["launches"] != only(blend_fwd=1)):
+        raise AssertionError(f"nccl frame vs api.render: {nccl_max} / {nccl_mean}, loss "
+                             f"{nccl_loss_rel}, launches {nccl['launches']}")
+    emit("parallel_cases", t0, ranks=PAR_RANKS, backend="gloo (CUDA tensors staged through the "
+         "host)", n=n, width=res, height=res, height_pad=ranks[0]["height_pad"],
+         frame_bit_equal=frame_bits, frame_color_max=color_max, frame_color_mean=color_mean,
+         frame_final_t_max=t_max, frame_depth_max=depth_max,
+         frame_fast_bit_equal=fast_bits, frame_fast_max=fast_max,
+         grad_max_rel_of_column_max=grad_err,
+         ring_max_of_bound=ring_err, ring_bit_equal=bool(np.array_equal(ring, ring_ref)),
+         sharded_loss=[r["sharded_loss"] for r in ranks], loss_ref=loss_ref,
+         sharded_loss_rel=loss_err, nccl_frame_bit_equal=nccl_bits, nccl_frame_max=nccl_max,
+         nccl_loss_rel=nccl_loss_rel, nccl_backend=nccl["backend"],
+         nccl_mesh_device=nccl["mesh_device"], nccl_s=nccl_s,
+         launches_per_rank={"frame": ranks[0]["frame_launches"],
+                            "gradients": ranks[0]["grad_launches"],
+                            f"{steps}_steps": ranks[0]["step_launches"]},
+         gloo_cuda=ranks[0]["gloo_cuda"],
+         timing_note="host clock, median of 20; 2 ranks sharing one H100, gloo staging through "
+                     "the host; not a scaling figure",
+         frame_ms_per_rank=[r["frame_ms"] for r in ranks],
+         frame_fast_ms_per_rank=[r["frame_fast_ms"] for r in ranks],
+         single_device_frame_ms=single_ms,
+         step_ms_per_rank=[r["step_ms"] for r in ranks],
+         step_losses_first_last=[ranks[0]["step_losses"][0], ranks[0]["step_losses"][-1]],
+         a2a_rows_sent_per_rank=[r["a2a_sent_rows"] for r in ranks],
+         a2a_rows_received_per_rank=[r["a2a_received_rows"] for r in ranks],
+         a2a_bytes_sent_per_rank=[r["a2a_bytes_sent"] for r in ranks],
+         a2a_ms_per_rank=[r["a2a_ms"] for r in ranks],
+         ring_s_per_rank=[r["ring_s"] for r in ranks], references_s=t_ref, ranks_s=ranks_s)
+
+
+def _rank_parallel_entry_point(device, src, iters, fit_args, sweep_args):
+    """`parallel_entry_point` on one gloo rank on `device`: `ShardedTrainer`
+    (data = 2), `fit_all_balls(mesh)` and `stylize_sweep(mesh)`, each with the
+    counts set to 0 just before and read just after."""
+    from wast3d_tpu_torch.config import OptimizationConfig, StylizeConfig
+    from wast3d_tpu_torch.parallel import make_mesh
+    from wast3d_tpu_torch.parallel.train_sharded import ShardedTrainer, init_sharded
+    from wast3d_tpu_torch.scene import datasets
+    from wast3d_tpu_torch.scene.gaussians import from_point_cloud
+    from wast3d_tpu_torch.stylize import fit
+    from wast3d_tpu_torch.stylize.sweep import stylize_sweep
+
+    device = _on(device)
+    mesh = make_mesh(data=PAR_RANKS)
+    out = {}
+
+    info = datasets.load_scene_info(src)
+    extent = info.nerf_normalization["radius"]
+    cams = datasets.build_cameras(info.train_cameras, device=device)
+    scene = from_point_cloud(np.asarray(info.point_cloud.points, np.float32),
+                             np.asarray(info.point_cloud.colors, np.float32), device=device)
+    cfg = OptimizationConfig(iterations=iters, densify_from_iter=iters // 4,
+                             densification_interval=iters // 2)
+    tr = ShardedTrainer(init_sharded(scene, cfg, mesh, extent), cams, mesh, opt_cfg=cfg,
+                        spatial_lr_scale=extent, cameras_extent=extent, seed=0, device=device)
+    n_init = tr.total_rows()
+    reset_kernel_counts()
+    t = time.perf_counter()
+    tr.run(iters, log_every=max(1, iters // 10))
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t
+    out["train_launches"] = kernel_counts()
+    out["train_history"] = tr.history
+    out["train_n"] = (n_init, tr.total_rows())
+    out["views"] = len(cams)
+    del tr, scene
+
+    patch_xyz, domain, circles, fit_steps = fit_args
+    cfg = StylizeConfig(fit_steps=fit_steps, w_coverage=1.0)
+    reset_kernel_counts()
+    t = time.perf_counter()
+    fitted = fit.fit_all_balls(patch_xyz, domain, circles, cfg=cfg, batch_size=STYLE_BATCH,
+                               device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t
+    out["fit_launches"] = kernel_counts()
+    rank = torch.distributed.get_rank()
+    out["fitted"] = np.stack(fitted) if rank == 0 else None
+
+    content_arrays, patches, fit_steps, max_style_points = sweep_args
+    reset_kernel_counts()
+    t = time.perf_counter()
+    scenes = stylize_sweep(make_scene(content_arrays, device), patches,
+                           StylizeConfig(fit_steps=fit_steps), device=device, mesh=mesh,
+                           max_style_points=max_style_points)
+    torch.cuda.synchronize()
+    out["sweep_s"] = time.perf_counter() - t
+    out["sweep_launches"] = kernel_counts()
+    out["sweep"] = None if scenes is None else [
+        {f: getattr(s, f).cpu().numpy() for f in ("xyz", "features_dc", "features_rest",
+                                                 "scaling", "rotation", "opacity")}
+        for s in scenes]
+    return out
+
+
+def phase_parallel_entry_point(device, domain, spacing, n=FULL_N, res=FULL_RES,
+                               iters=PAR_TRAIN_ITERS, fit_steps=PAR_FIT_STEPS,
+                               style_m=ENTRY_STYLE_M, max_style_points=STYLE_MP,
+                               n_init=N_INIT):
+    """Two gloo ranks sharing cuda:0: `ShardedTrainer` with data = 2,
+    model = 1 on `train_entry_point`'s 6-view 800x800 dataset (100k random
+    init, `iters` iterations, densify at iters / 2 and iters): the loss falls,
+    N changes and K1 = K2 = K3 = iters on each rank; `fit_all_balls(mesh)` at
+    Mp = 16384 (`stylize_entry_point`'s patch, `fit_steps` steps) against
+    one-device `fit_all_balls` on the same inputs (bit equality reported;
+    `FIT_PARITY_RTOL` / `FIT_PARITY_ATOL`), K4 and K5 on both ranks; `stylize_sweep(mesh)` on `sweep_entry_point`'s
+    four styles: each style's scene equals the one-device sweep's. The
+    one-device references run here first. Times are two ranks sharing one
+    H100, not scaling figures."""
+    from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.core.sh import sh_to_rgb
+    from wast3d_tpu_torch.parallel import multihost
+    from wast3d_tpu_torch.scene.datasets import store_ply_points
+    from wast3d_tpu_torch.stylize import coverage, fit
+    from wast3d_tpu_torch.stylize.pipeline import clean_style_patch
+    from wast3d_tpu_torch.stylize.sweep import stylize_sweep
+
+    t0 = time.perf_counter()
+    cfg = StylizeConfig(fit_steps=fit_steps, w_coverage=1.0)
+    cpatch = clean_style_patch(crystal_patch(style_m, device, edge_scale=1.5 * spacing),
+                               device=device)
+    cpatch = cpatch.select(np.random.default_rng(0).choice(len(cpatch), size=max_style_points,
+                                                           replace=False))
+    _, d_outer = coverage.cluster_radius(cpatch.xyz, device=device)
+    circles = coverage.filter_circles(
+        coverage.sample_circles(domain, r=d_outer * cfg.ball_radius_factor,
+                                min_points_per_cluster=cfg.min_ball_points, device=device),
+        min_points=max(1, cfg.min_ball_points // 2))
+    t = time.perf_counter()
+    single_fit = fit.fit_all_balls(cpatch.xyz, domain, circles, cfg=cfg,
+                                   batch_size=STYLE_BATCH, device=device)
+    torch.cuda.synchronize()
+    single_fit_s = time.perf_counter() - t
+    # One device again, each rank's slab of the first batch alone: what a
+    # rank's batch size does to the bits by itself.
+    slab = STYLE_BATCH // PAR_RANKS
+    balls, mask = fit.pad_balls(domain, circles,
+                                min(cfg.ball_capacity, max(len(c) for c in circles)))
+    desc = fit.compute_target_descriptors(cpatch.xyz, cfg, device=device)
+    batch_effect = []
+    for lo in range(0, min(STYLE_BATCH, len(circles)), slab):
+        hi = min(lo + slab, len(circles))
+        alone = fit.fit_balls(torch.as_tensor(cpatch.xyz, device=device), desc,
+                              torch.as_tensor(balls[lo:hi], device=device),
+                              torch.as_tensor(mask[lo:hi], device=device), cfg).cpu().numpy()
+        batch_effect.append({"balls": [lo, hi], "max_abs": float(
+            np.abs(alone - np.stack(single_fit[lo:hi])).max())})
+    content = bench_scene(n)
+    patches = [crystal_patch(style_m, device, seed=i + 1, edge_scale=ratio * spacing)
+               for i, ratio in enumerate(SWEEP_EDGE_RATIOS)]
+    t = time.perf_counter()
+    single_sweep = stylize_sweep(make_scene(content, device), patches,
+                                 StylizeConfig(fit_steps=fit_steps), device=device,
+                                 max_style_points=max_style_points)
+    torch.cuda.synchronize()
+    single_sweep_s = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_parallel_") as tmp:
+        src = os.path.join(tmp, "scene")
+        views = write_blender_dataset(src, make_scene(content, device), device, res)
+        rng = np.random.default_rng(2)
+        store_ply_points(os.path.join(src, "points3d.ply"), rng.random((n_init, 3)) * 2.6 - 1.3,
+                         sh_to_rgb(rng.random((n_init, 3)) / 255.0) * 255)
+        t_setup = time.perf_counter() - t0
+        t = time.perf_counter()
+        ranks = multihost.spawn(
+            _rank_parallel_entry_point, PAR_RANKS,
+            (str(device), src, iters, (cpatch.xyz, domain, circles, fit_steps),
+             (content, patches, fit_steps, max_style_points)), backend="gloo")
+        ranks_s = time.perf_counter() - t
+
+    losses = [(e["iter"], e["loss"]) for e in ranks[0]["train_history"] if "loss" in e]
+    densify = [(e["iter"], e["n"]) for e in ranks[0]["train_history"]
+               if e.get("event") == "densify"]
+    n_init, n_final = ranks[0]["train_n"]
+    if [it for it, _ in densify] != [iters // 2, iters]:
+        raise AssertionError(f"densify fired at {densify}, want {iters // 2} and {iters}")
+    if not (losses[-1][1] < losses[0][1]) or n_final == n_init:
+        raise AssertionError(f"ShardedTrainer: losses {losses}, N {n_init} -> {n_final}")
+    for r in ranks:
+        want = only(blend_fwd=iters, blend_bwd=iters, segment_sum=iters)
+        if r["train_launches"] != want:
+            raise AssertionError(f"ShardedTrainer launched {r['train_launches']}, want {want}")
+        for key in ("fit_launches", "sweep_launches"):
+            if r[key]["desc_loss"] == 0 or r[key]["desc_grad"] == 0:
+                raise AssertionError(f"{key}: {r[key]}: K4/K5 idle on a rank")
+    fitted = ranks[0]["fitted"]
+    fit_max = float(np.abs(fitted - np.stack(single_fit)).max())
+    fit_bits = bool(np.array_equal(fitted, np.stack(single_fit)))
+    if not np.allclose(fitted, np.stack(single_fit), rtol=FIT_PARITY_RTOL, atol=FIT_PARITY_ATOL):
+        raise AssertionError(f"fit_all_balls over ranks vs one device: {fit_max}")
+    sweep = ranks[0]["sweep"]
+    sweep_bits = []
+    for s, one in zip(sweep, single_sweep):
+        sweep_bits.append(all(np.array_equal(s[f], getattr(one, f).cpu().numpy()) for f in s))
+    if ranks[1]["sweep"] is not None or not all(sweep_bits):
+        raise AssertionError(f"sweep over the data axis vs one device, per style: {sweep_bits}")
+    emit("parallel_entry_point", t0, ranks=PAR_RANKS, backend="gloo (CUDA tensors staged "
+         "through the host)", views=ranks[0]["views"], width=res, height=res,
+         iterations=iters, losses=losses, densify_n=densify, n_init=n_init, n_final=n_final,
+         train_launches_per_rank=[r["train_launches"] for r in ranks],
+         fit_balls=len(circles), fit_steps=fit_steps, patch_m=max_style_points,
+         fit_bit_equal=fit_bits, fit_max_abs=fit_max,
+         one_device_slab_alone_vs_batch=batch_effect,
+         fit_launches_per_rank=[r["fit_launches"] for r in ranks],
+         sweep_styles=len(sweep), sweep_bit_equal=sweep_bits,
+         sweep_launches_per_rank=[r["sweep_launches"] for r in ranks],
+         timing_note="host clock; 2 ranks sharing one H100, gloo staging through the host; "
+                     "not a scaling figure",
+         train_s_per_rank=[r["train_s"] for r in ranks],
+         train_iters_per_s=[iters / r["train_s"] for r in ranks],
+         fit_s_per_rank=[r["fit_s"] for r in ranks], single_fit_s=single_fit_s,
+         sweep_s_per_rank=[r["sweep_s"] for r in ranks], single_sweep_s=single_sweep_s,
+         setup_s=t_setup, ranks_s=ranks_s, dataset_views=views)
 
 
 # ---- profile (python3 chip_smoke.py --profile) --------------------------------
@@ -2960,8 +3501,8 @@ def main() -> int:
         names = sys.argv[sys.argv.index("--only") + 1].split(",")
         domain = spacing = None
         for name in names:
-            if (name in ("stylize_gate", "stylize_entry_point", "sweep_entry_point")
-                    and domain is None):
+            if (name in ("stylize_gate", "stylize_entry_point", "sweep_entry_point",
+                         "parallel_entry_point") and domain is None):
                 domain, spacing = content_domain(device)
             {"k1_cases": lambda: phase_k1_cases(device),
              "k1_fast_cases": lambda: phase_k1_cases(device, fast=True),
@@ -2986,6 +3527,8 @@ def main() -> int:
              "sweep_entry_point": lambda: phase_sweep_entry_point(device, spacing),
              "eval_entry_point": lambda: phase_eval_entry_point(device),
              "refine_entry_point": lambda: phase_refine_entry_point(device),
+             "parallel_cases": lambda: phase_parallel_cases(device),
+             "parallel_entry_point": lambda: phase_parallel_entry_point(device, domain, spacing),
              }[name]()
         print(json.dumps({"partial_run": names,
                           "total_seconds": time.perf_counter() - t_start}), flush=True)
@@ -3027,6 +3570,8 @@ def main() -> int:
     phase_pipeline_entry_point(device)
     phase_eval_entry_point(device)
     phase_refine_entry_point(device)
+    phase_parallel_cases(device)
+    phase_parallel_entry_point(device, domain, spacing)
     kernels = [k1, k1f, k2, k2f, k3, k4, k5]
     k1f["launches"] = serve_fast["blend_fwd_fast"]  # K2f's: from its train steps
     for k in (k1, k2, k3, k4, k5):

@@ -452,6 +452,8 @@ def test_cli_pipeline_flags_match_jax(monkeypatch):
     assert set(t) - set(j) == {"--device"} and set(j) <= set(t)
     for opt, val in j.items():
         assert t[opt] == val, opt
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # more CUDA ranks than cards raise before any stage runs
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 CUDA ranks need 2 cards"):
         tpipe_cli.main(["--content_data", "a", "--style_data", "b", "--workdir", "c",
-                        "--devices", "2", "--device", "cpu"])
+                        "--devices", "2", "--device", "cuda"])

@@ -367,12 +367,16 @@ def test_cli_flags_match_jax(name):
         assert t[opt] == val, opt
 
 
-def test_cli_stylize_more_devices_is_not_ported(tmp_path):
+def test_cli_stylize_more_devices_is_not_ported(tmp_path, monkeypatch):
+    """`--devices` runs one rank per card (tests/test_torch_train_sharded.py
+    runs it on the CPU); more CUDA ranks than cards raise before any rank
+    starts, as JAX's `make_mesh` fails with too few devices."""
     from wast3d_tpu_torch.cli import stylize as cli
 
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 CUDA ranks need 2 cards"):
         cli.main(["--content", "a.ply", "--style_cluster", "b.npz", "--output", "c.ply",
-                  "--devices", "2", "--device", "cpu"])
+                  "--devices", "2", "--device", "cuda"])
 
 
 def test_cli_save_clusters_and_stylize_on_cpu(tmp_path):

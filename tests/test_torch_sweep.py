@@ -168,9 +168,13 @@ def test_cli_sweep_writes_one_ply_per_style(tmp_path):
 
 
 @pytest.mark.parametrize("axis", [2, 8])
-def test_cli_sweep_data_axis_above_one_is_not_ported(axis):
+def test_cli_sweep_data_axis_above_one_is_not_ported(axis, monkeypatch):
+    """`--data_axis` runs one rank per card (tests/test_torch_train_sharded.py
+    runs it on the CPU); more CUDA ranks than cards raise before any rank
+    starts, as JAX's `make_mesh` fails with too few devices."""
     from wast3d_tpu_torch.cli import sweep as tcli
 
-    with pytest.raises(NotImplementedError, match="parallel"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match=f"{axis} CUDA ranks need {axis} cards"):
         tcli.main(["--content", "a.ply", "--style_clusters", "b.npz", "--output_dir", "o",
-                   "--data_axis", str(axis), "--device", "cpu"])
+                   "--data_axis", str(axis), "--device", "cuda"])

@@ -15,9 +15,14 @@ with its flags plus `--device`, in its five stages, writing its files under
    (`stylized.ply`);
 5. render a spiral turntable of the result (`turntable/00000.png`, ...).
 `--skip_recon` reuses the reconstructions already in the workdir.
-`--devices` above 1 (sharding the ball fit) raises `NotImplementedError`, as
-`cli.stylize` does: `parallel/` is not ported yet (ROADMAP.md, queue 1). The
-JAX CLI's compile cache (`utils.cache.enable`) has no counterpart here.
+`--devices N` above 1 splits stage 4's ball fit over N ranks
+(`make_mesh(N, data=N)`, as JAX does) started for that stage alone, one per
+card for CUDA or on the host for the CPU (`parallel.multihost.launch`); the
+other stages run in this process on its device. Under `torchrun` the
+ranks are the ones it started: rank 0 runs stages 1-3 and 5 while the others
+wait for it (the group's timeout is `RECON_WAIT_S`), and rank 0 writes every
+file. The JAX CLI's compile cache (`utils.cache.enable`) has no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+
+RECON_WAIT_S = 24 * 3600  # under torchrun: how long ranks wait for stages 1-3
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,8 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--white_background", "-w", action="store_true")
     parser.add_argument("--turntable_frames", type=int, default=60)
     parser.add_argument("--devices", type=int, default=1,
-                        help="devices to shard the stylization ball fit over; only 1 "
-                             "is ported")
+                        help="shard the stylization ball-fit axis over this many ranks "
+                             "(1 = one device)")
     parser.add_argument("--skip_recon", action="store_true",
                         help="reuse existing reconstructions in workdir")
     parser.add_argument("--device", type=str, default="cuda",
@@ -52,35 +59,99 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the pipeline; returns each stage's seconds and what it made (the
-    printed lines say the same)."""
-    args = build_parser().parse_args(argv)
+def stylize_stage(args: argparse.Namespace, content_ply: str, cluster_npz: str,
+                  out_ply: str):
+    """Stage 4 on this rank: content PLY + style cluster -> stylized PLY
+    (written by rank 0). Returns the sizes for the report and, on rank 0,
+    the stylized scene (else None)."""
+    from wast3d_tpu_torch.parallel import multihost
+    from wast3d_tpu_torch.scene.ply import load_ply, save_ply
+    from wast3d_tpu_torch.stylize.cluster import load_cluster
+    from wast3d_tpu_torch.stylize.pipeline import stylize_scene
+
+    mesh, device = None, args.device
     if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: sharding the ball fit over several devices "
-            "needs parallel/, which is not ported yet: see ROADMAP.md, queue 1 (parallel/)")
+        mesh = multihost.global_mesh(data=args.devices)
+        device = multihost.rank_device(args.device)
+    content_scene = load_ply(content_ply, device=device)
+    patch = load_cluster(cluster_npz)
+    stylized = stylize_scene(content_scene, patch, verbose=multihost.is_coordinator(),
+                             device=device, mesh=mesh)
+    lead = multihost.is_coordinator()
+    if lead:
+        save_ply(stylized, out_ply)
+        print(f"stylized scene -> {out_ply}")
+    sizes = dict(content_n=content_scene.capacity, patch_n=len(patch),
+                 stylized_n=stylized.capacity)
+    return sizes, (stylized if lead else None)
 
-    from wast3d_tpu_torch.cli.train import sphere_config
-    from wast3d_tpu_torch.device import resolve_device
-    from wast3d_tpu_torch.train.driver import train_scene
 
-    dev = resolve_device(args.device)
-    report = {"stage_s": {}}
+def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
+    """Run the pipeline; returns each stage's seconds and what it made (the
+    printed lines say the same), on the process that writes (None on the
+    other ranks under torchrun)."""
+    args = build_parser().parse_args(argv)
+    from wast3d_tpu_torch.parallel import multihost
+
+    torchrun = args.devices > 1 and multihost.under_torchrun()
+    if args.devices > 1 and not torchrun:
+        multihost.check_ranks(args.devices, args.device)
+    if torchrun:
+        multihost.init_distributed(device=args.device, timeout_s=RECON_WAIT_S)
+    lead = multihost.is_coordinator()
     content_dir = os.path.join(args.workdir, "content")
     style_dir = os.path.join(args.workdir, "style")
     content_ply = os.path.join(content_dir, "point_cloud", f"iteration_{args.iterations}",
                                "point_cloud.ply")
     style_ply = os.path.join(style_dir, "point_cloud", f"iteration_{args.iterations}",
                              "point_cloud.ply")
+    clusters_dir = os.path.join(args.workdir, "style_clusters")
+    report = {"stage_s": {}}
+    if lead:
+        report.update(reconstruct_and_cluster(args, content_dir, style_dir, content_ply,
+                                              style_ply, clusters_dir))
+    if torchrun:
+        import torch.distributed as dist
 
+        dist.barrier()
+    if lead:
+        print("== [4/5] stylization ==")
+    t0 = time.perf_counter()
+    cluster_npz = os.path.join(clusters_dir, f"cluster_{args.style_cluster_index}.npz")
+    out_ply = os.path.join(args.workdir, "stylized.ply")
+    stage = (args, content_ply, cluster_npz, out_ply)
+    if args.devices > 1:
+        sizes, stylized = multihost.launch(stylize_stage, args.devices, args.device, stage)[0]
+    else:
+        sizes, stylized = stylize_stage(*stage)
+    if not lead:
+        return None
+    report["stage_s"]["stylize"] = time.perf_counter() - t0
+    report.update(sizes)
+    t0 = time.perf_counter()
+    report["frames"] = turntable(args, stylized)
+    report["stage_s"]["turntable"] = time.perf_counter() - t0
+    return report
+
+
+def reconstruct_and_cluster(args, content_dir, style_dir, content_ply, style_ply,
+                            clusters_dir) -> dict:
+    """Stages 1-3: the two reconstructions and the style clusters."""
+    from wast3d_tpu_torch.cli.train import sphere_config
+    from wast3d_tpu_torch.device import resolve_device
+    from wast3d_tpu_torch.scene.ply import load_ply
+    from wast3d_tpu_torch.stylize.cluster import export_clusters
+    from wast3d_tpu_torch.train.driver import train_scene
+
+    dev = resolve_device(args.device)
+    stage_s = {}
     t0 = time.perf_counter()
     if not (args.skip_recon and os.path.exists(content_ply)):
         print("== [1/5] content reconstruction ==")
         train_scene(args.content_data, content_dir, iterations=args.iterations,
                     white_background=args.white_background,
                     save_iterations=[args.iterations], device=dev)
-    report["stage_s"]["content"] = time.perf_counter() - t0
+    stage_s["content"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if not (args.skip_recon and os.path.exists(style_ply)):
         print("== [2/5] style reconstruction (spheres) ==")
@@ -88,48 +159,33 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     white_background=args.white_background,
                     sphere_cfg=sphere_config(args.sphere_mode),
                     save_iterations=[args.iterations], device=dev)
-    report["stage_s"]["style"] = time.perf_counter() - t0
+    stage_s["style"] = time.perf_counter() - t0
 
     print("== [3/5] style cluster export ==")
-    from wast3d_tpu_torch.scene.ply import load_ply, save_ply
-    from wast3d_tpu_torch.stylize.cluster import export_clusters, load_cluster
-
     t0 = time.perf_counter()
-    clusters_dir = os.path.join(args.workdir, "style_clusters")
     style_scene = load_ply(style_ply, device=dev)
-    paths = export_clusters(style_scene, clusters_dir, args.num_clusters)
-    report["stage_s"]["clusters"] = time.perf_counter() - t0
-    report["style_n"] = style_scene.capacity
+    export_clusters(style_scene, clusters_dir, args.num_clusters)
+    stage_s["clusters"] = time.perf_counter() - t0
+    return {"stage_s": stage_s, "style_n": style_scene.capacity}
 
-    print("== [4/5] stylization ==")
-    from wast3d_tpu_torch.stylize.pipeline import stylize_scene
 
-    t0 = time.perf_counter()
-    content_scene = load_ply(content_ply, device=dev)
-    patch = load_cluster(paths[args.style_cluster_index])
-    stylized = stylize_scene(content_scene, patch, verbose=True, device=dev)
-    out_ply = os.path.join(args.workdir, "stylized.ply")
-    save_ply(stylized, out_ply)
-    print(f"stylized scene -> {out_ply}")
-    report["stage_s"]["stylize"] = time.perf_counter() - t0
-    report.update(content_n=content_scene.capacity, patch_n=len(patch),
-                  stylized_n=stylized.capacity)
-
-    print("== [5/5] turntable render ==")
+def turntable(args, stylized) -> int:
+    """Stage 5: a spiral turntable of the stylized scene; returns its frames."""
+    from wast3d_tpu_torch.device import resolve_device
     from wast3d_tpu_torch.eval.camera_path import render_path, spiral_path
 
-    t0 = time.perf_counter()
+    print("== [5/5] turntable render ==")
+    dev = resolve_device(args.device)
+    stylized = stylized.to(dev)
     xyz = stylized.xyz.detach().cpu().numpy()[stylized.mask.cpu().numpy()]
     center = xyz.mean(0)
     radius = float(np.linalg.norm(xyz - center, axis=1).max() * 2.5)
     cams = spiral_path(center, radius, radius * 0.2, num_frames=args.turntable_frames,
                        device=dev)
-    turntable = os.path.join(args.workdir, "turntable")
-    frames = render_path(stylized, cams, turntable, device=dev)
-    print(f"{len(frames)} frames -> {turntable}")
-    report["stage_s"]["turntable"] = time.perf_counter() - t0
-    report["frames"] = len(frames)
-    return report
+    out = os.path.join(args.workdir, "turntable")
+    frames = render_path(stylized, cams, out, device=dev)
+    print(f"{len(frames)} frames -> {out}")
+    return len(frames)
 
 
 if __name__ == "__main__":

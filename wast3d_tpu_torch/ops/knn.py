@@ -43,7 +43,10 @@ def knn_sq_dists(query: torch.Tensor, data: torch.Tensor, k: int,
                  query_mask: Optional[torch.Tensor] = None,
                  data_mask: Optional[torch.Tensor] = None,
                  exclude_self: bool = False,
-                 block: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+                 block: int = 2048,
+                 best: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 row_offset: int = 0,
+                 col_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """k smallest squared distances (ascending) and their indices [N, k]
     (int64) from each query [N, D] to data [M, D].
 
@@ -51,7 +54,13 @@ def knn_sq_dists(query: torch.Tensor, data: torch.Tensor, k: int,
     the padding of data to a multiple of `block`, sit at _BIG. Invalid
     queries return _BIG. exclude_self drops the (i, i) pair (query is data).
     Rows with fewer than k valid neighbours keep the initial (_BIG, 0)
-    entries, as in JAX."""
+    entries, as in JAX.
+
+    For one block of a larger, sharded set (`parallel/ring.py`): query row
+    i and data column j are rows `row_offset + i` and `col_offset + j` of
+    the whole sets (the indices returned, and what exclude_self compares),
+    and `best` is a running (distances, indices) [N, k] to fold into in
+    place of the initial entries."""
     n, m = query.shape[0], data.shape[0]
     dev = query.device
     pad = (-m) % block
@@ -60,15 +69,18 @@ def knn_sq_dists(query: torch.Tensor, data: torch.Tensor, k: int,
     if data_mask is not None:
         dmask[:m] &= data_mask.to(torch.bool)
     q2 = torch.sum(query * query, dim=-1, keepdim=True)
-    rows = torch.arange(n, device=dev)[:, None]
-    best_d = torch.full((n, k), _BIG, dtype=torch.float32, device=dev)
-    best_i = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)[:, None] + row_offset
+    if best is None:
+        best_d = torch.full((n, k), _BIG, dtype=torch.float32, device=dev)
+        best_i = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    else:
+        best_d, best_i = best
     for s in range(0, m + pad, block):
         cols = data_p[s:s + block]
         c2 = torch.sum(cols * cols, dim=-1)
         d = torch.clamp_min(q2 + c2[None, :] - 2.0 * (query @ cols.T), 0.0)
         d = torch.where(dmask[None, s:s + block], d, _BIG)
-        col_idx = torch.arange(s, s + block, device=dev)[None, :]
+        col_idx = torch.arange(s, s + block, device=dev)[None, :] + col_offset
         if exclude_self:
             d = torch.where(col_idx == rows, _BIG, d)
         best_d, best_i = _take_k(torch.cat([best_d, d], 1),

@@ -311,20 +311,47 @@ def pad_balls(points: np.ndarray, circles: List[np.ndarray],
 
 def fit_all_balls(target_points: np.ndarray, domain_points: np.ndarray,
                   circles: List[np.ndarray], cfg: StylizeConfig = StylizeConfig(),
-                  batch_size: int = 8, device: DeviceLike = None) -> List[np.ndarray]:
+                  batch_size: int = 8, device: DeviceLike = None,
+                  mesh=None) -> List[np.ndarray]:
     """Pad the balls, fit them in batches of `batch_size`, return each
     ball's fitted points [M, 3] (the reference's sequential
     `optimize_all_by_clusters`, batched). The last batch holds only the
     balls that are left: eager PyTorch shares no compilation between batch
-    sizes, so JAX's zero-padded balls would only cost time."""
+    sizes, so JAX's zero-padded balls would only cost time.
+
+    With a `mesh` (`parallel.mesh.make_mesh`, on every rank) the ball axis
+    is split over every rank, as in JAX: the batch size is rounded up to a
+    multiple of the ranks, each rank fits its contiguous slab of each batch
+    (data-major rank order) on its device, and the fitted balls are
+    all-gathered, so every rank returns all of them. Each ball's fit is
+    independent of the others', so the split changes only rounding (on the
+    card, a slab of one ball rounds otherwise than in a batch of five)."""
     dev = resolve_device(device)
     target_desc = compute_target_descriptors(target_points, cfg, device=dev)
     tp = torch.as_tensor(np.asarray(target_points, np.float32), device=dev)
     cap = min(cfg.ball_capacity, max(len(c) for c in circles))
     balls, mask = pad_balls(np.asarray(domain_points, np.float32), circles, cap)
+    ranks, me, group = 1, 0, None
+    if mesh is not None:
+        from torch import distributed as dist
+
+        from wast3d_tpu_torch.parallel.mesh import flat_index
+
+        ranks, me, group = mesh.size(), flat_index(mesh), dist.group.WORLD
+        batch_size = max(batch_size, ranks)
+        batch_size += (-batch_size) % ranks
+    slab = batch_size // ranks
     results = []
     for s in range(0, len(circles), batch_size):
-        fitted = fit_balls(tp, target_desc, torch.as_tensor(balls[s:s + batch_size], device=dev),
-                           torch.as_tensor(mask[s:s + batch_size], device=dev), cfg)
+        lo = min(s + me * slab, len(circles))
+        hi = min(s + (me + 1) * slab, s + batch_size, len(circles))
+        fitted = tp.new_zeros((0,) + tuple(tp.shape))
+        if hi > lo:
+            fitted = fit_balls(tp, target_desc, torch.as_tensor(balls[lo:hi], device=dev),
+                               torch.as_tensor(mask[lo:hi], device=dev), cfg)
+        if group is not None:
+            from wast3d_tpu_torch.parallel.collectives import all_gather_rows
+
+            fitted = all_gather_rows(fitted.contiguous(), group)
         results.extend(fitted.cpu().numpy())
     return results

@@ -7,7 +7,9 @@ Port of `wast3d_tpu/stylize/pipeline.py`, the notebook-11 flow:
   4. the batched descriptor fit of one patch copy per ball (fit.py, with
      K4/K5 for padded patches of 2048 points or more on CUDA);
   5. merge and Voronoi de-overlap into a stylized GaussianScene (merge.py).
-Everything runs on one device; `device=None` means CUDA.
+Everything runs on one device (`device=None` means CUDA), except that with
+a `mesh` (`parallel.mesh.make_mesh`, on every rank) the ball fit splits its
+ball axis over the ranks (`fit.fit_all_balls`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def stylize_scene(content: GaussianScene, style_patch: StylePatch,
                   cfg: StylizeConfig = StylizeConfig(), seed: int = 0,
                   batch_size: int = 8, verbose: bool = False,
                   max_style_points: Optional[int] = 16384,
-                  device: DeviceLike = None) -> GaussianScene:
+                  device: DeviceLike = None, mesh=None) -> GaussianScene:
     """Content scene + style patch -> stylized scene, on `device`.
 
     Memory: the kernel path holds an [Mp, Mp] uint8 pair code (268 MB at
@@ -68,7 +70,7 @@ def stylize_scene(content: GaussianScene, style_patch: StylePatch,
               f"patch {len(patch)} pts ({time.time() - t0:.1f}s)")
 
     fitted = fit.fit_all_balls(patch.xyz, domain, circles, cfg=cfg, batch_size=batch_size,
-                               device=dev)
+                               device=dev, mesh=mesh)
     if verbose:
         print(f"fit done ({time.time() - t0:.1f}s)")
 
@@ -82,12 +84,15 @@ def stylize_scene(content: GaussianScene, style_patch: StylePatch,
 
 def stylize_from_files(content_ply: str, style_cluster_npz: str, output_ply: str,
                        cfg: StylizeConfig = StylizeConfig(), device: DeviceLike = None,
-                       **kwargs) -> GaussianScene:
-    """Content PLY + style cluster npz -> stylized PLY."""
+                       mesh=None, **kwargs) -> GaussianScene:
+    """Content PLY + style cluster npz -> stylized PLY (with a `mesh`, every
+    rank stylizes and rank 0 writes the PLY)."""
+    from wast3d_tpu_torch.parallel.multihost import is_coordinator
     from wast3d_tpu_torch.scene.ply import load_ply, save_ply
 
     dev = resolve_device(device)
     out = stylize_scene(load_ply(content_ply, device=dev), load_cluster(style_cluster_npz),
-                        cfg=cfg, device=dev, **kwargs)
-    save_ply(out, output_ply)
+                        cfg=cfg, device=dev, mesh=mesh, **kwargs)
+    if is_coordinator():
+        save_ply(out, output_ply)
     return out

@@ -52,6 +52,27 @@ def add_stats(stats: DensifyStats, means2d_grad: torch.Tensor, radii: torch.Tens
     )
 
 
+def add_stats_batch(stats: DensifyStats, means2d_grad: torch.Tensor, radii: torch.Tensor,
+                    visibility: torch.Tensor, width: int, height: int) -> DensifyStats:
+    """`add_stats` for a batch of B views, one reference iteration each:
+    means2d_grad [B, N, 2] are the per-view gradients of the batch's mean
+    loss (a view's offset reaches only its own term, so B times it is the
+    view's own gradient), radii and visibility [B, N]."""
+    b = means2d_grad.shape[0]
+    gx = means2d_grad[..., 0] * (0.5 * width * b)
+    gy = means2d_grad[..., 1] * (0.5 * height * b)
+    norm = torch.sqrt(gx * gx + gy * gy)
+    vis = visibility.to(torch.float32)
+    zero = torch.zeros_like(radii, dtype=torch.float32)
+    return DensifyStats(
+        xyz_gradient_accum=stats.xyz_gradient_accum + torch.sum(norm * vis, 0),
+        denom=stats.denom + torch.sum(vis, 0),
+        max_radii2d=torch.maximum(
+            stats.max_radii2d,
+            torch.amax(torch.where(visibility, radii.to(torch.float32), zero), 0)),
+    )
+
+
 def densify_and_prune(
     scene: GaussianScene,
     opt_state: AdamState,

@@ -171,6 +171,10 @@ class Trainer:
             sphere_cfg=self.sphere_cfg, jitter=self.jitter)
         return aux
 
+    def total_rows(self) -> int:
+        """The scene's Gaussians (the schedule logs it after densifying)."""
+        return int(self.state.scene.capacity)
+
     def run(self, iterations: int, log_every: int = 0) -> TrainState:
         from wast3d_tpu_torch.train.schedule import run_schedule
 

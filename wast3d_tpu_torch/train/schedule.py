@@ -32,7 +32,8 @@ def _log(tr, entry):
 
 
 def run_schedule(tr, iterations: int, log_every: int = 0):
-    """Drive `iterations` steps of the reference schedule on a `Trainer`."""
+    """Drive `iterations` steps of the reference schedule on a `Trainer` (or
+    a `parallel.train_sharded.ShardedTrainer`, which densifies its own rows)."""
     cfg = tr.opt_cfg
     for _ in range(iterations):
         it = tr._it + 1  # 1-based like the reference
@@ -49,8 +50,7 @@ def run_schedule(tr, iterations: int, log_every: int = 0):
                     extent=float(tr.cameras_extent), max_screen_size=max_screen,
                     percent_dense=cfg.percent_dense, generator=tr.generator)
                 tr.state = tr.state._replace(scene=scene, opt_state=opt, stats=stats)
-                _log(tr, {"iter": it, "event": "densify",
-                          "n": int(tr.state.scene.capacity)})
+                _log(tr, {"iter": it, "event": "densify", "n": tr.total_rows()})
             if it % cfg.opacity_reset_interval == 0 or (
                     tr._white_bg and it == cfg.densify_from_iter):
                 scene, opt = densify_mod.reset_opacity(tr.state.scene, tr.state.opt_state)

@@ -63,7 +63,11 @@ def scaling_min_val_loss(scaling_log: torch.Tensor, mask: torch.Tensor) -> torch
 
 def sphere_regularizer(scene: GaussianScene, cfg) -> torch.Tensor:
     """The combined sphere loss of a `config.SphereConfig`."""
-    s, m = scene.scaling, scene.mask
+    return sphere_loss(scene.scaling, scene.mask, cfg)
+
+
+def sphere_loss(s: torch.Tensor, m: torch.Tensor, cfg) -> torch.Tensor:
+    """`sphere_regularizer` of log-scales s [N, 3] and mask m [N]."""
     loss = torch.zeros((), dtype=s.dtype, device=s.device)
     if cfg.anisotropic:
         loss = loss + cfg.lambda_anisotropy * scaling_anisotropy_loss(s, m, cfg.anisotropy_ratio)
