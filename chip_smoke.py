@@ -87,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1573,11 +1574,13 @@ TRAIN_KERNELS = ("blend_fwd", "blend_bwd", "segment_sum")
 def _counted():
     from wast3d_tpu_torch.ops.rasterizer import blend
     from wast3d_tpu_torch.ops.rasterizer.grad_reduce import segment_sum
+    from wast3d_tpu_torch.ops.rasterizer.pack_gather import pack_gather
     from wast3d_tpu_torch.stylize.desc_kernel import desc_grad, desc_loss
 
     return {"blend_fwd": blend.blend_fwd, "blend_bwd": blend.blend_bwd,
             "blend_fwd_fast": blend.blend_fwd_fast, "blend_bwd_fast": blend.blend_bwd_fast,
-            "segment_sum": segment_sum, "desc_loss": desc_loss, "desc_grad": desc_grad}
+            "segment_sum": segment_sum, "desc_loss": desc_loss, "desc_grad": desc_grad,
+            "pack_gather": pack_gather}
 
 
 def only(**launches):
@@ -1681,6 +1684,640 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
     return launches
 
 
+# ---- viewers, Kg (pack_gather), native IO --------------------------------------
+
+FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures")
+JPEG_MAX_DIFF, JPEG_MEAN_DIFF = 2, 0.05  # the decoder against PIL's decode, uint8 units
+COLMAP_POINTS = 20_000  # points3D.bin through the native reader and through Python
+# K1f's frame with pack_gather against the frame without it: JAX's own bounds
+# (tests/test_pallas_blend.py::test_pack_gather_matches_fast_chain).
+PACK_TOL, PACK_DEPTH_TOL = 1.5e-2, 3e-2
+KG_CASES = ((200, 3), (120, 0))  # JAX's cases at 80 x 48: (Gaussians, seed)
+VIEWER_ORBITS = ((0.3, 0.1, 3.0), (1.2, -0.2, 2.6), (2.5, 0.4, 3.4))  # yaw, pitch, radius
+VIEWER_REPS = 10  # frame ms: median of 10, host clocks
+VIEW_UP_S = 60  # cli.view must answer /info within this
+GUI_TRAIN_ITERS = 100  # cli.train --port on the COLMAP + JPEG fixture
+GUI_REQUEST_EVERY_S = 0.2  # the live-view client's pause between frames
+# tests/test_sibr_protocol.py's canonical SIBR request: every key the
+# reference's viewer hook reads, the matrices row-major. Sized to the frame
+# here; its view puts the scene behind the camera, so its frame is the
+# background, and an orbit camera's request follows it.
+SIBR_CANONICAL = {
+    "resolution_x": 8, "resolution_y": 6, "train": True, "fov_y": 0.8, "fov_x": 0.9,
+    "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+    "keep_alive": True, "scaling_modifier": 1.0,
+    "view_matrix": [0.936, 0.0, 0.352, 0.0, 0.062, 0.984, -0.166, 0.0,
+                    -0.347, 0.178, 0.921, 0.0, 0.1, -0.2, 4.0, 1.0],
+    "view_projection_matrix": [1.77, 0.0, 0.35, 0.35, 0.11, 1.86, -0.16, -0.16,
+                               -0.65, 0.33, 0.92, 0.92, 0.18, -0.37, 3.99, 4.0]}
+
+
+class _NoPil:
+    """A `sys.meta_path` finder that refuses PIL, as on a machine without it."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError(f"{name} is blocked: this run must not need PIL")
+        return None
+
+
+@contextlib.contextmanager
+def without_pil():
+    """PIL unimportable inside the block (its loaded modules set aside)."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "PIL" or k.startswith("PIL.")}
+    finder = _NoPil()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(saved)
+
+
+@contextlib.contextmanager
+def no_native():
+    """The numpy fallbacks of the native fast paths, as WAST3D_NO_NATIVE
+    gives them."""
+    from wast3d_tpu_torch import native
+
+    old = os.environ.get("WAST3D_NO_NATIVE")
+    os.environ["WAST3D_NO_NATIVE"] = "1"
+    native._tried, native._lib = False, None
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["WAST3D_NO_NATIVE"]
+        else:
+            os.environ["WAST3D_NO_NATIVE"] = old
+        native._tried, native._lib = False, None
+
+
+def fixture_jpegs():
+    """(name, JPEG path, PNG of PIL's decode) of every committed JPEG fixture."""
+    out = []
+    for d, _, files in os.walk(FIXTURES):
+        for f in files:
+            if f.endswith(".jpg"):
+                name = f[:-4]
+                out.append((name, os.path.join(d, f),
+                            os.path.join(FIXTURES, "pil_decode", name + ".png")))
+    if not out:
+        raise AssertionError(f"no JPEG fixtures under {FIXTURES}")
+    return sorted(out)
+
+
+def phase_io(device, n=FULL_N):
+    """The native host library (`g++`): the 200k shell's PLY and a COLMAP
+    points3D.bin by native and by numpy, and each committed JPEG fixture
+    against PIL's decode of it. Returns the largest JPEG's decode ms."""
+    from wast3d_tpu_torch import native
+    from wast3d_tpu_torch.scene import colmap, ply
+    from wast3d_tpu_torch.utils.png import read_png
+
+    del device  # host IO
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library did not build or load: on the card the "
+                             "numpy fallback must not hide a broken g++ build")
+    lib = os.path.relpath(native.library()._name, ROOT)
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_io_") as tmp:
+        path = os.path.join(tmp, "shell.ply")
+        ply.save_ply(make_scene(bench_scene(n), "cpu"), path)
+        if native.read_ply_f32(path) is None:
+            raise AssertionError("the native PLY reader declined the shell's PLY")
+        t = time.perf_counter()
+        fast = ply.load_ply_arrays(path)
+        native_ply_s = time.perf_counter() - t
+        with no_native():
+            t = time.perf_counter()
+            slow = ply.load_ply_arrays(path)
+            numpy_ply_s = time.perf_counter() - t
+        ply_equal = all(fast[k].dtype == slow[k].dtype and np.array_equal(fast[k], slow[k])
+                        for k in slow)
+        rng = np.random.default_rng(4)
+        xyz = rng.normal(size=(COLMAP_POINTS, 3))
+        rgb = rng.integers(0, 256, (COLMAP_POINTS, 3))
+        cpath = os.path.join(tmp, "points3D.bin")
+        colmap.write_points3d_binary(xyz, rgb, cpath)
+        t = time.perf_counter()
+        a = colmap.read_points3d_binary(cpath)
+        native_colmap_s = time.perf_counter() - t
+        with no_native():
+            t = time.perf_counter()
+            b = colmap.read_points3d_binary(cpath)
+            python_colmap_s = time.perf_counter() - t
+        colmap_equal = (all(np.array_equal(x, y) for x, y in zip(a, b))
+                        and np.array_equal(a[0], xyz) and np.array_equal(a[1], rgb))
+    jpegs = {}
+    for name, jpg, png_path in fixture_jpegs():
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            got = native.read_jpeg(jpg)
+            times.append((time.perf_counter() - t) * 1e3)
+        want = read_png(png_path)
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: decoded {got.shape}, PIL {want.shape}")
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        jpegs[name] = {"shape": list(got.shape), "max": int(d.max()), "mean": float(d.mean()),
+                       "equal_share": float((d == 0).mean()),
+                       "decode_ms_median": statistics.median(times)}
+    largest = max(jpegs, key=lambda k: np.prod(jpegs[k]["shape"]))
+    emit("io", t0, library=lib, n_gaussians=n, ply_bit_equal=ply_equal,
+         native_ply_s=native_ply_s, numpy_ply_s=numpy_ply_s, colmap_points=COLMAP_POINTS,
+         colmap_equal=colmap_equal, native_colmap_s=native_colmap_s,
+         python_colmap_s=python_colmap_s, jpegs=jpegs, largest_jpeg=largest,
+         largest_decode_ms=jpegs[largest]["decode_ms_median"])
+    bad = {k: v for k, v in jpegs.items()
+           if v["max"] > JPEG_MAX_DIFF or v["mean"] > JPEG_MEAN_DIFF}
+    if not ply_equal or not colmap_equal or bad:
+        raise AssertionError(f"native IO: PLY equal {ply_equal}, COLMAP equal {colmap_equal}, "
+                             f"JPEGs beyond max {JPEG_MAX_DIFF} / mean {JPEG_MEAN_DIFF}: {bad}")
+    return jpegs[largest]["decode_ms_median"]
+
+
+def kg_args(scene, cam):
+    """Kg's inputs for this view, as the render path hands them over."""
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+
+    with torch.no_grad():
+        prep = api.preprocess_scene(cam, scene)
+        binning, _ = render_path.bin_and_pack(prep, cam.width, cam.height, fast=True)
+    return (prep.means2d, prep.conics, prep.opacities, prep.depths, prep.colors,
+            binning.depth_order, binning.rank, binning.tile_of_dup, cam.width), prep, binning
+
+
+def compare_kg(args):
+    """(bit-equal to the plain version, bit-equal to a second run)."""
+    from wast3d_tpu_torch.ops.rasterizer.pack_gather import pack_gather, pack_gather_reference
+
+    a, b = pack_gather(*args), pack_gather(*args)
+    p = pack_gather_reference(*args)
+    return (torch.equal(a.view(torch.int16), p.view(torch.int16)),
+            torch.equal(a.view(torch.int16), b.view(torch.int16)))
+
+
+def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
+    """Kg against its plain version on seeded cases and at 200k / 800²,
+    then K1f frames with `pack_gather` (the main path of Kg) against the
+    frame without it, and Kg's times beside the f32 gather + `fast_rows`
+    that it replaces. Returns Kg's kernels-line entry."""
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+    from wast3d_tpu_torch.ops.rasterizer.pack_gather import pack_gather, pack_gather_reference
+
+    t0 = time.perf_counter()
+    split = {}
+    cases = {}
+    for cn, seed in KG_CASES:
+        scene = make_scene(random_scene(cn, seed), device)
+        cases[f"jax_{cn}_seed{seed}"] = compare_kg(kg_args(scene, view_camera(80, 48, device))[0])
+    cases["saturating"] = compare_kg(kg_args(make_scene(saturating_scene(), device),
+                                             view_camera(32, 32, device))[0])
+    cases["corner"] = compare_kg(kg_args(make_scene(corner_scene(), device),
+                                         view_camera(64, 48, device))[0])
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    args, prep, binning = kg_args(scene, cam)
+    cases["full_width"] = compare_kg(args)
+    split["cases_s"] = time.perf_counter() - t0
+
+    bg = torch.zeros(3, device=device)
+    fast = api.RasterizeSettings(renderer="pallas", fast_chain=True)
+    packed = fast._replace(pack_gather=True)
+    frame_ms = []
+    with torch.no_grad():
+        ref = api.render(cam, scene, bg, settings=fast, device=device)
+        before = dict(kernel_counts())
+        for i in range(warmup + frames):
+            torch.cuda.synchronize()
+            f0 = time.perf_counter()
+            out = api.render(cam, scene, bg, settings=packed, device=device)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                frame_ms.append((time.perf_counter() - f0) * 1e3)
+        launched = {k: v - before[k] for k, v in kernel_counts().items()}
+        split["frames_s"] = time.perf_counter() - t0 - split["cases_s"]
+        diffs = {f: float((out[f] - ref[f]).abs().max()) for f in ("render", "final_T", "depth")}
+        depth_ok = bool(((out["depth"] - ref["depth"]).abs()
+                         <= PACK_DEPTH_TOL + PACK_DEPTH_TOL * ref["depth"].abs()).all())
+        frame_bits = all(torch.equal(out[f], ref[f]) for f in ("render", "final_T", "depth"))
+        kg_ms = cuda_time_ms(lambda: pack_gather(*args), 50)
+        _, kg_device_ms = device_ms(lambda: pack_gather(*args))
+        plain_ms = cuda_time_ms(lambda: pack_gather_reference(*args), 5)
+        library_ms = cuda_time_ms(lambda: render_path.fast_rows(
+            render_path.sorted_rows(prep, binning), binning.tile_of_dup, res), 50)
+        _, library_device_ms = device_ms(lambda: render_path.fast_rows(
+            render_path.sorted_rows(prep, binning), binning.tile_of_dup, res))
+    N, K = int(prep.means2d.shape[0]), int(binning.rank.shape[0])
+    # The function's bytes: each input read once (the five fields, the depth
+    # order, rank and tile), each output row written once; the two passes
+    # also write and read the 24-byte packed rows (`design_bytes`).
+    in_bytes = sum(t.numel() * t.element_size() for t in args[:8])
+    out_bytes = K * FAST_ROW_BYTES
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    design_bytes = in_bytes + out_bytes + 24 * (N + 1) + 24 * K
+    ops_ms = (12 * N + 8 * K) / F32_OPS_PER_S * 1e3  # roundings, one subtraction; two subs, two adds
+    bound_ms = max(bytes_ms, ops_ms)
+    emit("pack_gather", t0, n_gaussians=n, width=res, height=res, duplicates_K=K,
+         cases_bit_equal_to_plain={k: v[0] for k, v in cases.items()},
+         cases_bit_equal_run_to_run={k: v[1] for k, v in cases.items()},
+         frames=frames, launches_in_frames=launched,
+         frame_ms_median=statistics.median(frame_ms), frame_ms_min=min(frame_ms),
+         frame_vs_no_pack_gather_max=diffs, frame_bit_equal_to_no_pack_gather=frame_bits,
+         kg_ms=kg_ms, kg_device_ms=kg_device_ms, plain_ms=plain_ms,
+         f32_gather_fast_rows_ms=library_ms, f32_gather_fast_rows_device_ms=library_device_ms,
+         kg_bound_ms=bound_ms, kg_bound_bytes_ms=bytes_ms, kg_bound_ops_ms=ops_ms,
+         kg_bytes=in_bytes + out_bytes, kg_design_bytes=design_bytes,
+         kg_design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
+         timing_s=time.perf_counter() - t0 - split["cases_s"] - split["frames_s"], **split)
+    if not all(a and b for a, b in cases.values()):
+        raise AssertionError(f"Kg against its plain version / itself: {cases}")
+    if launched != only(blend_fwd_fast=warmup + frames, pack_gather=warmup + frames):
+        raise AssertionError(f"launches {launched} for {warmup + frames} pack_gather frames")
+    if not (diffs["render"] <= PACK_TOL and diffs["final_T"] <= PACK_TOL and depth_ok):
+        raise AssertionError(f"pack_gather frame beyond JAX's bounds of the fast frame: {diffs}")
+    return {"name": "pack_gather", "route": "cuda",
+            "source": "wast3d_tpu_torch/csrc/pack_gather.cu",
+            "replaces": "wast3d_tpu/ops/rasterizer/pallas_path.py:150",
+            "launches": launched["pack_gather"], "max_abs_err": 0.0 if cases["full_width"][0]
+            else None, "ms": kg_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url, timeout=60.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def sibr_request(cam, width, height):
+    """A SIBR viewer request (`tests/test_sibr_protocol.py`'s format) for the
+    port camera `cam`: its matrices in the viewer's GL convention (columns
+    1, 2 of the view and 1 of the view-projection negated; the server
+    negates them back)."""
+    view = cam.view_transform.cpu().numpy().copy()
+    proj = cam.full_proj_transform.cpu().numpy().copy()
+    view[:, 1:3] *= -1
+    proj[:, 1] *= -1
+    return {"resolution_x": width, "resolution_y": height, "train": True,
+            "fov_y": cam.fovy, "fov_x": cam.fovx, "z_near": cam.znear, "z_far": cam.zfar,
+            "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+            "scaling_modifier": 1.0, "view_matrix": view.reshape(-1).tolist(),
+            "view_projection_matrix": proj.reshape(-1).tolist()}
+
+
+def sibr_frame(msg: dict) -> bytes:
+    body = json.dumps(msg).encode("utf-8")
+    return len(body).to_bytes(4, "little") + body
+
+
+def recv_exact(sock, count) -> bytes:
+    buf = b""
+    while len(buf) < count:
+        chunk = sock.recv(count - len(buf))
+        if not chunk:
+            raise ConnectionError("closed")
+        buf += chunk
+    return buf
+
+
+def sibr_reply(sock, width, height, verify: str):
+    """One framed reply: (rgb bytes or None for a keep-alive, verify string)."""
+    rgb = recv_exact(sock, width * height * 3) if width else None
+    vlen = int.from_bytes(recv_exact(sock, 4), "little")
+    return rgb, recv_exact(sock, vlen).decode("ascii") if vlen else ""
+
+
+def gui_camera_render(req, scene, settings, bg, device):
+    """The frame a SIBR request should get, rendered here: the port's Camera
+    from `GuiCamera`'s matrices, `api.render`, clipped, times 255, uint8."""
+    from wast3d_tpu_torch.core.camera import Camera
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.viewer.network_gui import GuiCamera
+
+    g = GuiCamera(req)
+    cam = Camera(torch.from_numpy(g.view_transform).to(device),
+                 torch.from_numpy(g.full_proj_transform).to(device),
+                 torch.from_numpy(np.asarray(g.camera_center, np.float32)).to(device),
+                 float(g.fovx), float(g.fovy), float(g.znear), float(g.zfar), g.width, g.height)
+    with torch.no_grad():
+        out = api.render(cam, scene, bg, settings=settings, device=device)
+    return (np.clip(out["render"].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+
+
+def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
+    """The viewers at full width, each with the launch counts set to 0 just
+    before it and read just after: the web viewer (`web.serve_scene`, three
+    800² orbits through K1f, bit-equal to in-process renders), `cli.view` as
+    a subprocess, the SIBR server (`network_gui`, K1), `cli.train --port` on
+    the COLMAP + JPEG fixture with a live-view client, the nerfstudio
+    outputs (K1), and `utils.profiling`."""
+    import importlib.util
+    import shutil
+    import socket
+    import threading
+    import urllib.error
+
+    from wast3d_tpu_torch.cli import train as cli_train
+    from wast3d_tpu_torch.ops.rasterizer import api
+    from wast3d_tpu_torch.train.checkpoint import save_point_cloud
+    from wast3d_tpu_torch.utils import png, profiling
+    from wast3d_tpu_torch.viewer import nerfstudio_shim, network_gui, web
+
+    t0 = time.perf_counter()
+    numbers = {"n_gaussians": n, "res": res,
+               "pil_installed": importlib.util.find_spec("PIL") is not None}
+    scene = make_scene(bench_scene(n), device)
+    bg = torch.zeros(3, device=device)
+    view_settings = api.RasterizeSettings(renderer="pallas", dup_capacity=1 << 21,
+                                          fast_chain=True)  # cli.view's defaults
+    f32 = api.RasterizeSettings()  # the training settings: K1
+
+    # -- the web viewer, in process
+    t1 = time.perf_counter()
+    wants = [web.render_orbit_frame(scene, y, p, r, res, settings=view_settings, device=device)
+             for y, p, r in VIEWER_ORBITS]
+    srv = web.serve_scene(scene, port=free_port(), settings=view_settings, background=True,
+                          device=device)
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        page = http_get(base + "/")
+        info = json.loads(http_get(base + "/info"))
+        urls = [f"{base}/frame?yaw={y!r}&pitch={p!r}&radius={r!r}&res={res}"
+                for y, p, r in VIEWER_ORBITS]
+        reset_kernel_counts()
+        blobs = [http_get(u) for u in urls]
+        web_launches = kernel_counts()
+        web_equal = [bool(np.array_equal(png.decode_png(b), w)) for b, w in zip(blobs, wants)]
+        render_ms, encode_ms, http_ms = [], [], []
+        for _ in range(VIEWER_REPS):
+            t = time.perf_counter()
+            frame = web.render_orbit_frame(scene, *VIEWER_ORBITS[0], res, settings=view_settings,
+                                           device=device)
+            render_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            png.encode_png(frame)
+            encode_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            http_get(urls[0])
+            http_ms.append((time.perf_counter() - t) * 1e3)
+        try:
+            http_get(base + "/nope")
+            not_found = None
+        except urllib.error.HTTPError as e:
+            not_found = e.code
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    numbers.update(web_info=info, web_page_has_frame_url=b"/frame?" in page,
+                   web_frames_bit_equal=web_equal, web_launches=web_launches,
+                   web_not_found=not_found, frame_render_ms_median=statistics.median(render_ms),
+                   frame_png_encode_ms_median=statistics.median(encode_ms),
+                   frame_http_round_trip_ms_median=statistics.median(http_ms),
+                   web_s=time.perf_counter() - t1)
+    if (info != {"num_gaussians": n} or not all(web_equal) or not_found != 404
+            or web_launches != only(blend_fwd_fast=len(VIEWER_ORBITS))):
+        raise AssertionError(f"web viewer: {numbers}")
+
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_view_") as tmp:
+        # -- cli.view, as a user starts it
+        t1 = time.perf_counter()
+        model = os.path.join(tmp, "model")
+        save_point_cloud(model, 1, scene)
+        port = free_port()
+        log_path = os.path.join(tmp, "view.log")
+        with open(log_path, "w") as log:
+            env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            proc = subprocess.Popen([sys.executable, "-m", "wast3d_tpu_torch.cli.view", "-m", model,
+                                     "--port", str(port), "--device", device.type], cwd=ROOT,
+                                    stdout=log, stderr=subprocess.STDOUT, env=env)
+        try:
+            view_info = None
+            while time.perf_counter() - t1 < VIEW_UP_S and proc.poll() is None:
+                try:
+                    view_info = json.loads(http_get(f"http://127.0.0.1:{port}/info", 2.0))
+                    break
+                except OSError:
+                    time.sleep(0.2)
+            up_s = time.perf_counter() - t1
+            if view_info is None:
+                raise AssertionError(f"cli.view did not answer /info in {VIEW_UP_S} s "
+                                     f"(exit {proc.poll()}): {open(log_path).read()[-2000:]}")
+            y, p, r = VIEWER_ORBITS[0]
+            view_blob = http_get(f"http://127.0.0.1:{port}/frame?yaw={y!r}&pitch={p!r}"
+                                 f"&radius={r!r}&res={res}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(10)
+        view_equal = bool(np.array_equal(png.decode_png(view_blob), wants[0]))
+        numbers.update(cli_view_up_s=up_s, cli_view_info=view_info,
+                       cli_view_frame_bit_equal=view_equal, cli_view_s=time.perf_counter() - t1)
+        if view_info != {"num_gaussians": n} or not view_equal:
+            raise AssertionError(f"cli.view: info {view_info}, frame equal {view_equal}")
+
+        # -- the SIBR server, at 800 x 800, through K1
+        t1 = time.perf_counter()
+        verify = "/chip_smoke/model"
+        canonical = dict(SIBR_CANONICAL, resolution_x=res, resolution_y=res)
+        want_canonical = gui_camera_render(canonical, scene, f32, bg, device)
+        req = sibr_request(web.orbit_camera(*VIEWER_ORBITS[1], res, device=device), res, res)
+        want = gui_camera_render(req, scene, f32, bg, device)
+        gui = network_gui.NetworkGUI(host="127.0.0.1", port=free_port(), verify=verify)
+        replies = {}
+
+        def sibr_client():
+            with socket.create_connection(("127.0.0.1", gui.port), timeout=30) as s:
+                s.settimeout(30)
+                s.sendall(sibr_frame(canonical))
+                replies["canonical"] = sibr_reply(s, res, res, verify)
+                s.sendall(sibr_frame(req))
+                replies["frame"] = sibr_reply(s, res, res, verify)
+                s.sendall(sibr_frame(dict(req, resolution_x=0, resolution_y=0)))
+                replies["keep_alive"] = sibr_reply(s, 0, 0, verify)
+
+        client = threading.Thread(target=sibr_client, daemon=True)
+        try:
+            client.start()
+            reset_kernel_counts()
+            deadline = time.perf_counter() + 30
+            while "frame" not in replies and client.is_alive() and time.perf_counter() < deadline:
+                network_gui.serve_scene(gui, scene, settings=f32, bg_color=bg, device=device)
+                time.sleep(0.005)
+            sibr_launches = kernel_counts()
+            client.join(30)
+        finally:
+            gui.stop()
+        if client.is_alive():
+            raise AssertionError("the SIBR client did not finish within 30 s")
+        rgb, got_verify = replies.get("frame", (None, None))
+        sibr_equal = rgb == want.tobytes()
+        rgb0, verify0 = replies.get("canonical", (None, None))
+        canonical_equal = rgb0 == want_canonical.tobytes() and verify0 == verify
+        keep = replies.get("keep_alive")
+        numbers.update(sibr_frame_bytes=None if rgb is None else len(rgb),
+                       sibr_canonical_frame_bit_equal=canonical_equal,
+                       sibr_frame_bit_equal=sibr_equal, sibr_verify=got_verify,
+                       sibr_keep_alive=keep, sibr_launches=sibr_launches,
+                       sibr_frame_mean=float(want.mean()), sibr_s=time.perf_counter() - t1)
+        if (not sibr_equal or not canonical_equal or got_verify != verify
+                or keep != (None, verify) or sibr_launches != only(blend_fwd=2)
+                or want.max() == 0):
+            raise AssertionError(f"SIBR server: {numbers}")
+
+        # -- cli.train --port on the COLMAP + JPEG fixture, with a live-view client
+        t1 = time.perf_counter()
+        src, model = os.path.join(tmp, "colmap_jpeg"), os.path.join(tmp, "trained")
+        shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+        port = free_port()
+        report_renders = 2 * min(5, 6)  # two reports, each over train_cams[:5] of the 6 views
+        live = {"frames": 0, "framing_ok": True, "stop": False, "errors": []}
+        from wast3d_tpu_torch.scene import datasets
+
+        with without_pil():
+            first = datasets.read_colmap_scene(src).train_cameras[:1]  # the first view's camera
+        cam = datasets.build_cameras(first, device="cpu")[0][0]
+        w, h = cam.width, cam.height
+        request = sibr_request(cam, w, h)
+
+        def live_client():
+            deadline = time.perf_counter() + 60
+            while not live["stop"] and time.perf_counter() < deadline:
+                try:
+                    s = socket.create_connection(("127.0.0.1", port), timeout=10)
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            else:
+                return
+            live["sock"] = s
+            with s:
+                s.settimeout(10)
+                while not live["stop"]:
+                    try:
+                        s.sendall(sibr_frame(request))
+                        rgb, v = sibr_reply(s, w, h, "")
+                    except OSError as e:  # shut down after training: a request unserved
+                        live["errors"].append(repr(e))
+                        return
+                    live["framing_ok"] &= len(rgb) == w * h * 3 and v == ""
+                    live["frames"] += 1
+                    time.sleep(GUI_REQUEST_EVERY_S)
+
+        client = threading.Thread(target=live_client, daemon=True)
+        reset_kernel_counts()
+        client.start()
+        try:
+            with without_pil():  # the JPEGs decode natively
+                cli_train.main(["-s", src, "-m", model, "--iterations", str(GUI_TRAIN_ITERS),
+                                "--save_iterations", str(GUI_TRAIN_ITERS // 2),
+                                str(GUI_TRAIN_ITERS), "--port", str(port), "--quiet",
+                                "--device", device.type])
+            torch.cuda.synchronize()
+        finally:
+            live["stop"] = True
+        cli_s = time.perf_counter() - t1
+        train_launches = kernel_counts()
+        # Every frame served is a K1 launch beyond the steps and the reports:
+        # let the client read each of them, then unblock its last request.
+        served = train_launches["blend_fwd"] - GUI_TRAIN_ITERS - report_renders
+        deadline = time.perf_counter() + 10
+        while live["frames"] < served and client.is_alive() and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if "sock" in live:
+            try:
+                live["sock"].shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        client.join(15)
+        if client.is_alive():
+            raise AssertionError("the live-view client did not stop within 15 s")
+        log = [json.loads(line) for line in open(os.path.join(model, "log.jsonl"))]
+        reports = [(e["iter"], e["psnr_train"]) for e in log if "psnr_train" in e]
+        losses = [(e["iter"], e["loss"]) for e in log if "loss" in e]
+    frames = live["frames"]
+    want_launches = only(blend_fwd=GUI_TRAIN_ITERS + frames + report_renders,
+                         blend_bwd=GUI_TRAIN_ITERS, segment_sum=GUI_TRAIN_ITERS)
+    numbers.update(train_iterations=GUI_TRAIN_ITERS, train_frames_served=frames,
+                   train_framing_ok=live["framing_ok"], train_client_errors=live["errors"],
+                   train_launches=train_launches, train_reports_psnr=reports,
+                   train_losses=losses, train_cli_s=cli_s)
+    if (frames == 0 or not live["framing_ok"] or train_launches != want_launches
+            or len(reports) != 2 or not reports[1][1] > reports[0][1]):
+        raise AssertionError(f"cli.train --port: {numbers}, want launches {want_launches}")
+
+    # -- nerfstudio's outputs, through K1, against the plain render's
+    t1 = time.perf_counter()
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    with torch.no_grad():
+        reset_kernel_counts()
+        ns = nerfstudio_shim.render_viewer_outputs(scene, cam, [0, 0, 0], device=device)
+        torch.cuda.synchronize()
+        ns_launches = kernel_counts()
+        plain = nerfstudio_shim.render_viewer_outputs(
+            scene, cam, [0, 0, 0], settings=api.RasterizeSettings(renderer="tiled"),
+            device=device)
+    ns_diff = {k: float((ns[k] - plain[k]).abs().max()) for k in ns}
+    ns_mean = {k: float((ns[k] - plain[k]).abs().mean()) for k in ns}
+    depth = api.render(cam, scene, bg, settings=f32, device=device)["depth"]  # K1's, raw
+    # The near-plane clamp (depth < 2 -> 1e10) is a step: a pixel whose depth
+    # K1 and the plain version put on either side of 2 (within K1's depth
+    # limit of it) flips between 1/2 and 1e-10. Hold the inverse depth where
+    # both sides agree on the clamp, and the flips to that band.
+    clamped_k1, clamped_plain = (ns["depth"][..., 0] < 1e-9), (plain["depth"][..., 0] < 1e-9)
+    flips = clamped_k1 != clamped_plain
+    same = ~flips
+    ns_diff["depth"] = float((ns["depth"][..., 0] - plain["depth"][..., 0])[same].abs().max())
+    flips_in_band = bool(((depth[flips] - 2.0).abs() <= TOL_DEPTH).all())
+    fg = depth > 0
+    inner = fg.clone()
+    for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        inner &= torch.roll(fg, (dy, dx), (0, 1))
+    inner[0, :] = inner[-1, :] = inner[:, 0] = inner[:, -1] = False
+    norms = torch.linalg.norm(ns["rgb"] * 2 - 1, dim=-1)[inner]
+    unit_err = float((norms - 1).abs().max())
+    numbers.update(ns_launches=ns_launches, ns_vs_tiled_max=ns_diff, ns_vs_tiled_mean=ns_mean,
+                   ns_clamp_flips=int(flips.sum()), ns_clamp_flips_within_depth_limit=flips_in_band,
+                   ns_normals_unit_err=unit_err, ns_foreground_pixels=int(inner.sum()),
+                   ns_s=time.perf_counter() - t1)
+    if (ns_launches != only(blend_fwd=1) or ns_diff["rgb1"] > TOL_MAX
+            or ns_diff["depth"] > TOL_DEPTH or not flips_in_band or unit_err > 1e-5
+            or int(inner.sum()) == 0):
+        raise AssertionError(f"nerfstudio outputs: {numbers}")
+
+    # -- utils.profiling around one K1f frame
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_trace_") as tmp:
+        with profiling.trace(tmp):
+            web.render_orbit_frame(scene, *VIEWER_ORBITS[0], res, settings=view_settings,
+                                   device=device)
+        traces = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        names_k1f = any("blend_fwd_fast_kernel" in open(f).read() for f in traces)
+    mem = profiling.device_memory_stats(device)
+    numbers.update(trace_files=len(traces), trace_names_k1f=names_k1f, memory=mem,
+                   profiling_s=time.perf_counter() - t1)
+    if (len(traces) != 1 or not names_k1f
+            or not 0 < mem.get("bytes_in_use", 0) <= mem.get("bytes_limit", 0)):
+        raise AssertionError(f"profiling: {numbers}")
+    emit("viewer_entry_point", t0, **numbers)
+    return train_launches
+
+
 # ---- the WaSt-3D pipeline -----------------------------------------------------
 
 def torus_scene(n=STYLE_SCENE_N, seed=3, major=1.0, minor=0.35):
@@ -1748,7 +2385,7 @@ def phase_pipeline_entry_point(device, iters=PIPELINE_ITERS, frames=PIPELINE_FRA
         written = sorted(os.listdir(turntable))
         lit = [int(read_png(os.path.join(turntable, f)).max()) for f in written]
         shapes = {read_png(os.path.join(turntable, f)).shape for f in written}
-    want_zero = ("blend_fwd_fast", "blend_bwd_fast")
+    want_zero = ("blend_fwd_fast", "blend_bwd_fast", "pack_gather")
     if (any(launches[k] == 0 for k in launches if k not in want_zero)
             or any(launches[k] for k in want_zero)
             or not launches["blend_bwd"] == launches["segment_sum"] == 2 * iters):
@@ -3488,9 +4125,14 @@ def main() -> int:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    built = _build.build()
+    # The host library (one g++) builds beside the kernels (nvcc).
+    with ThreadPoolExecutor(1) as pool:
+        native_future = pool.submit(_build.build_native)
+        built = _build.build()
+        native_built = native_future.result()
     _build.load_library()
     emit("build", t0, nvcc_s=built.seconds, library=os.path.relpath(built.path, ROOT),
+         gxx_s=native_built.seconds, native_library=os.path.relpath(native_built.path, ROOT),
          ptxas=[ln.strip() for ln in built.log.splitlines() if "ptxas" in ln])
 
     if "--profile" in sys.argv[1:]:
@@ -3529,12 +4171,16 @@ def main() -> int:
              "refine_entry_point": lambda: phase_refine_entry_point(device),
              "parallel_cases": lambda: phase_parallel_cases(device),
              "parallel_entry_point": lambda: phase_parallel_entry_point(device, domain, spacing),
+             "io": lambda: phase_io(device),
+             "pack_gather": lambda: phase_pack_gather(device),
+             "viewer_entry_point": lambda: phase_viewer_entry_point(device),
              }[name]()
         print(json.dumps({"partial_run": names,
                           "total_seconds": time.perf_counter() - t_start}), flush=True)
         faulthandler.cancel_dump_traceback_later()
         return 0
 
+    phase_io(device)
     phase_k1_cases(device)
     phase_k1_cases(device, fast=True)
     phase_k2_cases(device)
@@ -3544,6 +4190,7 @@ def main() -> int:
     phase_oracle_cases(device)
     k1 = phase_full_width(device)
     k1f = phase_full_width_fast(device)
+    kg = phase_pack_gather(device)
     serve_fast, serve = phase_entry_point(device)
     if serve_fast["blend_fwd_fast"] == 0 or serve["blend_fwd"] == 0:
         raise AssertionError(f"K1f or K1 was never launched on the serving path: "
@@ -3554,6 +4201,10 @@ def main() -> int:
     train = phase_train_entry_point(device)
     if any(train[k] == 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel of the training path was never launched: {train}")
+    viewer = phase_viewer_entry_point(device)
+    if any(viewer[k] == 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"a kernel of the viewer's training path was never launched: "
+                             f"{viewer}")
     phase_k45_cases(device)
     k4, k5 = phase_k45_full_width(device)
     phase_k45_near_coincident(device)
@@ -3572,7 +4223,7 @@ def main() -> int:
     phase_refine_entry_point(device)
     phase_parallel_cases(device)
     phase_parallel_entry_point(device, domain, spacing)
-    kernels = [k1, k1f, k2, k2f, k3, k4, k5]
+    kernels = [k1, k1f, k2, k2f, k3, k4, k5, kg]
     k1f["launches"] = serve_fast["blend_fwd_fast"]  # K2f's: from its train steps
     for k in (k1, k2, k3, k4, k5):
         k["launches"] = (style if k["name"] in ("desc_loss", "desc_grad") else train)[k["name"]]

@@ -323,7 +323,12 @@ def test_settings_accept_jaxs_tpu_tiers():
                     settings=FAST._replace(pack_gather=True, quad_power=False))
     b = tapi.render(port_cam(w=32, h=32), port_scene(js), torch.ones(3), device="cpu",
                     settings=FAST)
-    assert torch.equal(a["render"], b["render"])
+    # pack_gather builds the rows with JAX's split-bf16 roundings (Kg,
+    # tests/test_torch_pack_gather.py): within JAX's own bounds of the plain
+    # fast render (tests/test_pallas_blend.py::test_pack_gather_matches_fast_chain).
+    np.testing.assert_allclose(a["render"].numpy(), b["render"].numpy(), atol=1.5e-2)
+    np.testing.assert_allclose(a["final_T"].numpy(), b["final_T"].numpy(), atol=1.5e-2)
+    np.testing.assert_allclose(a["depth"].numpy(), b["depth"].numpy(), rtol=3e-2, atol=3e-2)
 
 
 def test_cli_render_is_fast_by_default(tmp_path):

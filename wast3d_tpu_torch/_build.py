@@ -9,6 +9,13 @@ rebuilds and an unchanged one is reused. A file that includes PyTorch's
 headers takes minutes to compile; these take seconds, and the build runs
 at the first kernel call on a CUDA tensor, never at import. If `nvcc`
 fails, the error carries its output; nothing falls back.
+
+The host library of `native/` (PLY and COLMAP readers, the JPEG decoder)
+is built the same way with one `g++` call into
+`_build/libw3d_io-<hash>.so`, so it loads on a machine without a card too.
+Both builds compile into a private temporary directory under `BUILD_DIR`
+and `os.replace` the library into place, so processes that build at once
+each load a whole file. `utils/cache.py::enable` moves `BUILD_DIR`.
 """
 
 from __future__ import annotations
@@ -54,8 +61,14 @@ SIGNATURES = {
     "w3d_segsum": ([_p, _i, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _i, _p], _i),
     "w3d_desc_loss": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_desc_grad": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
+    # Kg, the serving gather (csrc/pack_gather.cu): its two launches.
+    "w3d_pack_rows": ([_p] * 7 + [_i, _i, _p], _i),
+    "w3d_gather_rows": ([_p] * 4 + [_i, _i, _i, _p], _i),
     "w3d_error_string": ([_i], ctypes.c_char_p),
 }
+NATIVE_DIR = PACKAGE_DIR / "native"
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+GXX_TIMEOUT_S = 300
 
 
 class Built(NamedTuple):
@@ -93,11 +106,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libw3d_kernels-{h.hexdigest()[:16]}.so"
 
 
-def _nvcc(cmd: List[str]) -> str:
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+def _compile(cmd: List[str], tool: str = "nvcc", timeout: int = NVCC_TIMEOUT_S) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"{tool} failed (exit {proc.returncode}):\n{log}")
     return log
 
 
@@ -114,9 +127,9 @@ def build() -> Built:
         # Every compile runs to its end before the first failure is raised
         # (`pool.map` would cancel those not yet started).
         with ThreadPoolExecutor(len(compiles)) as pool:
-            futures = [pool.submit(_nvcc, cmd) for cmd in compiles]
+            futures = [pool.submit(_compile, cmd) for cmd in compiles]
         logs = [f.result() for f in futures]
-        logs.append(_nvcc(link))
+        logs.append(_compile(link))
         os.replace(lib, out)
     return Built(out, time.perf_counter() - t0, "".join(logs))
 
@@ -131,3 +144,39 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def native_sources() -> List[Path]:
+    return sorted(NATIVE_DIR.glob("*.cpp"))
+
+
+def gxx_path() -> str:
+    return shutil.which("g++") or "g++"
+
+
+def native_command(out: Path) -> List[str]:
+    """The one `g++` call that builds the host library `out`."""
+    return [gxx_path(), *GXX_FLAGS, "-o", str(out), *map(str, native_sources())]
+
+
+def native_library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for src in native_sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libw3d_io-{h.hexdigest()[:16]}.so"
+
+
+def build_native() -> Built:
+    """Compile `native/*.cpp` unless the library for these sources exists;
+    a failed `g++` raises with its output."""
+    out = native_library_path()
+    if out.exists():
+        return Built(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = Path(tmp) / out.name
+        log = _compile(native_command(lib), "g++", GXX_TIMEOUT_S)
+        os.replace(lib, out)
+    return Built(out, time.perf_counter() - t0, log)

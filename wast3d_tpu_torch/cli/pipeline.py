@@ -92,6 +92,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     other ranks under torchrun)."""
     args = build_parser().parse_args(argv)
     from wast3d_tpu_torch.parallel import multihost
+    from wast3d_tpu_torch.utils.cache import enable
+
+    enable()
 
     torchrun = args.devices > 1 and multihost.under_torchrun()
     if args.devices > 1 and not torchrun:

@@ -31,6 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    from wast3d_tpu_torch.utils.cache import enable
+
+    enable()
     from wast3d_tpu_torch.device import resolve_device
     from wast3d_tpu_torch.stylize.cluster import export_clusters
 

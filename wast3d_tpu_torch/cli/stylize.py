@@ -55,6 +55,9 @@ def stylize(args: argparse.Namespace) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    from wast3d_tpu_torch.utils.cache import enable
+
+    enable()
     if args.devices > 1:
         from wast3d_tpu_torch.parallel.multihost import launch
 

@@ -79,6 +79,9 @@ def sweep(args: argparse.Namespace, data: int) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    from wast3d_tpu_torch.utils.cache import enable
+
+    enable()
     data = data_axis(args.data_axis, args.device)
     if data > 1:
         from wast3d_tpu_torch.parallel.multihost import launch

@@ -12,9 +12,11 @@ CLI builds them. Differences:
   default), "tiled" (their plain PyTorch versions) and "oracle" (the
   per-pixel oracle, `ops/rasterizer/oracle.py`: plain PyTorch, O(N·H·W),
   for small test scenes), and the port's aliases "cuda" and "torch";
-- `--ip` / `--port` are accepted and no viewer starts (ROADMAP queue 1
-  item 7, the viewer);
-  `--debug_from`, `--detect_anomaly` and `--test_iterations` are accepted
+- `--ip` / `--port` start the SIBR live viewer (`viewer/network_gui.py`),
+  as in the JAX CLI: each iteration with a request pending renders one
+  frame through K1 before its step; if the port is taken the CLI prints
+  "network_gui disabled" and trains on;
+- `--debug_from`, `--detect_anomaly` and `--test_iterations` are accepted
   and do nothing, as in the JAX package.
 """
 
@@ -37,9 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="wast3d_tpu_torch training")
     add_config_args(parser, ModelConfig(), OptimizationConfig(), PipelineConfig())
     parser.add_argument("--ip", type=str, default="127.0.0.1",
-                        help="accepted; no viewer starts")
+                        help="address of the SIBR live viewer's listener")
     parser.add_argument("--port", type=int, default=6009,
-                        help="accepted; no viewer starts")
+                        help="port of the SIBR live viewer's listener")
     parser.add_argument("--debug_from", type=int, default=-1)
     parser.add_argument("--detect_anomaly", action="store_true", default=False)
     parser.add_argument("--test_iterations", nargs="+", type=int,
@@ -78,27 +80,34 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from wast3d_tpu_torch.ops.rasterizer.api import RasterizeSettings
     from wast3d_tpu_torch.train.driver import train_scene
+    from wast3d_tpu_torch.viewer import network_gui
 
-    train_scene(
-        source_path=model.source_path,
-        model_path=model.model_path,
-        images=model.images,
-        resolution=model.resolution,
-        iterations=opt.iterations,
-        eval_split=model.eval,
-        white_background=model.white_background,
-        sh_degree=model.sh_degree,
-        save_iterations=args.save_iterations,
-        checkpoint_iterations=args.checkpoint_iterations,
-        start_checkpoint=args.start_checkpoint,
-        opt_cfg=opt,
-        sphere_cfg=sphere_config(args.sphere_mode),
-        settings=RasterizeSettings(renderer=args.renderer),
-        seed=args.seed,
-        quiet=args.quiet,
-        data_device=model.data_device,
-        device=args.device,
-    )
+    gui = network_gui.maybe_start(args.ip, args.port)
+    try:
+        train_scene(
+            source_path=model.source_path,
+            model_path=model.model_path,
+            images=model.images,
+            resolution=model.resolution,
+            iterations=opt.iterations,
+            eval_split=model.eval,
+            white_background=model.white_background,
+            sh_degree=model.sh_degree,
+            save_iterations=args.save_iterations,
+            checkpoint_iterations=args.checkpoint_iterations,
+            start_checkpoint=args.start_checkpoint,
+            opt_cfg=opt,
+            sphere_cfg=sphere_config(args.sphere_mode),
+            settings=RasterizeSettings(renderer=args.renderer),
+            seed=args.seed,
+            quiet=args.quiet,
+            gui=gui,
+            data_device=model.data_device,
+            device=args.device,
+        )
+    finally:
+        if gui:
+            gui.stop()
 
 
 if __name__ == "__main__":

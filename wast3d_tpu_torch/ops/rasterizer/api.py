@@ -64,10 +64,13 @@ class RasterizeSettings(NamedTuple):
     fast_chain: the bf16 tier of the blend, K1f forward and K2f backward
     (`blend.py`); off by default, as in the JAX package, where the serving
     CLIs turn it on.
-    quad_power, pack_gather: the JAX package's TPU speed tiers of the bf16
-    blend, accepted with its defaults; they change nothing here (K1f takes
-    power in f32, which is what `quad_power` computes at f32 class), except
-    that `pack_gather` without `fast_chain` raises, as in JAX.
+    quad_power: the JAX package's MXU route of the bf16 blend's power,
+    accepted with its default; it changes nothing here (K1f takes power in
+    f32, which is what `quad_power` computes at f32 class).
+    pack_gather: the bf16 tier's serving gather, Kg (`pack_gather.py`):
+    24-byte split-bf16 rows gathered by rank and recentred with JAX's
+    roundings (`pallas_path.py:150-190`); forward only (it raises under
+    autograd) and, as in JAX, it raises without `fast_chain`.
     grad_reduce: how the duplicates' gradients are summed per Gaussian, one
     of `grad_reduce.GRAD_REDUCES`: "segsum_sortpayload" (default, exact
     f32), "segsum", "segsum_sortpacked" (bf16-rounded values), or "scatter"
@@ -203,7 +206,8 @@ def render(
                             sampling_offsets, tile_cull=settings.tile_cull,
                             use_kernel=use_kernel,
                             grad_reduce=settings.grad_reduce,
-                            fast_chain=settings.fast_chain)
+                            fast_chain=settings.fast_chain,
+                            pack_gather=settings.pack_gather)
         color, depth, final_t = out.color, out.depth, out.final_T
         b = out.binning
         overflow, overflow_emit, overflow_rect = b.overflow, b.overflow_emit, b.overflow_rect

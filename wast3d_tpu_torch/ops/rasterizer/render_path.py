@@ -20,6 +20,11 @@ is the exact inverse gather through `rank_of`. In the bf16 tier the
 rounding's backward makes the per-duplicate gradients bf16 values, as JAX's
 VJP does (`pallas_blend.py:934-937`); K3 and the gathers take them as they
 are.
+
+`pack_gather` (the bf16 tier only, forward only) builds the bf16 rows with
+Kg (`pack_gather.py`) from 24-byte split-bf16 rows gathered by rank, with
+JAX's roundings (`pallas_path.py:150-190`), in place of the f32 gather and
+`fast_rows`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from wast3d_tpu_torch.ops.rasterizer import blend as blend_mod
 from wast3d_tpu_torch.ops.rasterizer import grad_reduce as reduce_mod
+from wast3d_tpu_torch.ops.rasterizer import pack_gather as pack_mod
 from wast3d_tpu_torch.ops.rasterizer.binning import TILE, Binning, bin_gaussians, tile_grid
 from wast3d_tpu_torch.ops.rasterizer.preprocess import Preprocessed
 
@@ -115,12 +121,28 @@ def fast_rows(rows: torch.Tensor, tile_of_dup: torch.Tensor, width: int) -> torc
     return torch.nn.functional.pad(local.to(torch.bfloat16), (0, blend_mod.ROW_FAST - 10))
 
 
+def packed_rows(prep: Preprocessed, binning: Binning, width: int,
+                plain: bool = False) -> torch.Tensor:
+    """The bf16 tier's [K, 16] rows through Kg (`pack_gather.py`), or its
+    plain version with `plain`. Forward only: raises if autograd would have
+    to differentiate it."""
+    fields = (prep.means2d, prep.conics, prep.opacities, prep.depths, prep.colors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in fields):
+        raise ValueError("pack_gather is forward only (serving): render under "
+                         "torch.no_grad() or with inputs that need no gradient")
+    fn = pack_mod.pack_gather_reference if plain else pack_mod.pack_gather
+    return fn(*fields, binning.depth_order, binning.rank, binning.tile_of_dup, width)
+
+
 def bin_and_pack(prep: Preprocessed, width: int, height: int,
                  jittered: bool = False, tile_cull: bool = True,
                  grad_reduce: str = reduce_mod.DEFAULT, plain: bool = False,
-                 fast: bool = False):
+                 fast: bool = False, pack_gather: bool = False):
     """Binning and the sorted rows: (Binning, rows [K, 12] f32, or with
-    `fast` the bf16 tier's [K, 16] bf16 rows)."""
+    `fast` the bf16 tier's [K, 16] bf16 rows, through Kg with
+    `pack_gather`)."""
+    if pack_gather and not fast:
+        raise ValueError("pack_gather requires fast_chain (bf16 tier)")
     binning = bin_gaussians(
         prep.means2d, prep.depths, prep.radii, width, height,
         ext_x=prep.extent_x, ext_y=prep.extent_y,
@@ -128,6 +150,8 @@ def bin_and_pack(prep: Preprocessed, width: int, height: int,
         opacities=prep.opacities if tile_cull else None,
         jitter_margin=1.0 if jittered else 0.0,
     )
+    if pack_gather:
+        return binning, packed_rows(prep, binning, width, plain)
     rows = sorted_rows(prep, binning, grad_reduce, plain)
     if fast:
         rows = fast_rows(rows, binning.tile_of_dup, width)
@@ -144,13 +168,15 @@ def render_sorted(
     use_kernel: bool = True,
     grad_reduce: str = reduce_mod.DEFAULT,
     fast_chain: bool = False,
+    pack_gather: bool = False,
 ) -> RenderOutput:
     """Bin, gather and blend. `use_kernel=False` calls the plain versions
-    of K1, K2 and K3 directly (renderer="torch"); `fast_chain` blends in the
-    bf16 tier."""
+    of K1, K2, K3 and Kg directly (renderer="torch"); `fast_chain` blends in
+    the bf16 tier, on rows from Kg with `pack_gather`."""
     binning, rows = bin_and_pack(prep, width, height,
                                  sampling_offsets is not None, tile_cull,
-                                 grad_reduce, plain=not use_kernel, fast=fast_chain)
+                                 grad_reduce, plain=not use_kernel, fast=fast_chain,
+                                 pack_gather=pack_gather)
     out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, width,
                           height, bg_color, sampling_offsets, use_kernel, fast_chain)
     return RenderOutput(out.color, out.depth, out.final_T, binning)

@@ -1,8 +1,9 @@
-"""COLMAP sparse-reconstruction parsers (binary + text), pure numpy.
+"""COLMAP sparse-reconstruction parsers (binary + text) and binary writers.
 
 Copy of `wast3d_tpu/scene/colmap.py` (the port imports nothing of the JAX
-package), readers only and without its native C++ fast path:
-cameras.bin/.txt, images.bin/.txt, points3D.bin/.txt.
+package): cameras.bin/.txt, images.bin/.txt, points3D.bin/.txt readers,
+`points3D.bin` through the port's native C++ reader when it is available
+(numpy otherwise, as in JAX), and the three binary writers.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ CAMERA_MODELS = {
     9: ("RADIAL_FISHEYE", 5),
     10: ("THIN_PRISM_FISHEYE", 12),
 }
+_MODEL_BY_NAME = {name: (mid, n) for mid, (name, n) in CAMERA_MODELS.items()}
 
 
 class ColmapCamera(NamedTuple):
@@ -96,7 +98,14 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
 
 
 def read_points3d_binary(path: str):
-    """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N])."""
+    """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N]); the native reader
+    returns zero errors, as the JAX package's does."""
+    from wast3d_tpu_torch import native
+
+    fast = native.read_colmap_points3d(path)
+    if fast is not None:
+        xyz, rgb = fast
+        return xyz, rgb, np.zeros(len(xyz))
     with open(path, "rb") as f:
         (num,) = _read(f, "<Q")
         xyz = np.empty((num, 3))
@@ -160,3 +169,38 @@ def read_points3d_text(path: str):
         np.array(rgbs, np.uint8),
         np.array(errs, np.float64),
     )
+
+
+def write_cameras_binary(cams: Dict[int, ColmapCamera], path: str) -> None:
+    """cameras.bin (for tests and dataset conversion)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for cam in cams.values():
+            mid, n_params = _MODEL_BY_NAME[cam.model]
+            f.write(struct.pack("<iiQQ", cam.id, mid, cam.width, cam.height))
+            f.write(struct.pack(f"<{n_params}d", *cam.params[:n_params]))
+
+
+def write_images_binary(imgs: Dict[int, ColmapImage], path: str) -> None:
+    """images.bin, with no 2D points."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(imgs)))
+        for im in imgs.values():
+            f.write(struct.pack("<i", im.id))
+            f.write(struct.pack("<4d", *im.qvec))
+            f.write(struct.pack("<3d", *im.tvec))
+            f.write(struct.pack("<i", im.camera_id))
+            f.write(im.name.encode("utf-8") + b"\x00")
+            f.write(struct.pack("<Q", 0))
+
+
+def write_points3d_binary(xyz: np.ndarray, rgb: np.ndarray, path: str) -> None:
+    """points3D.bin: ids 0..N-1, zero error, empty tracks."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        for i in range(len(xyz)):
+            f.write(struct.pack("<Q", i))
+            f.write(struct.pack("<3d", *xyz[i]))
+            f.write(struct.pack("<3B", *rgb[i].astype(np.uint8)))
+            f.write(struct.pack("<d", 0.0))
+            f.write(struct.pack("<Q", 0))

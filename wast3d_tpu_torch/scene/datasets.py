@@ -4,8 +4,9 @@ Port of `wast3d_tpu/scene/datasets.py`: the same COLMAP (binary with text
 fallback, llffhold=8 eval split) and Blender readers (OpenGL->COLMAP axis
 flip, alpha composite over the background, random 100k-point cube when no
 points3d.ply), nerf++ normalisation and resolution policy. Two changes:
-images go through the port's own PNG code (`utils/png.py`; PIL is imported
-only for other formats such as JPEG), and `build_cameras` resizes with
+images go through the port's own decoders (PNG: `utils/png.py`; JPEG: the
+native baseline decoder, `native.read_jpeg`, which gives PIL's pixels; PIL
+is imported only for any other format), and `build_cameras` resizes with
 `png.resize` in place of PIL's filter.
 """
 
@@ -62,9 +63,14 @@ def nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
 
 
 def _load_image(path: str) -> np.ndarray:
-    if path.lower().endswith(".png"):
+    lower = path.lower()
+    if lower.endswith(".png"):
         img = png.read_png(path)
-    else:  # JPEG and other formats: PIL, imported only here
+    elif lower.endswith((".jpg", ".jpeg")):
+        from wast3d_tpu_torch import native
+
+        img = native.read_jpeg(path)
+    else:  # other formats: PIL, imported only here
         from PIL import Image
 
         img = np.asarray(Image.open(path))

@@ -1,7 +1,8 @@
 """Bit-compatible PLY interchange for Gaussian scenes.
 
-Port of `wast3d_tpu/scene/ply.py` (numpy path only; the port does not use
-the JAX package's native C++ reader). Binary little-endian, one `vertex`
+Port of `wast3d_tpu/scene/ply.py`: all-float32 files are read by the
+port's native C++ reader (`wast3d_tpu_torch/native`) when it is available,
+others (and every file when it is not) by numpy. Binary little-endian, one `vertex`
 element with float32 properties x, y, z, nx, ny, nz, f_dc_0..2,
 f_rest_0..(3K-4), opacity, scale_0..2, rot_0..3, K = (max_sh_degree+1)^2.
 f_dc / f_rest are channel-major flattenings of the [N, K, 3] coefficients.
@@ -101,11 +102,25 @@ def parse_header(blob: bytes) -> Tuple[int, list, int]:
 
 def load_ply_arrays(path: str) -> dict:
     """Read a reference-schema PLY into raw numpy arrays (f_rest, scale and
-    rot columns taken in numeric name order)."""
+    rot columns taken in numeric name order), through the native reader
+    for all-float32 files when it is available, as the JAX package does."""
     with open(path, "rb") as f:
-        blob = f.read()
-    n, props, offset = parse_header(blob)
-    rec = np.frombuffer(blob, dtype=np.dtype(props), count=n, offset=offset)
+        head = f.read(1 << 16)
+    if b"end_header" not in head:
+        with open(path, "rb") as f:
+            head = f.read()
+    n, props, offset = parse_header(head)
+    rec = None
+    if all(dt == "<f4" for _, dt in props):
+        from wast3d_tpu_torch import native
+
+        fast = native.read_ply_f32(path)
+        if fast is not None and fast[1] == n and fast[2] == len(props):
+            rec = {name: fast[0][:, i] for i, (name, _) in enumerate(props)}
+    if rec is None:
+        with open(path, "rb") as f:
+            blob = f.read()
+        rec = np.frombuffer(blob, dtype=np.dtype(props), count=n, offset=offset)
 
     def col(name):
         return np.asarray(rec[name])

@@ -6,8 +6,9 @@ variants): load the dataset, initialise Gaussians from its point cloud
 (random 100k-point cube for a Blender scene without one), run the
 reconstruction schedule, write PLYs at `save_iterations` and checkpoints at
 `checkpoint_iterations`, and report test / train PSNR at each save
-(`<model_path>/log.jsonl`, plus `cfg_args`). The live viewer (`gui`) of the
-JAX driver is not ported (ROADMAP.md, queue 1).
+(`<model_path>/log.jsonl`, plus `cfg_args`). `gui`, a
+`viewer.network_gui.NetworkGUI`, serves one live-view frame per iteration
+with a request pending (`Trainer._pre_step`), as in the JAX driver.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from wast3d_tpu_torch.scene.datasets import build_cameras, load_scene_info
 from wast3d_tpu_torch.scene.gaussians import from_point_cloud
 from wast3d_tpu_torch.train import checkpoint as ckpt_mod
 from wast3d_tpu_torch.train.reconstruct import Trainer, init_train_state
+from wast3d_tpu_torch.utils.cache import enable as enable_cache
 
 
 def train_scene(
@@ -49,12 +51,14 @@ def train_scene(
     seed: int = 0,
     quiet: bool = False,
     log_every: int = 100,
+    gui=None,
     jitter: bool = True,
     data_device: str = "tpu",
     device: DeviceLike = None,
 ) -> Trainer:
     """Train one scene on `device` (None means CUDA). Returns the final
     Trainer (with .state)."""
+    enable_cache()
     dev = resolve_device(device)
     save_iterations = sorted(set(save_iterations or [7_000, 30_000]))
     checkpoint_iterations = sorted(set(checkpoint_iterations or []))
@@ -87,7 +91,7 @@ def train_scene(
     trainer = Trainer(state, train_cams, opt_cfg=opt_cfg, settings=settings,
                       spatial_lr_scale=cameras_extent, cameras_extent=cameras_extent,
                       sphere_cfg=sphere_cfg, seed=seed, white_background=white_background,
-                      jitter=jitter, data_device=data_device, device=dev)
+                      gui=gui, jitter=jitter, data_device=data_device, device=dev)
     trainer.history_sink = lambda e: (log_f.write(json.dumps(e) + "\n"), log_f.flush())
 
     def report(it):

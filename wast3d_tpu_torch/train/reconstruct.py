@@ -109,7 +109,9 @@ class Trainer:
     `data_device == "cpu"`. The camera order comes from
     `np.random.default_rng(seed)`, as in the JAX package, so both visit the
     same cameras; jitter and split noise come from a `torch.Generator`
-    seeded with `seed` (JAX's `jax.random` numbers are not reproduced)."""
+    seeded with `seed` (JAX's `jax.random` numbers are not reproduced).
+    `gui`, a `viewer.network_gui.NetworkGUI`, gets one live-view frame
+    before each step that finds a request pending (`_pre_step`)."""
 
     def __init__(
         self,
@@ -123,11 +125,13 @@ class Trainer:
         sphere_cfg: Optional[SphereConfig] = None,
         seed: int = 0,
         white_background: bool = False,
+        gui=None,
         jitter: bool = True,
         data_device: str = "tpu",
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
+        self.gui = gui
         self.state = state
         keep_on_host = data_device == "cpu"
 
@@ -161,6 +165,16 @@ class Trainer:
         if not self._camera_order:
             self._camera_order = list(self.rng.permutation(len(self.cameras)))
         return self.cameras[self._camera_order.pop()]
+
+    def _pre_step(self, it: int):
+        """Serve one live-view frame of the current scene if the viewer
+        asked for one (the reference polls its GUI socket at the top of the
+        loop), through K1 with the training settings."""
+        if self.gui is not None:
+            from wast3d_tpu_torch.viewer.network_gui import serve_scene
+
+            serve_scene(self.gui, self.state.scene, settings=self.settings,
+                        bg_color=self.bg_color, device=self.device)
 
     def _do_step(self, it: int):
         cam, gt = self._next_camera()

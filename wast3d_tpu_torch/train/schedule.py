@@ -33,11 +33,19 @@ def _log(tr, entry):
 
 def run_schedule(tr, iterations: int, log_every: int = 0):
     """Drive `iterations` steps of the reference schedule on a `Trainer` (or
-    a `parallel.train_sharded.ShardedTrainer`, which densifies its own rows)."""
+    a `parallel.train_sharded.ShardedTrainer`, which densifies its own rows).
+
+    What the loop needs of the trainer, as in JAX
+    (`wast3d_tpu/train/schedule.py`): `state`, `opt_cfg`, `history`,
+    `history_sink`, `_it`, `_white_bg`,
+    `cameras_extent`, `generator`, `total_rows()`; `_pre_step(it)` runs
+    before each step (the live viewer's frame) and `_do_step(it)` takes the
+    step and returns its aux."""
     cfg = tr.opt_cfg
     for _ in range(iterations):
         it = tr._it + 1  # 1-based like the reference
         tr._it = it
+        tr._pre_step(it)
         if it % 1000 == 0:
             tr.state = tr.state._replace(scene=tr.state.scene.one_up_sh_degree())
         aux = tr._do_step(it)
