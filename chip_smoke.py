@@ -1755,14 +1755,17 @@ def no_native():
 
 
 def fixture_jpegs():
-    """(name, JPEG path, PNG of PIL's decode) of every committed JPEG fixture."""
+    """(name, JPEG path, PNG of PIL's decode) of every committed JPEG fixture;
+    a progressive twin (`<name>_progressive.jpg`, `images_progressive/`)
+    has its baseline twin's decode."""
     out = []
     for d, _, files in os.walk(FIXTURES):
         for f in files:
             if f.endswith(".jpg"):
-                name = f[:-4]
+                name = os.path.relpath(os.path.join(d, f[:-4]), FIXTURES)
+                twin = f[:-4].removesuffix("_progressive")
                 out.append((name, os.path.join(d, f),
-                            os.path.join(FIXTURES, "pil_decode", name + ".png")))
+                            os.path.join(FIXTURES, "pil_decode", twin + ".png")))
     if not out:
         raise AssertionError(f"no JPEG fixtures under {FIXTURES}")
     return sorted(out)
@@ -1838,6 +1841,102 @@ def phase_io(device, n=FULL_N):
     return jpegs[largest]["decode_ms_median"]
 
 
+IMAGES_TRAIN_ITERS = 20  # cli.train on the progressive COLMAP fixture
+RESIZES = (("scene_648x416", (648, 416)), ("scene_432x277", (432, 277)),
+           ("wide_1600x90", (1600, 90)))  # tests/torch_fixtures/resize/: PIL's bytes
+PAETH_SIDE = 800  # the all-Paeth RGBA decode: a Blender view's size
+BIG_RESIZE = ((1090, 1959), (890, 1600))  # Tanks&Temples' width at -r -1
+
+
+def median_s(fn, reps):
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return out, statistics.median(times)
+
+
+def phase_images(device):
+    """Dataset images read and resized as PIL does, without PIL: each
+    committed progressive JPEG against its baseline twin and PIL's decode,
+    the Adam7 and all-Paeth PNGs against PIL's decode, the native resize
+    against PIL's committed bytes (and the numpy version at 1959 → 1600),
+    the decode and resize times, and `cli.train` on the progressive COLMAP
+    fixture with PIL unimportable. Returns the numbers."""
+    import shutil
+
+    from wast3d_tpu_torch import native
+    from wast3d_tpu_torch.cli import train as cli_train
+    from wast3d_tpu_torch.utils import png
+
+    t0 = time.perf_counter()
+    checks, numbers = {}, {}
+    with without_pil():
+        for name, jpg, want_png in fixture_jpegs():
+            if "progressive" not in name:
+                continue
+            base = jpg.replace("images_progressive", "images").replace("_progressive", "")
+            got, sec = median_s(lambda: native.read_jpeg(jpg), 5)
+            checks[f"jpeg {name}"] = (np.array_equal(got, png.read_png(want_png))
+                                      and np.array_equal(got, native.read_jpeg(base)))
+            numbers[f"decode_ms {name}"] = sec * 1e3
+        for name in ("adam7_rgba_67x45", "paeth_rgba_200x150"):
+            got = png.read_png(os.path.join(FIXTURES, "png", name + ".png"))
+            want = png.read_png(os.path.join(FIXTURES, "pil_decode", name + ".png"))
+            checks[f"png {name}"] = np.array_equal(got, want)
+        decoded = native.read_jpeg(os.path.join(FIXTURES, "jpeg", "scene_1296x832_420.jpg"))
+        for name, size in RESIZES:
+            img = decoded if name.startswith("scene") else np.concatenate(
+                [decoded, decoded[:, :404]], axis=1)[:96]
+            want = png.read_png(os.path.join(FIXTURES, "resize", name + ".png"))
+            checks[f"resize {name}"] = np.array_equal(png.resize_native(img, *size), want)
+
+        # Times at a dataset's sizes: an all-Paeth 800² RGBA view, a
+        # 1959-wide photo to 1600 at -r -1.
+        rgba = np.concatenate([decoded[:PAETH_SIDE, :PAETH_SIDE],
+                               decoded[:PAETH_SIDE, -PAETH_SIDE:, :1]], axis=2)
+        blob = png.encode_png(rgba, filter_type=4)
+        got, paeth_s = median_s(lambda: png.decode_png(blob), 3)
+        checks["png paeth 800"] = np.array_equal(got, rgba)
+        (h, w), (oh, ow) = BIG_RESIZE
+        big = np.tile(decoded, (2, 2, 1))[:h, :w]
+        got, resize_s = median_s(lambda: png.resize_native(big, ow, oh), 3)
+        t = time.perf_counter()
+        checks["resize 1959 native = numpy"] = np.array_equal(got, png.resize(big, ow, oh))
+        numpy_resize_s = time.perf_counter() - t
+    numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
+                   resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
+
+    # cli.train on progressive JPEGs, through K1-K3, with PIL unimportable.
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_images_") as tmp:
+        src, model = os.path.join(tmp, "colmap_jpeg"), os.path.join(tmp, "trained")
+        shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+        reset_kernel_counts()
+        with without_pil():
+            cli_train.main(["-s", src, "-i", "images_progressive", "-m", model,
+                            "--iterations", str(IMAGES_TRAIN_ITERS), "--quiet",
+                            "--port", str(free_port()), "--device", device.type])
+        torch.cuda.synchronize()
+        launched = kernel_counts()
+        log = [json.loads(line) for line in open(os.path.join(model, "log.jsonl"))]
+        ply = os.path.join(model, "point_cloud", f"iteration_{IMAGES_TRAIN_ITERS}",
+                           "point_cloud.ply")
+        checks["train ply written"] = os.path.exists(ply)
+    psnr = [e["psnr_train"] for e in log if "psnr_train" in e]  # the final report
+    checks["train psnr finite"] = len(psnr) == 1 and math.isfinite(psnr[0])
+    checks["train launches"] = (launched["blend_bwd"] == launched["segment_sum"]
+                                == IMAGES_TRAIN_ITERS
+                                and launched["blend_fwd"] >= IMAGES_TRAIN_ITERS)
+    numbers.update(train_cli_s=time.perf_counter() - t1, train_launches=launched,
+                   train_psnr=psnr)
+    emit("images", t0, checks=checks, **numbers)
+    if not all(checks.values()):
+        raise AssertionError(f"images: {[k for k, v in checks.items() if not v]} failed")
+    return numbers
+
+
 def kg_args(scene, cam):
     """Kg's inputs for this view, as the render path hands them over."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
@@ -1850,13 +1949,40 @@ def kg_args(scene, cam):
 
 
 def compare_kg(args):
-    """(bit-equal to the plain version, bit-equal to a second run)."""
+    """(bit-equal to the plain version, bit-equal to a second run), for the
+    port's kernel and then for Kg's other design."""
     from wast3d_tpu_torch.ops.rasterizer.pack_gather import pack_gather, pack_gather_reference
 
-    a, b = pack_gather(*args), pack_gather(*args)
-    p = pack_gather_reference(*args)
-    return (torch.equal(a.view(torch.int16), p.view(torch.int16)),
-            torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    p = pack_gather_reference(*args).view(torch.int16)
+    other = kg_other_call(args)
+    out = []
+    for fn in (lambda: pack_gather(*args), other):
+        a, b = fn().view(torch.int16), fn().view(torch.int16)
+        out += [torch.equal(a, p), torch.equal(a, b)]
+    return tuple(out)
+
+
+# Kg's other design, "recompute" (no packed rows; each duplicate rounds its
+# Gaussian's fields itself), from `tools/kg_variants.cu`; built beside the
+# port's kernels in `main`: (the tool's module, its library).
+KG_OTHER = {}
+
+
+def build_kg_other(tmp):
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "kg_variants", os.path.join(ROOT, "tools", "kg_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool, tool.build(Path(tmp), ["recompute"])["recompute"]
+
+
+def kg_other_call(args):
+    """A call of Kg's other design on `args`, as the tool launches it."""
+    tool, lib = KG_OTHER["recompute"]
+    return tool.launcher(lib, "recompute", args)
 
 
 def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
@@ -1865,7 +1991,8 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
     frame without it, and Kg's times beside the f32 gather + `fast_rows`
     that it replaces. Returns Kg's kernels-line entry."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
-    from wast3d_tpu_torch.ops.rasterizer.pack_gather import pack_gather, pack_gather_reference
+    from wast3d_tpu_torch.ops.rasterizer.pack_gather import (
+        PACKED_ROW_BYTES, pack_gather, pack_gather_reference)
 
     t0 = time.perf_counter()
     split = {}
@@ -1903,8 +2030,12 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
         depth_ok = bool(((out["depth"] - ref["depth"]).abs()
                          <= PACK_DEPTH_TOL + PACK_DEPTH_TOL * ref["depth"].abs()).all())
         frame_bits = all(torch.equal(out[f], ref[f]) for f in ("render", "final_T", "depth"))
-        kg_ms = cuda_time_ms(lambda: pack_gather(*args), 50)
-        _, kg_device_ms = device_ms(lambda: pack_gather(*args))
+        designs = {}
+        for design, fn in (("cooperative", lambda: pack_gather(*args)),
+                           ("recompute", kg_other_call(args))):
+            designs[design] = {"ms": cuda_time_ms(fn, 50), "device_ms": device_ms(fn)[1],
+                               "host_ms": host_ms(fn, 50)}
+        kg_ms, kg_device_ms = designs["cooperative"]["ms"], designs["cooperative"]["device_ms"]
         plain_ms = cuda_time_ms(lambda: pack_gather_reference(*args), 5)
         library_ms = cuda_time_ms(lambda: render_path.fast_rows(
             render_path.sorted_rows(prep, binning), binning.tile_of_dup, res), 50)
@@ -1912,27 +2043,33 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
             render_path.sorted_rows(prep, binning), binning.tile_of_dup, res))
     N, K = int(prep.means2d.shape[0]), int(binning.rank.shape[0])
     # The function's bytes: each input read once (the five fields, the depth
-    # order, rank and tile), each output row written once; the two passes
-    # also write and read the 24-byte packed rows (`design_bytes`).
+    # order, rank and tile), each output row written once. The kernel also
+    # writes the 32-byte packed rows (kept in L2 and read there once a
+    # duplicate: `l2_row_bytes`); the recompute design reads each
+    # duplicate's fields from L2, about six 32-byte sectors.
     in_bytes = sum(t.numel() * t.element_size() for t in args[:8])
     out_bytes = K * FAST_ROW_BYTES
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    design_bytes = in_bytes + out_bytes + 24 * (N + 1) + 24 * K
+    design_bytes = in_bytes + out_bytes + PACKED_ROW_BYTES * (N + 1)
+    l2_row_bytes = {"cooperative": PACKED_ROW_BYTES * K, "recompute": 6 * 32 * K}
     ops_ms = (12 * N + 8 * K) / F32_OPS_PER_S * 1e3  # roundings, one subtraction; two subs, two adds
     bound_ms = max(bytes_ms, ops_ms)
     emit("pack_gather", t0, n_gaussians=n, width=res, height=res, duplicates_K=K,
          cases_bit_equal_to_plain={k: v[0] for k, v in cases.items()},
          cases_bit_equal_run_to_run={k: v[1] for k, v in cases.items()},
+         other_design_cases_bit_equal={k: v[2] and v[3] for k, v in cases.items()},
          frames=frames, launches_in_frames=launched,
          frame_ms_median=statistics.median(frame_ms), frame_ms_min=min(frame_ms),
          frame_vs_no_pack_gather_max=diffs, frame_bit_equal_to_no_pack_gather=frame_bits,
+         kg_design="cooperative", kg_designs=designs, kg_l2_row_bytes=l2_row_bytes,
+         kg_bound_share_events=bound_ms / kg_ms, kg_bound_share_device=bound_ms / kg_device_ms,
          kg_ms=kg_ms, kg_device_ms=kg_device_ms, plain_ms=plain_ms,
          f32_gather_fast_rows_ms=library_ms, f32_gather_fast_rows_device_ms=library_device_ms,
          kg_bound_ms=bound_ms, kg_bound_bytes_ms=bytes_ms, kg_bound_ops_ms=ops_ms,
          kg_bytes=in_bytes + out_bytes, kg_design_bytes=design_bytes,
          kg_design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
          timing_s=time.perf_counter() - t0 - split["cases_s"] - split["frames_s"], **split)
-    if not all(a and b for a, b in cases.values()):
+    if not all(all(v) for v in cases.values()):
         raise AssertionError(f"Kg against its plain version / itself: {cases}")
     if launched != only(blend_fwd_fast=warmup + frames, pack_gather=warmup + frames):
         raise AssertionError(f"launches {launched} for {warmup + frames} pack_gather frames")
@@ -4125,11 +4262,15 @@ def main() -> int:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    # The host library (one g++) builds beside the kernels (nvcc).
-    with ThreadPoolExecutor(1) as pool:
+    # The host library (one g++) and Kg's other design (one nvcc) build
+    # beside the kernels (nvcc).
+    kg_tmp = tempfile.TemporaryDirectory(prefix="w3d_kg_other_")
+    with ThreadPoolExecutor(2) as pool:
         native_future = pool.submit(_build.build_native)
+        other_future = pool.submit(build_kg_other, kg_tmp.name)
         built = _build.build()
         native_built = native_future.result()
+        KG_OTHER["recompute"] = other_future.result()
     _build.load_library()
     emit("build", t0, nvcc_s=built.seconds, library=os.path.relpath(built.path, ROOT),
          gxx_s=native_built.seconds, native_library=os.path.relpath(native_built.path, ROOT),
@@ -4172,6 +4313,7 @@ def main() -> int:
              "parallel_cases": lambda: phase_parallel_cases(device),
              "parallel_entry_point": lambda: phase_parallel_entry_point(device, domain, spacing),
              "io": lambda: phase_io(device),
+             "images": lambda: phase_images(device),
              "pack_gather": lambda: phase_pack_gather(device),
              "viewer_entry_point": lambda: phase_viewer_entry_point(device),
              }[name]()
@@ -4181,6 +4323,7 @@ def main() -> int:
         return 0
 
     phase_io(device)
+    phase_images(device)
     phase_k1_cases(device)
     phase_k1_cases(device, fast=True)
     phase_k2_cases(device)

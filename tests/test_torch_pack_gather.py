@@ -113,6 +113,36 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_nothing():
         kg.pack_gather(*args[:6], binning.rank.to(torch.int32), *args[7:])
 
 
+def test_cooperative_designs_32_byte_rows_hold_the_packs_values():
+    """The kernel's data path (csrc/pack_gather.cu): row g of its scratch
+    holds Gaussian g's 12 fields in 16 bf16 slots (32 bytes, the last four
+    zero), row N is zero; a duplicate reads row depth_order[rank] (row N
+    for the sentinel rank), recentres the mean words 0-1 on its tile and
+    copies words 2-5 to the output's words 1-4. Modelled here word for
+    word, it gives `pack_gather_reference`'s rows bit for bit."""
+    jscene = _random_scene(n=80, seed=4)
+    prep = tapi.preprocess_scene(port_cam(w=W, h=H), port_scene(jscene))
+    with torch.no_grad():
+        binning, _ = render_path.bin_and_pack(prep, W, H, fast=True)
+    fields = (prep.means2d, prep.conics, prep.opacities, prep.depths, prep.colors)
+    n = prep.means2d.shape[0]
+    rank = torch.cat([binning.rank, torch.tensor([n])])  # and one sentinel duplicate
+    tile_of_dup = torch.cat([binning.tile_of_dup, torch.tensor([1])])
+    scratch = torch.nn.functional.pad(kg.pack_rows_reference(*fields, torch.arange(n)),
+                                      (0, kg.PACKED_ROW_BYTES // 2 - kg.PACKED))
+    g = torch.cat([binning.depth_order, torch.tensor([n])])[rank]
+    words = scratch[g].view(torch.int32)  # [K, 8]: packed words 0-7
+    grid_x = -(-W // 16)
+    o = torch.stack([tile_of_dup % grid_x, tile_of_dup // grid_x], 1) * 16
+    half = scratch[g].float()  # slots 0-3: hi_x lo_x hi_y lo_y
+    mean = ((half[:, 0:4:2] - o.float()) + half[:, 1:4:2]).to(torch.bfloat16)
+    out = torch.cat([mean.view(torch.int32), words[:, 2:6],
+                     torch.zeros_like(words[:, :3])], dim=1)
+    want = kg.pack_gather_reference(*fields, binning.depth_order, rank, tile_of_dup, W)
+    assert torch.equal(out, want.view(torch.int32)) and kg.PACKED_ROW_BYTES == 32
+    assert not scratch[:, kg.PACKED:].view(torch.int16).any()
+
+
 def test_pack_gather_raises_without_fast_chain_and_under_autograd():
     scene = port_scene(_random_scene(n=16, seed=0))
     cam = port_cam(w=32, h=32)

@@ -124,12 +124,14 @@ def test_png_average_filter_and_rejects():
 
 
 def test_resize():
-    img = np.arange(8 * 6 * 3, dtype=np.float32).reshape(8, 6, 3)
-    np.testing.assert_allclose(png.resize(img, 3, 4),
-                               img.reshape(4, 2, 3, 2, 3).mean(axis=(1, 3)))
-    near = png.resize(img, 4, 5)
-    assert near.shape == (5, 4, 3)
-    np.testing.assert_array_equal(near[0, 0], img[0, 0])
+    """`png.resize` gives PIL's default resize (bicubic) bytes: whole-factor
+    and odd shrinks, an upscale, and one axis alone."""
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (48, 36, 3)).astype(np.uint8)
+    for w, h in ((18, 24), (13, 29), (50, 61), (36, 20), (7, 48)):
+        want = np.asarray(Image.fromarray(img).resize((w, h)))
+        np.testing.assert_array_equal(png.resize(img, w, h), want)
+    np.testing.assert_array_equal(png.resize(img, 36, 48), img)  # same size: a copy
 
 
 def _assert_same_cameras(tc, jc):
@@ -169,6 +171,7 @@ def test_colmap_dataset_matches_jax(tmp_path):
     np.testing.assert_array_equal(t.point_cloud.points, j.point_cloud.points)
     _assert_same_cameras(tds.build_cameras(t.train_cameras, device="cpu"),
                          jds.build_cameras(j.train_cameras))
-    # resolution 2 halves each side; the port's box filter replaces PIL's
+    # resolution 2 halves each side with PIL's filter, as JAX does
     half = tds.build_cameras(t.train_cameras, resolution=2, device="cpu")
     assert half[0][0].width == 32 and half[0][1].shape == (24, 32, 3)
+    _assert_same_cameras(half, jds.build_cameras(j.train_cameras, resolution=2))

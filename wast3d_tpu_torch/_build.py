@@ -61,9 +61,9 @@ SIGNATURES = {
     "w3d_segsum": ([_p, _i, _i, _p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _i, _p], _i),
     "w3d_desc_loss": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
     "w3d_desc_grad": ([_p] * 6 + [_i, _i, _f, _f, _p, _i, _p], _i),
-    # Kg, the serving gather (csrc/pack_gather.cu): its two launches.
-    "w3d_pack_rows": ([_p] * 7 + [_i, _i, _p], _i),
-    "w3d_gather_rows": ([_p] * 4 + [_i, _i, _i, _p], _i),
+    # Kg, the serving gather (csrc/pack_gather.cu), with the packed rows'
+    # scratch.
+    "w3d_pack_gather": ([_p] * 10 + [_i, _i, _i, _i, _p], _i),
     "w3d_error_string": ([_i], ctypes.c_char_p),
 }
 NATIVE_DIR = PACKAGE_DIR / "native"

@@ -2,9 +2,10 @@
 
 The port's counterpart of `wast3d_tpu/native`: the same C ABI and Python
 API (`available`, `read_ply_f32`, `write_ply_f32`, `read_colmap_points3d`,
-the `WAST3D_NO_NATIVE` opt-out), plus a baseline JPEG decoder
-(`read_jpeg`, `decode_jpeg`; `jpeg.cpp`) for COLMAP datasets, since the
-card's machine has no PIL.
+the `WAST3D_NO_NATIVE` opt-out), plus what datasets need without PIL, since
+the card's machine has none: a JPEG decoder (`read_jpeg`, `decode_jpeg`; baseline and progressive,
+`jpeg.cpp`), PNG unfiltering and Adam7 (`png_unfilter`) and PIL's bicubic
+resize (`resize_u8`; both `image.cpp`).
 
 The library is built lazily by `_build.build_native` (one `g++` call into a
 private temporary directory under `_build/`, then `os.replace` to a name
@@ -12,7 +13,7 @@ hashed over the sources and flags), never next to the sources, so
 processes that build at once each load a whole file. The PLY and COLMAP
 fast paths keep the JAX package's numpy fallbacks in `scene/ply.py` and
 `scene/colmap.py`: they return None when the library is opted out or
-cannot be built. The JPEG decoder has no fallback: it builds the library
+cannot be built. The image code has no fallback: it builds the library
 whatever `WAST3D_NO_NATIVE` says and raises if it cannot.
 """
 
@@ -45,6 +46,10 @@ _SIGNATURES = {
                        _c.c_int32], _c.c_int),
     "w3d_jpeg_decode": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_char_p,
                          _c.c_int32], _c.c_int),
+    "w3d_png_unfilter": ([_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int32,
+                          _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_resize_u8": ([_c.c_void_p, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_void_p,
+                       _c.c_int32, _c.c_int32, _c.c_char_p, _c.c_int32], _c.c_int),
 }
 
 
@@ -130,9 +135,10 @@ def read_colmap_points3d(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Baseline JPEG bytes -> uint8 [H, W, 3], or [H, W] for grayscale (what
-    `np.asarray(PIL.Image.open(...))` gives). Other kinds of JPEG raise
-    `ValueError` naming `name` and the file's marker."""
+    """Baseline or progressive JPEG bytes -> uint8 [H, W, 3], or [H, W] for
+    grayscale (what `np.asarray(PIL.Image.open(...))` gives). Other kinds of
+    JPEG, and files PIL would not decode to these pixels, raise `ValueError`
+    naming `name` and the reason."""
     lib = library()
     msg = ctypes.create_string_buffer(256)
     w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
@@ -150,3 +156,30 @@ def read_jpeg(path: str) -> np.ndarray:
     """`decode_jpeg` of the file at `path`."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)
+
+
+def png_unfilter(raw: np.ndarray, height: int, width: int, channels: int, interlaced: bool,
+                 name: str = "<bytes>") -> np.ndarray:
+    """A PNG's inflated, filtered scanlines (uint8) -> uint8 [height, width,
+    channels]: the five row filters, and the seven Adam7 passes when
+    `interlaced` (`image.cpp`). Bad data raises `ValueError` naming `name`."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    out = np.empty((height, width, channels), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_png_unfilter(raw.ctypes.data, raw.size, height, width, channels,
+                                  int(interlaced), out.ctypes.data, msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {msg.value.decode(errors='replace')}")
+    return out
+
+
+def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's bicubic resample of uint8 [H, W] or [H, W, C] to [height, width]
+    (`image.cpp`; `utils/png.resize` is its plain version)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    c = 1 if img.ndim == 2 else img.shape[2]
+    out = np.empty((height, width) + img.shape[2:], np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_resize_u8(img.ctypes.data, img.shape[0], img.shape[1], c, out.ctypes.data,
+                               height, width, msg, len(msg)) != 0:
+        raise ValueError(f"resize: {msg.value.decode(errors='replace')}")
+    return out

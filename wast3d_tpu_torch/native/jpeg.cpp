@@ -1,11 +1,25 @@
-// wast3d_tpu_torch native JPEG decoder: baseline sequential Huffman JPEG.
+// wast3d_tpu_torch native JPEG decoder: baseline sequential and progressive
+// Huffman JPEG.
 //
 // COLMAP datasets ship JPEG images, and the card's machine has no PIL. This
-// decodes what cameras and COLMAP's undistorter write: SOF0 / SOF1, 8-bit
-// samples, 1 or 3 components, sampling 4:4:4, 4:2:2 (2x1) or 4:2:0 (2x2),
-// any size, restart markers. Every other kind of file (progressive,
-// arithmetic, lossless, hierarchical, 12-bit, CMYK, other samplings) is
-// refused with a message that names its marker.
+// decodes what cameras, COLMAP's undistorter and web tools write: SOF0 /
+// SOF1 (sequential) and SOF2 (progressive), 8-bit samples, 1 or 3
+// components, sampling 4:4:4, 4:2:2 (2x1) or 4:2:0 (2x2), any size, restart
+// markers. Every other kind of file (arithmetic, lossless, hierarchical,
+// 12-bit, CMYK, other samplings) is refused with a message that names its
+// marker.
+//
+// A progressive file's scans are decoded as libjpeg's jdphuff.c decodes
+// them into a coefficient buffer per component (DC first and refine,
+// interleaved or not; AC first with end-of-band runs; AC refine with its
+// correction bits; a non-interleaved scan walks the component's own blocks;
+// a restart resets the run and the DC predictors; Huffman tables may change
+// between scans). At EOI the blocks go through the same IDCT, upsampling and
+// colour code as a baseline file's, which gives libjpeg's pixels for a
+// complete file. A file whose scans leave any of a component's first ten
+// zigzag coefficients short of their last bit is one libjpeg would smooth
+// across blocks (jdcoefct.c, block smoothing); it is refused, as is a
+// progressive file that ends before EOI (PIL refuses truncated files).
 //
 // The arithmetic is libjpeg's, so the output matches PIL's (libjpeg-turbo)
 // decode: the "islow" integer inverse DCT (jidctint.c, 13-bit constants, two
@@ -71,6 +85,13 @@ struct Component {
   int bw = 0, bh = 0;         // blocks across and down in the plane
   int stride = 0;
   std::vector<uint8_t> plane;  // bh * 8 rows of stride samples
+  // Progressive files: the coefficients, bw * bh blocks of 64 in natural
+  // order; the last Al each zigzag coefficient was coded with (-1: never);
+  // the quantisation table latched at the component's first scan.
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  uint16_t qt[64];
+  bool latched = false;
 };
 
 class Decoder {
@@ -83,7 +104,7 @@ class Decoder {
     for (;;) {
       int m = next_marker();
       if (m == 0xD9) fail("no frame before EOI");
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         frame(m);
         return;
       }
@@ -94,7 +115,12 @@ class Decoder {
 
   void decode(uint8_t* out) {
     for (;;) {
-      if (pos_ >= size_ && scans_ > 0) break;  // a missing EOI, as libjpeg allows
+      if (pos_ >= size_ && scans_ > 0) {
+        // A missing EOI, as libjpeg allows; PIL refuses a progressive file
+        // cut short.
+        if (progressive_) fail("truncated progressive JPEG (no EOI)");
+        break;
+      }
       int m = next_marker();
       if (m == 0xD9) break;
       if (m == 0xDA) {
@@ -107,6 +133,7 @@ class Decoder {
       }
     }
     if (scans_ == 0) fail("no scan (SOS) before EOI");
+    if (progressive_) progressive_planes();
     output(out);
   }
 
@@ -141,13 +168,12 @@ class Decoder {
 
   void unsupported_frame(int m) {
     const char* what = "unsupported";
-    if (m == 0xC2) what = "progressive";
-    else if (m == 0xC3) what = "lossless";
+    if (m == 0xC3) what = "lossless";
     else if (m >= 0xC5 && m <= 0xC7) what = "hierarchical (differential)";
     else if (m >= 0xC9 && m <= 0xCB) what = "arithmetic-coded";
     else if (m >= 0xCD) what = "arithmetic-coded hierarchical";
     fail(std::string(what) + " JPEG (" + marker_name(m) + ") is not supported; "
-         "only baseline sequential Huffman files (SOF0 / SOF1) are");
+         "only sequential and progressive Huffman files (SOF0 / SOF1 / SOF2) are");
   }
 
   void segment(int m) {
@@ -270,7 +296,12 @@ class Decoder {
       cp.bw = mcux_ * cp.h;
       cp.bh = mcuy_ * cp.v;
       cp.stride = cp.bw * 8;
+      if (m == 0xC2) {
+        cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
+        std::fill(cp.coef_bits, cp.coef_bits + 64, -1);
+      }
     }
+    progressive_ = m == 0xC2;
     pos_ = end;
   }
 
@@ -364,6 +395,7 @@ class Decoder {
   void restart() {
     // Discard the byte-aligned remainder, then expect RSTn.
     reset_bits();
+    eobrun_ = 0;
     for (;;) {
       int b = byte();
       if (b != 0xFF) continue;
@@ -393,15 +425,22 @@ class Decoder {
       if (!found) fail("SOS names an unknown component");
       found->td = tdta >> 4;
       found->ta = tdta & 15;
-      if (found->td > 3 || found->ta > 3 || !dc_[found->td].defined || !ac_[found->ta].defined) {
-        fail("SOS uses an undefined Huffman table");
-      }
+      if (found->td > 3 || found->ta > 3) fail("SOS uses an undefined Huffman table");
       if (!qt_defined_[found->tq]) fail("SOS component uses an undefined quantisation table");
       sc[i] = found;
     }
     int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection in a sequential scan is not supported");
     pos_ = end;
+    if (progressive_) {
+      progressive_scan(sc, ns, ss, se, ahal >> 4, ahal & 15);
+      return;
+    }
+    for (int i = 0; i < ns; ++i) {
+      if (!dc_[sc[i]->td].defined || !ac_[sc[i]->ta].defined) {
+        fail("SOS uses an undefined Huffman table");
+      }
+    }
+    if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection in a sequential scan is not supported");
     for (int i = 0; i < ns; ++i) {
       if (sc[i]->plane.empty()) sc[i]->plane.assign(static_cast<size_t>(sc[i]->stride) * sc[i]->bh * 8, 0);
       sc[i]->dc_pred = 0;
@@ -440,6 +479,185 @@ class Decoder {
       }
     }
     reset_bits();
+  }
+
+  // ---- progressive scans: libjpeg's jdphuff.c ----------------------------
+  static int16_t shifted(int v, int al) {
+    return static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
+  }
+
+  int16_t* coef_block(Component& cp, int bx, int by) {
+    return cp.coef.data() + (static_cast<size_t>(by) * cp.bw + bx) * 64;
+  }
+
+  void dc_first(Component& cp, int16_t* blk, int al) {
+    int s = huff(dc_[cp.td]);
+    if (s > 16) fail("corrupt DC coefficient");
+    cp.dc_pred += s ? extend(bits(s), s) : 0;
+    blk[0] = shifted(cp.dc_pred, al);
+  }
+
+  void dc_refine(int16_t* blk, int al) {
+    if (bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  void ac_first(const Huffman& t, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = huff(t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = shifted(extend(bits(s), s), al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // A correction bit for an already nonzero coefficient: 1 adds p1 to its
+  // magnitude unless that bit is set already.
+  void correct(int16_t* c, int p1) {
+    if (bits(1) && (*c & p1) == 0) *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c - p1);
+  }
+
+  void ac_refine(const Huffman& t, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int k = ss;
+    if (eobrun_ == 0) {
+      for (; k <= se; ++k) {
+        int rs = huff(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt AC refinement (magnitude " + std::to_string(s) + ")");
+          s = bits(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += bits(r);
+          break;  // the rest of the block goes through the end-of-band path
+        }
+        // Pass r zero coefficients (each nonzero one passed takes a
+        // correction bit), then place the new one, if any.
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) {
+            correct(c, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) correct(c, p1);
+      }
+      --eobrun_;
+    }
+  }
+
+  void progressive_block(Component& cp, int bx, int by, int ss, int se, int ah, int al) {
+    int16_t* blk = coef_block(cp, bx, by);
+    if (ss == 0) {
+      if (ah == 0) dc_first(cp, blk, al);
+      else dc_refine(blk, al);
+    } else if (ah == 0) {
+      ac_first(ac_[cp.ta], blk, ss, se, al);
+    } else {
+      ac_refine(ac_[cp.ta], blk, ss, se, al);
+    }
+  }
+
+  void progressive_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
+    const bool dc = ss == 0;
+    if (dc ? se != 0 : (ss > se || se > 63 || ns != 1)) {
+      fail("bad progressive scan (Ss " + std::to_string(ss) + ", Se " + std::to_string(se) +
+           ", " + std::to_string(ns) + " components)");
+    }
+    if ((ah != 0 && al != ah - 1) || al > 13) {
+      fail("bad progressive scan (Ah " + std::to_string(ah) + ", Al " + std::to_string(al) + ")");
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component& cp = *sc[i];
+      if (dc && ah == 0 && !dc_[cp.td].defined) fail("SOS uses an undefined Huffman table");
+      if (!dc && !ac_[cp.ta].defined) fail("SOS uses an undefined Huffman table");
+      if (!cp.latched) {  // libjpeg latches the table at the first scan
+        std::copy(qt_[cp.tq], qt_[cp.tq] + 64, cp.qt);
+        cp.latched = true;
+      }
+      for (int k = ss; k <= se; ++k) cp.coef_bits[k] = al;
+      cp.dc_pred = 0;
+    }
+    eobrun_ = 0;
+    reset_bits();
+    int todo = restart_interval_;
+    if (ns == 1) {
+      Component& cp = *sc[0];
+      int bw = (cp.width + 7) / 8, bh = (cp.height + 7) / 8;
+      for (int by = 0; by < bh; ++by) {
+        for (int bx = 0; bx < bw; ++bx) {
+          if (restart_interval_ && todo == 0) {
+            restart();
+            todo = restart_interval_;
+          }
+          progressive_block(cp, bx, by, ss, se, ah, al);
+          --todo;
+        }
+      }
+    } else {
+      for (int my = 0; my < mcuy_; ++my) {
+        for (int mx = 0; mx < mcux_; ++mx) {
+          if (restart_interval_ && todo == 0) {
+            restart();
+            todo = restart_interval_;
+          }
+          for (int i = 0; i < ns; ++i) {
+            Component& cp = *sc[i];
+            for (int v = 0; v < cp.v; ++v) {
+              for (int h = 0; h < cp.h; ++h) {
+                progressive_block(cp, mx * cp.h + h, my * cp.v + v, ss, se, ah, al);
+              }
+            }
+          }
+          --todo;
+        }
+      }
+    }
+    reset_bits();
+  }
+
+  // Every block of every component through the IDCT, once all scans are in.
+  void progressive_planes() {
+    for (int c = 0; c < ncomp_; ++c) {
+      Component& cp = comp_[c];
+      for (int k = 0; k < 10; ++k) {
+        if (cp.coef_bits[k] != 0) {
+          fail("progressive JPEG whose scans leave coefficient " + std::to_string(k) +
+               " of component " + std::to_string(c) +
+               (cp.coef_bits[k] < 0 ? " unsent" : " unrefined") +
+               " at EOI: libjpeg (PIL) would smooth its blocks; not supported");
+        }
+      }
+      cp.plane.assign(static_cast<size_t>(cp.stride) * cp.bh * 8, 0);
+      for (int by = 0; by < cp.bh; ++by) {
+        for (int bx = 0; bx < cp.bw; ++bx) {
+          idct_islow(coef_block(cp, bx, by), cp.qt,
+                     cp.plane.data() + (static_cast<size_t>(by) * 8) * cp.stride + bx * 8,
+                     cp.stride);
+        }
+      }
+    }
   }
 
   // ---- inverse DCT: libjpeg's jpeg_idct_islow ---------------------------
@@ -676,6 +894,8 @@ class Decoder {
   Component comp_[3];
   int restart_interval_ = 0;
   int scans_ = 0;
+  bool progressive_ = false;
+  int eobrun_ = 0;
   bool saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = -1;
   uint32_t bitbuf_ = 0;

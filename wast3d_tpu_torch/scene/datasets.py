@@ -3,11 +3,14 @@
 Port of `wast3d_tpu/scene/datasets.py`: the same COLMAP (binary with text
 fallback, llffhold=8 eval split) and Blender readers (OpenGL->COLMAP axis
 flip, alpha composite over the background, random 100k-point cube when no
-points3d.ply), nerf++ normalisation and resolution policy. Two changes:
-images go through the port's own decoders (PNG: `utils/png.py`; JPEG: the
-native baseline decoder, `native.read_jpeg`, which gives PIL's pixels; PIL
-is imported only for any other format), and `build_cameras` resizes with
-`png.resize` in place of PIL's filter.
+points3d.ply), nerf++ normalisation and resolution policy, with PIL's
+pixels and without PIL: PNG (8-bit grey, grey+alpha, RGB, RGBA; every row
+filter; Adam7) through `utils/png.read_png`, JPEG (baseline and
+progressive) through the native decoder `native.read_jpeg`, each giving
+PIL's decode bit for bit; PIL is imported only for any other format. `build_cameras` rounds a
+ground truth to uint8 and resizes it as PIL's default `Image.resize` does
+(bicubic; images with alpha premultiplied), through the native
+`png.resize_native`, then divides by 255, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -247,8 +250,8 @@ def build_cameras(
         w, h = _resolve_resolution(info.width, info.height, resolution)
         img = info.image
         if img is not None and (img.shape[1] != w or img.shape[0] != h):
-            q = (np.clip(img, 0, 1) * 255).astype(np.uint8).astype(np.float32)
-            img = png.resize(q, w, h) / 255.0
+            q = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            img = np.asarray(png.resize_native(q, w, h), dtype=np.float32) / 255.0
         cam = make_camera(
             R=info.R, t=info.T, fovx=info.fovx, fovy=info.fovy, width=w, height=h,
             translate=translate if translate is not None else np.zeros(3),
