@@ -63,6 +63,12 @@ entry point's dataset, `fit_all_balls(mesh)` at Mp = 16384 and
 `stylize_sweep(mesh)` on four styles, each against the one-device path
 (`parallel_entry_point`). Their times are two ranks sharing one H100 through
 gloo's host staging, not scaling figures.
+Host IO runs first (`io`, `images`): the native PLY and COLMAP readers,
+and every image format the JAX package reads through PIL (PNG at every
+depth, JPEG at every integral sampling and CMYK / YCCK, BMP, TIFF) decoded
+with PIL unimportable and held to PIL's committed arrays; `cli.train` on
+progressive and 4:4:0 JPEG datasets and on 16-bit RGBA PNGs, and
+`cli.metrics` on JPEGs against the port's metrics on PIL's decode.
 Each entry point runs with the kernels' launch counts set to 0 just before
 it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
@@ -82,6 +88,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1687,6 +1694,9 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
 # ---- viewers, Kg (pack_gather), native IO --------------------------------------
 
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures")
+# PNG, JPEG, BMP and TIFF files PIL reads, each with PIL's array beside it
+# as .npy (tools/make_torch_fixtures.py --formats)
+FORMAT_FIXTURES = os.path.join(ROOT, "tests", "format_fixtures")
 JPEG_MAX_DIFF, JPEG_MEAN_DIFF = 2, 0.05  # the decoder against PIL's decode, uint8 units
 COLMAP_POINTS = 20_000  # points3D.bin through the native reader and through Python
 # K1f's frame with pack_gather against the frame without it: JAX's own bounds
@@ -1841,11 +1851,13 @@ def phase_io(device, n=FULL_N):
     return jpegs[largest]["decode_ms_median"]
 
 
-IMAGES_TRAIN_ITERS = 20  # cli.train on the progressive COLMAP fixture
+IMAGES_TRAIN_ITERS = 20  # cli.train on each dataset of the phase
 RESIZES = (("scene_648x416", (648, 416)), ("scene_432x277", (432, 277)),
            ("wide_1600x90", (1600, 90)))  # tests/torch_fixtures/resize/: PIL's bytes
 PAETH_SIDE = 800  # the all-Paeth RGBA decode: a Blender view's size
 BIG_RESIZE = ((1090, 1959), (890, 1600))  # Tanks&Temples' width at -r -1
+BLENDER16_VIEWS = 3  # cli.train on a Blender dataset of 800² 16-bit RGBA PNGs
+FORMAT_MIN_PSNR = 30.0  # the 4:4:0 view (no PIL on the card) against its source, dB
 
 
 def median_s(fn, reps):
@@ -1857,17 +1869,174 @@ def median_s(fn, reps):
     return out, statistics.median(times)
 
 
+def format_fixture_checks():
+    """{name: equal} of every committed file of `tests/format_fixtures/`
+    (formats, the 4:4:0 COLMAP views, the JPEG method directory) against
+    PIL's array in its .npy: dtype, shape and bytes."""
+    from wast3d_tpu_torch.utils.image_io import read_image
+
+    checks = {}
+    for d, _, files in os.walk(FORMAT_FIXTURES):
+        for f in sorted(files):
+            if f.endswith(".npy"):
+                continue
+            path = os.path.join(d, f)
+            npy = os.path.splitext(path)[0] + ".npy"
+            if not os.path.exists(npy):  # metrics_jpeg/{renders,gt}: PIL's arrays in pil/
+                kind = os.path.basename(d)
+                npy = os.path.join(os.path.dirname(d), "pil", f"{kind}_{f[:-4]}.npy")
+            got, want = read_image(path), np.load(npy)
+            checks[f"format {os.path.relpath(path, FORMAT_FIXTURES)}"] = (
+                got.dtype == want.dtype and got.shape == want.shape
+                and got.tobytes() == want.tobytes())
+    if len(checks) < 60:
+        raise AssertionError(f"only {len(checks)} files under {FORMAT_FIXTURES}")
+    return checks
+
+
+def format_decode_times(decoded):
+    """Decode seconds (median of 3) at a dataset's sizes, for files built here
+    from the 1296x832 view: an 800² 16-bit RGBA PNG, the view turned to
+    832x1296 as a 4:4:0 JPEG, and a 1296x832 LZW TIFF (predictor 2). The PNG
+    and the TIFF are lossless, so each must decode to its source; the JPEG
+    must come within FORMAT_MIN_PSNR of its source. Returns (checks,
+    numbers, the 16-bit RGBA PNG's source)."""
+    from tools.image_writers import jpeg_bytes, rgb_to_ycc, tiff_bytes
+    from wast3d_tpu_torch.utils import png
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    rng = np.random.default_rng(15)
+    side = PAETH_SIDE
+    rgba = np.concatenate([decoded[:side, :side], decoded[:side, -side:, :1]], axis=2)
+    rgba16 = (rgba.astype(np.uint16) * 257 + rng.integers(0, 257, rgba.shape)).astype(np.uint16)
+    portrait = np.ascontiguousarray(decoded.transpose(1, 0, 2))
+    t = time.perf_counter()
+    blobs = {"png16_rgba_800": png.encode_png(rgba16, filter_type=4),
+             "jpeg_440_832x1296": jpeg_bytes(rgb_to_ycc(portrait), ((1, 2), (1, 1), (1, 1)),
+                                             quality=90),
+             "tiff_lzw_1296x832": tiff_bytes(decoded, 2, compression=5, predictor=2)}
+    encode_s = time.perf_counter() - t
+    checks, numbers = {}, {"format_encode_s": encode_s}
+    for name, blob in blobs.items():
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        if name.startswith("png"):
+            checks[f"decode {name}"] = np.array_equal(got, (rgba16 >> 8).astype(np.uint8))
+        elif name.startswith("tiff"):
+            checks[f"decode {name}"] = np.array_equal(got, decoded)
+        else:
+            err = np.mean((got.astype(np.float64) - portrait) ** 2)
+            numbers["jpeg_440_psnr_db"] = float(10 * np.log10(255.0 ** 2 / err))
+            checks[f"decode {name}"] = (got.shape == portrait.shape
+                                        and numbers["jpeg_440_psnr_db"] > FORMAT_MIN_PSNR)
+    return checks, numbers, rgba16
+
+
+def write_blender16_dataset(src, rgba16):
+    """A Blender dataset of BLENDER16_VIEWS 800² 16-bit RGBA PNGs, each a
+    shifted copy of `rgba16` (the cameras on a circle at distance 3, looking
+    at the origin, as `write_blender_dataset` places them; points3d.ply
+    absent, so the reader starts from its random cube)."""
+    from wast3d_tpu_torch.utils import png
+
+    os.makedirs(src, exist_ok=True)
+    frames = []
+    for i in range(BLENDER16_VIEWS):
+        a = 2 * math.pi * i / BLENDER16_VIEWS
+        eye = np.array([3 * math.sin(a), 0.3, -3 * math.cos(a)])
+        z = eye / np.linalg.norm(eye)  # OpenGL: the camera looks down -z
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, np.cross(z, x), z, eye
+        frames.append({"file_path": f"./r_{i}", "transform_matrix": c2w.tolist()})
+        with open(os.path.join(src, f"r_{i}.png"), "wb") as f:
+            f.write(png.encode_png(np.roll(rgba16, 40 * i, axis=1), filter_type=4))
+    with open(os.path.join(src, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.9, "frames": frames}, f)
+
+
+def train_cli(src, images, device, model):
+    """`cli.train` for IMAGES_TRAIN_ITERS iterations on `src` (`-i images`
+    when given) with PIL unimportable, the counts set to 0 just before and
+    read just after; the model goes to `model`. Returns (checks, numbers)."""
+    from wast3d_tpu_torch.cli import train as cli_train
+
+    t = time.perf_counter()
+    reset_kernel_counts()
+    with without_pil():
+        cli_train.main(["-s", src, *(["-i", images] if images else []), "-m", model,
+                        "--iterations", str(IMAGES_TRAIN_ITERS), "--quiet",
+                        "--port", str(free_port()), "--device", device.type])
+    torch.cuda.synchronize()
+    launched = kernel_counts()
+    seconds = time.perf_counter() - t
+    log = [json.loads(line) for line in open(os.path.join(model, "log.jsonl"))]
+    psnr = [e["psnr_train"] for e in log if "psnr_train" in e]  # the final report
+    checks = {
+        "ply written": os.path.exists(os.path.join(model, "point_cloud",
+                                                   f"iteration_{IMAGES_TRAIN_ITERS}",
+                                                   "point_cloud.ply")),
+        "psnr finite": len(psnr) == 1 and math.isfinite(psnr[0]),
+        "launches": (launched["blend_bwd"] == launched["segment_sum"] == IMAGES_TRAIN_ITERS
+                     and launched["blend_fwd"] >= IMAGES_TRAIN_ITERS)}
+    return checks, {"s": seconds, "launches": launched, "psnr": psnr}
+
+
+def metrics_on_jpegs(device, tmp):
+    """`cli.metrics` on a method directory of JPEGs (tests/format_fixtures/
+    metrics_jpeg), then the port's metrics (`evaluate_dir`) on PIL's decode
+    of the same files (its .npy), in this call: the per-view scores must be
+    equal. Returns (checks, numbers)."""
+    from wast3d_tpu_torch.cli import metrics as cli_metrics
+    from wast3d_tpu_torch.eval import metrics
+
+    src = os.path.join(FORMAT_FIXTURES, "metrics_jpeg")
+    model = os.path.join(tmp, "metrics_model")
+    method = os.path.join(model, "test", f"ours_{IMAGES_TRAIN_ITERS}")
+    for d in ("renders", "gt"):
+        shutil.copytree(os.path.join(src, d), os.path.join(method, d))
+    t = time.perf_counter()
+    reset_kernel_counts()
+    with without_pil():
+        results = cli_metrics.main(["-m", model, "--device", device.type])
+    cli_s = time.perf_counter() - t
+    launched = kernel_counts()
+    per_view = json.load(open(os.path.join(model, "per_view.json")))[f"ours_{IMAGES_TRAIN_ITERS}"]
+
+    def pil_reads(renders_dir, gt_dir):
+        names = sorted(os.listdir(renders_dir))
+        read = [[np.load(os.path.join(src, "pil", f"{kind}_{n[:-4]}.npy")).astype(
+            np.float32)[..., :3] / 255.0 for n in names] for kind in ("renders", "gt")]
+        return read[0], read[1], names
+
+    reader, metrics._read_images = metrics._read_images, pil_reads
+    try:
+        pil = metrics.evaluate_dir(method, device=device)["per_view"]
+    finally:
+        metrics._read_images = reader
+    checks = {"metrics jpeg names": list(per_view["PSNR"]) == ["00000.jpg", "00001.jpg"],
+              "metrics jpeg = PIL's decode": per_view == pil,
+              "metrics jpeg finite": all(math.isfinite(v) for m in per_view.values()
+                                         for v in m.values()),
+              "metrics jpeg launches none": not any(launched.values())}
+    return checks, {"metrics_cli_s": cli_s, "metrics_jpeg": results[model], "metrics_pil": pil}
+
+
 def phase_images(device):
     """Dataset images read and resized as PIL does, without PIL: each
     committed progressive JPEG against its baseline twin and PIL's decode,
     the Adam7 and all-Paeth PNGs against PIL's decode, the native resize
     against PIL's committed bytes (and the numpy version at 1959 → 1600),
-    the decode and resize times, and `cli.train` on the progressive COLMAP
-    fixture with PIL unimportable. Returns the numbers."""
-    import shutil
-
+    every file of tests/format_fixtures (PNG at every depth, 4:4:0 / 4:1:1 /
+    CMYK / YCCK JPEG, BMP, TIFF) against PIL's committed array, the decode
+    and resize times, decode times of a 16-bit PNG, a 4:4:0 JPEG and an LZW
+    TIFF at dataset sizes, `cli.train` on the progressive COLMAP fixture, on
+    the COLMAP fixture at 4:4:0 and on a Blender dataset of 16-bit RGBA
+    PNGs, and `cli.metrics` on JPEGs against the port's metrics on PIL's
+    decode, with PIL unimportable. Returns the numbers."""
     from wast3d_tpu_torch import native
-    from wast3d_tpu_torch.cli import train as cli_train
     from wast3d_tpu_torch.utils import png
 
     t0 = time.perf_counter()
@@ -1905,32 +2074,36 @@ def phase_images(device):
         t = time.perf_counter()
         checks["resize 1959 native = numpy"] = np.array_equal(got, png.resize(big, ow, oh))
         numpy_resize_s = time.perf_counter() - t
+
+        t = time.perf_counter()
+        checks.update(format_fixture_checks())
+        numbers["format_fixtures_s"] = time.perf_counter() - t
+        more, times, rgba16 = format_decode_times(decoded)
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
-    # cli.train on progressive JPEGs, through K1-K3, with PIL unimportable.
-    t1 = time.perf_counter()
+    # cli.train through K1-K3 on progressive JPEGs, on 4:4:0 JPEGs and on
+    # 16-bit RGBA PNGs; cli.metrics on JPEGs.
     with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_images_") as tmp:
-        src, model = os.path.join(tmp, "colmap_jpeg"), os.path.join(tmp, "trained")
-        shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
-        reset_kernel_counts()
-        with without_pil():
-            cli_train.main(["-s", src, "-i", "images_progressive", "-m", model,
-                            "--iterations", str(IMAGES_TRAIN_ITERS), "--quiet",
-                            "--port", str(free_port()), "--device", device.type])
-        torch.cuda.synchronize()
-        launched = kernel_counts()
-        log = [json.loads(line) for line in open(os.path.join(model, "log.jsonl"))]
-        ply = os.path.join(model, "point_cloud", f"iteration_{IMAGES_TRAIN_ITERS}",
-                           "point_cloud.ply")
-        checks["train ply written"] = os.path.exists(ply)
-    psnr = [e["psnr_train"] for e in log if "psnr_train" in e]  # the final report
-    checks["train psnr finite"] = len(psnr) == 1 and math.isfinite(psnr[0])
-    checks["train launches"] = (launched["blend_bwd"] == launched["segment_sum"]
-                                == IMAGES_TRAIN_ITERS
-                                and launched["blend_fwd"] >= IMAGES_TRAIN_ITERS)
-    numbers.update(train_cli_s=time.perf_counter() - t1, train_launches=launched,
-                   train_psnr=psnr)
+        colmap = os.path.join(tmp, "colmap_jpeg")
+        shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), colmap)
+        shutil.copytree(os.path.join(FORMAT_FIXTURES, "colmap_440"),
+                        os.path.join(colmap, "images_440"),
+                        ignore=shutil.ignore_patterns("*.npy"))
+        blender = os.path.join(tmp, "blender16")
+        write_blender16_dataset(blender, rgba16)
+        for key, src, images in (("train", colmap, "images_progressive"),
+                                 ("train 440", colmap, "images_440"),
+                                 ("train blender16", blender, None)):
+            more, got = train_cli(src, images, device,
+                                  os.path.join(tmp, "model_" + key.replace(" ", "_")))
+            checks.update({f"{key} {k}": v for k, v in more.items()})
+            numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
+        more, got = metrics_on_jpegs(device, tmp)
+        checks.update(more)
+        numbers.update(got)
     emit("images", t0, checks=checks, **numbers)
     if not all(checks.values()):
         raise AssertionError(f"images: {[k for k, v in checks.items() if not v]} failed")

@@ -244,8 +244,9 @@ def test_jpeg_fixtures_against_pils_committed_decode(jpg):
 
 
 def test_progressive_and_other_kinds_raise_naming_file_and_marker(tmp_path):
-    """Progressive files decode (to PIL's pixels); CMYK and other files
-    raise, naming the file and the reason."""
+    """Progressive and CMYK files decode (to PIL's pixels: CMYK as PIL's
+    inverted "CMYK;I"); arithmetic-coded and other files raise, naming the
+    file and the marker."""
     buf = io.BytesIO()
     Image.fromarray(_image(40, 40, 1)).save(buf, "JPEG", progressive=True)
     path = tmp_path / "prog.jpg"
@@ -253,8 +254,13 @@ def test_progressive_and_other_kinds_raise_naming_file_and_marker(tmp_path):
     assert np.array_equal(native.read_jpeg(str(path)), np.asarray(Image.open(path)))
     cmyk = io.BytesIO()
     Image.fromarray(_image(16, 16, 2)).convert("CMYK").save(cmyk, "JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        native.decode_jpeg(cmyk.getvalue(), "cmyk.jpg")
+    want = np.asarray(Image.open(io.BytesIO(cmyk.getvalue())))
+    got = native.decode_jpeg(cmyk.getvalue(), "cmyk.jpg")
+    assert got.dtype == want.dtype and got.shape == want.shape == (16, 16, 4)
+    assert np.array_equal(got, want)
+    arithmetic = cmyk.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)  # SOF9
+    with pytest.raises(ValueError, match=r"cmyk\.jpg: arithmetic-coded.*SOF9"):
+        native.decode_jpeg(arithmetic, "cmyk.jpg")
     with pytest.raises(ValueError, match="not a JPEG"):
         native.decode_jpeg(b"\x89PNG\r\n", "x.jpg")
 

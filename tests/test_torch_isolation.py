@@ -1,5 +1,5 @@
 """The port's package rules: no JAX and no wast3d_tpu anywhere in it, no
-PIL at import, CUDA by default with the CPU only on request, the plain
+PIL anywhere in the package (nor at import in the scripts), CUDA by default with the CPU only on request, the plain
 path leaves the kernel's launch count alone, and the kernel build is a
 plain nvcc + ctypes one."""
 
@@ -43,6 +43,8 @@ def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for name, top in _imports(tree):
         assert name not in FORBIDDEN, f"{path} imports {name}"
+        if path.is_relative_to(PORT):  # images go through utils/image_io.py
+            assert name != "PIL", f"{path} imports PIL"
         assert not (name == "PIL" and top), f"{path} imports PIL at module level"
 
 

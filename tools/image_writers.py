@@ -1,0 +1,518 @@
+"""Image writers for the port's fixtures and chip checks, in numpy and the
+standard library (no PIL): files of the kinds PIL reads but will not write.
+
+    from tools.image_writers import jpeg_bytes, png_bytes, bmp_bytes, tiff_bytes
+
+- `jpeg_bytes`: a baseline JPEG encoder (forward DCT in float64, the
+  standard quantisation tables of JPEG Annex K scaled by IJG's quality rule,
+  Annex K's Huffman tables), 1, 3 or 4 components, any sampling factors 1-4
+  (box-filtered chroma), an optional Adobe APP14 marker with transform 0, 1
+  or 2. PIL writes only 4:4:4, 4:2:2 and 4:2:0 and never YCCK.
+- `png_bytes`: every colour type at every bit depth, PLTE / tRNS / other
+  chunks, Adam7, one row filter throughout.
+- `bmp_bytes`: 1-, 4-, 8-bit palette, 16-, 24- and 32-bit, BI_RGB or
+  BI_BITFIELDS, RLE8 / RLE4, bottom-up or top-down.
+- `tiff_bytes`: strips, chunky samples, 8 or 16 bits, compression none,
+  PackBits, LZW or Deflate, predictor 1 or 2, either byte order.
+
+The port never imports this module; the fixture tool, the tests and
+`chip_smoke.py` do.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+# ---- JPEG -----------------------------------------------------------------------------
+
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
+    51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57,
+    69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64,
+    81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99,
+    99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32)
+# Annex K.3: (code counts by length 1-16, symbols) of the four tables.
+DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12)))
+AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a"
+    "25262728292a3435363738393a434445464748494a535455565758595a636465666768696a73747576777879"
+    "7a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9"
+    "cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"))
+AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718"
+    "191a262728292a35363738393a434445464748494a535455565758595a636465666768696a73747576777879"
+    "7a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8"
+    "c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
+
+
+def _huffman_codes(table):
+    """Annex C: symbol -> (code, length)."""
+    counts, symbols = table
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def _scaled_quant(base: np.ndarray, quality: int) -> np.ndarray:
+    """IJG's jpeg_quality_scaling, baseline-limited to 1-255."""
+    quality = min(max(quality, 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _dct_matrix() -> np.ndarray:
+    k, n = np.mgrid[0:8, 0:8]
+    c = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def rgb_to_ycc(rgb: np.ndarray) -> np.ndarray:
+    """JFIF's RGB -> YCbCr, rounded to uint8."""
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    return np.clip(np.round(np.stack([y, cb, cr], -1)), 0, 255).astype(np.uint8)
+
+
+class _Bits:
+    def __init__(self):
+        self.codes, self.lengths = [], []
+
+    def put(self, code: int, length: int):
+        if length:
+            self.codes.append(code)
+            self.lengths.append(length)
+
+    def packed(self, pad: int) -> bytes:
+        """The codes from their high bits, the last byte filled with `pad`."""
+        codes = np.array(self.codes, np.int64)
+        lengths = np.array(self.lengths, np.int64)
+        j = np.arange(16)
+        bits = (codes[:, None] >> (lengths[:, None] - 1 - j)) & 1
+        bits = bits[j[None, :] < lengths[:, None]]
+        bits = np.concatenate([bits, np.full(-bits.size % 8, pad, np.int64)])
+        return np.packbits(bits.astype(np.uint8)).tobytes()
+
+
+def _magnitude(v: int) -> Tuple[int, int]:
+    """(category, the bits that follow it) of a DC difference or AC value."""
+    size = int(abs(v)).bit_length()
+    return size, (v if v >= 0 else v + (1 << size) - 1)
+
+
+def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality: int = 90,
+               adobe_transform: Optional[int] = None, ids: Optional[Sequence[int]] = None,
+               jfif: Optional[bool] = None) -> bytes:
+    """uint8 [H, W] or [H, W, C] samples, already in the coded colour space
+    (C = 1, 3 or 4) -> baseline JPEG bytes with `sampling[c] = (h, v)` for
+    component c. Components take ids 1..C unless `ids` says otherwise;
+    component 0 takes the luma tables, the others the chroma ones. A JFIF
+    APP0 is written for 1 or 3 components without an Adobe marker, unless
+    `jfif` says otherwise."""
+    samples = np.asarray(samples, np.uint8)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    height, width, nc = samples.shape
+    assert nc in (1, 3, 4) and len(sampling) == nc
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    pad_h, pad_w = mcuy * 8 * vmax, mcux * 8 * hmax
+    full = np.pad(samples, ((0, pad_h - height), (0, pad_w - width), (0, 0)), mode="edge")
+    quant = [_scaled_quant(LUMA_Q, quality), _scaled_quant(CHROMA_Q, quality)]
+    dct = _dct_matrix()
+    blocks = []  # per component: [bh, bw, 64] quantised coefficients in zigzag order
+    for c, (h, v) in enumerate(sampling):
+        fy, fx = vmax // v, hmax // h
+        assert vmax % v == 0 and hmax % h == 0
+        plane = full[:, :, c].astype(np.float64)
+        plane = plane.reshape(pad_h // fy, fy, pad_w // fx, fx).mean(axis=(1, 3))
+        bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+        b = (plane - 128).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = dct @ b @ dct.T
+        q = quant[min(c, 1)].reshape(8, 8)
+        blocks.append(np.round(coef / q).astype(np.int64).reshape(bh, bw, 64)[:, :, ZIGZAG])
+    tables = [(_huffman_codes(DC_LUMA), _huffman_codes(AC_LUMA)),
+              (_huffman_codes(DC_CHROMA), _huffman_codes(AC_CHROMA))]
+    bits, pred = _Bits(), [0] * nc
+    for my in range(mcuy):
+        for mx in range(mcux):
+            for c, (h, v) in enumerate(sampling):
+                dc_codes, ac_codes = tables[min(c, 1)]
+                for by in range(v):
+                    for bx in range(h):
+                        blk = blocks[c][my * v + by, mx * h + bx]
+                        size, extra = _magnitude(int(blk[0]) - pred[c])
+                        pred[c] = int(blk[0])
+                        bits.put(*dc_codes[size])
+                        bits.put(extra, size)
+                        run = 0
+                        nz = np.flatnonzero(blk[1:]) + 1
+                        last = 0
+                        for k in nz:
+                            run = k - last - 1
+                            while run > 15:
+                                bits.put(*ac_codes[0xF0])
+                                run -= 16
+                            size, extra = _magnitude(int(blk[k]))
+                            bits.put(*ac_codes[(run << 4) | size])
+                            bits.put(extra, size)
+                            last = k
+                        if last != 63:
+                            bits.put(*ac_codes[0x00])
+    ids = list(ids) if ids is not None else list(range(1, nc + 1))
+
+    def segment(marker: int, payload: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+    out = b"\xff\xd8"
+    if jfif if jfif is not None else (adobe_transform is None and nc in (1, 3)):
+        out += segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe_transform is not None:
+        out += segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe_transform))
+    for t, q in enumerate(quant[:1 if nc == 1 else 2]):
+        out += segment(0xDB, bytes([t]) + bytes(q[ZIGZAG].astype(np.uint8)))
+    out += segment(0xC0, struct.pack(">BHHB", 8, height, width, nc) + b"".join(
+        bytes([ids[c], (h << 4) | v, min(c, 1)]) for c, (h, v) in enumerate(sampling)))
+    for t, (dc, ac) in enumerate([(DC_LUMA, AC_LUMA), (DC_CHROMA, AC_CHROMA)][:1 if nc == 1
+                                                                            else 2]):
+        out += segment(0xC4, bytes([t]) + bytes(dc[0]) + bytes(dc[1]))
+        out += segment(0xC4, bytes([0x10 | t]) + bytes(ac[0]) + bytes(ac[1]))
+    out += segment(0xDA, bytes([nc]) + b"".join(
+        bytes([ids[c], 0x11 * min(c, 1)]) for c in range(nc)) + b"\x00\x3f\x00")
+    return out + bits.packed(1).replace(b"\xff", b"\xff\x00") + b"\xff\xd9"
+
+
+# ---- PNG ------------------------------------------------------------------------------
+
+def _chunk(tag: bytes, data: bytes, crc: Optional[int] = None) -> bytes:
+    crc = zlib.crc32(tag + data) & 0xFFFFFFFF if crc is None else crc
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+
+def _pack_rows(samples: np.ndarray, bits: int) -> np.ndarray:
+    """[h, w, c] sample values -> [h, row bytes] packed as PNG stores them."""
+    h, w, c = samples.shape
+    if bits == 16:
+        return np.ascontiguousarray(samples, ">u2").view(np.uint8).reshape(h, w * c * 2)
+    if bits == 8:
+        return samples.astype(np.uint8).reshape(h, w * c)
+    vals = samples.reshape(h, w * c).astype(np.uint8)
+    per = 8 // bits
+    vals = np.pad(vals, ((0, 0), (0, -vals.shape[1] % per)))
+    shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+    return np.bitwise_or.reduce(vals.reshape(h, -1, per) << shifts, axis=2).astype(np.uint8)
+
+
+def _filtered(rows: np.ndarray, bpp: int, ftype: int) -> bytes:
+    h, n = rows.shape
+    x = rows.astype(np.int32)
+    up = np.concatenate([np.zeros((1, n), np.int32), x[:-1]])
+    left = np.concatenate([np.zeros((h, bpp), np.int32), x[:, :-bpp]], axis=1)[:, :n]
+    upleft = np.concatenate([np.zeros((h, bpp), np.int32), up[:, :-bpp]], axis=1)[:, :n]
+    pa, pb, pc = (np.abs(up - upleft), np.abs(left - upleft),
+                  np.abs(left + up - 2 * upleft))
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    pred = {0: 0, 1: left, 2: up, 3: (left + up) // 2, 4: paeth}[ftype]
+    out = np.empty((h, 1 + n), np.uint8)
+    out[:, 0] = ftype
+    out[:, 1:] = (x - pred) & 0xFF
+    return out.tobytes()
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def png_bytes(samples: np.ndarray, bits: int, color_type: int, interlace: bool = False,
+              filter_type: int = 0, palette: Optional[np.ndarray] = None,
+              trns: Optional[bytes] = None, extra: Sequence[Tuple[bytes, bytes]] = (),
+              bad_idat_crc: bool = False, idat_parts: int = 1) -> bytes:
+    """[H, W] or [H, W, C] sample values (C by the colour type) -> PNG bytes
+    at `bits` bits a sample. `palette`: [N, 3] uint8 for PLTE; `trns`: the
+    tRNS payload; `extra`: more (tag, data) chunks before the image data;
+    `bad_idat_crc` writes a wrong CRC after each IDAT; the image data is
+    split over `idat_parts` IDAT chunks."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, c = samples.shape
+    bpp = max(1, c * bits // 8)
+    if interlace:
+        raw = b"".join(_filtered(_pack_rows(samples[y0::dy, x0::dx], bits), bpp, filter_type)
+                       for x0, y0, dx, dy in ADAM7 if samples[y0::dy, x0::dx].size)
+    else:
+        raw = _filtered(_pack_rows(samples, bits), bpp, filter_type)
+    data = zlib.compress(raw, 9)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, bits, color_type, 0, 0, int(interlace)))
+    for tag, payload in extra:
+        out += _chunk(tag, payload)
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    step = -(-len(data) // idat_parts)
+    for i in range(0, len(data), step):
+        out += _chunk(b"IDAT", data[i:i + step], 0xDEADBEEF if bad_idat_crc else None)
+    return out + _chunk(b"IEND", b"")
+
+
+# ---- BMP ------------------------------------------------------------------------------
+
+def _rle8(rows: np.ndarray) -> bytes:
+    """Rows (file order) of 8-bit indices -> RLE8: runs of 3 or more encoded,
+    the rest in absolute runs (padded to a word), an end of line each row."""
+    out = bytearray()
+    for row in rows:
+        x, n = 0, len(row)
+        while x < n:
+            run = 1
+            while x + run < n and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or n - x < 3:
+                out += bytes([run, row[x]])
+                x += run
+                continue
+            end = x
+            while end < n and end - x < 255 and not (
+                    end + 2 < n and row[end] == row[end + 1] == row[end + 2]):
+                end += 1
+            if end - x < 3:
+                out += bytes([1, row[x]])
+                x += 1
+                continue
+            out += bytes([0, end - x]) + bytes(row[x:end]) + (b"\x00" if (end - x) % 2 else b"")
+            x = end
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _rle4(rows: np.ndarray) -> bytes:
+    """Rows of 4-bit indices -> RLE4: encoded runs of two alternating
+    values, an end of line each row."""
+    out = bytearray()
+    for row in rows:
+        x, n = 0, len(row)
+        while x < n:
+            a = row[x]
+            b = row[x + 1] if x + 1 < n else 0
+            run = 1
+            while x + run < n and run < 255 and row[x + run] == (a if run % 2 == 0 else b):
+                run += 1
+            out += bytes([run, (a << 4) | b])
+            x += run
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def bmp_bytes(pixels: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
+              compression: int = 0, top_down: bool = False,
+              masks: Optional[Sequence[int]] = None, header_size: int = 40) -> bytes:
+    """A BMP of `pixels` (indices [H, W] at 1, 4 or 8 bits, [H, W, 3] RGB at
+    16 or 24 bits, [H, W, 4] RGBA / RGBX at 32 bits). `compression` 0
+    (BI_RGB), 1 (RLE8), 2 (RLE4) or 3 (BI_BITFIELDS, with `masks` r, g, b[,
+    a]); 16-bit pixels are 5-5-5 under BI_RGB and follow the masks (5-6-5
+    or 5-5-5) under BI_BITFIELDS."""
+    pixels = np.asarray(pixels)
+    h, w = pixels.shape[:2]
+    rows = pixels[::-1] if not top_down else pixels
+    if bits <= 8:
+        idx = rows.astype(np.uint8)
+        if compression == 1:
+            data = _rle8(idx)
+        elif compression == 2:
+            data = _rle4(idx)
+        else:
+            per = 8 // bits
+            vals = np.pad(idx, ((0, 0), (0, -w % per)))
+            shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+            packed = np.bitwise_or.reduce(vals.reshape(h, -1, per) << shifts, axis=2)
+            data = packed.astype(np.uint8)
+    elif bits == 16:
+        r, g, b = (rows[..., i].astype(np.uint16) for i in range(3))
+        if masks is not None and masks[1] == 0x7E0:
+            v = ((r >> 3) << 11) | ((g >> 2) << 5) | (b >> 3)
+        else:
+            v = ((r >> 3) << 10) | ((g >> 3) << 5) | (b >> 3)
+        data = np.ascontiguousarray(v, "<u2").view(np.uint8).reshape(h, 2 * w)
+    elif bits == 24:
+        data = rows[..., ::-1].astype(np.uint8).reshape(h, 3 * w)
+    else:  # 32: pixels RGBA, laid out by the masks (BGRA without them)
+        masks = masks or (0xFF0000, 0xFF00, 0xFF, 0xFF000000)
+        v = np.zeros((h, w), np.uint32)
+        for ch, m in enumerate(masks):
+            if m:
+                shift = (m & -m).bit_length() - 1
+                v |= rows[..., ch].astype(np.uint32) << np.uint32(shift)
+        data = np.ascontiguousarray(v, "<u4").view(np.uint8).reshape(h, 4 * w)
+    if compression in (1, 2):
+        pixel_bytes = data
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        pixel_bytes = np.pad(data, ((0, 0), (0, stride - data.shape[1]))).tobytes()
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes([b, g, r, 0]) for r, g, b in np.asarray(palette, np.uint8))
+    mask_bytes = b""
+    if compression == 3:
+        ms = list(masks) + [0] * (4 - len(masks))
+        if header_size == 40:
+            mask_bytes = struct.pack("<III", *ms[:3])
+    info = struct.pack("<iiHHIIiiII", w, -h if top_down else h, 1, bits, compression,
+                       len(pixel_bytes), 2835, 2835, 0 if palette is None else len(palette), 0)
+    if header_size > 40:
+        ms = list(masks or (0, 0, 0, 0)) + [0] * 4
+        info += struct.pack("<IIII", *ms[:4])
+        info += b"\x00" * (header_size - 4 - len(info))
+    header = struct.pack("<I", header_size) + info + mask_bytes
+    offset = 14 + len(header) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixel_bytes), 0, 0, offset) + header
+            + pal + pixel_bytes)
+
+
+# ---- TIFF -----------------------------------------------------------------------------
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (libtiff's LZWEncode): Clear first, codes from the high bit,
+    the code width widened once the next entry would not fit, Clear again
+    when the table reaches 4094 entries, EOI last."""
+    out = _Bits()
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width = 258, 9
+    out.put(256, width)
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        out.put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            out.put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([byte])
+    if w:
+        out.put(table[w], width)
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+    out.put(257, width)
+    return out.packed(0)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more as repeats, the rest as literals."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _difference(rows: np.ndarray, spp: int) -> np.ndarray:
+    """Predictor 2 on [h, w * spp] samples: each sample minus the same
+    channel's left neighbour, wrapping."""
+    d = rows.copy()
+    d[:, spp:] = rows[:, spp:] - rows[:, :-spp]
+    return d
+
+
+def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
+               predictor: int = 1, byteorder: str = "<", extra_samples: Sequence[int] = (),
+               rows_per_strip: Optional[int] = None, tags: Sequence[Tuple] = ()) -> bytes:
+    """[H, W] or [H, W, C] uint8 / uint16 samples -> a stripped, chunky
+    TIFF. `compression` 1 (none), 32773 (PackBits), 5 (LZW), 8 or 32946
+    (Deflate); `predictor` 2 differences each row (applied only under LZW and
+    Deflate); `tags` adds (tag, type, values) entries."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, spp = samples.shape
+    bits = 8 * samples.itemsize
+    rps = rows_per_strip or h
+    dt = np.dtype(samples.dtype).newbyteorder(byteorder)
+    strips = []
+    for y in range(0, h, rps):
+        rows = samples[y:y + rps].reshape(-1, w * spp)
+        if predictor == 2 and compression in (5, 8, 32946):
+            rows = _difference(rows, spp)
+        raw = rows.astype(dt).tobytes()
+        if compression == 5:
+            raw = lzw_encode(raw)
+        elif compression in (8, 32946):
+            raw = zlib.compress(raw, 9)
+        elif compression == 32773:
+            raw = packbits_encode(raw)
+        strips.append(raw)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp), (259, 3, [compression]),
+               (262, 3, [photometric]), (273, 4, None), (277, 3, [spp]), (278, 4, [rps]),
+               (279, 4, [len(s) for s in strips]), (284, 3, [1])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if extra_samples:
+        entries.append((338, 3, list(extra_samples)))
+    entries += list(tags)
+    entries.sort(key=lambda e: e[0])
+    fmt = {3: "H", 4: "I"}
+    ifd_size = 2 + 12 * len(entries) + 4
+    pos = 8 + ifd_size
+    blobs, values = [], {}
+    for tag, typ, vals in entries:  # arrays too large for the entry go after the IFD
+        if vals is not None and len(vals) * struct.calcsize(fmt[typ]) > 4:
+            values[tag] = pos
+            blob = struct.pack(byteorder + fmt[typ] * len(vals), *vals)
+            blobs.append(blob)
+            pos += len(blob)
+    offsets = []
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    if len(offsets) * 4 > 4:
+        values[273] = pos
+        blobs_tail = struct.pack(byteorder + "I" * len(offsets), *offsets)
+    else:
+        blobs_tail = b""
+    ifd = struct.pack(byteorder + "H", len(entries))
+    for tag, typ, vals in entries:
+        vals = offsets if tag == 273 else vals
+        if tag in values:
+            ifd += struct.pack(byteorder + "HHII", tag, typ, len(vals), values[tag])
+        else:
+            payload = struct.pack(byteorder + fmt[typ] * len(vals), *vals).ljust(4, b"\x00")
+            ifd += struct.pack(byteorder + "HHI", tag, typ, len(vals)) + payload
+    ifd += b"\x00\x00\x00\x00"
+    head = (b"II*\x00" if byteorder == "<" else b"MM\x00*") + struct.pack(byteorder + "I", 8)
+    return head + ifd + b"".join(blobs) + b"".join(strips) + blobs_tail

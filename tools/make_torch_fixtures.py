@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Write the port's committed test fixtures under `tests/torch_fixtures/`.
 
-    python3 tools/make_torch_fixtures.py
+    python3 tools/make_torch_fixtures.py             # everything
+    python3 tools/make_torch_fixtures.py --formats   # only the image-format files
 
 Needs PIL (it writes the JPEGs and records PIL's decode of each), so it runs
 where the tests run, not on the card. It writes, from seeds:
@@ -28,7 +29,27 @@ where the tests run, not on the card. It writes, from seeds:
 - `resize/`: PIL's default resize (bicubic) of the 1296x832 JPEG's decode
   to 648x416 and 432x277, and of a 1700x96 strip (the decode with its first
   404 columns appended, first 96 rows) to 1600x90, the size
-  `build_cameras` gives a 1700-wide image at `-r -1`.
+  `build_cameras` gives a 1700-wide image at `-r -1`;
+and under `tests/format_fixtures/`, from the 1296x832 JPEG's decode
+(`--formats` writes only these):
+
+- one small file (at most 64x48) of each kind
+  `utils/image_io.read_image` reads, cut from the 1296x832 decode
+  (`FORMAT_CASES`): PNG at every colour type and bit depth (palette with
+  tRNS, Adam7, a bad IDAT CRC), JPEG at 4:4:0, 4:1:1, 3:1, 1:4 and mixed
+  sampling, CMYK, YCCK, Adobe RGB (`tools/image_writers.jpeg_bytes`, since
+  PIL writes none of these) and a progressive CMYK file from PIL, BMP
+  (palettes, RLE8 / RLE4, 16- to 32-bit, bitfields, top-down) and TIFF
+  (L, LA, RGB(A), 16-bit, big-endian, PackBits / LZW / Deflate, predictor
+  2, and files from PIL's own writer); beside each, `<name>.npy`,
+  `np.asarray(PIL.Image.open(f))` with its dtype;
+- `colmap_440/view_<i>.jpg`: PIL's decode of each `colmap_jpeg` view
+  re-encoded at 4:4:0, quality 90 (a portrait rotated without
+  re-encoding), with PIL's decode beside it as `view_<i>.npy`; a copy of
+  `colmap_jpeg` with these as its images is a COLMAP scene;
+- `metrics_jpeg/{renders,gt}/0000<i>.jpg`: a method directory of two
+  64x48 views, renders from PIL (4:2:0) and ground truths at 4:4:0 and
+  4:1:1, with PIL's decodes in `metrics_jpeg/pil/`.
 """
 
 from __future__ import annotations
@@ -43,6 +64,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "torch_fixtures")
+FORMATS = os.path.join(ROOT, "tests", "format_fixtures")
 VIEWS, W, H = 6, 200, 150
 FOCAL = 180.0
 
@@ -147,8 +169,183 @@ def write_png_up(path, img):
                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 9)) + chunk(b"IEND", b""))
 
 
-def main() -> int:
+def _ycc(rgb):
+    from tools.image_writers import rgb_to_ycc
+
+    return rgb_to_ycc(rgb)
+
+
+def format_cases(src):
+    """(name, bytes) of every `formats/` file, cut from `src` (uint8 RGB)."""
+    from PIL import Image
+
+    from tools.image_writers import bmp_bytes, jpeg_bytes, png_bytes, tiff_bytes
+
+    rng = np.random.default_rng(17)
+    crop = src[300:348, 500:564]  # 48 x 64
+    grey = crop.mean(axis=2).astype(np.uint8)
+    alpha = alpha_channel(48, 64)
+    rgba = np.concatenate([crop, alpha[..., None]], axis=2)
+    wide16 = (rgba.astype(np.uint16) * 257 + rng.integers(0, 257, rgba.shape)).astype(np.uint16)
+    pal = rng.integers(0, 256, (256, 3))
+    idx = (grey // 16).astype(np.uint8)  # 16 levels: palette indices
+    out = []
+
+    def pil(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    # PNG: (name, samples, bits, colour type, options)
+    for name, vals, bits, ctype, kw in (
+            ("png_grey1_adam7", grey[:17, :31] > 120, 1, 0, dict(interlace=True)),
+            ("png_grey2", grey[:20, :33] >> 6, 2, 0, dict(filter_type=1)),
+            ("png_grey4_adam7", grey[:21, :29] >> 4, 4, 0, dict(interlace=True, filter_type=4)),
+            ("png_grey16", wide16[..., 0], 16, 0, dict(filter_type=4)),
+            ("png_grey16_adam7", wide16[:13, :17, 0], 16, 0, dict(interlace=True)),
+            ("png_rgb16", wide16[..., :3], 16, 2, dict(filter_type=3)),
+            ("png_rgba16", wide16, 16, 6, dict(filter_type=4)),
+            ("png_rgba16_adam7", wide16[:45, :37], 16, 6, dict(interlace=True, filter_type=2)),
+            ("png_la16", wide16[:30, :40, [0, 3]], 16, 4, dict(filter_type=4)),
+            ("png_pal1", idx[:9, :23] & 1, 1, 3, dict(palette=pal[:2])),
+            ("png_pal2_trns", idx[:11, :19] & 3, 2, 3,
+             dict(palette=pal[:4], trns=b"\x00\x80", filter_type=1)),
+            ("png_pal4_adam7", idx[:31, :45], 4, 3, dict(palette=pal[:16], interlace=True)),
+            ("png_pal8_trns", grey, 8, 3, dict(palette=pal, trns=bytes(range(0, 256, 2)),
+                                                  filter_type=4)),
+            ("png_rgb_trns", crop, 8, 2, dict(trns=b"\x00\x10\x00\x20\x00\x30",
+                                                extra=[(b"gAMA", b"\x00\x00\xb1\x8f")])),
+            ("png_rgba_bad_idat_crc", rgba, 8, 6, dict(bad_idat_crc=True, idat_parts=3)),
+            ("png_grey16_width1", wide16[:, :1, 0], 16, 0, dict(filter_type=4))):
+        out.append((name + ".png", png_bytes(vals.astype(np.uint16 if bits == 16 else np.uint8),
+                                             bits, ctype, **kw)))
+
+    # JPEG: samplings libjpeg-turbo upsamples with h1v2 (4:4:0), int_upsample
+    # (4:1:1, 3:1, 1:4) and a mix; 4 components; Adobe RGB.
+    ycc = _ycc(crop)
+    for name, img, sampling, kw in (
+            ("jpeg_440", ycc, ((1, 2), (1, 1), (1, 1)), {}),
+            ("jpeg_440_odd", ycc[:29, :37], ((1, 2), (1, 1), (1, 1)), {}),
+            ("jpeg_440_width1", ycc[:, :1], ((1, 2), (1, 1), (1, 1)), {}),
+            ("jpeg_411", ycc, ((4, 1), (1, 1), (1, 1)), {}),
+            ("jpeg_411_odd", ycc[:17, :45], ((4, 1), (1, 1), (1, 1)), {}),
+            ("jpeg_h3v1", ycc[:33, :47], ((3, 1), (1, 1), (1, 1)), {}),
+            ("jpeg_h1v4", ycc[:45, :27], ((1, 4), (1, 1), (1, 1)), {}),
+            ("jpeg_mixed", ycc[:41, :59], ((2, 2), (2, 1), (1, 2)), {}),
+            ("jpeg_grey_h2v2", ycc[:, :, 0], ((2, 2),), {}),
+            ("jpeg_cmyk", np.concatenate([255 - crop, alpha[..., None]], 2),
+             ((1, 1),) * 4, dict(adobe_transform=0)),
+            ("jpeg_cmyk_no_adobe", np.concatenate([crop, alpha[..., None]], 2)[:21, :30],
+             ((2, 1), (1, 1), (1, 1), (2, 1)), {}),
+            ("jpeg_ycck", np.concatenate([_ycc(255 - crop), alpha[..., None]], 2),
+             ((2, 2), (1, 1), (1, 1), (2, 2)), dict(adobe_transform=2)),
+            ("jpeg_ycck_440", np.concatenate([_ycc(crop), 255 - alpha[..., None]], 2)[:37],
+             ((1, 2), (1, 1), (1, 1), (1, 2)), dict(adobe_transform=2)),
+            ("jpeg_rgb_adobe", crop[:23, :50], ((1, 1),) * 3, dict(adobe_transform=0))):
+        out.append((name + ".jpg", jpeg_bytes(img, sampling, quality=85, **kw)))
+    out.append(("jpeg_cmyk_progressive.jpg",
+                pil(Image.fromarray(crop).convert("CMYK"), "JPEG", quality=90, progressive=True)))
+
+    # BMP
+    bw = np.array([[0, 0, 0], [255, 255, 255]])
+    greys = np.repeat(np.arange(256)[:, None], 3, axis=1)
+    for name, blob in (
+            ("bmp_pal1", bmp_bytes(idx[:13, :29] & 1, 1, pal[:2])),
+            ("bmp_bw1", bmp_bytes(grey[:13, :29] > 120, 1, bw)),
+            ("bmp_pal4", bmp_bytes(idx[:, :37], 4, pal[:16])),
+            ("bmp_pal8", bmp_bytes(grey, 8, pal)),
+            ("bmp_grey8_topdown", bmp_bytes(grey[:, :43], 8, greys, top_down=True)),
+            ("bmp_rle8", bmp_bytes(idx * 16, 8, pal, compression=1)),
+            ("bmp_rle4_topdown", bmp_bytes(idx[:, :45], 4, pal[:16], compression=2,
+                                           top_down=True)),
+            ("bmp_rgb555", bmp_bytes(crop[:, :31], 16)),
+            ("bmp_rgb565", bmp_bytes(crop[:, :31], 16, compression=3,
+                                     masks=(0xF800, 0x7E0, 0x1F))),
+            ("bmp_rgb24", bmp_bytes(crop[:, :41], 24)),
+            ("bmp_rgb24_width1", bmp_bytes(crop[:, :1], 24, top_down=True)),
+            ("bmp_rgbx32", bmp_bytes(rgba, 32)),
+            ("bmp_bgra32_v4", bmp_bytes(rgba, 32, compression=3,
+                                        masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                                        header_size=108)),
+            ("bmp_abgr32_v2", bmp_bytes(rgba[:30, :33], 32, compression=3,
+                                        masks=(0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                                        header_size=56, top_down=True)),
+            ("bmp_pil_rgba", pil(Image.fromarray(rgba[:25, :35]), "BMP")),
+            ("bmp_pil_p", pil(Image.fromarray(crop).quantize(12), "BMP"))):
+        out.append((name + ".bmp", blob))
+
+    # TIFF
+    smooth = crop.copy()
+    for name, vals, photometric, kw in (
+            ("tif_l_none", grey[:, :33], 1, {}),
+            ("tif_l_packbits_strips", grey, 1, dict(compression=32773, rows_per_strip=5)),
+            ("tif_l_white_lzw", grey[:21], 0, dict(compression=5)),
+            ("tif_la_lzw_pred", np.stack([grey, alpha], 2), 1,
+             dict(compression=5, predictor=2, extra_samples=(2,))),
+            ("tif_rgb_lzw_pred", smooth, 2, dict(compression=5, predictor=2, rows_per_strip=16)),
+            ("tif_rgb_mm_deflate", smooth[:19, :51], 2, dict(compression=8, byteorder=">")),
+            ("tif_rgba_deflate_pred", rgba, 2, dict(compression=32946, predictor=2,
+                                                    extra_samples=(2,))),
+            ("tif_rgba_associated", rgba, 2, dict(compression=5, extra_samples=(1,))),
+            ("tif_rgbx", rgba[:, :29], 2, dict(compression=32773, extra_samples=(0,))),
+            ("tif_i16_lzw_pred", wide16[..., 0], 1, dict(compression=5, predictor=2)),
+            ("tif_i16_mm", wide16[:27, :, 0], 1, dict(byteorder=">", rows_per_strip=7)),
+            ("tif_rgb16_deflate_pred", wide16[..., :3], 2, dict(compression=8, predictor=2)),
+            ("tif_rgba16_mm_lzw", wide16[:33], 2, dict(compression=5, byteorder=">",
+                                                      extra_samples=(2,))),
+            ("tif_rgba16_associated", wide16[:20, :20], 2, dict(extra_samples=(1,)))):
+        out.append((name + ".tif", tiff_bytes(vals, photometric, **kw)))
+    out.append(("tif_pil_rgba_lzw.tif", pil(Image.fromarray(rgba[:40, :50]), "TIFF",
+                                            compression="tiff_lzw")))
+    out.append(("tif_pil_rgb_packbits.tif", pil(Image.fromarray(crop[:31]), "TIFF",
+                                                compression="packbits")))
+    return out
+
+
+def write_formats(src):
+    """`tests/format_fixtures/` (module docstring); `src` is the 1296x832
+    view's decode."""
+    from PIL import Image
+
+    from tools.image_writers import jpeg_bytes
+
+    def save(path, blob):
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+
+    shutil.rmtree(FORMATS, ignore_errors=True)
+    images, metrics = os.path.join(FORMATS, "colmap_440"), os.path.join(FORMATS, "metrics_jpeg")
+    os.makedirs(images)
+    for name, blob in format_cases(src):
+        save(os.path.join(FORMATS, name), blob)
+    for i in range(VIEWS):
+        view = np.asarray(Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg")))
+        save(os.path.join(images, f"view_{i}.jpg"),
+             jpeg_bytes(_ycc(view), ((1, 2), (1, 1), (1, 1)), quality=90))
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    for i, (y, x, sampling) in enumerate(((200, 400, ((1, 2), (1, 1), (1, 1))),
+                                          (500, 900, ((4, 1), (1, 1), (1, 1))))):
+        name = f"{i:05d}.jpg"
+        buf = io.BytesIO()
+        Image.fromarray(src[y:y + 48, x:x + 64]).save(buf, "JPEG", quality=90)
+        for d, blob in (("renders", buf.getvalue()),
+                        ("gt", jpeg_bytes(_ycc(src[y + 1:y + 49, x + 2:x + 66]), sampling,
+                                          quality=95))):
+            path = os.path.join(metrics, d, name)
+            with open(path, "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
+
+
+def main(argv=None) -> int:
     from PIL import Image, ImageFile
+
+    if "--formats" in (argv or sys.argv[1:]):
+        decoded = np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg")))
+        write_formats(decoded)
+        return 0
 
     from wast3d_tpu_torch.scene import colmap as cm
     from wast3d_tpu_torch.utils.png import encode_png
@@ -207,6 +404,7 @@ def main() -> int:
                             ("wide_1600x90", wide, (1600, 90))):
         write_png_up(os.path.join(resized, name + ".png"),
                      np.asarray(Image.fromarray(img).resize(size)))
+    write_formats(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")
     return 0

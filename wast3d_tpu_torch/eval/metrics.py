@@ -4,8 +4,10 @@ Port of `wast3d_tpu/eval/metrics.py` (the reference `metrics.py:36-103`):
 walks `<model_path>/<split>/ours_<iter>/{renders,gt}`, computes per-view and
 mean metrics and writes `results.json` + `per_view.json` in the same schema
 and keys. LPIPS is exact only with pretrained weights (`ops/lpips.py`);
-otherwise its key is `LPIPS_PROXY`. PNGs are read by the port's own decoder
-(`utils/png.py`); each image is `[..., :3] / 255` in float32, as in JAX.
+otherwise its key is `LPIPS_PROXY`. Images are read by the port's own reader
+(`utils/image_io.read_image`: PNG, JPEG, BMP or TIFF by the file's
+signature, PIL's arrays without PIL); each image is `[..., :3] / 255` in
+float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from wast3d_tpu_torch.device import DeviceLike, resolve_device
 from wast3d_tpu_torch.ops.image_losses import psnr as psnr_fn
 from wast3d_tpu_torch.ops.image_losses import ssim as ssim_fn
 from wast3d_tpu_torch.ops.lpips import LPIPS
-from wast3d_tpu_torch.utils.png import read_png
+from wast3d_tpu_torch.utils.image_io import read_image
 
 
 def _read_image(path: str) -> np.ndarray:
-    return read_png(path).astype(np.float32)[..., :3] / 255.0
+    return np.asarray(read_image(path), dtype=np.float32)[..., :3] / 255.0
 
 
 def _read_images(renders_dir: str, gt_dir: str):

@@ -3,9 +3,14 @@
 The port's counterpart of `wast3d_tpu/native`: the same C ABI and Python
 API (`available`, `read_ply_f32`, `write_ply_f32`, `read_colmap_points3d`,
 the `WAST3D_NO_NATIVE` opt-out), plus what datasets need without PIL, since
-the card's machine has none: a JPEG decoder (`read_jpeg`, `decode_jpeg`; baseline and progressive,
-`jpeg.cpp`), PNG unfiltering and Adam7 (`png_unfilter`) and PIL's bicubic
-resize (`resize_u8`; both `image.cpp`).
+the card's machine has none: a JPEG decoder (`read_jpeg`, `decode_jpeg`;
+baseline and progressive, 1, 3 or 4 components, any integral sampling;
+`jpeg.cpp`, with its upsampler alone as `jpeg_upsample`), and the byte loops
+of the other readers (`image.cpp`): PNG unfiltering and Adam7 at every bit
+depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
+(`bmp_rle`), TIFF LZW and PackBits (`lzw_decode`, `packbits_decode`), and
+PIL's bicubic resize (`resize_u8`). `utils/image_io.py` and `utils/png.py`
+hold the plain version of each.
 
 The library is built lazily by `_build.build_native` (one `g++` call into a
 private temporary directory under `_build/`, then `os.replace` to a name
@@ -46,8 +51,20 @@ _SIGNATURES = {
                        _c.c_int32], _c.c_int),
     "w3d_jpeg_decode": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_char_p,
                          _c.c_int32], _c.c_int),
+    "w3d_jpeg_upsample": ([_c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32,
+                           _c.c_int32, _c.c_void_p, _c.c_int32, _c.c_int32, _c.c_char_p,
+                           _c.c_int32], _c.c_int),
     "w3d_png_unfilter": ([_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int32,
-                          _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+                          _c.c_int32, _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32],
+                         _c.c_int),
+    "w3d_unpack_bits": ([_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int32,
+                         _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_bmp_rle": ([_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int32,
+                     _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int64),
+    "w3d_lzw_decode": ([_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_char_p,
+                        _c.c_int32], _c.c_int64),
+    "w3d_packbits_decode": ([_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_char_p,
+                             _c.c_int32], _c.c_int64),
     "w3d_resize_u8": ([_c.c_void_p, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_void_p,
                        _c.c_int32, _c.c_int32, _c.c_char_p, _c.c_int32], _c.c_int),
 }
@@ -134,21 +151,26 @@ def read_colmap_points3d(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     return xyz[: n.value].copy(), rgb[: n.value].copy()
 
 
+def _message(msg) -> str:
+    return msg.value.decode(errors="replace")
+
+
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Baseline or progressive JPEG bytes -> uint8 [H, W, 3], or [H, W] for
-    grayscale (what `np.asarray(PIL.Image.open(...))` gives). Other kinds of
-    JPEG, and files PIL would not decode to these pixels, raise `ValueError`
-    naming `name` and the reason."""
+    """Baseline or progressive JPEG bytes -> uint8 [H, W, 3], [H, W, 4] for
+    CMYK / YCCK (PIL's inverted "CMYK;I"), or [H, W] for grayscale (what
+    `np.asarray(PIL.Image.open(...))` gives). Other kinds of JPEG, and files
+    PIL would not decode to these pixels, raise `ValueError` naming `name`
+    and the reason."""
     lib = library()
     msg = ctypes.create_string_buffer(256)
     w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
     if lib.w3d_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(c),
                          msg, len(msg)) != 0:
-        raise ValueError(f"{name}: {msg.value.decode(errors='replace')}")
+        raise ValueError(f"{name}: {_message(msg)}")
     shape = (h.value, w.value) if c.value == 1 else (h.value, w.value, c.value)
     out = np.empty(shape, np.uint8)
     if lib.w3d_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, msg, len(msg)) != 0:
-        raise ValueError(f"{name}: {msg.value.decode(errors='replace')}")
+        raise ValueError(f"{name}: {_message(msg)}")
     return out
 
 
@@ -158,18 +180,84 @@ def read_jpeg(path: str) -> np.ndarray:
         return decode_jpeg(f.read(), path)
 
 
-def png_unfilter(raw: np.ndarray, height: int, width: int, channels: int, interlaced: bool,
-                 name: str = "<bytes>") -> np.ndarray:
-    """A PNG's inflated, filtered scanlines (uint8) -> uint8 [height, width,
-    channels]: the five row filters, and the seven Adam7 passes when
-    `interlaced` (`image.cpp`). Bad data raises `ValueError` naming `name`."""
-    raw = np.ascontiguousarray(raw, np.uint8)
-    out = np.empty((height, width, channels), np.uint8)
+def jpeg_upsample(plane: np.ndarray, rh: int, rv: int, out_width: int,
+                  out_height: int) -> np.ndarray:
+    """A JPEG component's uint8 [h, w] plane, sampled rh x rv times less
+    than the image, -> uint8 [out_height, out_width] as libjpeg upsamples it
+    (`jpeg.cpp`; `utils/image_io.jpeg_upsample_reference` is its plain
+    version)."""
+    plane = np.ascontiguousarray(plane, np.uint8)
+    out = np.empty((out_height, out_width), np.uint8)
     msg = ctypes.create_string_buffer(256)
-    if library().w3d_png_unfilter(raw.ctypes.data, raw.size, height, width, channels,
-                                  int(interlaced), out.ctypes.data, msg, len(msg)) != 0:
-        raise ValueError(f"{name}: {msg.value.decode(errors='replace')}")
+    if library().w3d_jpeg_upsample(plane.ctypes.data, plane.shape[1], plane.shape[1],
+                                   plane.shape[0], rh, rv, out.ctypes.data, out_width,
+                                   out_height, msg, len(msg)) != 0:
+        raise ValueError(f"jpeg_upsample: {_message(msg)}")
     return out
+
+
+def png_unfilter(raw: np.ndarray, height: int, width: int, channels: int, interlaced: bool,
+                 name: str = "<bytes>", bits: int = 8) -> np.ndarray:
+    """A PNG's inflated, filtered scanlines (uint8) -> its samples: the five
+    row filters over bytes per pixel = max(1, bits x channels / 8), and the
+    seven Adam7 passes when `interlaced` (`image.cpp`). uint8 [height, width,
+    channels] at 8 bits, [height, width, 2 channels] (big-endian pairs) at 16,
+    [height, width, 1] sample values at 1, 2 and 4. Bad data raises
+    `ValueError` naming `name`."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    out = np.empty((height, width, channels * 2 if bits == 16 else channels), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_png_unfilter(raw.ctypes.data, raw.size, height, width, channels, bits,
+                                  int(interlaced), out.ctypes.data, msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def unpack_bits(rows: np.ndarray, width: int, bits: int, name: str = "<bytes>") -> np.ndarray:
+    """uint8 [h, row_bytes] rows of `bits`-bit samples (1, 2 or 4), packed
+    from the most significant bit -> uint8 [h, width] sample values."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    out = np.empty((rows.shape[0], width), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_unpack_bits(rows.ctypes.data, rows.shape[0], rows.shape[1], width, bits,
+                                 out.ctypes.data, msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def bmp_rle(blob: bytes, start: int, width: int, height: int, rle4: bool,
+            name: str = "<bytes>") -> np.ndarray:
+    """A BMP file's RLE8 / RLE4 pixels from offset `start` -> uint8 [height,
+    width], rows in file order, as Pillow's BmpRleDecoder reads them. Too
+    little data raises `ValueError`, as Pillow does."""
+    out = np.empty((height, width), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    n = library().w3d_bmp_rle(blob, len(blob), start, width, height, int(rle4),
+                              out.ctypes.data, msg, len(msg))
+    if n < 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    if n < out.size:
+        raise ValueError(f"{name}: not enough image data (RLE gives {n} of {out.size} pixels)")
+    return out
+
+
+def _stream(fn: str, blob: bytes, out_size: int, name: str) -> np.ndarray:
+    out = np.empty(out_size, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    n = getattr(library(), fn)(blob, len(blob), out.ctypes.data, out_size, msg, len(msg))
+    if n < 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out[:n]
+
+
+def lzw_decode(blob: bytes, out_size: int, name: str = "<bytes>") -> np.ndarray:
+    """A TIFF LZW strip -> at most `out_size` bytes (uint8)."""
+    return _stream("w3d_lzw_decode", blob, out_size, name)
+
+
+def packbits_decode(blob: bytes, out_size: int, name: str = "<bytes>") -> np.ndarray:
+    """A TIFF PackBits strip -> at most `out_size` bytes (uint8)."""
+    return _stream("w3d_packbits_decode", blob, out_size, name)
 
 
 def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -181,5 +269,5 @@ def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     msg = ctypes.create_string_buffer(256)
     if library().w3d_resize_u8(img.ctypes.data, img.shape[0], img.shape[1], c, out.ctypes.data,
                                height, width, msg, len(msg)) != 0:
-        raise ValueError(f"resize: {msg.value.decode(errors='replace')}")
+        raise ValueError(f"resize: {_message(msg)}")
     return out

@@ -1,16 +1,31 @@
-// wast3d_tpu_torch native image code: PNG unfiltering and de-interlacing,
-// and PIL's bicubic resize of 8-bit images.
+// wast3d_tpu_torch native image code: the byte loops of the image readers
+// (PNG unfiltering and de-interlacing, sub-byte unpacking, BMP run lengths,
+// TIFF LZW and PackBits) and PIL's bicubic resize of 8-bit images.
 //
-// Datasets ship PNG and JPEG images and the card's machine has no PIL.
-// `utils/png.py` inflates a PNG's image data with zlib and hands the
-// filtered scanlines here; Average and Paeth rows depend on the pixel just
-// decoded, so numpy walks them a pixel at a time, and a Blender view
-// (libpng's adaptive filters) took seconds a megapixel that way.
+// Datasets ship PNG, JPEG, BMP and TIFF images and the card's machine has no
+// PIL. `utils/png.py` and `utils/image_io.py` parse the headers, inflate
+// zlib data and turn samples into PIL's arrays with numpy; every loop that
+// walks the bytes one at a time is here. Average and Paeth rows depend on
+// the pixel just decoded, so numpy walks them a pixel at a time, and a
+// Blender view (libpng's adaptive filters) took seconds a megapixel that way.
+// Each routine has a plain numpy / Python version beside its caller that the
+// tests hold it to.
 //
-//   w3d_png_unfilter: the five row filters of the PNG specification
-//     (None, Sub, Up, Average, Paeth), 8-bit samples, 1-4 channels; with
-//     `interlaced` the seven Adam7 passes, each its own sub-image with its
-//     own filter bytes (an empty pass has no bytes), scattered into place.
+//   w3d_png_unfilter: the five row filters of the PNG specification (None,
+//     Sub, Up, Average, Paeth) over bytes per pixel = max(1, bits x channels
+//     / 8), bit depths 1, 2, 4, 8 and 16; with `interlaced` the seven Adam7
+//     passes, each its own sub-image with its own filter bytes (an empty
+//     pass has no bytes), scattered into place. Out: 1-, 2- and 4-bit samples
+//     one byte each (their values), 8- and 16-bit samples as stored (16-bit
+//     big-endian).
+//   w3d_unpack_bits: rows of 1-, 2- or 4-bit samples packed from the most
+//     significant bit, one byte per sample out.
+//   w3d_bmp_rle: BMP RLE8 / RLE4 as Pillow's BmpRleDecoder reads them
+//     (rows in file order, a run clipped to its row, absolute runs padded
+//     to an even file offset, deltas and ends of line filled with zeros).
+//   w3d_lzw_decode: TIFF LZW (codes from the most significant bit, 9 to 12
+//     bits, widened one code early; Clear 256, EOI 257).
+//   w3d_packbits_decode: TIFF PackBits.
 //   w3d_resize_u8: Pillow's ImagingResample for 8-bit images with its
 //     default filter (bicubic, a = -0.5; src/libImaging/Resample.c):
 //     weights computed in double as precompute_coeffs does, normalised,
@@ -19,13 +34,19 @@
 //     pass; an axis whose size does not change is skipped. Premultiplying
 //     images with alpha stays in Python (`utils/png._premultiplied`).
 //
-// C ABI (ctypes); both return 0 on success and -1 on failure, with a
-// NUL-terminated reason in msg:
-//   w3d_png_unfilter(raw, raw_size, height, width, channels, interlaced, out,
-//                    msg, msg_len)                 out: height x width x channels
+// C ABI (ctypes); each returns 0 (w3d_bmp_rle, w3d_lzw_decode,
+// w3d_packbits_decode: the bytes written) on success and -1 on failure, with
+// a NUL-terminated reason in msg:
+//   w3d_png_unfilter(raw, raw_size, height, width, channels, bits, interlaced,
+//                    out, msg, msg_len)
+//   w3d_unpack_bits(in, rows, row_bytes, width, bits, out, msg, msg_len)
+//   w3d_bmp_rle(file, size, start, width, height, rle4, out, msg, msg_len)
+//   w3d_lzw_decode(in, size, out, out_size, msg, msg_len)
+//   w3d_packbits_decode(in, size, out, out_size, msg, msg_len)
 //   w3d_resize_u8(in, height, width, channels, out, out_height, out_width,
 //                 msg, msg_len)                    out: out_height x out_width x channels
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -57,21 +78,26 @@ inline int paeth(int a, int b, int c) {
   return pb <= pc ? b : c;
 }
 
-// Unfilter `h` scanlines of `w` pixels of `bpp` bytes from `in` (each row a
-// filter byte, then w * bpp bytes) into `out` (h rows of w * bpp bytes, row
-// stride `out_stride`, pixel step `out_step` bytes). Returns the bytes read.
-size_t unfilter(const uint8_t* in, size_t avail, int64_t h, int64_t w, int bpp, uint8_t* out,
-                int64_t out_stride, int64_t out_step) {
-  const int64_t stride = w * bpp;
+// Sample x of a row of `bits`-bit samples packed from the high bit.
+inline uint8_t packed(const uint8_t* row, int64_t x, int bits) {
+  const int64_t bit = x * bits;
+  return static_cast<uint8_t>((row[bit >> 3] >> (8 - bits - (bit & 7))) & ((1 << bits) - 1));
+}
+
+// Unfilter `h` scanlines of `stride` bytes (`bpp` bytes a pixel for the
+// filters) from `in`, each row a filter byte and then its bytes, into `rows`
+// (h x stride). Returns the bytes read.
+size_t unfilter(const uint8_t* in, size_t avail, int64_t h, int64_t stride, int bpp,
+                uint8_t* rows) {
   const size_t need = static_cast<size_t>(h) * static_cast<size_t>(1 + stride);
   if (need > avail) fail("PNG image data too short");
-  std::vector<uint8_t> prior(static_cast<size_t>(stride), 0), cur(static_cast<size_t>(stride));
+  std::vector<uint8_t> zero(static_cast<size_t>(stride), 0);
   for (int64_t y = 0; y < h; ++y) {
     const uint8_t* row = in + static_cast<size_t>(y) * (1 + stride);
     const int f = row[0];
     const uint8_t* s = row + 1;
-    uint8_t* c = cur.data();
-    const uint8_t* u = prior.data();
+    uint8_t* c = rows + y * stride;
+    const uint8_t* u = y ? c - stride : zero.data();
     switch (f) {
       case 0:
         memcpy(c, s, static_cast<size_t>(stride));
@@ -98,23 +124,43 @@ size_t unfilter(const uint8_t* in, size_t avail, int64_t h, int64_t w, int bpp, 
       default:
         fail("bad PNG filter type " + std::to_string(f));
     }
-    uint8_t* o = out + y * out_stride;
-    if (out_step == bpp) {
-      memcpy(o, c, static_cast<size_t>(stride));
-    } else {
-      for (int64_t x = 0; x < w; ++x) memcpy(o + x * out_step, c + x * bpp, static_cast<size_t>(bpp));
-    }
-    prior.swap(cur);
   }
   return need;
 }
 
-void png_unfilter(const uint8_t* raw, size_t size, int64_t h, int64_t w, int c, bool interlaced,
-                  uint8_t* out) {
+// One (sub-)image of h x w pixels into `out` at row stride `out_stride`
+// and pixel step `out_step` (bytes); `pix` bytes a pixel out.
+size_t png_image(const uint8_t* in, size_t avail, int64_t h, int64_t w, int c, int bits,
+                 uint8_t* out, int64_t out_stride, int64_t out_step) {
+  const int64_t stride = (w * c * bits + 7) / 8;
+  const int bpp = std::max(1, c * bits / 8);
+  const int64_t pix = bits < 8 ? 1 : c * bits / 8;
+  std::vector<uint8_t> rows(static_cast<size_t>(h * stride));
+  const size_t used = unfilter(in, avail, h, stride, bpp, rows.data());
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* r = rows.data() + y * stride;
+    uint8_t* o = out + y * out_stride;
+    if (bits < 8) {
+      for (int64_t x = 0; x < w; ++x) o[x * out_step] = packed(r, x, bits);
+    } else if (out_step == pix) {
+      memcpy(o, r, static_cast<size_t>(stride));
+    } else {
+      for (int64_t x = 0; x < w; ++x) memcpy(o + x * out_step, r + x * pix, static_cast<size_t>(pix));
+    }
+  }
+  return used;
+}
+
+void png_unfilter(const uint8_t* raw, size_t size, int64_t h, int64_t w, int c, int bits,
+                  bool interlaced, uint8_t* out) {
   if (h < 1 || w < 1 || c < 1 || c > 4) fail("bad PNG size or channel count");
-  const int64_t row = w * c;
+  if (!(bits == 1 || bits == 2 || bits == 4 || bits == 8 || bits == 16) || (bits < 8 && c != 1)) {
+    fail("bad PNG bit depth " + std::to_string(bits) + " for " + std::to_string(c) + " channels");
+  }
+  const int64_t pix = bits < 8 ? 1 : c * bits / 8;
+  const int64_t row = w * pix;
   if (!interlaced) {
-    size_t used = unfilter(raw, size, h, w, c, out, row, c);
+    size_t used = png_image(raw, size, h, w, c, bits, out, row, pix);
     if (used != size) fail("PNG image data has trailing bytes");
     return;
   }
@@ -126,10 +172,155 @@ void png_unfilter(const uint8_t* raw, size_t size, int64_t h, int64_t w, int c, 
     const int64_t ph = h > y0 ? (h - y0 + dy - 1) / dy : 0;
     const int64_t pw = w > x0 ? (w - x0 + dx - 1) / dx : 0;
     if (ph == 0 || pw == 0) continue;
-    pos += unfilter(raw + pos, size - pos, ph, pw, c, out + y0 * row + x0 * c, dy * row,
-                    static_cast<int64_t>(dx) * c);
+    pos += png_image(raw + pos, size - pos, ph, pw, c, bits, out + y0 * row + x0 * pix, dy * row,
+                     dx * pix);
   }
   if (pos != size) fail("PNG image data has trailing bytes");
+}
+
+void unpack_bits(const uint8_t* in, int64_t rows, int64_t row_bytes, int64_t w, int bits,
+                 uint8_t* out) {
+  if (!(bits == 1 || bits == 2 || bits == 4)) fail("bad packed sample size " + std::to_string(bits));
+  if ((w * bits + 7) / 8 > row_bytes) fail("packed rows shorter than their width");
+  for (int64_t y = 0; y < rows; ++y) {
+    for (int64_t x = 0; x < w; ++x) out[y * w + x] = packed(in + y * row_bytes, x, bits);
+  }
+}
+
+// ---- BMP run lengths: Pillow's BmpRleDecoder ---------------------------------
+
+// `in` is the whole file and the pixels start at `start`: absolute runs are
+// padded to an even offset in the file, as Pillow pads them.
+int64_t bmp_rle(const uint8_t* in, size_t size, size_t start, int64_t w, int64_t h, bool rle4,
+                uint8_t* out) {
+  if (w < 1 || h < 1) fail("bad BMP size");
+  const int64_t total = w * h;
+  int64_t n = 0, x = 0;
+  size_t pos = start;
+  auto put = [&](uint8_t v) {  // Pillow appends past the image and then cuts
+    if (n < total) out[n] = v;
+    ++n;
+  };
+  while (n < total) {
+    if (pos + 2 > size) break;
+    int count = in[pos], byte = in[pos + 1];
+    pos += 2;
+    if (count) {
+      if (x + count > w) count = static_cast<int>(std::max<int64_t>(0, w - x));
+      for (int i = 0; i < count; ++i) put(rle4 ? (i % 2 ? byte & 15 : byte >> 4) : byte);
+      x += count;
+    } else if (byte == 0) {  // end of line
+      while (n % w) put(0);
+      x = 0;
+    } else if (byte == 1) {  // end of bitmap
+      break;
+    } else if (byte == 2) {  // delta: Pillow reads two bytes, then two more
+      if (pos + 2 > size) break;
+      pos += 2;
+      if (pos + 2 > size) break;
+      const int64_t right = in[pos], up = in[pos + 1];
+      pos += 2;
+      for (int64_t i = 0; i < right + up * w; ++i) put(0);
+      x = n % w;
+    } else {  // absolute run, padded to a 16-bit word
+      const size_t want = rle4 ? byte / 2 : byte;
+      const size_t got = std::min(want, size - pos);
+      for (size_t i = 0; i < got; ++i) {
+        const uint8_t v = in[pos + i];
+        if (rle4) {
+          put(v >> 4);
+          put(v & 15);
+        } else {
+          put(v);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += byte;
+      if (pos % 2) ++pos;
+    }
+  }
+  return std::min(n, total);
+}
+
+// ---- TIFF LZW and PackBits ---------------------------------------------------
+
+int64_t lzw_decode(const uint8_t* in, size_t size, uint8_t* out, int64_t out_size) {
+  if (size >= 2 && in[0] == 0 && (in[1] & 1)) fail("old-style (LSB-first) TIFF LZW is not supported");
+  std::vector<int32_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  std::vector<int32_t> length(4096);
+  for (int i = 0; i < 256; ++i) {
+    prefix[i] = -1;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+    length[i] = 1;
+  }
+  std::vector<uint8_t> stack(4096);
+  int64_t n = 0;
+  int next = 258, width = 9, old = -1;
+  uint64_t buf = 0;
+  int have = 0;
+  size_t pos = 0;
+  for (;;) {
+    while (have < width && pos < size) {
+      buf = (buf << 8) | in[pos++];
+      have += 8;
+    }
+    if (have < width) break;  // data ends without EOI, as libtiff allows
+    const int code = static_cast<int>((buf >> (have - width)) & ((1u << width) - 1));
+    have -= width;
+    if (code == 257) break;
+    if (code == 256) {
+      next = 258;
+      width = 9;
+      old = -1;
+      continue;
+    }
+    int cur;
+    if (old < 0) {
+      if (code > 255) fail("corrupt LZW data (first code " + std::to_string(code) + ")");
+      cur = code;
+    } else if (code < next) {
+      cur = code;
+      if (next < 4096) {
+        prefix[next] = old;
+        suffix[next] = first[code];
+        first[next] = first[old];
+        length[next] = length[old] + 1;
+        ++next;
+      }
+    } else if (code == next && next < 4096) {
+      prefix[next] = old;
+      suffix[next] = first[old];
+      first[next] = first[old];
+      length[next] = length[old] + 1;
+      cur = next++;
+    } else {
+      fail("corrupt LZW data (code " + std::to_string(code) + " past the table)");
+    }
+    int k = length[cur];
+    for (int c = cur, i = k - 1; i >= 0; --i, c = prefix[c]) stack[i] = suffix[c];
+    for (int i = 0; i < k && n < out_size; ++i) out[n++] = stack[i];
+    old = cur;
+    if (next + 1 >= (1 << width) && width < 12) ++width;  // early change
+  }
+  return n;
+}
+
+int64_t packbits_decode(const uint8_t* in, size_t size, uint8_t* out, int64_t out_size) {
+  int64_t n = 0;
+  size_t pos = 0;
+  while (pos < size && n < out_size) {
+    const int c = static_cast<int8_t>(in[pos++]);
+    if (c >= 0) {
+      for (int i = 0; i <= c && pos < size && n < out_size; ++i) out[n++] = in[pos++];
+    } else if (c != -128) {
+      if (pos >= size) break;
+      const uint8_t v = in[pos++];
+      for (int i = 0; i < 1 - c && n < out_size; ++i) out[n++] = v;
+    }
+  }
+  return n;
 }
 
 // ---- resize -----------------------------------------------------------------
@@ -251,35 +442,51 @@ void resize_u8(const uint8_t* in, int h, int w, int c, uint8_t* out, int oh, int
 
 }  // namespace
 
+#define W3D_GUARD(body)                    \
+  try {                                      \
+    body;                                    \
+  } catch (const ImageError& e) {            \
+    set_message(msg, msg_len, e.msg);        \
+  } catch (const std::exception& e) {        \
+    set_message(msg, msg_len, e.what());     \
+  }                                          \
+  return -1;
+
 extern "C" {
 
 int w3d_png_unfilter(const uint8_t* raw, int64_t raw_size, int64_t height, int64_t width,
-                     int32_t channels, int32_t interlaced, uint8_t* out, char* msg,
-                     int32_t msg_len) {
-  try {
-    png_unfilter(raw, static_cast<size_t>(raw_size), height, width, channels, interlaced != 0,
-                 out);
-    return 0;
-  } catch (const ImageError& e) {
-    set_message(msg, msg_len, e.msg);
-  } catch (const std::exception& e) {
-    set_message(msg, msg_len, e.what());
-  }
-  return -1;
+                     int32_t channels, int32_t bits, int32_t interlaced, uint8_t* out,
+                     char* msg, int32_t msg_len) {
+  W3D_GUARD(png_unfilter(raw, static_cast<size_t>(raw_size), height, width, channels, bits,
+                         interlaced != 0, out);
+            return 0)
+}
+
+int w3d_unpack_bits(const uint8_t* in, int64_t rows, int64_t row_bytes, int64_t width,
+                    int32_t bits, uint8_t* out, char* msg, int32_t msg_len) {
+  W3D_GUARD(unpack_bits(in, rows, row_bytes, width, bits, out); return 0)
+}
+
+int64_t w3d_bmp_rle(const uint8_t* in, int64_t size, int64_t start, int64_t width,
+                    int64_t height, int32_t rle4, uint8_t* out, char* msg, int32_t msg_len) {
+  W3D_GUARD(return bmp_rle(in, static_cast<size_t>(size), static_cast<size_t>(start), width,
+                           height, rle4 != 0, out))
+}
+
+int64_t w3d_lzw_decode(const uint8_t* in, int64_t size, uint8_t* out, int64_t out_size,
+                       char* msg, int32_t msg_len) {
+  W3D_GUARD(return lzw_decode(in, static_cast<size_t>(size), out, out_size))
+}
+
+int64_t w3d_packbits_decode(const uint8_t* in, int64_t size, uint8_t* out, int64_t out_size,
+                            char* msg, int32_t msg_len) {
+  W3D_GUARD(return packbits_decode(in, static_cast<size_t>(size), out, out_size))
 }
 
 int w3d_resize_u8(const uint8_t* in, int32_t height, int32_t width, int32_t channels,
                   uint8_t* out, int32_t out_height, int32_t out_width, char* msg,
                   int32_t msg_len) {
-  try {
-    resize_u8(in, height, width, channels, out, out_height, out_width);
-    return 0;
-  } catch (const ImageError& e) {
-    set_message(msg, msg_len, e.msg);
-  } catch (const std::exception& e) {
-    set_message(msg, msg_len, e.what());
-  }
-  return -1;
+  W3D_GUARD(resize_u8(in, height, width, channels, out, out_height, out_width); return 0)
 }
 
 }  // extern "C"

@@ -2,12 +2,13 @@
 // Huffman JPEG.
 //
 // COLMAP datasets ship JPEG images, and the card's machine has no PIL. This
-// decodes what cameras, COLMAP's undistorter and web tools write: SOF0 /
-// SOF1 (sequential) and SOF2 (progressive), 8-bit samples, 1 or 3
-// components, sampling 4:4:4, 4:2:2 (2x1) or 4:2:0 (2x2), any size, restart
-// markers. Every other kind of file (arithmetic, lossless, hierarchical,
-// 12-bit, CMYK, other samplings) is refused with a message that names its
-// marker.
+// decodes what cameras, COLMAP's undistorter, jpegtran and print tools
+// write: SOF0 / SOF1 (sequential) and SOF2 (progressive), 8-bit samples, 1,
+// 3 or 4 components, sampling factors 1-4 in integral ratios (4:4:4, 4:2:2,
+// 4:2:0, 4:4:0, 4:1:1, ...), any size, restart markers. Every other kind of
+// file (arithmetic, lossless, hierarchical, 12-bit, 2 components,
+// fractional sampling ratios, more than 10 blocks in an MCU) is refused with
+// a message that names its marker or its factors, as libjpeg refuses them.
 //
 // A progressive file's scans are decoded as libjpeg's jdphuff.c decodes
 // them into a coefficient buffer per component (DC first and refine,
@@ -23,16 +24,26 @@
 //
 // The arithmetic is libjpeg's, so the output matches PIL's (libjpeg-turbo)
 // decode: the "islow" integer inverse DCT (jidctint.c, 13-bit constants, two
-// passes, the post-IDCT range limit), "fancy" triangle upsampling of the
-// chroma (jdsample.c h2v1 / h2v2, edge rows and columns replicated, plain
-// replication for planes at most 2 samples wide), and the fixed-point
-// YCbCr -> RGB tables of jdcolor.c. EXIF orientation is not applied.
+// passes, the post-IDCT range limit), jdsample.c's upsampling (w3d_jpeg_upsample:
+// "fancy" triangle filters for ratios h2v1, h2v2 and h1v2, edge rows and
+// columns replicated, plain replication for h2 planes at most 2 samples
+// wide; int_upsample's replication for every other integral ratio), and the
+// fixed-point YCbCr -> RGB tables of jdcolor.c. A 4-component file is CMYK,
+// or YCCK under an Adobe marker whose transform is not 0 (jdcolor.c's
+// ycck_cmyk_convert: YCC -> RGB, inverted, K kept); PIL reads either as
+// "CMYK;I", so every sample comes out inverted. EXIF orientation is not
+// applied.
 //
 // C ABI (ctypes):
 //   w3d_jpeg_info(data, size, &width, &height, &channels, msg, msg_len)
 //   w3d_jpeg_decode(data, size, out, out_size, msg, msg_len)
-// Both return 0 on success and -1 on failure, with a NUL-terminated reason
-// in msg. out receives height x width x channels bytes, row-major.
+//   w3d_jpeg_upsample(plane, stride, width, height, rh, rv, out, out_width,
+//                     out_height, msg, msg_len)
+// Each returns 0 on success and -1 on failure, with a NUL-terminated reason
+// in msg. out receives height x width x channels bytes, row-major; the
+// upsampler turns a width x height plane (row stride `stride`) into
+// out_height x out_width samples, as jdsample.c does for a component
+// sampled rh x rv times less than the image.
 
 #include <algorithm>
 #include <cstdint>
@@ -58,6 +69,71 @@ struct DecodeError {
 };
 
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError{msg}; }
+
+// ---- upsampling: jdsample.c ---------------------------------------------------
+// One output row of an h2 component from its downsampled row `in` (n
+// samples): 2 n samples.
+void h2v1_fancy(const uint8_t* in, int n, uint8_t* out) {
+  int v = in[0];
+  *out++ = static_cast<uint8_t>(v);
+  *out++ = static_cast<uint8_t>((v * 3 + in[1] + 2) >> 2);
+  for (int i = 1; i < n - 1; ++i) {
+    v = in[i] * 3;
+    *out++ = static_cast<uint8_t>((v + in[i - 1] + 1) >> 2);
+    *out++ = static_cast<uint8_t>((v + in[i + 1] + 2) >> 2);
+  }
+  v = in[n - 1];
+  *out++ = static_cast<uint8_t>((v * 3 + in[n - 2] + 1) >> 2);
+  *out++ = static_cast<uint8_t>(v);
+}
+
+// h2v2: `in0` the nearer row (weight 3), `in1` the other (weight 1).
+void h2v2_fancy(const uint8_t* in0, const uint8_t* in1, int n, uint8_t* out) {
+  int this_sum = in0[0] * 3 + in1[0];
+  int next_sum = in0[1] * 3 + in1[1];
+  *out++ = static_cast<uint8_t>((this_sum * 4 + 8) >> 4);
+  *out++ = static_cast<uint8_t>((this_sum * 3 + next_sum + 7) >> 4);
+  int last_sum = this_sum;
+  this_sum = next_sum;
+  for (int i = 2; i < n; ++i) {
+    next_sum = in0[i] * 3 + in1[i];
+    *out++ = static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
+    *out++ = static_cast<uint8_t>((this_sum * 3 + next_sum + 7) >> 4);
+    last_sum = this_sum;
+    this_sum = next_sum;
+  }
+  *out++ = static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
+  *out++ = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
+}
+
+// Row y, at full resolution, of a plane of w x h samples (row stride
+// `stride`) sampled rh x rv times less than the image, into `row` (out_w
+// samples; room for 2 w for an h2 plane). The rows above the first
+// and below the last are the edge rows again (jdmainct.c's context rows).
+void upsample_row(const uint8_t* p, int64_t stride, int w, int h, int rh, int rv, int y,
+                  int out_w, uint8_t* row) {
+  const int iy = y / rv;
+  const uint8_t* in0 = p + static_cast<int64_t>(iy) * stride;
+  if (rh == 1 && rv == 1) {
+    memcpy(row, in0, static_cast<size_t>(out_w));
+    return;
+  }
+  const bool even = y % 2 == 0;
+  const int ny = std::min(std::max(even ? iy - 1 : iy + 1, 0), h - 1);
+  const uint8_t* in1 = p + static_cast<int64_t>(ny) * stride;
+  if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample: no narrow case
+    const int bias = even ? 1 : 2;
+    for (int x = 0; x < out_w; ++x) row[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+    return;
+  }
+  if (rh == 2 && (rv == 1 || rv == 2) && w > 2) {
+    if (rv == 1) h2v1_fancy(in0, w, row);
+    else h2v2_fancy(in0, in1, w, row);
+    return;
+  }
+  // h2v1_upsample / h2v2_upsample / int_upsample: replication.
+  for (int x = 0; x < out_w; ++x) row[x] = in0[x / rh];
+}
 
 std::string marker_name(int m) {
   char buf[32];
@@ -139,7 +215,7 @@ class Decoder {
 
   int width() const { return width_; }
   int height() const { return height_; }
-  int channels() const { return ncomp_ == 1 ? 1 : 3; }
+  int channels() const { return ncomp_; }
 
  private:
   // ---- markers and segments ------------------------------------------
@@ -258,8 +334,7 @@ class Decoder {
       fail(std::to_string(precision) + "-bit JPEG (" + marker_name(m) + ", precision " +
            std::to_string(precision) + ") is not supported; only 8-bit samples are");
     }
-    if (ncomp_ == 4) fail("4-component (CMYK / YCCK) JPEG (" + marker_name(m) + ") is not supported");
-    if (ncomp_ != 1 && ncomp_ != 3) {
+    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4) {
       fail(std::to_string(ncomp_) + "-component JPEG (" + marker_name(m) + ") is not supported");
     }
     if (width_ <= 0 || height_ <= 0) fail("JPEG with a zero size (" + marker_name(m) + ", DNL) is not supported");
@@ -271,20 +346,19 @@ class Decoder {
       cp.h = hv >> 4;
       cp.v = hv & 15;
       cp.tq = byte();
-      if (cp.h < 1 || cp.h > 2 || cp.v < 1 || cp.v > 2 || cp.tq > 3) {
-        fail("sampling " + std::to_string(cp.h) + "x" + std::to_string(cp.v) + " of component " +
-             std::to_string(c) + " (" + marker_name(m) + ") is not supported");
+      if (cp.h < 1 || cp.h > 4 || cp.v < 1 || cp.v > 4 || cp.tq > 3) {
+        fail("bad sampling factors " + std::to_string(cp.h) + "x" + std::to_string(cp.v) +
+             " of component " + std::to_string(c) + " (" + marker_name(m) + ")");
       }
       hmax_ = std::max(hmax_, cp.h);
       vmax_ = std::max(vmax_, cp.v);
     }
     for (int c = 0; c < ncomp_; ++c) {
-      Component& cp = comp_[c];
-      int rh = hmax_ / cp.h, rv = vmax_ / cp.v;
-      bool ok = (rh == 1 && rv == 1) || (rh == 2 && rv == 1) || (rh == 2 && rv == 2);
-      if (!ok || hmax_ % cp.h || vmax_ % cp.v) {
-        fail("chroma sampling " + std::to_string(rh) + "x" + std::to_string(rv) + " (" +
-             marker_name(m) + ") is not supported; 4:4:4, 4:2:2 and 4:2:0 are");
+      const Component& cp = comp_[c];
+      if (hmax_ % cp.h || vmax_ % cp.v) {  // libjpeg's JERR_FRACT_SAMPLE_NOTIMPL
+        fail("fractional sampling: component " + std::to_string(c) + " at " +
+             std::to_string(cp.h) + "x" + std::to_string(cp.v) + " of " + std::to_string(hmax_) +
+             "x" + std::to_string(vmax_) + " (" + marker_name(m) + ") is not supported");
       }
     }
     mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
@@ -414,7 +488,7 @@ class Decoder {
     size_t end = pos_ + len - 2;
     int ns = byte();
     if (ns < 1 || ns > ncomp_ || len != 6u + 2u * ns) fail("bad SOS segment");
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       int id = byte();
       int tdta = byte();
@@ -431,6 +505,14 @@ class Decoder {
     }
     int ss = byte(), se = byte(), ahal = byte();
     pos_ = end;
+    if (ns > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
+        fail("sampling factors too large for an interleaved scan (" + std::to_string(blocks) +
+             " blocks in an MCU; libjpeg takes 10)");
+      }
+    }
     if (progressive_) {
       progressive_scan(sc, ns, ss, se, ahal >> 4, ahal & 15);
       return;
@@ -765,65 +847,9 @@ class Decoder {
   }
 
   // ---- upsampling and colour: jdsample.c, jdcolor.c -------------------
-  // One output row (width 2 * cp.width) of an h2 component from its
-  // downsampled row `in0` and, for h2v2, the vertical neighbour `in1`.
-  static void h2v1_fancy(const uint8_t* in, int n, uint8_t* out) {
-    int v = in[0];
-    *out++ = static_cast<uint8_t>(v);
-    *out++ = static_cast<uint8_t>((v * 3 + in[1] + 2) >> 2);
-    for (int i = 1; i < n - 1; ++i) {
-      v = in[i] * 3;
-      *out++ = static_cast<uint8_t>((v + in[i - 1] + 1) >> 2);
-      *out++ = static_cast<uint8_t>((v + in[i + 1] + 2) >> 2);
-    }
-    v = in[n - 1];
-    *out++ = static_cast<uint8_t>((v * 3 + in[n - 2] + 1) >> 2);
-    *out++ = static_cast<uint8_t>(v);
-  }
-
-  static void h2v2_fancy(const uint8_t* in0, const uint8_t* in1, int n, uint8_t* out) {
-    int this_sum = in0[0] * 3 + in1[0];
-    int next_sum = in0[1] * 3 + in1[1];
-    *out++ = static_cast<uint8_t>((this_sum * 4 + 8) >> 4);
-    *out++ = static_cast<uint8_t>((this_sum * 3 + next_sum + 7) >> 4);
-    int last_sum = this_sum;
-    this_sum = next_sum;
-    for (int i = 2; i < n; ++i) {
-      next_sum = in0[i] * 3 + in1[i];
-      *out++ = static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
-      *out++ = static_cast<uint8_t>((this_sum * 3 + next_sum + 7) >> 4);
-      last_sum = this_sum;
-      this_sum = next_sum;
-    }
-    *out++ = static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
-    *out++ = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
-  }
-
-  // Row y of component c at full resolution into `row` (>= width_ + 2).
   void upsampled_row(const Component& cp, int y, uint8_t* row) const {
-    int rh = hmax_ / cp.h, rv = vmax_ / cp.v;
-    const uint8_t* p = cp.plane.data();
-    if (rh == 1 && rv == 1) {
-      memcpy(row, p + static_cast<size_t>(y) * cp.stride, width_);
-      return;
-    }
-    int iy = y / rv;
-    const uint8_t* in0 = p + static_cast<size_t>(iy) * cp.stride;
-    bool fancy = cp.width > 2;
-    if (!fancy) {  // replicate each sample (h2v1_upsample / h2v2_upsample)
-      for (int x = 0; x < width_; ++x) row[x] = in0[x / 2];
-      return;
-    }
-    if (rv == 1) {
-      h2v1_fancy(in0, cp.width, row);
-      return;
-    }
-    // h2v2: the nearer row with weight 3, the one above (even output rows)
-    // or below (odd) with weight 1; the edge rows are replicated.
-    int ny = (y % 2 == 0) ? iy - 1 : iy + 1;
-    if (ny < 0) ny = 0;
-    if (ny > cp.height - 1) ny = cp.height - 1;
-    h2v2_fancy(in0, p + static_cast<size_t>(ny) * cp.stride, cp.width, row);
+    upsample_row(cp.plane.data(), cp.stride, cp.width, cp.height, hmax_ / cp.h, vmax_ / cp.v, y,
+                 width_, row);
   }
 
   void output(uint8_t* out) const {
@@ -836,16 +862,6 @@ class Decoder {
                comp_[0].plane.data() + static_cast<size_t>(y) * comp_[0].stride, width_);
       }
       return;
-    }
-    // libjpeg's default colour space: JFIF means YCbCr; else an Adobe
-    // marker's transform flag; else component ids 'R', 'G', 'B' mean RGB.
-    bool rgb = false;
-    if (!saw_jfif_) {
-      if (saw_adobe_) {
-        rgb = adobe_transform_ == 0;
-      } else {
-        rgb = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
-      }
     }
     // jdcolor.c build_ycc_rgb_table: SCALEBITS 16.
     const int64_t kOneHalf = int64_t(1) << 15;
@@ -860,26 +876,41 @@ class Decoder {
       cb_g[i] = -fix(0.34414) * x + kOneHalf;
     }
     auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
-    std::vector<uint8_t> rows(3 * static_cast<size_t>(width_ + 2));
-    uint8_t* r0 = rows.data();
-    uint8_t* r1 = r0 + width_ + 2;
-    uint8_t* r2 = r1 + width_ + 2;
+    // libjpeg's default colour space. Three components: JFIF means YCbCr;
+    // else an Adobe marker's transform 0 means RGB; else component ids 'R',
+    // 'G', 'B' mean RGB. Four: an Adobe transform other than 0 means YCCK,
+    // else CMYK.
+    const int nc = ncomp_;
+    bool convert = true;
+    if (nc == 3 && !saw_jfif_) {
+      convert = saw_adobe_ ? adobe_transform_ != 0
+                           : !(comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B');
+    } else if (nc == 4) {
+      convert = saw_adobe_ && adobe_transform_ != 0;
+    }
+    const size_t room = static_cast<size_t>(width_) + 2;
+    std::vector<uint8_t> rows(4 * room);
+    uint8_t* r[4] = {rows.data(), rows.data() + room, rows.data() + 2 * room, rows.data() + 3 * room};
     for (int y = 0; y < height_; ++y) {
-      upsampled_row(comp_[0], y, r0);
-      upsampled_row(comp_[1], y, r1);
-      upsampled_row(comp_[2], y, r2);
-      uint8_t* o = out + static_cast<size_t>(y) * width_ * 3;
-      for (int x = 0; x < width_; ++x) {
-        if (rgb) {
-          o[3 * x] = r0[x];
-          o[3 * x + 1] = r1[x];
-          o[3 * x + 2] = r2[x];
-          continue;
+      for (int c = 0; c < nc; ++c) upsampled_row(comp_[c], y, r[c]);
+      uint8_t* o = out + static_cast<size_t>(y) * width_ * nc;
+      for (int x = 0; x < width_; ++x, o += nc) {
+        if (!convert) {
+          for (int c = 0; c < nc; ++c) o[c] = r[c][x];
+        } else {
+          int yy = r[0][x], cb = r[1][x], cr = r[2][x];
+          o[0] = clamp(yy + cr_r[cr]);
+          o[1] = clamp(yy + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
+          o[2] = clamp(yy + cb_b[cb]);
+          if (nc == 4) o[3] = r[3][x];
         }
-        int yy = r0[x], cb = r1[x], cr = r2[x];
-        o[3 * x] = clamp(yy + cr_r[cr]);
-        o[3 * x + 1] = clamp(yy + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
-        o[3 * x + 2] = clamp(yy + cb_b[cb]);
+        // YCCK -> CMYK inverts C, M and Y (ycck_cmyk_convert); PIL's
+        // "CMYK;I" then inverts all four, so C, M and Y come out as RGB.
+        if (nc == 4 && !convert) {
+          for (int c = 0; c < 4; ++c) o[c] = static_cast<uint8_t>(255 - o[c]);
+        } else if (nc == 4) {
+          o[3] = static_cast<uint8_t>(255 - o[3]);
+        }
       }
     }
   }
@@ -891,7 +922,7 @@ class Decoder {
   bool qt_defined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
-  Component comp_[3];
+  Component comp_[4];
   int restart_interval_ = 0;
   int scans_ = 0;
   bool progressive_ = false;
@@ -940,6 +971,29 @@ int w3d_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out
       return -1;
     }
     d.decode(out);
+    return 0;
+  } catch (const DecodeError& e) {
+    set_message(msg, msg_len, e.msg);
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+  }
+  return -1;
+}
+
+int w3d_jpeg_upsample(const uint8_t* plane, int64_t stride, int32_t width, int32_t height,
+                      int32_t rh, int32_t rv, uint8_t* out, int32_t out_width,
+                      int32_t out_height, char* msg, int32_t msg_len) {
+  try {
+    if (width < 1 || height < 1 || rh < 1 || rh > 4 || rv < 1 || rv > 4 ||
+        out_width > static_cast<int64_t>(width) * rh || out_height > static_cast<int64_t>(height) * rv ||
+        stride < width) {
+      fail("bad upsampling shape");
+    }
+    std::vector<uint8_t> row(static_cast<size_t>(width) * rh + 2);
+    for (int y = 0; y < out_height; ++y) {
+      upsample_row(plane, stride, width, height, rh, rv, y, out_width, row.data());
+      memcpy(out + static_cast<size_t>(y) * out_width, row.data(), static_cast<size_t>(out_width));
+    }
     return 0;
   } catch (const DecodeError& e) {
     set_message(msg, msg_len, e.msg);

@@ -4,10 +4,10 @@ Port of `wast3d_tpu/scene/datasets.py`: the same COLMAP (binary with text
 fallback, llffhold=8 eval split) and Blender readers (OpenGL->COLMAP axis
 flip, alpha composite over the background, random 100k-point cube when no
 points3d.ply), nerf++ normalisation and resolution policy, with PIL's
-pixels and without PIL: PNG (8-bit grey, grey+alpha, RGB, RGBA; every row
-filter; Adam7) through `utils/png.read_png`, JPEG (baseline and
-progressive) through the native decoder `native.read_jpeg`, each giving
-PIL's decode bit for bit; PIL is imported only for any other format. `build_cameras` rounds a
+pixels and without PIL: every image goes through `utils/image_io.read_image`
+(PNG at every depth and colour type, JPEG, BMP, TIFF; dispatched on the
+file's signature), which gives `np.asarray(PIL.Image.open(path))` bit for
+bit. `build_cameras` rounds a
 ground truth to uint8 and resizes it as PIL's default `Image.resize` does
 (bicubic; images with alpha premultiplied), through the native
 `png.resize_native`, then divides by 255, as the JAX package does.
@@ -28,6 +28,7 @@ from wast3d_tpu_torch.device import DeviceLike
 from wast3d_tpu_torch.scene import colmap as cm
 from wast3d_tpu_torch.scene.ply import parse_header
 from wast3d_tpu_torch.utils import png
+from wast3d_tpu_torch.utils.image_io import read_image
 
 
 class BasicPointCloud(NamedTuple):
@@ -66,18 +67,7 @@ def nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
 
 
 def _load_image(path: str) -> np.ndarray:
-    lower = path.lower()
-    if lower.endswith(".png"):
-        img = png.read_png(path)
-    elif lower.endswith((".jpg", ".jpeg")):
-        from wast3d_tpu_torch import native
-
-        img = native.read_jpeg(path)
-    else:  # other formats: PIL, imported only here
-        from PIL import Image
-
-        img = np.asarray(Image.open(path))
-    return np.asarray(img, dtype=np.float32) / 255.0
+    return np.asarray(read_image(path), dtype=np.float32) / 255.0
 
 
 def fetch_ply_points(path: str) -> BasicPointCloud:
