@@ -1694,8 +1694,8 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
 # ---- viewers, Kg (pack_gather), native IO --------------------------------------
 
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures")
-# PNG, JPEG, BMP and TIFF files PIL reads, each with PIL's array beside it
-# as .npy (tools/make_torch_fixtures.py --formats)
+# PNG, JPEG, BMP, TIFF, WebP and GIF files PIL reads, each with PIL's array
+# beside it as .npy (tools/make_torch_fixtures.py --formats)
 FORMAT_FIXTURES = os.path.join(ROOT, "tests", "format_fixtures")
 JPEG_MAX_DIFF, JPEG_MEAN_DIFF = 2, 0.05  # the decoder against PIL's decode, uint8 units
 COLMAP_POINTS = 20_000  # points3D.bin through the native reader and through Python
@@ -1882,14 +1882,15 @@ def format_fixture_checks():
                 continue
             path = os.path.join(d, f)
             npy = os.path.splitext(path)[0] + ".npy"
-            if not os.path.exists(npy):  # metrics_jpeg/{renders,gt}: PIL's arrays in pil/
+            if not os.path.exists(npy):  # metrics_*/{renders,gt}: PIL's arrays in pil/
                 kind = os.path.basename(d)
-                npy = os.path.join(os.path.dirname(d), "pil", f"{kind}_{f[:-4]}.npy")
+                npy = os.path.join(os.path.dirname(d), "pil",
+                                   f"{kind}_{os.path.splitext(f)[0]}.npy")
             got, want = read_image(path), np.load(npy)
             checks[f"format {os.path.relpath(path, FORMAT_FIXTURES)}"] = (
                 got.dtype == want.dtype and got.shape == want.shape
                 and got.tobytes() == want.tobytes())
-    if len(checks) < 60:
+    if len(checks) < 140:
         raise AssertionError(f"only {len(checks)} files under {FORMAT_FIXTURES}")
     return checks
 
@@ -1931,6 +1932,45 @@ def format_decode_times(decoded):
             checks[f"decode {name}"] = (got.shape == portrait.shape
                                         and numbers["jpeg_440_psnr_db"] > FORMAT_MIN_PSNR)
     return checks, numbers, rgba16
+
+
+def webp_decode_times(decoded):
+    """Decode milliseconds (median of 3) of the committed dataset-size WebPs
+    (tests/torch_fixtures/webp): the 1296x832 lossy view against PIL's
+    decode (pil_decode/scene_1296x832_q90_webp.png) and the 800x800 lossless
+    RGBA one against its source, rebuilt from the 1296x832 view's decode
+    (`tools.make_torch_fixtures.rgba_800`). Returns (checks, numbers)."""
+    from tools.make_torch_fixtures import rgba_800
+    from wast3d_tpu_torch.utils import png
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    checks, numbers = {}, {}
+    for name, want in (("scene_1296x832_q90", png.read_png(os.path.join(
+            FIXTURES, "pil_decode", "scene_1296x832_q90_webp.png"))),
+                       ("rgba_800_lossless", rgba_800(decoded))):
+        with open(os.path.join(FIXTURES, "webp", name + ".webp"), "rb") as f:
+            blob = f.read()
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms webp {name}"] = sec * 1e3
+        numbers[f"bytes webp {name}"] = len(blob)
+        checks[f"decode webp {name}"] = (got.dtype == want.dtype and got.shape == want.shape
+                                         and np.array_equal(got, want))
+    return checks, numbers
+
+
+def write_webp_colmap(src):
+    """A copy of the COLMAP fixture whose six views are the lossy WebPs of
+    tests/format_fixtures/colmap_webp, under images_webp/, its model's image
+    names turned to `view_<i>.webp`."""
+    from wast3d_tpu_torch.scene import colmap as cm
+
+    shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+    shutil.copytree(os.path.join(FORMAT_FIXTURES, "colmap_webp"), os.path.join(src, "images_webp"),
+                    ignore=shutil.ignore_patterns("*.npy"))
+    path = os.path.join(src, "sparse", "0", "images.bin")
+    imgs = cm.read_images_binary(path)
+    cm.write_images_binary({k: v._replace(name=os.path.splitext(v.name)[0] + ".webp")
+                            for k, v in imgs.items()}, path)
 
 
 def write_blender16_dataset(src, rgba16):
@@ -1984,16 +2024,16 @@ def train_cli(src, images, device, model):
     return checks, {"s": seconds, "launches": launched, "psnr": psnr}
 
 
-def metrics_on_jpegs(device, tmp):
-    """`cli.metrics` on a method directory of JPEGs (tests/format_fixtures/
-    metrics_jpeg), then the port's metrics (`evaluate_dir`) on PIL's decode
-    of the same files (its .npy), in this call: the per-view scores must be
-    equal. Returns (checks, numbers)."""
+def metrics_on(kind, device, tmp):
+    """`cli.metrics` on a method directory of `kind` files ("jpeg" or "webp":
+    tests/format_fixtures/metrics_<kind>), then the port's metrics
+    (`evaluate_dir`) on PIL's decode of the same files (its .npy), in this
+    call: the per-view scores must be equal. Returns (checks, numbers)."""
     from wast3d_tpu_torch.cli import metrics as cli_metrics
     from wast3d_tpu_torch.eval import metrics
 
-    src = os.path.join(FORMAT_FIXTURES, "metrics_jpeg")
-    model = os.path.join(tmp, "metrics_model")
+    src = os.path.join(FORMAT_FIXTURES, f"metrics_{kind}")
+    model = os.path.join(tmp, f"metrics_model_{kind}")
     method = os.path.join(model, "test", f"ours_{IMAGES_TRAIN_ITERS}")
     for d in ("renders", "gt"):
         shutil.copytree(os.path.join(src, d), os.path.join(method, d))
@@ -2007,8 +2047,8 @@ def metrics_on_jpegs(device, tmp):
 
     def pil_reads(renders_dir, gt_dir):
         names = sorted(os.listdir(renders_dir))
-        read = [[np.load(os.path.join(src, "pil", f"{kind}_{n[:-4]}.npy")).astype(
-            np.float32)[..., :3] / 255.0 for n in names] for kind in ("renders", "gt")]
+        read = [[np.load(os.path.join(src, "pil", f"{d}_{os.path.splitext(n)[0]}.npy")).astype(
+            np.float32)[..., :3] / 255.0 for n in names] for d in ("renders", "gt")]
         return read[0], read[1], names
 
     reader, metrics._read_images = metrics._read_images, pil_reads
@@ -2016,12 +2056,15 @@ def metrics_on_jpegs(device, tmp):
         pil = metrics.evaluate_dir(method, device=device)["per_view"]
     finally:
         metrics._read_images = reader
-    checks = {"metrics jpeg names": list(per_view["PSNR"]) == ["00000.jpg", "00001.jpg"],
-              "metrics jpeg = PIL's decode": per_view == pil,
-              "metrics jpeg finite": all(math.isfinite(v) for m in per_view.values()
-                                         for v in m.values()),
-              "metrics jpeg launches none": not any(launched.values())}
-    return checks, {"metrics_cli_s": cli_s, "metrics_jpeg": results[model], "metrics_pil": pil}
+    suffix = {"jpeg": ".jpg", "webp": ".webp"}[kind]
+    checks = {f"metrics {kind} names": list(per_view["PSNR"]) == [f"00000{suffix}",
+                                                                   f"00001{suffix}"],
+              f"metrics {kind} = PIL's decode": per_view == pil,
+              f"metrics {kind} finite": all(math.isfinite(v) for m in per_view.values()
+                                            for v in m.values()),
+              f"metrics {kind} launches none": not any(launched.values())}
+    return checks, {f"metrics_{kind}_cli_s": cli_s, f"metrics_{kind}": results[model],
+                    f"metrics_{kind}_pil": pil}
 
 
 def phase_images(device):
@@ -2030,12 +2073,14 @@ def phase_images(device):
     the Adam7 and all-Paeth PNGs against PIL's decode, the native resize
     against PIL's committed bytes (and the numpy version at 1959 → 1600),
     every file of tests/format_fixtures (PNG at every depth, 4:4:0 / 4:1:1 /
-    CMYK / YCCK JPEG, BMP, TIFF) against PIL's committed array, the decode
-    and resize times, decode times of a 16-bit PNG, a 4:4:0 JPEG and an LZW
-    TIFF at dataset sizes, `cli.train` on the progressive COLMAP fixture, on
-    the COLMAP fixture at 4:4:0 and on a Blender dataset of 16-bit RGBA
-    PNGs, and `cli.metrics` on JPEGs against the port's metrics on PIL's
-    decode, with PIL unimportable. Returns the numbers."""
+    CMYK / YCCK JPEG, BMP, TIFF, lossy / lossless / alpha / animated WebP,
+    GIF) against PIL's committed array, the decode and resize times, decode
+    times of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless
+    WebP at dataset sizes, `cli.train` on the progressive COLMAP fixture, on
+    the COLMAP fixture at 4:4:0, on a Blender dataset of 16-bit RGBA PNGs and
+    on the COLMAP fixture as lossy WebP, and `cli.metrics` on JPEGs and on
+    WebPs against the port's metrics on PIL's decode, with PIL unimportable.
+    Returns the numbers."""
     from wast3d_tpu_torch import native
     from wast3d_tpu_torch.utils import png
 
@@ -2081,6 +2126,9 @@ def phase_images(device):
         more, times, rgba16 = format_decode_times(decoded)
         checks.update(more)
         numbers.update(times)
+        more, times = webp_decode_times(decoded)
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -2094,16 +2142,20 @@ def phase_images(device):
                         ignore=shutil.ignore_patterns("*.npy"))
         blender = os.path.join(tmp, "blender16")
         write_blender16_dataset(blender, rgba16)
+        colmap_webp = os.path.join(tmp, "colmap_webp")
+        write_webp_colmap(colmap_webp)
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
-                                 ("train blender16", blender, None)):
+                                 ("train blender16", blender, None),
+                                 ("train webp", colmap_webp, "images_webp")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})
             numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
-        more, got = metrics_on_jpegs(device, tmp)
-        checks.update(more)
-        numbers.update(got)
+        for kind in ("jpeg", "webp"):
+            more, got = metrics_on(kind, device, tmp)
+            checks.update(more)
+            numbers.update(got)
     emit("images", t0, checks=checks, **numbers)
     if not all(checks.values()):
         raise AssertionError(f"images: {[k for k, v in checks.items() if not v]} failed")

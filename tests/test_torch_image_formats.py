@@ -379,7 +379,7 @@ def test_native_lzw_and_packbits_equal_their_plain_versions():
 
 
 def test_unknown_signatures_raise_naming_file_and_bytes():
-    for blob in (b"GIF89a\x01\x00", b"RIFF\x00\x00\x00\x00WEBP", b""):
+    for blob in (b"qoif\x00\x00\x00\x01", b"RIFF\x00\x00\x00\x00WAVE", b"RIFF\x00\x00\x00\x00WEBP", b""):
         with pytest.raises(ValueError, match=r"x\.img: .*starts with"):
             image_io.decode_image(blob, "x.img")
 

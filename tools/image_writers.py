@@ -1,7 +1,7 @@
 """Image writers for the port's fixtures and chip checks, in numpy and the
 standard library (no PIL): files of the kinds PIL reads but will not write.
 
-    from tools.image_writers import jpeg_bytes, png_bytes, bmp_bytes, tiff_bytes
+    from tools.image_writers import jpeg_bytes, png_bytes, bmp_bytes, tiff_bytes, gif_bytes
 
 - `jpeg_bytes`: a baseline JPEG encoder (forward DCT in float64, the
   standard quantisation tables of JPEG Annex K scaled by IJG's quality rule,
@@ -14,6 +14,10 @@ standard library (no PIL): files of the kinds PIL reads but will not write.
   BI_BITFIELDS, RLE8 / RLE4, bottom-up or top-down.
 - `tiff_bytes`: strips, chunky samples, 8 or 16 bits, compression none,
   PackBits, LZW or Deflate, predictor 1 or 2, either byte order.
+- `gif_bytes`: one image of palette indices on a logical screen, at an
+  offset, with a global or a local colour table (or none), interlaced, with
+  a transparent index, and LZW of any minimum code size; PIL writes neither
+  a local table nor a first image smaller than the screen.
 
 The port never imports this module; the fixture tool, the tests and
 `chip_smoke.py` do.
@@ -516,3 +520,107 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
     ifd += b"\x00\x00\x00\x00"
     head = (b"II*\x00" if byteorder == "<" else b"MM\x00*") + struct.pack(byteorder + "I", 8)
     return head + ifd + b"".join(blobs) + b"".join(strips) + blobs_tail
+
+
+# ---- GIF ------------------------------------------------------------------------------
+
+def gif_lzw_encode(indices: bytes, min_code_size: int) -> bytes:
+    """GIF LZW (codes from the least significant bit): a clear code first, the
+    width grown as a decoder grows it, a clear code whenever the table fills,
+    the end code last."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out, acc, have = bytearray(), 0, 0
+    state = {}
+
+    def emit(code):
+        nonlocal acc, have
+        acc |= code << have
+        have += state["width"]
+        while have >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            have -= 8
+        # the decoder's table after reading this code: an entry for each code
+        # but the first after a clear, the width grown at 2**width - 1
+        if code == clear:
+            state.update(width=min_code_size + 1, dec_next=clear + 2, first=True)
+        elif state["first"]:
+            state["first"] = False
+        elif state["dec_next"] < 4096:
+            if state["dec_next"] == (1 << state["width"]) - 1 and state["width"] < 12:
+                state["width"] += 1
+            state["dec_next"] += 1
+
+    state.update(width=min_code_size + 1)
+    emit(clear)
+    table, nxt, cur = {}, clear + 2, None
+    for v in indices:
+        if cur is None:
+            cur = v
+            continue
+        if (cur, v) in table:
+            cur = table[(cur, v)]
+            continue
+        emit(cur)
+        table[(cur, v)] = nxt
+        nxt += 1
+        cur = v
+        if nxt == 4096:
+            emit(cur)
+            emit(clear)
+            table, nxt, cur = {}, clear + 2, None
+    if cur is not None:
+        emit(cur)
+    emit(end)
+    if have:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_bytes(indices: np.ndarray, palette: Optional[np.ndarray] = None,
+              screen: Optional[Tuple[int, int]] = None, offset: Tuple[int, int] = (0, 0),
+              local: bool = False, interlace: bool = False, transparency: Optional[int] = None,
+              min_code_size: Optional[int] = None,
+              screen_palette: Optional[np.ndarray] = None) -> bytes:
+    """A GIF89a file of one image, uint8 [h, w] `indices`, at `offset` on a
+    logical `screen` (width, height; the image's size by default).
+    `palette` ([n, 3], n a power of two 2-256) goes in the global colour
+    table, or in a local one when `local` (the global table then being
+    `screen_palette`, or absent); no palette writes no table."""
+    h, w = indices.shape
+    sw, sh = screen or (offset[0] + w, offset[1] + h)
+
+    def table(p):
+        p = np.asarray(p, np.uint8).reshape(-1, 3)
+        n = len(p)
+        if n < 2 or n > 256 or n & (n - 1):
+            raise ValueError(f"a GIF colour table holds 2-256 entries, a power of two; got {n}")
+        return p.tobytes(), n.bit_length() - 2
+
+    glob_table = screen_palette if local else palette
+    out = bytearray(b"GIF89a" + struct.pack("<HH", sw, sh))
+    if glob_table is not None:
+        data, size = table(glob_table)
+        out += bytes([0x80 | 0x70 | size, 0, 0]) + data
+    else:
+        out += bytes([0, 0, 0])
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes([1, 0, 0, transparency, 0])
+    rows = np.asarray(indices, np.uint8)
+    if interlace:
+        rows = rows[np.concatenate([np.arange(s, h, d) for s, d in ((0, 8), (4, 8), (2, 4),
+                                                                     (1, 2))])]
+    flags = 0x40 if interlace else 0
+    local_data = b""
+    if local and palette is not None:
+        local_data, size = table(palette)
+        flags |= 0x80 | size
+    out += b"\x2c" + struct.pack("<HHHH", offset[0], offset[1], w, h) + bytes([flags]) + local_data
+    if min_code_size is None:
+        min_code_size = max(2, int(rows.max()).bit_length())
+    out.append(min_code_size)
+    lzw = gif_lzw_encode(rows.tobytes(), min_code_size)
+    for i in range(0, len(lzw), 255):
+        out += bytes([len(lzw[i:i + 255])]) + lzw[i:i + 255]
+    out += b"\x00\x3b"
+    return bytes(out)

@@ -49,7 +49,26 @@ and under `tests/format_fixtures/`, from the 1296x832 JPEG's decode
   `colmap_jpeg` with these as its images is a COLMAP scene;
 - `metrics_jpeg/{renders,gt}/0000<i>.jpg`: a method directory of two
   64x48 views, renders from PIL (4:2:0) and ground truths at 4:4:0 and
-  4:1:1, with PIL's decodes in `metrics_jpeg/pil/`.
+  4:1:1, with PIL's decodes in `metrics_jpeg/pil/`;
+- WebP and GIF (`webp_gif_cases`): lossy at several qualities, methods and
+  sizes (1x1, 1xN, Nx1, 17x13) and with each VP8 option PIL's writer does
+  not reach (the simple filter, sharpness 1-7, one segment, 2-8 token
+  partitions; `tools/webp_encoder.py`), lossy with an ALPH chunk of each
+  compression and filter, lossless at effort 0 and 100, exact, near-lossless
+  and from 2, 4, 16 and 256 colours, animations of 2 and 3 frames (one with a
+  first frame smaller than its canvas, at an offset), and GIF from P, L and
+  1-bit images, interlaced, with transparency, with a local colour table and
+  with a first image smaller than its screen (`tools/image_writers.gif_bytes`);
+- `colmap_webp/view_<i>.webp`: the `colmap_jpeg` views (PIL's decode) as
+  lossy WebP at quality 90, PIL's decode beside each as `view_<i>.npy`;
+- `metrics_webp/{renders,gt}/0000<i>.webp`: a method directory of two 64x48
+  views (lossy renders; a lossless and a lossy-with-alpha ground truth),
+  PIL's decodes in `metrics_webp/pil/`;
+and, with `--formats` too, `tests/torch_fixtures/webp/`: the 1296x832 view
+as lossy WebP at quality 90 (PIL's decode in
+`pil_decode/scene_1296x832_q90_webp.png`) and an 800x800 RGBA lossless WebP
+of the view's top-left corner with the green of its top-right corner as
+alpha, which decodes to that source exactly.
 """
 
 from __future__ import annotations
@@ -299,7 +318,129 @@ def format_cases(src):
                                             compression="tiff_lzw")))
     out.append(("tif_pil_rgb_packbits.tif", pil(Image.fromarray(crop[:31]), "TIFF",
                                                 compression="packbits")))
+    return out + webp_gif_cases(crop, alpha)
+
+
+def webp_gif_cases(crop, alpha):
+    """(name, bytes) of the WebP and GIF files (module docstring), from the
+    48x64 crop and its alpha."""
+    from PIL import Image
+
+    from tools import webp_encoder as we
+    from tools.image_writers import gif_bytes
+
+    rgba = np.concatenate([crop, alpha[..., None]], axis=2)
+    grey = crop.mean(axis=2).astype(np.uint8)
+    out = []
+
+    def pil(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    rgb_im = Image.fromarray(crop)
+    for name, blob in (
+            ("webp_lossy_q5", pil(rgb_im, "WEBP", quality=5)),
+            ("webp_lossy_q50", pil(rgb_im, "WEBP", quality=50)),
+            ("webp_lossy_q90_m0", pil(rgb_im, "WEBP", quality=90, method=0)),
+            ("webp_lossy_q100_m6", pil(rgb_im, "WEBP", quality=100, method=6)),
+            ("webp_lossy_1x1", pil(Image.fromarray(crop[:1, :1]), "WEBP", quality=80)),
+            ("webp_lossy_1x37", pil(Image.fromarray(crop[:1, :37]), "WEBP", quality=80)),
+            ("webp_lossy_29x1", pil(Image.fromarray(crop[:29, :1]), "WEBP", quality=80)),
+            ("webp_lossy_17x13", pil(Image.fromarray(crop[:17, :13]), "WEBP", quality=80)),
+            ("webp_lossy_from_l", pil(Image.fromarray(grey), "WEBP", quality=70)),
+            ("webp_lossy_opaque_rgba", pil(Image.fromarray(np.concatenate(
+                [crop, np.full_like(alpha[..., None], 255)], 2)), "WEBP", quality=70)),
+            ("webp_lossy_simple_f0", we.encode(crop, filter_type=0, filter_strength=0)),
+            ("webp_lossy_simple_f100", we.encode(crop, filter_type=0, filter_strength=100,
+                                                 filter_sharpness=6)),
+            *((f"webp_lossy_sharp{k}", we.encode(crop[:40, :40 + k], filter_strength=80,
+                                                 filter_sharpness=k)) for k in range(1, 8)),
+            ("webp_lossy_seg1", we.encode(crop, segments=1, quality=60)),
+            ("webp_lossy_seg2_sns100", we.encode(crop, segments=2, sns_strength=100)),
+            ("webp_lossy_parts2", we.encode(crop, partitions=1, method=0)),
+            ("webp_lossy_parts4", we.encode(crop, partitions=2, method=1, quality=95)),
+            ("webp_lossy_parts8", we.encode(crop, partitions=3, method=2, filter_type=0,
+                                            filter_strength=40)),
+            ("webp_alpha_pil", pil(Image.fromarray(rgba), "WEBP", quality=80)),
+            ("webp_alpha_enc_raw", we.encode(rgba, alpha_compression=0)),
+            ("webp_alpha_enc_q50", we.encode(rgba, alpha_quality=50, alpha_filtering=2)),
+            *((f"webp_alpha_{c}_{f}", we.with_alpha(we.encode(crop[:31, :47], quality=60),
+                                                    we.alpha_chunk(alpha[:31, :47], ci, fi)))
+              for ci, c in enumerate(("raw", "lossless"))
+              for fi, f in enumerate(("none", "horizontal", "vertical", "gradient"))),
+            ("webp_lossless_e0", pil(rgb_im, "WEBP", lossless=True, quality=0, method=0)),
+            ("webp_lossless_e100", pil(rgb_im, "WEBP", lossless=True, quality=100, method=6)),
+            ("webp_lossless_rgba", pil(Image.fromarray(rgba), "WEBP", lossless=True)),
+            ("webp_lossless_exact", pil(Image.fromarray(np.where(
+                (alpha < 60)[..., None], rgba * np.array([1, 1, 1, 0], np.uint8), rgba)),
+                "WEBP", lossless=True, exact=True)),
+            ("webp_lossless_from_l", pil(Image.fromarray(grey), "WEBP", lossless=True)),
+            ("webp_lossless_near40", we.encode(crop, lossless=1, near_lossless=40)),
+            *((f"webp_lossless_{n}colours", pil(Image.fromarray(
+                crop[:37, :53]).quantize(n).convert("RGB"), "WEBP", lossless=True))
+              for n in (2, 4, 16, 256))):
+        out.append((name + ".webp", blob))
+
+    frames = [Image.fromarray(np.roll(crop, 9 * i, axis=1)) for i in range(3)]
+    small = we.encode(crop[10:30, 8:36], quality=85)
+    small_rgba = we.encode(rgba[10:30, 8:36], quality=85)
+    out += [("webp_anim2_lossy.webp", pil(frames[0], "WEBP", save_all=True,
+                                          append_images=frames[1:2], quality=80, duration=40)),
+            ("webp_anim3_lossless.webp", pil(frames[0], "WEBP", save_all=True,
+                                             append_images=frames[1:], lossless=True,
+                                             duration=40)),
+            ("webp_anim_offset.webp", we.animation((64, 48), [
+                dict(file=small, x=12, y=6), dict(file=we.encode(crop, lossless=1), x=0, y=0),
+                dict(file=small, x=2, y=4)])),
+            ("webp_anim_offset_rgba.webp", we.animation((64, 48), [
+                dict(file=small_rgba, x=30, y=22), dict(file=we.encode(rgba), x=0, y=0)],
+                alpha=True))]
+
+    quant = rgb_im.quantize(64)
+    idx = np.asarray(quant)
+    pal = np.asarray(quant.getpalette()[:3 * 64], np.uint8).reshape(64, 3)
+    ramp = np.repeat(np.arange(16, dtype=np.uint8)[:, None], 3, axis=1)
+    out += [("gif_p.gif", pil(Image.fromarray(crop).convert("P"), "GIF")),
+            ("gif_l.gif", pil(Image.fromarray(grey), "GIF")),
+            ("gif_1bit.gif", pil(Image.fromarray(grey > 120), "GIF")),
+            ("gif_interlaced.gif", pil(quant, "GIF", interlace=True)),
+            ("gif_transparency.gif", pil(quant, "GIF", transparency=5)),
+            ("gif_local_table.gif", gif_bytes(idx[:33, :41], pal, local=True,
+                                              screen_palette=pal[:2])),
+            ("gif_local_grey_ramp.gif", gif_bytes(idx[:20, :30] % 16, ramp, local=True,
+                                                  screen_palette=pal)),
+            ("gif_partial.gif", gif_bytes(idx[5:30, 7:40], pal, screen=(64, 48),
+                                          offset=(11, 9))),
+            ("gif_partial_interlaced_trns.gif", gif_bytes(idx[:21, :27], pal, screen=(50, 40),
+                                                          offset=(20, 17), interlace=True,
+                                                          transparency=7)),
+            ("gif_past_screen.gif", gif_bytes(idx[:30, :40], pal, screen=(32, 24),
+                                              offset=(10, 12)))]
     return out
+
+
+def write_dataset_webps(src):
+    """`tests/torch_fixtures/webp/` (module docstring); `src` is the 1296x832
+    view's decode."""
+    from PIL import Image
+
+    from tools import webp_encoder as we
+
+    d = os.path.join(OUT, "webp")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    path = os.path.join(d, "scene_1296x832_q90.webp")
+    Image.fromarray(src).save(path, "WEBP", quality=90)
+    write_png_up(os.path.join(OUT, "pil_decode", "scene_1296x832_q90_webp.png"),
+                 np.asarray(Image.open(path)))
+    with open(os.path.join(d, "rgba_800_lossless.webp"), "wb") as f:
+        f.write(we.encode(rgba_800(src), lossless=1, exact=1))
+
+
+def rgba_800(src):
+    """The 800x800 RGBA source of `webp/rgba_800_lossless.webp`."""
+    return np.concatenate([src[:800, :800], src[:800, -800:, 1:2]], axis=2)
 
 
 def write_formats(src):
@@ -337,6 +478,32 @@ def write_formats(src):
             with open(path, "wb") as f:
                 f.write(blob)
             np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
+    colmap_webp = os.path.join(FORMATS, "colmap_webp")
+    os.makedirs(colmap_webp)
+    for i in range(VIEWS):
+        view = Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg"))
+        buf = io.BytesIO()
+        view.save(buf, "WEBP", quality=90)
+        save(os.path.join(colmap_webp, f"view_{i}.webp"), buf.getvalue())
+    metrics = os.path.join(FORMATS, "metrics_webp")
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    for i, (y, x) in enumerate(((220, 380), (520, 880))):
+        name = f"{i:05d}.webp"
+        render = Image.fromarray(src[y:y + 48, x:x + 64])
+        gt = src[y + 2:y + 50, x + 1:x + 65]
+        buf, gt_buf = io.BytesIO(), io.BytesIO()
+        render.save(buf, "WEBP", quality=85)
+        if i == 0:
+            Image.fromarray(gt).save(gt_buf, "WEBP", lossless=True)
+        else:
+            Image.fromarray(np.concatenate([gt, alpha_channel(48, 64)[..., None]], 2)).save(
+                gt_buf, "WEBP", quality=92)
+        for d, blob in (("renders", buf.getvalue()), ("gt", gt_buf.getvalue())):
+            path = os.path.join(metrics, d, name)
+            with open(path, "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
 
 
 def main(argv=None) -> int:
@@ -345,6 +512,7 @@ def main(argv=None) -> int:
     if "--formats" in (argv or sys.argv[1:]):
         decoded = np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg")))
         write_formats(decoded)
+        write_dataset_webps(decoded)
         return 0
 
     from wast3d_tpu_torch.scene import colmap as cm
@@ -405,6 +573,7 @@ def main(argv=None) -> int:
         write_png_up(os.path.join(resized, name + ".png"),
                      np.asarray(Image.fromarray(img).resize(size)))
     write_formats(decoded)
+    write_dataset_webps(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")
     return 0

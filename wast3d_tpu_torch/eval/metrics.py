@@ -5,9 +5,9 @@ walks `<model_path>/<split>/ours_<iter>/{renders,gt}`, computes per-view and
 mean metrics and writes `results.json` + `per_view.json` in the same schema
 and keys. LPIPS is exact only with pretrained weights (`ops/lpips.py`);
 otherwise its key is `LPIPS_PROXY`. Images are read by the port's own reader
-(`utils/image_io.read_image`: PNG, JPEG, BMP or TIFF by the file's
-signature, PIL's arrays without PIL); each image is `[..., :3] / 255` in
-float32, as in JAX.
+(`utils/image_io.read_image`: PNG, JPEG, BMP, TIFF, WebP or GIF by the
+file's signature, PIL's arrays without PIL); each image is `[..., :3] / 255`
+in float32, as in JAX.
 """
 
 from __future__ import annotations

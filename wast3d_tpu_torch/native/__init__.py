@@ -9,8 +9,11 @@ baseline and progressive, 1, 3 or 4 components, any integral sampling;
 of the other readers (`image.cpp`): PNG unfiltering and Adam7 at every bit
 depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
 (`bmp_rle`), TIFF LZW and PackBits (`lzw_decode`, `packbits_decode`), and
-PIL's bicubic resize (`resize_u8`). `utils/image_io.py` and `utils/png.py`
-hold the plain version of each.
+PIL's bicubic resize (`resize_u8`); and the WebP and GIF bitstreams
+(`webp.cpp`): lossless (`vp8l_decode`), lossy (`vp8_decode`, with its inverse
+transforms alone as `vp8_idct` and its YUV -> RGB as `yuv_to_rgba`), ALPH
+chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`). `utils/image_io.py` and
+`utils/png.py` hold the plain version of each stage that stands alone.
 
 The library is built lazily by `_build.build_native` (one `g++` call into a
 private temporary directory under `_build/`, then `os.replace` to a name
@@ -67,6 +70,17 @@ _SIGNATURES = {
                              _c.c_int32], _c.c_int64),
     "w3d_resize_u8": ([_c.c_void_p, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_void_p,
                        _c.c_int32, _c.c_int32, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_vp8l_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_void_p,
+                         _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_vp8_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_void_p,
+                        _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_yuv_to_rgba": ([_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_void_p, _c.c_int64,
+                         _c.c_int32, _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_vp8_idct": ([_c.c_void_p, _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_alpha_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_void_p,
+                          _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_gif_lzw": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_int64, _c.c_char_p,
+                     _c.c_int32], _c.c_int64),
 }
 
 
@@ -271,3 +285,83 @@ def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
                                height, width, msg, len(msg)) != 0:
         raise ValueError(f"resize: {_message(msg)}")
     return out
+
+
+def vp8l_decode(data: bytes, width: int, height: int, name: str = "<bytes>") -> np.ndarray:
+    """A VP8L chunk's payload (WebP lossless, with its 5-byte header) ->
+    uint8 [height, width, 4] RGBA as libwebp decodes it (`webp.cpp`)."""
+    out = np.empty((height, width, 4), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_vp8l_decode(data, len(data), width, height, out.ctypes.data, msg,
+                                 len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def vp8_decode(data: bytes, width: int, height: int, name: str = "<bytes>") -> np.ndarray:
+    """A "VP8 " chunk's payload (a WebP lossy key frame) -> uint8 [height,
+    width, 4] RGBA (alpha 255) as libwebp's default output gives it: fancy
+    upsampling, then its integer YUV -> RGB (`webp.cpp`)."""
+    out = np.empty((height, width, 4), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_vp8_decode(data, len(data), width, height, out.ctypes.data, msg,
+                                len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def webp_alpha(data: bytes, width: int, height: int, name: str = "<bytes>") -> np.ndarray:
+    """An ALPH chunk's payload -> uint8 [height, width] alpha: raw or lossless,
+    then unfiltered (none, horizontal, vertical, gradient) as libwebp does."""
+    out = np.empty((height, width), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_alpha_decode(data, len(data), width, height, out.ctypes.data, msg,
+                                  len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def yuv_to_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """uint8 planes Y [h, w], U and V [(h + 1) // 2, (w + 1) // 2] -> uint8
+    [h, w, 4] RGBA (alpha 255) with libwebp's fancy upsampling
+    (`utils/image_io.yuv_to_rgba_reference` is its plain version)."""
+    y, u, v = (np.ascontiguousarray(p, np.uint8) for p in (y, u, v))
+    h, w = y.shape
+    if u.shape != v.shape or u.shape[0] < (h + 1) // 2 or u.shape[1] < (w + 1) // 2:
+        raise ValueError(f"yuv_to_rgba: chroma planes {u.shape} / {v.shape} for luma {y.shape}")
+    out = np.empty((h, w, 4), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_yuv_to_rgba(y.ctypes.data, w, u.ctypes.data, v.ctypes.data, u.shape[1], w,
+                                 h, out.ctypes.data, msg, len(msg)) != 0:
+        raise ValueError(f"yuv_to_rgba: {_message(msg)}")
+    return out
+
+
+def vp8_idct(coeffs: np.ndarray, prediction: Optional[np.ndarray] = None) -> np.ndarray:
+    """VP8's inverse transforms on one block of 16 int16 coefficients (raster
+    order): with `prediction` (uint8 [4, 4]) the inverse DCT added to it ->
+    uint8 [4, 4]; without, the inverse WHT -> int16 [16] (the DC of each of
+    the 16 luma blocks)."""
+    c = np.ascontiguousarray(coeffs, np.int16).reshape(16)
+    if prediction is None:
+        out = np.empty(16, np.int16)
+    else:
+        out = np.array(prediction, np.uint8).reshape(4, 4)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_vp8_idct(c.ctypes.data, int(prediction is None), out.ctypes.data, msg,
+                              len(msg)) != 0:
+        raise ValueError(f"vp8_idct: {_message(msg)}")
+    return out
+
+
+def gif_lzw(data: bytes, min_code_size: int, out_size: int, name: str = "<bytes>") -> np.ndarray:
+    """A GIF image's LZW data (its sub-blocks joined) -> at most `out_size`
+    pixel bytes (uint8), as Pillow's GifDecode.c decodes them; fewer when the
+    data or the end code comes first."""
+    out = np.empty(out_size, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    n = library().w3d_gif_lzw(data, len(data), min_code_size, out.ctypes.data, out_size, msg,
+                              len(msg))
+    if n < 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out[:n]

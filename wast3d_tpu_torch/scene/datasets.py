@@ -5,12 +5,12 @@ fallback, llffhold=8 eval split) and Blender readers (OpenGL->COLMAP axis
 flip, alpha composite over the background, random 100k-point cube when no
 points3d.ply), nerf++ normalisation and resolution policy, with PIL's
 pixels and without PIL: every image goes through `utils/image_io.read_image`
-(PNG at every depth and colour type, JPEG, BMP, TIFF; dispatched on the
-file's signature), which gives `np.asarray(PIL.Image.open(path))` bit for
-bit. `build_cameras` rounds a
-ground truth to uint8 and resizes it as PIL's default `Image.resize` does
-(bicubic; images with alpha premultiplied), through the native
-`png.resize_native`, then divides by 255, as the JAX package does.
+(PNG at every depth and colour type, JPEG, BMP, TIFF, WebP, GIF; dispatched
+on the file's signature), which gives `np.asarray(PIL.Image.open(path))` bit
+for bit. `build_cameras` rounds a ground truth to uint8 and resizes it as
+PIL's default `Image.resize` does (bicubic; images with alpha
+premultiplied), through the native `png.resize_native`, then divides by
+255, as the JAX package does.
 """
 
 from __future__ import annotations
