@@ -63,6 +63,13 @@ entry point's dataset, `fit_all_balls(mesh)` at Mp = 16384 and
 `stylize_sweep(mesh)` on four styles, each against the one-device path
 (`parallel_entry_point`). Their times are two ranks sharing one H100 through
 gloo's host staging, not scaling figures.
+The BASELINE ladder at scene scale (`scale_1m`, `scale_4m`): `bench.py`'s
+shell at 1M and 4M Gaussians and 1296x832, frames in the f32 tier (K1) and
+the bf16 serving tier (K1f on Kg's rows), train steps (K1, K2, K3), each
+kernel held to its plain version at that size, and at 1M a densify step
+and one more train step; then the 1M shell's stylization (`stylize_1m`:
+the gate at the JAX 1M record's configuration and `cli.stylize`, its PLY
+rendered at 1296x832).
 Host IO runs first (`io`, `images`): the native PLY and COLMAP readers,
 and every image format the JAX package reads through PIL (PNG at every
 depth, JPEG at every integral sampling and CMYK / YCCK, BMP, TIFF) decoded
@@ -153,6 +160,15 @@ JAX_GATE = {"balls": 12, "desc_loss_reduction_x": 16.6, "edge_w1_reduction_x": 2
             "domain_coverage_frac": 1.0}
 GATE_MIN = {"desc_loss_reduction_x": 12.0, "edge_w1_reduction_x": 1.5,
             "domain_coverage_frac": 0.99}
+# The JAX gate at 1M content Gaussians (`tools/stylize_gate.py --content-n
+# 1000000`, runs/stylegate_1m/stylize_gate.json, TPU v5e; quality numbers):
+# 8 balls, 12.1x, 2.5x, coverage 1.0. Its bars sit under that record in the
+# ratios of the 200k bars to theirs (12 / 16.6, 1.5 / 2.3).
+STYLE_1M_N = 1_000_000
+JAX_GATE_1M = {"balls": 8, "desc_loss_reduction_x": 12.1, "edge_w1_reduction_x": 2.5,
+               "domain_coverage_frac": 1.0}
+GATE_MIN_1M = {"desc_loss_reduction_x": 8.7, "edge_w1_reduction_x": 1.6,
+               "domain_coverage_frac": 0.99}
 ENTRY_STYLE_M = 18_000  # cleaning keeps ~16.6k, cli.stylize subsamples to 16384
 N_INIT = 100_000  # train entry point: random init cloud, as the Blender loader makes it
 
@@ -191,6 +207,56 @@ def fast_ops_ms(ops_per_pair, pairs):
     card's f32 and bf16x2 rates."""
     return (ops_per_pair["f32"] / F32_OPS_PER_S
             + ops_per_pair["bf16"] / BF16X2_OPS_PER_S) * pairs * 1e3
+
+
+# Each kernel's least time (ms) on given inputs, as (bytes, operations): the
+# bytes the function must move (each input read once, each output written
+# once) over the HBM rate, its operations over the peak rate of their type.
+
+def hbm_ms(count):
+    return count / HBM_BYTES_PER_S * 1e3
+
+
+def k1_bound_ms(K, tiles, w, h, pairs):
+    """K1: [K, 12] f32 rows, the tile ranges, bg in; colour, depth and T
+    out; K1_OPS_PER_PAIR a (pixel, entry) pair."""
+    return (hbm_ms(48 * K + 8 * tiles + 12 + 20 * w * h),
+            K1_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3)
+
+
+def k1f_bound_ms(K, tiles, w, h, contributing_pairs, table_bytes):
+    """K1f: [K, 16] bf16 rows and the tables in; the bf16 tier's operations
+    a contributing pair."""
+    return (hbm_ms(FAST_ROW_BYTES * K + table_bytes + 8 * tiles + 12 + 20 * w * h),
+            fast_ops_ms(K1F_OPS_PER_PAIR, contributing_pairs))
+
+
+def k2_bound_ms(K, tiles, w, h, evaluated_pairs):
+    """K2: the rows in and their gradient out, the image's three fields and
+    their cotangents in; K2_OPS_PER_PAIR an evaluated pair."""
+    return (hbm_ms(48 * K * 2 + 40 * w * h + 8 * tiles + 12),
+            K2_OPS_PER_PAIR * evaluated_pairs / F32_OPS_PER_S * 1e3)
+
+
+def k3_bound_ms(K, n1):
+    """K3 on the binning route: rows K x 40, the permutation and the
+    pre-sort Gaussian indices K x 8 each, the depth order n1 x 8 in; n1 x 40
+    out; one addition an element."""
+    return (hbm_ms(K * (4 * GRAD_COLS + 16) + n1 * (8 + 4 * GRAD_COLS)),
+            K * GRAD_COLS / F32_OPS_PER_S * 1e3)
+
+
+def kg_bound_ms(in_bytes, N, K):
+    """Kg: its inputs once, [K, 16] bf16 rows out; twelve roundings and one
+    subtraction a Gaussian, two subtractions and two additions a duplicate."""
+    return (hbm_ms(in_bytes + K * FAST_ROW_BYTES),
+            (12 * N + 8 * K) / F32_OPS_PER_S * 1e3)
+
+
+def bound_of(bytes_and_ops):
+    """(bound ms, "bytes" or "operations")."""
+    b, o = bytes_and_ops
+    return max(b, o), "bytes" if b >= o else "operations"
 
 
 PIPELINE_ITERS = 300  # cli.pipeline: iterations of each reconstruction
@@ -368,20 +434,36 @@ def k1_pair(fast):
     return blend.blend_fwd, blend.blend_fwd_reference, "K1", (TOL_MAX, TOL_MEAN, TOL_DEPTH)
 
 
-def compare_k1(inputs, bg, fast=False):
+def event_timed(fn, timing=None):
+    """fn(), its CUDA-event time in ms written to timing["plain_ms"] (when
+    a dict is given): one call of a plain version timed where it is
+    compared."""
+    if timing is None:
+        return fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    timing["plain_ms"] = start.elapsed_time(end)
+    return out
+
+
+def compare_k1(inputs, bg, fast=False, timing=None):
     """Kernel twice, the kernel with its cull off, and the plain version on
     the same inputs (K1, or K1f with `fast`); raises past tolerance (for K1f,
     on any bit that differs from its plain version: the two round at the
     same points and read the same tables), or if the two kernel runs or the
     kernel and its walk-all differ in any bit. Returns ({field: (max, mean)}
     absolute errors, the kernel's output, whether kernel and plain version
-    agree bit for bit)."""
+    agree bit for bit); the plain version's ms go to timing["plain_ms"]."""
     fwd, plain, name, (tol_max, tol_mean, tol_depth) = k1_pair(fast)
     rows, starts, ends, w, h, offsets = inputs
     k = fwd(rows, starts, ends, w, h, bg, offsets)
     k_again = fwd(rows, starts, ends, w, h, bg, offsets)
     walk_all = k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast)
-    p = plain(rows, starts, ends, w, h, bg, offsets)
+    p = event_timed(lambda: plain(rows, starts, ends, w, h, bg, offsets), timing)
     torch.cuda.synchronize()
     if not bitwise_equal(k, k_again):
         raise AssertionError(f"{name}: two runs on the same inputs differ")
@@ -571,17 +653,21 @@ def k2_pair(fast):
     return blend.blend_fwd, blend.blend_bwd, blend.blend_bwd_reference, "K2", K2_TOL
 
 
-def compare_k2(inputs, bg, grads, fast=False):
+def compare_k2(inputs, bg, grads, fast=False, timing=None):
     """K2 (K2f with `fast`) twice and its plain version on the same inputs
     (K1's, or K1f's, output as the forward); raises past its tolerance or
     if the two kernel runs differ in any bit. Returns (max error over
-    columns, relative to each column's max; the kernel's output)."""
+    columns, relative to each column's max; the kernel's output); with a
+    `timing` dict, also the plain version's output in timing["plain"] and
+    its ms in timing["plain_ms"]."""
     fwd, bwd, plain, name, tol = k2_pair(fast)
     rows, starts, ends, w, h, offsets = inputs
     out = fwd(rows, starts, ends, w, h, bg, offsets)
     k = bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
     k_again = bwd(rows, starts, ends, w, h, bg, offsets, out, grads)
-    p = plain(rows, starts, ends, w, h, bg, offsets, out, grads)
+    p = event_timed(lambda: plain(rows, starts, ends, w, h, bg, offsets, out, grads), timing)
+    if timing is not None:
+        timing["plain"] = p
     torch.cuda.synchronize()
     if not torch.isfinite(k).all():
         raise AssertionError(f"{name}: non-finite values")
@@ -971,18 +1057,9 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
     settings = api.RasterizeSettings(renderer="cuda")
     t_setup = time.perf_counter() - t0
 
-    before = blend_fwd.launches
-    frame_ms = []
-    for i in range(warmup + frames):
-        torch.cuda.synchronize()
-        f0 = time.perf_counter()
-        out = api.render(cam, scene, bg, settings=settings, device=device)
-        torch.cuda.synchronize()
-        if i >= warmup:
-            frame_ms.append((time.perf_counter() - f0) * 1e3)
-    launched = blend_fwd.launches - before
-    if launched != warmup + frames:
-        raise AssertionError(f"K1 launched {launched} times for {warmup + frames} frames")
+    out, frame_ms, launched = timed_frames(cam, scene, bg, settings, device, warmup, frames)
+    if launched != only(blend_fwd=warmup + frames):
+        raise AssertionError(f"launches {launched} for {warmup + frames} frames")
     img = out["render"]
     if img.shape != (res, res, 3) or not torch.isfinite(img).all():
         raise AssertionError(f"frame: shape {tuple(img.shape)} or non-finite values")
@@ -1012,11 +1089,9 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
     errs, k, _ = compare_k1(inputs[:5] + (None,), bg)
     counts = warp_walk_counts(*inputs[:5])
     K, tiles = int(rows.shape[0]), int(binning.tile_start.shape[0])
-    bytes_moved = 48 * K + 8 * tiles + 12 + 20 * res * res
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = K1_OPS_PER_PAIR * counts.evaluated_pairs / F32_OPS_PER_S * 1e3
-    contrib_ops_ms = K1_OPS_PER_PAIR * counts.contributing_pairs / F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, contrib_ops_ms)  # the work this run's data needs
+    b_ms, ops_ms = k1_bound_ms(K, tiles, res, res, counts.evaluated_pairs)
+    _, contrib_ops_ms = k1_bound_ms(K, tiles, res, res, counts.contributing_pairs)
+    bound_ms, bound_by = bound_of((b_ms, contrib_ops_ms))  # the work this run's data needs
     median = statistics.median(frame_ms)
     emit("full_width", t0, n_gaussians=n, visible=visible, width=res, height=res,
          sh_degree=3, duplicates_K=K, tiles=tiles, setup_s=t_setup,
@@ -1025,14 +1100,14 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
          stage_ms_median={k: statistics.median(v) for k, v in stage.items()},
          k1_ms=k1_ms, k1_device_ms=k1_device_ms, k1_walk_all_ms=walk_all_ms,
          k1_walk_all_device_ms=walk_all_device_ms, plain_ms=plain_ms,
-         k1_bound_ms=max(bytes_ms, ops_ms), k1_bound_bytes_ms=bytes_ms, k1_bound_ops_ms=ops_ms,
+         k1_bound_ms=max(b_ms, ops_ms), k1_bound_bytes_ms=b_ms, k1_bound_ops_ms=ops_ms,
          k1_bound_contrib_ms=bound_ms, k1_bound_contrib_ops_ms=contrib_ops_ms,
          evaluated_pairs=counts.evaluated_pairs,
          warp_iterations=counts.warp_iterations,
          warp_iterations_culled=counts.warp_iterations_culled,
          contributing_pairs=counts.contributing_pairs,
          k1_rows_sha256=sha256_of([rows, binning.tile_start, binning.tile_end]),
-         k1_output_sha256=sha256_of(k), k1_launches_in_frames=launched,
+         k1_output_sha256=sha256_of(k), k1_launches_in_frames=launched["blend_fwd"],
          **{f"k1_{f}_max_err": e[0] for f, e in errs.items()})
     # The card's own cull at work: the iteration counts above are the plain
     # `warp_keep_reference`'s, and a cull that kept every entry would change
@@ -1043,8 +1118,7 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
     return {"name": "blend_fwd", "route": "cuda", "source": "wast3d_tpu_torch/csrc/blend_fwd.cu",
             "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:402",
             "launches": None, "max_abs_err": max(e[0] for e in errs.values()),
-            "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= contrib_ops_ms else "operations",
+            "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
 
@@ -1063,16 +1137,7 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
     bg = torch.zeros(3, device=device)
     settings = api.RasterizeSettings(renderer="pallas", fast_chain=True)
 
-    before = dict(kernel_counts())
-    frame_ms = []
-    for i in range(warmup + frames):
-        torch.cuda.synchronize()
-        f0 = time.perf_counter()
-        out = api.render(cam, scene, bg, settings=settings, device=device)
-        torch.cuda.synchronize()
-        if i >= warmup:
-            frame_ms.append((time.perf_counter() - f0) * 1e3)
-    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    out, frame_ms, launched = timed_frames(cam, scene, bg, settings, device, warmup, frames)
     if launched != only(blend_fwd_fast=warmup + frames):
         raise AssertionError(f"launches {launched} for {warmup + frames} fast frames")
     img = out["render"]
@@ -1096,17 +1161,15 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
              for f, a, b in zip(("color", "depth", "final_T"), kf, k)}
     counts = warp_walk_counts(*inputs[:5], fast=True)
     K, tiles = int(rows.shape[0]), int(binning.tile_start.shape[0])
-    table_bytes = fast_tables(device).numel() * 2
-    bytes_ms = ((FAST_ROW_BYTES * K + table_bytes + 8 * tiles + 12 + 20 * res * res)
-                / HBM_BYTES_PER_S * 1e3)
-    ops_ms = fast_ops_ms(K1F_OPS_PER_PAIR, counts.contributing_pairs)
-    bound_ms = max(bytes_ms, ops_ms)
+    b_ms, ops_ms = k1f_bound_ms(K, tiles, res, res, counts.contributing_pairs,
+                                fast_tables(device).numel() * 2)
+    bound_ms, bound_by = bound_of((b_ms, ops_ms))
     emit("full_width_fast", t0, n_gaussians=n, width=res, height=res, duplicates_K=K,
          frame_ms_median=statistics.median(frame_ms), frame_ms_min=min(frame_ms),
          frame_ms_max=max(frame_ms), frames=frames, launches_in_frames=launched,
          k1f_ms=k1f_ms, k1f_device_ms=k1f_device_ms, k1_ms_same_call=k1_ms,
          k1_device_ms_same_call=k1_device_ms, k1f_walk_all_device_ms=walk_all_device_ms,
-         plain_ms=plain_ms, k1f_bound_ms=bound_ms, k1f_bound_bytes_ms=bytes_ms,
+         plain_ms=plain_ms, k1f_bound_ms=bound_ms, k1f_bound_bytes_ms=b_ms,
          k1f_bound_ops_ms=ops_ms, evaluated_pairs=counts.evaluated_pairs,
          contributing_pairs=counts.contributing_pairs,
          warp_iterations=counts.warp_iterations,
@@ -1124,8 +1187,7 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
             "source": "wast3d_tpu_torch/csrc/blend_fwd.cu",
             "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:276",
             "launches": None, "max_abs_err": max(e[0] for e in errs.values()),
-            "ms": k1f_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ms": k1f_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
 
@@ -1287,7 +1349,7 @@ def perturbed(arrays, seed=1, sigma=0.002):
     return out
 
 
-def instrumented_step(state, cam, gt, bg, opt_cfg, settings, res):
+def instrumented_step(state, cam, gt, bg, opt_cfg, settings, width, height):
     """One train step written out as `train.reconstruct.train_step` runs
     it, with CUDA events between its stages and gradient hooks marking the
     stages inside the backward. Returns {stage: ms}."""
@@ -1306,8 +1368,9 @@ def instrumented_step(state, cam, gt, bg, opt_cfg, settings, res):
     ev["start"].record()
     prep = api.preprocess_scene(cam, scene.with_params(params))
     prep = prep._replace(means2d=prep.means2d + m2d)
-    binning, rows = render_path.bin_and_pack(prep, res, res, grad_reduce=settings.grad_reduce)
-    out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, res, res, bg)
+    binning, rows = render_path.bin_and_pack(prep, width, height,
+                                             grad_reduce=settings.grad_reduce)
+    out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, width, height, bg)
     ev["forward"].record()
     loss = photometric_loss(out.color, gt, opt_cfg.lambda_dssim)
     ev["loss"].record()
@@ -1319,10 +1382,27 @@ def instrumented_step(state, cam, gt, bg, opt_cfg, settings, res):
     ev["preprocess_bwd"].record()
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     opt.update(dict(zip(params, grads[:-1])), state.opt_state, scene.params(), state.step + 1)
-    densify_mod.add_stats(state.stats, grads[-1], prep.radii, prep.radii > 0, res, res)
+    densify_mod.add_stats(state.stats, grads[-1], prep.radii, prep.radii > 0, width, height)
     ev["adam_stats"].record()
     torch.cuda.synchronize()
     return {b: ev[a].elapsed_time(ev[b]) for a, b in zip(names[:-1], names[1:])}
+
+
+def step_blend_inputs(scene, cam, gt, bg, opt_cfg):
+    """A train step's blend inputs (jitter off) and the cotangents its loss
+    hands K2: (binning, [K, 12] rows, K1's output, cotangents)."""
+    from wast3d_tpu_torch.ops.image_losses import photometric_loss
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+    from wast3d_tpu_torch.ops.rasterizer.blend import BlendOutput, blend_fwd
+
+    with torch.no_grad():
+        prep = api.preprocess_scene(cam, scene)
+        binning, rows = render_path.bin_and_pack(prep, cam.width, cam.height)
+    out = blend_fwd(rows, binning.tile_start, binning.tile_end, cam.width, cam.height, bg)
+    color = out.color.clone().requires_grad_(True)
+    (dcolor,) = torch.autograd.grad(photometric_loss(color, gt, opt_cfg.lambda_dssim), [color])
+    return binning, rows, out, BlendOutput(dcolor.contiguous(), torch.zeros_like(out.depth),
+                                           torch.zeros_like(out.final_T))
 
 
 def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=FRAMES):
@@ -1330,10 +1410,9 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     times it), then K2 and K3 alone at that step's inputs against their
     plain versions and bounds. Returns the kernels-line entries of K2, K3."""
     from wast3d_tpu_torch.config import OptimizationConfig
-    from wast3d_tpu_torch.ops.image_losses import photometric_loss
-    from wast3d_tpu_torch.ops.rasterizer import api, grad_reduce, render_path
+    from wast3d_tpu_torch.ops.rasterizer import api, grad_reduce
     from wast3d_tpu_torch.ops.rasterizer.blend import (
-        BlendOutput, blend_bwd, blend_bwd_reference, blend_fwd, evaluated_pairs)
+        blend_bwd, blend_bwd_reference, evaluated_pairs)
     from wast3d_tpu_torch.train import reconstruct as R
 
     t0 = time.perf_counter()
@@ -1368,18 +1447,13 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
         if not torch.isfinite(t).all():
             raise AssertionError(f"non-finite {name} after {warmup + steps} steps")
 
-    stages = [instrumented_step(state, cam, gt, bg, opt_cfg, settings, res) for _ in range(5)]
+    stages = [instrumented_step(state, cam, gt, bg, opt_cfg, settings, res, res)
+              for _ in range(5)]
     stage_ms = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
 
     # K2 and K3 alone, at this step's inputs.
-    prep = api.preprocess_scene(cam, state.scene)
-    binning, rows = render_path.bin_and_pack(prep, res, res)
+    binning, rows, out, grads = step_blend_inputs(state.scene, cam, gt, bg, opt_cfg)
     starts, ends = binning.tile_start, binning.tile_end
-    out = blend_fwd(rows, starts, ends, res, res, bg)
-    color = out.color.clone().requires_grad_(True)
-    (dcolor,) = torch.autograd.grad(photometric_loss(color, gt, opt_cfg.lambda_dssim), [color])
-    grads = BlendOutput(dcolor.contiguous(), torch.zeros_like(out.depth),
-                        torch.zeros_like(out.final_T))
     k2_args = (rows, starts, ends, res, res, bg, None, out, grads)
     k2_ms = cuda_time_ms(lambda: blend_bwd(*k2_args), 20)
     _, k2_device_ms = device_ms(lambda: blend_bwd(*k2_args))
@@ -1387,9 +1461,7 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     k2_err, drows = compare_k2((rows, starts, ends, res, res, None), bg, grads)
     pairs = evaluated_pairs(rows, starts, ends, res, res)
     K, tiles = int(rows.shape[0]), int(starts.shape[0])
-    k2_bytes = 48 * K * 2 + 40 * res * res + 8 * tiles + 12
-    k2_bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
-    k2_ops_ms = K2_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
+    k2_bytes_ms, k2_ops_ms = k2_bound_ms(K, tiles, res, res, pairs)
 
     # K3 on the render path's route (segments from the binning) and on the
     # bare-rank route, same rows: the same bits.
@@ -1446,11 +1518,7 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
         (lambda m=mode: grad_reduce.reduce_segments(d, binning_segments(), m)), 20)
         for mode in grad_reduce.GRAD_REDUCES}
     k3_err = compare_k3(d, rank, n1, grad_reduce.DEFAULT, segments=seg)
-    # in: rows K x 40, the permutation K x 8, the pre-sort Gaussian indices
-    # K x 8, the depth order n1 x 8; out n1 x 40
-    k3_bytes = K * (4 * GRAD_COLS + 16) + n1 * (8 + 4 * GRAD_COLS)
-    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
-    k3_ops_ms = K * GRAD_COLS / F32_OPS_PER_S * 1e3
+    k3_bytes_ms, k3_ops_ms = k3_bound_ms(K, n1)
     median = statistics.median(step_ms)
     emit("train_full_width", t0, n_gaussians=n, width=res, height=res, sh_degree=3,
          jitter=False, grad_reduce=settings.grad_reduce, setup_s=t_setup, warmup=warmup,
@@ -1473,16 +1541,16 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     k2 = {"name": "blend_bwd", "route": "cuda", "source": "wast3d_tpu_torch/csrc/blend_bwd.cu",
           "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:543", "launches": None,
           "max_abs_err": float((drows - blend_bwd_reference(*k2_args)).abs().max()),
-          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": max(k2_bytes_ms, k2_ops_ms),
-          "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
+          "ms": k2_ms, "plain_ms": k2_plain_ms,
+          **dict(zip(("bound_ms", "bound_by"), bound_of((k2_bytes_ms, k2_ops_ms)))),
           "library_ms": None}
     k3_ref = torch.zeros((n1, GRAD_COLS), dtype=torch.float64, device=device).index_add_(
         0, rank, d.to(torch.float64))
     k3 = {"name": "segment_sum", "route": "cuda", "source": "wast3d_tpu_torch/csrc/segsum.cu",
           "replaces": "wast3d_tpu/ops/rasterizer/grad_reduce.py:65", "launches": None,
           "max_abs_err": float((k3_out.to(torch.float64) - k3_ref).abs().max()),
-          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": max(k3_bytes_ms, k3_ops_ms),
-          "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+          "ms": k3_ms, "plain_ms": k3_plain_ms,
+          **dict(zip(("bound_ms", "bound_by"), bound_of((k3_bytes_ms, k3_ops_ms)))),
           "library_ms": index_add_ms}
     return k2, k3
 
@@ -1689,6 +1757,337 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
          k3_longest_segment_final_model=longest, setup_s=t_setup, cli_s=cli_s,
          iters_per_s=iters / cli_s)
     return launches
+
+
+# ---- the BASELINE ladder at scene scale ----------------------------------------
+
+# BASELINE configs 3 and 4 as bench.py runs them (:262-275, :383-395): the
+# seeded shell at 1M and 4M Gaussians, SH 3, 1296 x 832, eye (0, 0, -3),
+# fov 0.9, jitter off.
+SCALE_RES = (1296, 832)
+SCALE_N = {"scale_1m": 1_000_000, "scale_4m": 4_000_000}
+# (warm-up, timed) frames of each tier and train steps of each scale
+SCALE_FRAMES = {"scale_1m": (3, 20), "scale_4m": (1, 5)}
+SCALE_STEPS = {"scale_1m": (3, 20), "scale_4m": (1, 3)}
+SCALE_REPS = {"scale_1m": 20, "scale_4m": 10}  # timed repetitions of a kernel alone
+# Pre-cull duplicates per Gaussian on this shell in the JAX package's notes
+# (bench.py:285-287, :406-407), printed beside the port's own count.
+JAX_PRECULL_PER_N = {1_000_000: (2.69, 2.74), 4_000_000: (1.8, 2.0)}
+# densify's scene extent: 1.1 x the radius of a ring of views at distance 3,
+# as the dataset loaders normalise the cameras
+SCALE_EXTENT = 3.3
+
+
+def timed_frames(cam, scene, bg, settings, device, warmup, frames):
+    """`api.render` warmup + frames times under no_grad, with every
+    kernel's count set to 0 just before and read just after: (the last
+    output, the timed frames' host ms, the launches)."""
+    from wast3d_tpu_torch.ops.rasterizer import api
+
+    reset_kernel_counts()
+    ms = []
+    with torch.no_grad():
+        for i in range(warmup + frames):
+            torch.cuda.synchronize()
+            f0 = time.perf_counter()
+            out = api.render(cam, scene, bg, settings=settings, device=device)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                ms.append((time.perf_counter() - f0) * 1e3)
+    return out, ms, kernel_counts()
+
+
+def ms_summary(ms):
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms), "n": len(ms)}
+
+
+def kernel_entry(fn, name, reps, bound, **extra):
+    """A kernel's numbers at a scale: CUDA-event and profiler device ms of
+    `fn` (of its kernels named like `name`; the device's busy time of the
+    whole call for None), its bound (bytes ms, ops ms)."""
+    bound_ms, bound_by = bound_of(bound)
+    device = device_ms(fn, reps)[1] if name is None else kernel_device_ms(fn, name, reps)
+    return {"ms": cuda_time_ms(fn, reps), "device_ms": device,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes_ms": bound[0],
+            "bound_ops_ms": bound[1], **extra}
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values (8 significant bits) at |x|."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8)
+
+
+def kg_rows_vs_fast_rows(kg_rows, fast_rows, rows32):
+    """Kg's rows against the non-packed bf16 rows (`render_path.fast_rows`)
+    of the same duplicates: every field but the means equal bit for bit,
+    and each mean no further from the other than JAX's split rounding can
+    move it. Kg rounds bf((bf(m) - ox) + bf(m - bf(m))) where `fast_rows`
+    rounds bf(m - ox) once (pack_gather.py); the two arguments differ by at
+    most half a bf16 step of m - bf(m) plus one f32 rounding, under
+    bf16_ulp(m) / 2^8, and each rounding adds half a step of its result.
+    Returns (the largest move over that reach, the share of means moved);
+    raises past the reach or on any other field that differs."""
+    if not torch.equal(kg_rows[:, 2:].view(torch.int16), fast_rows[:, 2:].view(torch.int16)):
+        raise AssertionError("Kg's rows differ from the non-packed rows beyond the means")
+    a, b = kg_rows[:, :2].float(), fast_rows[:, :2].float()
+    reach = bf16_ulp(rows32[:, :2]) / 256 + bf16_ulp(torch.maximum(a.abs(), b.abs()))
+    moved = (a - b).abs()
+    worst = float((moved / reach).max()) if moved.numel() else 0.0
+    if worst > 1.0:
+        raise AssertionError(f"a Kg mean moved {worst} of its rounding's reach")
+    return worst, float((moved > 0).float().mean()) if moved.numel() else 0.0
+
+
+def scale_serving(device, scene, cam, bg, warmup, frames, reps):
+    """Frames through `api.render` in the f32 tier (K1) and in the bf16
+    serving tier (K1f on Kg's rows), then each kernel alone at this frame's
+    inputs against its plain version and its bound: K1 within its limits,
+    Kg and K1f (on Kg's rows) bit for bit; Kg's rows against the
+    non-packed ones (`kg_rows_vs_fast_rows`), and the Kg frame's distance
+    from the frame without it beside JAX's bounds. Returns (numbers,
+    launches of the frames)."""
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+    from wast3d_tpu_torch.ops.rasterizer.binning import compute_rects, tile_grid
+    from wast3d_tpu_torch.ops.rasterizer.blend import (
+        blend_fwd, blend_fwd_fast, fast_tables, warp_walk_counts)
+    from wast3d_tpu_torch.ops.rasterizer.pack_gather import pack_gather, pack_gather_reference
+
+    w, h = cam.width, cam.height
+    out, f32_ms, f32_launches = timed_frames(
+        cam, scene, bg, api.RasterizeSettings(renderer="cuda"), device, warmup, frames)
+    fast = api.RasterizeSettings(renderer="pallas", fast_chain=True)
+    served, served_ms, served_launches = timed_frames(
+        cam, scene, bg, fast._replace(pack_gather=True), device, warmup, frames)
+    if (f32_launches != only(blend_fwd=warmup + frames)
+            or served_launches != only(blend_fwd_fast=warmup + frames,
+                                       pack_gather=warmup + frames)):
+        raise AssertionError(f"launches {f32_launches} (f32), {served_launches} (bf16 + Kg) "
+                             f"for {warmup + frames} frames each")
+    for frame in (out, served):
+        if frame["render"].shape != (h, w, 3) or not torch.isfinite(frame["render"]).all():
+            raise AssertionError(f"frame: shape {tuple(frame['render'].shape)} or non-finite")
+    numbers = {"visible": int(out["visibility_filter"].sum()),
+               "frame_ms_f32": ms_summary(f32_ms), "frame_ms_bf16_kg": ms_summary(served_ms),
+               "mpix_per_s_f32": w * h / statistics.median(f32_ms) / 1e3,
+               "mpix_per_s_bf16_kg": w * h / statistics.median(served_ms) / 1e3,
+               "peak_memory_frames_bytes": torch.cuda.max_memory_allocated(device)}
+    del out
+
+    with torch.no_grad():
+        prep = api.preprocess_scene(cam, scene)
+        gx, gy = tile_grid(w, h)
+        x0, y0, x1, y1 = compute_rects(prep.means2d, prep.radii, gx, gy,
+                                       ext_x=prep.extent_x, ext_y=prep.extent_y)
+        precull = int(((x1 - x0) * (y1 - y0)).sum())
+        binning, rows = render_path.bin_and_pack(prep, w, h)
+    starts, ends = binning.tile_start, binning.tile_end
+    n, K, tiles = int(prep.means2d.shape[0]), int(rows.shape[0]), int(starts.shape[0])
+    lengths = (ends - starts).long()
+    numbers.update(precull_duplicates=precull, precull_per_gaussian=precull / n,
+                   jax_precull_per_gaussian=JAX_PRECULL_PER_N.get(n), duplicates_K=K,
+                   kept_per_gaussian=K / n, tiles=tiles, longest_tile=int(lengths.max()),
+                   mean_tile=float(lengths.float().mean()),
+                   tiles_over_4096=int((lengths > 4096).sum()))
+
+    # K1 at this frame's inputs
+    args = (rows, starts, ends, w, h, bg)
+    timing = {}
+    errs, _, bits = compare_k1(args[:5] + (None,), bg, timing=timing)
+    counts = warp_walk_counts(*args[:5])
+    numbers["k1"] = kernel_entry(
+        lambda: blend_fwd(*args), "blend_fwd_kernel", reps,
+        k1_bound_ms(K, tiles, w, h, counts.contributing_pairs), plain_ms=timing["plain_ms"],
+        max_err={f: e[0] for f, e in errs.items()}, mean_err={f: e[1] for f, e in errs.items()},
+        bit_equal_to_plain=bits, **counts._asdict())
+
+    # Kg, then K1f on Kg's rows: the serving frame's inputs
+    kargs = (prep.means2d, prep.conics, prep.opacities, prep.depths, prep.colors,
+             binning.depth_order, binning.rank, binning.tile_of_dup, w)
+    timing = {}
+    plain = event_timed(lambda: pack_gather_reference(*kargs), timing).view(torch.int16)
+    kg_rows, again = pack_gather(*kargs), pack_gather(*kargs)
+    kg_bits = {"plain": torch.equal(kg_rows.view(torch.int16), plain),
+               "run_to_run": torch.equal(kg_rows, again)}
+    if not all(kg_bits.values()):
+        raise AssertionError(f"Kg against its plain version / itself: {kg_bits}")
+    in_bytes = sum(t.numel() * t.element_size() for t in kargs[:8])
+    with torch.no_grad():
+        numbers["kg"] = kernel_entry(
+            lambda: pack_gather(*kargs), None, reps, kg_bound_ms(in_bytes, n, K),
+            plain_ms=timing["plain_ms"], bit_equal=kg_bits,
+            library_ms=cuda_time_ms(lambda: render_path.fast_rows(
+                render_path.sorted_rows(prep, binning), binning.tile_of_dup, w), reps))
+        reach, moved = kg_rows_vs_fast_rows(
+            kg_rows, render_path.fast_rows(rows, binning.tile_of_dup, w), rows)
+    numbers["kg"].update(means_moved_share=moved, means_moved_of_reach=reach)
+    del plain, again
+    fargs = (kg_rows, starts, ends, w, h, bg)
+    timing = {}
+    errs, _, bits = compare_k1(fargs[:5] + (None,), bg, fast=True, timing=timing)
+    counts = warp_walk_counts(*fargs[:5], fast=True)
+    numbers["k1f"] = kernel_entry(
+        lambda: blend_fwd_fast(*fargs), "blend_fwd_fast_kernel", reps,
+        k1f_bound_ms(K, tiles, w, h, counts.contributing_pairs, fast_tables(device).numel() * 2),
+        plain_ms=timing["plain_ms"], bit_equal_to_plain=bits, **counts._asdict())
+
+    # The Kg frame against the frame without it, beside JAX's bounds
+    # (PACK_TOL, PACK_DEPTH_TOL: its test scene at 80 x 48, which the
+    # 200k / 800² frame also meets in `pack_gather`); its rows are held above.
+    with torch.no_grad():
+        ref = api.render(cam, scene, bg, settings=fast, device=device)
+    diff = {f: (served[f] - ref[f]).abs() for f in ("render", "final_T", "depth")}
+    over = {"render": diff["render"].amax(-1) > PACK_TOL, "final_T": diff["final_T"] > PACK_TOL,
+            "depth": diff["depth"] > PACK_DEPTH_TOL + PACK_DEPTH_TOL * ref["depth"].abs()}
+    numbers["kg_frame_vs_without"] = {
+        "max": {f: float(d.max()) for f, d in diff.items()},
+        "mean": {f: float(d.mean()) for f, d in diff.items()},
+        "pixels_past_jax_bounds": {f: int(o.sum()) for f, o in over.items()},
+        "bit_equal": all(torch.equal(served[f], ref[f]) for f in diff),
+        "jax_bounds": {"render": PACK_TOL, "final_T": PACK_TOL,
+                       "depth": f"{PACK_DEPTH_TOL} + {PACK_DEPTH_TOL} |depth|"}}
+    numbers["peak_memory_serving_bytes"] = torch.cuda.max_memory_allocated(device)
+    return numbers, {k: f32_launches[k] + served_launches[k] for k in f32_launches}
+
+
+def scale_training(device, arrays, scene, cam, bg, warmup, steps, reps, densify):
+    """Train steps (jitter off) against the f32 render of a copy perturbed
+    by sigma = 0.002, with every kernel's count set to 0 just before the
+    steps and read just after; the stage split; K2 and K3 alone at one
+    step's inputs against their plain versions and bounds; with `densify`,
+    `densify_and_prune` on the steps' statistics and one more step. Returns
+    (numbers, launches of the steps)."""
+    from wast3d_tpu_torch.config import OptimizationConfig
+    from wast3d_tpu_torch.ops.rasterizer import api, grad_reduce
+    from wast3d_tpu_torch.ops.rasterizer.blend import blend_bwd, evaluated_pairs
+    from wast3d_tpu_torch.train import densify as densify_mod
+    from wast3d_tpu_torch.train import reconstruct as R
+
+    w, h = cam.width, cam.height
+    settings = api.RasterizeSettings(renderer="cuda")
+    opt_cfg = OptimizationConfig()
+    with torch.no_grad():
+        gt = api.render(cam, make_scene(perturbed(arrays), device), bg, settings=settings,
+                        device=device)["render"]
+    state = R.init_train_state(scene, opt_cfg, 1.0)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def step(st):
+        return R.train_step(st, cam, gt, bg, None, opt_cfg=opt_cfg, settings=settings,
+                            width=w, height=h, jitter=False)
+
+    reset_kernel_counts()
+    step_ms, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        f0 = time.perf_counter()
+        state, aux = step(state)
+        torch.cuda.synchronize()
+        losses.append(float(aux["loss"]))
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - f0) * 1e3)
+    launches = kernel_counts()
+    total = warmup + steps
+    if launches != only(blend_fwd=total, blend_bwd=total, segment_sum=total):
+        raise AssertionError(f"launches {launches} for {total} train steps")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, t in state.scene.params().items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite {name} after {total} steps")
+    numbers = {"steps": steps, "warmup": warmup, "step_ms": ms_summary(step_ms),
+               "steps_per_s": 1e3 / statistics.median(step_ms), "loss_first": losses[0],
+               "loss_last": losses[-1],
+               "peak_memory_steps_bytes": torch.cuda.max_memory_allocated(device)}
+    stages = [instrumented_step(state, cam, gt, bg, opt_cfg, settings, w, h)
+              for _ in range(3 if steps >= 10 else 1)]
+    numbers["stage_ms_median"] = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+
+    # K2 and K3 alone, at one step's inputs
+    binning, rows, out, grads = step_blend_inputs(state.scene, cam, gt, bg, opt_cfg)
+    starts, ends = binning.tile_start, binning.tile_end
+    k2_args = (rows, starts, ends, w, h, bg, None, out, grads)
+    timing = {}
+    k2_err, drows = compare_k2((rows, starts, ends, w, h, None), bg, grads, timing=timing)
+    K, tiles = int(rows.shape[0]), int(starts.shape[0])
+    numbers["k2"] = kernel_entry(
+        lambda: blend_bwd(*k2_args), "blend_bwd_kernel", reps,
+        k2_bound_ms(K, tiles, w, h, evaluated_pairs(rows, starts, ends, w, h)),
+        plain_ms=timing["plain_ms"], max_rel_err=k2_err,
+        max_abs_err=float((drows - timing.pop("plain")).abs().max()))
+    d = drows[:, :GRAD_COLS]
+    n1 = int(state.scene.capacity)
+
+    def segments():
+        return grad_reduce.binning_segments(binning.sort_perm, binning.presort_gauss,
+                                            binning.depth_order)
+
+    seg = segments()
+    k3_err = compare_k3(d, binning.rank, n1, grad_reduce.DEFAULT, segments=seg)
+    timing = {}
+    event_timed(lambda: grad_reduce.segment_sum_reference(d, seg), timing)
+    numbers["k3"] = kernel_entry(
+        lambda: grad_reduce.segment_sum(d, segments()), None, reps, k3_bound_ms(K, n1),
+        plain_ms=timing["plain_ms"], err_fraction_of_f32_bound=k3_err,
+        longest_segment=int(torch.diff(grad_reduce.segment_offsets(seg)).max()),
+        library_ms=cuda_time_ms(lambda: torch.zeros((n1, GRAD_COLS), device=device)
+                                .index_add_(0, binning.rank, d), reps))
+    numbers["duplicates_K"] = K
+    del binning, rows, out, grads, k2_args, drows, d, seg
+
+    if densify:
+        n_before = state.scene.capacity
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        scene2, opt2, stats2, _ = densify_mod.densify_and_prune(
+            state.scene, state.opt_state, state.stats,
+            max_grad=opt_cfg.densify_grad_threshold, min_opacity=0.005, extent=SCALE_EXTENT,
+            max_screen_size=0.0, percent_dense=opt_cfg.percent_dense, generator=gen)
+        state = state._replace(scene=scene2, opt_state=opt2, stats=stats2)
+        bad = [k for k, t in state.scene.params().items() if not torch.isfinite(t).all()]
+        if state.scene.capacity == n_before or bad:
+            raise AssertionError(f"densify: N {n_before} -> {state.scene.capacity}, "
+                                 f"non-finite {bad}")
+        reset_kernel_counts()
+        state, aux = step(state)
+        torch.cuda.synchronize()
+        after = kernel_counts()
+        if after != only(blend_fwd=1, blend_bwd=1, segment_sum=1) or not math.isfinite(
+                float(aux["loss"])):
+            raise AssertionError(f"the step after densify: launches {after}, "
+                                 f"loss {float(aux['loss'])}")
+        launches = {k: launches[k] + after[k] for k in launches}
+        numbers["densify"] = {"n_before": n_before, "n_after": state.scene.capacity,
+                              "loss_after": float(aux["loss"]), "extent": SCALE_EXTENT,
+                              "max_grad": opt_cfg.densify_grad_threshold}
+    numbers["peak_memory_training_bytes"] = torch.cuda.max_memory_allocated(device)
+    return numbers, launches
+
+
+def phase_scale(device, name):
+    """`scale_1m` or `scale_4m`: the serving and training paths at a
+    BASELINE ladder size (SCALE_N, SCALE_RES), each kernel held to its plain
+    version at that size. Returns {kernel name: launches} of its main paths."""
+    t0 = time.perf_counter()
+    n, (w, h) = SCALE_N[name], SCALE_RES
+    (f_warm, frames), (s_warm, steps) = SCALE_FRAMES[name], SCALE_STEPS[name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    arrays = bench_scene(n)
+    scene = make_scene(arrays, device)
+    cam = view_camera(w, h, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    setup_s = time.perf_counter() - t0
+    serving, serve_launches = scale_serving(device, scene, cam, bg, f_warm, frames,
+                                            SCALE_REPS[name])
+    serving_s = time.perf_counter() - t0 - setup_s
+    training, train_launches = scale_training(device, arrays, scene, cam, bg, s_warm, steps,
+                                              SCALE_REPS[name], densify=name == "scale_1m")
+    emit(name, t0, n_gaussians=n, width=w, height=h, sh_degree=3, jitter=False,
+         setup_s=setup_s, serving_s=serving_s,
+         training_s=time.perf_counter() - t0 - setup_s - serving_s, serving=serving,
+         training=training, peak_memory_bytes=max(serving["peak_memory_serving_bytes"],
+                                                   training["peak_memory_training_bytes"]))
+    return {k: serve_launches[k] + train_launches[k] for k in serve_launches}
 
 
 # ---- viewers, Kg (pack_gather), native IO --------------------------------------
@@ -2238,18 +2637,9 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
     bg = torch.zeros(3, device=device)
     fast = api.RasterizeSettings(renderer="pallas", fast_chain=True)
     packed = fast._replace(pack_gather=True)
-    frame_ms = []
+    out, frame_ms, launched = timed_frames(cam, scene, bg, packed, device, warmup, frames)
     with torch.no_grad():
         ref = api.render(cam, scene, bg, settings=fast, device=device)
-        before = dict(kernel_counts())
-        for i in range(warmup + frames):
-            torch.cuda.synchronize()
-            f0 = time.perf_counter()
-            out = api.render(cam, scene, bg, settings=packed, device=device)
-            torch.cuda.synchronize()
-            if i >= warmup:
-                frame_ms.append((time.perf_counter() - f0) * 1e3)
-        launched = {k: v - before[k] for k, v in kernel_counts().items()}
         split["frames_s"] = time.perf_counter() - t0 - split["cases_s"]
         diffs = {f: float((out[f] - ref[f]).abs().max()) for f in ("render", "final_T", "depth")}
         depth_ok = bool(((out["depth"] - ref["depth"]).abs()
@@ -2274,11 +2664,10 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
     # duplicate's fields from L2, about six 32-byte sectors.
     in_bytes = sum(t.numel() * t.element_size() for t in args[:8])
     out_bytes = K * FAST_ROW_BYTES
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    b_ms, ops_ms = kg_bound_ms(in_bytes, N, K)
     design_bytes = in_bytes + out_bytes + PACKED_ROW_BYTES * (N + 1)
     l2_row_bytes = {"cooperative": PACKED_ROW_BYTES * K, "recompute": 6 * 32 * K}
-    ops_ms = (12 * N + 8 * K) / F32_OPS_PER_S * 1e3  # roundings, one subtraction; two subs, two adds
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound_of((b_ms, ops_ms))
     emit("pack_gather", t0, n_gaussians=n, width=res, height=res, duplicates_K=K,
          cases_bit_equal_to_plain={k: v[0] for k, v in cases.items()},
          cases_bit_equal_run_to_run={k: v[1] for k, v in cases.items()},
@@ -2290,7 +2679,7 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
          kg_bound_share_events=bound_ms / kg_ms, kg_bound_share_device=bound_ms / kg_device_ms,
          kg_ms=kg_ms, kg_device_ms=kg_device_ms, plain_ms=plain_ms,
          f32_gather_fast_rows_ms=library_ms, f32_gather_fast_rows_device_ms=library_device_ms,
-         kg_bound_ms=bound_ms, kg_bound_bytes_ms=bytes_ms, kg_bound_ops_ms=ops_ms,
+         kg_bound_ms=bound_ms, kg_bound_bytes_ms=b_ms, kg_bound_ops_ms=ops_ms,
          kg_bytes=in_bytes + out_bytes, kg_design_bytes=design_bytes,
          kg_design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
          timing_s=time.perf_counter() - t0 - split["cases_s"] - split["frames_s"], **split)
@@ -2305,8 +2694,7 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
             "replaces": "wast3d_tpu/ops/rasterizer/pallas_path.py:150",
             "launches": launched["pack_gather"], "max_abs_err": 0.0 if cases["full_width"][0]
             else None, "ms": kg_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def free_port() -> int:
@@ -3448,11 +3836,13 @@ def style_metrics(cpatch, domain, circles, fitted, r_ball, cfg, device):
 
 
 def phase_stylize_gate(device, domain, spacing, patch_m=2048, edge_ratio=1.5,
-                       fit_steps=STYLE_FIT_STEPS, n=FULL_N):
-    """`tools/stylize_gate.py` at the JAX record's configuration (200k
-    shell, 2048-point crystal at edge ratio 1.5, 1000 fit steps,
-    w_coverage 1.0, batch 8), port only. Its cleaned patch pads below 2048,
-    so the fit takes the single-block descriptor path, as the record did."""
+                       fit_steps=STYLE_FIT_STEPS, n=FULL_N, phase="stylize_gate",
+                       limits=GATE_MIN, record=JAX_GATE):
+    """`tools/stylize_gate.py` at the JAX record's configuration (the
+    `n`-Gaussian shell's domain, 2048-point crystal at edge ratio 1.5, 1000
+    fit steps, w_coverage 1.0, batch 8), port only, held to `limits` under
+    the JAX `record`. Its cleaned patch pads below 2048, so the fit takes the
+    single-block descriptor path, as the record did."""
     from wast3d_tpu_torch.config import StylizeConfig
     from wast3d_tpu_torch.stylize import coverage, fit
     from wast3d_tpu_torch.stylize.pipeline import clean_style_patch
@@ -3477,35 +3867,71 @@ def phase_stylize_gate(device, domain, spacing, patch_m=2048, edge_ratio=1.5,
     launches = kernel_counts()
     mp = fit.padded_patch_size(len(cpatch.xyz), cfg.desc_block)
     metrics = style_metrics(cpatch, domain, circles, fitted, r_ball, cfg, device)
-    for key, low in GATE_MIN.items():
+    for key, low in limits.items():
         if not metrics[key] >= low:
-            raise AssertionError(f"stylize gate: {key} {metrics[key]} below {low}")
+            raise AssertionError(f"{phase}: {key} {metrics[key]} below {low}")
     if not all(np.isfinite(f).all() for f in fitted):
-        raise AssertionError("stylize gate: non-finite fitted points")
-    emit("stylize_gate", t0, content_n=n, patch_m=len(cpatch.xyz), padded_mp=mp,
+        raise AssertionError(f"{phase}: non-finite fitted points")
+    emit(phase, t0, content_n=n, patch_m=len(cpatch.xyz), padded_mp=mp,
          balls=len(circles), fit_steps=fit_steps, batch_size=STYLE_BATCH, w_coverage=1.0,
          edge_ratio=edge_ratio, domain_n=len(domain), domain_spacing_median=spacing,
-         r_ball=r_ball, cover_s=t_cover, fit_s=fit_s, launches_in_fit=launches,
-         **metrics, limits=GATE_MIN, jax_tpu_record=JAX_GATE)
+         r_ball=r_ball, cover_s=t_cover, fit_s=fit_s,
+         ball_steps_per_s=len(circles) * fit_steps / fit_s, launches_in_fit=launches,
+         **metrics, limits=limits, jax_tpu_record=record)
 
 
-def phase_stylize_entry_point(device, domain, spacing, fit_steps=STYLE_FIT_STEPS,
-                              style_m=ENTRY_STYLE_M, max_style_points=STYLE_MP, n=FULL_N):
-    """`cli.stylize` on the 200k shell (a PLY saved by the port) and an
-    18,000-point crystal (npz) at edge ratio 1.5: cleaning keeps ~16.6k
+@contextlib.contextmanager
+def stage_spies(*targets):
+    """For the duration, each (module, attribute) function is wrapped: every
+    call is timed (the device synchronised after it) and its last arguments
+    and result are kept. Yields {attribute: {"s": seconds over its calls,
+    "calls", "args", "kwargs", "out"}}; the originals are put back after."""
+    seen, saved = {}, []
+    for mod, attr in targets:
+        fn = getattr(mod, attr)
+
+        def spy(*args, _fn=fn, _attr=attr, **kwargs):
+            t = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec = seen.setdefault(_attr, {"s": 0.0, "calls": 0})
+            rec.update(s=rec["s"] + time.perf_counter() - t, calls=rec["calls"] + 1,
+                       args=args, kwargs=kwargs, out=out)
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, spy)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def phase_stylize_entry_point(device, spacing, fit_steps=STYLE_FIT_STEPS,
+                              style_m=ENTRY_STYLE_M, max_style_points=STYLE_MP, n=FULL_N,
+                              phase="stylize_entry_point", render_res=None):
+    """`cli.stylize` on the `n`-Gaussian shell (a PLY saved by the port) and
+    an 18,000-point crystal (npz) at edge ratio 1.5: cleaning keeps ~16.6k
     points and `--max_style_points 16384` subsamples them, so Mp = 16384
     and K4/K5 carry the fit. Every kernel's count is set to 0 just before
-    the CLI and read just after. Returns {kernel name: launches}."""
+    the CLI and read just after; the CLI's stages are timed where it calls
+    them (`stage_spies`), and its own fitted balls give the descriptor
+    loss's fall. With `render_res` (w, h), the stylized PLY is also rendered
+    through K1 at that size. Returns {kernel name: launches}."""
+    from types import SimpleNamespace
+
     from wast3d_tpu_torch.cli import stylize as cli
     from wast3d_tpu_torch.config import StylizeConfig
+    from wast3d_tpu_torch.ops.rasterizer import api
     from wast3d_tpu_torch.scene.ply import load_ply, save_ply
-    from wast3d_tpu_torch.stylize import coverage, fit, prepare
+    from wast3d_tpu_torch.stylize import coverage, fit, merge, prepare
     from wast3d_tpu_torch.stylize.cluster import NPZ_KEYS
-    from wast3d_tpu_torch.stylize.pipeline import clean_style_patch
 
     t0 = time.perf_counter()
     cfg = StylizeConfig(fit_steps=fit_steps, w_coverage=1.0)
     patch = crystal_patch(style_m, device, edge_scale=1.5 * spacing)
+    rendered = None
     with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_stylize_") as tmp:
         content_ply, style_npz = os.path.join(tmp, "content.ply"), os.path.join(tmp, "style.npz")
         out_ply = os.path.join(tmp, "stylized.ply")
@@ -3515,52 +3941,73 @@ def phase_stylize_entry_point(device, domain, spacing, fit_steps=STYLE_FIT_STEPS
 
         reset_kernel_counts()
         t1 = time.perf_counter()
-        cli.main(["--content", content_ply, "--style_cluster", style_npz, "--output", out_ply,
-                  "--fit_steps", str(fit_steps), "--w_coverage", "1.0",
-                  "--max_style_points", str(max_style_points), "--device", device.type])
-        torch.cuda.synchronize()
+        with stage_spies((prepare, "prepare_scene"), (coverage, "cluster_radius"),
+                         (coverage, "sample_circles"), (fit, "fit_all_balls"),
+                         (merge, "merge_patches")) as stages:
+            cli.main(["--content", content_ply, "--style_cluster", style_npz,
+                      "--output", out_ply, "--fit_steps", str(fit_steps), "--w_coverage", "1.0",
+                      "--max_style_points", str(max_style_points), "--device", device.type])
+            torch.cuda.synchronize()
         cli_s = time.perf_counter() - t1
         launches = kernel_counts()
         out = load_ply(out_ply, device=device)
         finite = bool(torch.isfinite(out.xyz).all())
         merged_n = out.capacity
+        if render_res is not None:
+            reset_kernel_counts()
+            with torch.no_grad():
+                frame = api.render(view_camera(*render_res, device, eye=(0, 0, -3), fov=0.9),
+                                   out, torch.zeros(3, device=device),
+                                   settings=api.RasterizeSettings(renderer="cuda"),
+                                   device=device)["render"]
+            rendered = {"launches": kernel_counts(), "shape": list(frame.shape),
+                        "finite": bool(torch.isfinite(frame).all()),
+                        "mean": float(frame.mean())}
+            if (rendered["launches"] != only(blend_fwd=1) or not rendered["finite"]
+                    or tuple(frame.shape) != (render_res[1], render_res[0], 3)):
+                raise AssertionError(f"the stylized PLY's render: {rendered}")
 
-    # What the CLI saw, rebuilt from the same seeds, for the checks below.
-    cpatch = clean_style_patch(patch, device=device)
-    if len(cpatch) > max_style_points:
-        cpatch = cpatch.select(np.random.default_rng(0).choice(len(cpatch),
-                                                               size=max_style_points,
-                                                               replace=False))
-    _, d_outer = coverage.cluster_radius(cpatch.xyz, device=device)
-    circles = coverage.filter_circles(
-        coverage.sample_circles(domain, r=d_outer * cfg.ball_radius_factor,
-                                min_points_per_cluster=cfg.min_ball_points, device=device),
-        min_points=max(1, cfg.min_ball_points // 2))
+    # What the CLI fitted: its patch, domain and balls, and the fitted points.
+    patch_xyz, domain, circles = stages["fit_all_balls"]["args"][:3]
+    fitted = stages["fit_all_balls"]["out"]
+    cpatch = SimpleNamespace(xyz=patch_xyz)
+    r_ball = stages["cluster_radius"]["out"][1] * cfg.ball_radius_factor
     batches = -(-len(circles) // STYLE_BATCH)
-    mp = fit.padded_patch_size(len(cpatch.xyz), cfg.desc_block)
+    mp = fit.padded_patch_size(len(patch_xyz), cfg.desc_block)
     want = only(desc_loss=fit_steps * batches, desc_grad=fit_steps * batches)
     if mp != max_style_points or launches != want or launches["desc_loss"] == 0:
         raise AssertionError(f"launches {launches} at Mp {mp}, want {want} (K4 and K5 once "
                              f"per Adam step of each of {batches} batches)")
     if not finite or merged_n == 0:
         raise AssertionError(f"stylized PLY: {merged_n} Gaussians, finite {finite}")
-    # The fitted balls again, for the loss reduction through K4 (not counted above).
-    f0 = time.perf_counter()
-    fitted = fit.fit_all_balls(cpatch.xyz, domain, circles, cfg=cfg, batch_size=STYLE_BATCH,
-                               device=device)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - f0
     step_ms = fit_step_split(cpatch, domain, circles[:STYLE_BATCH], cfg, device)
-    metrics = style_metrics(cpatch, domain, circles, fitted, d_outer * cfg.ball_radius_factor,
-                            cfg, device)
+    metrics = style_metrics(cpatch, domain, circles, fitted, r_ball, cfg, device)
     if not metrics["desc_loss_final"] < metrics["desc_loss_init"]:
         raise AssertionError(f"entry point: descriptor loss did not fall: {metrics}")
-    emit("stylize_entry_point", t0, content_n=n, style_m=style_m,
-         patch_m=len(cpatch.xyz), padded_mp=mp, balls=len(circles), batches=batches,
-         fit_steps=fit_steps, w_coverage=1.0, launches=launches, merged_n=merged_n,
-         setup_s=t_setup, cli_s=cli_s, fit_all_balls_s=fit_s, fit_step_ms_median=step_ms,
-         **metrics)
+    fit_s = stages["fit_all_balls"]["s"]
+    emit(phase, t0, content_n=n, style_m=style_m, patch_m=len(patch_xyz), padded_mp=mp,
+         domain_n=len(domain), balls=len(circles), batches=batches, fit_steps=fit_steps,
+         w_coverage=1.0, launches=launches, merged_n=merged_n, setup_s=t_setup, cli_s=cli_s,
+         stage_s={k: v["s"] for k, v in stages.items()},
+         ball_steps_per_s=len(circles) * fit_steps / fit_s, fit_step_ms_median=step_ms,
+         stylized_render=rendered, **metrics)
     return launches
+
+
+def phase_stylize_1m(device):
+    """Stylization of the 1M shell: its content domain, the gate at the JAX
+    1M record's configuration (GATE_MIN_1M), then `cli.stylize` at
+    Mp = 16384 with the stylized PLY rendered at 1296 x 832. Returns
+    {kernel name: launches} of `cli.stylize`."""
+    t0 = time.perf_counter()
+    domain, spacing = content_domain(device, n=STYLE_1M_N)
+    emit("stylize_1m_domain", t0, content_n=STYLE_1M_N, domain_n=len(domain),
+         domain_spacing_median=spacing)
+    phase_stylize_gate(device, domain, spacing, n=STYLE_1M_N, phase="stylize_1m_gate",
+                       limits=GATE_MIN_1M, record=JAX_GATE_1M)
+    del domain
+    return phase_stylize_entry_point(device, spacing, n=STYLE_1M_N, phase="stylize_1m_cli",
+                                     render_res=SCALE_RES)
 
 
 def fit_step_split(cpatch, domain, circles, cfg, device, reps=5):
@@ -4528,7 +4975,7 @@ def main() -> int:
              "k4k5_full_width": lambda: phase_k45_full_width(device),
              "k4k5_near_coincident": lambda: phase_k45_near_coincident(device),
              "stylize_gate": lambda: phase_stylize_gate(device, domain, spacing),
-             "stylize_entry_point": lambda: phase_stylize_entry_point(device, domain, spacing),
+             "stylize_entry_point": lambda: phase_stylize_entry_point(device, spacing),
              "oracle_cases": lambda: phase_oracle_cases(device),
              "api_options": lambda: phase_api_options(device),
              "geom_transfer": lambda: phase_geom_transfer(device),
@@ -4541,6 +4988,9 @@ def main() -> int:
              "images": lambda: phase_images(device),
              "pack_gather": lambda: phase_pack_gather(device),
              "viewer_entry_point": lambda: phase_viewer_entry_point(device),
+             "scale_1m": lambda: phase_scale(device, "scale_1m"),
+             "scale_4m": lambda: phase_scale(device, "scale_4m"),
+             "stylize_1m": lambda: phase_stylize_1m(device),
              }[name]()
         print(json.dumps({"partial_run": names,
                           "total_seconds": time.perf_counter() - t_start}), flush=True)
@@ -4573,6 +5023,7 @@ def main() -> int:
     if any(viewer[k] == 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel of the viewer's training path was never launched: "
                              f"{viewer}")
+    scales = [phase_scale(device, name) for name in SCALE_N]
     phase_k45_cases(device)
     k4, k5 = phase_k45_full_width(device)
     phase_k45_near_coincident(device)
@@ -4581,9 +5032,10 @@ def main() -> int:
     emit("content_domain", t0, content_n=FULL_N, domain_n=len(domain),
          domain_spacing_median=spacing)
     phase_stylize_gate(device, domain, spacing)
-    style = phase_stylize_entry_point(device, domain, spacing)
+    style = phase_stylize_entry_point(device, spacing)
     if style["desc_loss"] == 0 or style["desc_grad"] == 0:
         raise AssertionError(f"K4/K5 were never launched on the stylization path: {style}")
+    style_1m = phase_stylize_1m(device)
     phase_geom_transfer(device)
     phase_sweep_entry_point(device, spacing)
     phase_pipeline_entry_point(device)
@@ -4592,9 +5044,14 @@ def main() -> int:
     phase_parallel_cases(device)
     phase_parallel_entry_point(device, domain, spacing)
     kernels = [k1, k1f, k2, k2f, k3, k4, k5, kg]
-    k1f["launches"] = serve_fast["blend_fwd_fast"]  # K2f's: from its train steps
+    # The main paths' launches: the entry points', plus the BASELINE ladder's
+    # frames and steps at 1M and 4M and its 1M stylization (K2f's and Kg's
+    # entries already hold those of their own phases).
+    k1f["launches"] = serve_fast["blend_fwd_fast"]
     for k in (k1, k2, k3, k4, k5):
         k["launches"] = (style if k["name"] in ("desc_loss", "desc_grad") else train)[k["name"]]
+    for k in (k1, k1f, k2, k3, k4, k5, kg):
+        k["launches"] += sum(run[k["name"]] for run in scales + [style_1m])
 
     print(json.dumps({"total_seconds": time.perf_counter() - t_start}), flush=True)
     print(nvidia_smi_line(), flush=True)

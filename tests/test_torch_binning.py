@@ -6,6 +6,9 @@ sorted (tile, rank) sequence and the same tile_start / tile_end wherever the
 JAX binning does not overflow its static capacities. The port has no
 capacities, so its overflow flags are always False."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +26,12 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def bin_both(means2d, depths, radii, w, h, ext=None, cull=None, jitter_margin=0.0):
-    """cull: (conics, opacities) or None; ext: (ext_x, ext_y) or None."""
+def bin_both(means2d, depths, radii, w, h, ext=None, cull=None, jitter_margin=0.0,
+             two_key=False, jit=False):
+    """cull: (conics, opacities) or None; ext: (ext_x, ext_y) or None;
+    two_key: JAX takes its two-key (tile, rank) sort, the route of
+    (num_tiles + 1) * N > 2^32, at any size; jit: JAX's binning as one
+    compiled program (a few seconds less than op by op at a new N)."""
     jkw, tkw = {}, {}
     if ext is not None:
         jkw.update(ext_x=jnp.asarray(ext[0]), ext_y=jnp.asarray(ext[1]))
@@ -32,10 +39,12 @@ def bin_both(means2d, depths, radii, w, h, ext=None, cull=None, jitter_margin=0.
     if cull is not None:
         jkw.update(conics=jnp.asarray(cull[0]), opacities=jnp.asarray(cull[1]))
         tkw.update(conics=_t(cull[0]), opacities=_t(cull[1]))
-    j = jbin.bin_gaussians(
+    binning = functools.partial(
+        jbin.bin_gaussians, width=w, height=h, dup_capacity=0, max_tiles_per_gaussian=4096,
+        jitter_margin=jitter_margin, _force_two_key=two_key)
+    j = (jax.jit(binning) if jit else binning)(
         jnp.asarray(means2d, jnp.float32), jnp.asarray(depths, jnp.float32),
-        jnp.asarray(radii, jnp.int32), w, h, dup_capacity=0,
-        max_tiles_per_gaussian=4096, jitter_margin=jitter_margin, **jkw)
+        jnp.asarray(radii, jnp.int32), **jkw)
     t = tbin.bin_gaussians(
         _t(np.asarray(means2d, np.float32)), _t(np.asarray(depths, np.float32)),
         _t(np.asarray(radii, np.int32)), w, h, jitter_margin=jitter_margin, **tkw)
@@ -94,11 +103,13 @@ def test_culled_and_offscreen():
     assert_same_binning(j, t)
 
 
+@pytest.mark.parametrize("two_key", [False, True], ids=["packed_key", "two_key"])
 @pytest.mark.parametrize("tile_cull", [False, True])
 @pytest.mark.parametrize("jitter_margin", [0.0, 1.0])
 @pytest.mark.parametrize("scene", ["random", "aniso"])
-def test_from_preprocess(tile_cull, jitter_margin, scene):
-    """Tight extents and the exact tile cull on real preprocess output."""
+def test_from_preprocess(tile_cull, jitter_margin, scene, two_key):
+    """Tight extents and the exact tile cull on real preprocess output,
+    against JAX's packed 32-bit key and against its two-key sort."""
     js = _random_scene(n=200, seed=2) if scene == "random" else _aniso_scene(n=120, seed=3)
     prep, _ = run_both(js, _cam(w=80, h=48), port_cam(w=80, h=48))
     cull = ((np.asarray(prep.conics), np.asarray(prep.opacities))
@@ -106,8 +117,24 @@ def test_from_preprocess(tile_cull, jitter_margin, scene):
     j, t = bin_both(np.asarray(prep.means2d), np.asarray(prep.depths),
                     np.asarray(prep.radii), 80, 48,
                     ext=(np.asarray(prep.extent_x), np.asarray(prep.extent_y)),
-                    cull=cull, jitter_margin=jitter_margin)
+                    cull=cull, jitter_margin=jitter_margin, two_key=two_key)
     assert_same_binning(j, t)
+
+
+def test_past_two_to_the_32_keys():
+    """(num_tiles + 1) * N > 2^32, so JAX takes its two-key sort unforced,
+    as at 4M Gaussians and 1296 x 832 (bench.py:383-395): 20,000 small
+    splats on an 8192 x 8192 image, 262,144 tiles. The port's single int64
+    key `tile * N + rank` reaches 5.2e9 here and must give JAX's lists."""
+    rng = np.random.default_rng(13)
+    n, side = 20_000, 8192
+    num_tiles = tbin.tile_grid(side, side)[0] * tbin.tile_grid(side, side)[1]
+    assert (num_tiles + 1) * n > 2 ** 32
+    means = rng.uniform(-8, side + 8, (n, 2))
+    radii = rng.integers(0, 8, n)  # at most 2 x 2 tiles: inside JAX's first emission phase
+    j, t = bin_both(means, rng.uniform(1, 5, n), radii, side, side, jit=True)
+    assert_same_binning(j, t)
+    assert int(t.tile_of_dup[-1]) * n + int(t.rank[-1]) > 2 ** 32
 
 
 def test_rank_of_inverts_depth_order():

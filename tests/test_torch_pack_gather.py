@@ -37,28 +37,38 @@ PACKED = FAST._replace(pack_gather=True)
 WHITE = torch.ones(3)
 
 
-def jax_packed_rows(jscene, monkeypatch):
+class _Captured(Exception):
+    """Raised by the recorder once it holds JAX's rows: the blend is not run."""
+
+
+def jax_packed_rows(jscene, monkeypatch, w=W, h=H, blend=True):
     """JAX's [K, 10] bf16 pack-gather rows as uint16 bits, from its own
-    render (module docstring)."""
+    render (module docstring); `blend=False` stops the render once the rows
+    are made."""
     captured = {}
     untile = pallas_path._blend_untile
 
     def record(packed, binning, *args, **kwargs):
         captured["packed"] = np.asarray(packed)
         captured["k"] = int(np.asarray(binning.tile_end)[-1])
+        if not blend:
+            raise _Captured
         return untile(packed, binning, *args, **kwargs)
 
     monkeypatch.setattr(pallas_path, "_blend_untile", record)
     with jax.disable_jit():
-        japi.render(_cam(w=W, h=H), jscene, np.ones(3, np.float32), settings=JAX_PACKED)
+        try:
+            japi.render(_cam(w=w, h=h), jscene, np.ones(3, np.float32), settings=JAX_PACKED)
+        except _Captured:
+            pass
     packed, k = captured["packed"], captured["k"]
     return packed[:10, :k].T.view(np.uint16)
 
 
-def port_rows(jscene, pack_gather):
-    prep = tapi.preprocess_scene(port_cam(w=W, h=H), port_scene(jscene))
+def port_rows(jscene, pack_gather, w=W, h=H):
+    prep = tapi.preprocess_scene(port_cam(w=w, h=h), port_scene(jscene))
     with torch.no_grad():
-        binning, rows = render_path.bin_and_pack(prep, W, H, fast=True,
+        binning, rows = render_path.bin_and_pack(prep, w, h, fast=True,
                                                  pack_gather=pack_gather)
     return binning, rows
 
@@ -81,6 +91,34 @@ def test_pack_gather_rows_equal_jaxs_bit_for_bit(n, seed, monkeypatch):
     print(f"n={n} seed={seed}: K={want.shape[0]}, rows differing from the "
           f"non-packed rows: x {(plain[:, 0] != want[:, 0]).sum()}, "
           f"y {(plain[:, 1] != want[:, 1]).sum()}")
+
+
+def test_pack_gather_rows_equal_jaxs_on_a_1296_pixel_wide_frame(monkeypatch):
+    """JAX's rows at the BASELINE ladder's width. Past x = 1024 a mean's
+    bf16 high part is 8 pixels apart and its low part carries the rest, so
+    more x means land a bf16 step (1/16 pixel on [8, 16)) away from the
+    non-packed rows there than below x = 512. The port's rows are JAX's bit
+    for bit."""
+    from tests.test_rasterizer import _scene_from
+
+    rng = np.random.default_rng(7)
+    n, w, h = 200, 1296, 48
+    jscene = _scene_from(
+        xyz=np.stack([rng.uniform(-2.0, 2.0, n), rng.uniform(-1.0, 1.0, n),
+                      rng.uniform(-0.2, 0.2, n)], 1),
+        rgb=rng.uniform(0.1, 0.9, (n, 3)), scale=rng.uniform(0.004, 0.012, (n, 3)),
+        opacity=rng.uniform(0.4, 0.9, (n, 1)))
+    want = jax_packed_rows(jscene, monkeypatch, w, h, blend=False)
+    binning, rows = port_rows(jscene, pack_gather=True, w=w, h=h)
+    got = rows[:, :10].view(torch.int16).numpy().view(np.uint16)
+    assert got.shape == want.shape and got.shape[0] == int(binning.tile_end[-1]) > 0
+    np.testing.assert_array_equal(got, want)
+    x = (rows[:, 0].float() + (binning.tile_of_dup % -(-w // 16) * 16).float()).numpy()
+    _, plain = port_rows(jscene, pack_gather=False, w=w, h=h)
+    plain = plain[:, :10].view(torch.int16).numpy().view(np.uint16)
+    moved = plain[:, 0] != want[:, 0]
+    assert moved[x >= 1024].mean() > moved[x < 512].mean() > 0
+    assert (plain[:, 2:] == want[:, 2:]).all()
 
 
 @pytest.mark.parametrize("n,seed", CASES)
@@ -111,6 +149,11 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_nothing():
     assert packed.shape == (prep.means2d.shape[0] + 1, 12) and not packed[-1].any()
     with pytest.raises(ValueError, match="int64"):
         kg.pack_gather(*args[:6], binning.rank.to(torch.int32), *args[7:])
+    # The kernel counts duplicates and Gaussians in an int: 2^31 duplicates
+    # (a stride-0 view, no memory) are refused before anything runs.
+    many = torch.zeros(1, dtype=torch.int64).expand(2 ** 31)
+    with pytest.raises(ValueError, match="2\\^31"):
+        kg.pack_gather(*args[:6], many, many, W)
 
 
 def test_cooperative_designs_32_byte_rows_hold_the_packs_values():

@@ -170,7 +170,7 @@ def main() -> int:
               "full_width_fast": cs.phase_full_width_fast,
               "train_full_width_fast": cs.phase_train_full_width_fast,
               "stylize_entry_point": lambda dev: cs.phase_stylize_entry_point(
-                  dev, *cs.content_domain(dev))}
+                  dev, cs.content_domain(dev)[1])}
     for name in sys.argv[1].split(","):
         phases[name](device)
     print(json.dumps({"total_seconds": time.perf_counter() - t0}), flush=True)

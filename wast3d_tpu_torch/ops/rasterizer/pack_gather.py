@@ -89,6 +89,8 @@ def pack_gather(means2d: torch.Tensor, conics: torch.Tensor, opacities: torch.Te
     ts = (means2d, conics, opacities, depths, colors, depth_order, rank, tile_of_dup)
     if not _well_formed(ts):
         _check(*ts)
+    if max(rank.shape[0], means2d.shape[0] + 1) >= 2 ** 31:  # the kernel's int counts
+        raise ValueError("pack_gather takes fewer than 2^31 duplicates and Gaussians")
     dev = means2d.device
     if dev.type == "cpu":
         return pack_gather_reference(*ts, width)
