@@ -72,10 +72,12 @@ the gate at the JAX 1M record's configuration and `cli.stylize`, its PLY
 rendered at 1296x832).
 Host IO runs first (`io`, `images`): the native PLY and COLMAP readers,
 and every image format the JAX package reads through PIL (PNG at every
-depth, JPEG at every integral sampling and CMYK / YCCK, BMP, TIFF) decoded
-with PIL unimportable and held to PIL's committed arrays; `cli.train` on
-progressive and 4:4:0 JPEG datasets and on 16-bit RGBA PNGs, and
-`cli.metrics` on JPEGs against the port's metrics on PIL's decode.
+depth, JPEG at every integral sampling and CMYK / YCCK, BMP, TIFF in every
+layout and sample kind with JPEG inside, WebP, GIF, Netpbm, TGA, QOI)
+decoded with PIL unimportable and held to PIL's committed arrays;
+`cli.train` on progressive and 4:4:0 JPEG, WebP and tiled JPEG-TIFF
+datasets and on 16-bit RGBA PNGs, and `cli.metrics` on JPEGs, WebPs and
+TGA / PPM against the port's metrics on PIL's decode.
 Each entry point runs with the kernels' launch counts set to 0 just before
 it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
@@ -2093,8 +2095,8 @@ def phase_scale(device, name):
 # ---- viewers, Kg (pack_gather), native IO --------------------------------------
 
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures")
-# PNG, JPEG, BMP, TIFF, WebP and GIF files PIL reads, each with PIL's array
-# beside it as .npy (tools/make_torch_fixtures.py --formats)
+# PNG, JPEG, BMP, TIFF, WebP, GIF, Netpbm, TGA and QOI files PIL reads, each
+# with PIL's array beside it as .npy (tools/make_torch_fixtures.py --formats)
 FORMAT_FIXTURES = os.path.join(ROOT, "tests", "format_fixtures")
 JPEG_MAX_DIFF, JPEG_MEAN_DIFF = 2, 0.05  # the decoder against PIL's decode, uint8 units
 COLMAP_POINTS = 20_000  # points3D.bin through the native reader and through Python
@@ -2289,7 +2291,7 @@ def format_fixture_checks():
             checks[f"format {os.path.relpath(path, FORMAT_FIXTURES)}"] = (
                 got.dtype == want.dtype and got.shape == want.shape
                 and got.tobytes() == want.tobytes())
-    if len(checks) < 140:
+    if len(checks) < 220:
         raise AssertionError(f"only {len(checks)} files under {FORMAT_FIXTURES}")
     return checks
 
@@ -2355,6 +2357,69 @@ def webp_decode_times(decoded):
         checks[f"decode webp {name}"] = (got.dtype == want.dtype and got.shape == want.shape
                                          and np.array_equal(got, want))
     return checks, numbers
+
+
+RASTER_TIFF = ("tiff", "scene_1296x832_jpeg_ycbcr420_tiled")  # under FIXTURES
+
+
+def raster_decode_times(decoded):
+    """Decode milliseconds (median of 3) at the 1296x832 view's size of the
+    committed tiled JPEG-YCbCr 4:2:0 TIFF, held to the SHA-256 of PIL's array
+    (`pil_decode/<name>_tif.json`), and of three lossless files written here
+    from the view, each held exactly to its source: a Deflate TIFF of 32-bit
+    float samples with the floating-point predictor, a run-length TGA and a
+    binary PPM. Returns (checks, numbers)."""
+    import hashlib
+
+    from tools.image_writers import pnm_bytes, tga_bytes, tiff_bytes
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    with open(os.path.join(FIXTURES, *RASTER_TIFF) + ".tif", "rb") as f:
+        tiff = f.read()
+    with open(os.path.join(FIXTURES, "pil_decode", RASTER_TIFF[1] + "_tif.json")) as f:
+        record = json.load(f)
+    depth = (decoded.astype(np.float32) / 255.0).mean(axis=2) * np.float32(1e3) - np.float32(7)
+    t = time.perf_counter()
+    sources = {"tiff_f32_pred3_1296x832": (depth, tiff_bytes(
+                   depth, 1, compression=8, predictor=3, sample_format=3, tile=(256, 256))),
+               "tga_rle_1296x832": (decoded, tga_bytes(np.ascontiguousarray(decoded[..., ::-1]),
+                                                       10, 24, rows_per_packet_run=1)),
+               "ppm_1296x832": (decoded, pnm_bytes(decoded, b"P6", 255))}
+    checks, numbers = {}, {"raster_encode_s": time.perf_counter() - t}
+    got, sec = median_s(lambda: decode_image(tiff, RASTER_TIFF[1]), 3)
+    numbers[f"decode_ms {RASTER_TIFF[1]}"] = sec * 1e3
+    numbers[f"bytes {RASTER_TIFF[1]}"] = len(tiff)
+    checks[f"decode {RASTER_TIFF[1]} = PIL's sha256"] = record == {
+        "dtype": str(got.dtype), "shape": list(got.shape),
+        "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+    for name, (want, blob) in sources.items():
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        checks[f"decode {name}"] = (got.dtype == want.dtype and got.shape == want.shape
+                                    and got.tobytes() == want.tobytes())
+    return checks, numbers
+
+
+def write_tiff_colmap(src):
+    """A copy of the COLMAP fixture whose six views are tiled (64x64)
+    JPEG-YCbCr 4:2:0 TIFFs of the JPEG views' decode, under images_tiff/,
+    its model's image names turned to `view_<i>.tif`."""
+    from tools.image_writers import rgb_to_ycc, tiff_bytes
+    from wast3d_tpu_torch import native
+    from wast3d_tpu_torch.scene import colmap as cm
+
+    shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+    os.makedirs(os.path.join(src, "images_tiff"))
+    for f in sorted(os.listdir(os.path.join(src, "images"))):
+        view = native.read_jpeg(os.path.join(src, "images", f))
+        with open(os.path.join(src, "images_tiff", os.path.splitext(f)[0] + ".tif"), "wb") as out:
+            out.write(tiff_bytes(rgb_to_ycc(view), 6, compression=7, tile=(64, 64), jpeg=dict(
+                sampling=((2, 2), (1, 1), (1, 1)), subsampling=(2, 2))))
+    path = os.path.join(src, "sparse", "0", "images.bin")
+    imgs = cm.read_images_binary(path)
+    cm.write_images_binary({k: v._replace(name=os.path.splitext(v.name)[0] + ".tif")
+                            for k, v in imgs.items()}, path)
 
 
 def write_webp_colmap(src):
@@ -2424,8 +2489,8 @@ def train_cli(src, images, device, model):
 
 
 def metrics_on(kind, device, tmp):
-    """`cli.metrics` on a method directory of `kind` files ("jpeg" or "webp":
-    tests/format_fixtures/metrics_<kind>), then the port's metrics
+    """`cli.metrics` on a method directory of `kind` files ("jpeg", "webp" or
+    "tga_ppm": tests/format_fixtures/metrics_<kind>), then the port's metrics
     (`evaluate_dir`) on PIL's decode of the same files (its .npy), in this
     call: the per-view scores must be equal. Returns (checks, numbers)."""
     from wast3d_tpu_torch.cli import metrics as cli_metrics
@@ -2455,9 +2520,9 @@ def metrics_on(kind, device, tmp):
         pil = metrics.evaluate_dir(method, device=device)["per_view"]
     finally:
         metrics._read_images = reader
-    suffix = {"jpeg": ".jpg", "webp": ".webp"}[kind]
-    checks = {f"metrics {kind} names": list(per_view["PSNR"]) == [f"00000{suffix}",
-                                                                   f"00001{suffix}"],
+    names = {"jpeg": ["00000.jpg", "00001.jpg"], "webp": ["00000.webp", "00001.webp"],
+             "tga_ppm": ["00000.tga", "00001.ppm"]}[kind]
+    checks = {f"metrics {kind} names": list(per_view["PSNR"]) == names,
               f"metrics {kind} = PIL's decode": per_view == pil,
               f"metrics {kind} finite": all(math.isfinite(v) for m in per_view.values()
                                             for v in m.values()),
@@ -2472,13 +2537,16 @@ def phase_images(device):
     the Adam7 and all-Paeth PNGs against PIL's decode, the native resize
     against PIL's committed bytes (and the numpy version at 1959 → 1600),
     every file of tests/format_fixtures (PNG at every depth, 4:4:0 / 4:1:1 /
-    CMYK / YCCK JPEG, BMP, TIFF, lossy / lossless / alpha / animated WebP,
-    GIF) against PIL's committed array, the decode and resize times, decode
-    times of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless
-    WebP at dataset sizes, `cli.train` on the progressive COLMAP fixture, on
-    the COLMAP fixture at 4:4:0, on a Blender dataset of 16-bit RGBA PNGs and
-    on the COLMAP fixture as lossy WebP, and `cli.metrics` on JPEGs and on
-    WebPs against the port's metrics on PIL's decode, with PIL unimportable.
+    CMYK / YCCK JPEG, BMP, TIFF in every layout and sample kind, JPEG in
+    TIFF, lossy / lossless / alpha / animated WebP, GIF, Netpbm, TGA, QOI)
+    against PIL's committed array, the decode and resize times, decode times
+    of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless WebP,
+    a tiled JPEG-YCbCr TIFF, a float TIFF with predictor 3, a run-length TGA
+    and a PPM at dataset sizes, `cli.train` on the progressive COLMAP
+    fixture, on the COLMAP fixture at 4:4:0, on a Blender dataset of 16-bit
+    RGBA PNGs, on the COLMAP fixture as lossy WebP and as tiled JPEG-YCbCr
+    TIFFs, and `cli.metrics` on JPEGs, on WebPs and on TGA / PPM ground
+    truths against the port's metrics on PIL's decode, with PIL unimportable.
     Returns the numbers."""
     from wast3d_tpu_torch import native
     from wast3d_tpu_torch.utils import png
@@ -2528,6 +2596,9 @@ def phase_images(device):
         more, times = webp_decode_times(decoded)
         checks.update(more)
         numbers.update(times)
+        more, times = raster_decode_times(decoded)
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -2543,15 +2614,18 @@ def phase_images(device):
         write_blender16_dataset(blender, rgba16)
         colmap_webp = os.path.join(tmp, "colmap_webp")
         write_webp_colmap(colmap_webp)
+        colmap_tiff = os.path.join(tmp, "colmap_tiff")
+        write_tiff_colmap(colmap_tiff)
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
                                  ("train blender16", blender, None),
-                                 ("train webp", colmap_webp, "images_webp")):
+                                 ("train webp", colmap_webp, "images_webp"),
+                                 ("train tiff", colmap_tiff, "images_tiff")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})
             numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
-        for kind in ("jpeg", "webp"):
+        for kind in ("jpeg", "webp", "tga_ppm"):
             more, got = metrics_on(kind, device, tmp)
             checks.update(more)
             numbers.update(got)

@@ -352,7 +352,7 @@ def test_tiff_from_pils_writer_equals_pil(compression, tmp_path):
 
 
 @pytest.mark.parametrize("tag,value,match", [
-    (259, 7, "Compression"), (317, 3, "Predictor"), (284, 2, "PlanarConfiguration"),
+    (259, 4, "Compression"), (317, 3, "Predictor"), (284, 3, "PlanarConfiguration"),
     (339, 3, "SampleFormat"), (322, 16, "TileWidth")])
 def test_tiff_outside_the_reader_names_the_tag(tag, value, match):
     blob = iw.tiff_bytes(_image(8, 8), 2, compression=5, predictor=2,
@@ -379,7 +379,7 @@ def test_native_lzw_and_packbits_equal_their_plain_versions():
 
 
 def test_unknown_signatures_raise_naming_file_and_bytes():
-    for blob in (b"qoif\x00\x00\x00\x01", b"RIFF\x00\x00\x00\x00WAVE", b"RIFF\x00\x00\x00\x00WEBP", b""):
+    for blob in (b"8BPS\x00\x01\x00\x00", b"RIFF\x00\x00\x00\x00WAVE", b"RIFF\x00\x00\x00\x00WEBP", b""):
         with pytest.raises(ValueError, match=r"x\.img: .*starts with"):
             image_io.decode_image(blob, "x.img")
 

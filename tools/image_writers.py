@@ -12,8 +12,15 @@ standard library (no PIL): files of the kinds PIL reads but will not write.
   chunks, Adam7, one row filter throughout.
 - `bmp_bytes`: 1-, 4-, 8-bit palette, 16-, 24- and 32-bit, BI_RGB or
   BI_BITFIELDS, RLE8 / RLE4, bottom-up or top-down.
-- `tiff_bytes`: strips, chunky samples, 8 or 16 bits, compression none,
-  PackBits, LZW or Deflate, predictor 1 or 2, either byte order.
+- `tiff_bytes`: strips or tiles, chunky or separate planes, 1-32-bit
+  integer or float samples, compression none, PackBits, LZW, Deflate or
+  JPEG (abbreviated streams with JPEGTables), predictor 1, 2 or 3, fill
+  order 1 or 2, a colour map, either byte order.
+- `tga_bytes`: colour-mapped, true-colour or grey TGA at any depth PIL
+  reads, raw or run-length encoded (packets across rows or not), with an ID
+  field, a colour map from a first entry index, and either origin.
+- `pnm_bytes`: P1-P6 (ASCII and binary, any maxval, comments) and Pf.
+- `qoi_bytes`: QOI with any subset of its ops.
 - `gif_bytes`: one image of palette indices on a logical screen, at an
   offset, with a global or a local colour table (or none), interlaced, with
   a transparent index, and LZW of any minimum code size; PIL writes neither
@@ -454,72 +461,291 @@ def _difference(rows: np.ndarray, spp: int) -> np.ndarray:
     return d
 
 
+def _fp_difference(rows: np.ndarray, spp: int) -> np.ndarray:
+    """Predictor 3 (libtiff's fpDiff) on [h, w * spp] samples: each row's
+    bytes regrouped into planes, most significant byte first, then each
+    byte minus the one `spp` bytes before it, wrapping. uint8 [h, row
+    bytes]."""
+    h, wc = rows.shape
+    planes = rows.astype(rows.dtype.newbyteorder(">")).view(np.uint8).reshape(h, wc, -1)
+    b = np.ascontiguousarray(planes.transpose(0, 2, 1)).reshape(h, -1)
+    d = b.copy()
+    d[:, spp:] = b[:, spp:] - b[:, :-spp]
+    return d
+
+
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _split_jpeg(blob: bytes) -> Tuple[bytes, bytes]:
+    """A whole JPEG -> (its DQT and DHT segments, the file without them)."""
+    tables, rest, pos = b"", b"\xff\xd8", 2
+    while blob[pos + 1] != 0xDA:
+        n = 2 + struct.unpack_from(">H", blob, pos + 2)[0]
+        if blob[pos + 1] in (0xDB, 0xC4):
+            tables += blob[pos:pos + n]
+        elif blob[pos + 1] != 0xE0:  # no JFIF marker inside a TIFF
+            rest += blob[pos:pos + n]
+        pos += n
+    return tables, rest + blob[pos:]
+
+
 def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                predictor: int = 1, byteorder: str = "<", extra_samples: Sequence[int] = (),
-               rows_per_strip: Optional[int] = None, tags: Sequence[Tuple] = ()) -> bytes:
-    """[H, W] or [H, W, C] uint8 / uint16 samples -> a stripped, chunky
-    TIFF. `compression` 1 (none), 32773 (PackBits), 5 (LZW), 8 or 32946
-    (Deflate); `predictor` 2 differences each row (applied only under LZW and
-    Deflate); `tags` adds (tag, type, values) entries."""
+               rows_per_strip: Optional[int] = None, tags: Sequence[Tuple] = (),
+               tile: Optional[Tuple[int, int]] = None, planar: int = 1, fill_order: int = 1,
+               bits: Optional[int] = None, sample_format: Optional[int] = None,
+               colormap: Optional[np.ndarray] = None, jpeg: Optional[dict] = None) -> bytes:
+    """[H, W] or [H, W, C] samples -> a TIFF of one image.
+
+    Samples are uint8 / uint16 / int16 / int32 / uint32 / float32, stored at
+    their own width, or packed from the high bit at `bits` = 1, 2 or 4 (rows
+    padded to a byte). Layout: strips of `rows_per_strip` rows, or `tile` =
+    (width, length) tiles (edge tiles padded with zeros); `planar` 1
+    (chunky) or 2 (each sample in a plane of its own, plane 0's strips or
+    tiles first). `compression` 1 (none), 32773 (PackBits), 5 (LZW), 8 or
+    32946 (Deflate), or 7 (JPEG: each strip or tile an abbreviated stream of
+    `jpeg_bytes`, its tables in JPEGTables; `jpeg` = dict(sampling=...,
+    quality=..., tables=False to keep the tables in every stream, subsampling=
+    the YCbCrSubsampling tag to write or None)); JPEG samples are already in
+    the coded colour space (YCbCr for photometric 6). `predictor` 2
+    differences each row and 3 is libtiff's floating-point predictor (both
+    applied only under LZW and Deflate). `fill_order` 2 reverses the bits of
+    every stored byte. `sample_format` writes SampleFormat (339), `colormap`
+    ([3 * 2^bits] uint16 values) ColorMap (320); `tags` adds (tag, type,
+    values) entries (type 7 takes bytes)."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, :, None]
     h, w, spp = samples.shape
-    bits = 8 * samples.itemsize
-    rps = rows_per_strip or h
+    bits = bits or 8 * samples.itemsize
     dt = np.dtype(samples.dtype).newbyteorder(byteorder)
-    strips = []
-    for y in range(0, h, rps):
-        rows = samples[y:y + rps].reshape(-1, w * spp)
-        if predictor == 2 and compression in (5, 8, 32946):
-            rows = _difference(rows, spp)
-        raw = rows.astype(dt).tobytes()
-        if compression == 5:
-            raw = lzw_encode(raw)
-        elif compression in (8, 32946):
-            raw = zlib.compress(raw, 9)
-        elif compression == 32773:
-            raw = packbits_encode(raw)
-        strips.append(raw)
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    planes = [samples[:, :, i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    jpeg = dict(jpeg or {})
+    tables = None
+    segments = []
+    for plane in planes:
+        n = plane.shape[2]
+        for y in range(0, h, th):
+            for x in range(0, w, tw) if tile else (0,):
+                block = plane[y:y + th, x:x + tw]
+                if tile:
+                    block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
+                                           (0, 0)))
+                if compression == 7:
+                    whole = jpeg_bytes(block, jpeg.get("sampling", ((1, 1),) * n) if n == spp
+                                       else ((1, 1),),
+                                       jpeg.get("quality", 90), jfif=False)
+                    tables, raw = _split_jpeg(whole)
+                    segments.append(whole if jpeg.get("tables") is False else raw)
+                    continue
+                rows = block.reshape(block.shape[0], -1)
+                if predictor == 2 and compression in (5, 8, 32946):  # on the integer bits
+                    ints = rows.view(np.dtype(f"u{rows.itemsize}"))
+                    rows = _difference(ints, n).view(rows.dtype)
+                if predictor == 3 and compression in (5, 8, 32946):
+                    raw = _fp_difference(rows, n).tobytes()
+                elif bits < 8:
+                    raw = _pack_rows(rows[:, :, None], bits).tobytes()
+                else:
+                    raw = rows.astype(dt).tobytes()
+                if compression == 5:
+                    raw = lzw_encode(raw)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 9)
+                elif compression == 32773:
+                    raw = packbits_encode(raw)
+                if fill_order == 2:
+                    raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+                segments.append(raw)
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp), (259, 3, [compression]),
-               (262, 3, [photometric]), (273, 4, None), (277, 3, [spp]), (278, 4, [rps]),
-               (279, 4, [len(s) for s in strips]), (284, 3, [1])]
+               (262, 3, [photometric]), (277, 3, [spp]), (284, 3, [planar])]
+    if tile:
+        entries += [(322, 3, [tw]), (323, 3, [th]), (324, 4, None),
+                    (325, 4, [len(s) for s in segments])]
+    else:
+        entries += [(273, 4, None), (278, 4, [th]), (279, 4, [len(s) for s in segments])]
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
     if predictor != 1:
         entries.append((317, 3, [predictor]))
+    if colormap is not None:
+        entries.append((320, 3, [int(v) for v in np.asarray(colormap).reshape(-1)]))
     if extra_samples:
         entries.append((338, 3, list(extra_samples)))
+    if sample_format is not None:
+        entries.append((339, 3, [sample_format] * spp))
+    if compression == 7 and jpeg.get("tables") is not False:
+        entries.append((347, 7, b"\xff\xd8" + tables + b"\xff\xd9"))
+    if compression == 7 and jpeg.get("subsampling"):
+        entries.append((530, 3, list(jpeg["subsampling"])))
     entries += list(tags)
     entries.sort(key=lambda e: e[0])
-    fmt = {3: "H", 4: "I"}
+    fmt = {1: "B", 3: "H", 4: "I", 7: "B"}
+
+    def packed(typ, vals):
+        return bytes(vals) if typ == 7 else struct.pack(byteorder + fmt[typ] * len(vals), *vals)
+
     ifd_size = 2 + 12 * len(entries) + 4
     pos = 8 + ifd_size
     blobs, values = [], {}
     for tag, typ, vals in entries:  # arrays too large for the entry go after the IFD
         if vals is not None and len(vals) * struct.calcsize(fmt[typ]) > 4:
             values[tag] = pos
-            blob = struct.pack(byteorder + fmt[typ] * len(vals), *vals)
-            blobs.append(blob)
-            pos += len(blob)
+            blob = packed(typ, vals)
+            blobs.append(blob + b"\x00" * (len(blob) % 2))
+            pos += len(blobs[-1])
     offsets = []
-    for s in strips:
+    for s in segments:
         offsets.append(pos)
         pos += len(s)
+    offset_tag = 324 if tile else 273
     if len(offsets) * 4 > 4:
-        values[273] = pos
+        values[offset_tag] = pos
         blobs_tail = struct.pack(byteorder + "I" * len(offsets), *offsets)
     else:
         blobs_tail = b""
     ifd = struct.pack(byteorder + "H", len(entries))
     for tag, typ, vals in entries:
-        vals = offsets if tag == 273 else vals
+        vals = offsets if tag == offset_tag else vals
         if tag in values:
             ifd += struct.pack(byteorder + "HHII", tag, typ, len(vals), values[tag])
         else:
-            payload = struct.pack(byteorder + fmt[typ] * len(vals), *vals).ljust(4, b"\x00")
-            ifd += struct.pack(byteorder + "HHI", tag, typ, len(vals)) + payload
+            ifd += struct.pack(byteorder + "HHI", tag, typ, len(vals)) + packed(
+                typ, vals).ljust(4, b"\x00")
     ifd += b"\x00\x00\x00\x00"
     head = (b"II*\x00" if byteorder == "<" else b"MM\x00*") + struct.pack(byteorder + "I", 8)
-    return head + ifd + b"".join(blobs) + b"".join(strips) + blobs_tail
+    return head + ifd + b"".join(blobs) + b"".join(segments) + blobs_tail
+
+
+# ---- TGA ------------------------------------------------------------------------------
+
+def tga_rle(pixels: np.ndarray, max_packet: int = 128) -> bytes:
+    """uint8 [n, bytes per pixel] -> TGA run-length packets: runs of two or
+    more equal pixels as repeats, the rest as literals, at most `max_packet`
+    pixels a packet."""
+    n = len(pixels)
+    out, i = bytearray(), 0
+    same = np.all(pixels[1:] == pixels[:-1], axis=1) if n > 1 else np.zeros(0, bool)
+    while i < n:
+        run = 1
+        while i + run < n and run < max_packet and same[i + run - 1]:
+            run += 1
+        if run >= 2:
+            out += bytes([0x80 | (run - 1)]) + pixels[i].tobytes()
+            i += run
+            continue
+        j = i + 1
+        while j < n and j - i < max_packet and not (j + 1 < n and same[j]):
+            j += 1
+        out += bytes([j - i - 1]) + pixels[i:j].tobytes()
+        i = j
+    return bytes(out)
+
+
+def tga_bytes(pixels: np.ndarray, image_type: int, depth: int,
+              colormap: Optional[np.ndarray] = None, first_entry: int = 0, map_depth: int = 24,
+              id_field: bytes = b"", top_down: bool = False, right_to_left: bool = False,
+              rows_per_packet_run: Optional[int] = None, descriptor: int = 0,
+              max_packet: int = 128) -> bytes:
+    """Pixels as stored, uint8 [H, W, depth / 8] (display order, row 0 at the
+    top; packed bits [H, row bytes] at depth 1) -> a TGA file of
+    `image_type` 1/2/3 (9/10/11 run-length encoded). The colour map holds
+    uint8 [n, map_depth / 8] entries after `first_entry`. Rows are stored
+    bottom-up unless `top_down`, columns right to left when `right_to_left`.
+    Run-length packets cross rows unless `rows_per_packet_run` = 1 (each row
+    encoded alone); `descriptor` adds bits (alpha depth) to byte 17."""
+    px = np.asarray(pixels, np.uint8)
+    h = px.shape[0]
+    w = px.shape[1] * (8 if depth == 1 else 1)
+    if px.ndim == 2:
+        px = px[:, :, None]
+    if not top_down:
+        px = px[::-1]
+    if right_to_left:
+        px = px[:, ::-1]
+    cmap = np.zeros((0, map_depth // 8), np.uint8) if colormap is None else np.asarray(
+        colormap, np.uint8)
+    flags = descriptor | (0x20 if top_down else 0) | (0x10 if right_to_left else 0)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), int(colormap is not None), image_type,
+                       first_entry, len(cmap), map_depth if colormap is not None else 0,
+                       0, 0, w, h, depth, flags)
+    if image_type & 8:
+        if rows_per_packet_run == 1:
+            data = b"".join(tga_rle(r, max_packet) for r in px)
+        else:
+            data = tga_rle(px.reshape(-1, px.shape[2]), max_packet)
+    else:
+        data = px.tobytes()
+    return head + id_field + cmap.tobytes() + data
+
+
+# ---- Netpbm and QOI -------------------------------------------------------------------
+
+def pnm_bytes(values: np.ndarray, magic: bytes, maxval: Optional[int] = None,
+              ascii_sep: bytes = b" ", header_sep: bytes = b"\n", comment: bytes = b"",
+              scale: float = -1.0) -> bytes:
+    """[H, W] or [H, W, 3] sample values -> a Netpbm file: P1 / P4 (bits, 1
+    = black), P2 / P5 (grey), P3 / P6 (RGB) with `maxval` (binary samples
+    one byte up to 255, else two, big-endian), or Pf (float32 grey, rows
+    bottom-up, little-endian when `scale` < 0). `comment` goes after the
+    magic as a `#` line."""
+    v = np.asarray(values)
+    h, w = v.shape[:2]
+    head = magic + header_sep + (b"#" + comment + b"\n" if comment else b"")
+    head += b"%d%s%d%s" % (w, header_sep, h, header_sep)
+    if magic == b"Pf":
+        head += repr(scale).encode() + b"\n"
+        return head + np.ascontiguousarray(v[::-1], "<f4" if scale < 0 else ">f4").tobytes()
+    if magic not in (b"P1", b"P4"):
+        head += b"%d%s" % (maxval, header_sep)
+    if magic in (b"P1", b"P2", b"P3"):
+        return head + ascii_sep.join(b"%d" % x for x in v.reshape(-1)) + b"\n"
+    if magic == b"P4":
+        return head + np.packbits(v.astype(np.uint8), axis=1).tobytes()
+    return head + v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def qoi_bytes(pixels: np.ndarray, channels: Optional[int] = None,
+              ops: Sequence[str] = ("run", "index", "diff", "luma", "rgb", "rgba")) -> bytes:
+    """uint8 [H, W, 3 or 4] -> a QOI file (header, the reference encoder's
+    choice of ops among `ops`, the 8-byte end marker); `channels` is the
+    header's count (the pixels' own by default)."""
+    px = np.asarray(pixels, np.uint8)
+    h, w, c = px.shape
+    rgba = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], 2) if c == 3 else px
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, channels or c, 0))
+    index = [(0, 0, 0, 0)] * 64
+    prev, run = (0, 0, 0, 255), 0
+    flat = [tuple(int(x) for x in p) for p in rgba.reshape(-1, 4)]
+    for i, p in enumerate(flat):
+        if p == prev and "run" in ops:
+            run += 1
+            if run == 62 or i == len(flat) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        slot = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+        if index[slot] == p and "index" in ops:
+            out.append(slot)
+        else:
+            index[slot] = p
+            dr, dg, db = ((p[k] - prev[k] + 128) % 256 - 128 for k in range(3))
+            if p[3] == prev[3] and "diff" in ops and all(-2 <= d <= 1 for d in (dr, dg, db)):
+                out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+            elif (p[3] == prev[3] and "luma" in ops and -32 <= dg <= 31
+                  and -8 <= dr - dg <= 7 and -8 <= db - dg <= 7):
+                out += bytes([0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)])
+            elif p[3] == prev[3] and "rgb" in ops:
+                out += bytes([0xFE, *p[:3]])
+            else:
+                out += bytes([0xFF, *p])
+        prev = p
+    return bytes(out) + b"\x00" * 7 + b"\x01"
 
 
 # ---- GIF ------------------------------------------------------------------------------

@@ -3,6 +3,7 @@
 
     python3 tools/make_torch_fixtures.py             # everything
     python3 tools/make_torch_fixtures.py --formats   # only the image-format files
+    python3 tools/make_torch_fixtures.py --raster    # only the TIFF / Netpbm / TGA / QOI ones
 
 Needs PIL (it writes the JPEGs and records PIL's decode of each), so it runs
 where the tests run, not on the card. It writes, from seeds:
@@ -64,11 +65,27 @@ and under `tests/format_fixtures/`, from the 1296x832 JPEG's decode
 - `metrics_webp/{renders,gt}/0000<i>.webp`: a method directory of two 64x48
   views (lossy renders; a lossless and a lossy-with-alpha ground truth),
   PIL's decodes in `metrics_webp/pil/`;
+- TIFF layouts and sample kinds, Netpbm, TGA and QOI (`raster_cases`,
+  written alone by `--raster`): tiles with partial edge tiles, separate
+  planes in strips and tiles, fill order 2, bilevel, palette at 1/2/4/8
+  bits, CMYK, 32-bit float (predictor 3), 32-bit and signed 16-bit integers,
+  JPEG in RGB and in YCbCr at 4:2:0 / 4:2:2 / 4:4:4 with shared or inline
+  tables, an Orientation tag; P1-P6 at maxvals 1000, 4095 and 65535, Pf in
+  both byte orders; TGA types 1/2/3/9/10/11 at 1-32 bits, colour maps from
+  a first entry, ID fields, both origins, run-length packets within rows
+  and literals across rows; QOI RGB and RGBA, from PIL too;
+- `metrics_tga_ppm/{renders,gt}/`: a method directory of two 64x48 views,
+  `00000.tga` (run-length, 24-bit) and `00001.ppm` (P6), PIL's decodes in
+  `metrics_tga_ppm/pil/`;
 and, with `--formats` too, `tests/torch_fixtures/webp/`: the 1296x832 view
 as lossy WebP at quality 90 (PIL's decode in
 `pil_decode/scene_1296x832_q90_webp.png`) and an 800x800 RGBA lossless WebP
 of the view's top-left corner with the green of its top-right corner as
-alpha, which decodes to that source exactly.
+alpha, which decodes to that source exactly; and, with `--formats` or
+`--raster`, `tests/torch_fixtures/tiff/scene_1296x832_jpeg_ycbcr420_tiled.tif`
+(the view as JPEG in YCbCr 4:2:0, 256x256 tiles, quality 90) with the dtype,
+shape and SHA-256 of PIL's array of it in
+`pil_decode/scene_1296x832_jpeg_ycbcr420_tiled_tif.json`.
 """
 
 from __future__ import annotations
@@ -443,6 +460,207 @@ def rgba_800(src):
     return np.concatenate([src[:800, :800], src[:800, -800:, 1:2]], axis=2)
 
 
+RASTER_SHA = os.path.join(OUT, "pil_decode", "scene_1296x832_jpeg_ycbcr420_tiled_tif.json")
+
+
+def raster_cases(crop, alpha):
+    """(name, bytes) of the TIFF layouts and sample kinds, Netpbm, TGA and
+    QOI files (module docstring), from the 48x64 crop and its alpha."""
+    from PIL import Image
+
+    from tools.image_writers import pnm_bytes, qoi_bytes, rgb_to_ycc, tga_bytes, tiff_bytes
+
+    rng = np.random.default_rng(18)
+    grey = crop.mean(axis=2).astype(np.uint8)
+    rgba = np.concatenate([crop, alpha[..., None]], axis=2)
+    cmyk = np.concatenate([255 - crop, alpha[..., None]], axis=2)
+    wide16 = (rgba.astype(np.uint16) * 257 + rng.integers(0, 257, rgba.shape)).astype(np.uint16)
+    depth = (grey.astype(np.float32) / 37.0 - 3.0) ** 3  # float samples of either sign
+    ints = (grey.astype(np.int32) - 128) * 16_777_259
+    cmap = rng.integers(0, 65536, 3 * 256)
+    odd = (45, 61)  # partial edge tiles and strips
+    ycc = rgb_to_ycc(crop)
+    out = []
+    for name, vals, photometric, kw in (
+            ("tif_tiled_rgb_lzw_pred", crop[:45, :61], 2,
+             dict(compression=5, predictor=2, tile=(16, 16))),
+            ("tif_tiled_rgba_deflate_mm", rgba[:45, :61], 2,
+             dict(compression=8, tile=(32, 16), byteorder=">", extra_samples=(2,))),
+            ("tif_tiled_l_raw", grey[:45, :61], 1, dict(tile=(16, 32))),
+            ("tif_tiled_rgb16_lzw_pred", wide16[:45, :61, :3], 2,
+             dict(compression=5, predictor=2, tile=(16, 16))),
+            ("tif_planar_rgb_strips_packbits", crop, 2,
+             dict(compression=32773, planar=2, rows_per_strip=7)),
+            ("tif_planar_rgba_tiles_lzw_pred", rgba[:45, :61], 2,
+             dict(compression=5, predictor=2, planar=2, tile=(16, 16), extra_samples=(2,))),
+            ("tif_planar_rgb_raw_tiles", crop[:45, :61], 2, dict(planar=2, tile=(16, 16))),
+            ("tif_planar_cmyk_raw_strips", cmyk, 5, dict(planar=2, rows_per_strip=10)),
+            ("tif_fill2_l_lzw", grey, 1, dict(compression=5, fill_order=2, rows_per_strip=9)),
+            ("tif_fill2_rgb_raw", crop, 2, dict(fill_order=2)),
+            ("tif_fill2_bilevel_packbits", grey > 120, 1,
+             dict(bits=1, compression=32773, fill_order=2, rows_per_strip=8)),
+            ("tif_bilevel_white_raw", grey[:, :61] > 100, 0, dict(bits=1, rows_per_strip=16)),
+            ("tif_bilevel_black_deflate_tiles", grey[:45] > 140, 1,
+             dict(bits=1, compression=8, tile=(16, 16))),
+            ("tif_pal1_lzw", grey > 128, 3, dict(bits=1, compression=5, colormap=cmap[:6])),
+            ("tif_pal2_raw", grey[:, :59] >> 6, 3, dict(bits=2, colormap=cmap[:12])),
+            ("tif_pal4_tiles_deflate", grey[:45, :61] >> 4, 3,
+             dict(bits=4, compression=32946, tile=(16, 16), colormap=cmap[:48])),
+            ("tif_pal8_packbits", grey, 3, dict(compression=32773, colormap=cmap)),
+            ("tif_pal8_planar_lzw_pred", grey, 3,
+             dict(compression=5, predictor=2, planar=2, colormap=cmap)),
+            ("tif_grey4_white_lzw", grey >> 4, 0, dict(bits=4, compression=5)),
+            ("tif_cmyk_lzw", cmyk, 5, dict(compression=5, rows_per_strip=12)),
+            ("tif_cmyk16_mm", wide16[:30], 5, dict(byteorder=">", rows_per_strip=8)),
+            ("tif_f32_tiles_deflate_pred3", depth[:45, :61], 1,
+             dict(compression=8, predictor=3, sample_format=3, tile=(16, 16))),
+            ("tif_f32_mm_lzw_pred3", depth, 1,
+             dict(compression=5, predictor=3, sample_format=3, byteorder=">",
+                  rows_per_strip=16)),
+            ("tif_f32_raw_mm", depth[:, :40], 1, dict(sample_format=3, byteorder=">")),
+            ("tif_f32_white_deflate", depth[:20], 0, dict(compression=32946, sample_format=3)),
+            ("tif_i32_lzw_pred2", ints, 1, dict(compression=5, predictor=2, sample_format=2)),
+            ("tif_i32_mm_raw", ints[:31], 1, dict(sample_format=2, byteorder=">")),
+            ("tif_u32_raw", ints.view(np.uint32)[:, :50], 1, {}),
+            ("tif_i16s_deflate_pred2", (ints >> 14).astype(np.int16), 1,
+             dict(compression=8, predictor=2, sample_format=2)),
+            ("tif_i16s_mm_raw", (ints >> 15).astype(np.int16)[:40], 1,
+             dict(sample_format=2, byteorder=">")),
+            ("tif_i16s_mm_lzw", (ints >> 15).astype(np.int16)[:33], 1,
+             dict(compression=5, sample_format=2, byteorder=">")),
+            ("tif_jpeg_ycbcr420_tiles", ycc[:45, :61], 6,
+             dict(compression=7, tile=(16, 16), jpeg=dict(sampling=((2, 2), (1, 1), (1, 1)),
+                                                         subsampling=(2, 2)))),
+            ("tif_jpeg_ycbcr422_strips", ycc[:45, :61], 6,
+             dict(compression=7, rows_per_strip=16,
+                  jpeg=dict(sampling=((2, 1), (1, 1), (1, 1)), subsampling=(2, 1),
+                            quality=80))),
+            ("tif_jpeg_ycbcr420_inline_tables", ycc, 6,
+             dict(compression=7, rows_per_strip=8,
+                  jpeg=dict(sampling=((2, 2), (1, 1), (1, 1)), tables=False))),
+            ("tif_jpeg_ycbcr444_mm_tiles", ycc[:, :61], 6,
+             dict(compression=7, byteorder=">", tile=(32, 32),
+                  jpeg=dict(sampling=((1, 1),) * 3, subsampling=(1, 1), quality=95))),
+            ("tif_jpeg_rgb_tiles", crop[:45, :61], 2,
+             dict(compression=7, tile=(16, 16), jpeg=dict(quality=85))),
+            ("tif_jpeg_grey_strips", grey[:37], 1, dict(compression=7, rows_per_strip=16)),
+            ("tif_jpeg_cmyk_strips", cmyk[:40], 5, dict(compression=7, rows_per_strip=24)),
+            ("tif_orientation6_lzw", crop[:30, :48], 2,
+             dict(compression=5, tags=[(274, 3, [6])]))):
+        out.append((name + ".tif", tiff_bytes(vals, photometric, **kw)))
+    levels = (grey.astype(np.int64) * 1000 // 255, grey.astype(np.int64) * 4095 // 255)
+    for name, blob in (
+            ("pnm_p1", pnm_bytes(grey[:20, :30] > 120, b"P1", comment=b" bits")),
+            ("pnm_p1_packed", pnm_bytes(grey[:9, :13] > 90, b"P1", ascii_sep=b"")),
+            ("pnm_p2", pnm_bytes(grey[:16, :24], b"P2", 255, ascii_sep=b"\n")),
+            ("pnm_p2_1000", pnm_bytes(levels[0][:20, :20], b"P2", 1000, comment=b"x")),
+            ("pnm_p3", pnm_bytes(crop[:12, :20], b"P3", 255, ascii_sep=b"\t")),
+            ("pnm_p3_4095", pnm_bytes(levels[1][:10, :12, None].repeat(3, 2), b"P3", 4095)),
+            ("pnm_p4", pnm_bytes(grey[:, :61] > 120, b"P4")),
+            ("pnm_p5", pnm_bytes(grey, b"P5", 255, comment=b" grey")),
+            ("pnm_p5_100", pnm_bytes(grey[:, :50] * 100 // 255, b"P5", 100)),
+            ("pnm_p5_65535", pnm_bytes(wide16[..., 0], b"P5", 65535)),
+            ("pnm_p5_4095", pnm_bytes(levels[1], b"P5", 4095, header_sep=b" ")),
+            ("pnm_p6", pnm_bytes(crop, b"P6", 255)),
+            ("pnm_p6_65535", pnm_bytes(wide16[..., :3], b"P6", 65535)),
+            ("pnm_pf_little", pnm_bytes(depth, b"Pf", scale=-1.0)),
+            ("pnm_pf_big", pnm_bytes(depth[:30], b"Pf", scale=2.5))):
+        suffix = {b"P1": "pbm", b"P4": "pbm", b"P2": "pgm", b"P5": "pgm", b"Pf": "pfm"}.get(
+            blob[:2], "ppm")
+        out.append((f"{name}.{suffix}", blob))
+    pal = rng.integers(0, 256, (256, 4)).astype(np.uint8)
+    bgr = np.ascontiguousarray(crop[..., ::-1])
+    bgra = np.concatenate([bgr, alpha[..., None]], axis=2)
+    runs = bgr.copy()
+    runs[10:30, 5:50] = runs[10, 5]  # long runs inside rows
+    p15 = (crop.astype(np.uint16) >> 3)
+    p15 = ((p15[..., 0] << 10) | (p15[..., 1] << 5) | p15[..., 2] | (
+        (alpha > 127).astype(np.uint16) << 15)).astype("<u2")
+    for name, blob in (
+            ("tga_t1_cmap24_first", tga_bytes(grey >> 2, 1, 8, pal[:200, :3], first_entry=5,
+                                             id_field=b"colour map from entry 5")),
+            ("tga_t1_cmap16_topdown", tga_bytes(grey >> 3, 1, 8, pal[:32, :2], map_depth=16,
+                                               top_down=True)),
+            ("tga_t2_24", tga_bytes(bgr, 2, 24)),
+            ("tga_t2_32_right_to_left", tga_bytes(bgra, 2, 32, right_to_left=True,
+                                                  descriptor=8)),
+            ("tga_t2_16", tga_bytes(p15.view(np.uint8).reshape(48, 64, 2), 2, 16)),
+            ("tga_t3_8_id", tga_bytes(grey, 3, 8, id_field=b"grey")),
+            ("tga_t3_16", tga_bytes(np.stack([grey, alpha], 2), 3, 16, top_down=True)),
+            ("tga_t3_1", tga_bytes(np.packbits(grey > 120, axis=1), 3, 1)),
+            ("tga_t3_8_cmap", tga_bytes(grey, 3, 8, pal[:8, :3])),
+            ("tga_t9_rle_cmap", tga_bytes(grey >> 4, 9, 8, pal[:16, :3], first_entry=2,
+                                          rows_per_packet_run=1)),
+            ("tga_t10_rle_24_rows", tga_bytes(runs, 10, 24, rows_per_packet_run=1)),
+            ("tga_t10_rle_24_literals_across", tga_bytes(bgr, 10, 24, max_packet=100)),
+            ("tga_t10_rle_32_topdown", tga_bytes(bgra, 10, 32, top_down=True,
+                                                 rows_per_packet_run=1, descriptor=8)),
+            ("tga_t10_rle_16", tga_bytes(p15.view(np.uint8).reshape(48, 64, 2), 10, 16,
+                                         rows_per_packet_run=1)),
+            ("tga_t11_rle_8", tga_bytes(grey >> 3 << 3, 11, 8, rows_per_packet_run=1)),
+            ("tga_t11_rle_16_right_to_left", tga_bytes(np.stack([grey, alpha], 2), 11, 16,
+                                                       rows_per_packet_run=1,
+                                                       right_to_left=True))):
+        out.append((name + ".tga", blob))
+    smooth = np.concatenate([crop, alpha[..., None]], 2)
+    out += [("qoi_rgb.qoi", qoi_bytes(crop)), ("qoi_rgba.qoi", qoi_bytes(smooth)),
+            ("qoi_rgb_as_rgba.qoi", qoi_bytes(crop, channels=4)),
+            ("qoi_rgba_only_rgba_ops.qoi", qoi_bytes(smooth[:20], ops=("rgba", "index"))),
+            ("qoi_pil_rgba.qoi", _pil_bytes(Image.fromarray(smooth[:30, :40]), "QOI"))]
+    return out
+
+
+def _pil_bytes(img, fmt, **kw):
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def write_raster(src):
+    """The files of `raster_cases`, the TGA / PPM method directory and the
+    1296x832 tiled JPEG TIFF (module docstring), leaving the other files of
+    `tests/format_fixtures/` as they are; `src` is the 1296x832 view's
+    decode."""
+    import hashlib
+    import json
+
+    from PIL import Image
+
+    from tools.image_writers import pnm_bytes, rgb_to_ycc, tga_bytes, tiff_bytes
+
+    crop = src[300:348, 500:564]
+    for name, blob in raster_cases(crop, alpha_channel(48, 64)):
+        path = os.path.join(FORMATS, name)
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+    metrics = os.path.join(FORMATS, "metrics_tga_ppm")
+    shutil.rmtree(metrics, ignore_errors=True)
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    for i, (y, x) in enumerate(((240, 420), (540, 860))):
+        render, gt = src[y:y + 48, x:x + 64], src[y + 1:y + 49, x + 3:x + 67]
+        for d, img in (("renders", render), ("gt", gt)):
+            name = f"{i:05d}." + ("tga" if i == 0 else "ppm")
+            blob = (tga_bytes(np.ascontiguousarray(img[..., ::-1]), 10, 24,
+                              rows_per_packet_run=1) if i == 0 else pnm_bytes(img, b"P6", 255))
+            path = os.path.join(metrics, d, name)
+            with open(path, "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
+    tiff = os.path.join(OUT, "tiff", "scene_1296x832_jpeg_ycbcr420_tiled.tif")
+    os.makedirs(os.path.dirname(tiff), exist_ok=True)
+    with open(tiff, "wb") as f:
+        f.write(tiff_bytes(rgb_to_ycc(src), 6, compression=7, tile=(256, 256),
+                           jpeg=dict(sampling=((2, 2), (1, 1), (1, 1)), subsampling=(2, 2),
+                                     quality=90)))
+    pil = np.asarray(Image.open(tiff))
+    with open(RASTER_SHA, "w") as f:
+        json.dump({"dtype": str(pil.dtype), "shape": list(pil.shape),
+                   "sha256": hashlib.sha256(pil.tobytes()).hexdigest()}, f, indent=1)
+        f.write("\n")
+
+
 def write_formats(src):
     """`tests/format_fixtures/` (module docstring); `src` is the 1296x832
     view's decode."""
@@ -509,10 +727,13 @@ def write_formats(src):
 def main(argv=None) -> int:
     from PIL import Image, ImageFile
 
-    if "--formats" in (argv or sys.argv[1:]):
+    args = argv or sys.argv[1:]
+    if "--formats" in args or "--raster" in args:
         decoded = np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg")))
-        write_formats(decoded)
-        write_dataset_webps(decoded)
+        if "--formats" in args:
+            write_formats(decoded)
+            write_dataset_webps(decoded)
+        write_raster(decoded)
         return 0
 
     from wast3d_tpu_torch.scene import colmap as cm
@@ -574,6 +795,7 @@ def main(argv=None) -> int:
                      np.asarray(Image.fromarray(img).resize(size)))
     write_formats(decoded)
     write_dataset_webps(decoded)
+    write_raster(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")
     return 0

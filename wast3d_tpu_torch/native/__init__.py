@@ -8,11 +8,14 @@ baseline and progressive, 1, 3 or 4 components, any integral sampling;
 `jpeg.cpp`, with its upsampler alone as `jpeg_upsample`), and the byte loops
 of the other readers (`image.cpp`): PNG unfiltering and Adam7 at every bit
 depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
-(`bmp_rle`), TIFF LZW and PackBits (`lzw_decode`, `packbits_decode`), and
-PIL's bicubic resize (`resize_u8`); and the WebP and GIF bitstreams
+(`bmp_rle`), TIFF LZW and PackBits (`lzw_decode`, `packbits_decode`), TGA
+run lengths (`tga_rle`), QOI (`qoi_decode`) and PIL's bicubic resize
+(`resize_u8`); and the WebP and GIF bitstreams
 (`webp.cpp`): lossless (`vp8l_decode`), lossy (`vp8_decode`, with its inverse
 transforms alone as `vp8_idct` and its YUV -> RGB as `yuv_to_rgba`), ALPH
-chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`). `utils/image_io.py` and
+chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`). A JPEG inside a TIFF
+goes through the same decoder with the TIFF's colour space
+(`decode_jpeg(..., colour=...)`, `jpeg_frame`). `utils/image_io.py` and
 `utils/png.py` hold the plain version of each stage that stands alone.
 
 The library is built lazily by `_build.build_native` (one `g++` call into a
@@ -81,6 +84,14 @@ _SIGNATURES = {
                           _c.c_char_p, _c.c_int32], _c.c_int),
     "w3d_gif_lzw": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_int64, _c.c_char_p,
                      _c.c_int32], _c.c_int64),
+    "w3d_jpeg_frame": ([_c.c_char_p, _c.c_int64, _c.POINTER(_c.c_int32), _c.c_char_p, _c.c_int32],
+                       _c.c_int),
+    "w3d_jpeg_decode_as": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_int64,
+                            _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_tga_rle": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int64, _c.c_int64, _c.c_void_p,
+                     _c.c_char_p, _c.c_int32], _c.c_int64),
+    "w3d_qoi_decode": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int32, _c.c_void_p,
+                        _c.c_char_p, _c.c_int32], _c.c_int),
 }
 
 
@@ -169,12 +180,14 @@ def _message(msg) -> str:
     return msg.value.decode(errors="replace")
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def decode_jpeg(data: bytes, name: str = "<bytes>", colour: int = 0) -> np.ndarray:
     """Baseline or progressive JPEG bytes -> uint8 [H, W, 3], [H, W, 4] for
     CMYK / YCCK (PIL's inverted "CMYK;I"), or [H, W] for grayscale (what
     `np.asarray(PIL.Image.open(...))` gives). Other kinds of JPEG, and files
     PIL would not decode to these pixels, raise `ValueError` naming `name`
-    and the reason."""
+    and the reason. `colour` overrides the stream's colour space as libtiff
+    does for a TIFF's strips and tiles: 1 converts YCbCr to RGB, 2 gives the
+    components as coded."""
     lib = library()
     msg = ctypes.create_string_buffer(256)
     w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
@@ -183,9 +196,20 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise ValueError(f"{name}: {_message(msg)}")
     shape = (h.value, w.value) if c.value == 1 else (h.value, w.value, c.value)
     out = np.empty(shape, np.uint8)
-    if lib.w3d_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, msg, len(msg)) != 0:
+    if lib.w3d_jpeg_decode_as(data, len(data), colour, out.ctypes.data, out.nbytes, msg,
+                              len(msg)) != 0:
         raise ValueError(f"{name}: {_message(msg)}")
     return out
+
+
+def jpeg_frame(data: bytes, name: str = "<bytes>") -> Tuple[int, int, Tuple[Tuple[int, int], ...]]:
+    """A JPEG stream's (width, height, each component's (h, v) sampling
+    factors), from its frame header."""
+    info = (ctypes.c_int32 * 7)()
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_jpeg_frame(data, len(data), info, msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return info[0], info[1], tuple((f >> 4, f & 15) for f in info[3:3 + info[2]])
 
 
 def read_jpeg(path: str) -> np.ndarray:
@@ -365,3 +389,29 @@ def gif_lzw(data: bytes, min_code_size: int, out_size: int, name: str = "<bytes>
     if n < 0:
         raise ValueError(f"{name}: {_message(msg)}")
     return out[:n]
+
+
+def tga_rle(data: bytes, depth: int, row_bytes: int, rows: int,
+            name: str = "<bytes>") -> np.ndarray:
+    """TGA run-length packets of `depth`-byte pixels -> uint8 [rows,
+    row_bytes], rows in file order, as Pillow's TgaRleDecode reads them
+    (`image.cpp`); a repeat past the end of its row or too little data
+    raises `ValueError`."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_tga_rle(data, len(data), depth, row_bytes, rows, out.ctypes.data, msg,
+                             len(msg)) < 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def qoi_decode(data: bytes, width: int, height: int, channels: int,
+               name: str = "<bytes>") -> np.ndarray:
+    """A QOI file's ops (after its 14-byte header) -> uint8 [height, width,
+    channels] as Pillow's QoiDecoder reads them (`image.cpp`)."""
+    out = np.empty((height, width, channels), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_qoi_decode(data, len(data), width * height, channels, out.ctypes.data, msg,
+                                len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out

@@ -1,6 +1,7 @@
 // wast3d_tpu_torch native image code: the byte loops of the image readers
 // (PNG unfiltering and de-interlacing, sub-byte unpacking, BMP run lengths,
-// TIFF LZW and PackBits) and PIL's bicubic resize of 8-bit images.
+// TIFF LZW and PackBits, TGA run lengths, QOI) and PIL's bicubic resize of
+// 8-bit images.
 //
 // Datasets ship PNG, JPEG, BMP and TIFF images and the card's machine has no
 // PIL. `utils/png.py` and `utils/image_io.py` parse the headers, inflate
@@ -23,9 +24,15 @@
 //   w3d_bmp_rle: BMP RLE8 / RLE4 as Pillow's BmpRleDecoder reads them
 //     (rows in file order, a run clipped to its row, absolute runs padded
 //     to an even file offset, deltas and ends of line filled with zeros).
-//   w3d_lzw_decode: TIFF LZW (codes from the most significant bit, 9 to 12
-//     bits, widened one code early; Clear 256, EOI 257).
+//   w3d_lzw_decode: TIFF LZW as libtiff's LZWDecode reads it (codes from the
+//     most significant bit, 9 to 12 bits, widened one code early; Clear 256
+//     first, EOI 257; a code past the table, or a table that runs past 5119
+//     entries, is an error); stops once `out_size` bytes are out.
 //   w3d_packbits_decode: TIFF PackBits.
+//   w3d_tga_rle: TGA run-length packets as Pillow's TgaRleDecode reads them,
+//     rows of `row_bytes` in file order.
+//   w3d_qoi_decode: a QOI file's ops as Pillow's QoiDecoder reads them, RGB or
+//     RGBA by `channels`.
 //   w3d_resize_u8: Pillow's ImagingResample for 8-bit images with its
 //     default filter (bicubic, a = -0.5; src/libImaging/Resample.c):
 //     weights computed in double as precompute_coeffs does, normalised,
@@ -35,7 +42,8 @@
 //     images with alpha stays in Python (`utils/png._premultiplied`).
 //
 // C ABI (ctypes); each returns 0 (w3d_bmp_rle, w3d_lzw_decode,
-// w3d_packbits_decode: the bytes written) on success and -1 on failure, with
+// w3d_packbits_decode: the bytes written; w3d_tga_rle: the bytes read) on
+// success and -1 on failure, with
 // a NUL-terminated reason in msg:
 //   w3d_png_unfilter(raw, raw_size, height, width, channels, bits, interlaced,
 //                    out, msg, msg_len)
@@ -43,6 +51,8 @@
 //   w3d_bmp_rle(file, size, start, width, height, rle4, out, msg, msg_len)
 //   w3d_lzw_decode(in, size, out, out_size, msg, msg_len)
 //   w3d_packbits_decode(in, size, out, out_size, msg, msg_len)
+//   w3d_tga_rle(in, size, depth, row_bytes, rows, out, msg, msg_len)
+//   w3d_qoi_decode(in, size, pixels, channels, out, msg, msg_len)
 //   w3d_resize_u8(in, height, width, channels, out, out_height, out_width,
 //                 msg, msg_len)                    out: out_height x out_width x channels
 
@@ -247,9 +257,12 @@ int64_t bmp_rle(const uint8_t* in, size_t size, size_t start, int64_t w, int64_t
 
 int64_t lzw_decode(const uint8_t* in, size_t size, uint8_t* out, int64_t out_size) {
   if (size >= 2 && in[0] == 0 && (in[1] & 1)) fail("old-style (LSB-first) TIFF LZW is not supported");
-  std::vector<int32_t> prefix(4096);
-  std::vector<uint8_t> suffix(4096), first(4096);
-  std::vector<int32_t> length(4096);
+  // libtiff's table: 12-bit codes, entries counted on to 5119 (unreachable
+  // past 4095), after which the next code that adds one is an error.
+  const int kEnd = 4096 + 1023;
+  std::vector<int32_t> prefix(kEnd);
+  std::vector<uint8_t> suffix(kEnd), first(kEnd);
+  std::vector<int32_t> length(kEnd, 0);
   for (int i = 0; i < 256; ++i) {
     prefix[i] = -1;
     suffix[i] = first[i] = static_cast<uint8_t>(i);
@@ -257,11 +270,11 @@ int64_t lzw_decode(const uint8_t* in, size_t size, uint8_t* out, int64_t out_siz
   }
   std::vector<uint8_t> stack(4096);
   int64_t n = 0;
-  int next = 258, width = 9, old = -1;
+  int next = 258, width = 9, old = -2;  // -2: no Clear yet, -1: just cleared
   uint64_t buf = 0;
   int have = 0;
   size_t pos = 0;
-  for (;;) {
+  while (n < out_size) {
     while (have < width && pos < size) {
       buf = (buf << 8) | in[pos++];
       have += 8;
@@ -271,38 +284,32 @@ int64_t lzw_decode(const uint8_t* in, size_t size, uint8_t* out, int64_t out_siz
     have -= width;
     if (code == 257) break;
     if (code == 256) {
+      std::fill(length.begin() + 258, length.end(), 0);
       next = 258;
       width = 9;
       old = -1;
       continue;
     }
-    int cur;
-    if (old < 0) {
-      if (code > 255) fail("corrupt LZW data (first code " + std::to_string(code) + ")");
-      cur = code;
-    } else if (code < next) {
-      cur = code;
-      if (next < 4096) {
-        prefix[next] = old;
-        suffix[next] = first[code];
-        first[next] = first[old];
-        length[next] = length[old] + 1;
-        ++next;
-      }
-    } else if (code == next && next < 4096) {
+    if (old == -2) fail("corrupt LZW data (a strip must start with a Clear code)");
+    int cur = code;
+    if (old == -1) {
+      if (code > 256) fail("corrupt LZW data (code " + std::to_string(code) + " after Clear)");
+    } else {
+      if (next >= kEnd) fail("corrupt LZW data (the table overflows without a Clear code)");
       prefix[next] = old;
-      suffix[next] = first[old];
       first[next] = first[old];
       length[next] = length[old] + 1;
-      cur = next++;
-    } else {
-      fail("corrupt LZW data (code " + std::to_string(code) + " past the table)");
+      suffix[next] = code < next ? first[code] : first[old];
+      ++next;
+      if (length[code] == 0) {
+        fail("corrupt LZW data (code " + std::to_string(code) + " not yet in the table)");
+      }
+      if (next > (1 << width) - 2 && width < 12) ++width;  // early change
     }
     int k = length[cur];
     for (int c = cur, i = k - 1; i >= 0; --i, c = prefix[c]) stack[i] = suffix[c];
     for (int i = 0; i < k && n < out_size; ++i) out[n++] = stack[i];
     old = cur;
-    if (next + 1 >= (1 << width) && width < 12) ++width;  // early change
   }
   return n;
 }
@@ -440,6 +447,96 @@ void resize_u8(const uint8_t* in, int h, int w, int c, uint8_t* out, int oh, int
   vertical(tmp.data(), ow, c, first, kv, oh, out);
 }
 
+// ---- TGA run lengths and QOI ------------------------------------------------
+
+// Pillow's TgaRleDecode.c: a header byte, then one pixel repeated (high bit
+// set) or that many pixels as stored, 1 to 128 pixels of `depth` bytes. A
+// literal may run on into the next row; a repeat past the end of its row is
+// Pillow's overrun. Returns the bytes of data read.
+int64_t tga_rle(const uint8_t* in, int64_t size, int depth, int64_t row_bytes, int64_t rows,
+                uint8_t* out) {
+  if (depth < 1 || row_bytes < 1 || rows < 1 || row_bytes % depth) fail("bad TGA run-length shape");
+  const int64_t total = row_bytes * rows;
+  int64_t pos = 0, done = 0;
+  while (done < total && pos < size) {
+    const int head = in[pos];
+    const int64_t n = static_cast<int64_t>(depth) * ((head & 0x7F) + 1);
+    if (head & 0x80) {
+      if (pos + 1 + depth > size) break;
+      if (done % row_bytes + n > row_bytes) {
+        fail("a TGA run passes the end of its row (PIL: buffer overrun)");
+      }
+      for (int64_t i = 0; i < n; i += depth) memcpy(out + done + i, in + pos + 1, depth);
+      pos += 1 + depth;
+      done += n;
+    } else {
+      if (pos + 1 + n > size) break;
+      const int64_t m = std::min(n, total - done);
+      memcpy(out + done, in + pos + 1, static_cast<size_t>(m));
+      pos += 1 + n;
+      done += m;
+    }
+  }
+  if (done < total) {
+    fail("TGA run-length data truncated (" + std::to_string(done) + " of " +
+         std::to_string(total) + " bytes)");
+  }
+  return pos;
+}
+
+// Pillow's QoiDecoder: the index starts at zeros (an unseen slot reads as 0,
+// 0, 0, 0), every op but a run stores its pixel there, the previous pixel
+// starts at 0, 0, 0, 255, a run may pass the last pixel (the rest is
+// dropped), and the end marker is not read.
+void qoi_decode(const uint8_t* in, int64_t size, int64_t pixels, int channels, uint8_t* out) {
+  if (channels != 3 && channels != 4) fail("QOI output must have 3 or 4 channels");
+  uint8_t index[64][4] = {};
+  uint8_t prev[4] = {0, 0, 0, 255};
+  int64_t pos = 0, done = 0;
+  auto need = [&](int64_t n) {
+    if (pos + n > size) {
+      fail("QOI data truncated (" + std::to_string(done) + " of " + std::to_string(pixels) +
+           " pixels)");
+    }
+  };
+  while (done < pixels) {
+    need(1);
+    const int b = in[pos++];
+    uint8_t px[4];
+    if (b == 0xFE || b == 0xFF) {  // RGB keeps the previous alpha
+      const int n = b == 0xFE ? 3 : 4;
+      need(n);
+      px[3] = prev[3];
+      memcpy(px, in + pos, n);
+      pos += n;
+    } else if ((b >> 6) == 0) {
+      memcpy(px, index[b], 4);
+    } else if ((b >> 6) == 1) {
+      px[0] = static_cast<uint8_t>(prev[0] + ((b >> 4) & 3) - 2);
+      px[1] = static_cast<uint8_t>(prev[1] + ((b >> 2) & 3) - 2);
+      px[2] = static_cast<uint8_t>(prev[2] + (b & 3) - 2);
+      px[3] = prev[3];
+    } else if ((b >> 6) == 2) {
+      need(1);
+      const int b2 = in[pos++];
+      const int dg = (b & 0x3F) - 32;
+      px[0] = static_cast<uint8_t>(prev[0] + dg + ((b2 >> 4) & 15) - 8);
+      px[1] = static_cast<uint8_t>(prev[1] + dg);
+      px[2] = static_cast<uint8_t>(prev[2] + dg + (b2 & 15) - 8);
+      px[3] = prev[3];
+    } else {
+      for (int r = (b & 0x3F) + 1; r > 0 && done < pixels; --r, ++done) {
+        memcpy(out + done * channels, prev, static_cast<size_t>(channels));
+      }
+      continue;
+    }
+    memcpy(prev, px, 4);
+    memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px, 4);
+    memcpy(out + done * channels, px, static_cast<size_t>(channels));
+    ++done;
+  }
+}
+
 }  // namespace
 
 #define W3D_GUARD(body)                    \
@@ -487,6 +584,16 @@ int w3d_resize_u8(const uint8_t* in, int32_t height, int32_t width, int32_t chan
                   uint8_t* out, int32_t out_height, int32_t out_width, char* msg,
                   int32_t msg_len) {
   W3D_GUARD(resize_u8(in, height, width, channels, out, out_height, out_width); return 0)
+}
+
+int64_t w3d_tga_rle(const uint8_t* in, int64_t size, int32_t depth, int64_t row_bytes,
+                    int64_t rows, uint8_t* out, char* msg, int32_t msg_len) {
+  W3D_GUARD(return tga_rle(in, size, depth, row_bytes, rows, out))
+}
+
+int w3d_qoi_decode(const uint8_t* in, int64_t size, int64_t pixels, int32_t channels,
+                   uint8_t* out, char* msg, int32_t msg_len) {
+  W3D_GUARD(qoi_decode(in, size, pixels, channels, out); return 0)
 }
 
 }  // extern "C"

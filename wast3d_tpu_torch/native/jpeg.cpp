@@ -37,6 +37,11 @@
 // C ABI (ctypes):
 //   w3d_jpeg_info(data, size, &width, &height, &channels, msg, msg_len)
 //   w3d_jpeg_decode(data, size, out, out_size, msg, msg_len)
+//   w3d_jpeg_decode_as(data, size, colour, out, out_size, msg, msg_len): the
+//     colour space given, as a TIFF gives it (0: the file's own markers, 1:
+//     YCbCr -> RGB, 2: the components as coded)
+//   w3d_jpeg_frame(data, size, info, msg, msg_len): info = width, height,
+//     components, then 16 h + v of each component's sampling factors
 //   w3d_jpeg_upsample(plane, stride, width, height, rh, rv, out, out_width,
 //                     out_height, msg, msg_len)
 // Each returns 0 on success and -1 on failure, with a NUL-terminated reason
@@ -213,6 +218,8 @@ class Decoder {
     output(out);
   }
 
+  void set_colour(int colour) { colour_ = colour; }
+  int sampling(int c) const { return comp_[c].h * 16 + comp_[c].v; }
   int width() const { return width_; }
   int height() const { return height_; }
   int channels() const { return ncomp_; }
@@ -880,9 +887,15 @@ class Decoder {
     // else an Adobe marker's transform 0 means RGB; else component ids 'R',
     // 'G', 'B' mean RGB. Four: an Adobe transform other than 0 means YCCK,
     // else CMYK.
+    // A TIFF's strips and tiles name their colour space in the TIFF's tags
+    // instead (libtiff's JPEGPreDecode): colour_ 1 is YCbCr -> RGB, 2 leaves
+    // every component as coded (JCS_UNKNOWN, no inversion).
     const int nc = ncomp_;
     bool convert = true;
-    if (nc == 3 && !saw_jfif_) {
+    if (colour_ != 0) {
+      if (colour_ == 1 && nc != 3) fail("YCbCr -> RGB needs 3 components");
+      convert = colour_ == 1;
+    } else if (nc == 3 && !saw_jfif_) {
       convert = saw_adobe_ ? adobe_transform_ != 0
                            : !(comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B');
     } else if (nc == 4) {
@@ -906,9 +919,9 @@ class Decoder {
         }
         // YCCK -> CMYK inverts C, M and Y (ycck_cmyk_convert); PIL's
         // "CMYK;I" then inverts all four, so C, M and Y come out as RGB.
-        if (nc == 4 && !convert) {
+        if (nc == 4 && !convert && colour_ == 0) {
           for (int c = 0; c < 4; ++c) o[c] = static_cast<uint8_t>(255 - o[c]);
-        } else if (nc == 4) {
+        } else if (nc == 4 && convert) {
           o[3] = static_cast<uint8_t>(255 - o[3]);
         }
       }
@@ -929,6 +942,7 @@ class Decoder {
   int eobrun_ = 0;
   bool saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = -1;
+  int colour_ = 0;
   uint32_t bitbuf_ = 0;
   int bitcnt_ = 0;
   bool hit_marker_ = false;
@@ -960,11 +974,29 @@ int w3d_jpeg_info(const uint8_t* data, int64_t size, int32_t* width, int32_t* he
   return -1;
 }
 
-int w3d_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out_size, char* msg,
-                    int32_t msg_len) {
+int w3d_jpeg_frame(const uint8_t* data, int64_t size, int32_t* info, char* msg, int32_t msg_len) {
   try {
     Decoder d(data, static_cast<size_t>(size));
     d.header();
+    info[0] = d.width();
+    info[1] = d.height();
+    info[2] = d.channels();
+    for (int c = 0; c < d.channels(); ++c) info[3 + c] = d.sampling(c);
+    return 0;
+  } catch (const DecodeError& e) {
+    set_message(msg, msg_len, e.msg);
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+  }
+  return -1;
+}
+
+int w3d_jpeg_decode_as(const uint8_t* data, int64_t size, int32_t colour, uint8_t* out,
+                       int64_t out_size, char* msg, int32_t msg_len) {
+  try {
+    Decoder d(data, static_cast<size_t>(size));
+    d.header();
+    d.set_colour(colour);
     int64_t need = static_cast<int64_t>(d.width()) * d.height() * d.channels();
     if (out_size < need) {
       set_message(msg, msg_len, "output buffer too small");
@@ -978,6 +1010,11 @@ int w3d_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out
     set_message(msg, msg_len, e.what());
   }
   return -1;
+}
+
+int w3d_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out_size, char* msg,
+                    int32_t msg_len) {
+  return w3d_jpeg_decode_as(data, size, 0, out, out_size, msg, msg_len);
 }
 
 int w3d_jpeg_upsample(const uint8_t* plane, int64_t stride, int32_t width, int32_t height,

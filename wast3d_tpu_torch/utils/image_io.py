@@ -12,11 +12,21 @@ dispatching on the file's signature, never on its extension:
   "P" indices, or "1" / "L" when the palette is black and white or the
   identity greys; 16-, 24- and 32-bit BI_RGB as RGB; BI_BITFIELDS layouts
   as RGB or RGBA), RLE8 / RLE4, bottom-up or top-down;
-- `II*\\0` / `MM\\0*`: TIFF (`decode_tiff`): strips of chunky samples,
-  8-bit L, LA, RGB, RGBA (and their ExtraSamples variants), WhiteIsZero L,
-  16-bit grey ("I;16", or "I;16B" for big-endian files) and 16-bit RGB(A)
-  as the high byte of each sample; compression none, PackBits, LZW or
-  Deflate (8, 32946), predictor 1 or 2;
+- `II*\\0` / `MM\\0*`: TIFF (`decode_tiff`), the first image as Pillow
+  reads it (its own raw decoder for uncompressed files, libtiff for the
+  rest): strips or tiles (edge tiles cropped), chunky or separate planes,
+  fill order 1 or 2; the modes of Pillow's OPEN_INFO: bilevel ("1", bools
+  holding 0 / 255), 2- and 4-bit grey scaled to "L", 8-bit L / LA / RGB(A)
+  with their ExtraSamples variants, palette indices at 1, 2, 4 and 8 bits
+  ("P", "PA"), CMYK at 8 and 16 bits, 16-bit grey ("I;16", "I;16B"), signed
+  16-bit and 32-bit integers ("I"), 32-bit float ("F"), 16-bit RGB(A) as the
+  high byte of each sample; compression none, PackBits, LZW, Deflate (8,
+  32946) or JPEG (7: abbreviated streams after the JPEGTables, YCbCr turned
+  to RGB by libjpeg's upsampling and colour tables, other colour spaces as
+  coded); predictor 1, 2 or 3 (libtiff's floating-point predictor); the
+  Orientation tag applied as PIL's exif_transpose does; and Pillow's and
+  libtiff's quirks (a separate-planes file's band copies and unpacking,
+  signed and float samples of big-endian compressed files left swapped);
 - `RIFF` .... `WEBP` with a `VP8 `, `VP8L` or `VP8X` chunk: WebP
   (`decode_webp`), as PIL reads it through libwebp's WebPAnimDecoder: lossy
   (RGB, or RGBA with an ALPH chunk, raw or lossless, any filter), lossless
@@ -27,18 +37,32 @@ dispatching on the file's signature, never on its extension:
 - `GIF87a` / `GIF89a`: GIF (`decode_gif`), the first image as GifImagePlugin
   loads it: palette indices ("P"), or grey levels ("L") when the colour
   table is the identity grey ramp or absent, on the logical screen (grown to
-  hold the frame) filled with the transparent index, or 0, outside the frame.
+  hold the frame) filled with the transparent index, or 0, outside the frame;
+- `P` and one of `0123456fy`: Netpbm (`decode_pnm`), as PpmImagePlugin
+  reads it: P1-P6 ASCII and binary, comments and whitespace as its parser
+  takes them, maxval up to 65535 (grey past 255 as "I", RGB scaled to 8
+  bits), PIL's own P0CMYK / PyP / PyRGBA / PyCMYK, and Pf (PFM, "F": rows
+  bottom-up, the scale's sign choosing the byte order);
+- `qoif`: QOI (`decode_qoi`), RGB or RGBA by the header's channel count, as
+  Pillow's QoiDecoder reads the ops;
+- TGA (`decode_tga`), which has no signature: tried last, with
+  TgaImageFile's header checks, as PIL tries it after every format with
+  one: types 1/2/3 and their run-length forms 9/10/11 at 1, 8, 16, 24 and
+  32 bits, colour maps from a first entry index, the ID field, the origin
+  and right-to-left bits, run-length literals that run across rows.
 
 Anything else raises `ValueError` naming the file and, for an unknown
 signature, its first bytes; a TIFF outside these names the tag and its
-value. A WebP or GIF of more pixels than PIL opens (twice
-`PIL.Image.MAX_IMAGE_PIXELS`) raises before anything is allocated. The byte
-loops are native (`native/image.cpp`, `native/jpeg.cpp`, `native/webp.cpp`,
-with no fallback); numpy here turns samples into PIL's arrays. The plain
-versions the tests hold the native routines to are here too
-(`bmp_rle_reference`, `lzw_reference`, `packbits_reference`,
+value (CCITT and old-style JPEG compression, YCbCr outside JPEG, separate
+YCbCr planes, 12-bit samples, ...). A file of more pixels than PIL opens
+(twice `PIL.Image.MAX_IMAGE_PIXELS`) raises before anything is allocated.
+The byte loops are native (`native/image.cpp`, `native/jpeg.cpp`,
+`native/webp.cpp`, with no fallback); numpy here turns samples into PIL's
+arrays. The plain versions the tests hold the native routines to are here
+too (`bmp_rle_reference`, `lzw_reference`, `packbits_reference`,
 `jpeg_upsample_reference`, `gif_lzw_reference`, `vp8_idct_reference`,
-`yuv_to_rgba_reference`) and in `utils/png.py`.
+`yuv_to_rgba_reference`, `tga_rle_reference`, `qoi_reference`) and in
+`utils/png.py`.
 """
 
 from __future__ import annotations
@@ -53,6 +77,26 @@ from wast3d_tpu_torch.utils import png
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 _WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
+# Signatures of the formats PIL tries before TGA that this reader does not
+# read (ICO, CUR, PSD, DDS, JPEG 2000, ICNS, BLP, FITS, MSP, EPS, PIXAR, SGI,
+# SUN, MPEG, McIdas, HDF5, BUFR, FTEX, DCX, BigTIFF); TGA's header checks
+# would take some of them.
+_OTHER_SIGNATURES = (b"\x00\x00\x01\x00", b"8BPS", b"DDS ",
+                     b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  ", b"icns", b"BLP1", b"BLP2",
+                     b"SIMPLE", b"DanM", b"LinS", b"%!PS", b"\xc5\xd0\xd3\xc6", b"\x80\xe8\x00\x00",
+                     b"\x01\xda", b"\x59\xa6\x6a\x95", b"\x00\x00\x01\xb3", b"\x00" * 7 + b"\x04",
+                     b"\x89HDF\r\n\x1a\n", b"BUFR", b"ZCZC", b"FTEX", b"\xb1\x68\xde\x3a",
+                     b"II+\x00", b"MM\x00+", b"II\x00*", b"MM*\x00")
+
+
+def _claimed_before_tga(blob: bytes) -> bool:
+    """Whether a format PIL tries before TGA takes these bytes: a signature
+    above, a CUR header naming cursors, PCX (10, then version 0/2/3/5), FLI
+    (0xAF11 / 0xAF12 at 4) or an IPTC record (0x1C, then a record number)."""
+    return (blob.startswith(_OTHER_SIGNATURES) or blob[:4] == b"\x00\x00\x02\x00" and blob[
+        4:6] != b"\x00\x00" or blob[:1] == b"\x0a" and blob[1:2] in (
+        b"\x00", b"\x02", b"\x03", b"\x05") or blob[4:6] in (b"\x11\xaf", b"\x12\xaf")
+        or blob[:1] == b"\x1c" and blob[1:2] != b"" and (1 <= blob[1] <= 9 or blob[1] == 240))
 
 
 def read_image(path: str) -> np.ndarray:
@@ -78,8 +122,16 @@ def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         return decode_webp(blob, name)
     if blob[:6] in (b"GIF87a", b"GIF89a"):
         return decode_gif(blob, name)
-    raise ValueError(f"{name}: not an image this reader knows (PNG, JPEG, BMP, TIFF, WebP or "
-                     f"GIF); it starts with {blob[:8]!r}")
+    if blob[:1] == b"P" and blob[1:2] and blob[1] in b"0123456fy":
+        return decode_pnm(blob, name)
+    if blob[:4] == b"qoif":
+        return decode_qoi(blob, name)
+    # TGA has no signature: PIL tries its header checks after every format
+    # that has one, so a file another of PIL's formats claims is not a TGA.
+    if not _claimed_before_tga(blob) and _tga_header(blob) is not None:
+        return decode_tga(blob, name)
+    raise ValueError(f"{name}: not an image this reader knows (PNG, JPEG, BMP, TIFF, WebP, GIF, "
+                     f"Netpbm, QOI or TGA); it starts with {blob[:8]!r}")
 
 
 # PIL refuses (DecompressionBombError) more pixels than twice MAX_IMAGE_PIXELS.
@@ -275,57 +327,128 @@ def bmp_rle_reference(blob: bytes, start: int, width: int, height: int,
     return np.frombuffer(bytes(data[:total]), np.uint8).reshape(height, width)
 
 
-# ---- TIFF: Pillow's TiffImagePlugin on strips -----------------------------------------
+# ---- TIFF: Pillow's TiffImagePlugin, over libtiff for compressed files --------------
 
-_TIFF_TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q"}
-# (photometric, bits per sample, extra samples) -> (mode, raw mode)
-_TIFF_MODES = {
-    (0, (8,), ()): ("L", "L;I"),
-    (1, (8,), ()): ("L", "L"),
-    (1, (16,), ()): ("I;16", "I;16"),
-    (1, (8, 8), (2,)): ("LA", "LA"),
-    (2, (8, 8, 8), ()): ("RGB", "RGB"),
-    (2, (8, 8, 8, 8), ()): ("RGBA", "RGBA"),
-    (2, (8, 8, 8, 8), (0,)): ("RGB", "RGBX"),
-    (2, (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"),
-    (2, (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"),
-    (2, (8, 8, 8, 8), (999,)): ("RGBA", "RGBA"),
-    (2, (16, 16, 16), ()): ("RGB", "RGB;16"),
-    (2, (16, 16, 16, 16), ()): ("RGBA", "RGBA;16"),
-    (2, (16, 16, 16, 16), (0,)): ("RGB", "RGBX;16"),
-    (2, (16, 16, 16, 16), (1,)): ("RGBA", "RGBa;16"),
-    (2, (16, 16, 16, 16), (2,)): ("RGBA", "RGBA;16"),
-}
-_TAG_NAMES = {259: "Compression", 262: "PhotometricInterpretation", 258: "BitsPerSample",
-              266: "FillOrder", 284: "PlanarConfiguration", 317: "Predictor",
-              322: "TileWidth", 338: "ExtraSamples", 339: "SampleFormat",
-              277: "SamplesPerPixel"}
+# Pillow's OPEN_INFO for the kinds read here: (byte order or None for both,
+# photometric, sample format, fill order, bits per sample, extra samples) ->
+# (mode, raw mode). A fill order 2 raw mode ends in "R" (bits reversed).
+_TIFF_INFO = {}
+for (_p, _b), (_m, _r) in {
+        (0, 1): ("1", "1;I"), (1, 1): ("1", "1"), (0, 2): ("L", "L;2I"), (1, 2): ("L", "L;2"),
+        (0, 4): ("L", "L;4I"), (1, 4): ("L", "L;4"), (0, 8): ("L", "L;I"), (1, 8): ("L", "L"),
+        (3, 1): ("P", "P;1"), (3, 2): ("P", "P;2"), (3, 4): ("P", "P;4"),
+        (3, 8): ("P", "P")}.items():
+    _TIFF_INFO[(None, _p, (1,), 1, (_b,), ())] = (_m, _r)
+    _TIFF_INFO[(None, _p, (1,), 2, (_b,), ())] = (_m, _r + ("R" if ";" in _r else ";R"))
+_TIFF_INFO[("<", 1, (1,), 2, (16,), ())] = ("I;16", "I;16R")
+_TIFF_INFO[(None, 2, (1,), 2, (8, 8, 8), ())] = ("RGB", "RGB;R")
+for _k, _v in {
+        (None, 1, (2,), (8,), ()): ("L", "L"),
+        ("<", 0, (1,), (16,), ()): ("I;16", "I;16"), ("<", 1, (1,), (16,), ()): ("I;16", "I;16"),
+        (">", 1, (1,), (16,), ()): ("I;16B", "I;16B"),
+        ("<", 1, (2,), (16,), ()): ("I", "I;16S"), (">", 1, (2,), (16,), ()): ("I", "I;16BS"),
+        ("<", 0, (3,), (32,), ()): ("F", "F;32F"), (">", 0, (3,), (32,), ()): ("F", "F;32BF"),
+        ("<", 1, (1,), (32,), ()): ("I", "I;32N"),
+        ("<", 1, (2,), (32,), ()): ("I", "I;32S"), (">", 1, (2,), (32,), ()): ("I", "I;32BS"),
+        ("<", 1, (3,), (32,), ()): ("F", "F;32F"), (">", 1, (3,), (32,), ()): ("F", "F;32BF"),
+        (None, 1, (1,), (8, 8), (2,)): ("LA", "LA"),
+        (None, 2, (1,), (8, 8, 8), ()): ("RGB", "RGB"),
+        (None, 2, (1,), (8, 8, 8, 8), ()): ("RGBA", "RGBA"),
+        (None, 2, (1,), (8, 8, 8, 8), (0,)): ("RGB", "RGBX"),
+        (None, 2, (1,), (8,) * 5, (0, 0)): ("RGB", "RGBXX"),
+        (None, 2, (1,), (8,) * 6, (0, 0, 0)): ("RGB", "RGBXXX"),
+        (None, 2, (1,), (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"),
+        (None, 2, (1,), (8,) * 5, (1, 0)): ("RGBA", "RGBaX"),
+        (None, 2, (1,), (8,) * 6, (1, 0, 0)): ("RGBA", "RGBaXX"),
+        (None, 2, (1,), (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"),
+        (None, 2, (1,), (8,) * 5, (2, 0)): ("RGBA", "RGBAX"),
+        (None, 2, (1,), (8,) * 6, (2, 0, 0)): ("RGBA", "RGBAXX"),
+        (None, 2, (1,), (8, 8, 8, 8), (999,)): ("RGBA", "RGBA"),
+        (None, 2, (1,), (16, 16, 16), ()): ("RGB", "RGB;16"),
+        (None, 2, (1,), (16,) * 4, ()): ("RGBA", "RGBA;16"),
+        (None, 2, (1,), (16,) * 4, (0,)): ("RGB", "RGBX;16"),
+        (None, 2, (1,), (16,) * 4, (1,)): ("RGBA", "RGBa;16"),
+        (None, 2, (1,), (16,) * 4, (2,)): ("RGBA", "RGBA;16"),
+        (None, 3, (1,), (8, 8), (0,)): ("P", "PX"),
+        (None, 3, (1,), (8, 8), (2,)): ("PA", "PA"),
+        (None, 5, (1,), (8, 8, 8, 8), ()): ("CMYK", "CMYK"),
+        (None, 5, (1,), (8,) * 5, (0,)): ("CMYK", "CMYKX"),
+        (None, 5, (1,), (8,) * 6, (0, 0)): ("CMYK", "CMYKXX"),
+        (None, 5, (1,), (16,) * 4, ()): ("CMYK", "CMYK;16"),
+        (None, 6, (1,), (8, 8, 8), ()): ("RGB", "RGBX")}.items():
+    _TIFF_INFO[_k[:3] + (1,) + _k[3:]] = _v
+_TAG_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample", 259: "Compression",
+              262: "PhotometricInterpretation", 266: "FillOrder", 273: "StripOffsets",
+              277: "SamplesPerPixel", 278: "RowsPerStrip", 279: "StripByteCounts",
+              284: "PlanarConfiguration", 317: "Predictor", 322: "TileWidth",
+              323: "TileLength", 324: "TileOffsets", 325: "TileByteCounts",
+              338: "ExtraSamples", 339: "SampleFormat", 347: "JPEGTables",
+              530: "YCbCrSubsampling", 274: "Orientation", 320: "ColorMap"}
+# Bits per pixel of each raw mode (Pillow's unpackers); a one-letter raw mode
+# is one band of a separate-planes file read without libtiff.
+_RAW_MODE_BITS = {"1": 1, "1;I": 1, "L;2": 2, "L;2I": 2, "L;4": 4, "L;4I": 4, "L": 8, "L;I": 8,
+                  "P;1": 1, "P;2": 2, "P;4": 4, "P": 8, "PX": 16, "PA": 16, "LA": 16,
+                  "I;16": 16, "I;16N": 16, "I;16B": 16, "I;16S": 16, "I;16BS": 16,
+                  "I;32N": 32, "I;32S": 32, "I;32BS": 32, "I": 32, "F;32F": 32, "F;32BF": 32,
+                  "F": 32, "RGB": 24, "RGBX": 32, "RGBXX": 40, "RGBXXX": 48, "RGBA": 32,
+                  "RGBa": 32, "RGBAX": 40, "RGBaX": 40, "RGBAXX": 48, "RGBaXX": 48,
+                  "CMYK": 32, "CMYKX": 40, "CMYKXX": 48}
+_RAW_MODE_BITS.update(dict.fromkeys("RGBACMYK", 8))
+for _m, _n in (("RGB", 48), ("RGBX", 64), ("RGBA", 64), ("RGBa", 64), ("CMYK", 64)):
+    for _e in "LBN":
+        _RAW_MODE_BITS[f"{_m};16{_e}"] = _n
+_BIT_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+_BANDS = {"1": "1", "L": "L", "P": "P", "I": "I", "F": "F", "RGB": "RGB", "RGBA": "RGBA",
+          "CMYK": "CMYK"}  # the one-letter raw modes each mode takes
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+           5: lambda a: a.swapaxes(0, 1), 6: lambda a: a[::-1].swapaxes(0, 1),
+           7: lambda a: a[::-1, ::-1].swapaxes(0, 1), 8: lambda a: a[:, ::-1].swapaxes(0, 1)}
 
 
 def _tiff_tags(blob: bytes, name: str) -> Tuple[str, Dict[int, tuple]]:
+    """The first directory's entries for the tags read here: SHORT or LONG
+    values (JPEGTables: UNDEFINED bytes). Such a tag of any other type,
+    or twice, is refused: PIL reads bytes, text and fractions where it wants
+    integers, keeps the last of two entries where libtiff keeps the first,
+    and libtiff refuses the types it does not expect."""
     bo = "<" if blob[:2] == b"II" else ">"
+    if len(blob) < 8:
+        raise ValueError(f"{name}: TIFF header truncated")
     (ifd,) = struct.unpack_from(bo + "I", blob, 4)
     if ifd + 2 > len(blob):
         raise ValueError(f"{name}: TIFF directory past the end of the file")
     (n,) = struct.unpack_from(bo + "H", blob, ifd)
+    if ifd + 2 + 12 * n > len(blob):
+        raise ValueError(f"{name}: TIFF directory past the end of the file")
     tags = {}
     for i in range(n):
         tag, typ, count = struct.unpack_from(bo + "HHI", blob, ifd + 2 + 12 * i)
-        if typ not in _TIFF_TYPES or typ == 2:
-            continue  # text, rationals and the rest: no tag read here uses them
-        size = struct.calcsize(_TIFF_TYPES[typ]) * count
+        if tag not in _TAG_NAMES:
+            continue
+        what = f"{name}: TIFF {_TAG_NAMES[tag]} (tag {tag})"
+        if tag in tags:
+            raise ValueError(f"{what} twice")
+        if typ not in ((7,) if tag == 347 else (3, 4)):  # UNDEFINED; SHORT or LONG
+            raise ValueError(f"{what} of type {typ} is not supported")
+        fmt = {3: "H", 4: "I", 7: "B"}[typ]
+        size = struct.calcsize(fmt) * count
         at = ifd + 10 + 12 * i
         if size > 4:
             (at,) = struct.unpack_from(bo + "I", blob, at)
         if at + size > len(blob):
-            raise ValueError(f"{name}: TIFF tag {tag} past the end of the file")
-        tags[tag] = struct.unpack_from(bo + _TIFF_TYPES[typ] * count, blob, at)
+            raise ValueError(f"{what} past the end of the file")
+        tags[tag] = (blob[at:at + size] if typ == 7
+                     else struct.unpack_from(bo + fmt * count, blob, at))
     return bo, tags
 
 
-def _refuse(name: str, tag: int, value) -> None:
-    raise ValueError(f"{name}: TIFF {_TAG_NAMES.get(tag, tag)} (tag {tag}) = {value} is not "
-                     "supported")
+def _refuse(name: str, tag: int, value, why: str = "is not supported") -> None:
+    raise ValueError(f"{name}: TIFF {_TAG_NAMES.get(tag, tag)} (tag {tag}) = {value} {why}")
+
+
+def _one(tags: Dict, tag: int, default=None):
+    v = tags.get(tag)
+    return default if v is None else v[0] if len(v) == 1 else v
 
 
 def _tiff_strip(data: bytes, compression: int, size: int, name: str) -> np.ndarray:
@@ -347,73 +470,704 @@ def _tiff_strip(data: bytes, compression: int, size: int, name: str) -> np.ndarr
     return out
 
 
+def _tiff_setup(blob: bytes, name: str) -> Dict:
+    """TiffImageFile._setup: the tags PIL reads, its mode and raw mode."""
+    bo, tags = _tiff_tags(blob, name)
+    t = dict(bo=bo, tags=tags)
+    compression = _one(tags, 259, 1)
+    if compression not in (1, 5, 7, 8, 32773, 32946):
+        _refuse(name, 259, compression)
+    planar = _one(tags, 284, 1)
+    if planar not in (1, 2):
+        _refuse(name, 284, planar)
+    photo = _one(tags, 262, 0)
+    fill = _one(tags, 266, 1)
+    w, h = _one(tags, 256), _one(tags, 257)
+    if not isinstance(w, int) or not isinstance(h, int):
+        raise ValueError(f"{name}: TIFF without one ImageWidth (tag 256) and ImageLength "
+                         "(tag 257)")
+    sf = tags.get(339, (1,))
+    if len(sf) > 1 and max(sf) == min(sf) == 1:
+        sf = (1,)
+    bps, extra = tags.get(258, (1,)), tags.get(338, ())
+    bps_count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
+    spp = _one(tags, 277, 1)
+    if not isinstance(spp, int) or spp > 6:
+        _refuse(name, 277, spp)
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        _refuse(name, 258, bps, f"for {spp} samples per pixel is not supported")
+    key = (photo, sf, fill, tuple(bps), tuple(extra))
+    info = _TIFF_INFO.get((bo,) + key) or _TIFF_INFO.get((None,) + key)
+    if info is None:  # name the tag that takes the file out of PIL's table
+        def known(**kw):
+            k = dict(photo=photo, sf=sf, fill=fill)
+            k.update(kw)
+            k = (k["photo"], k["sf"], k["fill"], tuple(bps), tuple(extra))
+            return (bo,) + k in _TIFF_INFO or (None,) + k in _TIFF_INFO
+        if sf != (1,) and known(sf=(1,)):
+            _refuse(name, 339, sf[0] if len(sf) == 1 else sf)
+        if fill != 1 and known(fill=1):
+            _refuse(name, 266, fill)
+        if not any(k[1] == photo for k in _TIFF_INFO):
+            _refuse(name, 262, photo)
+        _refuse(name, 258, f"{tuple(bps)} (SampleFormat {sf}, ExtraSamples {tuple(extra)})")
+    mode, raw_mode = info
+    if mode in ("P", "PA") and (not tags.get(320) or compression != 1 and bps[0] < 8 and len(
+            tags[320]) != 3 << bps[0]):  # libtiff ignores a ColorMap of the wrong length
+        raise ValueError(f"{name}: palette TIFF without a ColorMap (tag 320) of "
+                         f"{3 << bps[0]} entries")
+    if photo == 6 and (compression != 7 or planar != 1):  # libtiff's RGBA reader
+        _refuse(name, 262, f"6 (YCbCr) with Compression {compression}, PlanarConfiguration "
+                f"{planar}", "is not supported; YCbCr is read from JPEG (7), one plane")
+    if compression != 1:  # Pillow hands the file to libtiff
+        if fill == 2:
+            mode, raw_mode = (_TIFF_INFO.get((bo,) + key[:2] + (1,) + key[3:])
+                              or _TIFF_INFO[(None,) + key[:2] + (1,) + key[3:]])
+        if photo == 6:
+            raw_mode = "RGB"
+        elif raw_mode in ("I;16", "I;16B"):
+            raw_mode = "I;16N"
+        elif raw_mode.endswith(";16"):
+            raw_mode += "N"
+    elif raw_mode.endswith(";16") and raw_mode != "I;16":
+        raw_mode += "L" if bo == "<" else "B"
+    t.update(compression=compression, planar=planar, photo=photo, fill=fill, w=w, h=h,
+             bps=tuple(bps), spp=spp, bps_count=bps_count, mode=mode, raw_mode=raw_mode,
+             orientation=_one(tags, 274, 1))
+    return t
+
+
+def _bit_order(raw_mode: str) -> Tuple[str, bool]:
+    """A raw mode without its fill-order suffix, and whether it had one."""
+    if len(raw_mode) > 1 and raw_mode.endswith("R"):
+        return raw_mode[:-1].rstrip(";"), True
+    return raw_mode, False
+
+
+def _unpremultiply(v: np.ndarray) -> np.ndarray:
+    """Unpack.c's unpackRGBa: RGB divided by alpha."""
+    a = v[..., 3:].astype(np.int32)
+    rgb = np.minimum(v[..., :3].astype(np.int32) * 255 // np.maximum(a, 1), 255)
+    rgb = np.where(a == 255, v[..., :3], rgb)
+    return np.where(a == 0, 0, np.concatenate([rgb, a], -1)).astype(np.uint8)
+
+
+def _unpack(mode: str, raw_mode: str, rows: np.ndarray, width: int) -> np.ndarray:
+    """Pillow's unpacker (mode, raw_mode) on uint8 [n, row bytes] -> [n,
+    width(, bands)] in `np.asarray`'s dtype; one-letter raw modes give the
+    band they name."""
+    from wast3d_tpu_torch import native
+
+    n = rows.shape[0]
+    raw_mode, reverse = _bit_order(raw_mode)
+    if reverse:
+        rows = _BIT_REVERSED[rows]
+    bits = _RAW_MODE_BITS[raw_mode]
+    if bits < 8:
+        v = native.unpack_bits(rows, width, bits)
+        if mode == "1":  # PIL's bool array holds the bytes 0 and 255
+            return ((v == 0) if raw_mode == "1;I" else (v != 0)).view(np.uint8) * np.uint8(
+                255)
+        if mode == "L":
+            v = v * np.uint8(255 // ((1 << bits) - 1))
+            return 255 - v if raw_mode.endswith("I") else v
+        return v
+    need = width * bits // 8
+    if rows.shape[1] < need:
+        raise ValueError(f"rows of {rows.shape[1]} bytes for {width} pixels of {raw_mode}")
+    r = np.ascontiguousarray(rows[:, :need])
+    if len(raw_mode) == 1:  # one band of a separate-planes file
+        if raw_mode in "LP":
+            return r
+        if raw_mode in "IF":
+            return r.view("<i4" if raw_mode == "I" else "<f4")
+        return r
+    if mode in ("L", "P") and raw_mode in ("L", "L;I", "P"):
+        return 255 - r if raw_mode == "L;I" else r
+    if raw_mode in ("PX", "PA", "LA"):
+        v = r.reshape(n, width, 2)
+        return np.ascontiguousarray(v[..., 0]) if raw_mode == "PX" else v
+    if mode.startswith("I;16"):
+        v = r.view(">u2" if raw_mode == "I;16B" else "<u2")
+        return v.astype(">u2" if mode == "I;16B" else "<u2")
+    if mode in ("I", "F"):
+        dt = {"I;16S": "<i2", "I;16BS": ">i2", "I;32N": "<i4", "I;32S": "<i4", "I;32BS": ">i4",
+              "F;32F": "<f4", "F;32BF": ">f4"}[raw_mode]
+        return r.view(dt).astype(np.int32 if mode == "I" else np.float32)
+    if raw_mode.endswith(("16L", "16B", "16N")):
+        c = bits // 16
+        v = r.view(">u2" if raw_mode.endswith("B") else "<u2").reshape(n, width, c)
+        v = (v >> 8).astype(np.uint8)
+        raw_mode = raw_mode[:-4]
+    else:
+        v = r.reshape(n, width, bits // 8)
+    if raw_mode.startswith("RGBa"):
+        return _unpremultiply(v[..., :4])
+    return np.ascontiguousarray(v[..., :len(mode)])
+
+
+def _empty(mode: str, h: int, w: int) -> np.ndarray:
+    """Pillow's new image of `mode` (zeros) in `np.asarray`'s layout; mode
+    "1" as uint8 0 / 255 until `decode_tiff` views it as bool."""
+    shape = (h, w) if mode in ("1", "L", "P", "I", "F", "I;16", "I;16B") else (h, w, len(mode))
+    return np.zeros(shape, {"I": np.int32, "F": np.float32, "I;16": "<u2",
+                            "I;16B": ">u2"}.get(mode, np.uint8))
+
+
+def _tiff_raw(blob: bytes, t: Dict, name: str) -> np.ndarray:
+    """An uncompressed file as Pillow's own raw decoder reads it: one tile
+    descriptor per strip or tile (and per plane), loaded in offset order."""
+    tags, w, h = t["tags"], t["w"], t["h"]
+    if 273 in tags:
+        offsets, tw, th = tags[273], w, _one(tags, 278, h)
+    elif 324 in tags:
+        offsets, tw, th = tags[324], _one(tags, 322), _one(tags, 323)
+    else:
+        raise ValueError(f"{name}: TIFF without StripOffsets (tag 273) or TileOffsets (tag 324)")
+    if not isinstance(tw, int) or not isinstance(th, int) or tw < 1 or th < 1:
+        _refuse(name, 322 if 324 in tags else 278, (tw, th), "is not a tile size PIL reads")
+    if not offsets:
+        raise ValueError(f"{name}: TIFF without the offset of any strip or tile")
+    planar = t["planar"]
+    if tw == w and th == h and planar != 2:
+        offsets = offsets[-1:]
+    out = _empty(t["mode"], h, w)
+    tiles, x = [], 0
+    y = layer = 0
+    for off in offsets:
+        stride = tw * sum(t["bps"]) / 8 if x + tw > w else 0
+        raw_mode = t["raw_mode"]
+        if planar == 2:
+            if layer >= len(raw_mode):
+                raise ValueError(f"{name}: more TIFF planes than {raw_mode!r} has bands")
+            raw_mode = raw_mode[layer]
+            stride /= t["bps_count"]
+        tiles.append((off, x, y, min(x + tw, w), min(y + th, h), raw_mode, int(stride)))
+        x += tw
+        if x >= w:
+            x, y = 0, y + th
+            if y >= h:
+                y, layer = 0, layer + 1
+    for off, x0, y0, x1, y1, raw_mode, stride in sorted(tiles, key=lambda d: d[0]):
+        if len(raw_mode) == 1 and raw_mode not in _BANDS.get(t["mode"], ""):
+            raise ValueError(f"{name}: a separate {raw_mode!r} plane of a {t['mode']} TIFF is "
+                             "not something PIL reads")
+        if raw_mode in ("L;IR", "P;1R", "P;2R", "P;4R"):  # no such unpacker in Pillow
+            _refuse(name, 266, 2, f"uncompressed in mode {t['mode']} is not something PIL reads")
+        row = (_RAW_MODE_BITS[_bit_order(raw_mode)[0]] * (x1 - x0) + 7) // 8
+        stride = stride or row
+        need = (y1 - y0 - 1) * stride + row
+        if off + need > len(blob):
+            raise ValueError(f"{name}: TIFF image data truncated (a tile at {off} needs {need} "
+                             f"bytes, the file has {max(len(blob) - off, 0)})")
+        rows = np.lib.stride_tricks.as_strided(
+            np.frombuffer(blob, np.uint8, need, off), (y1 - y0, row), (stride, 1))
+        v = _unpack(t["mode"], raw_mode, rows, x1 - x0)
+        if len(raw_mode) == 1 and out.ndim == 3:
+            out[y0:y1, x0:x1, _BANDS[t["mode"]].index(raw_mode)] = v
+        else:
+            out[y0:y1, x0:x1] = v
+    return out
+
+
+def _tiff_jpeg(data: bytes, t: Dict, expect: list, width: int, rows: int, last: bool,
+               name: str) -> np.ndarray:
+    """One strip or tile of a JPEG TIFF as libtiff's JPEGPreDecode checks it
+    and libjpeg decodes it: the shared JPEGTables first, the TIFF's colour
+    space (YCbCr -> RGB for photometric 6, else the components as coded)."""
+    from wast3d_tpu_torch import native
+
+    tables = t["tags"].get(347)
+    if tables is not None and data[:2] == b"\xff\xd8":
+        if tables[:2] != b"\xff\xd8":
+            _refuse(name, 347, repr(tables[:4]), "is not a JPEG stream")
+        data = (tables[:-2] if tables[-2:] == b"\xff\xd9" else tables) + data[2:]
+    w, h, factors = native.jpeg_frame(data, name)
+    comps = t["spp"] if t["planar"] == 1 else 1
+    if len(factors) != comps:
+        raise ValueError(f"{name}: a JPEG strip or tile of {len(factors)} components in a TIFF "
+                         f"of {comps} (libtiff: improper JPEG component count)")
+    if not expect:  # YCbCrSubsampling, else (libtiff's fix-up) the first stream's own
+        sub = t["tags"].get(530)
+        expect.append(((tuple(sub[:2]) if sub and len(sub) >= 2 else factors[0])
+                       if t["photo"] == 6 and comps == 3 else (1, 1)))
+    if factors[0] != expect[0] or any(f != (1, 1) for f in factors[1:]):
+        raise ValueError(f"{name}: JPEG sampling factors {factors} in a TIFF that needs "
+                         f"{expect[0]} then 1x1 (libtiff: improper JPEG sampling factors)")
+    if w != width or not (h == rows or (last and h > rows)):
+        raise ValueError(f"{name}: a {w}x{h} JPEG stream for a {width}x{rows} TIFF strip or tile")
+    out = native.decode_jpeg(data, name, colour=1 if t["photo"] == 6 else 2)
+    return out[:rows].reshape(rows, -1)
+
+
+def _tiff_predicted(seg: np.ndarray, t: Dict, predictor: int, spp: int, name: str) -> np.ndarray:
+    """libtiff's predictors and byte swapping on one decoded strip or tile,
+    uint8 [rows, row bytes] -> the samples in native (little-endian) order."""
+    bits, bo = t["bps"][0], t["bo"]
+    if predictor == 3:
+        if t["tags"].get(339, (1,))[0] != 3 or bits != 32:
+            _refuse(name, 317, 3, f"with {bits}-bit samples of SampleFormat "
+                    f"{t['tags'].get(339, (1,))[0]} is not supported (libtiff: floating point "
+                    "only)")
+        n, row = seg.shape
+        b = np.cumsum(seg.reshape(n, -1, spp), axis=1, dtype=np.uint8).reshape(n, 4, row // 4)
+        return np.ascontiguousarray(b[:, ::-1].transpose(0, 2, 1)).reshape(n, row)
+    if predictor == 2 and bits not in (8, 16, 32):
+        _refuse(name, 317, 2, f"with {bits}-bit samples is not supported")
+    if bits in (16, 32) and (predictor == 2 or bo == ">"):
+        v = seg.view(f"{bo}u{bits // 8}")
+        if predictor == 2:
+            n = v.shape[0]
+            v = np.cumsum(v.reshape(n, -1, spp), axis=1, dtype=v.dtype).reshape(n, -1)
+        return np.ascontiguousarray(v, f"<u{bits // 8}").view(np.uint8)
+    if predictor == 2:
+        n = seg.shape[0]
+        return np.cumsum(seg.reshape(n, -1, spp), axis=1, dtype=np.uint8).reshape(n, -1)
+    return seg
+
+
+def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
+    """A compressed file as Pillow's libtiff decoder reads it: each strip or
+    tile (and plane) decompressed, predicted and swapped to native order as
+    libtiff does, then unpacked with Pillow's raw mode; edge tiles cropped."""
+    tags, w, h, spp, planar = t["tags"], t["w"], t["h"], t["spp"], t["planar"]
+    compression, mode, raw_mode = t["compression"], t["mode"], t["raw_mode"]
+    bits = t["bps"][0]
+    if any(b != bits for b in t["bps"]):
+        _refuse(name, 258, t["bps"], "(samples of different sizes) is not supported")
+    tiled = 322 in tags
+    if tiled:
+        if not all(k in tags for k in (323, 324, 325)):
+            _refuse(name, 322, _one(tags, 322), "without TileLength (tag 323), TileOffsets (324) "
+                    "and TileByteCounts (325) is not supported")
+        tw, th, offsets, counts = _one(tags, 322), _one(tags, 323), tags[324], tags[325]
+    else:
+        if 273 not in tags or 279 not in tags:
+            raise ValueError(f"{name}: TIFF without StripOffsets (tag 273) and StripByteCounts "
+                             "(tag 279)")
+        tw, th, offsets, counts = w, _one(tags, 278, h), tags[273], tags[279]
+        th = min(th, h) if isinstance(th, int) and th < 2 ** 32 - 1 else h
+    if not isinstance(tw, int) or not isinstance(th, int) or tw < 1 or th < 1:
+        _refuse(name, 322 if tiled else 278, (tw, th), "is not a strip or tile size")
+    across, down = (-(-w // tw) if tiled else 1), -(-h // th)
+    planes = spp if planar == 2 else 1
+    if len(offsets) != across * down * planes or len(counts) != len(offsets):
+        raise ValueError(f"{name}: TIFF strips or tiles ({len(offsets)} offsets, {len(counts)} "
+                         f"byte counts) do not cover the image ({across * down * planes})")
+    seg_spp = 1 if planar == 2 else spp
+    row_bytes = (tw * bits * seg_spp + 7) // 8
+    bands = 1 if mode in ("1", "L", "P", "I", "F", "I;16", "I;16B") else len(mode)
+    if planar == 2 and bands > 1:
+        if bits not in (8, 16):
+            _refuse(name, 258, t["bps"], "in separate planes is not supported (Pillow reads 8 "
+                    "and 16 bits)")
+        if not tiled and (w * _RAW_MODE_BITS[raw_mode] // bands + 7) // 8 > row_bytes:
+            _refuse(name, 338, tuple(tags.get(338, ())), "in separate strips is not supported "
+                    "(Pillow: fewer bands than planes)")
+        planes = bands
+    elif planar == 2 and spp > 1:
+        _refuse(name, 284, 2, f"for {spp} samples of a {mode} image is not supported")
+    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946) else 1
+    if predictor not in (1, 2, 3):
+        _refuse(name, 317, predictor)
+    out = _empty(mode, h, w)
+    band_out = np.zeros((h, w, bands), np.uint8) if planar == 2 and bands > 1 else None
+    expect = []
+    for p in range(planes):
+        for s in range(across * down):
+            i = p * across * down + s
+            y0, x0 = (s // across) * th, (s % across) * tw
+            rows, cw, ch = (th if tiled else min(th, h - y0)), min(tw, w - x0), min(th, h - y0)
+            off, cnt = offsets[i], counts[i]
+            if off + cnt > len(blob):
+                raise ValueError(f"{name}: TIFF strip or tile {i} past the end of the file")
+            data = blob[off:off + cnt]
+            if compression == 7:
+                seg = _tiff_jpeg(data, t, expect, tw, rows, not tiled and s == down - 1, name)
+            else:
+                if t["fill"] == 2:
+                    data = _BIT_REVERSED[np.frombuffer(data, np.uint8)].tobytes()
+                seg = _tiff_strip(data, compression, rows * row_bytes, name)
+                seg = seg[:rows * row_bytes].reshape(rows, row_bytes)
+                seg = _tiff_predicted(seg, t, predictor, seg_spp, name)
+            if band_out is not None:  # Pillow's band copies ("R", "R;16N", ...)
+                v = seg[:ch].view("<u2") >> 8 if bits == 16 else seg[:ch]
+                band_out[y0:y0 + ch, x0:x0 + cw, p] = v[:, :cw]
+            else:
+                out[y0:y0 + ch, x0:x0 + cw] = _unpack(mode, raw_mode, seg[:ch], cw)
+    if band_out is None:
+        return out
+    if mode in ("LA", "PA"):  # band 1 is not the alpha byte of Pillow's LA / PA pixels
+        band_out[..., 1] = 0
+    extra = tags.get(338, ())
+    if mode == "RGBA" and (not extra or extra[0] == 1):  # associated alpha, or none named
+        return _unpremultiply(band_out)
+    return band_out
+
+
 def decode_tiff(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     """TIFF bytes (the first image) -> `np.asarray(PIL.Image.open(...))`
     (module docstring)."""
-    bo, tags = _tiff_tags(blob, name)
-    if 322 in tags:
-        _refuse(name, 322, tags[322][0])
-    w, h = tags[256][0], tags[257][0]
-    spp = tags.get(277, (1,))[0]
-    bits = tags.get(258, (1,))
-    bits = bits * spp if len(bits) == 1 and spp > 1 else bits
-    extra = tags.get(338, ())
-    for tag, default in ((266, 1), (284, 1), (339, 1)):
-        value = tags.get(tag, (default,))
-        if any(v != default for v in value):
-            _refuse(name, tag, value[0] if len(value) == 1 else value)
-    compression = tags.get(259, (1,))[0]
-    if compression not in (1, 5, 8, 32773, 32946):
-        _refuse(name, 259, compression)
-    predictor = tags.get(317, (1,))[0]
-    if predictor not in (1, 2):
-        _refuse(name, 317, predictor)
-    photometric = tags.get(262, (None,))[0]
-    key = (photometric, tuple(bits), tuple(extra))
-    if key not in _TIFF_MODES:
-        if photometric not in (0, 1, 2):
-            _refuse(name, 262, photometric)
-        _refuse(name, 258, f"{tuple(bits)} (ExtraSamples {tuple(extra)})")
-    mode, raw_mode = _TIFF_MODES[key]
-    nbytes = bits[0] // 8
-    rps = min(tags.get(278, (2 ** 32 - 1,))[0], h)
-    offsets, counts = tags[273], tags.get(279)
-    if counts is None or len(counts) != len(offsets) or len(offsets) != -(-h // rps):
-        raise ValueError(f"{name}: TIFF strips do not cover the image")
-    row = w * spp * nbytes
-    dtype = np.dtype(bo + ("u2" if nbytes == 2 else "u1"))
-    strips = []
-    for i, (off, cnt) in enumerate(zip(offsets, counts)):
-        rows = min(rps, h - i * rps)
-        raw = _tiff_strip(blob[off:off + cnt], compression, rows * row, name)
-        s = raw[:rows * row].view(dtype).astype(dtype.newbyteorder("=")).reshape(rows, w, spp)
-        if predictor == 2 and compression in (5, 8, 32946):  # libtiff's horizontal sums
-            s = np.cumsum(s, axis=1, dtype=s.dtype)
-        strips.append(s)
-    v = np.concatenate(strips)
-    if mode == "I;16":
-        return v[..., 0].astype(">u2") if bo == ">" else v[..., 0]
-    if nbytes == 2:
-        v = (v >> 8).astype(np.uint8)
-    if raw_mode == "L;I":
-        return 255 - v[..., 0]
-    if mode == "L":
-        return v[..., 0]
-    if raw_mode.startswith("RGBX"):
-        return np.ascontiguousarray(v[..., :3])
-    if raw_mode.startswith("RGBa"):  # associated alpha: Unpack.c's unpackRGBa
-        a = v[..., 3:].astype(np.int32)
-        rgb = np.minimum(v[..., :3].astype(np.int32) * 255 // np.maximum(a, 1), 255)
-        rgb = np.where(a == 255, v[..., :3], rgb)
-        return np.where(a == 0, 0, np.concatenate([rgb, a], -1)).astype(np.uint8)
+    t = _tiff_setup(blob, name)
+    _check_pixels(t["w"], t["h"], name)
+    img = (_tiff_raw if t["compression"] == 1 else _tiff_libtiff)(blob, t, name)
+    if t["mode"] == "1":
+        img = img.view(bool)
+    orient = _ORIENT.get(t["orientation"])
+    return img if orient is None else np.ascontiguousarray(orient(img))
+
+
+# ---- Netpbm: Pillow's PpmImagePlugin -------------------------------------------------
+
+_WHITESPACE = b" \t\n\x0b\x0c\r"
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_SAFEBLOCK = 1024 * 1024  # what Pillow's plain decoder reads at a time
+
+
+def _pnm_header(blob: bytes, name: str):
+    """PpmImageFile._open: (mode, width, height, the decoder's name and
+    argument, the offset of the data)."""
+    pos, magic = 0, b""
+    for _ in range(6):
+        c = blob[pos:pos + 1]
+        pos += len(c)
+        if not c or c in _WHITESPACE:
+            break
+        magic += c
+    if magic not in _PNM_MODES:
+        raise ValueError(f"{name}: not a Netpbm file PIL reads (magic {magic!r})")
+    mode = _PNM_MODES[magic]
+
+    def token() -> bytes:
+        nonlocal pos
+        tok = b""
+        while len(tok) <= 10:
+            c = blob[pos:pos + 1]
+            pos += len(c)
+            if not c:
+                break
+            if c in _WHITESPACE:
+                if not tok:
+                    continue
+                break
+            if c == b"#":  # the rest of the line, up to CR, LF or the end
+                while True:
+                    c = blob[pos:pos + 1]
+                    pos += len(c)
+                    if c in b"\r\n":
+                        break
+                continue
+            tok += c
+        if not tok:
+            raise ValueError(f"{name}: Netpbm header ends early")
+        if len(tok) > 10:
+            raise ValueError(f"{name}: Netpbm header token {tok[:11]!r} too long")
+        return tok
+
+    def number(tok: bytes, kind=int):
+        try:
+            return kind(tok)
+        except ValueError:
+            raise ValueError(f"{name}: Netpbm header token {tok!r} is not a number") from None
+
+    w, h = number(token()), number(token())
+    plain = magic in (b"P1", b"P2", b"P3")
+    if mode == "1":
+        decoder = ("plain", None) if plain else ("raw", "1;I")
+    elif mode == "F":
+        scale = number(token(), float)
+        if scale == 0.0 or not np.isfinite(scale):
+            raise ValueError(f"{name}: PFM scale {scale} must be finite and non-zero")
+        decoder = ("raw", "F;32F" if scale < 0 else "F;32BF")
+    else:
+        maxval = number(token())
+        if not 0 < maxval < 65536:
+            raise ValueError(f"{name}: Netpbm maxval {maxval} is not in 1..65535")
+        if maxval > 255 and mode == "L":
+            mode = "I"
+        if plain:
+            decoder = ("plain", maxval)
+        elif maxval == 65535 and mode == "I":
+            decoder = ("raw", "I;16B")
+        elif maxval != 255:
+            decoder = ("scaled", maxval)
+        else:
+            decoder = ("raw", mode)
+    if w <= 0 or h <= 0:
+        raise ValueError(f"{name}: Netpbm size {w}x{h}")
+    return mode, w, h, decoder, pos
+
+
+def _pnm_comments_out(block: bytes, spans: bool) -> Tuple[bytes, bool]:
+    """PpmPlainDecoder._ignore_comments on one block: (the block without its
+    comments, whether a comment runs on into the next block)."""
+    def end(b, start=0):
+        a, c = b.find(b"\n", start), b.find(b"\r", start)
+        return min(a, c) if a * c > 0 else max(a, c)
+
+    if spans:
+        e = end(block)
+        if e == -1:
+            return b"", True
+        block = block[e + 1:]
+    while True:
+        start = block.find(b"#")
+        if start == -1:
+            return block, False
+        e = end(block, start)
+        if e == -1:
+            return block[:start], True
+        block = block[:start] + block[e + 1:]
+
+
+def _pnm_plain(blob: bytes, pos: int, mode: str, w: int, h: int, maxval, name: str):
+    """PpmPlainDecoder: ASCII samples read a block at a time, comments
+    dropped, each sample scaled as round(value / maxval * out max)."""
+    spans = False
+    if mode == "1":
+        total, data = w * h, b""
+        while len(data) != total:
+            block = blob[pos:pos + _SAFEBLOCK]
+            pos += len(block)
+            if not block:
+                break
+            block, spans = _pnm_comments_out(block, spans)
+            tokens = b"".join(block.split())
+            if np.any((np.frombuffer(tokens, np.uint8) | 1) != 49):
+                raise ValueError(f"{name}: a P1 sample other than 0 or 1")
+            data = (data + tokens)[:total]
+        if len(data) < total:
+            raise ValueError(f"{name}: not enough image data ({len(data)} of {total} samples)")
+        return ((np.frombuffer(data, np.uint8) == 48) * np.uint8(255)).view(bool).reshape(h, w)
+    bands = len(mode) if mode not in ("I", "L", "P") else 1
+    total, values, half = w * h * bands, [], b""
+    out_max = 65535 if mode == "I" else 255
+    count, flushed = 0, False
+    while count != total:
+        block = blob[pos:pos + _SAFEBLOCK]
+        pos += len(block)
+        if not block:  # the end: the last token, once (PIL loops forever in a comment here)
+            if not half or flushed:
+                break
+            block, flushed = b" ", True
+        block, spans = _pnm_comments_out(block, spans)
+        block, half = half + block, b""
+        tokens = block.split()
+        if block and not block[-1:].isspace():
+            half = tokens.pop()
+            if len(half) > 10:
+                raise ValueError(f"{name}: Netpbm sample token {half[:11]!r} too long")
+        tokens = tokens[:total - count]
+        if any(len(t) > 10 for t in tokens):
+            raise ValueError(f"{name}: a Netpbm sample token is too long")
+        try:
+            v = np.array([int(t) for t in tokens], np.int64)
+        except ValueError:
+            raise ValueError(f"{name}: a Netpbm sample is not a number") from None
+        if v.size and (v.min() < 0 or v.max() > maxval):
+            raise ValueError(f"{name}: a Netpbm sample outside 0..{maxval}")
+        values.append(v)
+        count += v.size
+    if count < total:
+        raise ValueError(f"{name}: not enough image data ({count} of {total} samples)")
+    v = np.round(np.concatenate(values) / maxval * out_max)
+    return v.astype(np.int32 if mode == "I" else np.uint8).reshape(
+        (h, w, bands) if bands > 1 else (h, w))
+
+
+def decode_pnm(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Netpbm bytes -> `np.asarray(PIL.Image.open(...))` (module docstring)."""
+    mode, w, h, (kind, arg), pos = _pnm_header(blob, name)
+    _check_pixels(w, h, name)
+    if kind == "plain":
+        return _pnm_plain(blob, pos, mode, w, h, arg, name)
+    bands = len(mode) if mode not in ("I", "L", "P", "F", "1") else 1
+    if kind == "scaled":  # PpmDecoder: one or two big-endian bytes a sample
+        dt = np.uint8 if arg < 256 else np.dtype(">u2")
+        n = w * h * bands
+        if len(blob) - pos < n * np.dtype(dt).itemsize:
+            raise ValueError(f"{name}: Netpbm data truncated")
+        out_max = 65535 if mode == "I" else 255
+        v = np.frombuffer(blob, dt, n, pos).astype(np.float64)
+        v = np.minimum(out_max, np.round(v / arg * out_max))
+        return v.astype(np.int32 if mode == "I" else np.uint8).reshape(
+            (h, w, bands) if bands > 1 else (h, w))
+    row = (w + 7) // 8 if mode == "1" else w * {"I": 2, "F": 4}.get(mode, bands)
+    if len(blob) - pos < row * h:
+        raise ValueError(f"{name}: Netpbm data truncated ({len(blob) - pos} of {row * h} bytes)")
+    rows = np.frombuffer(blob, np.uint8, row * h, pos).reshape(h, row)
+    if mode == "F":  # rows stored bottom-up
+        return np.ascontiguousarray(_unpack("F", arg, rows, w)[::-1])
+    if mode == "1":
+        return _unpack("1", "1;I", rows, w).view(bool)
+    if mode == "I":
+        return rows.view(">u2").astype(np.int32)
+    return rows.reshape((h, w, bands) if bands > 1 else (h, w)).copy()
+
+
+# ---- TGA: Pillow's TgaImagePlugin ----------------------------------------------------
+
+_TGA_RAW = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGRA;15Z",
+            (2, 24): "BGR", (2, 32): "BGRA"}
+
+
+def _tga_header(blob: bytes):
+    """TgaImageFile._open's checks: (mode, raw mode, width, height, depth,
+    image type, flags, the offset of the pixels), or None when PIL would not
+    take the file for a TGA."""
+    if len(blob) < 18:
+        return None
+    id_len, cmap_type, image_type = blob[0], blob[1], blob[2]
+    w, h = struct.unpack_from("<HH", blob, 12)
+    depth, flags = blob[16], blob[17]
+    if cmap_type not in (0, 1) or w == 0 or h == 0 or depth not in (1, 8, 16, 24, 32):
+        return None
+    if image_type in (3, 11):
+        mode = {1: "1", 16: "LA"}.get(depth, "L")
+    elif image_type in (1, 9):
+        mode = "P" if cmap_type else "L"
+    elif image_type in (2, 10):
+        mode = "RGB" if depth == 24 else "RGBA"
+    else:
+        return None
+    pos = 18 + id_len
+    if cmap_type:
+        first, size, map_depth = struct.unpack_from("<HHB", blob, 3)
+        if map_depth not in (16, 24, 32):
+            return None
+        pos += size * map_depth // 8
+    return mode, _TGA_RAW.get((image_type & 7, depth)), w, h, depth, image_type, flags, pos
+
+
+def decode_tga(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """TGA bytes -> `np.asarray(PIL.Image.open(...))` (module docstring)."""
+    from wast3d_tpu_torch import native
+
+    head = _tga_header(blob)
+    if head is None:
+        raise ValueError(f"{name}: not a TGA file PIL reads")
+    mode, raw, w, h, depth, image_type, flags, pos = head
+    first, size = struct.unpack_from("<HH", blob, 3)
+    if raw is None or (mode == "L" and raw == "P") or (image_type == 11 and depth == 1) or (
+            blob[1] and (blob[7] == 32 or mode in ("1", "RGB", "RGBA") or first + size > 256)):
+        cmap = (f"a colour map of {first} + {size} entries at {blob[7]} bits" if blob[1]
+                else "no colour map")
+        raise ValueError(f"{name}: a TGA of image type {image_type} at {depth} bits with "
+                         f"{cmap} is not one PIL loads")
+    _check_pixels(w, h, name)
+    bpp = max(depth // 8, 1)
+    row = (w + 7) // 8 if depth == 1 else w * bpp
+    if image_type & 8:
+        rows = native.tga_rle(blob[pos:], bpp, row, h, name)
+    else:
+        if len(blob) - pos < row * h:
+            raise ValueError(f"{name}: TGA data truncated ({len(blob) - pos} of {row * h} bytes)")
+        rows = np.frombuffer(blob, np.uint8, row * h, pos).reshape(h, row)
+    if raw == "1":
+        v = _unpack("1", "1", rows, w).view(bool)
+    elif raw == "BGRA;15Z":
+        p = rows.view("<u2").astype(np.int32)
+        v = np.stack([(p >> 10 & 31) * 255 // 31, (p >> 5 & 31) * 255 // 31,
+                      (p & 31) * 255 // 31, np.where(p & 0x8000, 0, 255)], -1).astype(np.uint8)
+    elif raw in ("BGR", "BGRA"):
+        v = rows.reshape(h, w, bpp)[..., [2, 1, 0, 3][:bpp]]
+    else:
+        v = rows.reshape(h, w, bpp) if bpp > 1 else rows
+    if not flags & 0x20:  # bottom-up
+        v = v[::-1]
+    if flags & 0x10:  # right to left
+        v = v[:, ::-1]
     return np.ascontiguousarray(v)
+
+
+def tga_rle_reference(data: bytes, depth: int, row_bytes: int, rows: int) -> np.ndarray:
+    """Plain version of `native.tga_rle`."""
+    out, pos, total = bytearray(), 0, row_bytes * rows
+    while len(out) < total:
+        if pos >= len(data):
+            break
+        n = depth * ((data[pos] & 0x7F) + 1)
+        if data[pos] & 0x80:
+            if pos + 1 + depth > len(data):
+                break
+            if len(out) % row_bytes + n > row_bytes:
+                raise ValueError("a TGA run passes the end of its row (PIL: buffer overrun)")
+            out += data[pos + 1:pos + 1 + depth] * (n // depth)
+            pos += 1 + depth
+        else:
+            if pos + 1 + n > len(data):
+                break
+            out += data[pos + 1:pos + 1 + n]
+            pos += 1 + n
+    if len(out) < total:
+        raise ValueError(f"TGA run-length data truncated ({len(out)} of {total} bytes)")
+    return np.frombuffer(bytes(out[:total]), np.uint8).reshape(rows, row_bytes)
+
+
+# ---- QOI: Pillow's QoiImagePlugin ----------------------------------------------------
+
+def decode_qoi(blob: bytes, name: str = "<bytes>") -> np.ndarray:
+    """QOI bytes -> `np.asarray(PIL.Image.open(...))`: RGB when the header
+    says 3 channels, else RGBA."""
+    from wast3d_tpu_torch import native
+
+    if len(blob) < 14:
+        raise ValueError(f"{name}: QOI header truncated")
+    w, h = struct.unpack_from(">II", blob, 4)
+    if w == 0 or h == 0:
+        raise ValueError(f"{name}: QOI size {w}x{h}")
+    _check_pixels(w, h, name)
+    return native.qoi_decode(blob[14:], w, h, 3 if blob[12] == 3 else 4, name)
+
+
+def qoi_reference(data: bytes, width: int, height: int, channels: int) -> np.ndarray:
+    """Plain version of `native.qoi_decode` (Pillow's QoiDecoder)."""
+    index = [(0, 0, 0, 0)] * 64
+    prev, pos, out, total = (0, 0, 0, 255), 0, bytearray(), width * height * channels
+    while len(out) < total:
+        if pos >= len(data):
+            raise ValueError("QOI data truncated")
+        b = data[pos]
+        pos += 1
+        if b in (0xFE, 0xFF):
+            n = 3 if b == 0xFE else 4
+            if pos + n > len(data):
+                raise ValueError("QOI data truncated")
+            px = tuple(data[pos:pos + n]) + prev[3:] * (n == 3)
+            pos += n
+        elif b >> 6 == 0:
+            px = index[b]
+        elif b >> 6 == 1:
+            px = tuple((prev[i] + (b >> (4 - 2 * i) & 3) - 2) % 256 for i in range(3)) + prev[3:]
+        elif b >> 6 == 2:
+            if pos >= len(data):
+                raise ValueError("QOI data truncated")
+            dg, b2 = (b & 0x3F) - 32, data[pos]
+            pos += 1
+            px = ((prev[0] + dg + (b2 >> 4) - 8) % 256, (prev[1] + dg) % 256,
+                  (prev[2] + dg + (b2 & 15) - 8) % 256, prev[3])
+        else:
+            out += bytes(prev[:channels]) * ((b & 0x3F) + 1)
+            continue
+        prev = px
+        index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64] = px
+        out += bytes(px[:channels])
+    return np.frombuffer(bytes(out[:total]), np.uint8).reshape(height, width, channels)
 
 
 def lzw_reference(blob: bytes, out_size: int) -> np.ndarray:
     """Plain version of `native.lzw_decode` (libtiff's LZWDecode)."""
+    if len(blob) >= 2 and blob[0] == 0 and blob[1] & 1:
+        raise ValueError("old-style (LSB-first) TIFF LZW is not supported")
     table = [bytes([i]) for i in range(256)] + [b"", b""]
-    out, width, old, pos, acc, have = bytearray(), 9, None, 0, 0, 0
-    while True:
+    out, width, old, pos, acc, have = bytearray(), 9, "start", 0, 0, 0
+    count = 258  # entries, counted on past 4096 as libtiff does
+    while len(out) < out_size:
         while have < width and pos < len(blob):
             acc = (acc << 8) | blob[pos]
             pos += 1
@@ -426,25 +1180,27 @@ def lzw_reference(blob: bytes, out_size: int) -> np.ndarray:
         if code == 257:
             break
         if code == 256:
-            table, width, old = table[:258], 9, None
+            table, width, old, count = table[:258], 9, None, 258
             continue
+        if old == "start":
+            raise ValueError("corrupt LZW data (a strip must start with a Clear code)")
         if old is None:
-            if code > 255:
-                raise ValueError(f"corrupt LZW data (first code {code})")
+            if code > 256:
+                raise ValueError(f"corrupt LZW data (code {code} after Clear)")
             entry = table[code]
-        elif code < len(table):
-            entry = table[code]
-            if len(table) < 4096:
-                table.append(old + entry[:1])
-        elif code == len(table) and len(table) < 4096:
-            entry = old + old[:1]
-            table.append(entry)
         else:
-            raise ValueError(f"corrupt LZW data (code {code} past the table)")
+            if count >= 4096 + 1023:
+                raise ValueError("corrupt LZW data (the table overflows without a Clear code)")
+            if code > count or code in (256, 257):
+                raise ValueError(f"corrupt LZW data (code {code} not yet in the table)")
+            entry = table[code] if code < count else old + old[:1]
+            if count < 4096:
+                table.append(old + entry[:1])
+            count += 1
+            if count > (1 << width) - 2 and width < 12:
+                width += 1
         out += entry
         old = entry
-        if len(table) + 1 >= (1 << width) and width < 12:
-            width += 1
     return np.frombuffer(bytes(out[:out_size]), np.uint8)
 
 
