@@ -2401,6 +2401,71 @@ def raster_decode_times(decoded):
     return checks, numbers
 
 
+CODEC_JPEGS = ("scene_1296x832_damaged", "scene_1296x832_unrefined")  # FIXTURES/codecs
+
+
+def codec_decode_times(decoded):
+    """Decode milliseconds (median of 3) at the 1296x832 view's size of the
+    committed damaged and partly refined JPEGs, each held to PIL's committed
+    decode (`pil_decode/<name>.png`), and of three TIFFs
+    written here from the view: LZMA RGB and an LZW BigTIFF in tiles, each
+    exactly its source, and YCbCr 4:2:0 under LZW, exactly its data units
+    through the plain YCbCr -> RGB (`image_io.ycbcr_to_rgb_reference`).
+    Returns (checks, numbers)."""
+    from tools.image_writers import rgb_to_ycc, tiff_bytes, ycbcr_units
+    from wast3d_tpu_torch.utils import image_io, png
+
+    checks, numbers = {}, {}
+    for name in CODEC_JPEGS:
+        with open(os.path.join(FIXTURES, "codecs", name + ".jpg"), "rb") as f:
+            blob = f.read()
+        got, sec = median_s(lambda: image_io.decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        want = png.read_png(os.path.join(FIXTURES, "pil_decode", name + ".png"))
+        checks[f"decode {name} = PIL's"] = (got.dtype == want.dtype and got.shape == want.shape
+                                            and got.tobytes() == want.tobytes())
+    ycc = rgb_to_ycc(decoded)
+    h, w = decoded.shape[:2]
+    t = time.perf_counter()
+    ycbcr_want = image_io.ycbcr_to_rgb_reference(
+        ycbcr_units(ycc, 2, 2), 2, 2, w, h,
+        image_io.ycbcr_tables(np.float32([0.299, 0.587, 0.114]),
+                              np.float32([0, 255, 128, 255, 128, 255])))
+    sources = {"tiff_lzma_rgb_1296x832": (decoded, tiff_bytes(decoded, 2, compression=34925,
+                                                               rows_per_strip=64)),
+               "bigtiff_lzw_tiles_1296x832": (decoded, tiff_bytes(decoded, 2, compression=5,
+                                                                   bigtiff=True, tile=(256, 256))),
+               "tiff_ycbcr420_lzw_1296x832": (ycbcr_want, tiff_bytes(
+                   ycc, 6, compression=5, ycbcr_subsampling=(2, 2), rows_per_strip=64))}
+    numbers["codec_encode_s"] = time.perf_counter() - t
+    for name, (want, blob) in sources.items():
+        got, sec = median_s(lambda: image_io.decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        checks[f"decode {name}"] = (got.dtype == want.dtype and got.shape == want.shape
+                                    and got.tobytes() == want.tobytes())
+    return checks, numbers
+
+
+def write_codec_colmap(src):
+    """A copy of the COLMAP fixture with three views, under images_codecs/:
+    tests/format_fixtures/colmap_codecs, a damaged JPEG (view_0.jpg), a
+    partly refined progressive JPEG (view_1.jpg) and a YCbCr 4:2:0 LZW TIFF
+    (view_2.tif); its model keeps those three images."""
+    from wast3d_tpu_torch.scene import colmap as cm
+
+    shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+    shutil.copytree(os.path.join(FORMAT_FIXTURES, "colmap_codecs"),
+                    os.path.join(src, "images_codecs"), ignore=shutil.ignore_patterns("*.npy"))
+    names = {os.path.splitext(f)[0]: f for f in os.listdir(os.path.join(src, "images_codecs"))}
+    path = os.path.join(src, "sparse", "0", "images.bin")
+    imgs = cm.read_images_binary(path)
+    cm.write_images_binary({k: v._replace(name=names[os.path.splitext(v.name)[0]])
+                            for k, v in imgs.items() if os.path.splitext(v.name)[0] in names},
+                           path)
+
+
 def write_tiff_colmap(src):
     """A copy of the COLMAP fixture whose six views are tiled (64x64)
     JPEG-YCbCr 4:2:0 TIFFs of the JPEG views' decode, under images_tiff/,
@@ -2542,10 +2607,12 @@ def phase_images(device):
     against PIL's committed array, the decode and resize times, decode times
     of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless WebP,
     a tiled JPEG-YCbCr TIFF, a float TIFF with predictor 3, a run-length TGA
-    and a PPM at dataset sizes, `cli.train` on the progressive COLMAP
-    fixture, on the COLMAP fixture at 4:4:0, on a Blender dataset of 16-bit
-    RGBA PNGs, on the COLMAP fixture as lossy WebP and as tiled JPEG-YCbCr
-    TIFFs, and `cli.metrics` on JPEGs, on WebPs and on TGA / PPM ground
+    and a PPM at dataset sizes, of damaged and partly refined JPEGs and of
+    LZMA, BigTIFF and YCbCr 4:2:0 LZW TIFFs at 1296x832, `cli.train` on the
+    progressive COLMAP fixture, on the COLMAP fixture at 4:4:0, on a Blender
+    dataset of 16-bit RGBA PNGs, on the COLMAP fixture as lossy WebP and as
+    tiled JPEG-YCbCr TIFFs, on three views that are a damaged JPEG, a partly
+    refined JPEG and a YCbCr LZW TIFF, and `cli.metrics` on JPEGs, on WebPs and on TGA / PPM ground
     truths against the port's metrics on PIL's decode, with PIL unimportable.
     Returns the numbers."""
     from wast3d_tpu_torch import native
@@ -2599,6 +2666,9 @@ def phase_images(device):
         more, times = raster_decode_times(decoded)
         checks.update(more)
         numbers.update(times)
+        more, times = codec_decode_times(decoded)
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -2616,11 +2686,14 @@ def phase_images(device):
         write_webp_colmap(colmap_webp)
         colmap_tiff = os.path.join(tmp, "colmap_tiff")
         write_tiff_colmap(colmap_tiff)
+        colmap_codecs = os.path.join(tmp, "colmap_codecs")
+        write_codec_colmap(colmap_codecs)
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
                                  ("train blender16", blender, None),
                                  ("train webp", colmap_webp, "images_webp"),
-                                 ("train tiff", colmap_tiff, "images_tiff")):
+                                 ("train tiff", colmap_tiff, "images_tiff"),
+                                 ("train codecs", colmap_codecs, "images_codecs")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})

@@ -234,7 +234,8 @@ def test_jpeg_tiffs_libtiff_refuses_raise_naming_the_file():
     with pytest.raises(ValueError, match=r"^p\.tif: TIFF PhotometricInterpretation \(tag 262\) "
                                          r"= 6 \(YCbCr\) with Compression 7, PlanarConfigur"):
         image_io.decode_image(planar, "p.tif")
-    lzw_ycc = iw.tiff_bytes(ycc, 6, compression=5)
+    lzw_ycc = iw.tiff_bytes(ycc, 6, compression=5, ycbcr_subsampling=(1, 4))
+    assert _pil(lzw_ycc) is None  # libtiff's RGBA reader has no 1x4 routine
     with pytest.raises(ValueError, match=r"^y\.tif: .*YCbCr"):
         image_io.decode_image(lzw_ycc, "y.tif")
     wrong = iw.tiff_bytes(ycc, 6, compression=7, tile=(16, 16),

@@ -3,19 +3,23 @@ standard library (no PIL): files of the kinds PIL reads but will not write.
 
     from tools.image_writers import jpeg_bytes, png_bytes, bmp_bytes, tiff_bytes, gif_bytes
 
-- `jpeg_bytes`: a baseline JPEG encoder (forward DCT in float64, the
-  standard quantisation tables of JPEG Annex K scaled by IJG's quality rule,
-  Annex K's Huffman tables), 1, 3 or 4 components, any sampling factors 1-4
-  (box-filtered chroma), an optional Adobe APP14 marker with transform 0, 1
-  or 2. PIL writes only 4:4:4, 4:2:2 and 4:2:0 and never YCCK.
+- `jpeg_bytes`: a baseline or progressive JPEG encoder (forward DCT in
+  float64, the standard quantisation tables of JPEG Annex K scaled by IJG's
+  quality rule, Annex K's Huffman tables), 1, 3 or 4 components, any
+  sampling factors 1-4 (box-filtered chroma), an optional Adobe APP14
+  marker with transform 0, 1 or 2, restart intervals, and any progressive
+  scan script, complete or cut short of its last scans. PIL writes only
+  4:4:4, 4:2:2 and 4:2:0, never YCCK, and no partly refined file.
 - `png_bytes`: every colour type at every bit depth, PLTE / tRNS / other
   chunks, Adam7, one row filter throughout.
 - `bmp_bytes`: 1-, 4-, 8-bit palette, 16-, 24- and 32-bit, BI_RGB or
   BI_BITFIELDS, RLE8 / RLE4, bottom-up or top-down.
 - `tiff_bytes`: strips or tiles, chunky or separate planes, 1-32-bit
-  integer or float samples, compression none, PackBits, LZW, Deflate or
-  JPEG (abbreviated streams with JPEGTables), predictor 1, 2 or 3, fill
-  order 1 or 2, a colour map, either byte order.
+  integer or float samples (12-bit packed), compression none, PackBits,
+  LZW, Deflate, LZMA or JPEG (abbreviated streams with JPEGTables) or
+  strips compressed elsewhere, predictor 1, 2 or 3, fill order 1 or 2, a
+  colour map, YCbCr in subsampled data units, either byte order, classic
+  TIFF or BigTIFF.
 - `tga_bytes`: colour-mapped, true-colour or grey TGA at any depth PIL
   reads, raw or run-length encoded (packets across rows or not), with an ID
   field, a colour map from a first entry index, and either origin.
@@ -32,6 +36,7 @@ The port never imports this module; the fixture tool, the tests and
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 from typing import Optional, Sequence, Tuple
@@ -113,6 +118,8 @@ class _Bits:
 
     def packed(self, pad: int) -> bytes:
         """The codes from their high bits, the last byte filled with `pad`."""
+        if not self.codes:
+            return b""
         codes = np.array(self.codes, np.int64)
         lengths = np.array(self.lengths, np.int64)
         j = np.arange(16)
@@ -128,15 +135,112 @@ def _magnitude(v: int) -> Tuple[int, int]:
     return size, (v if v >= 0 else v + (1 << size) - 1)
 
 
+# libjpeg's jpeg_simple_progression for three components (YCbCr) and for
+# one: (components, Ss, Se, Ah, Al) of each scan.
+PROGRESSIVE_3 = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                 ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                 ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                 ((0,), 1, 63, 1, 0))
+PROGRESSIVE_1 = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                 ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def _mcu_blocks(comps, sampling, mcux, mcuy, dims):
+    """(component, block row, block column) in a scan's order: MCUs of every
+    component's h x v blocks when interleaved, else the component's own
+    blocks (`dims[c]` = blocks down and across that hold image samples)."""
+    if len(comps) == 1:
+        c = comps[0]
+        return [[(c, by, bx)] for by in range(dims[c][0]) for bx in range(dims[c][1])]
+    return [[(c, my * sampling[c][1] + by, mx * sampling[c][0] + bx) for c in comps
+             for by in range(sampling[c][1]) for bx in range(sampling[c][0])]
+            for my in range(mcuy) for mx in range(mcux)]
+
+
+def _encode_scan(units, blocks, comps, ss, se, ah, al, tables, restart_interval):
+    """One scan's entropy-coded segments (a list: one per restart interval)
+    as libjpeg's jchuff.c / jcphuff.c code it, every end-of-band run 1."""
+    segments, bits, pred = [], _Bits(), {c: 0 for c in comps}
+    for n, unit in enumerate(units):
+        if restart_interval and n and n % restart_interval == 0:
+            segments.append(bits)
+            bits, pred = _Bits(), {c: 0 for c in comps}
+        for c, by, bx in unit:
+            dc_codes, ac_codes = tables[min(c, 1)]
+            blk = [int(v) for v in blocks[c][by, bx]]
+            if ss == 0 and ah == 0:  # DC first (or the sequential DC)
+                v = blk[0] >> al
+                size, extra = _magnitude(v - pred[c])
+                pred[c] = v
+                bits.put(*dc_codes[size])
+                bits.put(extra, size)
+                if se == 0:
+                    continue
+            elif ss == 0:  # DC refinement: the next bit
+                bits.put((blk[0] >> al) & 1, 1)
+                continue
+            lo = max(ss, 1)
+            if ah == 0:  # AC first
+                run = 0
+                for k in range(lo, se + 1):
+                    mag = abs(blk[k]) >> al
+                    if mag == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        bits.put(*ac_codes[0xF0])
+                        run -= 16
+                    size, extra = _magnitude(mag if blk[k] > 0 else -mag)
+                    bits.put(*ac_codes[(run << 4) | size])
+                    bits.put(extra, size)
+                    run = 0
+                if run:
+                    bits.put(*ac_codes[0x00])
+                continue
+            mags = [abs(blk[k]) >> al for k in range(lo, se + 1)]
+            eob = max([i for i, m in enumerate(mags) if m == 1], default=-1)
+            run, pending = 0, []
+            for i, m in enumerate(mags):
+                if m == 0:
+                    run += 1
+                    continue
+                while run > 15 and i <= eob:
+                    bits.put(*ac_codes[0xF0])
+                    run -= 16
+                    for b in pending:
+                        bits.put(b, 1)
+                    pending = []
+                if m > 1:  # already nonzero: a correction bit
+                    pending.append(m & 1)
+                    continue
+                bits.put(*ac_codes[(run << 4) | 1])
+                bits.put(int(blk[lo + i] > 0), 1)
+                for b in pending:
+                    bits.put(b, 1)
+                pending, run = [], 0
+            if run or pending:
+                bits.put(*ac_codes[0x00])
+                for b in pending:
+                    bits.put(b, 1)
+    segments.append(bits)
+    return segments
+
+
 def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality: int = 90,
                adobe_transform: Optional[int] = None, ids: Optional[Sequence[int]] = None,
-               jfif: Optional[bool] = None) -> bytes:
+               jfif: Optional[bool] = None, restart_interval: int = 0,
+               scans: Optional[Sequence] = None) -> bytes:
     """uint8 [H, W] or [H, W, C] samples, already in the coded colour space
-    (C = 1, 3 or 4) -> baseline JPEG bytes with `sampling[c] = (h, v)` for
-    component c. Components take ids 1..C unless `ids` says otherwise;
-    component 0 takes the luma tables, the others the chroma ones. A JFIF
-    APP0 is written for 1 or 3 components without an Adobe marker, unless
-    `jfif` says otherwise."""
+    (C = 1, 3 or 4) -> JPEG bytes with `sampling[c] = (h, v)` for component
+    c. Components take ids 1..C unless `ids` says otherwise; component 0
+    takes the luma tables, the others the chroma ones. A JFIF APP0 is
+    written for 1 or 3 components without an Adobe marker, unless `jfif`
+    says otherwise. `restart_interval` > 0 writes a DRI and an RSTn marker
+    after every that many MCUs (or blocks, in a one-component scan).
+    `scans` makes it progressive (SOF2): (components, Ss, Se, Ah, Al) of
+    each scan, such as `PROGRESSIVE_3` or the first few of its scans (a
+    file that leaves coefficients unsent or unrefined); else one baseline
+    (SOF0) scan of every component."""
     samples = np.asarray(samples, np.uint8)
     if samples.ndim == 2:
         samples = samples[:, :, None]
@@ -149,7 +253,7 @@ def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality
     full = np.pad(samples, ((0, pad_h - height), (0, pad_w - width), (0, 0)), mode="edge")
     quant = [_scaled_quant(LUMA_Q, quality), _scaled_quant(CHROMA_Q, quality)]
     dct = _dct_matrix()
-    blocks = []  # per component: [bh, bw, 64] quantised coefficients in zigzag order
+    blocks, dims = [], []  # per component: [bh, bw, 64] quantised coefficients in zigzag order
     for c, (h, v) in enumerate(sampling):
         fy, fx = vmax // v, hmax // h
         assert vmax % v == 0 and hmax % h == 0
@@ -160,34 +264,10 @@ def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality
         coef = dct @ b @ dct.T
         q = quant[min(c, 1)].reshape(8, 8)
         blocks.append(np.round(coef / q).astype(np.int64).reshape(bh, bw, 64)[:, :, ZIGZAG])
+        dims.append((-(-(-(-height * v // vmax)) // 8), -(-(-(-width * h // hmax)) // 8)))
     tables = [(_huffman_codes(DC_LUMA), _huffman_codes(AC_LUMA)),
               (_huffman_codes(DC_CHROMA), _huffman_codes(AC_CHROMA))]
-    bits, pred = _Bits(), [0] * nc
-    for my in range(mcuy):
-        for mx in range(mcux):
-            for c, (h, v) in enumerate(sampling):
-                dc_codes, ac_codes = tables[min(c, 1)]
-                for by in range(v):
-                    for bx in range(h):
-                        blk = blocks[c][my * v + by, mx * h + bx]
-                        size, extra = _magnitude(int(blk[0]) - pred[c])
-                        pred[c] = int(blk[0])
-                        bits.put(*dc_codes[size])
-                        bits.put(extra, size)
-                        run = 0
-                        nz = np.flatnonzero(blk[1:]) + 1
-                        last = 0
-                        for k in nz:
-                            run = k - last - 1
-                            while run > 15:
-                                bits.put(*ac_codes[0xF0])
-                                run -= 16
-                            size, extra = _magnitude(int(blk[k]))
-                            bits.put(*ac_codes[(run << 4) | size])
-                            bits.put(extra, size)
-                            last = k
-                        if last != 63:
-                            bits.put(*ac_codes[0x00])
+    script = [(tuple(range(nc)), 0, 63, 0, 0)] if scans is None else list(scans)
     ids = list(ids) if ids is not None else list(range(1, nc + 1))
 
     def segment(marker: int, payload: bytes) -> bytes:
@@ -200,18 +280,27 @@ def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality
         out += segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe_transform))
     for t, q in enumerate(quant[:1 if nc == 1 else 2]):
         out += segment(0xDB, bytes([t]) + bytes(q[ZIGZAG].astype(np.uint8)))
-    out += segment(0xC0, struct.pack(">BHHB", 8, height, width, nc) + b"".join(
-        bytes([ids[c], (h << 4) | v, min(c, 1)]) for c, (h, v) in enumerate(sampling)))
+    out += segment(0xC0 if scans is None else 0xC2,
+                   struct.pack(">BHHB", 8, height, width, nc) + b"".join(
+                       bytes([ids[c], (h << 4) | v, min(c, 1)])
+                       for c, (h, v) in enumerate(sampling)))
     for t, (dc, ac) in enumerate([(DC_LUMA, AC_LUMA), (DC_CHROMA, AC_CHROMA)][:1 if nc == 1
                                                                             else 2]):
         out += segment(0xC4, bytes([t]) + bytes(dc[0]) + bytes(dc[1]))
         out += segment(0xC4, bytes([0x10 | t]) + bytes(ac[0]) + bytes(ac[1]))
-    out += segment(0xDA, bytes([nc]) + b"".join(
-        bytes([ids[c], 0x11 * min(c, 1)]) for c in range(nc)) + b"\x00\x3f\x00")
-    return out + bits.packed(1).replace(b"\xff", b"\xff\x00") + b"\xff\xd9"
+    if restart_interval:
+        out += segment(0xDD, struct.pack(">H", restart_interval))
+    for comps, ss, se, ah, al in script:
+        out += segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([ids[c], 0x11 * min(c, 1)]) for c in comps) + bytes([ss, se, (ah << 4) | al]))
+        units = _mcu_blocks(comps, sampling, mcux, mcuy, dims)
+        for n, bits in enumerate(_encode_scan(units, blocks, comps, ss, se, ah, al, tables,
+                                              restart_interval)):
+            if n:
+                out += bytes([0xFF, 0xD0 + (n - 1) % 8])
+            out += bits.packed(1).replace(b"\xff", b"\xff\x00")
+    return out + b"\xff\xd9"
 
-
-# ---- PNG ------------------------------------------------------------------------------
 
 def _chunk(tag: bytes, data: bytes, crc: Optional[int] = None) -> bytes:
     crc = zlib.crc32(tag + data) & 0xFFFFFFFF if crc is None else crc
@@ -495,7 +584,9 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                rows_per_strip: Optional[int] = None, tags: Sequence[Tuple] = (),
                tile: Optional[Tuple[int, int]] = None, planar: int = 1, fill_order: int = 1,
                bits: Optional[int] = None, sample_format: Optional[int] = None,
-               colormap: Optional[np.ndarray] = None, jpeg: Optional[dict] = None) -> bytes:
+               colormap: Optional[np.ndarray] = None, jpeg: Optional[dict] = None,
+               ycbcr_subsampling: Optional[Tuple[int, int]] = None, bigtiff: bool = False,
+               encoded: Optional[Sequence[bytes]] = None) -> bytes:
     """[H, W] or [H, W, C] samples -> a TIFF of one image.
 
     Samples are uint8 / uint16 / int16 / int32 / uint32 / float32, stored at
@@ -513,7 +604,17 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
     applied only under LZW and Deflate). `fill_order` 2 reverses the bits of
     every stored byte. `sample_format` writes SampleFormat (339), `colormap`
     ([3 * 2^bits] uint16 values) ColorMap (320); `tags` adds (tag, type,
-    values) entries (type 7 takes bytes)."""
+    values) entries (type 7 takes bytes, type 5 (RATIONAL) numerator,
+    denominator pairs flattened). `bits` = 12 packs two samples in three
+    bytes. Compression 34925 is LZMA (an .xz stream, as libtiff writes it).
+    `ycbcr_subsampling` = (h, v), for photometric 6 under any compression
+    but JPEG, writes YCbCrSubsampling and stores the full-resolution YCbCr
+    samples as the TIFF 6.0 layout wants them: chunky, data units of h x v
+    luma samples then one Cb and one Cr (each the mean of its unit, the
+    edge units' luma padded by repetition); separate, the chroma planes
+    subsampled. `encoded` gives each strip's or tile's compressed bytes
+    as they are (for codecs written elsewhere, such as CCITT). `bigtiff`
+    writes BigTIFF (version 43, 8-byte offsets and counts, LONG8 offsets)."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, :, None]
@@ -522,14 +623,19 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
     dt = np.dtype(samples.dtype).newbyteorder(byteorder)
     tw, th = tile if tile else (w, rows_per_strip or h)
     planes = [samples[:, :, i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    sub = ycbcr_subsampling if compression != 7 else None
+    if sub and planar == 2:  # chroma planes subsampled (box means)
+        planes = [planes[0]] + [_box_mean(p, *sub) for p in planes[1:]]
     jpeg = dict(jpeg or {})
     tables = None
     segments = []
     for plane in planes:
         n = plane.shape[2]
-        for y in range(0, h, th):
+        ph = plane.shape[0]
+        pth = th if plane is planes[0] or not (sub and planar == 2) else -(-th // sub[1])
+        for y in range(0, ph, pth):
             for x in range(0, w, tw) if tile else (0,):
-                block = plane[y:y + th, x:x + tw]
+                block = plane[y:y + pth, x:x + tw]
                 if tile:
                     block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
                                            (0, 0)))
@@ -541,21 +647,31 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                     segments.append(whole if jpeg.get("tables") is False else raw)
                     continue
                 rows = block.reshape(block.shape[0], -1)
-                if predictor == 2 and compression in (5, 8, 32946):  # on the integer bits
+                if predictor == 2 and compression in (5, 8, 32946, 34925):  # the integer bits
                     ints = rows.view(np.dtype(f"u{rows.itemsize}"))
                     rows = _difference(ints, n).view(rows.dtype)
-                if predictor == 3 and compression in (5, 8, 32946):
+                if encoded is not None:
+                    raw = encoded[len(segments)]
+                elif predictor == 3 and compression in (5, 8, 32946, 34925):
                     raw = _fp_difference(rows, n).tobytes()
+                elif sub and planar == 1:
+                    raw = ycbcr_units(block, *sub).tobytes()
+                elif bits == 12:
+                    raw = _pack12(rows).tobytes()
                 elif bits < 8:
                     raw = _pack_rows(rows[:, :, None], bits).tobytes()
                 else:
                     raw = rows.astype(dt).tobytes()
-                if compression == 5:
+                if encoded is not None:
+                    pass
+                elif compression == 5:
                     raw = lzw_encode(raw)
                 elif compression in (8, 32946):
                     raw = zlib.compress(raw, 9)
                 elif compression == 32773:
                     raw = packbits_encode(raw)
+                elif compression == 34925:
+                    raw = lzma.compress(raw)
                 if fill_order == 2:
                     raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
                 segments.append(raw)
@@ -580,18 +696,27 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
         entries.append((347, 7, b"\xff\xd8" + tables + b"\xff\xd9"))
     if compression == 7 and jpeg.get("subsampling"):
         entries.append((530, 3, list(jpeg["subsampling"])))
+    if sub:
+        entries.append((530, 3, list(sub)))
     entries += list(tags)
     entries.sort(key=lambda e: e[0])
-    fmt = {1: "B", 3: "H", 4: "I", 7: "B"}
+    if bigtiff:  # offsets and byte counts as LONG8
+        entries = [(t, 16 if t in (273, 279, 324, 325) else typ, v) for t, typ, v in entries]
+    fmt = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
+    word = 8 if bigtiff else 4  # the room for a value in an entry
 
     def packed(typ, vals):
         return bytes(vals) if typ == 7 else struct.pack(byteorder + fmt[typ] * len(vals), *vals)
 
-    ifd_size = 2 + 12 * len(entries) + 4
-    pos = 8 + ifd_size
+    def count(typ, vals):
+        return len(vals) // 2 if typ == 5 else len(vals)
+
+    head_size = 16 if bigtiff else 8
+    ifd_size = (8 + 20 * len(entries) + 8) if bigtiff else (2 + 12 * len(entries) + 4)
+    pos = head_size + ifd_size
     blobs, values = [], {}
     for tag, typ, vals in entries:  # arrays too large for the entry go after the IFD
-        if vals is not None and len(vals) * struct.calcsize(fmt[typ]) > 4:
+        if vals is not None and len(vals) * struct.calcsize(fmt[typ]) > word:
             values[tag] = pos
             blob = packed(typ, vals)
             blobs.append(blob + b"\x00" * (len(blob) % 2))
@@ -601,22 +726,59 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
         offsets.append(pos)
         pos += len(s)
     offset_tag = 324 if tile else 273
-    if len(offsets) * 4 > 4:
+    offset_fmt = "Q" if bigtiff else "I"
+    if len(offsets) * word > word:
         values[offset_tag] = pos
-        blobs_tail = struct.pack(byteorder + "I" * len(offsets), *offsets)
+        blobs_tail = struct.pack(byteorder + offset_fmt * len(offsets), *offsets)
     else:
         blobs_tail = b""
-    ifd = struct.pack(byteorder + "H", len(entries))
+    entry = "HHQQ" if bigtiff else "HHII"
+    ifd = struct.pack(byteorder + ("Q" if bigtiff else "H"), len(entries))
     for tag, typ, vals in entries:
         vals = offsets if tag == offset_tag else vals
         if tag in values:
-            ifd += struct.pack(byteorder + "HHII", tag, typ, len(vals), values[tag])
+            ifd += struct.pack(byteorder + entry, tag, typ, count(typ, vals), values[tag])
         else:
-            ifd += struct.pack(byteorder + "HHI", tag, typ, len(vals)) + packed(
-                typ, vals).ljust(4, b"\x00")
-    ifd += b"\x00\x00\x00\x00"
-    head = (b"II*\x00" if byteorder == "<" else b"MM\x00*") + struct.pack(byteorder + "I", 8)
+            ifd += struct.pack(byteorder + entry[:3], tag, typ, count(typ, vals)) + packed(
+                typ, vals).ljust(word, b"\x00")
+    ifd += b"\x00" * word
+    if bigtiff:
+        head = (b"II+\x00" if byteorder == "<" else b"MM\x00+") + struct.pack(
+            byteorder + "HHQ", 8, 0, 16)
+    else:
+        head = (b"II*\x00" if byteorder == "<" else b"MM\x00*") + struct.pack(byteorder + "I", 8)
     return head + ifd + b"".join(blobs) + b"".join(segments) + blobs_tail
+
+
+def _box_mean(plane: np.ndarray, sh: int, sv: int) -> np.ndarray:
+    """[H, W, 1] -> [ceil(H / sv), ceil(W / sh), 1] rounded means of sh x sv
+    boxes (edge boxes padded by repetition)."""
+    h, w = plane.shape[:2]
+    p = np.pad(plane[..., 0].astype(np.float64), ((0, -h % sv), (0, -w % sh)), mode="edge")
+    m = p.reshape(p.shape[0] // sv, sv, p.shape[1] // sh, sh).mean(axis=(1, 3))
+    return np.round(m).astype(plane.dtype)[..., None]
+
+
+def ycbcr_units(block: np.ndarray, sh: int, sv: int) -> np.ndarray:
+    """[rows, W, 3] uint8 YCbCr -> the chunky data units of TIFF 6.0
+    section 21: per unit the sh x sv luma samples by rows, then Cb and Cr."""
+    rows, w = block.shape[:2]
+    p = np.pad(block, ((0, -rows % sv), (0, -w % sh), (0, 0)), mode="edge")
+    uy, ux = p.shape[0] // sv, p.shape[1] // sh
+    luma = p[..., 0].reshape(uy, sv, ux, sh).transpose(0, 2, 1, 3).reshape(uy, ux, sv * sh)
+    chroma = [_box_mean(p[..., c:c + 1], sh, sv)[..., 0] for c in (1, 2)]
+    return np.concatenate([luma, chroma[0][..., None], chroma[1][..., None]], -1).astype(
+        np.uint8)
+
+
+def _pack12(rows: np.ndarray) -> np.ndarray:
+    """[h, n] 12-bit values -> [h, ceil(1.5 n)] bytes, from the high bit."""
+    v = rows.astype(np.uint16)
+    if v.shape[1] % 2:
+        v = np.pad(v, ((0, 0), (0, 1)))
+    a, b = v[:, 0::2], v[:, 1::2]
+    out = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], -1).reshape(v.shape[0], -1)
+    return out[:, :(rows.shape[1] * 3 + 1) // 2].astype(np.uint8)
 
 
 # ---- TGA ------------------------------------------------------------------------------

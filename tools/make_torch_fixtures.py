@@ -4,6 +4,7 @@
     python3 tools/make_torch_fixtures.py             # everything
     python3 tools/make_torch_fixtures.py --formats   # only the image-format files
     python3 tools/make_torch_fixtures.py --raster    # only the TIFF / Netpbm / TGA / QOI ones
+    python3 tools/make_torch_fixtures.py --codecs    # only the damaged-JPEG and TIFF-codec ones
 
 Needs PIL (it writes the JPEGs and records PIL's decode of each), so it runs
 where the tests run, not on the card. It writes, from seeds:
@@ -77,6 +78,23 @@ and under `tests/format_fixtures/`, from the 1296x832 JPEG's decode
 - `metrics_tga_ppm/{renders,gt}/`: a method directory of two 64x48 views,
   `00000.tga` (run-length, 24-bit) and `00001.ppm` (P6), PIL's decodes in
   `metrics_tga_ppm/pil/`;
+- damaged and partly refined JPEGs and TIFF codecs (`codec_cases`, written
+  alone by `--codecs`): the damaged-JPEG census's three probe files (a
+  32x48 4:2:0 baseline, a 4:4:4 baseline with a restart every 4 MCUs, a
+  progressive 4:2:0 with libjpeg's scan script; `tools/jpeg_flip_census.py`),
+  progressive files that end after the DC scans, after the first AC band
+  and before the last refinement (and a grey one after its DC scan),
+  damaged files PIL decodes (entropy-coded bits flipped, a restart marker
+  renumbered, an EOI in the middle of the data), CCITT bilevel TIFFs (RLE,
+  Group 3 1-D and 2-D, with fill bits, Group 4; PIL's coding of each strip,
+  both photometrics and fill orders), LZMA, BigTIFF, YCbCr at every
+  subsampling libtiff reads (LZW, Deflate, separate planes, uncompressed
+  planes, ReferenceBlackWhite and YCbCrCoefficients), CIELab and 12-bit
+  grey; `colmap_codecs/view_<i>`: the first three COLMAP views as a damaged
+  JPEG, a partly refined JPEG and a YCbCr 4:2:0 LZW TIFF; and
+  `tests/torch_fixtures/codecs/`: the 1296x832 view damaged (three bits of
+  PIL's JPEG) and partly refined (`jpeg_bytes`, every scan but the last),
+  with PIL's decode of each in `pil_decode/<name>.png`;
 and, with `--formats` too, `tests/torch_fixtures/webp/`: the 1296x832 view
 as lossy WebP at quality 90 (PIL's decode in
 `pil_decode/scene_1296x832_q90_webp.png`) and an 800x800 RGBA lossless WebP
@@ -724,15 +742,194 @@ def write_formats(src):
             np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
 
 
+CODECS = os.path.join(OUT, "codecs")  # the 1296x832 damaged / partly refined files
+
+
+def probe_image(h=32, w=48, seed=21):
+    """The damaged-JPEG census's seeded content: smooth colour and noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([128 + 100 * np.sin(x / 7 + seed), 128 + 90 * np.cos(y / 5),
+                     128 + 60 * np.sin((x + y) / 9)], -1)
+    return np.clip(base + rng.normal(0, 25, base.shape), 0, 255).astype(np.uint8)
+
+
+def _flipped(blob, bits):
+    out = bytearray(blob)
+    for b in bits:
+        out[b // 8] ^= 0x80 >> (b % 8)
+    return bytes(out)
+
+
+def damaged_jpeg(blob, seed, flips=1):
+    """`blob` with `flips` bits of its entropy-coded data flipped, the first
+    seeded choice that PIL still decodes to other pixels than the intact
+    file's."""
+    from PIL import Image
+
+    start = blob.index(b"\xff\xda")
+    start += 2 + (blob[start + 2] << 8 | blob[start + 3])
+    intact = np.asarray(Image.open(io.BytesIO(blob)))
+    rng = np.random.default_rng(seed)
+    while True:
+        bits = rng.integers(start * 8, (len(blob) - 2) * 8, flips)
+        out = _flipped(blob, bits)
+        try:
+            got = np.asarray(Image.open(io.BytesIO(out)))
+        except Exception:
+            continue
+        if not np.array_equal(got, intact):
+            return out
+
+
+def _ccitt_strips(bits, compression, rows_per_strip, t4=0):
+    """PIL's (libtiff's) CCITT coding of each strip of a bool image."""
+    from PIL import Image, TiffImagePlugin
+
+    out = []
+    for y in range(0, bits.shape[0], rows_per_strip):
+        info = TiffImagePlugin.ImageFileDirectory_v2()
+        if t4:
+            info[292] = t4
+        buf = io.BytesIO()
+        Image.fromarray(bits[y:y + rows_per_strip]).save(buf, "TIFF", compression=compression,
+                                                           tiffinfo=info)
+        img = Image.open(io.BytesIO(buf.getvalue()))
+        off, cnt = img.tag_v2[273][0], img.tag_v2[279][0]
+        out.append(buf.getvalue()[off:off + cnt])
+    return out
+
+
+def codec_cases(crop):
+    """(name, bytes) of the small damaged and partly refined JPEGs and of the
+    TIFF codecs and sample kinds of `write_codecs` (module docstring)."""
+    from tools.image_writers import (PROGRESSIVE_1, PROGRESSIVE_3, jpeg_bytes, rgb_to_ycc,
+                                     tiff_bytes)
+
+    out = []
+    probe = rgb_to_ycc(probe_image())
+    s420 = ((2, 2), (1, 1), (1, 1))
+    base = jpeg_bytes(probe, s420, quality=90)
+    rst = jpeg_bytes(probe, ((1, 1),) * 3, quality=90, restart_interval=4)
+    out += [("jpeg_probe_420.jpg", base), ("jpeg_probe_444_restart.jpg", rst),
+            ("jpeg_probe_420_progressive.jpg", jpeg_bytes(probe, s420, quality=90,
+                                                          scans=PROGRESSIVE_3))]
+    ycc = rgb_to_ycc(crop)
+    for name, scans in (("dc", PROGRESSIVE_3[:1]), ("dc_ac1", PROGRESSIVE_3[:2]),
+                        ("unrefined", PROGRESSIVE_3[:-1])):
+        out.append((f"jpeg_partial_{name}.jpg", jpeg_bytes(ycc, s420, quality=85, scans=scans)))
+    out.append(("jpeg_partial_grey_dc.jpg", jpeg_bytes(ycc[..., 0], ((1, 1),), quality=85,
+                                                      scans=PROGRESSIVE_1[:1])))
+    crop_rst = jpeg_bytes(ycc, ((1, 1),) * 3, quality=90, restart_interval=3)
+    rst_at = [i for i in range(len(crop_rst) - 1)
+              if crop_rst[i] == 0xFF and 0xD0 <= crop_rst[i + 1] <= 0xD7]
+    out += [("jpeg_damaged_huffman.jpg", damaged_jpeg(jpeg_bytes(ycc, s420, quality=90), 3)),
+            ("jpeg_damaged_three_bits.jpg", damaged_jpeg(jpeg_bytes(ycc, s420, quality=90), 4, 3)),
+            ("jpeg_damaged_restart.jpg",  # RST1 read as RST3: resynced
+             _flipped(crop_rst, [8 * rst_at[1] + 14])),
+            ("jpeg_damaged_marker.jpg",  # an EOI in the middle of the data: zeros, then grey
+             base[:len(base) // 2] + b"\xff\xd9" + base[len(base) // 2 + 2:])]
+    bits = np.asarray(crop[..., 1] > 120)
+    for name, comp, code, t4, photo, fill in (
+            ("rle", "tiff_ccitt", 2, 0, 1, 1), ("g3_1d", "group3", 3, 0, 0, 1),
+            ("g3_2d", "group3", 3, 1, 1, 2), ("g3_2d_fill", "group3", 3, 5, 0, 1),
+            ("g4", "group4", 4, 0, 0, 1), ("g4_fill2", "group4", 4, 0, 1, 2)):
+        out.append((f"tif_ccitt_{name}.tif", tiff_bytes(
+            bits.astype(np.uint8), photo, compression=code, bits=1, rows_per_strip=16,
+            encoded=_ccitt_strips(bits, comp, 16, t4), fill_order=fill,
+            tags=[(292, 4, [t4])] if t4 else [])))
+    out += [("tif_lzma_rgb.tif", tiff_bytes(crop, 2, compression=34925, rows_per_strip=16)),
+            ("tif_lzma_rgb_pred2.tif", tiff_bytes(crop, 2, compression=34925, predictor=2)),
+            ("tif_bigtiff_rgb.tif", tiff_bytes(crop, 2, bigtiff=True, rows_per_strip=16)),
+            ("tif_bigtiff_lzw_tiles.tif", tiff_bytes(crop, 2, compression=5, bigtiff=True,
+                                                     tile=(32, 32))),
+            ("tif_bigtiff_lzma.tif", tiff_bytes(crop, 2, compression=34925, bigtiff=True))]
+    for sh, sv in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)):
+        out.append((f"tif_ycbcr_{sh}{sv}_lzw.tif", tiff_bytes(
+            ycc, 6, compression=5, ycbcr_subsampling=(sh, sv), rows_per_strip=16)))
+    out += [("tif_ycbcr_22_deflate.tif", tiff_bytes(ycc, 6, compression=8,
+                                                     ycbcr_subsampling=(2, 2))),
+            ("tif_ycbcr_22_refbw.tif", tiff_bytes(ycc, 6, compression=5, ycbcr_subsampling=(2, 2),
+                                                  tags=[(529, 5, [2126, 10000, 7152, 10000, 722,
+                                                                  10000]),
+                                                        (532, 5, [16, 1, 235, 1, 128, 1, 240, 1,
+                                                                  128, 1, 240, 1])])),
+            ("tif_ycbcr_planar_deflate.tif", tiff_bytes(ycc, 6, compression=8, planar=2,
+                                                        ycbcr_subsampling=(1, 1))),
+            ("tif_ycbcr_planar_none.tif", tiff_bytes(ycc, 6, planar=2, ycbcr_subsampling=(1, 1))),
+            ("tif_lab.tif", tiff_bytes(ycc, 8)),
+            ("tif_lab_planar_lzw.tif", tiff_bytes(ycc, 8, compression=5, planar=2)),
+            ("tif_i12.tif", tiff_bytes((crop[..., 0].astype(np.uint16) * 16 + crop[..., 1] % 16),
+                                       1, bits=12)),
+            ("tif_i12_deflate.tif", tiff_bytes((crop[..., 2].astype(np.uint16) * 16 + 9), 1,
+                                               compression=8, bits=12, rows_per_strip=7))]
+    return out
+
+
+def codec_views(views):
+    """The three views of the codec COLMAP copy (module docstring): a
+    damaged JPEG, a partly refined progressive JPEG and a YCbCr 4:2:0 LZW
+    TIFF of the first three COLMAP views' decodes."""
+    from tools.image_writers import PROGRESSIVE_3, jpeg_bytes, rgb_to_ycc, tiff_bytes
+
+    s420 = ((2, 2), (1, 1), (1, 1))
+    return [("view_0.jpg", damaged_jpeg(jpeg_bytes(rgb_to_ycc(views[0]), s420, quality=90), 5)),
+            ("view_1.jpg", jpeg_bytes(rgb_to_ycc(views[1]), s420, quality=90,
+                                      scans=PROGRESSIVE_3[:-1])),
+            ("view_2.tif", tiff_bytes(rgb_to_ycc(views[2]), 6, compression=5,
+                                      ycbcr_subsampling=(2, 2), rows_per_strip=16))]
+
+
+def write_codecs(src):
+    """The files of `codec_cases` and `codec_views` under
+    `tests/format_fixtures/` (PIL's array beside each), and the 1296x832
+    damaged and partly refined JPEGs under `tests/torch_fixtures/codecs/`
+    with PIL's decode of each in `pil_decode/<name>.png`; `src` is the
+    1296x832 view's decode. The other fixtures stay as they are."""
+    from PIL import Image
+
+    from tools.image_writers import PROGRESSIVE_3, jpeg_bytes, rgb_to_ycc
+
+    def save(path, blob):
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+
+    for name, blob in codec_cases(src[300:348, 500:564]):
+        save(os.path.join(FORMATS, name), blob)
+    views_dir = os.path.join(FORMATS, "colmap_codecs")
+    shutil.rmtree(views_dir, ignore_errors=True)
+    os.makedirs(views_dir)
+    views = [np.asarray(Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg")))
+             for i in range(3)]
+    for name, blob in codec_views(views):
+        save(os.path.join(views_dir, name), blob)
+    os.makedirs(CODECS, exist_ok=True)
+    with open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"), "rb") as f:
+        scene = f.read()
+    big = {"scene_1296x832_damaged": damaged_jpeg(scene, 6, 3),
+           "scene_1296x832_unrefined": jpeg_bytes(rgb_to_ycc(src), ((2, 2), (1, 1), (1, 1)),
+                                                  quality=85, scans=PROGRESSIVE_3[:-1])}
+    for name, blob in big.items():
+        path = os.path.join(CODECS, name + ".jpg")
+        with open(path, "wb") as f:
+            f.write(blob)
+        write_png_up(os.path.join(OUT, "pil_decode", name + ".png"), np.asarray(Image.open(path)))
+
+
 def main(argv=None) -> int:
     from PIL import Image, ImageFile
 
     args = argv or sys.argv[1:]
+    if "--codecs" in args:
+        write_codecs(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
+        return 0
     if "--formats" in args or "--raster" in args:
         decoded = np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg")))
         if "--formats" in args:
             write_formats(decoded)
             write_dataset_webps(decoded)
+            write_codecs(decoded)
         write_raster(decoded)
         return 0
 
@@ -795,6 +992,7 @@ def main(argv=None) -> int:
                      np.asarray(Image.fromarray(img).resize(size)))
     write_formats(decoded)
     write_dataset_webps(decoded)
+    write_codecs(decoded)
     write_raster(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")

@@ -4,12 +4,14 @@ The port's counterpart of `wast3d_tpu/native`: the same C ABI and Python
 API (`available`, `read_ply_f32`, `write_ply_f32`, `read_colmap_points3d`,
 the `WAST3D_NO_NATIVE` opt-out), plus what datasets need without PIL, since
 the card's machine has none: a JPEG decoder (`read_jpeg`, `decode_jpeg`;
-baseline and progressive, 1, 3 or 4 components, any integral sampling;
-`jpeg.cpp`, with its upsampler alone as `jpeg_upsample`), and the byte loops
+baseline and progressive, 1, 3 or 4 components, any integral sampling,
+damaged and partly refined files as libjpeg-turbo reads them; `jpeg.cpp`,
+with its upsampler alone as `jpeg_upsample` and its IDCT as `jpeg_idct`),
+and the byte loops
 of the other readers (`image.cpp`): PNG unfiltering and Adam7 at every bit
 depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
-(`bmp_rle`), TIFF LZW and PackBits (`lzw_decode`, `packbits_decode`), TGA
-run lengths (`tga_rle`), QOI (`qoi_decode`) and PIL's bicubic resize
+(`bmp_rle`), TIFF LZW, PackBits and CCITT (`lzw_decode`, `packbits_decode`,
+`ccitt_decode`), TIFF YCbCr -> RGB (`ycbcr_to_rgb`), TGA run lengths (`tga_rle`), QOI (`qoi_decode`) and PIL's bicubic resize
 (`resize_u8`); and the WebP and GIF bitstreams
 (`webp.cpp`): lossless (`vp8l_decode`), lossy (`vp8_decode`, with its inverse
 transforms alone as `vp8_idct` and its YUV -> RGB as `yuv_to_rgba`), ALPH
@@ -86,6 +88,12 @@ _SIGNATURES = {
                      _c.c_int32], _c.c_int64),
     "w3d_jpeg_frame": ([_c.c_char_p, _c.c_int64, _c.POINTER(_c.c_int32), _c.c_char_p, _c.c_int32],
                        _c.c_int),
+    "w3d_ccitt_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32,
+                          _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_ycbcr_to_rgb": ([_c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32,
+                          _c.c_int32, _c.c_void_p, _c.c_void_p, _c.c_char_p, _c.c_int32],
+                         _c.c_int),
+    "w3d_jpeg_idct": ([_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p], _c.c_int),
     "w3d_jpeg_decode_as": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_int64,
                             _c.c_char_p, _c.c_int32], _c.c_int),
     "w3d_tga_rle": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int64, _c.c_int64, _c.c_void_p,
@@ -231,6 +239,48 @@ def jpeg_upsample(plane: np.ndarray, rh: int, rv: int, out_width: int,
                                    plane.shape[0], rh, rv, out.ctypes.data, out_width,
                                    out_height, msg, len(msg)) != 0:
         raise ValueError(f"jpeg_upsample: {_message(msg)}")
+    return out
+
+
+def jpeg_idct(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """int16 [n, 64] coefficients (natural order) and uint16 [64] quantisers
+    -> uint8 [n, 8, 8] samples, as PIL's libjpeg-turbo's SIMD islow IDCT
+    computes them (`jpeg.cpp`; `utils/image_io.jpeg_idct_reference` is its
+    plain version)."""
+    coef = np.ascontiguousarray(coef, np.int16).reshape(-1, 64)
+    qt = np.ascontiguousarray(qt, np.uint16).reshape(64)
+    out = np.empty((coef.shape[0], 8, 8), np.uint8)
+    library().w3d_jpeg_idct(coef.ctypes.data, qt.ctypes.data, coef.shape[0], out.ctypes.data)
+    return out
+
+
+def ccitt_decode(data: bytes, mode: int, options: int, width: int, rows: int,
+                 name: str = "<bytes>") -> np.ndarray:
+    """One strip or tile of CCITT data (TIFF Compression `mode` 2, 3 or 4;
+    `options` T4Options) -> uint8 [rows, ceil(width / 8)] packed rows, 1 for
+    a black run (`image.cpp`; `utils/image_io.ccitt_reference` is its plain
+    version)."""
+    out = np.empty((rows, (width + 7) // 8), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_ccitt_decode(data, len(data), mode, options, width, rows, out.ctypes.data,
+                                  msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def ycbcr_to_rgb(units: np.ndarray, sh: int, sv: int, width: int, rows: int,
+                 tables: np.ndarray, name: str = "<bytes>") -> np.ndarray:
+    """Chunky 8-bit YCbCr data units of sh x sv luma samples, Cb and Cr ->
+    uint8 [rows, width, 3] RGB through libtiff's TIFFYCbCrtoRGB with int32
+    [5, 256] `tables` (`image.cpp`; `utils/image_io.ycbcr_to_rgb_reference` is
+    its plain version)."""
+    units = np.ascontiguousarray(units, np.uint8)
+    tables = np.ascontiguousarray(tables, np.int32)
+    out = np.empty((rows, width, 3), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if library().w3d_ycbcr_to_rgb(units.ctypes.data, units.size, sh, sv, width, rows,
+                                  tables.ctypes.data, out.ctypes.data, msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
     return out
 
 

@@ -1,5 +1,5 @@
 // wast3d_tpu_torch native JPEG decoder: baseline sequential and progressive
-// Huffman JPEG.
+// Huffman JPEG, as libjpeg-turbo 3.1 decodes it behind PIL.
 //
 // COLMAP datasets ship JPEG images, and the card's machine has no PIL. This
 // decodes what cameras, COLMAP's undistorter, jpegtran and print tools
@@ -8,42 +8,68 @@
 // 4:2:0, 4:4:0, 4:1:1, ...), any size, restart markers. Every other kind of
 // file (arithmetic, lossless, hierarchical, 12-bit, 2 components,
 // fractional sampling ratios, more than 10 blocks in an MCU) is refused with
-// a message that names its marker or its factors, as libjpeg refuses them.
+// a message that names its marker or its factors.
 //
-// A progressive file's scans are decoded as libjpeg's jdphuff.c decodes
-// them into a coefficient buffer per component (DC first and refine,
-// interleaved or not; AC first with end-of-band runs; AC refine with its
-// correction bits; a non-interleaved scan walks the component's own blocks;
-// a restart resets the run and the DC predictors; Huffman tables may change
-// between scans). At EOI the blocks go through the same IDCT, upsampling and
-// colour code as a baseline file's, which gives libjpeg's pixels for a
-// complete file. A file whose scans leave any of a component's first ten
-// zigzag coefficients short of their last bit is one libjpeg would smooth
-// across blocks (jdcoefct.c, block smoothing); it is refused, as is a
-// progressive file that ends before EOI (PIL refuses truncated files).
+// Damaged files read as PIL reads them, which is libjpeg-turbo's way plus
+// PIL's own handling of a source that runs dry:
+// - the markers are read as jdmarker.c reads them (garbage before a marker
+//   skipped, APPn / COM / DNL skipped by their length, DHT / DQT / DRI / SOF /
+//   SOS / DAC checked as libjpeg checks them, an unknown marker refused);
+// - the Huffman tables a scan uses are checked as jpeg_make_d_derived_tbl
+//   checks them (a DC symbol over 15, a code past its length, the all-ones
+//   code), and a table a sequential scan names but no DHT defined is Annex
+//   K's standard table 0 or 1, as jdhuff.c substitutes it (jdphuff.c does
+//   not);
+// - the entropy decoder is jdhuff.c's and jdphuff.c's: its 64-bit bit
+//   buffer, filled to 57 bits at a time; a marker in the data feeds zero bits
+//   and, once an MCU has needed them, leaves the rest of the segment's MCUs
+//   untouched (grey in a sequential file); a bad Huffman code is 17 bits of
+//   symbol 0; a wrong or missing restart marker is resynced as
+//   jpeg_resync_to_restart does; DC and coefficient sums wrap as JCOEF does;
+// - the data running out where libjpeg would wait for more (no marker) is an
+//   error before the last MCU row of a one-scan file (PIL: "image file is
+//   truncated"), and before EOI in a file of several scans; after a one-scan
+//   file's last MCU only a marker error counts, as in jpeg_finish_decompress.
 //
-// The arithmetic is libjpeg's, so the output matches PIL's (libjpeg-turbo)
-// decode: the "islow" integer inverse DCT (jidctint.c, 13-bit constants, two
-// passes, the post-IDCT range limit), jdsample.c's upsampling (w3d_jpeg_upsample:
-// "fancy" triangle filters for ratios h2v1, h2v2 and h1v2, edge rows and
-// columns replicated, plain replication for h2 planes at most 2 samples
-// wide; int_upsample's replication for every other integral ratio), and the
-// fixed-point YCbCr -> RGB tables of jdcolor.c. A 4-component file is CMYK,
-// or YCCK under an Adobe marker whose transform is not 0 (jdcolor.c's
-// ycck_cmyk_convert: YCC -> RGB, inverted, K kept); PIL reads either as
-// "CMYK;I", so every sample comes out inverted. EXIF orientation is not
-// applied.
+// A progressive file's scans are decoded into a coefficient buffer per
+// component (DC first and refine, interleaved or not; AC first with
+// end-of-band runs; AC refine with its correction bits; a restart resets the
+// run and the DC predictors; Huffman tables may change between scans). At
+// EOI, when the scans leave any of a component's first ten zigzag
+// coefficients unsent or unrefined, the blocks are smoothed as jdcoefct.c's
+// decompress_smooth_data does (libjpeg-turbo 2.1 and later: a 5 x 5
+// neighbourhood of DC values; DC itself interpolated while no AC coefficient
+// has been sent), then every block goes through the IDCT, upsampling and
+// colour code.
+//
+// The arithmetic is that of PIL's libjpeg-turbo on x86-64: the SIMD "islow"
+// integer inverse DCT (jidctint-sse2 / -avx2: 16-bit dequantisation and
+// sums, saturating packs between the passes and at the end, the DC-only
+// shortcut when rows 1-7 of a block are zero), jdsample.c's upsampling
+// (w3d_jpeg_upsample: "fancy" triangle filters for ratios h2v1, h2v2 and
+// h1v2, edge rows and columns replicated, plain replication for h2 planes at
+// most 2 samples wide; int_upsample's replication for every other integral
+// ratio), and the fixed-point YCbCr -> RGB tables of jdcolor.c. A 4-component
+// file is CMYK, or YCCK under an Adobe marker whose transform is not 0
+// (jdcolor.c's ycck_cmyk_convert: YCC -> RGB, inverted, K kept); PIL reads
+// either as "CMYK;I", so every sample comes out inverted. EXIF orientation
+// is not applied. PIL's own walk over the markers before libjpeg runs
+// (JpegImagePlugin's _open) is `utils/image_io._jpeg_walk`.
 //
 // C ABI (ctypes):
 //   w3d_jpeg_info(data, size, &width, &height, &channels, msg, msg_len)
 //   w3d_jpeg_decode(data, size, out, out_size, msg, msg_len)
 //   w3d_jpeg_decode_as(data, size, colour, out, out_size, msg, msg_len): the
 //     colour space given, as a TIFF gives it (0: the file's own markers, 1:
-//     YCbCr -> RGB, 2: the components as coded)
-//   w3d_jpeg_frame(data, size, info, msg, msg_len): info = width, height,
-//     components, then 16 h + v of each component's sampling factors
+//     YCbCr -> RGB, 2: the components as coded); 1 and 2 read the data as
+//     libtiff's JPEG source does, a fake EOI where it ends
+//   w3d_jpeg_frame(data, size, info, msg, msg_len): a TIFF's stream's
+//     width, height, components, then 16 h + v of each component's sampling
+//     factors
 //   w3d_jpeg_upsample(plane, stride, width, height, rh, rv, out, out_width,
 //                     out_height, msg, msg_len)
+//   w3d_jpeg_idct(coef, qt, n, out): n blocks of 64 int16 coefficients
+//     (natural order) dequantised with the 64 uint16 of qt -> n x 64 samples
 // Each returns 0 on success and -1 on failure, with a NUL-terminated reason
 // in msg. out receives height x width x channels bytes, row-major; the
 // upsampler turns a width x height plane (row stride `stride`) into
@@ -51,6 +77,7 @@
 // sampled rh x rv times less than the image.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -73,7 +100,44 @@ struct DecodeError {
   std::string msg;
 };
 
+// The data ended where libjpeg's suspending source (PIL's) would wait for
+// more bytes.
+struct Suspend {};
+
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError{msg}; }
+
+// Annex K.3's tables, which libjpeg-turbo uses for tables 0 and 1 when a
+// scan names a table no DHT defined (jstdhuff.c): code counts by length
+// (index 1-16), then the symbols.
+struct StdTable {
+  uint8_t bits[17];
+  uint8_t vals[162];
+};
+const StdTable kStdTables[4] = {  // DC 0, AC 0, DC 1, AC 1
+    {{0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+     {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}},
+    {{0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+     {1, 2, 3, 0, 4, 17, 5, 18, 33, 49, 65, 6, 19, 81, 97, 7, 34, 113, 20, 50, 129, 145, 161,
+      8, 35, 66, 177, 193, 21, 82, 209, 240, 36, 51, 98, 114, 130, 9, 10, 22, 23, 24, 25, 26,
+      37, 38, 39, 40, 41, 42, 52, 53, 54, 55, 56, 57, 58, 67, 68, 69, 70, 71, 72, 73, 74, 83,
+      84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102, 103, 104, 105, 106, 115, 116, 117, 118,
+      119, 120, 121, 122, 131, 132, 133, 134, 135, 136, 137, 138, 146, 147, 148, 149, 150,
+      151, 152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169, 170, 178, 179, 180, 181,
+      182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200, 201, 202, 210, 211, 212,
+      213, 214, 215, 216, 217, 218, 225, 226, 227, 228, 229, 230, 231, 232, 233, 234, 241,
+      242, 243, 244, 245, 246, 247, 248, 249, 250}},
+    {{0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+     {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}},
+    {{0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119},
+     {0, 1, 2, 3, 17, 4, 5, 33, 49, 6, 18, 65, 81, 7, 97, 113, 19, 34, 50, 129, 8, 20, 66,
+      145, 161, 177, 193, 9, 35, 51, 82, 240, 21, 98, 114, 209, 10, 22, 36, 52, 225, 37, 241,
+      23, 24, 25, 26, 38, 39, 40, 41, 42, 53, 54, 55, 56, 57, 58, 67, 68, 69, 70, 71, 72, 73,
+      74, 83, 84, 85, 86, 87, 88, 89, 90, 99, 100, 101, 102, 103, 104, 105, 106, 115, 116,
+      117, 118, 119, 120, 121, 122, 130, 131, 132, 133, 134, 135, 136, 137, 138, 146, 147,
+      148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165, 166, 167, 168, 169, 170, 178,
+      179, 180, 181, 182, 183, 184, 185, 186, 194, 195, 196, 197, 198, 199, 200, 201, 202,
+      210, 211, 212, 213, 214, 215, 216, 217, 218, 226, 227, 228, 229, 230, 231, 232, 233,
+      234, 242, 243, 244, 245, 246, 247, 248, 249, 250}}};
 
 // ---- upsampling: jdsample.c ---------------------------------------------------
 // One output row of an h2 component from its downsampled row `in` (n
@@ -150,28 +214,151 @@ std::string marker_name(int m) {
   return buf;
 }
 
-struct Huffman {
+// ---- inverse DCT: libjpeg-turbo's SIMD jsimd_idct_islow (SSE2 / AVX2) --------
+// The C jidctint.c in 16-bit lanes: coefficient x quantiser and the sums
+// in0 +- in4, in7 + in3, in5 + in1 wrap at 16 bits; products and the other
+// sums are exact in 32 bits; each pass's results saturate to 16 bits
+// (packssdw) and the outputs to [-128, 127] before the +128 (packsswb).
+inline int32_t wrap16(int32_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+inline int32_t sat16(int64_t x) { return static_cast<int32_t>(std::min<int64_t>(32767, std::max<int64_t>(-32768, x))); }
+
+// One 1-D pass over in[0], in[s], ..., in[7 s] -> out[0..7], before descaling.
+inline void idct_pass(const int32_t* in, int s, int64_t* out) {
+  const int64_t z2 = in[2 * s], z3 = in[6 * s];
+  const int64_t tmp3 = z2 * 10703 + z3 * 4433;  // F(0.541 + 0.765), F(0.541)
+  const int64_t tmp2 = z2 * 4433 - z3 * 10704;  // F(0.541), F(0.541 - 1.848)
+  const int64_t tmp0 = static_cast<int64_t>(wrap16(in[0] + in[4 * s])) * 8192;
+  const int64_t tmp1 = static_cast<int64_t>(wrap16(in[0] - in[4 * s])) * 8192;
+  const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  const int64_t i7 = in[7 * s], i5 = in[5 * s], i3 = in[3 * s], i1 = in[s];
+  const int64_t z3o = wrap16(static_cast<int32_t>(i7 + i3)), z4o = wrap16(static_cast<int32_t>(i5 + i1));
+  const int64_t z3p = z3o * -6436 + z4o * 9633;  // F(1.176 - 1.962), F(1.176)
+  const int64_t z4p = z3o * 9633 + z4o * 6437;   // F(1.176), F(1.176 - 0.390)
+  const int64_t o0 = i7 * -4927 + i1 * -7373 + z3p;   // F(0.299 - 0.900), -F(0.900)
+  const int64_t o3 = i7 * -7373 + i1 * 4926 + z4p;    // -F(0.900), F(1.501 - 0.900)
+  const int64_t o1 = i5 * -4176 + i3 * -20995 + z4p;  // F(2.053 - 2.563), -F(2.563)
+  const int64_t o2 = i5 * -20995 + i3 * 4177 + z3p;   // -F(2.563), F(3.073 - 2.563)
+  out[0] = t10 + o3;
+  out[7] = t10 - o3;
+  out[1] = t11 + o2;
+  out[6] = t11 - o2;
+  out[2] = t12 + o1;
+  out[5] = t12 - o1;
+  out[3] = t13 + o0;
+  out[4] = t13 - o0;
+}
+
+void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int64_t stride) {
+  int32_t ws[64];
+  bool ac = false;  // any coefficient in rows 1-7
+  for (int i = 8; i < 64 && !ac; ++i) ac = coef[i] != 0;
+  if (!ac) {  // pmullw, psllw PASS1_BITS: 16 bits throughout
+    for (int c = 0; c < 8; ++c) {
+      const int32_t dc = wrap16(wrap16(coef[c] * q[c]) * 4);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
+    }
+  } else {
+    int32_t in[64];
+    for (int i = 0; i < 64; ++i) in[i] = wrap16(coef[i] * q[i]);
+    for (int c = 0; c < 8; ++c) {  // pass 1: columns
+      int64_t o[8];
+      idct_pass(in + c, 8, o);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16((o[r] + 1024) >> 11);
+    }
+  }
+  for (int r = 0; r < 8; ++r) {  // pass 2: rows
+    int64_t o[8];
+    idct_pass(ws + 8 * r, 1, o);
+    uint8_t* row = out + r * stride;
+    for (int c = 0; c < 8; ++c) {
+      const int32_t v = sat16((o[c] + (1 << 17)) >> 18);
+      row[c] = static_cast<uint8_t>(std::min(127, std::max(-128, v)) + 128);
+    }
+  }
+}
+
+// ---- Huffman tables: jdmarker.c's get_dht, jdhuff.c's derived tables --------
+struct HuffSpec {  // a table as a DHT defines it
   bool defined = false;
-  int32_t maxcode[18];    // largest code of each length, -1 if none
-  int32_t valoffset[18];  // symbol index of a code of each length, minus the code
-  uint8_t vals[256];
-  uint8_t look_len[512];  // 9-bit lookahead: code length (0: longer code)
-  uint8_t look_sym[512];
+  uint8_t bits[17] = {0};
+  uint8_t vals[256] = {0};
 };
+
+struct Huffman {  // jpeg_make_d_derived_tbl
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint8_t vals[256];
+  uint8_t look_nb[256];  // HUFF_LOOKAHEAD = 8 bits: code length, 9 if longer
+  uint8_t look_sym[256];
+};
+
+void derive(const HuffSpec& spec, bool dc, Huffman& t) {
+  uint8_t size[257];
+  int32_t code_of[257];
+  int p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    const int n = spec.bits[l];
+    if (p + n > 256) fail("bad Huffman table (more than 256 codes)");
+    for (int i = 0; i < n; ++i) size[p++] = static_cast<uint8_t>(l);
+  }
+  size[p] = 0;
+  const int count = p;
+  int32_t code = 0;
+  int si = size[0];
+  p = 0;
+  while (size[p]) {
+    while (size[p] == si) {
+      code_of[p++] = code;
+      ++code;
+    }
+    if (code >= (int32_t(1) << si)) fail("bad Huffman table (code lengths overflow)");
+    code <<= 1;
+    ++si;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (spec.bits[l]) {
+      t.valoffset[l] = p - code_of[p];
+      p += spec.bits[l];
+      t.maxcode[l] = code_of[p - 1];
+    } else {
+      t.maxcode[l] = -1;
+    }
+  }
+  t.valoffset[17] = 0;
+  t.maxcode[17] = 0xFFFFF;  // ends the slow decode at 17 bits
+  std::copy(spec.vals, spec.vals + 256, t.vals);
+  std::fill(t.look_nb, t.look_nb + 256, static_cast<uint8_t>(9));
+  p = 0;
+  for (int l = 1; l <= 8; ++l) {
+    for (int i = 0; i < spec.bits[l]; ++i, ++p) {
+      const int lo = code_of[p] << (8 - l);
+      for (int j = 0; j < (1 << (8 - l)); ++j) {
+        t.look_nb[lo + j] = static_cast<uint8_t>(l);
+        t.look_sym[lo + j] = spec.vals[p];
+      }
+    }
+  }
+  if (dc) {
+    for (int i = 0; i < count; ++i) {
+      if (spec.vals[i] > 15) fail("bad Huffman table (a DC symbol over 15)");
+    }
+  }
+}
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
-  int dc_pred = 0;
   int width = 0, height = 0;  // downsampled size
-  int bw = 0, bh = 0;         // blocks across and down in the plane
+  int wb = 0, hb = 0;         // blocks across and down that hold samples
+  int bw = 0, bh = 0;         // blocks across and down in whole MCUs
   int stride = 0;
   std::vector<uint8_t> plane;  // bh * 8 rows of stride samples
-  // Progressive files: the coefficients, bw * bh blocks of 64 in natural
-  // order; the last Al each zigzag coefficient was coded with (-1: never);
-  // the quantisation table latched at the component's first scan.
-  std::vector<int16_t> coef;
+  std::vector<int16_t> coef;   // bw * bh blocks of 64, natural order
+  // Progressive files: the last Al each zigzag coefficient was coded with
+  // (-1: never), and the same before the component's latest scan.
   int coef_bits[64];
-  uint16_t qt[64];
+  int prev_bits[64];
+  uint16_t qt[64];  // latched at the component's first scan; zeros if never
   bool latched = false;
 };
 
@@ -179,56 +366,69 @@ class Decoder {
  public:
   Decoder(const uint8_t* data, size_t size) : data_(data), size_(size) {}
 
+  // jpeg_read_header: the markers up to the first SOS.
   void header() {
-    if (size_ < 4 || data_[0] != 0xFF || data_[1] != 0xD8) fail("not a JPEG file (no SOI)");
-    pos_ = 2;
-    for (;;) {
-      int m = next_marker();
-      if (m == 0xD9) fail("no frame before EOI");
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        frame(m);
-        return;
+    try {
+      for (;;) {
+        const int r = read_markers();
+        if (r == kReachedSos) break;
+        // EOI before any scan: PIL asks for the header again, and libjpeg
+        // then wants SOI at once (tables are kept).
+        saw_soi_ = saw_sof_ = false;
       }
-      if (m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) unsupported_frame(m);
-      segment(m);
+    } catch (const Suspend&) {
+      fail("truncated JPEG (the data ends in its header)");
     }
+    initial_setup();
   }
 
   void decode(uint8_t* out) {
-    for (;;) {
-      if (pos_ >= size_ && scans_ > 0) {
-        // A missing EOI, as libjpeg allows; PIL refuses a progressive file
-        // cut short.
-        if (progressive_) fail("truncated progressive JPEG (no EOI)");
-        break;
-      }
-      int m = next_marker();
-      if (m == 0xD9) break;
-      if (m == 0xDA) {
+    try {
+      start_scan();
+      if (!multiple_) {
         scan();
-        ++scans_;
-      } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
-        fail("a second frame (" + marker_name(m) + ") is not supported");
+        // jpeg_finish_decompress: markers up to EOI; running out is fine.
+        try {
+          for (;;) {
+            const int r = read_markers();
+            if (r == kReachedEoi) break;
+            fail("a second scan in a one-scan JPEG (libjpeg: EOI expected)");
+          }
+        } catch (const Suspend&) {
+        }
       } else {
-        segment(m);
+        for (;;) {
+          scan();
+          if (read_markers() == kReachedEoi) break;
+          start_scan();
+        }
       }
+    } catch (const Suspend&) {
+      fail(multiple_ ? "truncated JPEG (no EOI after its scans)" : "truncated JPEG (image data ends early)");
     }
-    if (scans_ == 0) fail("no scan (SOS) before EOI");
-    if (progressive_) progressive_planes();
+    planes();
     output(out);
   }
 
-  void set_colour(int colour) { colour_ = colour; }
+  // A TIFF's strip or tile (colour 1 or 2): libtiff's JPEG source feeds a
+  // fake EOI where the data ends, where PIL's would wait for more.
+  void set_colour(int colour) {
+    colour_ = colour;
+    fake_eoi_ = colour != 0;
+  }
   int sampling(int c) const { return comp_[c].h * 16 + comp_[c].v; }
   int width() const { return width_; }
   int height() const { return height_; }
   int channels() const { return ncomp_; }
 
  private:
-  // ---- markers and segments ------------------------------------------
+  static constexpr int kReachedSos = 1, kReachedEoi = 2;
+
+  // ---- markers: jdmarker.c ----------------------------------------------
   int byte() {
-    if (pos_ >= size_) fail("unexpected end of data");
-    return data_[pos_++];
+    if (pos_ < size_) return data_[pos_++];
+    if (!fake_eoi_) throw Suspend{};
+    return (fake_++ & 1) ? 0xD9 : 0xFF;  // libtiff's source: FF D9 for ever
   }
 
   int u16() {
@@ -236,17 +436,92 @@ class Decoder {
     return (hi << 8) | byte();
   }
 
-  int next_marker() {
-    // Skip anything up to 0xFF, then fill bytes, as libjpeg's next_marker.
+  void next_marker() {  // garbage and FF/00 pairs skipped, fill bytes too
+    int c;
     for (;;) {
-      while (byte() != 0xFF) {
-      }
-      int m;
+      c = byte();
+      while (c != 0xFF) c = byte();
       do {
-        m = byte();
-      } while (m == 0xFF);
-      if (m != 0 && !(m >= 0xD0 && m <= 0xD7)) return m;
+        c = byte();
+      } while (c == 0xFF);
+      if (c != 0) break;
     }
+    unread_marker_ = c;
+  }
+
+  int read_markers() {
+    for (;;) {
+      if (unread_marker_ == 0) {
+        if (!saw_soi_) {
+          const int c = byte(), c2 = byte();
+          if (c != 0xFF || c2 != 0xD8) fail("not a JPEG file (no SOI)");
+          unread_marker_ = 0xD8;
+        } else {
+          next_marker();
+        }
+      }
+      const int m = unread_marker_;
+      if (m == 0xD8) {
+        if (saw_soi_) fail("a second SOI");
+        restart_interval_ = 0;
+        saw_jfif_ = saw_adobe_ = false;
+        adobe_transform_ = 0;
+        saw_soi_ = true;
+      } else if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        frame(m);
+      } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xCC)) {
+        unsupported_frame(m);
+      } else if (m == 0xDA) {
+        sos();
+        unread_marker_ = 0;
+        return kReachedSos;
+      } else if (m == 0xD9) {
+        unread_marker_ = 0;
+        return kReachedEoi;
+      } else if (m == 0xCC) {
+        dac();
+      } else if (m == 0xC4) {
+        dht();
+      } else if (m == 0xDB) {
+        dqt();
+      } else if (m == 0xDD) {
+        if (u16() != 4) fail("bad DRI segment length");
+        restart_interval_ = u16();
+      } else if (m == 0xE0 || m == 0xEE) {
+        interesting_app(m);
+      } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+        skip_variable();
+      } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+        // RSTn and TEM carry no segment
+      } else {
+        fail("unknown JPEG " + marker_name(m));
+      }
+      unread_marker_ = 0;
+    }
+  }
+
+  void skip_variable() {
+    const long length = u16() - 2;
+    if (length > 0) skip(static_cast<size_t>(length));
+  }
+
+  void skip(size_t n) {  // PIL's skip_input_data: past the end it waits
+    if (n > size_ - pos_ && !fake_eoi_) throw Suspend{};
+    pos_ += std::min(n, size_ - pos_);
+  }
+
+  void interesting_app(int m) {  // get_interesting_appn: JFIF and Adobe
+    long length = u16() - 2;
+    uint8_t b[14];
+    const int n = length >= 14 ? 14 : length > 0 ? static_cast<int>(length) : 0;
+    for (int i = 0; i < n; ++i) b[i] = static_cast<uint8_t>(byte());
+    length -= n;
+    if (m == 0xE0 && n >= 14 && memcmp(b, "JFIF\0", 5) == 0) saw_jfif_ = true;
+    if (m == 0xEE && n >= 12 && memcmp(b, "Adobe", 5) == 0) {
+      saw_adobe_ = true;
+      adobe_transform_ = b[11];
+    }
+    if (length > 0) skip(static_cast<size_t>(length));
   }
 
   void unsupported_frame(int m) {
@@ -259,106 +534,130 @@ class Decoder {
          "only sequential and progressive Huffman files (SOF0 / SOF1 / SOF2) are");
   }
 
-  void segment(int m) {
-    size_t len = static_cast<size_t>(u16());
-    if (len < 2 || pos_ + len - 2 > size_) fail("truncated " + marker_name(m) + " segment");
-    size_t end = pos_ + len - 2;
-    if (m == 0xDB) {
-      dqt(end);
-    } else if (m == 0xC4) {
-      dht(end);
-    } else if (m == 0xDD) {
-      if (len != 4) fail("bad DRI segment");
-      restart_interval_ = u16();
-    } else if (m == 0xCC) {
-      fail("arithmetic-coded JPEG (DAC, 0xFFCC) is not supported");
-    } else if (m == 0xE0 && len >= 7 && memcmp(data_ + pos_, "JFIF\0", 5) == 0) {
-      saw_jfif_ = true;
-    } else if (m == 0xEE && len >= 14 && memcmp(data_ + pos_, "Adobe", 5) == 0) {
-      saw_adobe_ = true;
-      adobe_transform_ = data_[pos_ + 11];
+  void dac() {  // get_dac: parsed and checked, then unused (Huffman files)
+    long length = u16() - 2;
+    while (length > 0) {
+      const int index = byte(), val = byte();
+      length -= 2;
+      if (index >= 32) fail("bad DAC table index");
+      if (index < 16 && (val & 15) > (val >> 4)) fail("bad DAC value");
     }
-    pos_ = end;  // APPn, COM and the rest are skipped
+    if (length != 0) fail("bad DAC segment length");
   }
 
-  void dqt(size_t end) {
-    while (pos_ < end) {
-      int pq_tq = byte();
-      int pq = pq_tq >> 4, tq = pq_tq & 15;
-      if (tq > 3) fail("bad DQT table index");
-      for (int k = 0; k < 64; ++k) qt_[tq][kNatural[k]] = static_cast<uint16_t>(pq ? u16() : byte());
+  void dqt() {
+    long length = u16() - 2;
+    while (length > 0) {
+      const int n = byte();
+      const int prec = n >> 4, tq = n & 15;
+      if (tq >= 4) fail("bad DQT table index");
+      for (int k = 0; k < 64; ++k) qt_[tq][kNatural[k]] = static_cast<uint16_t>(prec ? u16() : byte());
       qt_defined_[tq] = true;
+      length -= 65;
+      if (prec) length -= 64;
     }
+    if (length != 0) fail("bad DQT segment length");
   }
 
-  void dht(size_t end) {
-    while (pos_ < end) {
-      int tc_th = byte();
-      int tc = tc_th >> 4, th = tc_th & 15;
-      if (tc > 1 || th > 3) fail("bad DHT table index");
-      Huffman& t = tc ? ac_[th] : dc_[th];
-      int counts[17] = {0};
-      int total = 0;
-      for (int l = 1; l <= 16; ++l) total += counts[l] = byte();
-      if (total > 256) fail("bad DHT table");
-      for (int i = 0; i < total; ++i) t.vals[i] = static_cast<uint8_t>(byte());
-      // Canonical codes (JPEG Annex C), then the 9-bit lookahead table.
-      memset(t.look_len, 0, sizeof t.look_len);
-      int32_t code = 0;
-      int k = 0;
-      for (int l = 1; l <= 16; ++l) {
-        t.valoffset[l] = k - code;
-        if (counts[l]) {
-          for (int i = 0; i < counts[l]; ++i, ++k, ++code) {
-            if (code >= (1 << l)) fail("bad DHT table (codes overflow)");
-            if (l <= 9) {
-              int lo = code << (9 - l), n = 1 << (9 - l);
-              for (int j = 0; j < n; ++j) {
-                t.look_len[lo + j] = static_cast<uint8_t>(l);
-                t.look_sym[lo + j] = t.vals[k];
-              }
-            }
-          }
-          t.maxcode[l] = code - 1;
-        } else {
-          t.maxcode[l] = -1;
-        }
-        code <<= 1;
-      }
-      t.maxcode[17] = 0x7FFFFFFF;  // sentinel: a longer code is corrupt
-      t.defined = true;
+  void dht() {
+    long length = u16() - 2;
+    while (length > 16) {
+      int index = byte();
+      HuffSpec spec;
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += spec.bits[l] = static_cast<uint8_t>(byte());
+      length -= 17;
+      if (count > 256 || count > length) fail("bad DHT table (more codes than the segment holds)");
+      for (int i = 0; i < count; ++i) spec.vals[i] = static_cast<uint8_t>(byte());
+      length -= count;
+      const bool ac = index & 0x10;
+      if (ac) index -= 0x10;
+      if (index >= 4) fail("bad DHT table index");
+      spec.defined = true;
+      (ac ? ac_spec_ : dc_spec_)[index] = spec;
     }
+    if (length != 0) fail("bad DHT segment length");
   }
 
   void frame(int m) {
-    size_t len = static_cast<size_t>(u16());
-    size_t end = pos_ + len - 2;
-    int precision = byte();
+    if (saw_sof_) fail("a second frame (" + marker_name(m) + ")");
+    const int length = u16();
+    precision_ = byte();
     height_ = u16();
     width_ = u16();
     ncomp_ = byte();
-    if (precision != 8) {
-      fail(std::to_string(precision) + "-bit JPEG (" + marker_name(m) + ", precision " +
-           std::to_string(precision) + ") is not supported; only 8-bit samples are");
+    if (height_ <= 0 || width_ <= 0 || ncomp_ <= 0) {
+      fail("JPEG with a zero size or no components (" + marker_name(m) + ")");
     }
-    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4) {
-      fail(std::to_string(ncomp_) + "-component JPEG (" + marker_name(m) + ") is not supported");
-    }
-    if (width_ <= 0 || height_ <= 0) fail("JPEG with a zero size (" + marker_name(m) + ", DNL) is not supported");
-    if (len != 8u + 3u * ncomp_) fail("bad " + marker_name(m) + " segment");
+    if (length - 8 != ncomp_ * 3) fail("bad " + marker_name(m) + " segment length");
+    if (ncomp_ > 4) fail(std::to_string(ncomp_) + "-component JPEG (" + marker_name(m) + ") is not supported");
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
+      cp = Component();
       cp.id = byte();
-      int hv = byte();
+      const int hv = byte();
       cp.h = hv >> 4;
       cp.v = hv & 15;
       cp.tq = byte();
-      if (cp.h < 1 || cp.h > 4 || cp.v < 1 || cp.v > 4 || cp.tq > 3) {
+    }
+    progressive_ = m == 0xC2;
+    frame_marker_ = m;
+    saw_sof_ = true;
+  }
+
+  void sos() {
+    if (!saw_sof_) fail("SOS before any frame");
+    const int length = u16();
+    const int n = byte();
+    if (length != n * 2 + 6 || n < 1 || n > 4) fail("bad SOS segment");
+    ns_ = n;
+    for (int i = 0; i < 4; ++i) sc_[i] = nullptr;
+    for (int i = 0; i < n; ++i) {
+      const int cc = byte(), c = byte();
+      int found = -1;
+      for (int ci = 0; ci < ncomp_ && ci < 4; ++ci) {
+        if (cc == comp_[ci].id && !sc_[ci]) {
+          found = ci;
+          break;
+        }
+      }
+      if (found < 0) fail("SOS names an unknown component (id " + std::to_string(cc) + ")");
+      Component* cp = &comp_[found];
+      sc_[i] = cp;
+      cp->td = (c >> 4) & 15;
+      cp->ta = c & 15;
+      for (int pi = 0; pi < i; ++pi) {
+        if (sc_[pi] == cp) fail("SOS names a component twice (id " + std::to_string(cc) + ")");
+      }
+    }
+    ss_ = byte();
+    se_ = byte();
+    const int a = byte();
+    ah_ = a >> 4;
+    al_ = a & 15;
+    next_restart_ = 0;
+    ++scan_number_;
+  }
+
+  // jdinput.c initial_setup, jdmaster.c / jdsample.c's checks.
+  void initial_setup() {
+    const int m = frame_marker_;
+    if (width_ > 65500 || height_ > 65500) fail("JPEG larger than 65500 pixels a side");
+    if (precision_ != 8) {
+      fail(std::to_string(precision_) + "-bit JPEG (" + marker_name(m) + ", precision " +
+           std::to_string(precision_) + ") is not supported; only 8-bit samples are");
+    }
+    for (int c = 0; c < ncomp_; ++c) {
+      const Component& cp = comp_[c];
+      if (cp.h < 1 || cp.h > 4 || cp.v < 1 || cp.v > 4) {
         fail("bad sampling factors " + std::to_string(cp.h) + "x" + std::to_string(cp.v) +
              " of component " + std::to_string(c) + " (" + marker_name(m) + ")");
       }
       hmax_ = std::max(hmax_, cp.h);
       vmax_ = std::max(vmax_, cp.v);
+    }
+    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4) {
+      fail(std::to_string(ncomp_) + "-component JPEG (" + marker_name(m) + ") is not supported");
     }
     for (int c = 0; c < ncomp_; ++c) {
       const Component& cp = comp_[c];
@@ -374,238 +673,326 @@ class Decoder {
       Component& cp = comp_[c];
       cp.width = static_cast<int>((static_cast<int64_t>(width_) * cp.h + hmax_ - 1) / hmax_);
       cp.height = static_cast<int>((static_cast<int64_t>(height_) * cp.v + vmax_ - 1) / vmax_);
+      cp.wb = (cp.width + 7) / 8;
+      cp.hb = (cp.height + 7) / 8;
       cp.bw = mcux_ * cp.h;
       cp.bh = mcuy_ * cp.v;
       cp.stride = cp.bw * 8;
-      if (m == 0xC2) {
-        cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
-        std::fill(cp.coef_bits, cp.coef_bits + 64, -1);
-      }
+      std::fill(cp.coef_bits, cp.coef_bits + 64, -1);
+      std::fill(cp.prev_bits, cp.prev_bits + 64, -1);
+      std::fill(cp.qt, cp.qt + 64, static_cast<uint16_t>(0));
     }
-    progressive_ = m == 0xC2;
-    pos_ = end;
+    multiple_ = ns_ < ncomp_ || progressive_;
   }
 
-  // ---- entropy-coded data --------------------------------------------
-  void reset_bits() {
-    bitbuf_ = 0;
-    bitcnt_ = 0;
-    hit_marker_ = false;
-  }
-
-  void fill() {
-    while (bitcnt_ <= 24) {
-      int b = 0;
-      if (!hit_marker_) {
-        if (pos_ >= size_) {
-          hit_marker_ = true;
-        } else if (data_[pos_] == 0xFF) {
-          size_t q = pos_ + 1;
-          while (q < size_ && data_[q] == 0xFF) ++q;  // fill bytes
-          if (q < size_ && data_[q] == 0x00) {
-            b = 0xFF;
-            pos_ = q + 1;
-          } else {
-            hit_marker_ = true;  // a marker: stop here, feed zeros (libjpeg)
-          }
-        } else {
-          b = data_[pos_++];
+  // jdinput.c start_input_pass: per_scan_setup, latch_quant_tables, the
+  // entropy decoder's start_pass.
+  void start_scan() {
+    if (ns_ > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns_; ++i) {
+        blocks += sc_[i]->h * sc_[i]->v;
+        if (blocks > 10) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
+          fail("sampling factors too large for an interleaved scan (more than 10 blocks in an "
+               "MCU)");
         }
       }
-      bitbuf_ |= static_cast<uint32_t>(b) << (24 - bitcnt_);
-      bitcnt_ += 8;
     }
-  }
-
-  int bits(int n) {
-    if (n == 0) return 0;
-    if (bitcnt_ < n) fill();
-    int v = static_cast<int>(bitbuf_ >> (32 - n));
-    bitbuf_ <<= n;
-    bitcnt_ -= n;
-    return v;
-  }
-
-  int huff(const Huffman& t) {
-    if (bitcnt_ < 16) fill();
-    int look = static_cast<int>(bitbuf_ >> 23);
-    int l = t.look_len[look];
-    if (l) {
-      bitbuf_ <<= l;
-      bitcnt_ -= l;
-      return t.look_sym[look];
-    }
-    int32_t code = static_cast<int32_t>(bitbuf_ >> 22);  // 10 bits
-    for (l = 10; l <= 16; ++l) {
-      if (code <= t.maxcode[l]) {
-        bitbuf_ <<= l;
-        bitcnt_ -= l;
-        return t.vals[(t.valoffset[l] + code) & 0xFF];
+    for (int i = 0; i < ns_; ++i) {
+      Component& cp = *sc_[i];
+      if (cp.coef.empty()) cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
+      if (cp.latched) continue;
+      if (cp.tq >= 4 || !qt_defined_[cp.tq]) {
+        fail("a scan's component uses an undefined quantisation table (" + std::to_string(cp.tq) + ")");
       }
-      code = static_cast<int32_t>(bitbuf_ >> (31 - l));
+      std::copy(qt_[cp.tq], qt_[cp.tq] + 64, cp.qt);
+      cp.latched = true;
     }
-    fail("corrupt Huffman code in the scan");
+    if (progressive_) {
+      const bool dc = ss_ == 0;
+      bool bad = dc ? se_ != 0 : (ss_ > se_ || se_ > 63 || ns_ != 1);
+      if ((ah_ != 0 && al_ != ah_ - 1) || al_ > 13) bad = true;
+      if (bad) {
+        fail("bad progressive scan (Ss " + std::to_string(ss_) + ", Se " + std::to_string(se_) +
+             ", Ah " + std::to_string(ah_) + ", Al " + std::to_string(al_) + ", " +
+             std::to_string(ns_) + " components)");
+      }
+      for (int i = 0; i < ns_; ++i) {  // the warnings pass; the bits are noted
+        Component& cp = *sc_[i];
+        for (int k = std::min(ss_, 1); k <= std::max(se_, 9); ++k) {
+          cp.prev_bits[k] = scan_number_ > 1 ? cp.coef_bits[k] : 0;
+        }
+        for (int k = ss_; k <= se_; ++k) cp.coef_bits[k] = al_;
+      }
+      for (int i = 0; i < ns_; ++i) {
+        Component& cp = *sc_[i];
+        if (dc) {
+          if (ah_ == 0) make_table(true, cp.td, dc_tab_[cp.td]);
+        } else {
+          make_table(false, cp.ta, ac_tab_[cp.ta]);
+        }
+      }
+    } else {
+      for (int i = 0; i < ns_; ++i) {
+        make_table(true, sc_[i]->td, dc_tab_[sc_[i]->td]);
+        make_table(false, sc_[i]->ta, ac_tab_[sc_[i]->ta]);
+      }
+    }
+    for (int c = 0; c < 4; ++c) last_dc_[c] = 0;
+    bits_left_ = 0;
+    get_buffer_ = 0;
+    insufficient_ = false;
+    eobrun_ = 0;
+    restarts_to_go_ = restart_interval_;
+  }
+
+  void make_table(bool dc, int index, Huffman& t) {
+    if (index >= 4) fail("a scan uses Huffman table " + std::to_string(index) + " (libjpeg has 0-3)");
+    const HuffSpec& spec = (dc ? dc_spec_ : ac_spec_)[index];
+    if (spec.defined) {
+      derive(spec, dc, t);
+      return;
+    }
+    if (index > 1 || progressive_) {  // jdphuff.c substitutes no table
+      fail("a scan uses an undefined Huffman table (" + std::to_string(index) + ")");
+    }
+    const StdTable& s = kStdTables[2 * index + (dc ? 0 : 1)];
+    HuffSpec std_spec;
+    std_spec.defined = true;
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) count += std_spec.bits[l] = s.bits[l];
+    std::copy(s.vals, s.vals + count, std_spec.vals);
+    derive(std_spec, dc, t);
+  }
+
+  // ---- the bit buffer: jdhuff.c's jpeg_fill_bit_buffer ----------------------
+  void fill(int nbits) {
+    if (unread_marker_ == 0) {
+      while (bits_left_ < 57) {
+        int c = byte();
+        if (c == 0xFF) {
+          do {
+            c = byte();
+          } while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            unread_marker_ = c;  // the marker ending the data: zeros from here
+            break;
+          }
+        }
+        get_buffer_ = (get_buffer_ << 8) | static_cast<uint64_t>(c);
+        bits_left_ += 8;
+      }
+      if (unread_marker_ == 0) return;
+    }
+    if (nbits > bits_left_) {
+      insufficient_ = true;
+      get_buffer_ <<= 57 - bits_left_;
+      bits_left_ = 57;
+    }
+  }
+
+  int get_bits(int n) {  // CHECK_BIT_BUFFER + GET_BITS
+    if (bits_left_ < n) fill(n);
+    bits_left_ -= n;
+    return static_cast<int>(get_buffer_ >> bits_left_) & ((1 << n) - 1);
+  }
+
+  int huff(const Huffman& t) {  // HUFF_DECODE and jpeg_huff_decode
+    int nb = 1;
+    if (bits_left_ < 8) fill(0);
+    if (bits_left_ >= 8) {
+      const int look = static_cast<int>(get_buffer_ >> (bits_left_ - 8)) & 0xFF;
+      nb = t.look_nb[look];
+      if (nb <= 8) {
+        bits_left_ -= nb;
+        return t.look_sym[look];
+      }
+    }
+    int32_t code = get_bits(nb);
+    while (code > t.maxcode[nb]) {
+      code = (code << 1) | get_bits(1);
+      ++nb;
+    }
+    if (nb > 16) return 0;  // JWRN_HUFF_BAD_CODE: a zero as the safest result
+    return t.vals[(code + t.valoffset[nb]) & 0xFF];
   }
 
   static int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-  void block(Component& cp, int bx, int by) {
-    const Huffman& dc = dc_[cp.td];
-    const Huffman& ac = ac_[cp.ta];
-    int16_t coef[64] = {0};
-    int s = huff(dc);
-    if (s > 16) fail("corrupt DC coefficient");
-    cp.dc_pred += s ? extend(bits(s), s) : 0;
-    coef[0] = static_cast<int16_t>(cp.dc_pred);
-    for (int k = 1; k < 64; ++k) {
-      int rs = huff(ac);
-      int r = rs >> 4;
-      s = rs & 15;
-      if (s) {
-        k += r;
-        coef[kNatural[k]] = static_cast<int16_t>(extend(bits(s), s));
-      } else {
-        if (r != 15) break;
-        k += 15;
-      }
+  // ---- restarts: process_restart, read_restart_marker, jpeg_resync_to_restart
+  void restart() {
+    bits_left_ = 0;
+    if (unread_marker_ == 0) next_marker();
+    if (unread_marker_ == 0xD0 + next_restart_) {
+      unread_marker_ = 0;
+    } else {
+      resync(next_restart_);
     }
-    idct_islow(coef, qt_[cp.tq], cp.plane.data() + (static_cast<size_t>(by) * 8) * cp.stride + bx * 8,
-               cp.stride);
+    next_restart_ = (next_restart_ + 1) & 7;
+    for (int c = 0; c < 4; ++c) last_dc_[c] = 0;
+    eobrun_ = 0;
+    restarts_to_go_ = restart_interval_;
+    if (unread_marker_ == 0) insufficient_ = false;
   }
 
-  void restart() {
-    // Discard the byte-aligned remainder, then expect RSTn.
-    reset_bits();
-    eobrun_ = 0;
+  void resync(int desired) {
     for (;;) {
-      int b = byte();
-      if (b != 0xFF) continue;
-      int m;
-      do {
-        m = byte();
-      } while (m == 0xFF);
-      if (m >= 0xD0 && m <= 0xD7) break;
-      if (m != 0) fail("missing restart marker (found " + marker_name(m) + ")");
+      const int m = unread_marker_;
+      int action;
+      if (m < 0xC0) {
+        action = 2;
+      } else if (m < 0xD0 || m > 0xD7) {
+        action = 3;
+      } else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7)) {
+        action = 3;
+      } else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action == 1) {
+        unread_marker_ = 0;
+        return;
+      }
+      if (action == 3) return;  // the next segment is empty
+      next_marker();
     }
-    for (int c = 0; c < ncomp_; ++c) comp_[c].dc_pred = 0;
+  }
+
+  // ---- scans: jdcoefct.c's consume_data / decompress_onepass -----------------
+  int16_t* block_at(Component& cp, int bx, int by) {
+    return cp.coef.data() + (static_cast<size_t>(by) * cp.bw + bx) * 64;
   }
 
   void scan() {
-    size_t len = static_cast<size_t>(u16());
-    size_t end = pos_ + len - 2;
-    int ns = byte();
-    if (ns < 1 || ns > ncomp_ || len != 6u + 2u * ns) fail("bad SOS segment");
-    Component* sc[4];
-    for (int i = 0; i < ns; ++i) {
-      int id = byte();
-      int tdta = byte();
-      Component* found = nullptr;
-      for (int c = 0; c < ncomp_; ++c) {
-        if (comp_[c].id == id) found = &comp_[c];
+    int16_t* blocks[10];
+    if (ns_ == 1) {  // non-interleaved: the component's own blocks
+      Component& cp = *sc_[0];
+      for (int by = 0; by < cp.hb; ++by) {
+        for (int bx = 0; bx < cp.wb; ++bx) {
+          blocks[0] = block_at(cp, bx, by);
+          mcu(blocks, 1, by / cp.v);
+        }
       }
-      if (!found) fail("SOS names an unknown component");
-      found->td = tdta >> 4;
-      found->ta = tdta & 15;
-      if (found->td > 3 || found->ta > 3) fail("SOS uses an undefined Huffman table");
-      if (!qt_defined_[found->tq]) fail("SOS component uses an undefined quantisation table");
-      sc[i] = found;
-    }
-    int ss = byte(), se = byte(), ahal = byte();
-    pos_ = end;
-    if (ns > 1) {
-      int blocks = 0;
-      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
-      if (blocks > 10) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
-        fail("sampling factors too large for an interleaved scan (" + std::to_string(blocks) +
-             " blocks in an MCU; libjpeg takes 10)");
-      }
-    }
-    if (progressive_) {
-      progressive_scan(sc, ns, ss, se, ahal >> 4, ahal & 15);
       return;
     }
-    for (int i = 0; i < ns; ++i) {
-      if (!dc_[sc[i]->td].defined || !ac_[sc[i]->ta].defined) {
-        fail("SOS uses an undefined Huffman table");
-      }
-    }
-    if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection in a sequential scan is not supported");
-    for (int i = 0; i < ns; ++i) {
-      if (sc[i]->plane.empty()) sc[i]->plane.assign(static_cast<size_t>(sc[i]->stride) * sc[i]->bh * 8, 0);
-      sc[i]->dc_pred = 0;
-    }
-    reset_bits();
-    int todo = restart_interval_;
-    if (ns == 1) {
-      // Non-interleaved: the component's own blocks, in raster order.
-      Component& cp = *sc[0];
-      int bw = (cp.width + 7) / 8, bh = (cp.height + 7) / 8;
-      for (int by = 0; by < bh; ++by) {
-        for (int bx = 0; bx < bw; ++bx) {
-          if (restart_interval_ && todo == 0) {
-            restart();
-            todo = restart_interval_;
+    for (int my = 0; my < mcuy_; ++my) {
+      for (int mx = 0; mx < mcux_; ++mx) {
+        int n = 0;
+        for (int i = 0; i < ns_; ++i) {
+          Component& cp = *sc_[i];
+          for (int v = 0; v < cp.v; ++v) {
+            for (int h = 0; h < cp.h; ++h) blocks[n++] = block_at(cp, mx * cp.h + h, my * cp.v + v);
           }
-          block(cp, bx, by);
-          --todo;
         }
-      }
-    } else {
-      for (int my = 0; my < mcuy_; ++my) {
-        for (int mx = 0; mx < mcux_; ++mx) {
-          if (restart_interval_ && todo == 0) {
-            restart();
-            todo = restart_interval_;
-          }
-          for (int i = 0; i < ns; ++i) {
-            Component& cp = *sc[i];
-            for (int v = 0; v < cp.v; ++v) {
-              for (int h = 0; h < cp.h; ++h) block(cp, mx * cp.h + h, my * cp.v + v);
-            }
-          }
-          --todo;
-        }
+        mcu(blocks, n, my);
       }
     }
-    reset_bits();
   }
 
-  // ---- progressive scans: libjpeg's jdphuff.c ----------------------------
+  int component_of(int blkn) const {  // MCU_membership
+    if (ns_ == 1) return 0;
+    int n = 0;
+    for (int i = 0; i < ns_; ++i) {
+      n += sc_[i]->h * sc_[i]->v;
+      if (blkn < n) return i;
+    }
+    return ns_ - 1;
+  }
+
+  void mcu(int16_t** blocks, int n, int imcu_row) {
+    if (!multiple_) {  // decompress_onepass zeroes the MCU first
+      for (int b = 0; b < n; ++b) std::fill(blocks[b], blocks[b] + 64, static_cast<int16_t>(0));
+    }
+    if (!insufficient_) last_good_row_ = imcu_row;
+    if (restart_interval_ && restarts_to_go_ == 0) restart();
+    if (!progressive_) {
+      if (!insufficient_) sequential_mcu(blocks, n);
+    } else if (ss_ == 0) {
+      if (ah_ == 0) {
+        if (!insufficient_) dc_first(blocks, n);
+      } else {
+        dc_refine(blocks, n);
+      }
+    } else if (!insufficient_) {
+      if (ah_ == 0) ac_first(blocks[0]);
+      else ac_refine(blocks[0]);
+    }
+    if (restart_interval_) --restarts_to_go_;
+  }
+
+  // jdhuff.c decode_mcu_slow. A snapshot of the state is not needed: a
+  // suspension here ends the decode.
+  void sequential_mcu(int16_t** blocks, int n) {
+    for (int b = 0; b < n; ++b) {
+      const int ci = component_of(b);
+      Component& cp = *sc_[ci];
+      int16_t* blk = blocks[b];
+      int s = huff(dc_tab_[cp.td]);
+      if (s) s = extend(get_bits(s), s);
+      last_dc_[ci] = static_cast<int>(static_cast<unsigned>(last_dc_[ci]) + static_cast<unsigned>(s));
+      blk[0] = static_cast<int16_t>(last_dc_[ci]);
+      const Huffman& ac = ac_tab_[cp.ta];
+      for (int k = 1; k < 64; ++k) {
+        const int rs = huff(ac);
+        const int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = static_cast<int16_t>(extend(get_bits(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+  }
+
+  // ---- progressive scans: jdphuff.c ------------------------------------------
   static int16_t shifted(int v, int al) {
     return static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
   }
 
-  int16_t* coef_block(Component& cp, int bx, int by) {
-    return cp.coef.data() + (static_cast<size_t>(by) * cp.bw + bx) * 64;
+  void dc_first(int16_t** blocks, int n) {
+    for (int b = 0; b < n; ++b) {
+      const int ci = component_of(b);
+      int s = huff(dc_tab_[sc_[ci]->td]);
+      if (s) s = extend(get_bits(s), s);
+      const int last = last_dc_[ci];
+      if ((last >= 0 && s > INT_MAX - last) || (last < 0 && s < INT_MIN - last)) {
+        fail("corrupt DC coefficient (overflow)");
+      }
+      last_dc_[ci] = last + s;
+      blocks[b][0] = shifted(last_dc_[ci], al_);
+    }
   }
 
-  void dc_first(Component& cp, int16_t* blk, int al) {
-    int s = huff(dc_[cp.td]);
-    if (s > 16) fail("corrupt DC coefficient");
-    cp.dc_pred += s ? extend(bits(s), s) : 0;
-    blk[0] = shifted(cp.dc_pred, al);
+  void dc_refine(int16_t** blocks, int n) {
+    for (int b = 0; b < n; ++b) {
+      if (get_bits(1)) blocks[b][0] = static_cast<int16_t>(blocks[b][0] | (1 << al_));
+    }
   }
 
-  void dc_refine(int16_t* blk, int al) {
-    if (bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
-  }
-
-  void ac_first(const Huffman& t, int16_t* blk, int ss, int se, int al) {
+  void ac_first(int16_t* blk) {
     if (eobrun_ > 0) {
       --eobrun_;
       return;
     }
-    for (int k = ss; k <= se; ++k) {
-      int rs = huff(t);
-      int r = rs >> 4, s = rs & 15;
+    const Huffman& t = ac_tab_[sc_[0]->ta];
+    for (int k = ss_; k <= se_; ++k) {
+      const int rs = huff(t);
+      int r = rs >> 4;
+      const int s = rs & 15;
       if (s) {
         k += r;
-        blk[kNatural[k]] = shifted(extend(bits(s), s), al);
+        blk[kNatural[k]] = shifted(extend(get_bits(s), s), al_);
       } else if (r == 15) {
         k += 15;
       } else {
-        eobrun_ = 1 << r;
-        if (r) eobrun_ += bits(r);
+        eobrun_ = 1u << r;
+        if (r) eobrun_ += static_cast<unsigned>(get_bits(r));
         --eobrun_;
         break;
       }
@@ -614,23 +1001,23 @@ class Decoder {
 
   // A correction bit for an already nonzero coefficient: 1 adds p1 to its
   // magnitude unless that bit is set already.
-  void correct(int16_t* c, int p1) {
-    if (bits(1) && (*c & p1) == 0) *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c - p1);
+  void correct(int16_t* c, int p1, int m1) {
+    if (get_bits(1) && (*c & p1) == 0) *c = static_cast<int16_t>(*c + (*c >= 0 ? p1 : m1));
   }
 
-  void ac_refine(const Huffman& t, int16_t* blk, int ss, int se, int al) {
-    const int p1 = 1 << al, m1 = -(1 << al);
-    int k = ss;
+  void ac_refine(int16_t* blk) {
+    const int p1 = 1 << al_, m1 = -(1 << al_);
+    const Huffman& t = ac_tab_[sc_[0]->ta];
+    int k = ss_;
     if (eobrun_ == 0) {
-      for (; k <= se; ++k) {
-        int rs = huff(t);
+      for (; k <= se_; ++k) {
+        const int rs = huff(t);
         int r = rs >> 4, s = rs & 15;
-        if (s) {
-          if (s != 1) fail("corrupt AC refinement (magnitude " + std::to_string(s) + ")");
-          s = bits(1) ? p1 : m1;
+        if (s) {  // a size other than 1 is only warned about (JWRN_HUFF_BAD_CODE)
+          s = get_bits(1) ? p1 : m1;
         } else if (r != 15) {
-          eobrun_ = 1 << r;
-          if (r) eobrun_ += bits(r);
+          eobrun_ = 1u << r;
+          if (r) eobrun_ += static_cast<unsigned>(get_bits(r));
           break;  // the rest of the block goes through the end-of-band path
         }
         // Pass r zero coefficients (each nonzero one passed takes a
@@ -638,218 +1025,168 @@ class Decoder {
         do {
           int16_t* c = blk + kNatural[k];
           if (*c != 0) {
-            correct(c, p1);
+            correct(c, p1, m1);
           } else if (--r < 0) {
             break;
           }
           ++k;
-        } while (k <= se);
+        } while (k <= se_);
         if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
       }
     }
     if (eobrun_ > 0) {
-      for (; k <= se; ++k) {
+      for (; k <= se_; ++k) {
         int16_t* c = blk + kNatural[k];
-        if (*c != 0) correct(c, p1);
+        if (*c != 0) correct(c, p1, m1);
       }
       --eobrun_;
     }
   }
 
-  void progressive_block(Component& cp, int bx, int by, int ss, int se, int ah, int al) {
-    int16_t* blk = coef_block(cp, bx, by);
-    if (ss == 0) {
-      if (ah == 0) dc_first(cp, blk, al);
-      else dc_refine(blk, al);
-    } else if (ah == 0) {
-      ac_first(ac_[cp.ta], blk, ss, se, al);
-    } else {
-      ac_refine(ac_[cp.ta], blk, ss, se, al);
+  // ---- coefficients to samples: jdcoefct.c -------------------------------
+  // smoothing_ok: DC known for every component, the quantisers used nonzero,
+  // and some AC coefficient among the first nine short of its last bit.
+  bool smoothing_ok() const {
+    if (!progressive_) return false;
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int c = 0; c < ncomp_; ++c) {
+      const Component& cp = comp_[c];
+      if (!cp.latched) return false;
+      for (int i = 0; i < 10; ++i) {
+        if (cp.qt[kPos[i]] == 0) return false;
+      }
+      if (cp.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= cp.coef_bits[k] != 0;
     }
+    return useful;
   }
 
-  void progressive_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
-    const bool dc = ss == 0;
-    if (dc ? se != 0 : (ss > se || se > 63 || ns != 1)) {
-      fail("bad progressive scan (Ss " + std::to_string(ss) + ", Se " + std::to_string(se) +
-           ", " + std::to_string(ns) + " components)");
-    }
-    if ((ah != 0 && al != ah - 1) || al > 13) {
-      fail("bad progressive scan (Ah " + std::to_string(ah) + ", Al " + std::to_string(al) + ")");
-    }
-    for (int i = 0; i < ns; ++i) {
-      Component& cp = *sc[i];
-      if (dc && ah == 0 && !dc_[cp.td].defined) fail("SOS uses an undefined Huffman table");
-      if (!dc && !ac_[cp.ta].defined) fail("SOS uses an undefined Huffman table");
-      if (!cp.latched) {  // libjpeg latches the table at the first scan
-        std::copy(qt_[cp.tq], qt_[cp.tq] + 64, cp.qt);
-        cp.latched = true;
-      }
-      for (int k = ss; k <= se; ++k) cp.coef_bits[k] = al;
-      cp.dc_pred = 0;
-    }
-    eobrun_ = 0;
-    reset_bits();
-    int todo = restart_interval_;
-    if (ns == 1) {
-      Component& cp = *sc[0];
-      int bw = (cp.width + 7) / 8, bh = (cp.height + 7) / 8;
-      for (int by = 0; by < bh; ++by) {
-        for (int bx = 0; bx < bw; ++bx) {
-          if (restart_interval_ && todo == 0) {
-            restart();
-            todo = restart_interval_;
-          }
-          progressive_block(cp, bx, by, ss, se, ah, al);
-          --todo;
-        }
-      }
-    } else {
-      for (int my = 0; my < mcuy_; ++my) {
-        for (int mx = 0; mx < mcux_; ++mx) {
-          if (restart_interval_ && todo == 0) {
-            restart();
-            todo = restart_interval_;
-          }
-          for (int i = 0; i < ns; ++i) {
-            Component& cp = *sc[i];
-            for (int v = 0; v < cp.v; ++v) {
-              for (int h = 0; h < cp.h; ++h) {
-                progressive_block(cp, mx * cp.h + h, my * cp.v + v, ss, se, ah, al);
-              }
-            }
-          }
-          --todo;
-        }
-      }
-    }
-    reset_bits();
-  }
-
-  // Every block of every component through the IDCT, once all scans are in.
-  void progressive_planes() {
+  void planes() {
+    const bool smooth = smoothing_ok();
+    const int total_rows = mcuy_;  // iMCU rows
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
-      for (int k = 0; k < 10; ++k) {
-        if (cp.coef_bits[k] != 0) {
-          fail("progressive JPEG whose scans leave coefficient " + std::to_string(k) +
-               " of component " + std::to_string(c) +
-               (cp.coef_bits[k] < 0 ? " unsent" : " unrefined") +
-               " at EOI: libjpeg (PIL) would smooth its blocks; not supported");
-        }
-      }
+      if (cp.coef.empty()) cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
       cp.plane.assign(static_cast<size_t>(cp.stride) * cp.bh * 8, 0);
-      for (int by = 0; by < cp.bh; ++by) {
-        for (int bx = 0; bx < cp.bw; ++bx) {
-          idct_islow(coef_block(cp, bx, by), cp.qt,
-                     cp.plane.data() + (static_cast<size_t>(by) * 8) * cp.stride + bx * 8,
-                     cp.stride);
+      if (!smooth) {
+        for (int by = 0; by < cp.bh; ++by) {
+          for (int bx = 0; bx < cp.bw; ++bx) {
+            idct_islow(block_at(cp, bx, by), cp.qt, pixel(cp, bx, by), cp.stride);
+          }
+        }
+        continue;
+      }
+      for (int row = 0; row < total_rows; ++row) {
+        int block_rows = cp.v;
+        if (row == total_rows - 1) {
+          block_rows = cp.hb % cp.v;
+          if (block_rows == 0) block_rows = cp.v;
+        }
+        int bits[10];
+        const int* latch = row > last_good_row_ ? cp.prev_bits : cp.coef_bits;
+        for (int k = 0; k < 10; ++k) bits[k] = latch[k];
+        if (row > last_good_row_ && scan_number_ <= 1) std::fill(bits + 1, bits + 10, -1);
+        const int image_rows = block_rows * total_rows;
+        for (int br = 0; br < block_rows; ++br) {
+          const int image_row = row * block_rows + br;
+          const int by = row * cp.v + br;
+          const int prev = image_row > 0 ? by - 1 : by;
+          const int prev2 = image_row > 1 ? by - 2 : prev;
+          const int next = image_row < image_rows - 1 ? by + 1 : by;
+          const int next2 = image_row < image_rows - 2 ? by + 2 : next;
+          smooth_row(cp, by, prev2, prev, next, next2, bits);
         }
       }
     }
   }
 
-  // ---- inverse DCT: libjpeg's jpeg_idct_islow ---------------------------
-  static uint8_t range_limit(int64_t x) {
-    // The post-IDCT table indexed with & RANGE_MASK (1023): x wraps to
-    // [-512, 511], then x + 128 is clamped to [0, 255].
-    int v = static_cast<int>(((x + 512) & 1023) - 512) + 128;
-    return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+  uint8_t* pixel(Component& cp, int bx, int by) {
+    return cp.plane.data() + (static_cast<size_t>(by) * 8) * cp.stride + bx * 8;
   }
 
-  static void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
-    const int kConstBits = 13, kPass1Bits = 2;
-    const int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270, F0_899 = 7373,
-                  F1_175 = 9633, F1_501 = 12299, F1_847 = 15137, F1_961 = 16069,
-                  F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
-    auto descale = [](int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; };
-    int ws[64];
-    for (int c = 0; c < 8; ++c) {  // pass 1: columns
-      auto in = [&](int r) { return static_cast<int64_t>(coef[8 * r + c]) * q[8 * r + c]; };
-      int64_t z2 = in(2), z3 = in(6);
-      int64_t z1 = (z2 + z3) * F0_541;
-      int64_t tmp2 = z1 + z3 * -F1_847;
-      int64_t tmp3 = z1 + z2 * F0_765;
-      z2 = in(0);
-      z3 = in(4);
-      int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
-      int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
-      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-      tmp0 = in(7);
-      tmp1 = in(5);
-      tmp2 = in(3);
-      tmp3 = in(1);
-      z1 = tmp0 + tmp3;
-      z2 = tmp1 + tmp2;
-      z3 = tmp0 + tmp2;
-      int64_t z4 = tmp1 + tmp3;
-      int64_t z5 = (z3 + z4) * F1_175;
-      tmp0 *= F0_298;
-      tmp1 *= F2_053;
-      tmp2 *= F3_072;
-      tmp3 *= F1_501;
-      z1 *= -F0_899;
-      z2 *= -F2_562;
-      z3 *= -F1_961;
-      z4 *= -F0_390;
-      z3 += z5;
-      z4 += z5;
-      tmp0 += z1 + z3;
-      tmp1 += z2 + z4;
-      tmp2 += z2 + z3;
-      tmp3 += z1 + z4;
-      const int n = kConstBits - kPass1Bits;
-      ws[8 * 0 + c] = static_cast<int>(descale(tmp10 + tmp3, n));
-      ws[8 * 7 + c] = static_cast<int>(descale(tmp10 - tmp3, n));
-      ws[8 * 1 + c] = static_cast<int>(descale(tmp11 + tmp2, n));
-      ws[8 * 6 + c] = static_cast<int>(descale(tmp11 - tmp2, n));
-      ws[8 * 2 + c] = static_cast<int>(descale(tmp12 + tmp1, n));
-      ws[8 * 5 + c] = static_cast<int>(descale(tmp12 - tmp1, n));
-      ws[8 * 3 + c] = static_cast<int>(descale(tmp13 + tmp0, n));
-      ws[8 * 4 + c] = static_cast<int>(descale(tmp13 - tmp0, n));
+  // decompress_smooth_data on one row of blocks; rows[0..4] are the block
+  // rows two above to two below (edges replicated).
+  void smooth_row(Component& cp, int by, int r0, int r1, int r3, int r4, const int* bits) {
+    const int rows[5] = {r0, r1, by, r3, r4};
+    const int last = cp.wb - 1;
+    auto dcv = [&](int r, int bx) { return static_cast<int>(block_at(cp, bx, rows[r])[0]); };
+    int dc[5][5];  // [row][column], column 2 the current block
+    for (int r = 0; r < 5; ++r) {
+      for (int i = 0; i < 5; ++i) dc[r][i] = dcv(r, 0);
     }
-    for (int r = 0; r < 8; ++r) {  // pass 2: rows
-      const int* w = ws + 8 * r;
-      uint8_t* o = out + static_cast<size_t>(r) * stride;
-      int64_t z2 = w[2], z3 = w[6];
-      int64_t z1 = (z2 + z3) * F0_541;
-      int64_t tmp2 = z1 + z3 * -F1_847;
-      int64_t tmp3 = z1 + z2 * F0_765;
-      int64_t tmp0 = (static_cast<int64_t>(w[0]) + w[4]) * (int64_t(1) << kConstBits);
-      int64_t tmp1 = (static_cast<int64_t>(w[0]) - w[4]) * (int64_t(1) << kConstBits);
-      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-      tmp0 = w[7];
-      tmp1 = w[5];
-      tmp2 = w[3];
-      tmp3 = w[1];
-      z1 = tmp0 + tmp3;
-      z2 = tmp1 + tmp2;
-      z3 = tmp0 + tmp2;
-      int64_t z4 = tmp1 + tmp3;
-      int64_t z5 = (z3 + z4) * F1_175;
-      tmp0 *= F0_298;
-      tmp1 *= F2_053;
-      tmp2 *= F3_072;
-      tmp3 *= F1_501;
-      z1 *= -F0_899;
-      z2 *= -F2_562;
-      z3 *= -F1_961;
-      z4 *= -F0_390;
-      z3 += z5;
-      z4 += z5;
-      tmp0 += z1 + z3;
-      tmp1 += z2 + z4;
-      tmp2 += z2 + z3;
-      tmp3 += z1 + z4;
-      const int n = kConstBits + kPass1Bits + 3;
-      o[0] = range_limit(descale(tmp10 + tmp3, n));
-      o[7] = range_limit(descale(tmp10 - tmp3, n));
-      o[1] = range_limit(descale(tmp11 + tmp2, n));
-      o[6] = range_limit(descale(tmp11 - tmp2, n));
-      o[2] = range_limit(descale(tmp12 + tmp1, n));
-      o[5] = range_limit(descale(tmp12 - tmp1, n));
-      o[3] = range_limit(descale(tmp13 + tmp0, n));
-      o[4] = range_limit(descale(tmp13 - tmp0, n));
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                           bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                           bits[9] == -1;
+    const uint16_t* q = cp.qt;
+    const int64_t q00 = q[0], q01 = q[1], q10 = q[8], q20 = q[16], q11 = q[9], q02 = q[2];
+    const int64_t q03 = change_dc ? q[3] : 0, q12 = change_dc ? q[10] : 0,
+                  q21 = change_dc ? q[17] : 0, q30 = change_dc ? q[24] : 0;
+    for (int bx = 0; bx <= last; ++bx) {
+      int16_t ws[64];
+      std::copy(block_at(cp, bx, by), block_at(cp, bx, by) + 64, ws);
+      if (bx == 0 && bx < last) {
+        for (int r = 0; r < 5; ++r) dc[r][3] = dc[r][4] = dcv(r, 1);
+      }
+      if (bx + 1 < last) {
+        for (int r = 0; r < 5; ++r) dc[r][4] = dcv(r, bx + 2);
+      }
+      // DC01..DC25 of libjpeg: DC(5 r + i + 1) = dc[r][i].
+#define D(n) static_cast<int64_t>(dc[((n) - 1) / 5][((n) - 1) % 5])
+      auto predict = [&](int al, int pos, int64_t qk, int64_t num) {
+        if (al == 0 || ws[pos] != 0) return;
+        int pred;
+        if (num >= 0) {
+          pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+          if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        } else {
+          pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+          if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          pred = -pred;
+        }
+        ws[pos] = static_cast<int16_t>(pred);
+      };
+      predict(bits[1], 1, q01, q00 * (change_dc
+          ? (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) + 3 * D(10) -
+             3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+             13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25))
+          : (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15))));
+      predict(bits[2], 8, q10, q00 * (change_dc
+          ? (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) + 38 * D(8) +
+             13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) + D(21) +
+             3 * D(22) + 3 * D(23) + 3 * D(24) + D(25))
+          : (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23))));
+      predict(bits[3], 16, q20, q00 * (change_dc
+          ? (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) - 5 * D(14) +
+             2 * D(17) + 7 * D(18) + 2 * D(19) + D(23))
+          : (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23))));
+      predict(bits[4], 9, q11, q00 * (change_dc
+          ? (-D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) - D(25))
+          : (D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) - D(24) + D(4) -
+             D(6) + 10 * D(7) - 10 * D(9))));
+      predict(bits[5], 2, q02, q00 * (change_dc
+          ? (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) + 7 * D(14) +
+             D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19))
+          : (-D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15))));
+      if (change_dc) {
+        predict(bits[6], 3, q03, q00 * (D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19)));
+        predict(bits[7], 10, q12, q00 * (D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19)));
+        predict(bits[8], 17, q21, q00 * (D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19)));
+        predict(bits[9], 24, q30, q00 * (D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19)));
+        const int64_t num = q00 * (
+            -2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) - 6 * D(6) + 6 * D(7) +
+            42 * D(8) + 6 * D(9) - 6 * D(10) - 8 * D(11) + 42 * D(12) + 152 * D(13) +
+            42 * D(14) - 8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19) -
+            6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) - 2 * D(25));
+        int pred = num >= 0 ? static_cast<int>(((q00 << 7) + num) / (q00 << 8))
+                            : -static_cast<int>(((q00 << 7) - num) / (q00 << 8));
+        ws[0] = static_cast<int16_t>(pred);
+      }
+#undef D
+      idct_islow(ws, cp.qt, pixel(cp, bx, by), cp.stride);
+      for (int r = 0; r < 5; ++r) {
+        for (int i = 0; i < 4; ++i) dc[r][i] = dc[r][i + 1];
+      }
     }
   }
 
@@ -860,9 +1197,6 @@ class Decoder {
   }
 
   void output(uint8_t* out) const {
-    for (int c = 0; c < ncomp_; ++c) {
-      if (comp_[c].plane.empty()) fail("component " + std::to_string(c) + " has no scan");
-    }
     if (ncomp_ == 1) {
       for (int y = 0; y < height_; ++y) {
         memcpy(out + static_cast<size_t>(y) * width_,
@@ -931,21 +1265,31 @@ class Decoder {
   const uint8_t* data_;
   size_t size_;
   size_t pos_ = 0;
+  int unread_marker_ = 0;
+  bool saw_soi_ = false, saw_sof_ = false;
   uint16_t qt_[4][64] = {};
   bool qt_defined_[4] = {false, false, false, false};
-  Huffman dc_[4], ac_[4];
+  HuffSpec dc_spec_[4], ac_spec_[4];
+  Huffman dc_tab_[4], ac_tab_[4];
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int frame_marker_ = 0, precision_ = 8;
   Component comp_[4];
-  int restart_interval_ = 0;
-  int scans_ = 0;
-  bool progressive_ = false;
-  int eobrun_ = 0;
+  Component* sc_[4] = {nullptr, nullptr, nullptr, nullptr};
+  int ns_ = 0, ss_ = 0, se_ = 0, ah_ = 0, al_ = 0;
+  int scan_number_ = 0, next_restart_ = 0;
+  int restart_interval_ = 0, restarts_to_go_ = 0;
+  bool progressive_ = false, multiple_ = false;
+  int last_dc_[4] = {0, 0, 0, 0};
+  unsigned eobrun_ = 0;
+  int last_good_row_ = 0;
   bool saw_jfif_ = false, saw_adobe_ = false;
-  int adobe_transform_ = -1;
+  int adobe_transform_ = 0;
   int colour_ = 0;
-  uint32_t bitbuf_ = 0;
-  int bitcnt_ = 0;
-  bool hit_marker_ = false;
+  uint64_t get_buffer_ = 0;
+  int bits_left_ = 0;
+  bool insufficient_ = false;
+  bool fake_eoi_ = false;
+  unsigned fake_ = 0;
 };
 
 void set_message(char* msg, int32_t len, const std::string& s) {
@@ -977,6 +1321,7 @@ int w3d_jpeg_info(const uint8_t* data, int64_t size, int32_t* width, int32_t* he
 int w3d_jpeg_frame(const uint8_t* data, int64_t size, int32_t* info, char* msg, int32_t msg_len) {
   try {
     Decoder d(data, static_cast<size_t>(size));
+    d.set_colour(2);  // a TIFF's stream: libtiff's source
     d.header();
     info[0] = d.width();
     info[1] = d.height();
@@ -995,8 +1340,8 @@ int w3d_jpeg_decode_as(const uint8_t* data, int64_t size, int32_t colour, uint8_
                        int64_t out_size, char* msg, int32_t msg_len) {
   try {
     Decoder d(data, static_cast<size_t>(size));
-    d.header();
     d.set_colour(colour);
+    d.header();
     int64_t need = static_cast<int64_t>(d.width()) * d.height() * d.channels();
     if (out_size < need) {
       set_message(msg, msg_len, "output buffer too small");
@@ -1015,6 +1360,11 @@ int w3d_jpeg_decode_as(const uint8_t* data, int64_t size, int32_t colour, uint8_
 int w3d_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out_size, char* msg,
                     int32_t msg_len) {
   return w3d_jpeg_decode_as(data, size, 0, out, out_size, msg, msg_len);
+}
+
+int w3d_jpeg_idct(const int16_t* coef, const uint16_t* qt, int64_t n, uint8_t* out) {
+  for (int64_t b = 0; b < n; ++b) idct_islow(coef + 64 * b, qt, out + 64 * b, 8);
+  return 0;
 }
 
 int w3d_jpeg_upsample(const uint8_t* plane, int64_t stride, int32_t width, int32_t height,

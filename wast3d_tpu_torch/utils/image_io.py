@@ -7,23 +7,29 @@ dispatching on the file's signature, never on its extension:
 - `\\x89PNG\\r\\n\\x1a\\n`: PNG, every colour type at every bit depth
   (`utils/png.decode_png`);
 - `FF D8`: JPEG, baseline or progressive, 1, 3 or 4 components, any
-  integral sampling (`native.decode_jpeg`);
+  integral sampling, after JpegImagePlugin's own walk over the markers
+  (`_jpeg_walk`), damaged and partly refined files as libjpeg-turbo reads
+  them (`native.decode_jpeg`);
 - `BM`: BMP (`decode_bmp`): BmpImagePlugin's modes (1/4/8-bit palettes as
   "P" indices, or "1" / "L" when the palette is black and white or the
   identity greys; 16-, 24- and 32-bit BI_RGB as RGB; BI_BITFIELDS layouts
   as RGB or RGBA), RLE8 / RLE4, bottom-up or top-down;
-- `II*\\0` / `MM\\0*`: TIFF (`decode_tiff`), the first image as Pillow
-  reads it (its own raw decoder for uncompressed files, libtiff for the
-  rest): strips or tiles (edge tiles cropped), chunky or separate planes,
-  fill order 1 or 2; the modes of Pillow's OPEN_INFO: bilevel ("1", bools
-  holding 0 / 255), 2- and 4-bit grey scaled to "L", 8-bit L / LA / RGB(A)
-  with their ExtraSamples variants, palette indices at 1, 2, 4 and 8 bits
-  ("P", "PA"), CMYK at 8 and 16 bits, 16-bit grey ("I;16", "I;16B"), signed
-  16-bit and 32-bit integers ("I"), 32-bit float ("F"), 16-bit RGB(A) as the
-  high byte of each sample; compression none, PackBits, LZW, Deflate (8,
-  32946) or JPEG (7: abbreviated streams after the JPEGTables, YCbCr turned
-  to RGB by libjpeg's upsampling and colour tables, other colour spaces as
-  coded); predictor 1, 2 or 3 (libtiff's floating-point predictor); the
+- `II*\\0` / `MM\\0*` / `II+\\0`: TIFF and BigTIFF (`decode_tiff`), the
+  first image as Pillow reads it (its own raw decoder for uncompressed
+  files, libtiff for the rest): strips or tiles (edge tiles cropped), chunky
+  or separate planes, fill order 1 or 2; the modes of Pillow's OPEN_INFO:
+  bilevel ("1", bools holding 0 / 255), 2- and 4-bit grey scaled to "L",
+  8-bit L / LA / RGB(A) with their ExtraSamples variants, palette indices at
+  1, 2, 4 and 8 bits ("P", "PA"), CMYK at 8 and 16 bits, CIELab ("LAB"),
+  12- and 16-bit grey ("I;16", "I;16B"), signed 16-bit and 32-bit integers
+  ("I"), 32-bit float ("F"), 16-bit RGB(A) as the high byte of each sample;
+  compression none, PackBits, LZW, Deflate (8, 32946), LZMA (34925), CCITT
+  RLE / Group 3 / Group 4 (2, 3, 4: `native.ccitt_decode`) or JPEG (7:
+  abbreviated streams after the JPEGTables, YCbCr turned to RGB by
+  libjpeg's upsampling and colour tables, other colour spaces as coded);
+  YCbCr under any other compression through libtiff's RGBA reader (data
+  units at 1x1-4x4 subsampling, TIFFYCbCrToRGB's tables:
+  `native.ycbcr_to_rgb`); predictor 1, 2 or 3 (libtiff's floating-point predictor); the
   Orientation tag applied as PIL's exif_transpose does; and Pillow's and
   libtiff's quirks (a separate-planes file's band copies and unpacking,
   signed and float samples of big-endian compressed files left swapped);
@@ -53,20 +59,23 @@ dispatching on the file's signature, never on its extension:
 
 Anything else raises `ValueError` naming the file and, for an unknown
 signature, its first bytes; a TIFF outside these names the tag and its
-value (CCITT and old-style JPEG compression, YCbCr outside JPEG, separate
-YCbCr planes, 12-bit samples, ...). A file of more pixels than PIL opens
+value (ZSTD and old-style JPEG compression, YCbCr subsampling libtiff has no
+routine for, 24-bit samples, ...). A file of more pixels than PIL opens
 (twice `PIL.Image.MAX_IMAGE_PIXELS`) raises before anything is allocated.
 The byte loops are native (`native/image.cpp`, `native/jpeg.cpp`,
 `native/webp.cpp`, with no fallback); numpy here turns samples into PIL's
 arrays. The plain versions the tests hold the native routines to are here
 too (`bmp_rle_reference`, `lzw_reference`, `packbits_reference`,
-`jpeg_upsample_reference`, `gif_lzw_reference`, `vp8_idct_reference`,
+`jpeg_upsample_reference`, `jpeg_idct_reference`, `ccitt_reference`,
+`ycbcr_to_rgb_reference`, `gif_lzw_reference`, `vp8_idct_reference`,
 `yuv_to_rgba_reference`, `tga_rle_reference`, `qoi_reference`) and in
 `utils/png.py`.
 """
 
 from __future__ import annotations
 
+import bisect
+import lzma
 import struct
 import zlib
 from typing import Dict, Tuple
@@ -79,14 +88,14 @@ _PNG = b"\x89PNG\r\n\x1a\n"
 _WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
 # Signatures of the formats PIL tries before TGA that this reader does not
 # read (ICO, CUR, PSD, DDS, JPEG 2000, ICNS, BLP, FITS, MSP, EPS, PIXAR, SGI,
-# SUN, MPEG, McIdas, HDF5, BUFR, FTEX, DCX, BigTIFF); TGA's header checks
-# would take some of them.
+# SUN, MPEG, McIdas, HDF5, BUFR, FTEX, DCX, and the TIFF byte orders PIL
+# accepts and never reads); TGA's header checks would take some of them.
 _OTHER_SIGNATURES = (b"\x00\x00\x01\x00", b"8BPS", b"DDS ",
                      b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  ", b"icns", b"BLP1", b"BLP2",
                      b"SIMPLE", b"DanM", b"LinS", b"%!PS", b"\xc5\xd0\xd3\xc6", b"\x80\xe8\x00\x00",
                      b"\x01\xda", b"\x59\xa6\x6a\x95", b"\x00\x00\x01\xb3", b"\x00" * 7 + b"\x04",
                      b"\x89HDF\r\n\x1a\n", b"BUFR", b"ZCZC", b"FTEX", b"\xb1\x68\xde\x3a",
-                     b"II+\x00", b"MM\x00+", b"II\x00*", b"MM*\x00")
+                     b"II\x00*", b"MM*\x00")
 
 
 def _claimed_before_tga(blob: bytes) -> bool:
@@ -113,10 +122,11 @@ def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     if blob[:8] == _PNG:
         return png.decode_png(blob, name)
     if blob[:2] == b"\xff\xd8":
+        _jpeg_walk(blob, name)
         return native.decode_jpeg(blob, name)
     if blob[:2] == b"BM":
         return decode_bmp(blob, name)
-    if blob[:4] in (b"II*\x00", b"MM\x00*"):
+    if blob[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return decode_tiff(blob, name)
     if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP" and blob[12:16] in _WEBP_FIRST:
         return decode_webp(blob, name)
@@ -142,6 +152,125 @@ def _check_pixels(width: int, height: int, name: str) -> None:
     if width * height > MAX_PIXELS:
         raise ValueError(f"{name}: {width}x{height} is more pixels than PIL opens "
                          f"({MAX_PIXELS})")
+
+
+# ---- JPEG: JpegImagePlugin's walk over the markers ------------------------------------
+
+# The markers JpegImagePlugin knows, by what its handler reads: a segment it
+# skips, an APPn, a DQT, a SOF (DHP too), or nothing (no segment).
+_JPEG_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC} | {0xDE}
+_JPEG_SEGMENT = {0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF, 0xFE} | set(range(0xE0, 0xF0))
+_JPEG_BARE = set(range(0xD0, 0xDA)) | set(range(0xF0, 0xFE)) | {0xC8}
+
+
+def _jpeg_walk(blob: bytes, name: str) -> None:
+    """JpegImageFile._open and Image.open's checks, which PIL runs in Python
+    before libjpeg sees the file: FF D8 FF, then marker by marker up to SOS
+    (junk between markers skipped, an unknown marker refused, each segment
+    read by its length and refused when the file ends inside it; a SOF of 8
+    bits and 1, 3 or 4 components; whole DQT tables; JFIF, Adobe and ICC
+    fields where PIL reads them), a nonzero size and no more pixels than PIL
+    opens. Raises `ValueError` where PIL raises."""
+    def refuse(why: str):
+        raise ValueError(f"{name}: {why} (PIL's JPEG reader refuses it)")
+
+    if blob[:3] != b"\xff\xd8\xff":
+        refuse("not a JPEG file: it starts FF D8 but not FF D8 FF")
+    pos, byte, size, mode, icc = 3, 0xFF, None, None, []
+
+    def segment() -> bytes:  # n = i16(read(2)) - 2; _safe_read(n)
+        nonlocal pos
+        if pos + 2 > len(blob):
+            refuse("truncated JPEG (a segment without its length)")
+        n = (blob[pos] << 8 | blob[pos + 1]) - 2
+        pos += 2
+        if n <= 0:
+            return b""
+        if pos + n > len(blob):
+            refuse("truncated JPEG (a segment past the end of the file)")
+        pos += n
+        return blob[pos - n:pos]
+
+    while True:
+        if byte != 0xFF:  # junk between markers
+            if pos >= len(blob):
+                refuse("truncated JPEG (no SOS)")
+            byte, pos = blob[pos], pos + 1
+            continue
+        if pos >= len(blob):
+            refuse("truncated JPEG (no SOS)")
+        marker, pos = blob[pos], pos + 1
+        if marker in (0x00, 0xFF):  # an escaped FF, or fill: move on
+            byte = 0xFF if marker == 0xFF else -1
+            continue
+        if marker in _JPEG_SOF:
+            s = segment()
+            if len(s) < 5:
+                refuse(f"short SOF segment (marker 0xFF{marker:02X})")
+            size = (s[3] << 8 | s[4], s[1] << 8 | s[2])
+            if s[0] != 8:
+                refuse(f"{s[0]}-bit samples")
+            if len(s) < 6 or s[5] not in (1, 3, 4):
+                refuse(f"{s[5] if len(s) > 5 else 0}-component image")
+            mode = s[5]
+            if icc and len(min(icc)) < 14:  # icclist.sort(); icclist[0][13]
+                refuse("a short ICC_PROFILE APP2 segment")
+            icc = []
+            if (len(s) - 6) % 3:  # the last component's 3 bytes cut short
+                refuse(f"short SOF segment (marker 0xFF{marker:02X})")
+        elif marker == 0xDB:
+            s = segment()
+            while s:
+                length = 1 + (64 if s[0] < 16 else 128)
+                if len(s) < length:
+                    refuse("bad quantization table marker")
+                s = s[length:]
+        elif 0xE0 <= marker <= 0xEF:
+            s = segment()
+            if marker in (0xE0, 0xEE) and s.startswith(b"JFIF" if marker == 0xE0 else b"Adobe") \
+                    and len(s) < 7:
+                refuse(f"a short {'JFIF APP0' if marker == 0xE0 else 'Adobe APP14'} segment")
+            if marker == 0xE2 and s.startswith(b"ICC_PROFILE\0"):
+                icc.append(s)
+            if marker == 0xED and s.startswith(b"Photoshop 3.0\0"):
+                _photoshop_walk(s, refuse)
+        elif marker in _JPEG_SEGMENT:
+            segment()
+            if marker == 0xDA:
+                break
+        elif marker not in _JPEG_BARE:
+            refuse(f"no marker found (0xFF{marker:02X})")
+        if pos >= len(blob):
+            refuse("truncated JPEG (no SOS)")
+        byte, pos = blob[pos], pos + 1
+    if mode is None or size[0] <= 0 or size[1] <= 0:
+        refuse("no frame of a nonzero size before SOS")
+    _check_pixels(size[0], size[1], name)
+
+
+def _photoshop_walk(s: bytes, refuse) -> None:
+    """The APP13 handler's walk over "8BIM" resources: a struct.error stops
+    it, but a record cut short before its name length is an IndexError PIL
+    does not catch."""
+    offset = 14
+    while s[offset:offset + 4] == b"8BIM":
+        offset += 4
+        if offset + 2 > len(s):
+            return
+        code = struct.unpack_from(">H", s, offset)[0]
+        offset += 2
+        if offset >= len(s):
+            refuse("a Photoshop APP13 resource cut short")
+        offset += 1 + s[offset]
+        offset += offset & 1
+        if offset + 4 > len(s):
+            return
+        size = struct.unpack_from(">I", s, offset)[0]
+        offset += 4
+        if code == 0x03ED and len(s[offset:offset + size]) < 14:  # ResolutionInfo
+            return
+        offset += size
+        offset += offset & 1
 
 
 # ---- BMP: Pillow's BmpImagePlugin ----------------------------------------------------
@@ -375,7 +504,9 @@ for _k, _v in {
         (None, 5, (1,), (8,) * 5, (0,)): ("CMYK", "CMYKX"),
         (None, 5, (1,), (8,) * 6, (0, 0)): ("CMYK", "CMYKXX"),
         (None, 5, (1,), (16,) * 4, ()): ("CMYK", "CMYK;16"),
-        (None, 6, (1,), (8, 8, 8), ()): ("RGB", "RGBX")}.items():
+        (None, 6, (1,), (8, 8, 8), ()): ("RGB", "RGBX"), (None, 6, (1,), (8,), ()): ("L", "L"),
+        (None, 8, (1,), (8, 8, 8), ()): ("LAB", "LAB"),
+        ("<", 1, (1,), (12,), ()): ("I;16", "I;12")}.items():
     _TIFF_INFO[_k[:3] + (1,) + _k[3:]] = _v
 _TAG_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample", 259: "Compression",
               262: "PhotometricInterpretation", 266: "FillOrder", 273: "StripOffsets",
@@ -383,7 +514,9 @@ _TAG_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample", 259: 
               284: "PlanarConfiguration", 317: "Predictor", 322: "TileWidth",
               323: "TileLength", 324: "TileOffsets", 325: "TileByteCounts",
               338: "ExtraSamples", 339: "SampleFormat", 347: "JPEGTables",
-              530: "YCbCrSubsampling", 274: "Orientation", 320: "ColorMap"}
+              530: "YCbCrSubsampling", 274: "Orientation", 320: "ColorMap", 292: "T4Options",
+              293: "T6Options", 529: "YCbCrCoefficients", 532: "ReferenceBlackWhite"}
+_RATIONAL_TAGS = (529, 532)
 # Bits per pixel of each raw mode (Pillow's unpackers); a one-letter raw mode
 # is one band of a separate-planes file read without libtiff.
 _RAW_MODE_BITS = {"1": 1, "1;I": 1, "L;2": 2, "L;2I": 2, "L;4": 4, "L;4I": 4, "L": 8, "L;I": 8,
@@ -392,14 +525,14 @@ _RAW_MODE_BITS = {"1": 1, "1;I": 1, "L;2": 2, "L;2I": 2, "L;4": 4, "L;4I": 4, "L
                   "I;32N": 32, "I;32S": 32, "I;32BS": 32, "I": 32, "F;32F": 32, "F;32BF": 32,
                   "F": 32, "RGB": 24, "RGBX": 32, "RGBXX": 40, "RGBXXX": 48, "RGBA": 32,
                   "RGBa": 32, "RGBAX": 40, "RGBaX": 40, "RGBAXX": 48, "RGBaXX": 48,
-                  "CMYK": 32, "CMYKX": 40, "CMYKXX": 48}
+                  "CMYK": 32, "CMYKX": 40, "CMYKXX": 48, "LAB": 24, "I;12": 12}
 _RAW_MODE_BITS.update(dict.fromkeys("RGBACMYK", 8))
 for _m, _n in (("RGB", 48), ("RGBX", 64), ("RGBA", 64), ("RGBa", 64), ("CMYK", 64)):
     for _e in "LBN":
         _RAW_MODE_BITS[f"{_m};16{_e}"] = _n
 _BIT_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 _BANDS = {"1": "1", "L": "L", "P": "P", "I": "I", "F": "F", "RGB": "RGB", "RGBA": "RGBA",
-          "CMYK": "CMYK"}  # the one-letter raw modes each mode takes
+          "CMYK": "CMYK", "LAB": "LAB"}  # the one-letter raw modes each mode takes
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
            5: lambda a: a.swapaxes(0, 1), 6: lambda a: a[::-1].swapaxes(0, 1),
            7: lambda a: a[::-1, ::-1].swapaxes(0, 1), 8: lambda a: a[:, ::-1].swapaxes(0, 1)}
@@ -407,34 +540,49 @@ _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[:
 
 def _tiff_tags(blob: bytes, name: str) -> Tuple[str, Dict[int, tuple]]:
     """The first directory's entries for the tags read here: SHORT or LONG
-    values (JPEGTables: UNDEFINED bytes). Such a tag of any other type,
-    or twice, is refused: PIL reads bytes, text and fractions where it wants
-    integers, keeps the last of two entries where libtiff keeps the first,
-    and libtiff refuses the types it does not expect."""
+    values (BigTIFF: LONG8 too; JPEGTables: UNDEFINED bytes;
+    YCbCrCoefficients and ReferenceBlackWhite: RATIONAL, as (numerator,
+    denominator) pairs). Such a tag of any other type, or twice, is refused:
+    PIL reads bytes, text and fractions where it wants integers, keeps the
+    last of two entries where libtiff keeps the first, and libtiff refuses
+    the types it does not expect. A BigTIFF (version 43) has 8-byte offsets
+    and counts and 20-byte entries; PIL reads it only little-endian (a
+    big-endian one it takes for a classic TIFF and fails on)."""
     bo = "<" if blob[:2] == b"II" else ">"
     if len(blob) < 8:
         raise ValueError(f"{name}: TIFF header truncated")
-    (ifd,) = struct.unpack_from(bo + "I", blob, 4)
-    if ifd + 2 > len(blob):
+    big = blob[2:4] in (b"+\x00", b"\x00+")
+    if big and bo == ">":
+        raise ValueError(f"{name}: big-endian BigTIFF, which PIL does not read (it takes it for a "
+                         "classic TIFF)")
+    if big and (len(blob) < 16 or struct.unpack_from("<HH", blob, 4) != (8, 0)):
+        raise ValueError(f"{name}: BigTIFF header without 8-byte offsets")
+    ofs, cnt, entry, word = ("Q", "Q", 20, 8) if big else ("I", "H", 12, 4)
+    (ifd,) = struct.unpack_from(bo + ofs, blob, 8 if big else 4)
+    head = struct.calcsize(cnt)
+    if ifd + head > len(blob):
         raise ValueError(f"{name}: TIFF directory past the end of the file")
-    (n,) = struct.unpack_from(bo + "H", blob, ifd)
-    if ifd + 2 + 12 * n > len(blob):
+    (n,) = struct.unpack_from(bo + cnt, blob, ifd)
+    if ifd + head + entry * n > len(blob):
         raise ValueError(f"{name}: TIFF directory past the end of the file")
     tags = {}
     for i in range(n):
-        tag, typ, count = struct.unpack_from(bo + "HHI", blob, ifd + 2 + 12 * i)
+        at = ifd + head + entry * i
+        tag, typ, count = struct.unpack_from(bo + "HH" + ofs, blob, at)
         if tag not in _TAG_NAMES:
             continue
         what = f"{name}: TIFF {_TAG_NAMES[tag]} (tag {tag})"
         if tag in tags:
             raise ValueError(f"{what} twice")
-        if typ not in ((7,) if tag == 347 else (3, 4)):  # UNDEFINED; SHORT or LONG
+        allowed = ((7,) if tag == 347 else (5,) if tag in _RATIONAL_TAGS else
+                   (3, 4, 16) if big else (3, 4))
+        if typ not in allowed:  # UNDEFINED; RATIONAL; SHORT, LONG (or LONG8)
             raise ValueError(f"{what} of type {typ} is not supported")
-        fmt = {3: "H", 4: "I", 7: "B"}[typ]
+        fmt = {3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}[typ]
         size = struct.calcsize(fmt) * count
-        at = ifd + 10 + 12 * i
-        if size > 4:
-            (at,) = struct.unpack_from(bo + "I", blob, at)
+        at += 4 + word
+        if size > word:
+            (at,) = struct.unpack_from(bo + ofs, blob, at)
         if at + size > len(blob):
             raise ValueError(f"{what} past the end of the file")
         tags[tag] = (blob[at:at + size] if typ == 7
@@ -451,11 +599,22 @@ def _one(tags: Dict, tag: int, default=None):
     return default if v is None else v[0] if len(v) == 1 else v
 
 
-def _tiff_strip(data: bytes, compression: int, size: int, name: str) -> np.ndarray:
+def _tiff_strip(data: bytes, compression: int, size: int, name: str,
+                ccitt: Tuple[int, int, int] = (0, 0, 0)) -> np.ndarray:
+    """One strip or tile decompressed to at least `size` bytes; CCITT takes
+    (width, rows, T4Options)."""
     from wast3d_tpu_torch import native
 
     if compression == 1:
         out = np.frombuffer(data[:size], np.uint8)
+    elif compression in (2, 3, 4):
+        out = native.ccitt_decode(data, compression, ccitt[2], ccitt[0], ccitt[1], name).reshape(-1)
+    elif compression == 34925:  # libtiff's LZMA codec: an .xz stream
+        try:
+            out = np.frombuffer(lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size),
+                                np.uint8)
+        except lzma.LZMAError as e:
+            raise ValueError(f"{name}: bad LZMA data in a TIFF strip ({e})") from None
     elif compression == 32773:
         out = native.packbits_decode(data, size, name)
     elif compression == 5:
@@ -475,7 +634,7 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
     bo, tags = _tiff_tags(blob, name)
     t = dict(bo=bo, tags=tags)
     compression = _one(tags, 259, 1)
-    if compression not in (1, 5, 7, 8, 32773, 32946):
+    if compression not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925):
         _refuse(name, 259, compression)
     planar = _one(tags, 284, 1)
     if planar not in (1, 2):
@@ -520,14 +679,31 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
             tags[320]) != 3 << bps[0]):  # libtiff ignores a ColorMap of the wrong length
         raise ValueError(f"{name}: palette TIFF without a ColorMap (tag 320) of "
                          f"{3 << bps[0]} entries")
-    if photo == 6 and (compression != 7 or planar != 1):  # libtiff's RGBA reader
-        _refuse(name, 262, f"6 (YCbCr) with Compression {compression}, PlanarConfiguration "
-                f"{planar}", "is not supported; YCbCr is read from JPEG (7), one plane")
+    if compression in (2, 3, 4) and bps != (1,):  # libtiff's Fax3SetupState
+        _refuse(name, 259, compression, f"with {spp} samples of {bps[0]} bits is not something "
+                "PIL reads (libtiff: CCITT takes one bit a pixel)")
+    ycbcr = None
+    if photo == 6 and compression == 7 and planar != 1:
+        _refuse(name, 262, f"6 (YCbCr) with Compression 7, PlanarConfiguration {planar}",
+                "is not supported; JPEG YCbCr is read in one plane")
+    if photo == 6 and compression not in (1, 7):  # Pillow reads it through TIFFRGBAImage
+        sub = tuple(tags.get(530, (2, 2))[:2])
+        if bps != (8, 8, 8):
+            _refuse(name, 258, bps, "of YCbCr is not something PIL reads (libtiff's RGBA "
+                    "reader takes three 8-bit samples)")
+        if sub not in _YCBCR_UNITS if planar == 1 else sub != (1, 1):
+            _refuse(name, 530, sub, "is not something PIL reads (libtiff's RGBA reader takes "
+                    + ("1x1, 1x2, 2x1, 2x2, 4x1, 4x2 and 4x4" if planar == 1
+                       else "1x1 in separate planes") + ")")
+        if 322 in tags:
+            _refuse(name, 322, _one(tags, 322), "(tiles) of YCbCr is not supported")
+        ycbcr = sub, ycbcr_tables(_rationals(tags.get(529), (0.299, 0.587, 0.114)),
+                                  _rationals(tags.get(532), (0, 255, 128, 255, 128, 255)), name)
     if compression != 1:  # Pillow hands the file to libtiff
         if fill == 2:
             mode, raw_mode = (_TIFF_INFO.get((bo,) + key[:2] + (1,) + key[3:])
                               or _TIFF_INFO[(None,) + key[:2] + (1,) + key[3:]])
-        if photo == 6:
+        if photo == 6 and compression == 7:
             raw_mode = "RGB"
         elif raw_mode in ("I;16", "I;16B"):
             raw_mode = "I;16N"
@@ -537,8 +713,81 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
         raw_mode += "L" if bo == "<" else "B"
     t.update(compression=compression, planar=planar, photo=photo, fill=fill, w=w, h=h,
              bps=tuple(bps), spp=spp, bps_count=bps_count, mode=mode, raw_mode=raw_mode,
-             orientation=_one(tags, 274, 1))
+             orientation=_one(tags, 274, 1), ycbcr=ycbcr)
     return t
+
+
+# The subsamplings tif_getimage.c has a chunky YCbCr routine for.
+_YCBCR_UNITS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _rationals(v, default) -> np.ndarray:
+    """A RATIONAL tag's values as libtiff's float array (float32 of each
+    quotient), or libtiff's default."""
+    if v is None:
+        return np.array(default, np.float32)
+    num, den = np.array(v[0::2], np.float64), np.array(v[1::2], np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(num == 0, 0.0, num / den).astype(np.float32)
+
+
+def ycbcr_tables(luma: np.ndarray, refbw: np.ndarray, name: str = "<bytes>") -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit in its float32 arithmetic: int32 [5, 256]
+    Y_tab, Cr_r_tab, Cb_b_tab, Cr_g_tab, Cb_g_tab for YCbCrCoefficients
+    `luma` and ReferenceBlackWhite `refbw` (float32)."""
+    f = np.float32
+    luma, refbw = np.asarray(luma, f), np.asarray(refbw, f)
+    if len(luma) < 3 or len(refbw) < 6 or np.isnan(luma).any() or luma[1] == 0 or np.isnan(
+            refbw).any():
+        raise ValueError(f"{name}: TIFF YCbCrCoefficients (tag 529) or ReferenceBlackWhite "
+                         "(tag 532) that libtiff refuses")
+
+    def fix(x):  # (int32)(x * (1L << 16) + 0.5): the product in float, the sum in double
+        return int(float(f(x) * f(65536)) + 0.5)
+
+    def clamp(x, lo, hi):
+        return lo if x < lo else hi if x > hi else x
+
+    lr, lg, lb = luma[0], luma[1], luma[2]
+    f1 = f(2) - f(2) * lr
+    f2 = f(lr * f1) / lg
+    f3 = f(2) - f(2) * lb
+    f4 = f(lb * f3) / lg
+    d1, d2 = fix(clamp(f1, f(0), f(2))), -fix(clamp(f2, f(0), f(2)))
+    d3, d4 = fix(clamp(f3, f(0), f(2))), -fix(clamp(f4, f(0), f(2)))
+
+    def code2v(c, rb, rw, cr):  # ((c - (int32)rb) * (float)cr) / (float)(rw - rb or 1)
+        den = f(rw - rb)
+        return f(f(c - int(rb)) * f(cr)) / (den if den != 0 else f(1))
+
+    def clampw(v):
+        return int(clamp(v, f(-4096), f(4096)))
+
+    out = np.zeros((5, 256), np.int64)
+    for i in range(256):
+        x = i - 128
+        cr = clampw(code2v(x, refbw[4] - f(128), refbw[5] - f(128), 127))
+        cb = clampw(code2v(x, refbw[2] - f(128), refbw[3] - f(128), 127))
+        out[:, i] = ((clampw(code2v(x + 128, refbw[0], refbw[1], 255))), (d1 * cr + 32768) >> 16,
+                     (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768)
+    return out.astype(np.int32)
+
+
+def ycbcr_to_rgb_reference(units: np.ndarray, sh: int, sv: int, width: int, rows: int,
+                           tables: np.ndarray) -> np.ndarray:
+    """The plain version of `native.ycbcr_to_rgb`: each pixel of a width x
+    rows segment takes its luma sample and its data unit's Cb and Cr through
+    TIFFYCbCrtoRGB."""
+    across, unit = -(-width // sh), sh * sv + 2
+    u = np.asarray(units, np.uint8)[:-(-rows // sv) * across * unit].reshape(-1, across, unit)
+    y, x = np.mgrid[0:rows, 0:width]
+    cell = u[y // sv, x // sh]
+    lum = np.take_along_axis(cell, ((y % sv) * sh + x % sh)[..., None], -1)[..., 0]
+    cb, cr = cell[..., sh * sv], cell[..., sh * sv + 1]
+    t = np.asarray(tables, np.int64)
+    yv = t[0][lum]
+    rgb = np.stack([yv + t[1][cr], yv + ((t[4][cb] + t[3][cr]) >> 16), yv + t[2][cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
 def _bit_order(raw_mode: str) -> Tuple[str, bool]:
@@ -576,11 +825,13 @@ def _unpack(mode: str, raw_mode: str, rows: np.ndarray, width: int) -> np.ndarra
             v = v * np.uint8(255 // ((1 << bits) - 1))
             return 255 - v if raw_mode.endswith("I") else v
         return v
-    need = width * bits // 8
+    need = (width * bits + 7) // 8 if bits == 12 else width * bits // 8
     if rows.shape[1] < need:
         raise ValueError(f"rows of {rows.shape[1]} bytes for {width} pixels of {raw_mode}")
     r = np.ascontiguousarray(rows[:, :need])
     if len(raw_mode) == 1:  # one band of a separate-planes file
+        if mode == "LAB" and raw_mode in "AB":  # Pillow's LAB band unpackers: a, b signed
+            return r ^ np.uint8(128)
         if raw_mode in "LP":
             return r
         if raw_mode in "IF":
@@ -591,6 +842,15 @@ def _unpack(mode: str, raw_mode: str, rows: np.ndarray, width: int) -> np.ndarra
     if raw_mode in ("PX", "PA", "LA"):
         v = r.reshape(n, width, 2)
         return np.ascontiguousarray(v[..., 0]) if raw_mode == "PX" else v
+    if raw_mode == "I;12":  # unpackI12_I16: two samples in three bytes, from the high bit
+        v = r.astype(np.uint16)
+        out = np.zeros((n, width + 1), np.uint16)
+        a, b, c = v[:, 0::3], v[:, 1::3], v[:, 2::3]
+        k = min(a.shape[1], b.shape[1])
+        out[:, 0:2 * k:2] = (a[:, :k] << 4) | (b[:, :k] >> 4)
+        k2 = min(b.shape[1], c.shape[1])
+        out[:, 1:2 * k2:2] = ((b[:, :k2] & 15) << 8) | c[:, :k2]
+        return out[:, :width].astype("<u2")
     if mode.startswith("I;16"):
         v = r.view(">u2" if raw_mode == "I;16B" else "<u2")
         return v.astype(">u2" if mode == "I;16B" else "<u2")
@@ -662,8 +922,10 @@ def _tiff_raw(blob: bytes, t: Dict, name: str) -> np.ndarray:
         stride = stride or row
         need = (y1 - y0 - 1) * stride + row
         if off + need > len(blob):
+            why = (" (PhotometricInterpretation (tag 262) = 6: PIL reads uncompressed chunky "
+                   "YCbCr as 4 bytes a pixel)" if t["photo"] == 6 and planar == 1 else "")
             raise ValueError(f"{name}: TIFF image data truncated (a tile at {off} needs {need} "
-                             f"bytes, the file has {max(len(blob) - off, 0)})")
+                             f"bytes, the file has {max(len(blob) - off, 0)}){why}")
         rows = np.lib.stride_tricks.as_strided(
             np.frombuffer(blob, np.uint8, need, off), (y1 - y0, row), (stride, 1))
         v = _unpack(t["mode"], raw_mode, rows, x1 - x0)
@@ -733,7 +995,10 @@ def _tiff_predicted(seg: np.ndarray, t: Dict, predictor: int, spp: int, name: st
 def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
     """A compressed file as Pillow's libtiff decoder reads it: each strip or
     tile (and plane) decompressed, predicted and swapped to native order as
-    libtiff does, then unpacked with Pillow's raw mode; edge tiles cropped."""
+    libtiff does, then unpacked with Pillow's raw mode; edge tiles cropped.
+    YCbCr goes through libtiff's RGBA reader, as Pillow sends it."""
+    from wast3d_tpu_torch import native
+
     tags, w, h, spp, planar = t["tags"], t["w"], t["h"], t["spp"], t["planar"]
     compression, mode, raw_mode = t["compression"], t["mode"], t["raw_mode"]
     bits = t["bps"][0]
@@ -765,18 +1030,20 @@ def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
         if bits not in (8, 16):
             _refuse(name, 258, t["bps"], "in separate planes is not supported (Pillow reads 8 "
                     "and 16 bits)")
-        if not tiled and (w * _RAW_MODE_BITS[raw_mode] // bands + 7) // 8 > row_bytes:
+        if t["ycbcr"] is None and not tiled and (
+                w * _RAW_MODE_BITS[raw_mode] // bands + 7) // 8 > row_bytes:
             _refuse(name, 338, tuple(tags.get(338, ())), "in separate strips is not supported "
                     "(Pillow: fewer bands than planes)")
         planes = bands
     elif planar == 2 and spp > 1:
         _refuse(name, 284, 2, f"for {spp} samples of a {mode} image is not supported")
-    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946) else 1
+    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946, 34925) else 1
     if predictor not in (1, 2, 3):
         _refuse(name, 317, predictor)
     out = _empty(mode, h, w)
     band_out = np.zeros((h, w, bands), np.uint8) if planar == 2 and bands > 1 else None
     expect = []
+    ycbcr, units = t["ycbcr"], None
     for p in range(planes):
         for s in range(across * down):
             i = p * across * down + s
@@ -786,12 +1053,17 @@ def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
             if off + cnt > len(blob):
                 raise ValueError(f"{name}: TIFF strip or tile {i} past the end of the file")
             data = blob[off:off + cnt]
+            if t["fill"] == 2 and compression != 7:
+                data = _BIT_REVERSED[np.frombuffer(data, np.uint8)].tobytes()
             if compression == 7:
                 seg = _tiff_jpeg(data, t, expect, tw, rows, not tiled and s == down - 1, name)
+            elif ycbcr is not None and planar == 1:
+                units = _ycbcr_strip(data, t, units, rows, name)
+                out[y0:y0 + ch] = native.ycbcr_to_rgb(units, *ycbcr[0], w, ch, ycbcr[1], name)
+                continue
             else:
-                if t["fill"] == 2:
-                    data = _BIT_REVERSED[np.frombuffer(data, np.uint8)].tobytes()
-                seg = _tiff_strip(data, compression, rows * row_bytes, name)
+                seg = _tiff_strip(data, compression, rows * row_bytes, name,
+                                  (tw, rows, _one(tags, 292, 0)))
                 seg = seg[:rows * row_bytes].reshape(rows, row_bytes)
                 seg = _tiff_predicted(seg, t, predictor, seg_spp, name)
             if band_out is not None:  # Pillow's band copies ("R", "R;16N", ...)
@@ -801,12 +1073,227 @@ def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
                 out[y0:y0 + ch, x0:x0 + cw] = _unpack(mode, raw_mode, seg[:ch], cw)
     if band_out is None:
         return out
+    if ycbcr is not None:  # putseparate8bitYCbCr11tile: one data unit a pixel
+        return native.ycbcr_to_rgb(band_out, 1, 1, w, h, ycbcr[1], name)
+    if mode == "LAB":  # Pillow's LAB band unpackers: a and b signed
+        band_out[..., 1:] ^= np.uint8(128)
     if mode in ("LA", "PA"):  # band 1 is not the alpha byte of Pillow's LA / PA pixels
         band_out[..., 1] = 0
     extra = tags.get(338, ())
     if mode == "RGBA" and (not extra or extra[0] == 1):  # associated alpha, or none named
         return _unpremultiply(band_out)
     return band_out
+
+
+def _ycbcr_strip(data: bytes, t: Dict, units, rows: int, name: str) -> np.ndarray:
+    """A chunky YCbCr strip's data units as gtStripContig reads them into
+    its one buffer: TIFFReadEncodedStrip of the rows rounded up to whole
+    unit rows times TIFFScanlineSize (a unit row's bytes divided by the
+    vertical subsampling, rounded down), so 4x4 units an odd number across
+    leave the buffer's last bytes as the strip before left them (zeros at
+    first)."""
+    (sh, sv), w = t["ycbcr"][0], t["w"]
+    row_size = -(-w // sh) * (sh * sv + 2)
+    if units is None:
+        th = _one(t["tags"], 278, t["h"])
+        th = min(th, t["h"]) if isinstance(th, int) and th < 2 ** 32 - 1 else t["h"]
+        units = np.zeros(-(-th // sv) * row_size, np.uint8)
+    want = -(-rows // sv) * sv * (row_size // sv)
+    units[:want] = _tiff_strip(data, t["compression"], want, name)[:want]
+    return units
+
+
+# T.4's run-length codes as (bit string, run): terminating 0-63, make-up
+# 64-1728 of each colour, and the make-up codes 1792-2560 both share.
+_CCITT_SHARED = dict(zip(
+    "00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 000000010101 "
+    "000000010110 000000010111 000000011100 000000011101 000000011110 000000011111".split(),
+    range(1792, 2561, 64)))
+_CCITT_RUNS = [dict(zip((
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 "
+    "110100 110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+    "0101011 0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 "
+    "00010100 00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 "
+    "00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 01010101 "
+    "00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 "
+    "00110011 00110100 11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 011010101 011010110 "
+    "011010111 011011000 011011001 011011010 011011011 010011000 010011001 010011010 011000 "
+    "010011011").split(), list(range(64)) + list(range(64, 1729, 64)))), dict(zip((
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 "
+    "00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 "
+    "00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 000011001100 "
+    "000011001101 000001101000 000001101001 000001101010 000001101011 000011010010 "
+    "000011010011 000011010100 000011010101 000011010110 000011010111 000001101100 "
+    "000001101101 000011011010 000011011011 000001010100 000001010101 000001010110 "
+    "000001010111 000001100100 000001100101 000001010010 000001010011 000000100100 "
+    "000000110111 000000111000 000000100111 000000101000 000001011000 000001011001 "
+    "000000101011 000000101100 000001011010 000001100110 000001100111 0000001111 "
+    "000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+    "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+    "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+    "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+    "0000001100100 0000001100101").split(), list(range(64)) + list(range(64, 1729, 64))))]
+for _runs in _CCITT_RUNS:
+    _runs.update(_CCITT_SHARED)
+
+
+def ccitt_reference(data: bytes, mode: int, options: int, width: int, rows: int) -> np.ndarray:
+    """The plain version of `native.ccitt_decode`: TIFF Compression `mode` 2
+    (Modified Huffman, rows on bytes), 3 (T.4: EOL before each row, with
+    `options` bit 0 a tag bit choosing 1-D or 2-D) or 4 (T.6) -> uint8
+    [rows, ceil(width / 8)] packed rows, 1 for a black run. Bits are held as
+    libtiff's accumulator holds them: whole bytes loaded as a lookup needs
+    them, zero bits padded up to the lookup's width at the end of the data."""
+    stream = np.unpackbits(np.frombuffer(data, np.uint8))
+    st = {"pos": 0, "avail": 0, "cp": 0, "eol": False}
+
+    def need(n, two_bytes=False):  # NeedBits16 / NeedBits8
+        if st["avail"] >= n:
+            return
+        for k in range(2 if two_bytes else 1):
+            if st["cp"] >= len(data):
+                if st["avail"] == 0 and k == 0:
+                    raise ValueError("CCITT data ends before the last row")
+                st["avail"] = n
+                return
+            st["cp"] += 1
+            st["avail"] += 8
+            if st["avail"] >= n:
+                return
+
+    def get(n):
+        v = stream[st["pos"]:st["pos"] + n]
+        return "".join(map(str, v)) + "0" * (n - len(v))
+
+    def clear(n):
+        st["pos"] += n
+        st["avail"] -= n
+
+    def lookup(colour):  # LOOKUP16: a run, -1 for an EOL, -2 for no code
+        width_ = 13 if colour else 12
+        need(width_, True)
+        bits = get(width_)
+        if bits[:12] == "000000000001":
+            clear(12)
+            return -1
+        for k in range(2, width_ + 1):
+            if bits[:k] in _CCITT_RUNS[colour]:
+                clear(k)
+                return _CCITT_RUNS[colour][bits[:k]]
+        return -2
+
+    def run(colour):
+        total = 0
+        while True:
+            r = lookup(colour)
+            if r < 0:
+                raise ValueError("bad CCITT run code")
+            total += r
+            if r < 64:
+                return total
+
+    def row_1d():  # EXPAND1D, then CLEANUP_RUNS
+        runs, a0, pending, done = [], 0, 0, False
+        while not done:
+            for colour in (0, 1):
+                while True:
+                    r = lookup(colour)
+                    if r < 0:
+                        st["eol"], done = r == -1, True
+                        break
+                    if r < 64:
+                        runs.append(pending + r)
+                        a0, pending = a0 + r, 0
+                        break
+                    a0, pending = a0 + r, pending + r
+                if done or a0 >= width:
+                    done = True
+                    break
+            if not done and len(runs) >= 2 and runs[-1] == runs[-2] == 0:
+                del runs[-2:]
+        if pending:
+            runs.append(pending)
+        if a0 != width:
+            while a0 > width and runs:
+                a0 -= runs.pop()
+            if a0 < width:
+                a0 = max(a0, 0)
+                if len(runs) % 2:
+                    runs.append(0)
+                runs.append(width - a0)
+            elif a0 > width:
+                runs += [width, 0]
+        return [min(int(c), width) for c in np.cumsum(runs)[:-1]]
+
+    modes = {"1": 0, "011": 1, "010": -1, "001": "H", "0001": "P", "000011": 2, "000010": -2,
+             "0000011": 3, "0000010": -3}
+
+    def row_2d(ref):
+        changes, a0, colour = [], -1, 0
+        while a0 < width:
+            need(7)
+            bits = get(7)
+            code = next((bits[:k] for k in range(1, 8) if bits[:k] in modes), None)
+            if code is None:
+                raise ValueError("bad CCITT mode code")
+            clear(len(code))
+            if code == "001":  # horizontal
+                a1 = max(a0, 0) + run(colour)
+                a2 = a1 + run(colour ^ 1)
+                if a2 > width:
+                    raise ValueError("a CCITT run past the end of its row")
+                changes += [a for a in (a1, a2) if a < width]
+                a0 = a2
+                continue
+            j = bisect.bisect_right(ref, a0)
+            j += j < len(ref) and j % 2 != colour
+            b1 = ref[j] if j < len(ref) else width
+            b2 = ref[j + 1] if j + 1 < len(ref) else width
+            if code == "0001":  # pass
+                a0 = b2
+                continue
+            a1 = b1 + modes[code]
+            if a1 > width or a1 < max(a0, 0):
+                raise ValueError("a CCITT vertical code past its row")
+            a0 = a1
+            if a0 < width:
+                changes.append(a0)
+            colour ^= 1
+        return changes
+
+    out = np.zeros((rows, (width + 7) // 8), np.uint8)
+    ref = []
+    for y in range(rows):
+        two_d = mode == 4
+        if mode == 3:  # SYNC_EOL: 11 zero bits anywhere (unless an EOL ended the row),
+            while not st["eol"]:  # zero bytes, then up to a 1 bit
+                need(11, True)
+                if get(11) == "0" * 11:
+                    break
+                clear(1)
+            while True:
+                need(8)
+                if get(8) != "0" * 8:
+                    break
+                clear(8)
+            while get(1) == "0":
+                clear(1)
+            clear(1)
+            if options & 1:
+                need(1)
+                two_d = get(1) == "0"
+                clear(1)
+        st["eol"] = False
+        cur = row_2d(ref) if two_d else row_1d()
+        if mode == 2:  # FAXMODE_BYTEALIGN
+            clear(st["avail"] % 8)
+        line = np.zeros(width, np.uint8)
+        for k in range(0, len(cur), 2):
+            line[cur[k]:cur[k + 1] if k + 1 < len(cur) else width] = 1
+        out[y] = np.packbits(line)
+        ref = cur
+    return out
 
 
 def decode_tiff(blob: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -1220,6 +1707,44 @@ def packbits_reference(blob: bytes, out_size: int) -> np.ndarray:
 
 
 # ---- JPEG upsampling: jdsample.c -------------------------------------------------------
+
+def jpeg_idct_reference(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """The plain version of `native.jpeg_idct`: int16 [n, 64] coefficients
+    (natural order) and uint16 [64] quantisers -> uint8 [n, 8, 8], as
+    libjpeg-turbo's SIMD islow IDCT computes them (16-bit dequantisation and
+    sums in0 +- in4, in7 + in3, in5 + in1; 32-bit products; each pass
+    saturated to 16 bits; the outputs to [-128, 127], then + 128; the DC row
+    alone, shifted in 16 bits, when rows 1-7 are zero)."""
+    c = np.asarray(coef, np.int64).reshape(-1, 8, 8)
+    q = np.asarray(qt, np.int64).reshape(8, 8)
+
+    def w16(v):
+        return (v + 32768) % 65536 - 32768
+
+    def sat(v):
+        return np.clip(v, -32768, 32767)
+
+    def one_d(x):  # over axis 1 of [n, 8, 8]
+        i = [x[:, k] for k in range(8)]
+        tmp3, tmp2 = i[2] * 10703 + i[6] * 4433, i[2] * 4433 - i[6] * 10704
+        tmp0, tmp1 = w16(i[0] + i[4]) * 8192, w16(i[0] - i[4]) * 8192
+        z3, z4 = w16(i[7] + i[3]), w16(i[5] + i[1])
+        z3p, z4p = z3 * -6436 + z4 * 9633, z3 * 9633 + z4 * 6437
+        o0 = i[7] * -4927 + i[1] * -7373 + z3p
+        o3 = i[7] * -7373 + i[1] * 4926 + z4p
+        o1 = i[5] * -4176 + i[3] * -20995 + z4p
+        o2 = i[5] * -20995 + i[3] * 4177 + z3p
+        t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+        return np.stack([t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1,
+                         t11 - o2, t10 - o3], 1)
+
+    dq = w16(c * q)
+    ws = sat((one_d(dq) + 1024) >> 11)
+    dc_only = ~c[:, 1:].any(axis=(1, 2))
+    ws[dc_only] = w16(dq[dc_only, :1] * 4).repeat(8, 1)
+    out = sat((one_d(ws.transpose(0, 2, 1)) + (1 << 17)) >> 18).transpose(0, 2, 1)
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
+
 
 def jpeg_upsample_reference(plane: np.ndarray, rh: int, rv: int, out_width: int,
                             out_height: int) -> np.ndarray:
