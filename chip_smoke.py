@@ -2095,7 +2095,7 @@ def phase_scale(device, name):
 # ---- viewers, Kg (pack_gather), native IO --------------------------------------
 
 FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures")
-# PNG, JPEG, BMP, TIFF, WebP, GIF, Netpbm, TGA and QOI files PIL reads, each
+# PNG, JPEG, BMP, TIFF, WebP, GIF, Netpbm, TGA, QOI, ICO, CUR, DDS, PSD, SGI, PCX and Sun files PIL reads, each
 # with PIL's array beside it as .npy (tools/make_torch_fixtures.py --formats)
 FORMAT_FIXTURES = os.path.join(ROOT, "tests", "format_fixtures")
 JPEG_MAX_DIFF, JPEG_MEAN_DIFF = 2, 0.05  # the decoder against PIL's decode, uint8 units
@@ -2401,6 +2401,58 @@ def raster_decode_times(decoded):
     return checks, numbers
 
 
+def reader_decode_times(decoded):
+    """Decode milliseconds (median of 3) at the 1296x832 view's size of the
+    committed ZSTD TIFFs (PIL's libtiff, one strip of many 128 KiB blocks
+    and PIL's default strips; the card writes no ZSTD), each held exactly to
+    PIL's decode of the view (`pil_decode/scene_1296x832_420.png`); of a
+    PackBits PSD, a run-length SGI, a PCX and a byte-encoded Sun raster
+    written here from the view with `tools/image_writers.py`, each exactly
+    its source; and of a BC7 and a BC1 DDS of seeded random blocks
+    (`tools.make_torch_fixtures.bcn_scene`), each held to the SHA-256 of
+    PIL's decode (`pil_decode/<name>_dds.json`). Returns (checks, numbers)."""
+    import hashlib
+
+    from tools.image_writers import pcx_bytes, psd_bytes, sgi_bytes, sun_bytes
+    from tools.make_torch_fixtures import BCN_SCENES, ZSTD_SCENES, bcn_scene
+    from wast3d_tpu_torch.utils import png
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    checks, numbers = {}, {}
+    view = png.read_png(os.path.join(FIXTURES, "pil_decode", "scene_1296x832_420.png"))
+    for name in ZSTD_SCENES:
+        with open(os.path.join(FIXTURES, "zstd", name + ".tif"), "rb") as f:
+            blob = f.read()
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        checks[f"decode {name}"] = (got.dtype == view.dtype and got.shape == view.shape
+                                    and got.tobytes() == view.tobytes())
+    t = time.perf_counter()
+    sources = {"psd_packbits_1296x832": psd_bytes(decoded.transpose(2, 0, 1), "RGB", 1),
+               "sgi_rle_1296x832": sgi_bytes(decoded),
+               "pcx_1296x832": pcx_bytes(decoded, 8, 3),
+               "sun_rle_1296x832": sun_bytes(decoded, 24, 2)}
+    numbers["reader_encode_s"] = time.perf_counter() - t
+    for name, blob in sources.items():
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        checks[f"decode {name}"] = (got.dtype == decoded.dtype and got.shape == decoded.shape
+                                    and got.tobytes() == decoded.tobytes())
+    for name, dxgi, seed in BCN_SCENES:
+        blob = bcn_scene(dxgi, seed)
+        with open(os.path.join(FIXTURES, "pil_decode", name + "_dds.json")) as f:
+            record = json.load(f)
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        checks[f"decode {name} = PIL's sha256"] = record == {
+            "dtype": str(got.dtype), "shape": list(got.shape),
+            "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+    return checks, numbers
+
+
 CODEC_JPEGS = ("scene_1296x832_damaged", "scene_1296x832_unrefined")  # FIXTURES/codecs
 
 
@@ -2464,6 +2516,23 @@ def write_codec_colmap(src):
     cm.write_images_binary({k: v._replace(name=names[os.path.splitext(v.name)[0]])
                             for k, v in imgs.items() if os.path.splitext(v.name)[0] in names},
                            path)
+
+
+def write_reader_colmap(src):
+    """A copy of the COLMAP fixture whose six views are
+    tests/format_fixtures/colmap_readers (a ZSTD TIFF, a tiled YCbCr ZSTD
+    TIFF, a PackBits PSD, a run-length SGI, a PCX and a byte-encoded Sun
+    raster), under images_readers/, its model's image names turned to
+    theirs."""
+    from wast3d_tpu_torch.scene import colmap as cm
+
+    shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+    shutil.copytree(os.path.join(FORMAT_FIXTURES, "colmap_readers"),
+                    os.path.join(src, "images_readers"), ignore=shutil.ignore_patterns("*.npy"))
+    names = {os.path.splitext(f)[0]: f for f in os.listdir(os.path.join(src, "images_readers"))}
+    path = os.path.join(src, "sparse", "0", "images.bin")
+    cm.write_images_binary({k: v._replace(name=names[os.path.splitext(v.name)[0]])
+                            for k, v in cm.read_images_binary(path).items()}, path)
 
 
 def write_tiff_colmap(src):
@@ -2554,8 +2623,8 @@ def train_cli(src, images, device, model):
 
 
 def metrics_on(kind, device, tmp):
-    """`cli.metrics` on a method directory of `kind` files ("jpeg", "webp" or
-    "tga_ppm": tests/format_fixtures/metrics_<kind>), then the port's metrics
+    """`cli.metrics` on a method directory of `kind` files ("jpeg", "webp",
+    "tga_ppm" or "zstd_psd": tests/format_fixtures/metrics_<kind>), then the port's metrics
     (`evaluate_dir`) on PIL's decode of the same files (its .npy), in this
     call: the per-view scores must be equal. Returns (checks, numbers)."""
     from wast3d_tpu_torch.cli import metrics as cli_metrics
@@ -2586,7 +2655,7 @@ def metrics_on(kind, device, tmp):
     finally:
         metrics._read_images = reader
     names = {"jpeg": ["00000.jpg", "00001.jpg"], "webp": ["00000.webp", "00001.webp"],
-             "tga_ppm": ["00000.tga", "00001.ppm"]}[kind]
+             "tga_ppm": ["00000.tga", "00001.ppm"], "zstd_psd": ["00000.tif", "00001.psd"]}[kind]
     checks = {f"metrics {kind} names": list(per_view["PSNR"]) == names,
               f"metrics {kind} = PIL's decode": per_view == pil,
               f"metrics {kind} finite": all(math.isfinite(v) for m in per_view.values()
@@ -2602,18 +2671,23 @@ def phase_images(device):
     the Adam7 and all-Paeth PNGs against PIL's decode, the native resize
     against PIL's committed bytes (and the numpy version at 1959 → 1600),
     every file of tests/format_fixtures (PNG at every depth, 4:4:0 / 4:1:1 /
-    CMYK / YCCK JPEG, BMP, TIFF in every layout and sample kind, JPEG in
-    TIFF, lossy / lossless / alpha / animated WebP, GIF, Netpbm, TGA, QOI)
+    CMYK / YCCK JPEG, BMP, TIFF in every layout and sample kind, JPEG and
+    ZSTD in TIFF, tiled YCbCr, lossy / lossless / alpha / animated WebP,
+    GIF, Netpbm, TGA, QOI, ICO / CUR, DDS BC1-BC7, PSD, SGI, PCX, Sun)
     against PIL's committed array, the decode and resize times, decode times
     of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless WebP,
     a tiled JPEG-YCbCr TIFF, a float TIFF with predictor 3, a run-length TGA
     and a PPM at dataset sizes, of damaged and partly refined JPEGs and of
-    LZMA, BigTIFF and YCbCr 4:2:0 LZW TIFFs at 1296x832, `cli.train` on the
+    LZMA, BigTIFF and YCbCr 4:2:0 LZW TIFFs at 1296x832, of ZSTD TIFFs (one
+    strip, and strips), a PSD, an SGI, a PCX, a Sun raster and BC7 / BC1 DDS
+    at 1296x832 (`reader_decode_times`), `cli.train` on the
     progressive COLMAP fixture, on the COLMAP fixture at 4:4:0, on a Blender
     dataset of 16-bit RGBA PNGs, on the COLMAP fixture as lossy WebP and as
     tiled JPEG-YCbCr TIFFs, on three views that are a damaged JPEG, a partly
-    refined JPEG and a YCbCr LZW TIFF, and `cli.metrics` on JPEGs, on WebPs and on TGA / PPM ground
-    truths against the port's metrics on PIL's decode, with PIL unimportable.
+    refined JPEG and a YCbCr LZW TIFF, on six views that are a ZSTD TIFF, a
+    tiled YCbCr ZSTD TIFF, PSD, SGI, PCX and Sun raster, and `cli.metrics`
+    on JPEGs, on WebPs, on TGA / PPM and on ZSTD TIFF / PSD ground truths
+    against the port's metrics on PIL's decode, with PIL unimportable.
     Returns the numbers."""
     from wast3d_tpu_torch import native
     from wast3d_tpu_torch.utils import png
@@ -2669,6 +2743,9 @@ def phase_images(device):
         more, times = codec_decode_times(decoded)
         checks.update(more)
         numbers.update(times)
+        more, times = reader_decode_times(decoded)
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -2688,17 +2765,20 @@ def phase_images(device):
         write_tiff_colmap(colmap_tiff)
         colmap_codecs = os.path.join(tmp, "colmap_codecs")
         write_codec_colmap(colmap_codecs)
+        colmap_readers = os.path.join(tmp, "colmap_readers")
+        write_reader_colmap(colmap_readers)
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
                                  ("train blender16", blender, None),
                                  ("train webp", colmap_webp, "images_webp"),
                                  ("train tiff", colmap_tiff, "images_tiff"),
-                                 ("train codecs", colmap_codecs, "images_codecs")):
+                                 ("train codecs", colmap_codecs, "images_codecs"),
+                                 ("train readers", colmap_readers, "images_readers")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})
             numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
-        for kind in ("jpeg", "webp", "tga_ppm"):
+        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd"):
             more, got = metrics_on(kind, device, tmp)
             checks.update(more)
             numbers.update(got)

@@ -72,7 +72,8 @@ def test_native_builds_into_the_build_dir():
     assert path == _build.native_library_path()
     cmd = _build.native_command(Path("/x/lib.so"))
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd) and cmd[cmd.index("-o") + 1] == "/x/lib.so"
-    assert [Path(c).name for c in cmd[-4:]] == ["image.cpp", "io.cpp", "jpeg.cpp", "webp.cpp"]
+    assert [Path(c).name for c in cmd[-6:]] == ["image.cpp", "io.cpp", "jpeg.cpp", "raster.cpp",
+                                                 "webp.cpp", "zstd.cpp"]
     assert not (ROOT / "wast3d_tpu_torch" / "native" / "_w3d_io.so").exists()
 
 

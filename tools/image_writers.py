@@ -16,10 +16,11 @@ standard library (no PIL): files of the kinds PIL reads but will not write.
   BI_BITFIELDS, RLE8 / RLE4, bottom-up or top-down.
 - `tiff_bytes`: strips or tiles, chunky or separate planes, 1-32-bit
   integer or float samples (12-bit packed), compression none, PackBits,
-  LZW, Deflate, LZMA or JPEG (abbreviated streams with JPEGTables) or
-  strips compressed elsewhere, predictor 1, 2 or 3, fill order 1 or 2, a
-  colour map, YCbCr in subsampled data units, either byte order, classic
-  TIFF or BigTIFF.
+  LZW, Deflate, LZMA, ZSTD (with the `zstandard` package) or JPEG
+  (abbreviated streams with JPEGTables) or strips compressed elsewhere,
+  predictor 1, 2 or 3, fill order 1 or 2, a colour map, YCbCr in
+  subsampled data units in strips or tiles, either byte order, classic TIFF
+  or BigTIFF.
 - `tga_bytes`: colour-mapped, true-colour or grey TGA at any depth PIL
   reads, raw or run-length encoded (packets across rows or not), with an ID
   field, a colour map from a first entry index, and either origin.
@@ -29,6 +30,17 @@ standard library (no PIL): files of the kinds PIL reads but will not write.
   offset, with a global or a local colour table (or none), interlaced, with
   a transparent index, and LZW of any minimum code size; PIL writes neither
   a local table nor a first image smaller than the screen.
+- `icon_bytes` / `dib_bytes`: ICO and CUR files of DIB (with an AND mask)
+  or PNG entries; PIL writes no CUR and no DIB entry.
+- `sun_bytes`: Sun raster at 1, 4, 8, 24 and 32 bits, raw or byte-encoded,
+  with a colour map.
+- `psd_bytes`: Photoshop's merged image, raw or PackBits, in every colour
+  mode PIL reads.
+- `sgi_bytes`: SGI at 8 or 16 bits, verbatim or run-length (PIL writes only
+  verbatim).
+- `pcx_bytes`: run-length PCX in 1-bit planes, 8-bit and 24-bit.
+- `dds_bytes`: a DDS header (legacy or DX10) around given BCn blocks or
+  pixels.
 
 The port never imports this module; the fixture tool, the tests and
 `chip_smoke.py` do.
@@ -563,6 +575,7 @@ def _fp_difference(rows: np.ndarray, spp: int) -> np.ndarray:
     return d
 
 
+_PREDICTED = (5, 8, 32946, 34925, 50000)  # the codecs libtiff runs a predictor under
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -586,7 +599,7 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                bits: Optional[int] = None, sample_format: Optional[int] = None,
                colormap: Optional[np.ndarray] = None, jpeg: Optional[dict] = None,
                ycbcr_subsampling: Optional[Tuple[int, int]] = None, bigtiff: bool = False,
-               encoded: Optional[Sequence[bytes]] = None) -> bytes:
+               encoded: Optional[Sequence[bytes]] = None, zstd: Optional[dict] = None) -> bytes:
     """[H, W] or [H, W, C] samples -> a TIFF of one image.
 
     Samples are uint8 / uint16 / int16 / int32 / uint32 / float32, stored at
@@ -601,12 +614,16 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
     the YCbCrSubsampling tag to write or None)); JPEG samples are already in
     the coded colour space (YCbCr for photometric 6). `predictor` 2
     differences each row and 3 is libtiff's floating-point predictor (both
-    applied only under LZW and Deflate). `fill_order` 2 reverses the bits of
+    applied only under LZW, Deflate, LZMA and ZSTD). `fill_order` 2 reverses the bits of
     every stored byte. `sample_format` writes SampleFormat (339), `colormap`
     ([3 * 2^bits] uint16 values) ColorMap (320); `tags` adds (tag, type,
     values) entries (type 7 takes bytes, type 5 (RATIONAL) numerator,
     denominator pairs flattened). `bits` = 12 packs two samples in three
-    bytes. Compression 34925 is LZMA (an .xz stream, as libtiff writes it).
+    bytes. Compression 34925 is LZMA (an .xz stream, as libtiff writes it);
+    50000 is ZSTD (one Zstandard frame a strip or tile, as libtiff writes
+    it, with `zstd` = dict(level=..., window_log=..., ...) the compressor's
+    parameters; it needs the `zstandard` package, which the card's machine
+    lacks).
     `ycbcr_subsampling` = (h, v), for photometric 6 under any compression
     but JPEG, writes YCbCrSubsampling and stores the full-resolution YCbCr
     samples as the TIFF 6.0 layout wants them: chunky, data units of h x v
@@ -647,12 +664,12 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                     segments.append(whole if jpeg.get("tables") is False else raw)
                     continue
                 rows = block.reshape(block.shape[0], -1)
-                if predictor == 2 and compression in (5, 8, 32946, 34925):  # the integer bits
+                if predictor == 2 and compression in _PREDICTED:  # the integer bits
                     ints = rows.view(np.dtype(f"u{rows.itemsize}"))
                     rows = _difference(ints, n).view(rows.dtype)
                 if encoded is not None:
                     raw = encoded[len(segments)]
-                elif predictor == 3 and compression in (5, 8, 32946, 34925):
+                elif predictor == 3 and compression in _PREDICTED:
                     raw = _fp_difference(rows, n).tobytes()
                 elif sub and planar == 1:
                     raw = ycbcr_units(block, *sub).tobytes()
@@ -672,6 +689,13 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                     raw = packbits_encode(raw)
                 elif compression == 34925:
                     raw = lzma.compress(raw)
+                elif compression == 50000:  # needs the zstandard package
+                    import zstandard
+
+                    kw = dict(zstd or {})
+                    params = zstandard.ZstdCompressionParameters.from_level(kw.pop("level", 3),
+                                                                            **kw)
+                    raw = zstandard.ZstdCompressor(compression_params=params).compress(raw)
                 if fill_order == 2:
                     raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
                 segments.append(raw)
@@ -1012,3 +1036,310 @@ def gif_bytes(indices: np.ndarray, palette: Optional[np.ndarray] = None,
         out += bytes([len(lzw[i:i + 255])]) + lzw[i:i + 255]
     out += b"\x00\x3b"
     return bytes(out)
+
+
+def zstd_frame(blocks: Sequence[Tuple], checksum: bool = False) -> bytes:
+    """A Zstandard frame built by hand from `blocks`: ("raw", data), ("rle",
+    byte, n), a compressed block of literals and no sequences,
+    ("raw_literals", data) or ("rle_literals", byte, n), or one of raw
+    literals and sequences through RLE tables, ("rle_sequences", literals,
+    [(literal length < 16, offset value, match length 3-34), ...], all the
+    offset values with one highest bit); a 128 KiB window, its
+    content size in 4 bytes, the XXH64 checksum's low 32 bits when
+    `checksum`."""
+    def lit_header(kind: int, n: int) -> bytes:
+        if n < 32:
+            return bytes([kind | n << 3])
+        if n < 4096:
+            return bytes([kind | 1 << 2 | (n & 15) << 4, n >> 4])
+        return bytes([kind | 3 << 2 | (n & 15) << 4, (n >> 4) & 255, n >> 12])
+
+    content, body = bytearray(), bytearray()
+    for i, blk in enumerate(blocks):
+        last = int(i == len(blocks) - 1)
+        if blk[0] == "raw":
+            payload, size, kind = blk[1], len(blk[1]), 0
+            content += blk[1]
+        elif blk[0] == "rle":
+            payload, size, kind = bytes([blk[1]]), blk[2], 1
+            content += bytes([blk[1]]) * blk[2]
+        elif blk[0] == "raw_literals":
+            payload, kind = lit_header(0, len(blk[1])) + blk[1] + b"\x00", 2
+            size = len(payload)
+            content += blk[1]
+        elif blk[0] == "rle_literals":
+            payload, kind = lit_header(1, blk[2]) + bytes([blk[1], 0]), 2
+            size = len(payload)
+            content += bytes([blk[1]]) * blk[2]
+        else:
+            lits, seqs = blk[1], blk[2]
+            of_code = seqs[0][1].bit_length() - 1
+            value, nbits, lit = 1, 0, 0  # the bits in read order, under the end marker
+            for ll, ofv, ml in seqs:
+                value, nbits = value << of_code | (ofv - (1 << of_code)), nbits + of_code
+                content += lits[lit:lit + ll]
+                lit += ll
+                for _ in range(ml):  # the match, byte by byte (it may overlap itself)
+                    content.append(content[len(content) - (ofv - 3)])
+            content += lits[lit:]
+            stream = value.to_bytes((nbits + 8) // 8, "little")
+            payload = (lit_header(0, len(lits)) + lits + bytes([len(seqs), 0x54, seqs[0][0],
+                                                                  of_code, seqs[0][2] - 3]) + stream)
+            size, kind = len(payload), 2
+        body += (last | kind << 1 | size << 3).to_bytes(3, "little") + payload
+    out = struct.pack("<IBB", 0xFD2FB528, 2 << 6 | int(checksum) << 2, (17 - 10) << 3)
+    out += struct.pack("<I", len(content)) + body
+    if checksum:
+        from wast3d_tpu_torch.utils.zstd import xxh64
+
+        out += struct.pack("<I", xxh64(bytes(content)) & 0xFFFFFFFF)
+    return out
+
+
+# ---- ICO / CUR -------------------------------------------------------------------------
+
+def dib_bytes(pixels: np.ndarray, bits: int, and_mask: Optional[np.ndarray] = None,
+              **bmp_kw) -> bytes:
+    """An ICO or CUR entry's DIB: `bmp_bytes(pixels, bits, ...)` without its
+    14-byte file header, its height doubled, the 1-bit AND mask after the
+    pixels (`and_mask` [H, W] bool, True for a transparent pixel; rows
+    bottom-up, padded to 32 bits; none given: all opaque)."""
+    h, w = np.asarray(pixels).shape[:2]
+    dib = bytearray(bmp_bytes(pixels, bits, **bmp_kw)[14:])
+    if struct.unpack_from("<I", dib, 0)[0] == 12:
+        struct.pack_into("<H", dib, 6, 2 * h)
+    else:
+        struct.pack_into("<i", dib, 8, -2 * h if bmp_kw.get("top_down") else 2 * h)
+    mask = np.zeros((h, w), bool) if and_mask is None else np.asarray(and_mask, bool)
+    packed = np.packbits(np.pad(mask[::-1], ((0, 0), (0, -w % 32))), axis=1)
+    return bytes(dib) + packed.tobytes()
+
+
+def icon_bytes(entries: Sequence[Tuple], cursor: bool = False) -> bytes:
+    """An ICO (or, with `cursor`, a CUR) file of `entries`: (image bytes (a
+    DIB of `dib_bytes` or a PNG), width, height, bits per pixel, colour
+    count) each, for ICO; (image bytes, width, height, hotspot x, hotspot y)
+    for CUR. A width or height of 256 is written as 0."""
+    out = bytearray(struct.pack("<HHH", 0, 2 if cursor else 1, len(entries)))
+    offset = 6 + 16 * len(entries)
+    for blob, w, h, a, b in entries:
+        if cursor:
+            out += struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0, a, b, len(blob), offset)
+        else:
+            out += struct.pack("<BBBBHHII", w % 256, h % 256, b % 256, 0, 1, a, len(blob), offset)
+        offset += len(blob)
+    return bytes(out) + b"".join(e[0] for e in entries)
+
+
+# ---- Sun raster ------------------------------------------------------------------------
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte-encoded runs: 80 n v for n + 1 copies of v (2-256), 80 00
+    for a lone 80, any other byte as itself."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 256 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3 or (data[i] == 0x80 and run >= 2):
+            out += bytes([0x80, run - 1, data[i]])
+            i += run
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def sun_bytes(pixels: np.ndarray, depth: int, file_type: int = 1,
+              palette: Optional[np.ndarray] = None) -> bytes:
+    """A Sun raster file: `pixels` [H, W] values at depth 1, 4 or 8 (a
+    palette [n, 3] makes them colour-map indices), [H, W, 3] RGB at 24 or
+    [H, W, 4] (the fourth byte written as is) at 32; `file_type` 1 (BGR
+    order at 24 and 32 bits), 3 (RGB order) or 2 (byte-encoded: runs over
+    the rows as PIL's decoder reads them, unpadded). Raw rows are padded to
+    16 bits."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape[:2]
+    if depth < 8:
+        rows = _pack_rows(pixels.reshape(h, w, 1), depth)
+    elif depth == 8:
+        rows = pixels.reshape(h, w)
+    else:
+        c = depth // 8
+        px = pixels[..., :c]
+        if file_type != 3:
+            px = px[..., [2, 1, 0, 3][:c]]
+        rows = px.reshape(h, w * c)
+    if file_type == 2:
+        data = sun_rle(np.ascontiguousarray(rows).tobytes())
+    else:
+        stride = ((w * depth + 15) // 16) * 2
+        data = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    cmap = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8).reshape(-1, 3)
+        cmap = p[:, 0].tobytes() + p[:, 1].tobytes() + p[:, 2].tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), file_type, 1 if cmap else 0,
+                       len(cmap))
+    return head + cmap + data
+
+
+# ---- PSD -------------------------------------------------------------------------------
+
+PSD_MODES = {"1": 0, "L": 1, "P": 2, "RGB": 3, "CMYK": 4, "LAB": 9}
+
+
+def psd_bytes(planes: np.ndarray, mode: str, compression: int = 1, bits: int = 8,
+              palette: Optional[np.ndarray] = None, resources: bytes = b"") -> bytes:
+    """A Photoshop file (version 1) of one merged image: `planes` [C, H, W]
+    channels as stored (8-bit values, or 0 / 1 at `bits` 1, packed from the
+    high bit; CMYK as Photoshop stores it, inverted), colour mode `mode`
+    (a key of PSD_MODES or its number), raw (`compression` 0) or PackBits
+    rows with their byte counts (1). `palette` [256, 3] fills the colour
+    mode data of an indexed file; `resources` is the image resources
+    section's content as given."""
+    planes = np.asarray(planes, np.uint8)
+    c, h, w = planes.shape
+    if bits == 1:
+        rows = np.packbits(planes.astype(bool), axis=2)
+    else:
+        rows = planes
+    cmode = PSD_MODES.get(mode, mode)
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, w, bits, cmode)
+    cdata = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    out = bytearray(head + struct.pack(">I", len(cdata)) + cdata)
+    out += struct.pack(">I", len(resources)) + resources + struct.pack(">I", 0)
+    out += struct.pack(">H", compression)
+    if compression == 0:
+        out += rows.tobytes()
+    else:
+        coded = [packbits_encode(rows[i, y].tobytes()) for i in range(c) for y in range(h)]
+        out += b"".join(struct.pack(">H", len(r)) for r in coded) + b"".join(coded)
+    return bytes(out)
+
+
+# ---- SGI -------------------------------------------------------------------------------
+
+def _sgi_rle_row(values: np.ndarray) -> bytes:
+    """One SGI row channel as runs (a count byte, or a 16-bit count word at 2
+    bytes a sample: high bit set for a literal of count samples, else a
+    repeat of the next sample), ending with a zero count."""
+    wide = values.dtype.itemsize == 2
+    vals = values.tolist()
+    out, i, n = bytearray(), 0, len(vals)
+
+    def sample(v):
+        return struct.pack(">H", v) if wide else bytes([v])
+
+    def count(k):
+        return struct.pack(">H", k) if wide else bytes([k])
+
+    while i < n:
+        run = 1
+        while i + run < n and run < 127 and vals[i + run] == vals[i]:
+            run += 1
+        if run >= 3:
+            out += count(run) + sample(vals[i])
+            i += run
+            continue
+        j = i
+        while j < n and j - i < 127 and not (j + 2 < n and vals[j] == vals[j + 1] == vals[j + 2]):
+            j += 1
+        out += count(0x80 | (j - i)) + b"".join(sample(v) for v in vals[i:j])
+        i = j
+    return bytes(out + count(0))
+
+
+def sgi_bytes(samples: np.ndarray, rle: bool = True) -> bytes:
+    """An SGI image of uint8 (1 byte a sample) or uint16 (2) `samples` [H, W]
+    or [H, W, C] (C 1, 3 or 4): verbatim planes, or (`rle`) one run-length
+    row a channel with the start and length tables; rows bottom-up."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    bpc = samples.dtype.itemsize
+    dim = 2 if c == 1 else 3
+    head = struct.pack(">HBBHHHHII4x80sII", 474, int(rle), bpc, dim, w, h, c, 0,
+                       (1 << (8 * bpc)) - 1, b"", 0, 0).ljust(512, b"\x00")
+    planes = samples[::-1].transpose(2, 0, 1).astype(f">u{bpc}")
+    if not rle:
+        return head + planes.tobytes()
+    rows = [_sgi_rle_row(planes[ch, y].astype(samples.dtype)) for ch in range(c) for y in range(h)]
+    starts, pos = [], 512 + 8 * h * c
+    for r in rows:
+        starts.append(pos)
+        pos += len(r)
+    return (head + struct.pack(f">{h * c}I", *starts)
+            + struct.pack(f">{h * c}I", *[len(r) for r in rows]) + b"".join(rows))
+
+
+# ---- PCX -------------------------------------------------------------------------------
+
+def _pcx_rle(row: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        run = 1
+        while i + run < n and run < 63 and row[i + run] == row[i]:
+            run += 1
+        if run > 1 or row[i] >= 0xC0:
+            out += bytes([0xC0 | run, row[i]])
+        else:
+            out.append(row[i])
+        i += run
+    return bytes(out)
+
+
+def pcx_bytes(pixels: np.ndarray, bits: int, planes: int, palette: Optional[np.ndarray] = None,
+              version: int = 5, ega_palette: Optional[np.ndarray] = None,
+              stride: Optional[int] = None) -> bytes:
+    """A run-length PCX: `pixels` [H, W] values at `bits` 1 in 1, 2 or 4
+    planes (a plane a bit) or 8 in 1 plane (an 8-bit `palette` [256, 3] goes
+    after the data, behind 0C), or [H, W, 3] RGB at 8 bits in 3 planes; each
+    plane's row padded to `stride` bytes (the even size by default) and each
+    row's planes coded together, runs never crossing a row."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape[:2]
+    stride = stride or -(-((w * bits + 7) // 8) // 2) * 2
+    if bits == 1:
+        plane_rows = [np.packbits((pixels >> p) & 1, axis=1) for p in range(planes)]
+    elif pixels.ndim == 3:
+        plane_rows = [pixels[..., p] for p in range(planes)]
+    else:
+        plane_rows = [pixels]
+    plane_rows = [np.pad(r, ((0, 0), (0, stride - r.shape[1]))) for r in plane_rows]
+    data = b"".join(_pcx_rle(b"".join(r[y].tobytes() for r in plane_rows)) for y in range(h))
+    ega = np.zeros(48, np.uint8) if ega_palette is None else np.asarray(ega_palette, np.uint8)
+    head = (struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1, h - 1, 72, 72)
+            + ega.reshape(-1)[:48].tobytes().ljust(48, b"\x00")
+            + struct.pack("<BBHH", 0, planes, stride, 1)).ljust(128, b"\x00")
+    tail = b"" if palette is None else b"\x0c" + np.asarray(palette, np.uint8).tobytes()
+    return head + data + tail
+
+
+# ---- DDS -------------------------------------------------------------------------------
+
+DDS_FOURCC = {"DXT1", "DXT3", "DXT5", "BC4U", "ATI1", "BC5U", "ATI2", "BC5S", "DX10"}
+
+
+def dds_bytes(width: int, height: int, payload: bytes, fourcc: Optional[str] = None,
+              dxgi: Optional[int] = None, pf_flags: int = 0, bitcount: int = 0,
+              masks: Sequence[int] = (0, 0, 0, 0), palette: Optional[bytes] = None) -> bytes:
+    """A DirectDraw Surface around `payload` as given (BCn blocks, row by row
+    of 4 x 4 blocks, or uncompressed pixels): a `fourcc` pixel format (with
+    `dxgi`, the DX10 header and its DXGI format), or `pf_flags` (RGB 0x40,
+    alpha pixels 0x1, luminance 0x20000, palette 0x20) with `bitcount` and
+    `masks`; a palette file gets its 1024 `palette` bytes after the header."""
+    if dxgi is not None:
+        fourcc = "DX10"
+    if fourcc is not None:
+        pf_flags |= 4
+    pf = struct.pack("<4I4I", 32, pf_flags, struct.unpack("<I", (fourcc or "\0\0\0\0").encode())[0],
+                     bitcount, *(list(masks) + [0] * 4)[:4])
+    head = struct.pack("<7I", 124, 0x1007, height, width, 0, 0, 0) + b"\x00" * 44 + pf
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    dx10 = struct.pack("<5I", dxgi, 3, 0, 1, 0) if dxgi is not None else b""
+    return b"DDS " + head + dx10 + (palette or b"") + payload

@@ -5,6 +5,7 @@
     python3 tools/make_torch_fixtures.py --formats   # only the image-format files
     python3 tools/make_torch_fixtures.py --raster    # only the TIFF / Netpbm / TGA / QOI ones
     python3 tools/make_torch_fixtures.py --codecs    # only the damaged-JPEG and TIFF-codec ones
+    python3 tools/make_torch_fixtures.py --readers   # only the ZSTD TIFF, ICO ... Sun ones
 
 Needs PIL (it writes the JPEGs and records PIL's decode of each), so it runs
 where the tests run, not on the card. It writes, from seeds:
@@ -95,6 +96,28 @@ and under `tests/format_fixtures/`, from the 1296x832 JPEG's decode
   `tests/torch_fixtures/codecs/`: the 1296x832 view damaged (three bits of
   PIL's JPEG) and partly refined (`jpeg_bytes`, every scan but the last),
   with PIL's decode of each in `pil_decode/<name>.png`;
+- ZSTD TIFF and the small readers (`reader_cases`, written alone by
+  `--readers`): ZSTD TIFFs from PIL's libtiff (RGB in one strip and in
+  many, L, RGBA, 16-bit, predictor 2, 32-bit float with predictor 3) and
+  from `tiff_bytes` with the `zstandard` package (tiles, separate planes,
+  big-endian, frames cut into 1 KiB blocks, and frames built by hand with
+  raw, RLE and RLE-literal blocks), together meeting every block, literals,
+  Huffman-weights and sequence-table kind of the format; YCbCr in tiles
+  (1x1, 2x1, 2x2, 4x2, 4x4 under ZSTD, LZW, Deflate or PackBits, separate
+  planes); ICO (PIL's PNG entries, DIB entries at 1, 4, 8, 24 and 32 bits
+  with AND masks, several sizes), CUR (1-, 8-, 24- and 32-bit), DDS in every
+  pixel format PIL reads (its own DXT1 / DXT3 / DXT5 / BC2 / BC3 / BC5 and
+  uncompressed files, and seeded random BCn blocks in DDS headers:
+  BC1-BC7, BC5 and BC6H signed, fourCC and DXGI), PSD (raw and PackBits in
+  every mode), SGI (PIL's and run-length at 8 and 16 bits), PCX (PIL's, and
+  2- and 4-plane 1-bit, odd strides), Sun raster (every depth, raw and
+  run-length, colour maps); `colmap_readers/view_<i>`: the six COLMAP views
+  as a ZSTD TIFF, a tiled YCbCr ZSTD TIFF, PSD, SGI, PCX and Sun raster;
+  `metrics_zstd_psd/`: a method directory of a ZSTD TIFF and a PSD view;
+  and `tests/torch_fixtures/zstd/`: the 1296x832 view as ZSTD TIFFs from
+  PIL, in one strip and in PIL's default strips, with the dtype, shape and
+  SHA-256 of PIL's decode of seeded random BC7 and BC1 blocks at 1296x832
+  in `pil_decode/scene_1296x832_{bc7,bc1}_dds.json`;
 and, with `--formats` too, `tests/torch_fixtures/webp/`: the 1296x832 view
 as lossy WebP at quality 90 (PIL's decode in
 `pil_decode/scene_1296x832_q90_webp.png`) and an 800x800 RGBA lossless WebP
@@ -917,10 +940,326 @@ def write_codecs(src):
         write_png_up(os.path.join(OUT, "pil_decode", name + ".png"), np.asarray(Image.open(path)))
 
 
+# The card's BCn checks: (name, DXGI format, payload seed) of the seeded
+# random blocks at the 1296x832 view's size.
+BCN_SCENES = (("scene_1296x832_bc7", 98, 22), ("scene_1296x832_bc1", 71, 23))
+ZSTD_SCENES = ("scene_1296x832_zstd_onestrip", "scene_1296x832_zstd_strips")
+
+
+def bcn_scene(dxgi, seed, width=1296, height=832):
+    """The DDS of seeded random blocks the card checks against PIL's hash."""
+    from tools.image_writers import dds_bytes
+
+    size = 8 if dxgi in (70, 71, 79, 80) else 16
+    payload = np.random.default_rng(seed).integers(
+        0, 256, (-(-width // 4)) * (-(-height // 4)) * size, dtype=np.uint8).tobytes()
+    return dds_bytes(width, height, payload, dxgi=dxgi)
+
+
+def _designed(rng, n):
+    """Bytes that make libzstd reach its rarer modes: a run of repeated
+    segments each after one fixed byte (RLE literals), a small skewed
+    alphabet (4-bit Huffman weights), a periodic pattern, zeros and noise."""
+    segs = [bytes(rng.integers(0, 256, 12, dtype=np.uint8)) for _ in range(80)]
+    parts = [b"".join(segs), b"".join(b"q" + x for x in segs),
+             bytes(rng.choice(np.arange(6, dtype=np.uint8), 1500,
+                              p=[.45, .25, .12, .1, .05, .03])),
+             b"xyz" * 150, bytes(600), bytes(rng.integers(0, 256, 400, dtype=np.uint8))]
+    return (b"".join(parts) * 3)[:n]
+
+
+def reader_cases(crop):
+    """(name, bytes) of the ZSTD, tiled-YCbCr and small-reader fixtures (module
+    docstring); `crop` is a 48x64 RGB cut of the view."""
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    rng = np.random.default_rng(31)
+    alpha = alpha_channel(48, 64)
+    grey16 = crop[..., 0].astype(np.uint16) * 257 + crop[..., 1]
+    depth = (crop.astype(np.float32) / 255.0).mean(axis=2) * np.float32(40) - np.float32(3)
+
+    def pil(img, fmt="TIFF", **kw):
+        return _pil_bytes(Image.fromarray(img), fmt, **kw)
+
+    def zstd(img, **kw):
+        return pil(img, compression="zstd", **kw)
+
+    designed = np.frombuffer(_designed(rng, 48 * 64 * 3), np.uint8).reshape(48, 64, 3)
+    seqs = [(2, 4 + k % 4, 9) for k in range(40)]  # literal length 2, match 9: RLE tables
+    hand = [iw.zstd_frame([("rle_literals", 0x80, 300), ("raw", bytes(range(256)) * 2),
+                           ("rle", 7, 212)]),
+            iw.zstd_frame([("raw_literals", designed[16:32].tobytes()[:1024])], checksum=True),
+            iw.zstd_frame([("rle_sequences", bytes(range(90, 190)), seqs), ("rle", 200, 564)])]
+    hand_img = np.frombuffer(b"".join(zstd_frame_content(f) for f in hand), np.uint8)
+    out = [("tif_zstd_rgb.tif", zstd(crop)), ("tif_zstd_rgb_strips.tif", zstd(crop, tiffinfo={278: 5})),
+           ("tif_zstd_l.tif", zstd(crop[..., 1])),
+           ("tif_zstd_rgba.tif", zstd(np.concatenate([crop, alpha[..., None]], 2))),
+           ("tif_zstd_i16.tif", zstd(grey16)), ("tif_zstd_i16_pred2.tif", zstd(grey16, tiffinfo={317: 2})),
+           ("tif_zstd_rgb_pred2.tif", zstd(crop, tiffinfo={317: 2, 278: 16})),
+           ("tif_zstd_f32_pred3.tif", zstd(depth, tiffinfo={317: 3})),
+           ("tif_zstd_tiles.tif", iw.tiff_bytes(crop, 2, compression=50000, tile=(32, 32))),
+           ("tif_zstd_tiles_pred2.tif", iw.tiff_bytes(crop, 2, compression=50000, tile=(16, 16),
+                                                       predictor=2)),
+           ("tif_zstd_planar.tif", iw.tiff_bytes(crop, 2, compression=50000, planar=2,
+                                                 rows_per_strip=16)),
+           ("tif_zstd_planar_tiles.tif", iw.tiff_bytes(crop, 2, compression=50000, planar=2,
+                                                       tile=(32, 16))),
+           ("tif_zstd_be16_pred2.tif", iw.tiff_bytes(crop.astype(np.uint16) * 257, 2,
+                                                     compression=50000, byteorder=">",
+                                                     predictor=2)),
+           ("tif_zstd_f32_tiles_pred3.tif", iw.tiff_bytes(depth, 1, compression=50000,
+                                                          predictor=3, sample_format=3,
+                                                          tile=(16, 16))),
+           ("tif_zstd_blocks_1k.tif", iw.tiff_bytes(designed, 2, compression=50000,
+                                                    zstd=dict(level=19, window_log=10))),
+           ("tif_zstd_blocks_2k.tif", iw.tiff_bytes(designed, 2, compression=50000,
+                                                    zstd=dict(level=3, window_log=11))),
+           ("tif_zstd_blocks_4k.tif", iw.tiff_bytes(designed, 2, compression=50000,
+                                                    zstd=dict(level=19, window_log=12))),
+           ("tif_zstd_alphabet.tif", iw.tiff_bytes(
+               rng.choice(np.arange(6, dtype=np.uint8), (48, 64), p=[.45, .25, .12, .1, .05, .03]),
+               1, compression=50000, zstd=dict(level=1, window_log=10))),
+           ("tif_zstd_hand.tif", iw.tiff_bytes(hand_img.reshape(48, 64), 1, compression=50000,
+                                               rows_per_strip=16, encoded=hand))]
+    ycc = iw.rgb_to_ycc(crop)
+    for sub, comp, tile in (((2, 2), 50000, (16, 16)), ((4, 4), 50000, (16, 16)),
+                            ((4, 2), 5, (32, 16)), ((2, 1), 8, (16, 32)), ((1, 1), 32773, (32, 32)),
+                            ((1, 2), 50000, (48, 16))):
+        out.append((f"tif_ycbcr_tiled_{sub[0]}{sub[1]}_{comp}.tif",
+                    iw.tiff_bytes(ycc, 6, compression=comp, ycbcr_subsampling=sub, tile=tile)))
+    out.append(("tif_ycbcr_tiled_planar_50000.tif", iw.tiff_bytes(
+        ycc, 6, compression=50000, planar=2, ycbcr_subsampling=(1, 1), tile=(16, 16))))
+    out += _icon_cases(crop, alpha, rng) + _dds_cases(crop, alpha, rng)
+    out += _psd_sgi_pcx_sun_cases(crop, alpha, rng)
+    return out
+
+
+def zstd_frame_content(frame):
+    """The content of a frame (decoded with the `zstandard` package)."""
+    import zstandard
+
+    return zstandard.ZstdDecompressor().decompress(frame)
+
+
+def _icon_cases(crop, alpha, rng):
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    rgba = np.concatenate([crop, alpha[..., None]], 2)
+    mask = crop[..., 2] > 140
+    grey = crop[..., 1]
+    pal256 = rng.integers(0, 256, (256, 3))
+
+    def dib(img, bits, **kw):
+        return iw.dib_bytes(img, bits, and_mask=mask[:img.shape[0], :img.shape[1]], **kw)
+
+    png = _pil_bytes(Image.fromarray(rgba[:32, :32]), "PNG")
+    out = [("ico_pil_png.ico", _pil_bytes(Image.fromarray(rgba), "ICO", sizes=[(16, 16), (32, 32)])),
+           ("ico_pil_bmp.ico", _pil_bytes(Image.fromarray(rgba), "ICO", bitmap_format="bmp",
+                                          sizes=[(16, 16), (32, 32)])),
+           ("ico_dib32.ico", iw.icon_bytes([(dib(rgba[:32, :32], 32), 32, 32, 32, 0)])),
+           ("ico_dib24.ico", iw.icon_bytes([(dib(crop[:16, :24], 24), 24, 16, 24, 0)])),
+           ("ico_dib8.ico", iw.icon_bytes([(dib(grey[:32, :40], 8, palette=pal256), 40, 32, 8, 0)])),
+           ("ico_dib8_grey.ico", iw.icon_bytes([(dib(grey[:16, :16], 8, palette=np.repeat(
+               np.arange(256)[:, None], 3, 1)), 16, 16, 8, 0)])),
+           ("ico_dib4.ico", iw.icon_bytes([(dib(grey[:16, :16] >> 4, 4,
+                                                 palette=pal256[:16]), 16, 16, 4, 16)])),
+           ("ico_dib1.ico", iw.icon_bytes([(dib(grey[:32, :32] >> 7, 1,
+                                                 palette=[[0, 0, 80], [250, 240, 0]]), 32, 32, 1, 2)])),
+           ("ico_entries.ico", iw.icon_bytes([(dib(grey[:16, :16], 8, palette=pal256), 16, 16, 8, 0),
+                                              (png, 32, 32, 32, 0),
+                                              (dib(rgba[:32, :32], 32), 32, 32, 32, 0),
+                                              (dib(crop[:32, :32], 24), 32, 32, 24, 0)])),
+           ("cur_dib1.cur", iw.icon_bytes([(dib(grey[:32, :32] >> 7, 1, palette=[[0, 0, 0], [255, 255, 255]]),
+                                            32, 32, 3, 5)], cursor=True)),
+           ("cur_dib8.cur", iw.icon_bytes([(dib(grey[:16, :16], 8, palette=pal256), 16, 16, 1, 1),
+                                           (dib(grey[:32, :48], 8, palette=pal256), 48, 32, 2, 2)],
+                                          cursor=True)),
+           ("cur_dib24.cur", iw.icon_bytes([(dib(crop[:24, :24], 24), 24, 24, 0, 0)], cursor=True)),
+           ("cur_dib32.cur", iw.icon_bytes([(dib(rgba[:32, :32], 32), 32, 32, 4, 4)], cursor=True))]
+    return out
+
+
+def _dds_cases(crop, alpha, rng):
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    rgba = np.concatenate([crop, alpha[..., None]], 2)
+    out = [(f"dds_pil_{f.lower()}.dds", _pil_bytes(Image.fromarray(rgba), "DDS", pixel_format=f))
+           for f in ("DXT1", "DXT3", "DXT5", "BC2", "BC3")]
+    out += [("dds_pil_bc5.dds", _pil_bytes(Image.fromarray(crop), "DDS", pixel_format="BC5")),
+            ("dds_pil_rgb.dds", _pil_bytes(Image.fromarray(crop), "DDS")),
+            ("dds_pil_rgba.dds", _pil_bytes(Image.fromarray(rgba), "DDS")),
+            ("dds_pil_l.dds", _pil_bytes(Image.fromarray(crop[..., 0]), "DDS")),
+            ("dds_pil_la.dds", _pil_bytes(Image.fromarray(rgba[..., 1:3], "LA"), "DDS"))]
+    w, h = 61, 45  # partial edge blocks
+    blocks = 16 * 12
+    for name, size, kw in (("dxt1", 8, dict(fourcc="DXT1")), ("dxt3", 16, dict(fourcc="DXT3")),
+                           ("dxt5", 16, dict(fourcc="DXT5")), ("bc4u", 8, dict(fourcc="BC4U")),
+                           ("ati1", 8, dict(fourcc="ATI1")), ("bc5u", 16, dict(fourcc="BC5U")),
+                           ("ati2", 16, dict(fourcc="ATI2")), ("bc5s", 16, dict(fourcc="BC5S")),
+                           ("dxgi_bc1", 8, dict(dxgi=71)), ("dxgi_bc2", 16, dict(dxgi=74)),
+                           ("dxgi_bc3", 16, dict(dxgi=77)), ("dxgi_bc4", 8, dict(dxgi=80)),
+                           ("dxgi_bc5", 16, dict(dxgi=83)), ("dxgi_bc5s", 16, dict(dxgi=84)),
+                           ("dxgi_bc6h_uf16", 16, dict(dxgi=95)),
+                           ("dxgi_bc6h_sf16", 16, dict(dxgi=96)), ("dxgi_bc7", 16, dict(dxgi=98)),
+                           ("dxgi_bc7_srgb", 16, dict(dxgi=99))):
+        payload = rng.integers(0, 256, blocks * size, dtype=np.uint8)
+        if name.startswith("dxgi_bc6h"):  # every mode, reserved ones too
+            modes = np.array([0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19])
+            m = modes[np.arange(blocks) % len(modes)]
+            b0 = payload[::16].astype(int)
+            payload[::16] = np.where(m < 2, (b0 & ~3) | m, (b0 & ~31) | m)
+        if name.startswith("dxgi_bc7"):  # every mode, and the empty one
+            m = np.arange(blocks) % 9
+            payload[::16] = np.where(m == 8, 0, ((payload[::16].astype(int) << 1 | 1) << m) & 255)
+        out.append((f"dds_{name}.dds", iw.dds_bytes(w, h, payload.tobytes(), **kw)))
+    px = rgba[:h, :w].astype(np.uint32)
+    out += [("dds_argb8888.dds", iw.dds_bytes(w, h, (px[..., 2] | px[..., 1] << 8 | px[..., 0] << 16
+                                                     | px[..., 3] << 24).astype("<u4").tobytes(),
+                                              pf_flags=0x41, bitcount=32,
+                                              masks=(0xff0000, 0xff00, 0xff, 0xff000000))),
+            ("dds_rgb565.dds", iw.dds_bytes(w, h, rng.integers(0, 65536, w * h).astype("<u2").tobytes(),
+                                            pf_flags=0x40, bitcount=16, masks=(0xf800, 0x7e0, 0x1f))),
+            ("dds_a1r5g5b5.dds", iw.dds_bytes(w, h, rng.integers(0, 65536, w * h).astype("<u2").tobytes(),
+                                              pf_flags=0x41, bitcount=16,
+                                              masks=(0x7c00, 0x3e0, 0x1f, 0x8000))),
+            ("dds_l8.dds", iw.dds_bytes(w, h, rgba[:h, :w, 0].tobytes(), pf_flags=0x20000, bitcount=8)),
+            ("dds_p8.dds", iw.dds_bytes(w, h, rgba[:h, :w, 1].tobytes(), pf_flags=0x20, bitcount=8,
+                                        palette=rng.integers(0, 256, 1024, dtype=np.uint8).tobytes())),
+            ("dds_dxgi_rgba8.dds", iw.dds_bytes(w, h, rgba[:h, :w].tobytes(), dxgi=28))]
+    return out
+
+
+def _psd_sgi_pcx_sun_cases(crop, alpha, rng):
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    rgba = np.concatenate([crop, alpha[..., None]], 2)
+    planes, grey = crop.transpose(2, 0, 1), crop[..., 1]
+    out = []
+    for comp in (0, 1):
+        tag = ("raw", "packbits")[comp]
+        out += [(f"psd_rgb_{tag}.psd", iw.psd_bytes(planes, "RGB", comp)),
+                (f"psd_rgba_{tag}.psd", iw.psd_bytes(rgba.transpose(2, 0, 1), "RGB", comp)),
+                (f"psd_cmyk_{tag}.psd", iw.psd_bytes(255 - rgba.transpose(2, 0, 1), "CMYK", comp)),
+                (f"psd_lab_{tag}.psd", iw.psd_bytes(planes, "LAB", comp)),
+                (f"psd_l_{tag}.psd", iw.psd_bytes(grey[None], "L", comp)),
+                (f"psd_p_{tag}.psd", iw.psd_bytes(grey[None], "P", comp,
+                                                  palette=rng.integers(0, 256, (256, 3)))),
+                (f"psd_1_{tag}.psd", iw.psd_bytes((grey[None] > 120).astype(np.uint8), "1", comp,
+                                                  bits=1))]
+    out.append(("psd_rgb_resources.psd", iw.psd_bytes(planes, "RGB", 1, resources=(
+        b"8BIM\x03\xed\x00\x00\x00\x00\x00\x10" + bytes(16)
+        + b"8BIM\x04\x0c\x03abc\x00\x00\x00\x03xyz\x00"))))
+    out += [("sgi_pil_rgb.sgi", _pil_bytes(Image.fromarray(crop), "SGI")),
+            ("sgi_pil_l.sgi", _pil_bytes(Image.fromarray(grey), "SGI")),
+            ("sgi_pil_rgba.sgi", _pil_bytes(Image.fromarray(rgba), "SGI")),
+            ("sgi_rle_rgb.sgi", iw.sgi_bytes(crop)), ("sgi_rle_l.sgi", iw.sgi_bytes(grey)),
+            ("sgi_rle_rgba.sgi", iw.sgi_bytes(rgba)),
+            ("sgi_rle16_rgb.sgi", iw.sgi_bytes(crop.astype(np.uint16) * 257 + 11)),
+            ("sgi_raw16_l.sgi", iw.sgi_bytes(grey.astype(np.uint16) * 200, rle=False))]
+    out += [("pcx_pil_rgb.pcx", _pil_bytes(Image.fromarray(crop), "PCX")),
+            ("pcx_pil_l.pcx", _pil_bytes(Image.fromarray(grey), "PCX")),
+            ("pcx_pil_p.pcx", _pil_bytes(Image.fromarray(crop).convert("P"), "PCX")),
+            ("pcx_pil_1.pcx", _pil_bytes(Image.fromarray(grey > 120), "PCX")),
+            ("pcx_rgb_odd.pcx", iw.pcx_bytes(crop[:, :61], 8, 3)),
+            ("pcx_1bit_2planes.pcx", iw.pcx_bytes(grey[:, :40] >> 6, 1, 2)),
+            ("pcx_1bit_4planes.pcx", iw.pcx_bytes(grey[:, :61] >> 4, 1, 4)),
+            ("pcx_1bit_4planes_w3.pcx", iw.pcx_bytes(grey[:8, :3] >> 4, 1, 4))]
+    pal = rng.integers(0, 256, (256, 3))
+    for ftype in (1, 2, 3):
+        out += [(f"sun_24_t{ftype}.ras", iw.sun_bytes(crop[:, :61], 24, ftype)),
+                (f"sun_32_t{ftype}.ras", iw.sun_bytes(rgba[:, :61], 32, ftype)),
+                (f"sun_8_t{ftype}.ras", iw.sun_bytes(grey[:, :61], 8, ftype)),
+                (f"sun_8p_t{ftype}.ras", iw.sun_bytes(grey[:, :61], 8, ftype, palette=pal)),
+                (f"sun_4_t{ftype}.ras", iw.sun_bytes(grey[:, :61] >> 4, 4, ftype)),
+                (f"sun_4p_t{ftype}.ras", iw.sun_bytes(grey[:, :61] >> 4, 4, ftype, palette=pal[:16])),
+                (f"sun_1_t{ftype}.ras", iw.sun_bytes(grey[:, :61] >> 7, 1, ftype))]
+    return out
+
+
+def reader_views(views):
+    """The six COLMAP views of `colmap_readers/` (module docstring)."""
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    return [("view_0.tif", _pil_bytes(Image.fromarray(views[0]), "TIFF", compression="zstd")),
+            ("view_1.tif", iw.tiff_bytes(iw.rgb_to_ycc(views[1]), 6, compression=50000,
+                                         ycbcr_subsampling=(2, 2), tile=(64, 64))),
+            ("view_2.psd", iw.psd_bytes(views[2].transpose(2, 0, 1), "RGB", 1)),
+            ("view_3.sgi", iw.sgi_bytes(views[3])),
+            ("view_4.pcx", iw.pcx_bytes(views[4], 8, 3)),
+            ("view_5.ras", iw.sun_bytes(views[5], 24, 2))]
+
+
+def write_readers(src):
+    """The files of `reader_cases` and `reader_views`, the ZSTD / PSD method
+    directory, and the card's 1296x832 ZSTD TIFFs and BCn hashes (module
+    docstring); `src` is the 1296x832 view's decode."""
+    import hashlib
+    import json
+
+    from PIL import Image
+
+    from tools.image_writers import psd_bytes
+
+    def save(path, blob):
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+
+    for name, blob in reader_cases(src[300:348, 500:564]):
+        save(os.path.join(FORMATS, name), blob)
+    views_dir = os.path.join(FORMATS, "colmap_readers")
+    shutil.rmtree(views_dir, ignore_errors=True)
+    os.makedirs(views_dir)
+    views = [np.asarray(Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg")))
+             for i in range(VIEWS)]
+    for name, blob in reader_views(views):
+        save(os.path.join(views_dir, name), blob)
+    metrics = os.path.join(FORMATS, "metrics_zstd_psd")
+    shutil.rmtree(metrics, ignore_errors=True)
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    for i, (y, x) in enumerate(((260, 440), (560, 840))):
+        render, gt = src[y:y + 48, x:x + 64], src[y + 2:y + 50, x + 2:x + 66]
+        for d, img in (("renders", render), ("gt", gt)):
+            name = f"{i:05d}." + ("tif" if i == 0 else "psd")
+            blob = (_pil_bytes(Image.fromarray(img), "TIFF", compression="zstd") if i == 0
+                    else psd_bytes(img.transpose(2, 0, 1), "RGB", 1))
+            path = os.path.join(metrics, d, name)
+            with open(path, "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
+    zdir = os.path.join(OUT, "zstd")
+    os.makedirs(zdir, exist_ok=True)
+    for name, kw in zip(ZSTD_SCENES, ({"tiffinfo": {278: src.shape[0]}}, {})):
+        path = os.path.join(zdir, name + ".tif")
+        with open(path, "wb") as f:
+            f.write(_pil_bytes(Image.fromarray(src), "TIFF", compression="zstd", **kw))
+        assert np.array_equal(np.asarray(Image.open(path)), src)
+    for name, dxgi, seed in BCN_SCENES:
+        pil = np.asarray(Image.open(io.BytesIO(bcn_scene(dxgi, seed))))
+        with open(os.path.join(OUT, "pil_decode", name + "_dds.json"), "w") as f:
+            json.dump({"dtype": str(pil.dtype), "shape": list(pil.shape),
+                       "sha256": hashlib.sha256(pil.tobytes()).hexdigest()}, f, indent=1)
+            f.write("\n")
+
+
 def main(argv=None) -> int:
     from PIL import Image, ImageFile
 
     args = argv or sys.argv[1:]
+    if "--readers" in args:
+        write_readers(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
+        return 0
     if "--codecs" in args:
         write_codecs(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
         return 0
@@ -930,6 +1269,7 @@ def main(argv=None) -> int:
             write_formats(decoded)
             write_dataset_webps(decoded)
             write_codecs(decoded)
+            write_readers(decoded)
         write_raster(decoded)
         return 0
 
@@ -993,6 +1333,7 @@ def main(argv=None) -> int:
     write_formats(decoded)
     write_dataset_webps(decoded)
     write_codecs(decoded)
+    write_readers(decoded)
     write_raster(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")

@@ -15,10 +15,14 @@ depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
 (`resize_u8`); and the WebP and GIF bitstreams
 (`webp.cpp`): lossless (`vp8l_decode`), lossy (`vp8_decode`, with its inverse
 transforms alone as `vp8_idct` and its YUV -> RGB as `yuv_to_rgba`), ALPH
-chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`). A JPEG inside a TIFF
+chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`); TIFF's ZSTD strips
+(`zstd.cpp`: `zstd_decode`); and the loops of the ICO / DDS / PSD / SGI /
+PCX / Sun readers (`raster.cpp`: `bcn_decode`, `packbits_rows`, `sgi_rle`,
+`pcx_rle`, `sun_rle`). A JPEG inside a TIFF
 goes through the same decoder with the TIFF's colour space
-(`decode_jpeg(..., colour=...)`, `jpeg_frame`). `utils/image_io.py` and
-`utils/png.py` hold the plain version of each stage that stands alone.
+(`decode_jpeg(..., colour=...)`, `jpeg_frame`). `utils/image_io.py`,
+`utils/png.py`, `utils/zstd.py` and `utils/image_formats.py` hold the plain
+version of each stage that stands alone.
 
 The library is built lazily by `_build.build_native` (one `g++` call into a
 private temporary directory under `_build/`, then `os.replace` to a name
@@ -73,6 +77,8 @@ _SIGNATURES = {
                         _c.c_int32], _c.c_int64),
     "w3d_packbits_decode": ([_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_char_p,
                              _c.c_int32], _c.c_int64),
+    "w3d_zstd_decode": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_char_p,
+                         _c.c_int32], _c.c_int64),
     "w3d_resize_u8": ([_c.c_void_p, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_void_p,
                        _c.c_int32, _c.c_int32, _c.c_char_p, _c.c_int32], _c.c_int),
     "w3d_vp8l_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_void_p,
@@ -100,6 +106,16 @@ _SIGNATURES = {
                      _c.c_char_p, _c.c_int32], _c.c_int64),
     "w3d_qoi_decode": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int32, _c.c_void_p,
                         _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_bcn_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_int32,
+                        _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_packbits_rows": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_void_p,
+                           _c.c_char_p, _c.c_int32], _c.c_int64),
+    "w3d_sgi_rle": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int32, _c.c_int32,
+                     _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_pcx_rle": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int32, _c.c_int64,
+                     _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int64),
+    "w3d_sun_rle": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_void_p, _c.c_char_p,
+                     _c.c_int32], _c.c_int64),
 }
 
 
@@ -348,6 +364,13 @@ def packbits_decode(blob: bytes, out_size: int, name: str = "<bytes>") -> np.nda
     return _stream("w3d_packbits_decode", blob, out_size, name)
 
 
+def zstd_decode(blob: bytes, out_size: int, name: str = "<bytes>") -> np.ndarray:
+    """A TIFF ZSTD strip (Zstandard frames, `zstd.cpp`) -> at most `out_size`
+    bytes (uint8), as libtiff's ZSTD codec fills its buffer
+    (`utils/zstd.zstd_reference` is its plain version)."""
+    return _stream("w3d_zstd_decode", bytes(blob), out_size, name)
+
+
 def resize_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """PIL's bicubic resample of uint8 [H, W] or [H, W, C] to [height, width]
     (`image.cpp`; `utils/png.resize` is its plain version)."""
@@ -464,4 +487,65 @@ def qoi_decode(data: bytes, width: int, height: int, channels: int,
     if library().w3d_qoi_decode(data, len(data), width * height, channels, out.ctypes.data, msg,
                                 len(msg)) != 0:
         raise ValueError(f"{name}: {_message(msg)}")
+    return out
+
+
+def _call(fn: str, name: str, *args) -> None:
+    msg = ctypes.create_string_buffer(256)
+    if getattr(library(), fn)(*args, msg, len(msg)) < 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+
+
+def bcn_decode(data: bytes, n: int, signed: bool, width: int, height: int,
+               name: str = "<bytes>") -> np.ndarray:
+    """BCn blocks (Pillow's decoder `n`: 1 BC1, 2 BC2, 3 BC3, 4 BC4, 5 BC5,
+    6 BC6H, 7 BC7; `signed` for BC5S and BC6HS), 4 x 4 blocks row by row ->
+    uint8 [height, width, 4 (RGBA), 1 (L) or 3 (RGB)] as Pillow's
+    BcnDecode.c decodes them (`raster.cpp`;
+    `utils/image_formats.bcn_reference` is its plain version)."""
+    bands = {1: 4, 2: 4, 3: 4, 4: 1, 5: 3, 6: 3, 7: 4}[n]
+    out = np.empty((height, width, bands), np.uint8)
+    _call("w3d_bcn_decode", name, bytes(data), len(data), n, int(signed), width, height,
+          out.ctypes.data)
+    return out
+
+
+def packbits_rows(data: bytes, row_bytes: int, rows: int, name: str = "<bytes>") -> np.ndarray:
+    """PackBits rows as Pillow's PackBitsDecode fills them, a row at a time
+    -> uint8 [rows, row_bytes] (`raster.cpp`;
+    `utils/image_formats.packbits_rows_reference`)."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    _call("w3d_packbits_rows", name, bytes(data), len(data), row_bytes, rows, out.ctypes.data)
+    return out
+
+
+def sgi_rle(blob: bytes, width: int, height: int, bands: int, bpc: int,
+            name: str = "<bytes>") -> np.ndarray:
+    """A run-length SGI file (header, tables and rows) as Pillow's
+    SgiRleDecode reads it -> uint8 [height, width * bands * bpc], rows
+    top-down, 16-bit samples big-endian (`raster.cpp`;
+    `utils/image_formats.sgi_rle_reference`)."""
+    out = np.empty((height, width * bands * bpc), np.uint8)
+    _call("w3d_sgi_rle", name, bytes(blob), len(blob), width, height, bands, bpc,
+          out.ctypes.data)
+    return out
+
+
+def pcx_rle(data: bytes, row_bytes: int, width: int, bits: int, rows: int,
+            name: str = "<bytes>") -> np.ndarray:
+    """PCX run-length rows of a `bits`-a-pixel raw mode as Pillow's
+    PcxDecode reads them -> uint8 [rows, row_bytes] (`raster.cpp`;
+    `utils/image_formats.pcx_rle_reference`)."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    _call("w3d_pcx_rle", name, bytes(data), len(data), row_bytes, width, bits, rows,
+          out.ctypes.data)
+    return out
+
+
+def sun_rle(data: bytes, row_bytes: int, rows: int, name: str = "<bytes>") -> np.ndarray:
+    """Sun raster byte-encoded runs as Pillow's SunRleDecode reads them ->
+    uint8 [rows, row_bytes] (`raster.cpp`;
+    `utils/image_formats.sun_rle_reference`)."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    _call("w3d_sun_rle", name, bytes(data), len(data), row_bytes, rows, out.ctypes.data)
     return out

@@ -23,12 +23,15 @@ dispatching on the file's signature, never on its extension:
   1, 2, 4 and 8 bits ("P", "PA"), CMYK at 8 and 16 bits, CIELab ("LAB"),
   12- and 16-bit grey ("I;16", "I;16B"), signed 16-bit and 32-bit integers
   ("I"), 32-bit float ("F"), 16-bit RGB(A) as the high byte of each sample;
-  compression none, PackBits, LZW, Deflate (8, 32946), LZMA (34925), CCITT
+  compression none, PackBits, LZW, Deflate (8, 32946), LZMA (34925), ZSTD
+  (50000: one Zstandard frame a strip or tile, `native.zstd_decode`, as
+  libtiff's codec over libzstd 1.5.7 decodes it, damaged frames too), CCITT
   RLE / Group 3 / Group 4 (2, 3, 4: `native.ccitt_decode`) or JPEG (7:
   abbreviated streams after the JPEGTables, YCbCr turned to RGB by
   libjpeg's upsampling and colour tables, other colour spaces as coded);
   YCbCr under any other compression through libtiff's RGBA reader (data
-  units at 1x1-4x4 subsampling, TIFFYCbCrToRGB's tables:
+  units at 1x1-4x4 subsampling, in strips or, as TIFFReadRGBATile reads
+  them, in tiles with the edge tiles cropped; TIFFYCbCrToRGB's tables:
   `native.ycbcr_to_rgb`); predictor 1, 2 or 3 (libtiff's floating-point predictor); the
   Orientation tag applied as PIL's exif_transpose does; and Pillow's and
   libtiff's quirks (a separate-planes file's band copies and unpacking,
@@ -51,6 +54,12 @@ dispatching on the file's signature, never on its extension:
   bottom-up, the scale's sign choosing the byte order);
 - `qoif`: QOI (`decode_qoi`), RGB or RGBA by the header's channel count, as
   Pillow's QoiDecoder reads the ops;
+- `00 00 02 00`, `0A` (then version 0/2/3/5), `DDS `, `00 00 01 00`,
+  `8BPS`, `01 DA`, `59 A6 6A 95`: CUR, PCX, DDS (BC1-BC7 too), ICO, PSD, SGI
+  and Sun raster, in PIL's order, each read as its PIL plugin reads it
+  (`utils/image_formats.py`); a reader that declines a file (PIL's
+  SyntaxError: a CUR without cursors, an ICO without entries, a PCX of no
+  size, ...) lets it go on to the next format, as PIL does;
 - TGA (`decode_tga`), which has no signature: tried last, with
   TgaImageFile's header checks, as PIL tries it after every format with
   one: types 1/2/3 and their run-length forms 9/10/11 at 1, 8, 16, 24 and
@@ -58,18 +67,22 @@ dispatching on the file's signature, never on its extension:
   and right-to-left bits, run-length literals that run across rows.
 
 Anything else raises `ValueError` naming the file and, for an unknown
-signature, its first bytes; a TIFF outside these names the tag and its
-value (ZSTD and old-style JPEG compression, YCbCr subsampling libtiff has no
+signature, its first bytes: ICNS, JPEG 2000, AVIF, BLP, DIB and the rest of
+PIL's list are still to come. A TIFF outside these names the tag and its
+value (old-style JPEG compression, YCbCr subsampling libtiff has no
 routine for, 24-bit samples, ...). A file of more pixels than PIL opens
 (twice `PIL.Image.MAX_IMAGE_PIXELS`) raises before anything is allocated.
 The byte loops are native (`native/image.cpp`, `native/jpeg.cpp`,
-`native/webp.cpp`, with no fallback); numpy here turns samples into PIL's
-arrays. The plain versions the tests hold the native routines to are here
-too (`bmp_rle_reference`, `lzw_reference`, `packbits_reference`,
-`jpeg_upsample_reference`, `jpeg_idct_reference`, `ccitt_reference`,
-`ycbcr_to_rgb_reference`, `gif_lzw_reference`, `vp8_idct_reference`,
-`yuv_to_rgba_reference`, `tga_rle_reference`, `qoi_reference`) and in
-`utils/png.py`.
+`native/webp.cpp`, `native/zstd.cpp`, `native/raster.cpp`, with no
+fallback); numpy here turns samples into PIL's arrays. The plain versions
+the tests hold the native routines to are here too (`bmp_rle_reference`,
+`lzw_reference`, `packbits_reference`, `jpeg_upsample_reference`,
+`jpeg_idct_reference`, `ccitt_reference`, `ycbcr_to_rgb_reference`,
+`gif_lzw_reference`, `vp8_idct_reference`, `yuv_to_rgba_reference`,
+`tga_rle_reference`, `qoi_reference`), in `utils/png.py`, in
+`utils/zstd.py` (`zstd_reference`) and in `utils/image_formats.py`
+(`bcn_reference`, `packbits_rows_reference`, `sgi_rle_reference`,
+`pcx_rle_reference`, `sun_rle_reference`).
 """
 
 from __future__ import annotations
@@ -86,26 +99,33 @@ from wast3d_tpu_torch.utils import png
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 _WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
+# The formats of `utils/image_formats.py`, in PIL's order (CUR, PCX, DDS, ICO,
+# PSD, SGI, SUN): each reader's signature test and name. A reader that
+# declines (None) lets the file go on to the next, as PIL goes on.
+_READERS = ((lambda b: b[:4] == b"\x00\x00\x02\x00", "decode_cur"),
+            (lambda b: b[:1] == b"\x0a" and b[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"),
+             "decode_pcx"),
+            (lambda b: b[:4] == b"DDS ", "decode_dds"),
+            (lambda b: b[:4] == b"\x00\x00\x01\x00", "decode_ico"),
+            (lambda b: b[:4] == b"8BPS", "decode_psd"),
+            (lambda b: b[:2] == b"\x01\xda", "decode_sgi"),
+            (lambda b: b[:4] == b"\x59\xa6\x6a\x95", "decode_sun"))
 # Signatures of the formats PIL tries before TGA that this reader does not
-# read (ICO, CUR, PSD, DDS, JPEG 2000, ICNS, BLP, FITS, MSP, EPS, PIXAR, SGI,
-# SUN, MPEG, McIdas, HDF5, BUFR, FTEX, DCX, and the TIFF byte orders PIL
-# accepts and never reads); TGA's header checks would take some of them.
-_OTHER_SIGNATURES = (b"\x00\x00\x01\x00", b"8BPS", b"DDS ",
-                     b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  ", b"icns", b"BLP1", b"BLP2",
+# read (JPEG 2000, ICNS, BLP, FITS, MSP, EPS, PIXAR, MPEG, McIdas, HDF5, BUFR,
+# FTEX, DCX, and the TIFF byte orders PIL accepts and never reads); TGA's
+# header checks would take some of them.
+_OTHER_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  ", b"icns", b"BLP1", b"BLP2",
                      b"SIMPLE", b"DanM", b"LinS", b"%!PS", b"\xc5\xd0\xd3\xc6", b"\x80\xe8\x00\x00",
-                     b"\x01\xda", b"\x59\xa6\x6a\x95", b"\x00\x00\x01\xb3", b"\x00" * 7 + b"\x04",
-                     b"\x89HDF\r\n\x1a\n", b"BUFR", b"ZCZC", b"FTEX", b"\xb1\x68\xde\x3a",
-                     b"II\x00*", b"MM*\x00")
+                     b"\x00\x00\x01\xb3", b"\x00" * 7 + b"\x04", b"\x89HDF\r\n\x1a\n", b"BUFR",
+                     b"ZCZC", b"FTEX", b"\xb1\x68\xde\x3a", b"II\x00*", b"MM*\x00")
 
 
 def _claimed_before_tga(blob: bytes) -> bool:
-    """Whether a format PIL tries before TGA takes these bytes: a signature
-    above, a CUR header naming cursors, PCX (10, then version 0/2/3/5), FLI
-    (0xAF11 / 0xAF12 at 4) or an IPTC record (0x1C, then a record number)."""
-    return (blob.startswith(_OTHER_SIGNATURES) or blob[:4] == b"\x00\x00\x02\x00" and blob[
-        4:6] != b"\x00\x00" or blob[:1] == b"\x0a" and blob[1:2] in (
-        b"\x00", b"\x02", b"\x03", b"\x05") or blob[4:6] in (b"\x11\xaf", b"\x12\xaf")
-        or blob[:1] == b"\x1c" and blob[1:2] != b"" and (1 <= blob[1] <= 9 or blob[1] == 240))
+    """Whether a format PIL tries before TGA, and this reader does not read,
+    takes these bytes: a signature above, FLI (0xAF11 / 0xAF12 at 4) or an
+    IPTC record (0x1C, then a record number)."""
+    return (blob.startswith(_OTHER_SIGNATURES) or blob[4:6] in (b"\x11\xaf", b"\x12\xaf")
+            or blob[:1] == b"\x1c" and blob[1:2] != b"" and (1 <= blob[1] <= 9 or blob[1] == 240))
 
 
 def read_image(path: str) -> np.ndarray:
@@ -136,12 +156,20 @@ def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         return decode_pnm(blob, name)
     if blob[:4] == b"qoif":
         return decode_qoi(blob, name)
+    from wast3d_tpu_torch.utils import image_formats
+
+    for accepts, reader in _READERS:
+        if accepts(blob):
+            out = getattr(image_formats, reader)(blob, name)
+            if out is not None:
+                return out
     # TGA has no signature: PIL tries its header checks after every format
     # that has one, so a file another of PIL's formats claims is not a TGA.
     if not _claimed_before_tga(blob) and _tga_header(blob) is not None:
         return decode_tga(blob, name)
     raise ValueError(f"{name}: not an image this reader knows (PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     f"Netpbm, QOI or TGA); it starts with {blob[:8]!r}")
+                     f"Netpbm, QOI, CUR, PCX, DDS, ICO, PSD, SGI, Sun raster or TGA); it starts "
+                     f"with {blob[:8]!r}")
 
 
 # PIL refuses (DecompressionBombError) more pixels than twice MAX_IMAGE_PIXELS.
@@ -619,6 +647,8 @@ def _tiff_strip(data: bytes, compression: int, size: int, name: str,
         out = native.packbits_decode(data, size, name)
     elif compression == 5:
         out = native.lzw_decode(data, size, name)
+    elif compression == 50000:  # libtiff's ZSTD codec: Zstandard frames
+        out = native.zstd_decode(data, size, name)
     else:  # 8, 32946: Deflate
         try:
             out = np.frombuffer(zlib.decompressobj().decompress(data, size), np.uint8)
@@ -634,7 +664,7 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
     bo, tags = _tiff_tags(blob, name)
     t = dict(bo=bo, tags=tags)
     compression = _one(tags, 259, 1)
-    if compression not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925):
+    if compression not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000):
         _refuse(name, 259, compression)
     planar = _one(tags, 284, 1)
     if planar not in (1, 2):
@@ -695,8 +725,6 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
             _refuse(name, 530, sub, "is not something PIL reads (libtiff's RGBA reader takes "
                     + ("1x1, 1x2, 2x1, 2x2, 4x1, 4x2 and 4x4" if planar == 1
                        else "1x1 in separate planes") + ")")
-        if 322 in tags:
-            _refuse(name, 322, _one(tags, 322), "(tiles) of YCbCr is not supported")
         ycbcr = sub, ycbcr_tables(_rationals(tags.get(529), (0.299, 0.587, 0.114)),
                                   _rationals(tags.get(532), (0, 255, 128, 255, 128, 255)), name)
     if compression != 1:  # Pillow hands the file to libtiff
@@ -1037,7 +1065,7 @@ def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
         planes = bands
     elif planar == 2 and spp > 1:
         _refuse(name, 284, 2, f"for {spp} samples of a {mode} image is not supported")
-    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946, 34925) else 1
+    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946, 34925, 50000) else 1
     if predictor not in (1, 2, 3):
         _refuse(name, 317, predictor)
     out = _empty(mode, h, w)
@@ -1057,6 +1085,13 @@ def _tiff_libtiff(blob: bytes, t: Dict, name: str) -> np.ndarray:
                 data = _BIT_REVERSED[np.frombuffer(data, np.uint8)].tobytes()
             if compression == 7:
                 seg = _tiff_jpeg(data, t, expect, tw, rows, not tiled and s == down - 1, name)
+            elif ycbcr is not None and planar == 1 and tiled:  # gtTileContig: TIFFReadTile
+                (sh, sv), unit = ycbcr[0], ycbcr[0][0] * ycbcr[0][1] + 2
+                size = -(-th // sv) * -(-tw // sh) * unit
+                units = _tiff_strip(data, compression, size, name)[:size]
+                rgb = native.ycbcr_to_rgb(units, sh, sv, tw, th, ycbcr[1], name)
+                out[y0:y0 + ch, x0:x0 + cw] = rgb[:ch, :cw]
+                continue
             elif ycbcr is not None and planar == 1:
                 units = _ycbcr_strip(data, t, units, rows, name)
                 out[y0:y0 + ch] = native.ycbcr_to_rgb(units, *ycbcr[0], w, ch, ycbcr[1], name)
