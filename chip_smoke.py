@@ -155,6 +155,9 @@ K5_OPS_PER_PAIR, K5_OPS_PER_PAIR_BALL = 20, 20
 STYLE_MP = 16384  # cli.stylize's default --max_style_points
 STYLE_BATCH = 8  # cli.stylize's default --batch_size
 STYLE_FIT_STEPS = 1000
+# cli.stylize's steps on the entry-point path (200k and 1M), cut from 1000 in
+# PR 23 to keep the script under its 600 s; the gates keep STYLE_FIT_STEPS.
+STYLE_CLI_FIT_STEPS = 500
 # The JAX stylize gate's record (runs/stylegate_r5_head/stylize_gate.json,
 # TPU v5e; quality numbers of the reference, not the port's): 12 balls,
 # descriptor loss 16.6x lower, edge-length W1 2.3x lower, coverage 1.000.
@@ -261,7 +264,7 @@ def bound_of(bytes_and_ops):
     return max(b, o), "bytes" if b >= o else "operations"
 
 
-PIPELINE_ITERS = 300  # cli.pipeline: iterations of each reconstruction
+PIPELINE_ITERS = 150  # cli.pipeline: iterations of each reconstruction (300 until PR 23)
 PIPELINE_FRAMES = 8  # cli.pipeline: turntable frames
 PIPELINE_CLUSTERS = 12  # style clusters: cluster 0 holds ~3,500 of the 60,000 points
 STYLE_SCENE_N = 60_000  # the pipeline's style scene: a seeded torus
@@ -2535,6 +2538,55 @@ def write_reader_colmap(src):
                             for k, v in cm.read_images_binary(path).items()}, path)
 
 
+def write_jpeg2000_colmap(src):
+    """A copy of the COLMAP fixture whose six views are
+    tests/format_fixtures/colmap_jpeg2000 (a lossless JP2, a 9/7 JP2 with
+    quality layers, a tiled RPCL J2K with precincts, a CPRL 9/7 JP2, an
+    sYCC 4:2:0 JP2 and a J2K of every code-block style with SOP / EPH),
+    under images_jpeg2000/, its model's image names turned to theirs."""
+    from wast3d_tpu_torch.scene import colmap as cm
+
+    shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
+    shutil.copytree(os.path.join(FORMAT_FIXTURES, "colmap_jpeg2000"),
+                    os.path.join(src, "images_jpeg2000"), ignore=shutil.ignore_patterns("*.npy"))
+    names = {os.path.splitext(f)[0]: f for f in os.listdir(os.path.join(src, "images_jpeg2000"))}
+    path = os.path.join(src, "sparse", "0", "images.bin")
+    cm.write_images_binary({k: v._replace(name=names[os.path.splitext(v.name)[0]])
+                            for k, v in cm.read_images_binary(path).items()}, path)
+
+
+def jpeg2000_decode_times():
+    """Decode milliseconds (median of 3) of the committed 1296x832 JPEG 2000
+    views (`tests/torch_fixtures/jpeg2000/`: a lossless 5/3 JP2, a 9/7 JP2
+    of three quality layers, a tiled RPCL 9/7 J2K with 64x64 precincts),
+    each held to the dtype, shape and SHA-256 of PIL's decode
+    (`pil_decode/<name>_j2k.json`), the lossless one also exactly to the
+    view (`pil_decode/scene_1296x832_420.png`). Returns (checks, numbers)."""
+    import hashlib
+
+    from tools.make_torch_fixtures import J2K_SCENES
+    from wast3d_tpu_torch.utils import png
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    checks, numbers = {}, {}
+    view = png.read_png(os.path.join(FIXTURES, "pil_decode", "scene_1296x832_420.png"))
+    for name, ext, kw in J2K_SCENES:
+        with open(os.path.join(FIXTURES, "jpeg2000", f"{name}.{ext}"), "rb") as f:
+            blob = f.read()
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        with open(os.path.join(FIXTURES, "pil_decode", name + "_j2k.json")) as f:
+            record = json.load(f)
+        checks[f"decode {name} = PIL's sha256"] = record == {
+            "dtype": str(got.dtype), "shape": list(got.shape),
+            "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+        if not kw:
+            checks[f"decode {name} = the view"] = (got.shape == view.shape
+                                                   and got.tobytes() == view.tobytes())
+    return checks, numbers
+
+
 def write_tiff_colmap(src):
     """A copy of the COLMAP fixture whose six views are tiled (64x64)
     JPEG-YCbCr 4:2:0 TIFFs of the JPEG views' decode, under images_tiff/,
@@ -2624,7 +2676,7 @@ def train_cli(src, images, device, model):
 
 def metrics_on(kind, device, tmp):
     """`cli.metrics` on a method directory of `kind` files ("jpeg", "webp",
-    "tga_ppm" or "zstd_psd": tests/format_fixtures/metrics_<kind>), then the port's metrics
+    "tga_ppm", "zstd_psd" or "jpeg2000": tests/format_fixtures/metrics_<kind>), then the port's metrics
     (`evaluate_dir`) on PIL's decode of the same files (its .npy), in this
     call: the per-view scores must be equal. Returns (checks, numbers)."""
     from wast3d_tpu_torch.cli import metrics as cli_metrics
@@ -2655,7 +2707,8 @@ def metrics_on(kind, device, tmp):
     finally:
         metrics._read_images = reader
     names = {"jpeg": ["00000.jpg", "00001.jpg"], "webp": ["00000.webp", "00001.webp"],
-             "tga_ppm": ["00000.tga", "00001.ppm"], "zstd_psd": ["00000.tif", "00001.psd"]}[kind]
+             "tga_ppm": ["00000.tga", "00001.ppm"], "zstd_psd": ["00000.tif", "00001.psd"],
+             "jpeg2000": ["00000.jp2", "00001.j2k"]}[kind]
     checks = {f"metrics {kind} names": list(per_view["PSNR"]) == names,
               f"metrics {kind} = PIL's decode": per_view == pil,
               f"metrics {kind} finite": all(math.isfinite(v) for m in per_view.values()
@@ -2673,20 +2726,24 @@ def phase_images(device):
     every file of tests/format_fixtures (PNG at every depth, 4:4:0 / 4:1:1 /
     CMYK / YCCK JPEG, BMP, TIFF in every layout and sample kind, JPEG and
     ZSTD in TIFF, tiled YCbCr, lossy / lossless / alpha / animated WebP,
-    GIF, Netpbm, TGA, QOI, ICO / CUR, DDS BC1-BC7, PSD, SGI, PCX, Sun)
+    GIF, Netpbm, TGA, QOI, ICO / CUR, DDS BC1-BC7, PSD, SGI, PCX, Sun, J2K /
+    JP2 of every option, ICNS)
     against PIL's committed array, the decode and resize times, decode times
     of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless WebP,
     a tiled JPEG-YCbCr TIFF, a float TIFF with predictor 3, a run-length TGA
     and a PPM at dataset sizes, of damaged and partly refined JPEGs and of
     LZMA, BigTIFF and YCbCr 4:2:0 LZW TIFFs at 1296x832, of ZSTD TIFFs (one
     strip, and strips), a PSD, an SGI, a PCX, a Sun raster and BC7 / BC1 DDS
-    at 1296x832 (`reader_decode_times`), `cli.train` on the
+    at 1296x832 (`reader_decode_times`), of a lossless JP2, a 9/7 JP2 of
+    three layers and a tiled RPCL J2K at 1296x832 (`jpeg2000_decode_times`),
+    `cli.train` on the
     progressive COLMAP fixture, on the COLMAP fixture at 4:4:0, on a Blender
     dataset of 16-bit RGBA PNGs, on the COLMAP fixture as lossy WebP and as
     tiled JPEG-YCbCr TIFFs, on three views that are a damaged JPEG, a partly
     refined JPEG and a YCbCr LZW TIFF, on six views that are a ZSTD TIFF, a
-    tiled YCbCr ZSTD TIFF, PSD, SGI, PCX and Sun raster, and `cli.metrics`
-    on JPEGs, on WebPs, on TGA / PPM and on ZSTD TIFF / PSD ground truths
+    tiled YCbCr ZSTD TIFF, PSD, SGI, PCX and Sun raster, on six JPEG 2000
+    views of six kinds, and `cli.metrics` on JPEGs, on WebPs, on TGA / PPM,
+    on ZSTD TIFF / PSD and on JPEG 2000 ground truths
     against the port's metrics on PIL's decode, with PIL unimportable.
     Returns the numbers."""
     from wast3d_tpu_torch import native
@@ -2746,6 +2803,9 @@ def phase_images(device):
         more, times = reader_decode_times(decoded)
         checks.update(more)
         numbers.update(times)
+        more, times = jpeg2000_decode_times()
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -2767,18 +2827,21 @@ def phase_images(device):
         write_codec_colmap(colmap_codecs)
         colmap_readers = os.path.join(tmp, "colmap_readers")
         write_reader_colmap(colmap_readers)
+        colmap_jpeg2000 = os.path.join(tmp, "colmap_jpeg2000")
+        write_jpeg2000_colmap(colmap_jpeg2000)
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
                                  ("train blender16", blender, None),
                                  ("train webp", colmap_webp, "images_webp"),
                                  ("train tiff", colmap_tiff, "images_tiff"),
                                  ("train codecs", colmap_codecs, "images_codecs"),
-                                 ("train readers", colmap_readers, "images_readers")):
+                                 ("train readers", colmap_readers, "images_readers"),
+                                 ("train jpeg2000", colmap_jpeg2000, "images_jpeg2000")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})
             numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
-        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd"):
+        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd", "jpeg2000"):
             more, got = metrics_on(kind, device, tmp)
             checks.update(more)
             numbers.update(got)
@@ -4135,7 +4198,7 @@ def stage_spies(*targets):
             setattr(mod, attr, fn)
 
 
-def phase_stylize_entry_point(device, spacing, fit_steps=STYLE_FIT_STEPS,
+def phase_stylize_entry_point(device, spacing, fit_steps=STYLE_CLI_FIT_STEPS,
                               style_m=ENTRY_STYLE_M, max_style_points=STYLE_MP, n=FULL_N,
                               phase="stylize_entry_point", render_res=None):
     """`cli.stylize` on the `n`-Gaussian shell (a PLY saved by the port) and
@@ -4283,7 +4346,7 @@ GEOM_STEPS = 200  # cut from optimize_cluster_geometry's default 1000
 GEOM_PERTURB = 0.05  # of the cluster's extent
 GEOM_EVAL_DRAWS = 16  # v1: fixed draws its loss is compared on, start against end
 SWEEP_EDGE_RATIOS = (1.0, 1.5, 2.0, 2.5)  # x the domain's spacing; seeds 1-4
-SWEEP_FIT_STEPS = 200  # cut from StylizeConfig's default 1000
+SWEEP_FIT_STEPS = 100  # cut from StylizeConfig's default 1000 (200 until PR 23)
 
 
 def random_unit_quaternions(n, rng):
@@ -4490,7 +4553,7 @@ PAR_RANKS = 2
 PAR_REPS = 20  # timed frames / steps / routings, after PAR_WARMUP
 PAR_WARMUP = 3
 PAR_TRAIN_ITERS = 100  # ShardedTrainer: densify at 50 and 100
-PAR_FIT_STEPS = 200  # the ball fit and the sweep, cut from 1000
+PAR_FIT_STEPS = 100  # the ball fit and the sweep, cut from 1000 (200 until PR 23)
 RING_RTOL, RING_ATOL = 1e-4, 1e-6  # tests/test_parallel.py:49
 SHARDED_LOSS_RTOL = 1e-5  # tests/test_parallel.py:376
 # The ball fit over ranks against one device: each ball's fit is its own,

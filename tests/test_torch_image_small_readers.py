@@ -4,7 +4,7 @@ each file against `np.asarray(PIL.Image.open(f))` in dtype, shape and
 bytes, each native byte loop (`native/raster.cpp`: BCn, PackBits rows, SGI,
 PCX and Sun run lengths) against its plain version in
 `utils/image_formats.py`, damaged files raising where PIL raises, and the
-formats still left (ICNS, JPEG 2000, ...) refused naming the file and its
+formats still left (BLP, AVIF, ...) refused naming the file and its
 bytes. Seeded random 16-byte blocks are all valid BCn blocks, so random
 DDS payloads hold every mode, partition and p-bit against PIL.
 """
@@ -333,10 +333,11 @@ def test_damaged_files_raise_where_pil_raises():
 
 
 def test_formats_still_left_raise_naming_file_and_bytes():
-    """ICNS, JPEG 2000, BLP, AVIF and the rest of PIL's signature list wait
-    for later work; each raises naming the file and its first bytes."""
-    for blob in (b"icns\x00\x00\x01\x00" + bytes(64), b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(64),
-                 b"\xff\x4f\xff\x51" + bytes(64), b"BLP2" + bytes(64), b"FTEX" + bytes(64),
+    """BLP, AVIF and the rest of PIL's signature list wait for later work
+    (ICNS and JPEG 2000 are read: tests/test_torch_image_jpeg2000.py); each
+    raises naming the file and its first bytes, as does an ICNS file that
+    PIL's plugin declines (no entries)."""
+    for blob in (b"icns\x00\x00\x01\x00" + bytes(64), b"BLP2" + bytes(64), b"FTEX" + bytes(64),
                  b"\x00\x00\x00\x1cftypavif" + bytes(64)):
         with pytest.raises(ValueError, match=r"^x\.img: not an image this reader knows .*Sun "
                                              r"raster.*starts with"):

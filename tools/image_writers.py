@@ -1343,3 +1343,288 @@ def dds_bytes(width: int, height: int, payload: bytes, fourcc: Optional[str] = N
     head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
     dx10 = struct.pack("<5I", dxgi, 3, 0, 1, 0) if dxgi is not None else b""
     return b"DDS " + head + dx10 + (palette or b"") + payload
+
+
+# ---- JPEG 2000 (through libopenjp2) ----------------------------------------------------
+
+# Offsets into OpenJPEG 2.5's opj_cparameters_t (LP64), checked against the
+# defaults opj_set_default_encoder_parameters writes (`_openjp2`).
+_CP = {"tile_size_on": 0, "cp_tx0": 4, "cp_ty0": 8, "cp_tdx": 12, "cp_tdy": 16,
+       "cp_disto_alloc": 20, "csty": 48, "prog_order": 52, "POC": 56, "numpocs": 4792,
+       "tcp_numlayers": 4796, "tcp_rates": 4800, "numresolution": 5600, "cblockw_init": 5604,
+       "cblockh_init": 5608, "mode": 5612, "irreversible": 5616, "roi_compno": 5620,
+       "roi_shift": 5624, "res_spec": 5628, "prcw_init": 5632, "prch_init": 5764,
+       "image_offset_x0": 18188, "image_offset_y0": 18192, "subsampling_dx": 18196,
+       "decod_format": 18204, "cod_format": 18208, "tp_on": 18696, "tp_flag": 18697,
+       "tcp_mct": 18698}
+_POC_SIZE = 148  # opj_poc_t: resno0, compno0, layno1, resno1, compno1 at 0-16, prg1 at 32, tile at 48
+
+
+def _openjp2():
+    """PIL's bundled libopenjp2 (found without importing PIL), its
+    functions' types declared and its parameter offsets checked."""
+    import ctypes
+    import glob
+    import importlib.util
+    import os
+
+    spec = importlib.util.find_spec("PIL")
+    site = os.path.dirname(os.path.dirname(spec.origin))
+    found = sorted(glob.glob(os.path.join(site, "pillow.libs", "libopenjp2*.so*")))
+    lib = ctypes.CDLL(found[0] if found else "libopenjp2.so.7")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn, args, res in (("opj_set_default_encoder_parameters", [p], None),
+                          ("opj_image_create", [ctypes.c_uint32, p, i], p),
+                          ("opj_create_compress", [i], p), ("opj_setup_encoder", [p, p, p], i),
+                          ("opj_stream_create_default_file_stream", [ctypes.c_char_p, i], p),
+                          ("opj_start_compress", [p, p, p], i), ("opj_encode", [p, p], i),
+                          ("opj_end_compress", [p, p], i), ("opj_stream_destroy", [p], None),
+                          ("opj_destroy_codec", [p], None), ("opj_image_destroy", [p], None)):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    params = (ctypes.c_uint8 * 20000)()
+    lib.opj_set_default_encoder_parameters(params)
+    got = np.frombuffer(bytes(params), np.int32)
+    assert [got[_CP[k] // 4] for k in ("numresolution", "cblockw_init", "roi_compno",
+                                      "subsampling_dx", "decod_format")] == [6, 64, -1, 1, -1]
+    return lib
+
+
+def j2k_bytes(components: Sequence[np.ndarray], prec: int = 8, signed: bool = False,
+              sampling: Optional[Sequence[Tuple[int, int]]] = None, jp2: bool = False,
+              colour: int = 1, irreversible: bool = False, mct: Optional[bool] = None,
+              resolutions: int = 6, cblk: Tuple[int, int] = (64, 64), style: int = 0,
+              sop: bool = False, eph: bool = False,
+              precincts: Optional[Sequence[Tuple[int, int]]] = None,
+              tile: Optional[Tuple[int, int]] = None, tile_offset: Tuple[int, int] = (0, 0),
+              offset: Tuple[int, int] = (0, 0), rates: Sequence[float] = (0,),
+              progression: int = 0, pocs: Sequence[Tuple[int, ...]] = (),
+              roi: Optional[Tuple[int, int]] = None, tile_parts: Optional[str] = None,
+              alpha: Optional[int] = None) -> bytes:
+    """A J2K codestream (or, `jp2`, a JP2 file with `colour` 1 sRGB, 2 grey,
+    3 sYCC) from libopenjp2's encoder, for what PIL's writer does not reach:
+    int samples per component ([h_c, w_c], subsampled by `sampling`'s (dx,
+    dy)), `prec` bits, signed, code-block `style` bits (1 lazy, 2 reset, 4
+    terminate every pass, 8 vertically causal, 16 predictable termination,
+    32 segmentation symbols), SOP / EPH, precincts (log2 per resolution,
+    first the highest), tiles, image and tile offsets, quality layers by
+    rate, a progression (0 LRCP ... 4 CPRL), POC entries (resno0, compno0,
+    layno1, resno1, compno1, order), an ROI shift (component, shift),
+    tile-parts split by 'R', 'L' or 'C', and the component flagged alpha."""
+    import ctypes
+    import os
+    import tempfile
+
+    lib = _openjp2()
+    n = len(components)
+    sampling = list(sampling or [(1, 1)] * n)
+    full = next((c for c in range(n) if tuple(sampling[c]) == (1, 1)), 0)
+    h0, w0 = components[full].shape
+    x1, y1 = offset[0] + w0 * sampling[full][0], offset[1] + h0 * sampling[full][1]
+    cmpt = (ctypes.c_uint32 * (9 * n))()
+    for c, comp in enumerate(components):
+        dx, dy = sampling[c]
+        cmpt[9 * c:9 * c + 9] = [dx, dy, comp.shape[1], comp.shape[0], _ceil(offset[0], dx),
+                                 _ceil(offset[1], dy), prec, prec, int(signed)]
+    image = lib.opj_image_create(n, cmpt, colour)
+    struct_head = (ctypes.c_uint32 * 5).from_address(image)
+    struct_head[:4] = [offset[0], offset[1], x1, y1]
+    comps = ctypes.c_void_p.from_address(image + 24).value
+    for c, comp in enumerate(components):
+        rec = comps + 64 * c
+        data = ctypes.c_void_p.from_address(rec + 48).value
+        arr = np.ascontiguousarray(comp, np.int32)
+        ctypes.memmove(data, arr.ctypes.data, arr.nbytes)
+        if c == alpha:
+            ctypes.c_uint16.from_address(rec + 56).value = 1
+    params = (ctypes.c_uint8 * 20000)()
+    lib.opj_set_default_encoder_parameters(params)
+
+    def put(key, value, fmt="i", at=0):
+        struct.pack_into(fmt, params, _CP[key] + at, value)
+
+    put("numresolution", resolutions)
+    put("cblockw_init", cblk[0])
+    put("cblockh_init", cblk[1])
+    put("mode", style)
+    put("irreversible", int(irreversible))
+    put("prog_order", progression)
+    put("tcp_mct", int(n >= 3 if mct is None else mct), "b")
+    put("tcp_numlayers", len(rates))
+    for k, r in enumerate(rates):
+        put("tcp_rates", float(r), "f", 4 * k)
+    put("cp_disto_alloc", 1)
+    put("image_offset_x0", offset[0])
+    put("image_offset_y0", offset[1])
+    csty = (2 if sop else 0) | (4 if eph else 0)
+    if precincts:
+        csty |= 1
+        put("res_spec", len(precincts))
+        for k, (pw, ph) in enumerate(precincts):
+            put("prcw_init", 1 << pw, "i", 4 * k)
+            put("prch_init", 1 << ph, "i", 4 * k)
+    put("csty", csty)
+    if tile:
+        put("tile_size_on", 1)
+        put("cp_tdx", tile[0])
+        put("cp_tdy", tile[1])
+        put("cp_tx0", tile_offset[0])
+        put("cp_ty0", tile_offset[1])
+    for k, (r0, c0, l1, r1, c1, order) in enumerate(pocs):
+        base = _POC_SIZE * k
+        for at, v in ((0, r0), (4, c0), (8, l1), (12, r1), (16, c1), (32, order), (48, 1)):
+            put("POC", v, "I", base + at)
+    put("numpocs", len(pocs))
+    if roi:
+        put("roi_compno", roi[0])
+        put("roi_shift", roi[1])
+    if tile_parts:
+        put("tp_on", 1, "b")
+        put("tp_flag", ord(tile_parts), "b")
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    fd, path = tempfile.mkstemp(suffix=".jp2" if jp2 else ".j2k")
+    os.close(fd)
+    try:
+        if not lib.opj_setup_encoder(codec, params, image):
+            raise ValueError("opj_setup_encoder refused the parameters")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        ok = (lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream)
+              and lib.opj_end_compress(codec, stream))
+        lib.opj_stream_destroy(stream)
+        if not ok:
+            raise ValueError("libopenjp2 failed to encode")
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        os.unlink(path)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def jp2_box(tbox: bytes, content: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(content)) + tbox + content
+
+
+def jp2_edit(blob: bytes, enumcs: Optional[int] = None, add: Sequence[bytes] = (),
+             ihdr_bpc: Optional[int] = None) -> bytes:
+    """A JP2 file from OpenJPEG with its `colr` enumeration replaced, its
+    `ihdr` bit depth byte replaced, and boxes appended to its `jp2h` (its
+    length fixed): CMYK, `pclr` / `cmap`, `cdef`, ICC and the like that no
+    writer here emits."""
+    pos = 0
+    while pos < len(blob):
+        length, tbox = struct.unpack_from(">I4s", blob, pos)
+        if tbox == b"jp2h":
+            body = bytearray(blob[pos + 8:pos + length])
+            at = 0
+            while at < len(body):
+                sl, st = struct.unpack_from(">I4s", body, at)
+                if st == b"colr" and enumcs is not None:
+                    struct.pack_into(">I", body, at + 11, enumcs)
+                if st == b"ihdr" and ihdr_bpc is not None:
+                    body[at + 8 + 10] = ihdr_bpc
+                at += sl
+            body += b"".join(add)
+            return blob[:pos] + jp2_box(b"jp2h", bytes(body)) + blob[pos + length:]
+        pos += length
+    raise ValueError("no jp2h box")
+
+
+def j2k_packed_headers(blob: bytes, where: str = "PPT", max_segment: int = 65535,
+                       straddle: bool = False) -> bytes:
+    """A J2K codestream of one tile-part a tile rewritten with its packet
+    headers packed into PPT segments (each tile-part header) or PPM
+    segments (the main header, an Nppm length before each tile-part's
+    headers, split over segments of at most `max_segment` bytes; an Nppm
+    split over two segments, which OpenJPEG refuses, when `straddle`), the
+    packets' bodies left in place. The headers are found by the port's
+    tier-2 (`utils/jpeg2000`); PIL decodes the result to the same pixels."""
+    from wast3d_tpu_torch.utils import jpeg2000 as j2
+
+    cs = j2._Codestream(blob, 0)
+    first_sot = 2  # the main header's segments, up to the first SOT
+    while blob[first_sot:first_sot + 2] != b"\xff\x90":
+        first_sot += 2 + struct.unpack_from(">H", blob, first_sot + 2)[0]
+    pos, parts = first_sot, []
+    while blob[pos:pos + 2] == b"\xff\x90":
+        tile, psot = struct.unpack_from(">HI", blob, pos + 4)
+        sod = blob.index(b"\xff\x93", pos + 12)
+        end = pos + psot if psot else len(blob) - 2
+        parts.append((tile, blob[pos + 12:sod], blob[sod + 2:end]))
+        pos = end
+    out_parts, headers = [], []
+    for tile, tile_header, data in parts:
+        t = j2._Tile(cs, tile, cs.tiles[tile], [data])
+        spans = []
+        t.read_packets(spans=spans)
+        heads = b"".join(data[a:b] for a, b in spans)
+        body, at = [], 0
+        for a, b in spans:
+            body.append(data[at:a])
+            at = b
+        body.append(data[at:])
+        headers.append(heads)
+        out_parts.append((tile, tile_header, heads, b"".join(body)))
+
+    def segments(marker: int, units) -> bytes:
+        """Segments of at most `max_segment` bytes over the units' bytes; a
+        unit (an Nppm and its headers) starts where its 4-byte length fits
+        in the segment, unless `straddle`."""
+        size, chunks, cur = max_segment - 3, [], b""
+        for unit in units:
+            if not straddle and marker == 0x60 and 0 < size - len(cur) < 4:
+                chunks.append(cur)
+                cur = b""
+            cur += unit
+            while len(cur) > size:
+                chunks.append(cur[:size])
+                cur = cur[size:]
+        chunks.append(cur)
+        return b"".join(struct.pack(">BBHB", 0xFF, marker, 3 + len(c), z) + c
+                        for z, c in enumerate(chunks))
+
+    main = blob[:first_sot]
+    if where == "PPM":
+        main += segments(0x60, [struct.pack(">I", len(h)) + h for h in headers])
+    out = [main]
+    for k, (tile, tile_header, heads, body) in enumerate(out_parts):
+        head = tile_header + (segments(0x61, [heads]) if where == "PPT" else b"")
+        psot = 12 + len(head) + 2 + len(body)
+        out.append(struct.pack(">BBHHIBB", 0xFF, 0x90, 10, tile, psot, 0, 1) + head + b"\xff\x93"
+                   + body)
+    return b"".join(out) + b"\xff\xd9"
+
+
+
+# ---- ICNS ------------------------------------------------------------------------------
+
+def icns_rle(band: np.ndarray) -> bytes:
+    """One band of an ICNS 24-bit entry in its packbits-like runs: 0x80 +
+    (n - 3) then a byte for a run of 3-130, n - 1 then n literal bytes."""
+    data, out, i = bytes(np.ascontiguousarray(band, np.uint8).reshape(-1)), bytearray(), 0
+    while i < len(data):
+        run = 1
+        while i + run < len(data) and run < 130 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3:
+            out += bytes([0x80 + run - 3, data[i]])
+            i += run
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and not (
+                j + 2 < len(data) and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def icns_bytes(entries: Sequence[Tuple[bytes, bytes]]) -> bytes:
+    """An ICNS file of (type, payload) entries in the order given: PNG or
+    JPEG 2000 payloads, 24-bit RGB (`icns_rle` per band, or raw RGBRGB...),
+    8-bit masks."""
+    body = b"".join(t + struct.pack(">I", 8 + len(p)) + p for t, p in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body

@@ -1253,10 +1253,269 @@ def write_readers(src):
             f.write("\n")
 
 
+# The 1296x832 JPEG 2000 views the card decodes: (name, PIL's save options).
+J2K_SCENES = (("scene_1296x832_lossless", "jp2", {}),
+              ("scene_1296x832_97_layers", "jp2", dict(irreversible=True, quality_mode="rates",
+                                                        quality_layers=[80, 40, 20])),
+              ("scene_1296x832_tiled_rpcl", "j2k", dict(irreversible=True, tile_size=(256, 256),
+                                                         progression="RPCL",
+                                                         precinct_size=(64, 64),
+                                                         quality_mode="rates",
+                                                         quality_layers=[12])))
+
+
+def _j2k_pil_cases(crop, alpha):
+    """JPEG 2000 files from PIL's own writer (each option it has)."""
+    from PIL import Image
+
+    rgb = Image.fromarray(crop)
+    rgba = Image.fromarray(np.concatenate([crop, alpha[..., None]], -1))
+    grey = rgb.convert("L")
+    i16 = Image.frombytes("I;16", grey.size, (np.asarray(grey).astype("<u2") * 257 + 3).tobytes())
+    odd = Image.fromarray(crop[:37, :53])
+    layers = dict(quality_mode="rates", quality_layers=[40, 10, 2])
+    cases = [("rgb_lossless.jp2", rgb, {}), ("rgb_97.jp2", rgb, dict(irreversible=True)),
+             ("rgb_97_layers.jp2", rgb, dict(irreversible=True, **layers)),
+             ("rgb_db_layers.jp2", rgb, dict(quality_mode="dB", quality_layers=[30, 40, 50])),
+             ("rgb_mct0.jp2", rgb, dict(mct=0)), ("rgb_97_mct0.j2k", rgb,
+                                                   dict(irreversible=True, mct=0, no_jp2=True)),
+             ("rgb_res1.j2k", rgb, dict(num_resolutions=1, no_jp2=True)),
+             ("rgb_res3.jp2", rgb, dict(num_resolutions=3)),
+             ("rgb_cblk16x32.jp2", rgb, dict(codeblock_size=(16, 32))),
+             ("rgb_cblk4x4_97.j2k", rgb, dict(codeblock_size=(4, 4), irreversible=True,
+                                               no_jp2=True)),
+             ("rgb_prec32.jp2", rgb, dict(precinct_size=(32, 32))),
+             ("rgb_tiles.jp2", rgb, dict(tile_size=(32, 32))),
+             ("rgb_tile_offsets_97.j2k", rgb, dict(tile_size=(17, 13), tile_offset=(3, 2),
+                                                    offset=(5, 7), irreversible=True,
+                                                    no_jp2=True, num_resolutions=3)),
+             ("rgb_plt.jp2", rgb, dict(plt=True)),
+             ("rgb_signed.jp2", rgb, dict(signed=True)),
+             ("rgb_97_signed.j2k", rgb, dict(signed=True, irreversible=True, no_jp2=True)),
+             ("l.jp2", grey, {}), ("l_97.j2k", grey, dict(irreversible=True, no_jp2=True)),
+             ("la.jp2", Image.fromarray(np.stack([np.asarray(grey), alpha], -1)), {}),
+             ("rgba.jp2", rgba, {}), ("rgba_97_layers.jp2", rgba, dict(irreversible=True,
+                                                                       **layers)),
+             ("i16.jp2", i16, {}), ("i16_97.j2k", i16, dict(irreversible=True, no_jp2=True)),
+             ("odd_53x37.jp2", odd, {}), ("odd_53x37_97.j2k", odd, dict(irreversible=True,
+                                                                        no_jp2=True)),
+             ("rgb_1x1.j2k", Image.fromarray(crop[:1, :1]), dict(no_jp2=True)),
+             ("rgb_1x7_97.j2k", Image.fromarray(crop[:7, :1]), dict(no_jp2=True,
+                                                                    irreversible=True)),
+             ("rgb_7x1.j2k", Image.fromarray(crop[:1, :7]), dict(no_jp2=True))]
+    for order in ("RLCP", "RPCL", "PCRL", "CPRL"):
+        cases.append((f"rgb_{order.lower()}.j2k", rgb, dict(progression=order, no_jp2=True,
+                                                             precinct_size=(32, 32), **layers)))
+    return [(f"jpeg2000_{n}", _pil_bytes(img, "JPEG2000", **kw)) for n, img, kw in cases]
+
+
+def _j2k_writer_cases(crop, alpha):
+    """JPEG 2000 files from libopenjp2 through `tools/image_writers.j2k_bytes`
+    (what PIL's options do not reach), and JP2 boxes edited by hand."""
+    import struct
+
+    from tools import image_writers as iw
+
+    planes = [crop[..., c].astype(np.int32) for c in range(3)]
+    grey = planes[1]
+    p12 = [p * 16 + 15 for p in planes]  # near 4095 too: Pillow's 8-bit shift wraps there
+    styles = {"lazy": 1, "reset": 2, "termall": 4, "causal": 8, "pterm": 16, "segsym": 32,
+              "all": 63}
+    out = []
+    for name, sty in styles.items():
+        out.append((f"style_{name}.j2k", iw.j2k_bytes(planes, style=sty, rates=(30, 8, 0))))
+    out += [("style_all_97.j2k", iw.j2k_bytes(planes, style=63, irreversible=True,
+                                              rates=(20, 0))),
+            ("style_lazy_causal_97.j2k", iw.j2k_bytes(planes, style=9, irreversible=True,
+                                                      cblk=(16, 16))),
+            ("sop_eph.j2k", iw.j2k_bytes(planes, sop=True, eph=True, rates=(30, 0))),
+            ("poc.j2k", iw.j2k_bytes(planes, pocs=[(0, 0, 1, 6, 3, 1), (0, 0, 3, 6, 3, 0)],
+                                     rates=(40, 10, 0))),
+            ("poc_cprl.j2k", iw.j2k_bytes(planes, pocs=[(0, 0, 2, 3, 3, 2), (3, 0, 2, 6, 3, 4)],
+                                          rates=(40, 0))),
+            ("roi.j2k", iw.j2k_bytes(planes, roi=(0, 10))),
+            ("roi_97_layers.j2k", iw.j2k_bytes(planes, roi=(1, 6), irreversible=True,
+                                               rates=(30, 0))),
+            ("tileparts_r.j2k", iw.j2k_bytes(planes, tile=(32, 32), tile_parts="R")),
+            ("tileparts_l.j2k", iw.j2k_bytes(planes, tile_parts="L", rates=(30, 10, 0))),
+            ("tileparts_c.jp2", iw.j2k_bytes(planes, tile_parts="C", jp2=True)),
+            ("sub420.j2k", iw.j2k_bytes([planes[0], planes[1][::2, ::2], planes[2][::2, ::2]],
+                                        sampling=[(1, 1), (2, 2), (2, 2)], mct=False)),
+            ("sub420_sycc.jp2", iw.j2k_bytes([planes[0], planes[1][::2, ::2],
+                                              planes[2][::2, ::2]],
+                                             sampling=[(1, 1), (2, 2), (2, 2)], mct=False,
+                                             jp2=True, colour=3)),
+            ("sub422_97.j2k", iw.j2k_bytes([planes[0], planes[1][:, ::2], planes[2][:, ::2]],
+                                           sampling=[(1, 1), (2, 1), (2, 1)], mct=False,
+                                           irreversible=True)),
+            ("sub420_odd.j2k", iw.j2k_bytes([planes[0][:47, :63], planes[1][:47:2, :63:2],
+                                             planes[2][:47:2, :63:2]],
+                                            sampling=[(1, 1), (2, 2), (2, 2)], mct=False,
+                                            offset=(1, 1))),
+            ("sycc.jp2", iw.j2k_bytes(planes, jp2=True, colour=3, mct=False)),
+            ("rgb12.jp2", iw.j2k_bytes(p12, prec=12, jp2=True)),
+            ("rgb12_97.j2k", iw.j2k_bytes(p12, prec=12, irreversible=True)),
+            ("rgb12_signed.j2k", iw.j2k_bytes([p - 2048 for p in p12], prec=12, signed=True)),
+            ("rgb16.j2k", iw.j2k_bytes([p * 257 for p in planes], prec=16)),
+            ("grey12.j2k", iw.j2k_bytes([p12[1]], prec=12)),
+            ("grey9.jp2", iw.j2k_bytes([grey * 2 + 1], prec=9, jp2=True, colour=2)),
+            ("grey4.j2k", iw.j2k_bytes([grey >> 4], prec=4)),
+            ("grey1.j2k", iw.j2k_bytes([grey >> 7], prec=1)),
+            ("grey16_97.jp2", iw.j2k_bytes([grey * 257], prec=16, jp2=True, colour=2,
+                                           irreversible=True)),
+            ("precincts_per_res.j2k", iw.j2k_bytes(planes, progression=2, precincts=[
+                (5, 5), (4, 4), (3, 3), (2, 2), (1, 1), (1, 1)])),
+            ("offset_odd_97.j2k", iw.j2k_bytes(planes, irreversible=True, offset=(3, 1),
+                                               cblk=(32, 8)))]
+    idx = (grey // 8).astype(np.int32)
+    pal = np.random.default_rng(23).integers(0, 256, (32, 3)).astype(np.uint8)
+    pclr = iw.jp2_box(b"pclr", struct.pack(">HB", 32, 3) + bytes([7, 7, 7]) + pal.tobytes())
+    cmap = iw.jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, c) for c in range(3)))
+    srgb_grey = iw.j2k_bytes([idx], jp2=True, colour=1)
+    four = iw.j2k_bytes(planes + [alpha.astype(np.int32)], jp2=True, mct=False)
+    rgb_jp2 = iw.j2k_bytes(planes, jp2=True)
+    cdef = iw.jp2_box(b"cdef", struct.pack(">H", 3) + b"".join(
+        struct.pack(">HHH", c, 0, 3 - c) for c in range(3)))
+    icc = iw.jp2_box(b"colr", bytes([2, 0, 0]) + bytes(range(128)))
+    out += [("pclr.jp2", iw.jp2_edit(srgb_grey, add=[pclr, cmap])),
+            ("pclr_alpha.jp2", iw.jp2_edit(iw.j2k_bytes([idx, alpha.astype(np.int32)], jp2=True,
+                                                        colour=1, alpha=1), add=[pclr, cmap])),
+            ("cmyk.jp2", iw.jp2_edit(four, enumcs=12)),
+            ("sycc_alpha.jp2", iw.jp2_edit(four, enumcs=18)),
+            ("cdef_swapped.jp2", iw.jp2_edit(rgb_jp2, add=[cdef])),
+            ("icc_second_colr.jp2", iw.jp2_edit(rgb_jp2, add=[icc])),
+            ("res_bpcc.jp2", iw.jp2_edit(rgb_jp2, add=[
+                iw.jp2_box(b"res ", iw.jp2_box(b"resc", struct.pack(">HHHHBB", 72, 1, 72, 1, 0,
+                                                                    0))),
+                iw.jp2_box(b"bpcc", bytes([7, 7, 7]))])),
+            ("ppt.j2k", iw.j2k_packed_headers(iw.j2k_bytes(planes, tile=(32, 32), sop=True,
+                                                           eph=True, rates=(30, 0)), "PPT")),
+            ("ppm.j2k", iw.j2k_packed_headers(iw.j2k_bytes(planes, tile=(32, 32),
+                                                           rates=(30, 0)), "PPM",
+                                              max_segment=200))]
+    return [(f"jpeg2000_{n}", blob) for n, blob in out]
+
+
+def _icns_cases(crop, alpha):
+    """ICNS files (`tools/image_writers.icns_bytes`) of each entry kind PIL
+    reads, at most 48 pixels a side."""
+    from tools import image_writers as iw
+
+    def png_of(img):
+        return _pil_bytes(__import__("PIL.Image").Image.fromarray(img), "PNG")
+
+    def runs(img):
+        return b"".join(iw.icns_rle(img[..., c]) for c in range(3))
+
+    def jp2_of(img, **kw):
+        return _pil_bytes(__import__("PIL.Image").Image.fromarray(img), "JPEG2000", **kw)
+
+    s16, s32, s48 = crop[:16, :16], crop[8:40, 16:48], crop[:48, 8:56]
+    a16, a32, a48 = alpha[:16, :16], alpha[8:40, 16:48], alpha[:48, 8:56]
+    rgba32 = np.concatenate([s32, a32[..., None]], -1)
+    return [("icns_rle_mask_16.icns", iw.icns_bytes([(b"is32", runs(s16)),
+                                                    (b"s8mk", a16.tobytes())])),
+            ("icns_rle_32_no_mask.icns", iw.icns_bytes([(b"il32", runs(s32))])),
+            ("icns_raw_mask_32.icns", iw.icns_bytes([(b"il32", s32.tobytes()),
+                                                    (b"l8mk", a32.tobytes())])),
+            ("icns_rle_mask_48.icns", iw.icns_bytes([(b"is32", runs(s16)),
+                                                    (b"ih32", runs(s48)),
+                                                    (b"h8mk", a48.tobytes())])),
+            ("icns_png_rgb_16.icns", iw.icns_bytes([(b"icp4", png_of(s16))])),
+            ("icns_png_rgba_32.icns", iw.icns_bytes([(b"icp5", png_of(rgba32)),
+                                                    (b"is32", runs(s16))])),
+            ("icns_png_retina_16.icns", iw.icns_bytes([(b"ic11", png_of(s32))])),
+            ("icns_jp2_rgb_32.icns", iw.icns_bytes([(b"icp5", jp2_of(s32))])),
+            ("icns_jp2_rgba_32.icns", iw.icns_bytes([(b"icp5", jp2_of(rgba32,
+                                                                      irreversible=True))])),
+            ("icns_j2k_grey_32.icns", iw.icns_bytes([(b"icp5", jp2_of(s32[..., 1],
+                                                                      no_jp2=True))]))]
+
+
+def jpeg2000_views(views):
+    """The six COLMAP views of `colmap_jpeg2000/`: JPEG 2000 of each kind."""
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    def pil(img, **kw):
+        return _pil_bytes(Image.fromarray(img), "JPEG2000", **kw)
+
+    v4 = [views[4][..., c].astype(np.int32) for c in range(3)]
+    v5 = [views[5][..., c].astype(np.int32) for c in range(3)]
+    return [("view_0.jp2", pil(views[0])),
+            ("view_1.jp2", pil(views[1], irreversible=True, quality_mode="rates",
+                               quality_layers=[40, 10, 4])),
+            ("view_2.j2k", pil(views[2], no_jp2=True, tile_size=(64, 64), progression="RPCL",
+                               precinct_size=(32, 32))),
+            ("view_3.jp2", pil(views[3], irreversible=True, progression="CPRL",
+                               codeblock_size=(32, 32), quality_mode="dB",
+                               quality_layers=[38])),
+            ("view_4.jp2", iw.j2k_bytes([v4[0], v4[1][::2, ::2], v4[2][::2, ::2]],
+                                        sampling=[(1, 1), (2, 2), (2, 2)], mct=False,
+                                        jp2=True, colour=3)),
+            ("view_5.j2k", iw.j2k_bytes(v5, style=63, sop=True, eph=True, rates=(20, 0)))]
+
+
+def write_jpeg2000(src):
+    """The JPEG 2000 and ICNS fixtures (module docstring); `src` is the
+    1296x832 view's decode."""
+    import hashlib
+    import json
+
+    from PIL import Image
+
+    def save(path, blob):
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+
+    crop, alpha = src[560:608, 840:904], alpha_channel(48, 64)
+    for name, blob in (_j2k_pil_cases(crop, alpha) + _j2k_writer_cases(crop, alpha)
+                       + _icns_cases(crop, alpha)):
+        save(os.path.join(FORMATS, name), blob)
+    views_dir = os.path.join(FORMATS, "colmap_jpeg2000")
+    shutil.rmtree(views_dir, ignore_errors=True)
+    os.makedirs(views_dir)
+    views = [np.asarray(Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg")))
+             for i in range(VIEWS)]
+    for name, blob in jpeg2000_views(views):
+        save(os.path.join(views_dir, name), blob)
+    metrics = os.path.join(FORMATS, "metrics_jpeg2000")
+    shutil.rmtree(metrics, ignore_errors=True)
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    for i, (y, x) in enumerate(((300, 520), (620, 900))):
+        render, gt = src[y:y + 48, x:x + 64], src[y + 2:y + 50, x + 2:x + 66]
+        for d, img in (("renders", render), ("gt", gt)):
+            kw = dict(no_jp2=i == 1, irreversible=d == "renders")
+            path = os.path.join(metrics, d, f"{i:05d}." + ("j2k" if i == 1 else "jp2"))
+            with open(path, "wb") as f:
+                f.write(_pil_bytes(Image.fromarray(img), "JPEG2000", **kw))
+            np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
+    jdir = os.path.join(OUT, "jpeg2000")
+    shutil.rmtree(jdir, ignore_errors=True)
+    os.makedirs(jdir)
+    for name, ext, kw in J2K_SCENES:
+        path = os.path.join(jdir, f"{name}.{ext}")
+        with open(path, "wb") as f:
+            f.write(_pil_bytes(Image.fromarray(src), "JPEG2000", no_jp2=ext == "j2k", **kw))
+        pil = np.asarray(Image.open(path))
+        if not kw:
+            assert np.array_equal(pil, src)  # lossless: the card holds it to the view
+        with open(os.path.join(OUT, "pil_decode", name + "_j2k.json"), "w") as f:
+            json.dump({"dtype": str(pil.dtype), "shape": list(pil.shape),
+                       "sha256": hashlib.sha256(pil.tobytes()).hexdigest()}, f, indent=1)
+            f.write("\n")
+
+
 def main(argv=None) -> int:
     from PIL import Image, ImageFile
 
     args = argv or sys.argv[1:]
+    if "--jpeg2000" in args:
+        write_jpeg2000(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
+        return 0
     if "--readers" in args:
         write_readers(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
         return 0
@@ -1270,6 +1529,7 @@ def main(argv=None) -> int:
             write_dataset_webps(decoded)
             write_codecs(decoded)
             write_readers(decoded)
+            write_jpeg2000(decoded)
         write_raster(decoded)
         return 0
 
@@ -1334,6 +1594,7 @@ def main(argv=None) -> int:
     write_dataset_webps(decoded)
     write_codecs(decoded)
     write_readers(decoded)
+    write_jpeg2000(decoded)
     write_raster(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")

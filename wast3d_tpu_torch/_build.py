@@ -10,9 +10,10 @@ headers takes minutes to compile; these take seconds, and the build runs
 at the first kernel call on a CUDA tensor, never at import. If `nvcc`
 fails, the error carries its output; nothing falls back.
 
-The host library of `native/` (PLY and COLMAP readers, the JPEG decoder)
-is built the same way with one `g++` call into
-`_build/libw3d_io-<hash>.so`, so it loads on a machine without a card too.
+The host library of `native/` (PLY and COLMAP readers, the image
+decoders) is built the same way, one `g++ -c` per source, all started
+together, and one `g++` that links `_build/libw3d_io-<hash>.so`, so it
+loads on a machine without a card too.
 Both builds compile into a private temporary directory under `BUILD_DIR`
 and `os.replace` the library into place, so processes that build at once
 each load a whole file. `utils/cache.py::enable` moves `BUILD_DIR`.
@@ -154,9 +155,13 @@ def gxx_path() -> str:
     return shutil.which("g++") or "g++"
 
 
-def native_command(out: Path) -> List[str]:
-    """The one `g++` call that builds the host library `out`."""
-    return [gxx_path(), *GXX_FLAGS, "-o", str(out), *map(str, native_sources())]
+def native_commands(out: Path) -> Tuple[List[List[str]], List[str]]:
+    """One `g++ -c` per source, into an object beside `out`, and the `g++`
+    that links those objects into the host library `out`."""
+    objects = [out.with_name(f"{out.name}.{src.stem}.o") for src in native_sources()]
+    compiles = [[gxx_path(), *GXX_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(native_sources(), objects)]
+    return compiles, [gxx_path(), *GXX_FLAGS, "-o", str(out), *map(str, objects)]
 
 
 def native_library_path() -> Path:
@@ -177,6 +182,10 @@ def build_native() -> Built:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         lib = Path(tmp) / out.name
-        log = _compile(native_command(lib), "g++", GXX_TIMEOUT_S)
+        compiles, link = native_commands(lib)
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            futures = [pool.submit(_compile, cmd, "g++", GXX_TIMEOUT_S) for cmd in compiles]
+        logs = [f.result() for f in futures]
+        logs.append(_compile(link, "g++", GXX_TIMEOUT_S))
         os.replace(lib, out)
-    return Built(out, time.perf_counter() - t0, log)
+    return Built(out, time.perf_counter() - t0, "".join(logs))

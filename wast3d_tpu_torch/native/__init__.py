@@ -16,17 +16,20 @@ depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
 (`webp.cpp`): lossless (`vp8l_decode`), lossy (`vp8_decode`, with its inverse
 transforms alone as `vp8_idct` and its YUV -> RGB as `yuv_to_rgba`), ALPH
 chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`); TIFF's ZSTD strips
-(`zstd.cpp`: `zstd_decode`); and the loops of the ICO / DDS / PSD / SGI /
+(`zstd.cpp`: `zstd_decode`); the loops of the ICO / DDS / PSD / SGI /
 PCX / Sun readers (`raster.cpp`: `bcn_decode`, `packbits_rows`, `sgi_rle`,
-`pcx_rle`, `sun_rle`). A JPEG inside a TIFF
+`pcx_rle`, `sun_rle`); and JPEG 2000's tier-1, wavelets, colour transforms
+and DC shift as OpenJPEG 2.5.4 computes them (`j2k.cpp`: `j2k_t1`,
+`j2k_idwt`, `j2k_mct`, `j2k_level`). A JPEG inside a TIFF
 goes through the same decoder with the TIFF's colour space
 (`decode_jpeg(..., colour=...)`, `jpeg_frame`). `utils/image_io.py`,
-`utils/png.py`, `utils/zstd.py` and `utils/image_formats.py` hold the plain
-version of each stage that stands alone.
+`utils/png.py`, `utils/zstd.py`, `utils/image_formats.py` and
+`utils/jpeg2000.py` hold the plain version of each stage that stands alone.
 
-The library is built lazily by `_build.build_native` (one `g++` call into a
-private temporary directory under `_build/`, then `os.replace` to a name
-hashed over the sources and flags), never next to the sources, so
+The library is built lazily by `_build.build_native` (one `g++ -c` a
+source, all at once, then a link, in a private temporary directory under
+`_build/`, then `os.replace` to a name hashed over the sources and
+flags), never next to the sources, so
 processes that build at once each load a whole file. The PLY and COLMAP
 fast paths keep the JAX package's numpy fallbacks in `scene/ply.py` and
 `scene/colmap.py`: they return None when the library is opted out or
@@ -116,6 +119,12 @@ _SIGNATURES = {
                      _c.c_void_p, _c.c_char_p, _c.c_int32], _c.c_int64),
     "w3d_sun_rle": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_void_p, _c.c_char_p,
                      _c.c_int32], _c.c_int64),
+    "w3d_j2k_t1": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_int32, _c.c_void_p, _c.c_void_p,
+                    _c.c_void_p, _c.c_int64, _c.c_int32, _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_j2k_idwt": ([_c.c_void_p, _c.c_int64, _c.c_void_p, _c.c_int32, _c.c_int32], _c.c_int),
+    "w3d_j2k_mct": ([_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int32], _c.c_int),
+    "w3d_j2k_level": ([_c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_int32,
+                       _c.c_void_p], _c.c_int),
 }
 
 
@@ -548,4 +557,61 @@ def sun_rle(data: bytes, row_bytes: int, rows: int, name: str = "<bytes>") -> np
     `utils/image_formats.sun_rle_reference`)."""
     out = np.empty((rows, row_bytes), np.uint8)
     _call("w3d_sun_rle", name, bytes(data), len(data), row_bytes, rows, out.ctypes.data)
+    return out
+
+
+def _j2k_buffer(buf: np.ndarray, reversible: bool) -> None:
+    """A tile-component buffer the native loops write in place: C-contiguous
+    int32 (5/3) or float32 (9/7)."""
+    if buf.dtype != (np.int32 if reversible else np.float32) or not buf.flags.c_contiguous:
+        raise ValueError(f"a JPEG 2000 tile-component must be contiguous "
+                         f"{'int32' if reversible else 'float32'}, not {buf.dtype}")
+
+
+def j2k_t1(data: bytes, cblks: np.ndarray, segs: np.ndarray, steps: np.ndarray, out: np.ndarray,
+           reversible: bool, name: str = "<bytes>") -> None:
+    """JPEG 2000 tier-1 (`j2k.cpp`) on the code-blocks of one tile-component
+    into `out` (int32 [h, w] when `reversible`, else float32): `cblks` int32
+    [n, 10] (x, y, width, height, band, style, top bit-plane + 1, ROI shift,
+    first segment, segments), `segs` int32 [m, 3] (offset into `data`,
+    length, passes), `steps` float32 [n] (half the band's step;
+    `utils/jpeg2000.t1_reference` is the plain version of one code-block)."""
+    cblks = np.ascontiguousarray(cblks, np.int32)
+    segs = np.ascontiguousarray(segs, np.int32)
+    steps = np.ascontiguousarray(steps, np.float32)
+    _j2k_buffer(out, reversible)
+    if steps.size != cblks.size // 10:
+        raise ValueError(f"j2k_t1: {steps.size} steps for {cblks.size // 10} code-blocks")
+    _call("w3d_j2k_t1", name, bytes(data), len(data), cblks.ctypes.data, cblks.size // 10,
+          segs.ctypes.data, steps.ctypes.data, out.ctypes.data, out.shape[1], int(reversible))
+
+
+def j2k_idwt(buf: np.ndarray, rects: np.ndarray, reversible: bool) -> None:
+    """The inverse 5/3 (int32 `buf`) or 9/7 (float32) wavelet in place over
+    the resolutions' int32 [n, 4] rectangles (x0, y0, x1, y1), as OpenJPEG
+    computes it (`j2k.cpp`; `utils/jpeg2000.idwt53_reference` /
+    `idwt97_reference`)."""
+    rects = np.ascontiguousarray(rects, np.int32)
+    _j2k_buffer(buf, reversible)
+    library().w3d_j2k_idwt(buf.ctypes.data, buf.shape[1] if buf.ndim == 2 else 1, rects.ctypes.data,
+                           len(rects), int(reversible))
+
+
+def j2k_mct(c0: np.ndarray, c1: np.ndarray, c2: np.ndarray, reversible: bool) -> None:
+    """The inverse RCT (int32) or ICT (float32) of JPEG 2000 in place
+    (`utils/jpeg2000.mct_reference`)."""
+    for c in (c0, c1, c2):
+        _j2k_buffer(c, reversible)
+        if c.size != c0.size:
+            raise ValueError("j2k_mct: components of different sizes")
+    library().w3d_j2k_mct(c0.ctypes.data, c1.ctypes.data, c2.ctypes.data, c0.size, int(reversible))
+
+
+def j2k_level(buf: np.ndarray, reversible: bool, shift: int, lo: int, hi: int) -> np.ndarray:
+    """The DC level shift and clamp to [lo, hi] of a tile-component (float32
+    samples rounded by lrintf first) -> int32 of its shape."""
+    buf = np.ascontiguousarray(buf, np.int32 if reversible else np.float32)
+    out = np.empty(buf.shape, np.int32)
+    library().w3d_j2k_level(buf.ctypes.data, buf.size, int(reversible), shift, lo, hi,
+                            out.ctypes.data)
     return out

@@ -1,4 +1,4 @@
-"""ICO / CUR, DDS, PSD, SGI, PCX and Sun raster, read as PIL 12 reads them.
+"""ICO / CUR, DDS, ICNS, PSD, SGI, PCX and Sun raster, read as PIL 12 reads them.
 
 `utils/image_io.decode_image` dispatches these by signature, in PIL's
 order; each `decode_*` here returns `np.asarray(PIL.Image.open(...))` or
@@ -21,6 +21,13 @@ where PIL raises.
   and signed, BC7; fourCC or DX10 DXGI formats) through `native.bcn_decode`
   (Pillow's BcnDecode.c, quirks included: BC6H's unrounded interpolation
   and its signed deltas wrapped without sign extension).
+- ICNS: the size IcnsFile.bestsize picks (the largest (width, height,
+  scale) with an entry of its types) read as dataforsize reads it: a PNG
+  entry in its own mode, a JPEG 2000 entry (`utils/jpeg2000.py`) turned
+  to RGBA as PIL's convert does, or 24-bit RGB (raw, or packbits-like runs
+  band by band) with its 8-bit mask as alpha; an RGB result comes out as
+  np.asarray gives it for a file PIL opened as RGBA (the first 3 h w bytes
+  of its 4-byte pixels).
 - PSD: the merged image in PsdImagePlugin's modes (1, L, P, RGB, RGBA from
   four channels, CMYK stored inverted, LAB), raw or PackBits rows
   (`native.packbits_rows`, Pillow's row decoder: a run never spills into
@@ -45,7 +52,7 @@ from __future__ import annotations
 
 import math
 import struct
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -983,3 +990,147 @@ def sun_rle_reference(data: bytes, row_bytes: int, rows: int) -> np.ndarray:
             flat.append(data[p])
             p += 1
     return np.frombuffer(bytes(flat[:total]), np.uint8).reshape(rows, row_bytes)
+
+
+# ---- ICNS -----------------------------------------------------------------------------
+
+# IcnsFile.SIZES: (width, height, scale) -> its entry types, in the order
+# IcnsFile.dataforsize reads them ("png" a PNG or JPEG 2000 entry, "rle"
+# 24-bit RGB, "rle_t" it32's, "mask" an 8-bit alpha mask).
+_ICNS_SIZES = {(512, 512, 2): [(b"ic10", "png")], (512, 512, 1): [(b"ic09", "png")],
+               (256, 256, 2): [(b"ic14", "png")], (256, 256, 1): [(b"ic08", "png")],
+               (128, 128, 2): [(b"ic13", "png")],
+               (128, 128, 1): [(b"ic07", "png"), (b"it32", "rle_t"), (b"t8mk", "mask")],
+               (64, 64, 1): [(b"icp6", "png")], (32, 32, 2): [(b"ic12", "png")],
+               (48, 48, 1): [(b"ih32", "rle"), (b"h8mk", "mask")],
+               (32, 32, 1): [(b"icp5", "png"), (b"il32", "rle"), (b"l8mk", "mask")],
+               (16, 16, 2): [(b"ic11", "png")],
+               (16, 16, 1): [(b"icp4", "png"), (b"is32", "rle"), (b"s8mk", "mask")]}
+
+
+def _icns_rgba(img: np.ndarray, mode: str, name: str) -> np.ndarray:
+    """A JPEG 2000 entry's array -> RGBA as PIL's convert("RGBA") makes it."""
+    h, w = img.shape[:2]
+    out = np.full((h, w, 4), 255, np.uint8)
+    if mode == "RGBA":
+        return img
+    if mode == "RGB":
+        out[..., :3] = img
+    elif mode in ("L", "I;16"):
+        out[..., :3] = np.minimum(img, 255)[..., None]
+    elif mode == "LA":
+        out[..., :3], out[..., 3] = img[..., :1], img[..., 1]
+    elif mode == "CMYK":
+        nk = 255 - img[..., 3:].astype(np.int32)
+        t = img[..., :3].astype(np.int32) * nk + 128
+        out[..., :3] = np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+    else:
+        raise ValueError(f"{name}: an ICNS JPEG 2000 entry in mode {mode} (only RGB(A), L(A), "
+                         f"I;16 and CMYK entries are read)")
+    return out
+
+
+def _icns_rle(blob: bytes, at: int, side: Tuple[int, int], name: str) -> np.ndarray:
+    """IcnsImagePlugin.read_32's packbits-like runs from `at`, band by band
+    (reading on past the entry as PIL's file reads do)."""
+    n = side[0] * side[1]
+    bands = []
+    for _ in range(3):
+        data, left = bytearray(), n
+        while left > 0:
+            if at >= len(blob):
+                break
+            b = blob[at]
+            at += 1
+            if b & 0x80:
+                size = b - 125
+                data += blob[at:at + 1] * size
+                at += 1
+            else:
+                size = b + 1
+                data += blob[at:at + size]
+                at += size
+            left -= size
+        if left != 0:
+            raise ValueError(f"{name}: ICNS RGB runs end {left} samples off their band")
+        if len(data) < n:
+            raise ValueError(f"{name}: not enough image data in an ICNS RGB entry")
+        bands.append(np.frombuffer(bytes(data[:n]), np.uint8).reshape(side[1], side[0]))
+    return np.stack(bands, -1)
+
+
+def decode_icns(blob: bytes, name: str = "<bytes>") -> Optional[np.ndarray]:
+    """IcnsImagePlugin: the entry of the largest (width, height, scale) that
+    has one: a PNG entry in the PNG's own mode, a JPEG 2000 entry converted
+    to RGBA, or 24-bit RGB (raw, or runs per band) with its 8-bit mask as
+    alpha (RGB without one). None where PIL's plugin declines the file."""
+    from wast3d_tpu_torch.utils import jpeg2000
+
+    if len(blob) < 8:
+        return None
+    filesize = struct.unpack_from(">I", blob, 4)[0]
+    entries, i = {}, 8
+    while i < filesize:
+        if i + 8 > len(blob):
+            return None
+        sig, size = struct.unpack_from(">4sI", blob, i)
+        if size <= 0:
+            return None
+        entries[sig] = (i + 8, size - 8)
+        i += size
+    sizes = [s for s, kinds in _ICNS_SIZES.items() if any(k in entries for k, _ in kinds)]
+    if not sizes:
+        return None
+    best = max(sizes)
+    side = (best[0] * best[2], best[1] * best[2])
+    _check_pixels(*side, name)
+    channels: Dict[str, np.ndarray] = {}
+    pad = 255  # the fourth byte of PIL's RGB pixels: 0 where Image.new made them
+    for code, kind in _ICNS_SIZES[best]:
+        if code not in entries:
+            continue
+        start, length = entries[code]
+        if kind == "png":
+            head = blob[start:start + 12]
+            if head.startswith(png._SIGNATURE):
+                channels["RGBA"] = png.decode_png(blob[start:], name)
+            elif head.startswith((jpeg2000.J2K_SIGNATURE, b"\r\n\x87\n")) \
+                    or head == jpeg2000.JP2_SIGNATURE:
+                entry = blob[start:start + length]
+                mode = jpeg2000.pil_mode(entry, name)
+                channels["RGBA"] = _icns_rgba(jpeg2000.decode_jpeg2000(entry, name), mode, name)
+            else:
+                raise ValueError(f"{name}: unsupported ICNS subimage format")
+        elif kind == "mask":
+            a = np.frombuffer(blob[start:start + side[0] * side[1]], np.uint8)
+            if a.size < side[0] * side[1]:
+                raise ValueError(f"{name}: not enough image data in an ICNS mask")
+            channels["A"] = a.reshape(side[1], side[0])
+        else:
+            if kind == "rle_t":
+                if blob[start:start + 4] != b"\x00\x00\x00\x00":
+                    raise ValueError(f"{name}: it32 entry without its zero signature")
+                start, length = start + 4, length - 4
+            if length == side[0] * side[1] * 3:
+                channels["RGB"] = np.frombuffer(blob[start:start + length],
+                                                np.uint8).reshape(side[1], side[0], 3)
+            else:
+                channels["RGB"], pad = _icns_rle(blob, start, side, name), 0
+    if "RGBA" in channels:
+        img, pad = channels["RGBA"], 255
+    elif "RGB" not in channels:
+        raise ValueError(f"{name}: an ICNS size with a mask and no RGB entry (PIL's KeyError)")
+    elif "A" in channels:
+        return np.concatenate([channels["RGB"], channels["A"][..., None]], -1)
+    else:
+        img = channels["RGB"]
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"{name}: an ICNS PNG entry that is not RGB or RGBA (PIL: no packer "
+                         f"to RGBA)")
+    if img.shape[2] == 4:
+        return img
+    # PIL opened the file as RGBA: np.asarray packs the RGB image's 4-byte
+    # pixels (R, G, B, pad) and reads the first 3 * h * w bytes as RGB.
+    h, w = img.shape[:2]
+    packed = np.concatenate([img, np.full((h, w, 1), pad, np.uint8)], -1)
+    return packed.reshape(-1)[:3 * h * w].reshape(h, w, 3).copy()

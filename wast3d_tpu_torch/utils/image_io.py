@@ -54,10 +54,19 @@ dispatching on the file's signature, never on its extension:
   bottom-up, the scale's sign choosing the byte order);
 - `qoif`: QOI (`decode_qoi`), RGB or RGBA by the header's channel count, as
   Pillow's QoiDecoder reads the ops;
-- `00 00 02 00`, `0A` (then version 0/2/3/5), `DDS `, `00 00 01 00`,
-  `8BPS`, `01 DA`, `59 A6 6A 95`: CUR, PCX, DDS (BC1-BC7 too), ICO, PSD, SGI
-  and Sun raster, in PIL's order, each read as its PIL plugin reads it
-  (`utils/image_formats.py`); a reader that declines a file (PIL's
+- `FF 4F FF 51` (a J2K codestream) or the JP2 signature box: JPEG 2000
+  (`utils/jpeg2000.decode_jpeg2000`), as Jpeg2KImagePlugin over OpenJPEG
+  2.5.4 reads it: every Part 1 feature OpenJPEG decodes (tiles, five
+  progressions, POC, layers, precincts, every code-block style, SOP / EPH,
+  PPM / PPT, ROI, 5/3 and 9/7 bit for bit, RCT / ICT, subsampling, 1-16
+  bits, signed), PIL's modes (L, I;16, LA, RGB, RGBA, P / PA from `pclr`,
+  CMYK, sYCC through PIL's YCbCr -> RGB), a codestream cut short as
+  OpenJPEG's strict mode takes it;
+- `00 00 02 00`, `0A` (then version 0/2/3/5), `DDS `, `icns`,
+  `00 00 01 00`, `8BPS`, `01 DA`, `59 A6 6A 95`: CUR, PCX, DDS (BC1-BC7
+  too), ICNS (PNG, JPEG 2000 or 24-bit RGB entries with their masks), ICO,
+  PSD, SGI and Sun raster, in PIL's order, each read as its PIL plugin
+  reads it (`utils/image_formats.py`); a reader that declines a file (PIL's
   SyntaxError: a CUR without cursors, an ICO without entries, a PCX of no
   size, ...) lets it go on to the next format, as PIL does;
 - TGA (`decode_tga`), which has no signature: tried last, with
@@ -67,22 +76,23 @@ dispatching on the file's signature, never on its extension:
   and right-to-left bits, run-length literals that run across rows.
 
 Anything else raises `ValueError` naming the file and, for an unknown
-signature, its first bytes: ICNS, JPEG 2000, AVIF, BLP, DIB and the rest of
-PIL's list are still to come. A TIFF outside these names the tag and its
+signature, its first bytes: AVIF, BLP, DIB and the rest of PIL's list are
+still to come. A TIFF outside these names the tag and its
 value (old-style JPEG compression, YCbCr subsampling libtiff has no
 routine for, 24-bit samples, ...). A file of more pixels than PIL opens
 (twice `PIL.Image.MAX_IMAGE_PIXELS`) raises before anything is allocated.
 The byte loops are native (`native/image.cpp`, `native/jpeg.cpp`,
-`native/webp.cpp`, `native/zstd.cpp`, `native/raster.cpp`, with no
-fallback); numpy here turns samples into PIL's arrays. The plain versions
+`native/webp.cpp`, `native/zstd.cpp`, `native/raster.cpp`, `native/j2k.cpp`,
+with no fallback); numpy here turns samples into PIL's arrays. The plain versions
 the tests hold the native routines to are here too (`bmp_rle_reference`,
 `lzw_reference`, `packbits_reference`, `jpeg_upsample_reference`,
 `jpeg_idct_reference`, `ccitt_reference`, `ycbcr_to_rgb_reference`,
 `gif_lzw_reference`, `vp8_idct_reference`, `yuv_to_rgba_reference`,
 `tga_rle_reference`, `qoi_reference`), in `utils/png.py`, in
-`utils/zstd.py` (`zstd_reference`) and in `utils/image_formats.py`
+`utils/zstd.py` (`zstd_reference`), in `utils/image_formats.py`
 (`bcn_reference`, `packbits_rows_reference`, `sgi_rle_reference`,
-`pcx_rle_reference`, `sun_rle_reference`).
+`pcx_rle_reference`, `sun_rle_reference`) and in `utils/jpeg2000.py`
+(`t1_reference`, `idwt53_reference`, `idwt97_reference`, `mct_reference`).
 """
 
 from __future__ import annotations
@@ -95,26 +105,27 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from wast3d_tpu_torch.utils import png
+from wast3d_tpu_torch.utils import jpeg2000, png
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 _WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
-# The formats of `utils/image_formats.py`, in PIL's order (CUR, PCX, DDS, ICO,
+# The formats of `utils/image_formats.py`, in PIL's order (CUR, PCX, DDS, ICNS, ICO,
 # PSD, SGI, SUN): each reader's signature test and name. A reader that
 # declines (None) lets the file go on to the next, as PIL goes on.
 _READERS = ((lambda b: b[:4] == b"\x00\x00\x02\x00", "decode_cur"),
             (lambda b: b[:1] == b"\x0a" and b[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"),
              "decode_pcx"),
             (lambda b: b[:4] == b"DDS ", "decode_dds"),
+            (lambda b: b[:4] == b"icns", "decode_icns"),
             (lambda b: b[:4] == b"\x00\x00\x01\x00", "decode_ico"),
             (lambda b: b[:4] == b"8BPS", "decode_psd"),
             (lambda b: b[:2] == b"\x01\xda", "decode_sgi"),
             (lambda b: b[:4] == b"\x59\xa6\x6a\x95", "decode_sun"))
 # Signatures of the formats PIL tries before TGA that this reader does not
-# read (JPEG 2000, ICNS, BLP, FITS, MSP, EPS, PIXAR, MPEG, McIdas, HDF5, BUFR,
-# FTEX, DCX, and the TIFF byte orders PIL accepts and never reads); TGA's
-# header checks would take some of them.
-_OTHER_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  ", b"icns", b"BLP1", b"BLP2",
+# read (BLP, FITS, MSP, EPS, PIXAR, MPEG, McIdas, HDF5, BUFR, FTEX, DCX, and
+# the TIFF byte orders PIL accepts and never reads); TGA's header checks
+# would take some of them.
+_OTHER_SIGNATURES = (b"BLP1", b"BLP2",
                      b"SIMPLE", b"DanM", b"LinS", b"%!PS", b"\xc5\xd0\xd3\xc6", b"\x80\xe8\x00\x00",
                      b"\x00\x00\x01\xb3", b"\x00" * 7 + b"\x04", b"\x89HDF\r\n\x1a\n", b"BUFR",
                      b"ZCZC", b"FTEX", b"\xb1\x68\xde\x3a", b"II\x00*", b"MM*\x00")
@@ -156,6 +167,8 @@ def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
         return decode_pnm(blob, name)
     if blob[:4] == b"qoif":
         return decode_qoi(blob, name)
+    if blob[:4] == jpeg2000.J2K_SIGNATURE or blob[:12] == jpeg2000.JP2_SIGNATURE:
+        return jpeg2000.decode_jpeg2000(blob, name)
     from wast3d_tpu_torch.utils import image_formats
 
     for accepts, reader in _READERS:
@@ -168,8 +181,8 @@ def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     if not _claimed_before_tga(blob) and _tga_header(blob) is not None:
         return decode_tga(blob, name)
     raise ValueError(f"{name}: not an image this reader knows (PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     f"Netpbm, QOI, CUR, PCX, DDS, ICO, PSD, SGI, Sun raster or TGA); it starts "
-                     f"with {blob[:8]!r}")
+                     f"Netpbm, QOI, JPEG 2000, CUR, PCX, DDS, ICNS, ICO, PSD, SGI, Sun raster or "
+                     f"TGA); it starts with {blob[:8]!r}")
 
 
 # PIL refuses (DecompressionBombError) more pixels than twice MAX_IMAGE_PIXELS.
