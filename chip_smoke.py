@@ -72,12 +72,14 @@ the gate at the JAX 1M record's configuration and `cli.stylize`, its PLY
 rendered at 1296x832).
 Host IO runs first (`io`, `images`): the native PLY and COLMAP readers,
 and every image format the JAX package reads through PIL (PNG at every
-depth, JPEG at every integral sampling and CMYK / YCCK, BMP, TIFF in every
-layout and sample kind with JPEG inside, WebP, GIF, Netpbm, TGA, QOI)
+depth, JPEG at every integral sampling and CMYK / YCCK, arithmetic-coded
+and lossless JPEG, BMP, TIFF in every layout and sample kind with JPEG
+inside, WebP, GIF, Netpbm, TGA, QOI, JPEG 2000 and the rest)
 decoded with PIL unimportable and held to PIL's committed arrays;
-`cli.train` on progressive and 4:4:0 JPEG, WebP and tiled JPEG-TIFF
-datasets and on 16-bit RGBA PNGs, and `cli.metrics` on JPEGs, WebPs and
-TGA / PPM against the port's metrics on PIL's decode.
+`cli.train` on datasets of each family (progressive and 4:4:0 JPEG, WebP,
+tiled JPEG-TIFF, JPEG 2000, arithmetic-coded and lossless JPEG, ...) and
+on 16-bit RGBA PNGs, and `cli.metrics` on method directories of each
+against the port's metrics on PIL's decode.
 Each entry point runs with the kernels' launch counts set to 0 just before
 it and read just after. Every phase prints one
 JSON line with its numbers and seconds; any failure raises and the script
@@ -2538,21 +2540,58 @@ def write_reader_colmap(src):
                             for k, v in cm.read_images_binary(path).items()}, path)
 
 
-def write_jpeg2000_colmap(src):
-    """A copy of the COLMAP fixture whose six views are
-    tests/format_fixtures/colmap_jpeg2000 (a lossless JP2, a 9/7 JP2 with
+def write_views_colmap(src, views, images):
+    """A copy of the COLMAP fixture whose six views are the committed
+    tests/format_fixtures/<views>, under <images>/, its model's image names
+    turned to theirs: `colmap_jpeg2000` (a lossless JP2, a 9/7 JP2 with
     quality layers, a tiled RPCL J2K with precincts, a CPRL 9/7 JP2, an
-    sYCC 4:2:0 JP2 and a J2K of every code-block style with SOP / EPH),
-    under images_jpeg2000/, its model's image names turned to theirs."""
+    sYCC 4:2:0 JP2 and a J2K of every code-block style with SOP / EPH) or
+    `colmap_jpeg_arith` (an arithmetic-coded JPEG with DAC and restarts, an
+    arithmetic-coded progressive one, lossless JPEGs with a scan a
+    component, with predictor 7 and a point transform, and at 4:2:0, and an
+    arithmetic-coded JPEG-YCbCr TIFF)."""
     from wast3d_tpu_torch.scene import colmap as cm
 
     shutil.copytree(os.path.join(FIXTURES, "colmap_jpeg"), src)
-    shutil.copytree(os.path.join(FORMAT_FIXTURES, "colmap_jpeg2000"),
-                    os.path.join(src, "images_jpeg2000"), ignore=shutil.ignore_patterns("*.npy"))
-    names = {os.path.splitext(f)[0]: f for f in os.listdir(os.path.join(src, "images_jpeg2000"))}
+    shutil.copytree(os.path.join(FORMAT_FIXTURES, views), os.path.join(src, images),
+                    ignore=shutil.ignore_patterns("*.npy"))
+    names = {os.path.splitext(f)[0]: f for f in os.listdir(os.path.join(src, images))}
     path = os.path.join(src, "sparse", "0", "images.bin")
     cm.write_images_binary({k: v._replace(name=names[os.path.splitext(v.name)[0]])
                             for k, v in cm.read_images_binary(path).items()}, path)
+
+
+def jpeg_arith_decode_times():
+    """Decode milliseconds (median of 3) of the committed 1296x832
+    arithmetic-coded and lossless JPEG views (`tests/torch_fixtures/
+    jpeg_arith/`: sequential with DAC and restarts, progressive under
+    libjpeg's scan script, both inside PIL's 64 KiB read block, and a
+    lossless predictor-1 file), each held to the dtype, shape and SHA-256 of
+    PIL's decode (`pil_decode/<name>_jpeg.json`) and, as all three decode to
+    it, exactly to the view (`pil_decode/scene_1296x832_420.png`). Returns
+    (checks, numbers)."""
+    import hashlib
+
+    from tools.make_torch_fixtures import ARITH_SCENES
+    from wast3d_tpu_torch.utils import png
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    checks, numbers = {}, {}
+    view = png.read_png(os.path.join(FIXTURES, "pil_decode", "scene_1296x832_420.png"))
+    for name in ARITH_SCENES:
+        with open(os.path.join(FIXTURES, "jpeg_arith", f"{name}.jpeg"), "rb") as f:
+            blob = f.read()
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        with open(os.path.join(FIXTURES, "pil_decode", name + "_jpeg.json")) as f:
+            record = json.load(f)
+        checks[f"decode {name} = PIL's sha256"] = record == {
+            "dtype": str(got.dtype), "shape": list(got.shape),
+            "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+        checks[f"decode {name} = the view"] = (got.shape == view.shape
+                                               and got.tobytes() == view.tobytes())
+    return checks, numbers
 
 
 def jpeg2000_decode_times():
@@ -2676,7 +2715,8 @@ def train_cli(src, images, device, model):
 
 def metrics_on(kind, device, tmp):
     """`cli.metrics` on a method directory of `kind` files ("jpeg", "webp",
-    "tga_ppm", "zstd_psd" or "jpeg2000": tests/format_fixtures/metrics_<kind>), then the port's metrics
+    "tga_ppm", "zstd_psd", "jpeg2000" or "jpeg_arith": tests/format_fixtures/metrics_<kind>),
+    then the port's metrics
     (`evaluate_dir`) on PIL's decode of the same files (its .npy), in this
     call: the per-view scores must be equal. Returns (checks, numbers)."""
     from wast3d_tpu_torch.cli import metrics as cli_metrics
@@ -2708,7 +2748,8 @@ def metrics_on(kind, device, tmp):
         metrics._read_images = reader
     names = {"jpeg": ["00000.jpg", "00001.jpg"], "webp": ["00000.webp", "00001.webp"],
              "tga_ppm": ["00000.tga", "00001.ppm"], "zstd_psd": ["00000.tif", "00001.psd"],
-             "jpeg2000": ["00000.jp2", "00001.j2k"]}[kind]
+             "jpeg2000": ["00000.jp2", "00001.j2k"],
+             "jpeg_arith": ["00000.jpg", "00001.jpg"]}[kind]
     checks = {f"metrics {kind} names": list(per_view["PSNR"]) == names,
               f"metrics {kind} = PIL's decode": per_view == pil,
               f"metrics {kind} finite": all(math.isfinite(v) for m in per_view.values()
@@ -2727,7 +2768,8 @@ def phase_images(device):
     CMYK / YCCK JPEG, BMP, TIFF in every layout and sample kind, JPEG and
     ZSTD in TIFF, tiled YCbCr, lossy / lossless / alpha / animated WebP,
     GIF, Netpbm, TGA, QOI, ICO / CUR, DDS BC1-BC7, PSD, SGI, PCX, Sun, J2K /
-    JP2 of every option, ICNS)
+    JP2 of every option, ICNS, arithmetic-coded and lossless JPEG in every
+    mode libjpeg-turbo decodes, damaged ones and JPEG-in-TIFF too)
     against PIL's committed array, the decode and resize times, decode times
     of a 16-bit PNG, a 4:4:0 JPEG, an LZW TIFF, a lossy and a lossless WebP,
     a tiled JPEG-YCbCr TIFF, a float TIFF with predictor 3, a run-length TGA
@@ -2736,14 +2778,17 @@ def phase_images(device):
     strip, and strips), a PSD, an SGI, a PCX, a Sun raster and BC7 / BC1 DDS
     at 1296x832 (`reader_decode_times`), of a lossless JP2, a 9/7 JP2 of
     three layers and a tiled RPCL J2K at 1296x832 (`jpeg2000_decode_times`),
-    `cli.train` on the
+    of arithmetic-coded sequential and progressive JPEGs and a lossless one
+    at 1296x832 (`jpeg_arith_decode_times`), `cli.train` on the
     progressive COLMAP fixture, on the COLMAP fixture at 4:4:0, on a Blender
     dataset of 16-bit RGBA PNGs, on the COLMAP fixture as lossy WebP and as
     tiled JPEG-YCbCr TIFFs, on three views that are a damaged JPEG, a partly
     refined JPEG and a YCbCr LZW TIFF, on six views that are a ZSTD TIFF, a
     tiled YCbCr ZSTD TIFF, PSD, SGI, PCX and Sun raster, on six JPEG 2000
-    views of six kinds, and `cli.metrics` on JPEGs, on WebPs, on TGA / PPM,
-    on ZSTD TIFF / PSD and on JPEG 2000 ground truths
+    views of six kinds, on six arithmetic-coded and lossless JPEG views
+    (`colmap_jpeg_arith`), and `cli.metrics` on JPEGs, on WebPs, on TGA /
+    PPM, on ZSTD TIFF / PSD, on JPEG 2000 and on arithmetic-coded and
+    lossless JPEG ground truths
     against the port's metrics on PIL's decode, with PIL unimportable.
     Returns the numbers."""
     from wast3d_tpu_torch import native
@@ -2806,6 +2851,9 @@ def phase_images(device):
         more, times = jpeg2000_decode_times()
         checks.update(more)
         numbers.update(times)
+        more, times = jpeg_arith_decode_times()
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -2828,7 +2876,9 @@ def phase_images(device):
         colmap_readers = os.path.join(tmp, "colmap_readers")
         write_reader_colmap(colmap_readers)
         colmap_jpeg2000 = os.path.join(tmp, "colmap_jpeg2000")
-        write_jpeg2000_colmap(colmap_jpeg2000)
+        write_views_colmap(colmap_jpeg2000, "colmap_jpeg2000", "images_jpeg2000")
+        colmap_arith = os.path.join(tmp, "colmap_jpeg_arith")
+        write_views_colmap(colmap_arith, "colmap_jpeg_arith", "images_arith")
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
                                  ("train blender16", blender, None),
@@ -2836,12 +2886,13 @@ def phase_images(device):
                                  ("train tiff", colmap_tiff, "images_tiff"),
                                  ("train codecs", colmap_codecs, "images_codecs"),
                                  ("train readers", colmap_readers, "images_readers"),
-                                 ("train jpeg2000", colmap_jpeg2000, "images_jpeg2000")):
+                                 ("train jpeg2000", colmap_jpeg2000, "images_jpeg2000"),
+                                 ("train jpeg_arith", colmap_arith, "images_arith")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})
             numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
-        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd", "jpeg2000"):
+        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd", "jpeg2000", "jpeg_arith"):
             more, got = metrics_on(kind, device, tmp)
             checks.update(more)
             numbers.update(got)

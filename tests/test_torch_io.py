@@ -248,7 +248,9 @@ def test_jpeg_fixtures_against_pils_committed_decode(jpg):
 
 def test_progressive_and_other_kinds_raise_naming_file_and_marker(tmp_path):
     """Progressive and CMYK files decode (to PIL's pixels: CMYK as PIL's
-    inverted "CMYK;I"); arithmetic-coded and other files raise, naming the
+    inverted "CMYK;I"); a frame relabelled SOF9 decodes its data as
+    arithmetic-coded, to PIL's pixels; kinds libjpeg-turbo does not decode
+    (arithmetic-coded lossless, SOF11) and other files raise, naming the
     file and the marker."""
     buf = io.BytesIO()
     Image.fromarray(_image(40, 40, 1)).save(buf, "JPEG", progressive=True)
@@ -262,8 +264,11 @@ def test_progressive_and_other_kinds_raise_naming_file_and_marker(tmp_path):
     assert got.dtype == want.dtype and got.shape == want.shape == (16, 16, 4)
     assert np.array_equal(got, want)
     arithmetic = cmyk.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)  # SOF9
-    with pytest.raises(ValueError, match=r"cmyk\.jpg: arithmetic-coded.*SOF9"):
-        native.decode_jpeg(arithmetic, "cmyk.jpg")
+    want = np.asarray(Image.open(io.BytesIO(arithmetic)))
+    assert np.array_equal(native.decode_jpeg(arithmetic, "cmyk.jpg"), want)
+    lossless_arithmetic = cmyk.getvalue().replace(b"\xff\xc0", b"\xff\xcb", 1)  # SOF11
+    with pytest.raises(ValueError, match=r"cmyk\.jpg: arithmetic-coded lossless.*SOF11"):
+        native.decode_jpeg(lossless_arithmetic, "cmyk.jpg")
     with pytest.raises(ValueError, match="not a JPEG"):
         native.decode_jpeg(b"\x89PNG\r\n", "x.jpg")
 

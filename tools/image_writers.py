@@ -8,8 +8,16 @@ standard library (no PIL): files of the kinds PIL reads but will not write.
   quality rule, Annex K's Huffman tables), 1, 3 or 4 components, any
   sampling factors 1-4 (box-filtered chroma), an optional Adobe APP14
   marker with transform 0, 1 or 2, restart intervals, and any progressive
-  scan script, complete or cut short of its last scans. PIL writes only
-  4:4:4, 4:2:2 and 4:2:0, never YCCK, and no partly refined file.
+  scan script, complete or cut short of its last scans; or arithmetic-coded
+  (SOF9 / SOF10) as libjpeg's jcarith.c codes it (T.81 Annex D, DAC
+  conditioning). PIL writes only 4:4:4, 4:2:2 and 4:2:0, never YCCK, no
+  partly refined file and nothing arithmetic-coded or lossless.
+- `jpeg_transcode`: a sequential Huffman JPEG (PIL's) rewritten coefficient
+  for coefficient, arithmetic-coded or progressive (`jpegtran -arithmetic`'s
+  rewrite), with `jpeg_coefficients`, a plain Huffman decoder for it.
+- `jpeg_lossless_bytes`: lossless JPEG (SOF3): predictors 1-7, a point
+  transform, restart intervals, any sampling, one interleaved scan or a
+  scan a component, JFIF or Adobe markers.
 - `png_bytes`: every colour type at every bit depth, PLTE / tRNS / other
   chunks, Adam7, one row filter throughout.
 - `bmp_bytes`: 1-, 4-, 8-bit palette, 16-, 24- and 32-bit, BI_RGB or
@@ -49,6 +57,7 @@ The port never imports this module; the fixture tool, the tests and
 from __future__ import annotations
 
 import lzma
+import re
 import struct
 import zlib
 from typing import Optional, Sequence, Tuple
@@ -238,10 +247,279 @@ def _encode_scan(units, blocks, comps, ss, se, ah, al, tables, restart_interval)
     return segments
 
 
+# T.81 Table D.2 as libjpeg's jaricom.c holds it: (Qe, next state after an
+# LPS, after an MPS, whether an LPS switches the MPS sense) of each state;
+# state 113 is the fixed estimate of 0.5 (T.851) for signs and refinement bits.
+ARITH_TABLE = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0))
+_QE = [q for q, _, _, _ in ARITH_TABLE]
+_NEXT_LPS = [n | (s << 7) for _, n, _, s in ARITH_TABLE]
+_NEXT_MPS = [n for _, _, n, _ in ARITH_TABLE]
+
+
+class _ArithEncoder:
+    """libjpeg's jcarith.c coder (T.81 Annex D): arith_encode and
+    finish_pass, its output already byte-stuffed, trailing zero bytes
+    dropped as libjpeg drops them. A statistics bin is one byte: the state
+    index in bits 0-6, the MPS in bit 7."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _zeros(self):
+        self.out += b"\x00" * self.zc
+        self.zc = 0
+
+    def _byte(self, v: int):
+        self.out.append(v)
+        if v == 0xFF:
+            self.out.append(0)
+
+    def _settle(self):
+        """A byte below 0xFF is done: the buffered byte and any stacked 0xFF
+        bytes can no longer carry."""
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._byte(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def _carry(self):
+        if self.buffer >= 0:
+            self._zeros()
+            self._byte(self.buffer + 1)
+        self.zc += self.sc
+        self.sc = 0
+
+    def encode(self, st: bytearray, i: int, val: int):
+        sv = st[i]
+        s = sv & 0x7F
+        qe = _QE[s]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ _NEXT_LPS[s]
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ _NEXT_MPS[s]
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._settle()
+                    self.buffer = temp
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._settle()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._byte((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._byte((self.c >> 11) & 0xFF)
+        return bytes(self.out)
+
+
+def _arith_scan(units, blocks, comps, ss, se, ah, al, restart_interval, dac) -> bytes:
+    """One scan coded as libjpeg's jcarith.c codes it (sequential when
+    `ss, se, ah, al` are 0, 63, 0, 0, else the progressive scan they name):
+    its entropy-coded data with its RSTn markers. `dac`
+    maps a DAC table index to its value (DC tables 0-15: L in the low
+    nibble, U in the high one; AC tables 16-31: Kx); component 0 codes with
+    tables 0, the others with tables 1."""
+    lower, upper, kx = [0] * 16, [1] * 16, [5] * 16
+    for index, val in (dac or {}).items():
+        if index < 16:
+            lower[index], upper[index] = val & 15, val >> 4
+        else:
+            kx[index - 16] = val
+    fixed = bytearray([113])
+
+    def fresh():
+        return (_ArithEncoder(), {t: bytearray(64) for t in (0, 1)},
+                {t: bytearray(256) for t in (0, 1)}, {c: 0 for c in comps}, {c: 0 for c in comps})
+
+    enc, dc_stats, ac_stats, last, ctx = fresh()
+
+    def magnitude(st, i, v, k_of_x1):  # Figures F.8 / F.9 from bin i; v >= 1
+        m, v = 0, v - 1
+        if v:
+            enc.encode(st, i, 1)
+            m = 1
+            v2 = v >> 1
+            if k_of_x1 is None:  # DC: X1 = 20
+                i = 20
+                while v2:
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+                    v2 >>= 1
+            elif v2:
+                enc.encode(st, i, 1)
+                m <<= 1
+                i = k_of_x1
+                v2 >>= 1
+                while v2:
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+                    v2 >>= 1
+        enc.encode(st, i, 0)
+        return m, v, i
+
+    def dc(c, v):
+        t = min(c, 1)
+        st, i = dc_stats[t], ctx[c]
+        d = v - last[c]
+        if d == 0:
+            enc.encode(st, i, 0)
+            ctx[c] = 0
+            return
+        last[c] = v
+        enc.encode(st, i, 1)
+        if d > 0:
+            enc.encode(st, i + 1, 0)
+            i, ctx[c] = i + 2, 4
+        else:
+            d = -d
+            enc.encode(st, i + 1, 1)
+            i, ctx[c] = i + 3, 8
+        m, d, i = magnitude(st, i, d, None)
+        if m < (1 << lower[t]) >> 1:
+            ctx[c] = 0
+        elif m > (1 << upper[t]) >> 1:
+            ctx[c] += 8
+        i += 14
+        m >>= 1
+        while m:
+            enc.encode(st, i, 1 if m & d else 0)
+            m >>= 1
+
+    def ac(c, blk):
+        t = min(c, 1)
+        st = ac_stats[t]
+        lo = max(ss, 1)
+        vals = [0] * 64
+        for k in range(lo, se + 1):
+            v = blk[k]
+            vals[k] = (v >> al) if v >= 0 else -((-v) >> al)
+        ke = 0
+        for k in range(se, 0, -1):
+            if vals[k]:
+                ke = k
+                break
+        if ah:
+            kex = 0
+            for k in range(ke, 0, -1):
+                if abs(blk[k]) >> ah:
+                    kex = k
+                    break
+        k = lo
+        while k <= ke:
+            i = 3 * (k - 1)
+            if not ah or k > kex:
+                enc.encode(st, i, 0)
+            while True:
+                v = vals[k]
+                if v and ah and abs(v) >> 1:  # previously nonzero: its next bit
+                    enc.encode(st, i + 2, abs(v) & 1)
+                    break
+                if v:
+                    enc.encode(st, i + 1, 1)
+                    enc.encode(fixed, 0, 0 if v > 0 else 1)
+                    break
+                enc.encode(st, i + 1, 0)
+                i += 3
+                k += 1
+            if not ah:
+                m, v, i = magnitude(st, i + 2, abs(vals[k]), 189 if k <= kx[t] else 217)
+                i += 14
+                m >>= 1
+                while m:
+                    enc.encode(st, i, 1 if m & v else 0)
+                    m >>= 1
+            k += 1
+        if k <= se:
+            enc.encode(st, 3 * (k - 1), 1)
+
+    out, restarts = b"", 0
+    for n, unit in enumerate(units):
+        if restart_interval and n and n % restart_interval == 0:
+            out += enc.finish() + bytes([0xFF, 0xD0 + restarts % 8])
+            restarts += 1
+            enc, dc_stats, ac_stats, last, ctx = fresh()
+        for c, by, bx in unit:
+            blk = [int(v) for v in blocks[c][by, bx]]
+            if ss == 0 and ah == 0:
+                dc(c, blk[0] >> al)
+            elif ss == 0:
+                enc.encode(fixed, 0, (blk[0] >> al) & 1)
+            if se > 0:
+                ac(c, blk)
+    return out + enc.finish()
+
+
 def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality: int = 90,
                adobe_transform: Optional[int] = None, ids: Optional[Sequence[int]] = None,
                jfif: Optional[bool] = None, restart_interval: int = 0,
-               scans: Optional[Sequence] = None) -> bytes:
+               scans: Optional[Sequence] = None, arithmetic: bool = False,
+               dac: Optional[dict] = None) -> bytes:
     """uint8 [H, W] or [H, W, C] samples, already in the coded colour space
     (C = 1, 3 or 4) -> JPEG bytes with `sampling[c] = (h, v)` for component
     c. Components take ids 1..C unless `ids` says otherwise; component 0
@@ -252,7 +530,10 @@ def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality
     `scans` makes it progressive (SOF2): (components, Ss, Se, Ah, Al) of
     each scan, such as `PROGRESSIVE_3` or the first few of its scans (a
     file that leaves coefficients unsent or unrefined); else one baseline
-    (SOF0) scan of every component."""
+    (SOF0) scan of every component. `arithmetic` codes the scans as
+    libjpeg's jcarith.c does (SOF9, or SOF10 with `scans`; no DHT), with
+    `dac` ({table index: value}, see `_arith_scan`) written as a DAC
+    segment and used by the coder."""
     samples = np.asarray(samples, np.uint8)
     if samples.ndim == 2:
         samples = samples[:, :, None]
@@ -276,41 +557,287 @@ def jpeg_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]], quality
         coef = dct @ b @ dct.T
         q = quant[min(c, 1)].reshape(8, 8)
         blocks.append(np.round(coef / q).astype(np.int64).reshape(bh, bw, 64)[:, :, ZIGZAG])
-        dims.append((-(-(-(-height * v // vmax)) // 8), -(-(-(-width * h // hmax)) // 8)))
+    ids = list(ids) if ids is not None else list(range(1, nc + 1))
+    head = b""
+    if jfif if jfif is not None else (adobe_transform is None and nc in (1, 3)):
+        head += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe_transform is not None:
+        head += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe_transform))
+    for t, q in enumerate(quant[:1 if nc == 1 else 2]):
+        head += _segment(0xDB, bytes([t]) + bytes(q[ZIGZAG].astype(np.uint8)))
+    comps = [(ids[c], h, v, min(c, 1)) for c, (h, v) in enumerate(sampling)]
+    return _jpeg_stream(head, height, width, comps, blocks, restart_interval, scans, arithmetic,
+                        dac)
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+
+def _jpeg_stream(head: bytes, height: int, width: int, comps, blocks, restart_interval: int,
+                 scans, arithmetic: bool, dac) -> bytes:
+    """SOI, `head` (APPn / DQT segments), the frame of `comps` = (id, h, v,
+    quantisation table) and the scans of the quantised `blocks` (per
+    component [blocks down, blocks across, 64] in zigzag order over whole
+    MCUs), then EOI: Huffman-coded with Annex K's tables (component 0 the
+    luma ones) or arithmetic-coded; one sequential scan of every component
+    unless `scans` gives a progressive script."""
+    nc = len(comps)
+    sampling = [(h, v) for _, h, v, _ in comps]
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    dims = [(-(-(-(-height * v // vmax)) // 8), -(-(-(-width * h // hmax)) // 8))
+            for h, v in sampling]
     tables = [(_huffman_codes(DC_LUMA), _huffman_codes(AC_LUMA)),
               (_huffman_codes(DC_CHROMA), _huffman_codes(AC_CHROMA))]
     script = [(tuple(range(nc)), 0, 63, 0, 0)] if scans is None else list(scans)
-    ids = list(ids) if ids is not None else list(range(1, nc + 1))
-
-    def segment(marker: int, payload: bytes) -> bytes:
-        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
-
-    out = b"\xff\xd8"
-    if jfif if jfif is not None else (adobe_transform is None and nc in (1, 3)):
-        out += segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    if adobe_transform is not None:
-        out += segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe_transform))
-    for t, q in enumerate(quant[:1 if nc == 1 else 2]):
-        out += segment(0xDB, bytes([t]) + bytes(q[ZIGZAG].astype(np.uint8)))
-    out += segment(0xC0 if scans is None else 0xC2,
-                   struct.pack(">BHHB", 8, height, width, nc) + b"".join(
-                       bytes([ids[c], (h << 4) | v, min(c, 1)])
-                       for c, (h, v) in enumerate(sampling)))
-    for t, (dc, ac) in enumerate([(DC_LUMA, AC_LUMA), (DC_CHROMA, AC_CHROMA)][:1 if nc == 1
-                                                                            else 2]):
-        out += segment(0xC4, bytes([t]) + bytes(dc[0]) + bytes(dc[1]))
-        out += segment(0xC4, bytes([0x10 | t]) + bytes(ac[0]) + bytes(ac[1]))
+    sof = (0xC9 if scans is None else 0xCA) if arithmetic else (0xC0 if scans is None else 0xC2)
+    out = b"\xff\xd8" + head + _segment(sof, struct.pack(">BHHB", 8, height, width, nc) + b"".join(
+        bytes([cid, (h << 4) | v, tq]) for cid, h, v, tq in comps))
+    if arithmetic:
+        if dac:
+            out += _segment(0xCC, b"".join(bytes([i, v]) for i, v in dac.items()))
+    else:
+        for t, (dc, ac) in enumerate([(DC_LUMA, AC_LUMA), (DC_CHROMA, AC_CHROMA)][:1 if nc == 1
+                                                                                else 2]):
+            out += _segment(0xC4, bytes([t]) + bytes(dc[0]) + bytes(dc[1]))
+            out += _segment(0xC4, bytes([0x10 | t]) + bytes(ac[0]) + bytes(ac[1]))
     if restart_interval:
-        out += segment(0xDD, struct.pack(">H", restart_interval))
-    for comps, ss, se, ah, al in script:
-        out += segment(0xDA, bytes([len(comps)]) + b"".join(
-            bytes([ids[c], 0x11 * min(c, 1)]) for c in comps) + bytes([ss, se, (ah << 4) | al]))
-        units = _mcu_blocks(comps, sampling, mcux, mcuy, dims)
-        for n, bits in enumerate(_encode_scan(units, blocks, comps, ss, se, ah, al, tables,
+        out += _segment(0xDD, struct.pack(">H", restart_interval))
+    for sc, ss, se, ah, al in script:
+        out += _segment(0xDA, bytes([len(sc)]) + b"".join(
+            bytes([comps[c][0], 0x11 * min(c, 1)]) for c in sc) + bytes([ss, se, (ah << 4) | al]))
+        units = _mcu_blocks(sc, sampling, mcux, mcuy, dims)
+        if arithmetic:
+            out += _arith_scan(units, blocks, sc, ss, se, ah, al, restart_interval, dac)
+            continue
+        for n, bits in enumerate(_encode_scan(units, blocks, sc, ss, se, ah, al, tables,
                                               restart_interval)):
             if n:
                 out += bytes([0xFF, 0xD0 + (n - 1) % 8])
             out += bits.packed(1).replace(b"\xff", b"\xff\x00")
+    return out + b"\xff\xd9"
+
+
+def jpeg_coefficients(blob: bytes):
+    """A sequential Huffman JPEG (SOF0 / SOF1, one or more scans, restart
+    intervals), such as PIL writes -> (its APPn, COM and DQT segments as
+    they are, height, width, the frame's components (id, h, v, quantisation
+    table), the quantised coefficients of each component: [blocks down,
+    blocks across, 64] in zigzag order over whole MCUs). A plain Huffman
+    decoder in Python, for transcoding; it reads no damaged file."""
+    head, pos, huff, restart, comps, blocks = b"", 2, {}, 0, None, None
+    height = width = mcux = mcuy = 0
+    while True:
+        marker = blob[pos + 1]
+        if marker == 0xD9:
+            return head, height, width, comps, blocks
+        n = struct.unpack_from(">H", blob, pos + 2)[0]
+        body = blob[pos + 4:pos + 2 + n]
+        pos += 2 + n
+        if marker in (0xC0, 0xC1):
+            height, width = struct.unpack_from(">HH", body, 1)
+            comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15, body[8 + 3 * i])
+                     for i in range(body[5])]
+            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+            mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+            blocks = [np.zeros((mcuy * v, mcux * h, 64), np.int64) for _, h, v, _ in comps]
+        elif marker == 0xC4:
+            while body:
+                counts, k, codes = body[1:17], 17, {}
+                code = 0
+                for length, count in enumerate(counts, start=1):
+                    for _ in range(count):
+                        codes[(length, code)] = body[k]
+                        code += 1
+                        k += 1
+                    code <<= 1
+                huff[body[0]] = codes
+                body = body[k:]
+        elif marker == 0xDD:
+            restart = struct.unpack(">H", body)[0]
+        elif marker == 0xDA:
+            sc = [next(i for i, c in enumerate(comps) if c[0] == body[1 + 2 * j])
+                  for j in range(body[0])]
+            sel = [body[2 + 2 * j] for j in range(body[0])]
+            end = pos  # the data runs to the first marker other than FF 00 or RSTn
+            while blob[end] != 0xFF or blob[end + 1] == 0 or 0xD0 <= blob[end + 1] <= 0xD7:
+                end += 1
+            data = blob[pos:end]
+            pos = end
+            _huffman_scan(data, sc, sel, comps, blocks, huff, restart, mcux, mcuy, height, width)
+        else:
+            head += blob[pos - 2 - n:pos]
+
+
+def _huffman_scan(data, sc, sel, comps, blocks, huff, restart, mcux, mcuy, height, width):
+    segments = [s.replace(b"\xff\x00", b"\xff") for s in
+                re.split(b"\xff[\xd0-\xd7]", data)]
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    if len(sc) == 1:
+        _, h, v, _ = comps[sc[0]]
+        down = -(-(-(-height * v // vmax)) // 8)
+        across = -(-(-(-width * h // hmax)) // 8)
+        units = [[(sc[0], by, bx)] for by in range(down) for bx in range(across)]
+    else:
+        units = [[(c, my * comps[c][2] + by, mx * comps[c][1] + bx) for c in sc
+                  for by in range(comps[c][2]) for bx in range(comps[c][1])]
+                 for my in range(mcuy) for mx in range(mcux)]
+    seg, bits, at, pred = 0, None, 0, {}
+
+    def bit():
+        nonlocal at
+        b = (bits[at >> 3] >> (7 - (at & 7))) & 1
+        at += 1
+        return b
+
+    def symbol(codes):
+        code = length = 0
+        while (length, code) not in codes:
+            code = (code << 1) | bit()
+            length += 1
+        return codes[(length, code)]
+
+    def value(s):
+        v = 0
+        for _ in range(s):
+            v = (v << 1) | bit()
+        return v - (1 << s) + 1 if s and v < 1 << (s - 1) else v
+
+    for n, unit in enumerate(units):
+        if n == 0 or (restart and n % restart == 0):
+            bits, at, pred = segments[seg], 0, {c: 0 for c in sc}
+            seg += 1
+        for c, by, bx in unit:
+            td, ta = sel[sc.index(c)] >> 4, sel[sc.index(c)] & 15
+            pred[c] += value(symbol(huff[td]))
+            blk = blocks[c][by, bx]
+            blk[0] = pred[c]
+            k = 1
+            while k < 64:
+                rs = symbol(huff[0x10 | ta])
+                if rs == 0:
+                    break
+                k += rs >> 4
+                if rs & 15:
+                    blk[k] = value(rs & 15)
+                k += 1
+
+
+def jpeg_transcode(blob: bytes, scans: Optional[Sequence] = None, restart_interval: int = 0,
+                   dac: Optional[dict] = None) -> bytes:
+    """A sequential Huffman JPEG (PIL's) rewritten coefficient for
+    coefficient, as `jpegtran -arithmetic` rewrites it: its APPn / COM /
+    DQT segments kept, its frame and coefficients arithmetic-coded by
+    `_jpeg_stream` (progressive under `scans`; `restart_interval`, `dac`).
+    Its decode equals the source's: the coefficients are the same."""
+    head, height, width, comps, blocks = jpeg_coefficients(blob)
+    return _jpeg_stream(head, height, width, comps, blocks, restart_interval, scans, True, dac)
+
+
+# Lossless JPEG's difference table: Annex K's luminance DC code lengths for
+# categories 0-11, then 12-16 at 12 bits (16: a difference of 32768).
+LOSSLESS_TABLE = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 5, 0, 0, 0, 0], list(range(17)))
+
+
+def _lossless_predict(rows: np.ndarray, predictor: int, initial: int) -> np.ndarray:
+    """The predictions of lossless JPEG (H.1.2.1) for int rows [n, w] of one
+    component, row 0 the first of a scan or restart interval: predictor 1-7
+    from Ra (left), Rb (above) and Rc (above left); the first row takes Ra
+    and its first sample `initial`; a later row's first sample takes Rb."""
+    x = rows.astype(np.int64)
+    p = np.zeros_like(x)
+    for r in range(x.shape[0]):
+        if r == 0:
+            p[r, 0] = initial
+            p[r, 1:] = x[r, :-1]
+            continue
+        ra, rb = x[r, :-1], x[r - 1, 1:]
+        rc = x[r - 1, :-1]
+        p[r, 0] = x[r - 1, 0]
+        p[r, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                    6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+    return p
+
+
+def jpeg_lossless_bytes(samples: np.ndarray, predictor: int = 1, point_transform: int = 0,
+                        sampling: Optional[Sequence[Tuple[int, int]]] = None,
+                        restart_interval: int = 0, jfif: bool = False,
+                        adobe_transform: Optional[int] = None, ids: Optional[Sequence[int]] = None,
+                        separate: bool = False, precision: int = 8) -> bytes:
+    """uint8 [H, W] or [H, W, C] samples -> a lossless JPEG (SOF3, Huffman):
+    `predictor` 1-7 (Ss), `point_transform` Pt (Al: the samples shifted
+    right by it), `sampling[c] = (h, v)` (a subsampled component is the
+    rounded box mean of the samples), `restart_interval` in MCUs (a
+    multiple of an MCU row's MCUs, as libjpeg wants), one interleaved scan
+    or, with `separate`, a scan per component; no JFIF APP0 unless `jfif`
+    (libjpeg-turbo then takes three components as YCbCr, which it will not
+    convert), an Adobe APP14 under `adobe_transform`. Every component codes
+    with DHT table 0, `LOSSLESS_TABLE`."""
+    samples = np.asarray(samples, np.uint8)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    height, width, nc = samples.shape
+    sampling = list(sampling or [(1, 1)] * nc)
+    ids = list(ids) if ids is not None else list(range(1, nc + 1))
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    codes = _huffman_codes(LOSSLESS_TABLE)
+    initial = 1 << (precision - point_transform - 1)
+    diffs = []  # per component: [rows, cols] differences over whole MCUs
+    for c, (h, v) in enumerate(sampling):
+        fy, fx = vmax // v, hmax // h
+        full = np.pad(samples[:, :, c].astype(np.float64),
+                      ((0, -height % fy), (0, -width % fx)), mode="edge")
+        plane = np.round(full.reshape(full.shape[0] // fy, fy, full.shape[1] // fx, fx)
+                         .mean(axis=(1, 3))).astype(np.int64) >> point_transform
+        rows_per = v if not separate else 1
+        unit_rows = (restart_interval // (mcux if not separate else plane.shape[1])) * rows_per \
+            if restart_interval else plane.shape[0]
+        d = np.zeros((mcuy * v, mcux * h), np.int64)
+        for r0 in range(0, plane.shape[0], unit_rows):
+            part = plane[r0:r0 + unit_rows]
+            d[r0:r0 + part.shape[0], :plane.shape[1]] = part - _lossless_predict(
+                part, predictor, initial)
+        diffs.append(d if not separate else d[:plane.shape[0], :plane.shape[1]])
+    out = b"\xff\xd8"
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe_transform is not None:
+        out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe_transform))
+    out += _segment(0xC3, struct.pack(">BHHB", precision, height, width, nc) + b"".join(
+        bytes([ids[c], (h << 4) | v, 0]) for c, (h, v) in enumerate(sampling)))
+    out += _segment(0xC4, bytes([0]) + bytes(LOSSLESS_TABLE[0]) + bytes(LOSSLESS_TABLE[1]))
+    if restart_interval:
+        out += _segment(0xDD, struct.pack(">H", restart_interval))
+    for sc in ([[c] for c in range(nc)] if separate else [list(range(nc))]):
+        out += _segment(0xDA, bytes([len(sc)]) + b"".join(bytes([ids[c], 0]) for c in sc)
+                        + bytes([predictor, 0, point_transform]))
+        if separate:
+            values = diffs[sc[0]].reshape(-1)
+        else:
+            mcus = []
+            for c in sc:
+                h, v = sampling[c]
+                d = diffs[c].reshape(mcuy, v, mcux, h).transpose(0, 2, 1, 3).reshape(
+                    mcuy * mcux, v * h)
+                mcus.append(d)
+            values = np.concatenate(mcus, axis=1).reshape(-1)
+        bits, n = _Bits(), 0
+        samples_per_mcu = 1 if separate else sum(h * v for h, v in (sampling[c] for c in sc))
+        for i, dv in enumerate(values.tolist()):
+            if restart_interval and i and i % (restart_interval * samples_per_mcu) == 0:
+                out += bits.packed(1).replace(b"\xff", b"\xff\x00")
+                out += bytes([0xFF, 0xD0 + n % 8])
+                n += 1
+                bits = _Bits()
+            size, extra = _magnitude(dv)
+            bits.put(*codes[size])
+            if size < 16:
+                bits.put(extra, size)
+        out += bits.packed(1).replace(b"\xff", b"\xff\x00")
     return out + b"\xff\xd9"
 
 
@@ -611,7 +1138,9 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
     32946 (Deflate), or 7 (JPEG: each strip or tile an abbreviated stream of
     `jpeg_bytes`, its tables in JPEGTables; `jpeg` = dict(sampling=...,
     quality=..., tables=False to keep the tables in every stream, subsampling=
-    the YCbCrSubsampling tag to write or None)); JPEG samples are already in
+    the YCbCrSubsampling tag to write or None, arithmetic=, dac=, scans=,
+    restart_interval= as `jpeg_bytes` takes them, or lossless=`jpeg_lossless_bytes`'s
+    keywords for a lossless stream)); JPEG samples are already in
     the coded colour space (YCbCr for photometric 6). `predictor` 2
     differences each row and 3 is libtiff's floating-point predictor (both
     applied only under LZW, Deflate, LZMA and ZSTD). `fill_order` 2 reverses the bits of
@@ -657,9 +1186,14 @@ def tiff_bytes(samples: np.ndarray, photometric: int, compression: int = 1,
                     block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
                                            (0, 0)))
                 if compression == 7:
-                    whole = jpeg_bytes(block, jpeg.get("sampling", ((1, 1),) * n) if n == spp
-                                       else ((1, 1),),
-                                       jpeg.get("quality", 90), jfif=False)
+                    sampling = jpeg.get("sampling", ((1, 1),) * n) if n == spp else ((1, 1),)
+                    if jpeg.get("lossless") is not None:
+                        whole = jpeg_lossless_bytes(block, sampling=sampling, **jpeg["lossless"])
+                    else:
+                        whole = jpeg_bytes(block, sampling, jpeg.get("quality", 90), jfif=False,
+                                           arithmetic=jpeg.get("arithmetic", False),
+                                           dac=jpeg.get("dac"), scans=jpeg.get("scans"),
+                                           restart_interval=jpeg.get("restart_interval", 0))
                     tables, raw = _split_jpeg(whole)
                     segments.append(whole if jpeg.get("tables") is False else raw)
                     continue

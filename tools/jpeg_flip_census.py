@@ -18,9 +18,11 @@ only where the flip lies in entropy-coded data.
 
     python tools/jpeg_flip_census.py [--workers N] [--json OUT] [files...]
 
-With no files it reads the three committed probe files in
+With no files it reads the six committed probe files in
 `tests/format_fixtures/` (a 4:2:0 baseline, a 4:4:4 baseline with a
-restart interval, a progressive 4:2:0). It prints one table a file and
+restart interval, a progressive 4:2:0; an arithmetic-coded 4:2:0 with a
+restart interval and DAC, an arithmetic-coded progressive 4:2:0, a
+lossless RGB file with a restart interval). It prints one table a file and
 exits 1 if a breach was found. It needs PIL, so it runs in a development
 environment, not on the card's machine; nothing in the port imports it.
 """
@@ -40,10 +42,13 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROBES = ("jpeg_probe_420.jpg", "jpeg_probe_444_restart.jpg", "jpeg_probe_420_progressive.jpg")
+PROBES = ("jpeg_probe_420.jpg", "jpeg_probe_444_restart.jpg", "jpeg_probe_420_progressive.jpg",
+          "jpeg_probe_arith_restart.jpg", "jpeg_probe_arith_progressive.jpg",
+          "jpeg_probe_lossless_restart.jpg")
 OUTCOMES = ("equal", "both raise", "port != PIL", "PIL raises, port decodes",
             "port raises, PIL decodes")
-ROWS = ("entropy-coded data", "RSTn", "DHT", "DQT", "SOF", "SOS", "DRI", "APPn", "SOI", "EOI")
+ROWS = ("entropy-coded data", "RSTn", "DHT", "DAC", "DQT", "SOF", "SOS", "DRI", "APPn", "SOI",
+        "EOI")
 NAME = "census.jpg"
 
 
@@ -57,7 +62,7 @@ def segments(blob: bytes) -> List[str]:
             where[pos:pos + 2] = ["EOI"] * 2
             break
         length = (blob[pos + 2] << 8) | blob[pos + 3]
-        kind = {0xC4: "DHT", 0xDB: "DQT", 0xDD: "DRI", 0xDA: "SOS"}.get(m)
+        kind = {0xC4: "DHT", 0xCC: "DAC", 0xDB: "DQT", 0xDD: "DRI", 0xDA: "SOS"}.get(m)
         kind = kind or ("SOF" if 0xC0 <= m <= 0xCF else "APPn")
         end = pos + 2 + length
         where[pos:end] = [kind] * (end - pos)

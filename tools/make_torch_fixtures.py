@@ -6,6 +6,8 @@
     python3 tools/make_torch_fixtures.py --raster    # only the TIFF / Netpbm / TGA / QOI ones
     python3 tools/make_torch_fixtures.py --codecs    # only the damaged-JPEG and TIFF-codec ones
     python3 tools/make_torch_fixtures.py --readers   # only the ZSTD TIFF, ICO ... Sun ones
+    python3 tools/make_torch_fixtures.py --jpeg2000  # only the JPEG 2000 and ICNS ones
+    python3 tools/make_torch_fixtures.py --jpeg-arith  # only the arithmetic / lossless JPEGs
 
 Needs PIL (it writes the JPEGs and records PIL's decode of each), so it runs
 where the tests run, not on the card. It writes, from seeds:
@@ -118,6 +120,27 @@ and under `tests/format_fixtures/`, from the 1296x832 JPEG's decode
   PIL, in one strip and in PIL's default strips, with the dtype, shape and
   SHA-256 of PIL's decode of seeded random BC7 and BC1 blocks at 1296x832
   in `pil_decode/scene_1296x832_{bc7,bc1}_dds.json`;
+- arithmetic-coded and lossless JPEG (`jpeg_arith_cases`, written alone by
+  `--jpeg-arith`): PIL's JPEG of the crop transcoded coefficient for
+  coefficient to SOF9 (with DAC and a restart interval) and SOF10, and
+  `tools/image_writers` files of every mode (4:4:4 with DAC, grey with
+  restarts, Adobe RGB, CMYK, YCCK, progressive with restarts and DAC,
+  partly refined ones, damaged ones PIL decodes; lossless at each predictor,
+  a point transform, restarts, grey, 4:2:0, 4:1:1, a scan a component,
+  the restart-inside-an-iMCU-row case, Adobe RGB ids, CMYK, damaged), the
+  census's three new probes, and JPEG-in-TIFF arithmetic-coded (YCbCr
+  4:2:0, progressive tiles) and lossless (RGB, grey with a point
+  transform); `colmap_jpeg_arith/view_<i>`: the six COLMAP views as an
+  arithmetic-coded JPEG with DAC and restarts, an arithmetic-coded
+  progressive one, lossless files with a scan a component, with predictor
+  7 and a point transform, and at 4:2:0, and an arithmetic-coded
+  JPEG-YCbCr TIFF (a one-channel view does not train in either package);
+  `metrics_jpeg_arith/`: a method directory of arithmetic-coded renders
+  and arithmetic progressive / lossless ground truths; and
+  `tests/torch_fixtures/jpeg_arith/` (`.jpeg`, which the globs over
+  `*.jpg` there skip): the 1296x832 JPEG transcoded to SOF9 and SOF10 (each
+  under PIL's 64 KiB read block) and its decode as a lossless file, each
+  with PIL's hash in `pil_decode/<name>_jpeg.json`;
 and, with `--formats` too, `tests/torch_fixtures/webp/`: the 1296x832 view
 as lossy WebP at quality 90 (PIL's decode in
 `pil_decode/scene_1296x832_q90_webp.png`) and an 800x800 RGBA lossless WebP
@@ -1509,10 +1532,211 @@ def write_jpeg2000(src):
             f.write("\n")
 
 
+# The 1296x832 arithmetic-coded and lossless views (`tests/torch_fixtures/jpeg_arith/`,
+# `.jpeg` so that the globs over `*.jpg` there, which want a PNG twin, skip
+# them): name, and what `arith_scenes` makes of the committed 4:2:0 view.
+ARITH_SCENES = ("scene_1296x832_arith", "scene_1296x832_arith_progressive",
+                "scene_1296x832_jpeg_lossless")
+ARITH_DAC = {0: 0x31, 1: 0x20, 16: 8, 17: 3}  # L / U of DC tables 0-1, Kx of AC tables 0-1
+
+
+def arith_scenes(blob, view):
+    """{name: bytes} of `ARITH_SCENES` from PIL's 4:2:0 JPEG of the view
+    (`blob`) and PIL's decode of it (`view`): the JPEG arithmetic-coded
+    coefficient for coefficient (DAC, a restart every 54 MCUs, a row), and
+    progressive under libjpeg's scan script; the decode as a lossless
+    predictor-1 RGB file, which decodes to `view` exactly. An arithmetic
+    file must fit PIL's 64 KiB read blocks, as these do (44-45 KB)."""
+    from tools import image_writers as iw
+
+    return {ARITH_SCENES[0]: iw.jpeg_transcode(blob, restart_interval=54, dac=ARITH_DAC),
+            ARITH_SCENES[1]: iw.jpeg_transcode(blob, scans=iw.PROGRESSIVE_3),
+            ARITH_SCENES[2]: iw.jpeg_lossless_bytes(view, predictor=1)}
+
+
+def _pil_jpeg(img, **kw):
+    from PIL import Image
+
+    return _pil_bytes(Image.fromarray(img), "JPEG", **kw)
+
+
+def jpeg_arith_cases(crop):
+    """(name, bytes) of the arithmetic-coded and lossless JPEG fixtures, from
+    the 48x64 crop (module docstring)."""
+    from tools import image_writers as iw
+    from tools.image_writers import PROGRESSIVE_1, PROGRESSIVE_3, rgb_to_ycc
+
+    ycc, s420, s444 = rgb_to_ycc(crop), ((2, 2), (1, 1), (1, 1)), ((1, 1),) * 3
+    grey = ycc[..., 0]
+    cmyk = np.concatenate([crop, 255 - crop[..., :1]], axis=2)
+    pil420 = _pil_jpeg(crop, quality=90)
+    arith_seq = iw.jpeg_bytes(ycc, s420, quality=90, arithmetic=True, restart_interval=3)
+    arith_prog = iw.jpeg_bytes(ycc, s420, quality=90, arithmetic=True, scans=PROGRESSIVE_3)
+    lossless = iw.jpeg_lossless_bytes(crop, predictor=4, restart_interval=128)
+    probe = probe_image()
+    out = [
+        ("jpeg_arith_seq_420.jpg", iw.jpeg_transcode(pil420)),
+        ("jpeg_arith_seq_420_dac_restart.jpg", iw.jpeg_transcode(pil420, restart_interval=2,
+                                                                  dac=ARITH_DAC)),
+        ("jpeg_arith_seq_444_dac.jpg", iw.jpeg_bytes(ycc, s444, quality=95, arithmetic=True,
+                                                     dac={0: 0x52, 1: 0x10, 16: 2, 17: 40})),
+        ("jpeg_arith_seq_grey_restart.jpg", iw.jpeg_bytes(grey, ((1, 1),), quality=85,
+                                                          arithmetic=True, restart_interval=5)),
+        ("jpeg_arith_seq_422_adobe_rgb.jpg", iw.jpeg_bytes(crop, ((2, 1), (1, 1), (1, 1)),
+                                                           arithmetic=True, adobe_transform=0)),
+        ("jpeg_arith_cmyk.jpg", iw.jpeg_bytes(cmyk, ((1, 1),) * 4, arithmetic=True,
+                                              adobe_transform=0)),
+        ("jpeg_arith_ycck.jpg", iw.jpeg_bytes(np.concatenate([ycc, cmyk[..., 3:]], axis=2),
+                                              ((2, 2), (1, 1), (1, 1), (2, 2)), arithmetic=True,
+                                              adobe_transform=2)),
+        ("jpeg_arith_seq_420_restart.jpg", arith_seq),
+        ("jpeg_arith_prog_420.jpg", iw.jpeg_transcode(pil420, scans=PROGRESSIVE_3)),
+        ("jpeg_arith_prog_420_dac_restart.jpg", iw.jpeg_bytes(
+            ycc, s420, quality=90, arithmetic=True, scans=PROGRESSIVE_3, restart_interval=2,
+            dac={0: 0x20, 1: 0x41, 16: 20, 17: 1})),
+        ("jpeg_arith_prog_partial_ac.jpg", iw.jpeg_bytes(ycc, s420, quality=90, arithmetic=True,
+                                                         scans=PROGRESSIVE_3[:4])),
+        ("jpeg_arith_prog_partial_refine.jpg", iw.jpeg_bytes(
+            ycc, s420, quality=90, arithmetic=True, scans=PROGRESSIVE_3[:8])),
+        ("jpeg_arith_prog_grey_dc.jpg", iw.jpeg_bytes(grey, ((1, 1),), quality=85,
+                                                      arithmetic=True, scans=PROGRESSIVE_1[:1])),
+        ("jpeg_arith_prog_grey_restart.jpg", iw.jpeg_bytes(
+            grey, ((1, 1),), quality=85, arithmetic=True, scans=PROGRESSIVE_1,
+            restart_interval=7)),
+        ("jpeg_arith_damaged.jpg", damaged_jpeg(arith_seq, 6)),
+        ("jpeg_arith_prog_damaged.jpg", damaged_jpeg(arith_prog, 7, 2)),
+        ("jpeg_lossless_grey.jpg", iw.jpeg_lossless_bytes(grey, predictor=1)),
+        ("jpeg_lossless_grey_jfif_p5.jpg", iw.jpeg_lossless_bytes(grey, predictor=5, jfif=True)),
+        ("jpeg_lossless_p7_pt2.jpg", iw.jpeg_lossless_bytes(crop, predictor=7,
+                                                            point_transform=2)),
+        ("jpeg_lossless_restart_p4.jpg", lossless),
+        ("jpeg_lossless_420.jpg", iw.jpeg_lossless_bytes(crop, predictor=6, sampling=s420)),
+        ("jpeg_lossless_411_restart.jpg", iw.jpeg_lossless_bytes(
+            crop, predictor=2, sampling=((4, 1), (1, 1), (1, 1)), restart_interval=32)),
+        ("jpeg_lossless_separate_scans.jpg", iw.jpeg_lossless_bytes(crop, predictor=3,
+                                                                    separate=True)),
+        # libjpeg resets the predictors of a non-interleaved scan's iMCU row
+        # (here two rows of component 0) when a restart falls inside it,
+        # before any of its rows is undifferenced: PIL's decode is not the
+        # source, and the port's must be PIL's.
+        ("jpeg_lossless_separate_v2_restart.jpg", iw.jpeg_lossless_bytes(
+            crop, predictor=1, sampling=((1, 2), (1, 1), (1, 1)), separate=True,
+            restart_interval=64)),
+        ("jpeg_lossless_adobe_rgb_ids.jpg", iw.jpeg_lossless_bytes(crop, predictor=2,
+                                                                   adobe_transform=0,
+                                                                   ids=(82, 71, 66))),
+        ("jpeg_lossless_cmyk.jpg", iw.jpeg_lossless_bytes(cmyk, predictor=7)),
+        ("jpeg_lossless_damaged.jpg", damaged_jpeg(lossless, 8, 2)),
+        ("jpeg_probe_arith_restart.jpg", iw.jpeg_bytes(rgb_to_ycc(probe), s420, quality=90,
+                                                       arithmetic=True, restart_interval=2,
+                                                       dac=ARITH_DAC)),
+        ("jpeg_probe_arith_progressive.jpg", iw.jpeg_bytes(rgb_to_ycc(probe), s420, quality=90,
+                                                           arithmetic=True, scans=PROGRESSIVE_3)),
+        ("jpeg_probe_lossless_restart.jpg", iw.jpeg_lossless_bytes(probe, predictor=4,
+                                                                   restart_interval=96)),
+        ("tif_jpeg_arith_ycbcr420.tif", iw.tiff_bytes(
+            ycc, 6, compression=7, rows_per_strip=16,
+            jpeg=dict(sampling=s420, subsampling=(2, 2), arithmetic=True, dac=ARITH_DAC,
+                      restart_interval=2))),
+        ("tif_jpeg_arith_rgb_progressive_tiled.tif", iw.tiff_bytes(
+            crop, 2, compression=7, tile=(32, 32), jpeg=dict(arithmetic=True,
+                                                             scans=PROGRESSIVE_3))),
+        ("tif_jpeg_lossless_rgb.tif", iw.tiff_bytes(crop, 2, compression=7, rows_per_strip=16,
+                                                    jpeg=dict(lossless=dict(predictor=6)))),
+        ("tif_jpeg_lossless_grey_pt1.tif", iw.tiff_bytes(
+            grey, 1, compression=7, rows_per_strip=24,
+            jpeg=dict(lossless=dict(predictor=1, point_transform=1))))]
+    out += [(f"jpeg_lossless_p{p}.jpg", iw.jpeg_lossless_bytes(crop, predictor=p))
+            for p in range(1, 8)]
+    return out
+
+
+def jpeg_arith_views(views):
+    """The six COLMAP views of `colmap_jpeg_arith/`, from PIL's JPEGs of the
+    `colmap_jpeg` views and their decodes (`views`)."""
+    from tools import image_writers as iw
+
+    blobs = [open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg"), "rb").read()
+             for i in range(VIEWS)]
+    s420 = ((2, 2), (1, 1), (1, 1))
+    return [("view_0.jpg", iw.jpeg_transcode(blobs[0], restart_interval=5, dac=ARITH_DAC)),
+            ("view_1.jpg", iw.jpeg_transcode(blobs[1], scans=iw.PROGRESSIVE_3)),
+            ("view_2.jpg", iw.jpeg_lossless_bytes(views[2], predictor=1, separate=True,
+                                                  restart_interval=400)),
+            ("view_3.jpg", iw.jpeg_lossless_bytes(views[3], predictor=7, point_transform=1)),
+            ("view_4.jpg", iw.jpeg_lossless_bytes(views[4], predictor=5, sampling=s420,
+                                                  restart_interval=200)),
+            ("view_5.tif", iw.tiff_bytes(iw.rgb_to_ycc(views[5]), 6, compression=7,
+                                         rows_per_strip=32,
+                                         jpeg=dict(sampling=s420, subsampling=(2, 2),
+                                                   arithmetic=True)))]
+
+
+def write_jpeg_arith(src):
+    """The arithmetic-coded and lossless JPEG fixtures (module docstring);
+    `src` is the 1296x832 view's decode."""
+    import hashlib
+    import json
+
+    from PIL import Image
+
+    def save(path, blob):
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+
+    crop = src[560:608, 840:904]
+    for name, blob in jpeg_arith_cases(crop):
+        save(os.path.join(FORMATS, name), blob)
+    views_dir = os.path.join(FORMATS, "colmap_jpeg_arith")
+    shutil.rmtree(views_dir, ignore_errors=True)
+    os.makedirs(views_dir)
+    views = [np.asarray(Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg")))
+             for i in range(VIEWS)]
+    for name, blob in jpeg_arith_views(views):
+        save(os.path.join(views_dir, name), blob)
+    from tools import image_writers as iw
+
+    metrics = os.path.join(FORMATS, "metrics_jpeg_arith")
+    shutil.rmtree(metrics, ignore_errors=True)
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    for i, (y, x) in enumerate(((300, 520), (620, 900))):
+        render, gt = src[y:y + 48, x:x + 64], src[y + 2:y + 50, x + 2:x + 66]
+        for d, blob in (("renders", iw.jpeg_transcode(_pil_jpeg(render, quality=90),
+                                                      restart_interval=4 if i else 0)),
+                        ("gt", iw.jpeg_transcode(_pil_jpeg(gt, quality=95),
+                                                 scans=iw.PROGRESSIVE_3) if i == 0
+                         else iw.jpeg_lossless_bytes(gt, predictor=7))):
+            path = os.path.join(metrics, d, f"{i:05d}.jpg")
+            with open(path, "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(metrics, "pil", f"{d}_{i:05d}.npy"), np.asarray(Image.open(path)))
+    adir = os.path.join(OUT, "jpeg_arith")
+    shutil.rmtree(adir, ignore_errors=True)
+    os.makedirs(adir)
+    with open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"), "rb") as f:
+        base = f.read()
+    for name, blob in arith_scenes(base, src).items():
+        path = os.path.join(adir, f"{name}.jpeg")
+        with open(path, "wb") as f:
+            f.write(blob)
+        pil = np.asarray(Image.open(path))
+        assert np.array_equal(pil, src)  # the same coefficients, or lossless: the view itself
+        with open(os.path.join(OUT, "pil_decode", name + "_jpeg.json"), "w") as f:
+            json.dump({"dtype": str(pil.dtype), "shape": list(pil.shape),
+                       "sha256": hashlib.sha256(pil.tobytes()).hexdigest()}, f, indent=1)
+            f.write("\n")
+
+
 def main(argv=None) -> int:
     from PIL import Image, ImageFile
 
     args = argv or sys.argv[1:]
+    if "--jpeg-arith" in args:
+        write_jpeg_arith(np.asarray(Image.open(os.path.join(OUT, "jpeg",
+                                                            "scene_1296x832_420.jpg"))))
+        return 0
     if "--jpeg2000" in args:
         write_jpeg2000(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
         return 0
@@ -1530,6 +1754,7 @@ def main(argv=None) -> int:
             write_codecs(decoded)
             write_readers(decoded)
             write_jpeg2000(decoded)
+            write_jpeg_arith(decoded)
         write_raster(decoded)
         return 0
 
@@ -1595,6 +1820,7 @@ def main(argv=None) -> int:
     write_codecs(decoded)
     write_readers(decoded)
     write_jpeg2000(decoded)
+    write_jpeg_arith(decoded)
     write_raster(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")

@@ -4,9 +4,11 @@ The port's counterpart of `wast3d_tpu/native`: the same C ABI and Python
 API (`available`, `read_ply_f32`, `write_ply_f32`, `read_colmap_points3d`,
 the `WAST3D_NO_NATIVE` opt-out), plus what datasets need without PIL, since
 the card's machine has none: a JPEG decoder (`read_jpeg`, `decode_jpeg`;
-baseline and progressive, 1, 3 or 4 components, any integral sampling,
-damaged and partly refined files as libjpeg-turbo reads them; `jpeg.cpp`,
-with its upsampler alone as `jpeg_upsample` and its IDCT as `jpeg_idct`),
+Huffman-coded baseline and progressive, arithmetic-coded sequential and
+progressive, lossless, 1, 3 or 4 components, any integral sampling,
+damaged and partly refined files as libjpeg-turbo 3.1.3 reads them;
+`jpeg.cpp`, with its upsampler alone as `jpeg_upsample`, its IDCT as
+`jpeg_idct` and its lossless undifferencing as `jpeg_undifference`),
 and the byte loops
 of the other readers (`image.cpp`): PNG unfiltering and Adam7 at every bit
 depth (`png_unfilter`), sub-byte unpacking (`unpack_bits`), BMP run lengths
@@ -103,6 +105,9 @@ _SIGNATURES = {
                           _c.c_int32, _c.c_void_p, _c.c_void_p, _c.c_char_p, _c.c_int32],
                          _c.c_int),
     "w3d_jpeg_idct": ([_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p], _c.c_int),
+    "w3d_jpeg_undifference": ([_c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32,
+                               _c.c_int32, _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32],
+                              _c.c_int),
     "w3d_jpeg_decode_as": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_int64,
                             _c.c_char_p, _c.c_int32], _c.c_int),
     "w3d_tga_rle": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int64, _c.c_int64, _c.c_void_p,
@@ -214,7 +219,8 @@ def _message(msg) -> str:
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>", colour: int = 0) -> np.ndarray:
-    """Baseline or progressive JPEG bytes -> uint8 [H, W, 3], [H, W, 4] for
+    """JPEG bytes (Huffman or arithmetic-coded, sequential or progressive, or
+    lossless) -> uint8 [H, W, 3], [H, W, 4] for
     CMYK / YCCK (PIL's inverted "CMYK;I"), or [H, W] for grayscale (what
     `np.asarray(PIL.Image.open(...))` gives). Other kinds of JPEG, and files
     PIL would not decode to these pixels, raise `ValueError` naming `name`
@@ -276,6 +282,26 @@ def jpeg_idct(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
     qt = np.ascontiguousarray(qt, np.uint16).reshape(64)
     out = np.empty((coef.shape[0], 8, 8), np.uint8)
     library().w3d_jpeg_idct(coef.ctypes.data, qt.ctypes.data, coef.shape[0], out.ctypes.data)
+    return out
+
+
+def jpeg_undifference(diff: np.ndarray, predictor: int, point_transform: int = 0,
+                      reset_every: int = 0) -> np.ndarray:
+    """An 8-bit lossless JPEG component's int32 [rows, width] differences ->
+    uint8 samples, as libjpeg-turbo 3's jdlossls.c undifferences and scales
+    them: `predictor` 1-7, the first row (and every `reset_every`-th, a
+    restart interval's) from 2^(7 - point_transform) and Ra, sums kept to 16
+    bits, each value shifted left by `point_transform` into 8 bits
+    (`jpeg.cpp`; `utils/image_io.jpeg_undifference_reference` is its plain
+    version)."""
+    diff = np.ascontiguousarray(diff, np.int32)
+    out = np.empty(diff.shape, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    initial = 1 << (7 - point_transform)
+    if library().w3d_jpeg_undifference(diff.ctypes.data, diff.shape[0], diff.shape[1], predictor,
+                                       point_transform, initial, reset_every, out.ctypes.data,
+                                       msg, len(msg)) != 0:
+        raise ValueError(f"jpeg_undifference: {_message(msg)}")
     return out
 
 

@@ -1,14 +1,43 @@
-// wast3d_tpu_torch native JPEG decoder: baseline sequential and progressive
-// Huffman JPEG, as libjpeg-turbo 3.1 decodes it behind PIL.
+// wast3d_tpu_torch native JPEG decoder: every mode libjpeg-turbo 3.1.3
+// decodes behind PIL, as it decodes it.
 //
 // COLMAP datasets ship JPEG images, and the card's machine has no PIL. This
-// decodes what cameras, COLMAP's undistorter, jpegtran and print tools
-// write: SOF0 / SOF1 (sequential) and SOF2 (progressive), 8-bit samples, 1,
-// 3 or 4 components, sampling factors 1-4 in integral ratios (4:4:4, 4:2:2,
-// 4:2:0, 4:4:0, 4:1:1, ...), any size, restart markers. Every other kind of
-// file (arithmetic, lossless, hierarchical, 12-bit, 2 components,
-// fractional sampling ratios, more than 10 blocks in an MCU) is refused with
-// a message that names its marker or its factors.
+// decodes what cameras, COLMAP's undistorter, jpegtran, archives and
+// scientific capture write: Huffman-coded sequential (SOF0 / SOF1) and
+// progressive (SOF2), arithmetic-coded sequential (SOF9) and progressive
+// (SOF10), and lossless (SOF3, predictors 1-7, a point transform); 8-bit
+// samples, 1, 3 or 4 components, sampling factors 1-4 in integral ratios
+// (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), any size, restart markers. Every
+// other kind of file (arithmetic-coded lossless SOF11, hierarchical SOF5-7
+// and SOF13-15, 12-bit, 2 components, fractional sampling ratios, more than
+// 10 blocks in an MCU, a lossless file whose colour space would need a
+// conversion) is refused with a message that names its marker, its factors
+// or the rule.
+//
+// Arithmetic-coded scans are jdarith.c's: the QM decoder of T.81 Annex D
+// with jaricom.c's Table D.2 (kAritab), DC statistics of 64 bins a table
+// conditioned by DAC's L and U (defaults 0 and 1, reset at SOI), AC
+// statistics of 256 bins with Kx (default 5), the fixed 0.5 bin for signs and
+// refinement bits; a restart resets the statistics, the DC contexts and the
+// coder; a magnitude or a run past the band sets the coder's error state and
+// leaves the MCUs up to the next restart as they are; a marker in the data
+// feeds zeros. Progressive scans fill the coefficient buffer the Huffman
+// path fills, so block smoothing and the IDCT apply unchanged. PIL hands
+// libjpeg a file 64 KiB at a time and the arithmetic decoder cannot suspend:
+// a scan whose data runs past the blocks read when it starts is an error.
+//
+// Lossless scans are libjpeg-turbo 3's jdlhuff.c (SSSS 0-16, 16 meaning
+// 32768 with no extra bits; no standard table stands in for a missing
+// DHT), jddiffct.c (an iMCU row decoded, then undifferenced; a restart
+// interval a whole number of MCU rows) and jdlossls.c (w3d_jpeg_undifference:
+// the first row of a scan or restart interval from 2^(P - Pt - 1) and Ra,
+// sums kept to 16 bits, the point transform undone into 8 bits). Data
+// running into a marker leaves the later rows at the centre value. There is
+// no IDCT; components are upsampled by replication (no context rows, so no
+// fancy filter), and never colour-converted: jdcolor.c refuses, so a
+// three-component file with a JFIF marker or an Adobe transform other than
+// 0 (YCbCr) and a four-component YCCK file raise, and any other three
+// components are RGB.
 //
 // Damaged files read as PIL reads them, which is libjpeg-turbo's way plus
 // PIL's own handling of a source that runs dry:
@@ -70,6 +99,10 @@
 //                     out_height, msg, msg_len)
 //   w3d_jpeg_idct(coef, qt, n, out): n blocks of 64 int16 coefficients
 //     (natural order) dequantised with the 64 uint16 of qt -> n x 64 samples
+//   w3d_jpeg_undifference(diff, rows, width, predictor, point_transform,
+//                         initial, reset_every, out, msg, msg_len): rows x
+//     width int32 differences of one lossless component -> uint8 samples,
+//     row 0 and every reset_every-th row (0: none) a first row
 // Each returns 0 on success and -1 on failure, with a NUL-terminated reason
 // in msg. out receives height x width x channels bytes, row-major; the
 // upsampler turns a width x height plane (row stride `stride`) into
@@ -179,12 +212,18 @@ void h2v2_fancy(const uint8_t* in0, const uint8_t* in1, int n, uint8_t* out) {
 // `stride`) sampled rh x rv times less than the image, into `row` (out_w
 // samples; room for 2 w for an h2 plane). The rows above the first
 // and below the last are the edge rows again (jdmainct.c's context rows).
+// `fancy` false is libjpeg's choice for a lossless file (no context rows):
+// every ratio replicates.
 void upsample_row(const uint8_t* p, int64_t stride, int w, int h, int rh, int rv, int y,
-                  int out_w, uint8_t* row) {
+                  int out_w, uint8_t* row, bool fancy = true) {
   const int iy = y / rv;
   const uint8_t* in0 = p + static_cast<int64_t>(iy) * stride;
   if (rh == 1 && rv == 1) {
     memcpy(row, in0, static_cast<size_t>(out_w));
+    return;
+  }
+  if (!fancy) {
+    for (int x = 0; x < out_w; ++x) row[x] = in0[x / rh];
     return;
   }
   const bool even = y % 2 == 0;
@@ -202,6 +241,80 @@ void upsample_row(const uint8_t* p, int64_t stride, int w, int h, int rh, int rv
   }
   // h2v1_upsample / h2v2_upsample / int_upsample: replication.
   for (int x = 0; x < out_w; ++x) row[x] = in0[x / rh];
+}
+
+// ---- arithmetic decoding: jaricom.c's Table D.2 ------------------------------
+// Each state: Qe << 16 | next state after an MPS << 8 | MPS switch on an LPS
+// << 7 | next state after an LPS. State 113 is the fixed estimate of 0.5
+// (T.851) for signs and refinement bits.
+#define V(qe, nlps, nmps, sw) ((int64_t(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int64_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// ---- lossless undifferencing: jdlossls.c -------------------------------------
+// One row of a component: out[x] = (diff[x] + prediction) & 0xFFFF. Predictor
+// 0 is the first row of a scan or of a restart interval (`initial` =
+// 2^(P - Pt - 1) for its first sample, Ra after); 1-7 are H.1.2.1's, the row's
+// first sample predicted by Rb (the sample above).
+void undifference_row(const int32_t* diff, const int32_t* prev, int32_t* out, int width,
+                      int predictor, int initial) {
+  if (predictor == 0) {
+    int ra = (diff[0] + initial) & 0xFFFF;
+    out[0] = ra;
+    for (int x = 1; x < width; ++x) out[x] = ra = (diff[x] + ra) & 0xFFFF;
+    return;
+  }
+  int rb = prev[0], ra = (diff[0] + rb) & 0xFFFF, rc;
+  out[0] = ra;
+  for (int x = 1; x < width; ++x) {
+    rc = rb;
+    rb = prev[x];
+    int p;
+    switch (predictor) {
+      case 1: p = ra; break;
+      case 2: p = rb; break;
+      case 3: p = rc; break;
+      case 4: p = ra + rb - rc; break;
+      case 5: p = ra + ((rb - rc) >> 1); break;
+      case 6: p = rb + ((ra - rc) >> 1); break;
+      default: p = (ra + rb) >> 1; break;
+    }
+    out[x] = ra = (diff[x] + p) & 0xFFFF;
+  }
+}
+
+// The point transform undone: an 8-bit sample keeps the low bits of v << Pt.
+void scale_row(const int32_t* in, uint8_t* out, int width, int pt) {
+  for (int x = 0; x < width; ++x) out[x] = static_cast<uint8_t>(in[x] << pt);
 }
 
 std::string marker_name(int m) {
@@ -292,7 +405,7 @@ struct Huffman {  // jpeg_make_d_derived_tbl
   uint8_t look_sym[256];
 };
 
-void derive(const HuffSpec& spec, bool dc, Huffman& t) {
+void derive(const HuffSpec& spec, bool dc, Huffman& t, int dc_max = 15) {
   uint8_t size[257];
   int32_t code_of[257];
   int p = 0;
@@ -341,7 +454,9 @@ void derive(const HuffSpec& spec, bool dc, Huffman& t) {
   }
   if (dc) {
     for (int i = 0; i < count; ++i) {
-      if (spec.vals[i] > 15) fail("bad Huffman table (a DC symbol over 15)");
+      if (spec.vals[i] > dc_max) {
+        fail("bad Huffman table (a DC symbol over " + std::to_string(dc_max) + ")");
+      }
     }
   }
 }
@@ -360,11 +475,17 @@ struct Component {
   int prev_bits[64];
   uint16_t qt[64];  // latched at the component's first scan; zeros if never
   bool latched = false;
+  // Lossless files: one iMCU row of differences (v rows of bw), its v rows
+  // undifferenced (the last the next row's Rb), and the row's predictor
+  // (0: the scan's or a restart interval's first row).
+  std::vector<int32_t> diff, undiff;
+  int predictor = 0;
 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size) : data_(data), size_(size) {}
+  Decoder(const uint8_t* data, size_t size)
+      : data_(data), size_(size), limit_(std::min(size, kBlock)) {}
 
   // jpeg_read_header: the markers up to the first SOS.
   void header() {
@@ -415,6 +536,7 @@ class Decoder {
   void set_colour(int colour) {
     colour_ = colour;
     fake_eoi_ = colour != 0;
+    limit_ = fake_eoi_ ? size_ : std::min(size_, kBlock);
   }
   int sampling(int c) const { return comp_[c].h * 16 + comp_[c].v; }
   int width() const { return width_; }
@@ -423,9 +545,22 @@ class Decoder {
 
  private:
   static constexpr int kReachedSos = 1, kReachedEoi = 2;
+  static constexpr size_t kBlock = 65536;
 
   // ---- markers: jdmarker.c ----------------------------------------------
+  // PIL hands libjpeg the file 64 KiB at a time (ImageFile.load's
+  // decodermaxblock), one block more each time libjpeg suspends. An
+  // arithmetic-coded scan cannot suspend (jdarith.c's get_byte): its data
+  // must lie in the blocks already read when the scan starts.
   int byte() {
+    while (pos_ >= limit_ && limit_ < size_) {
+      if (no_suspend_) {
+        fail("arithmetic-coded data runs past the " + std::to_string(limit_ / 1024) +
+             " KiB PIL has read (it reads 64 KiB at a time, and libjpeg's arithmetic decoder "
+             "cannot wait for more)");
+      }
+      limit_ = std::min(size_, limit_ + kBlock);
+    }
     if (pos_ < size_) return data_[pos_++];
     if (!fake_eoi_) throw Suspend{};
     return (fake_++ & 1) ? 0xD9 : 0xFF;  // libtiff's source: FF D9 for ever
@@ -464,10 +599,15 @@ class Decoder {
       if (m == 0xD8) {
         if (saw_soi_) fail("a second SOI");
         restart_interval_ = 0;
+        for (int i = 0; i < 16; ++i) {  // the conditioning DAC may change
+          arith_dc_l_[i] = 0;
+          arith_dc_u_[i] = 1;
+          arith_ac_k_[i] = 5;
+        }
         saw_jfif_ = saw_adobe_ = false;
         adobe_transform_ = 0;
         saw_soi_ = true;
-      } else if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      } else if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
         frame(m);
       } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xCC)) {
         unsupported_frame(m);
@@ -524,23 +664,28 @@ class Decoder {
     if (length > 0) skip(static_cast<size_t>(length));
   }
 
-  void unsupported_frame(int m) {
+  void unsupported_frame(int m) {  // jdmarker.c: JERR_SOF_UNSUPPORTED
     const char* what = "unsupported";
-    if (m == 0xC3) what = "lossless";
+    if (m == 0xCB) what = "arithmetic-coded lossless";
     else if (m >= 0xC5 && m <= 0xC7) what = "hierarchical (differential)";
-    else if (m >= 0xC9 && m <= 0xCB) what = "arithmetic-coded";
     else if (m >= 0xCD) what = "arithmetic-coded hierarchical";
-    fail(std::string(what) + " JPEG (" + marker_name(m) + ") is not supported; "
-         "only sequential and progressive Huffman files (SOF0 / SOF1 / SOF2) are");
+    fail(std::string(what) + " JPEG (" + marker_name(m) + ") is not supported; libjpeg-turbo "
+         "decodes SOF0-SOF3, SOF9 and SOF10");
   }
 
-  void dac() {  // get_dac: parsed and checked, then unused (Huffman files)
+  void dac() {  // get_dac: the arithmetic coder's conditioning
     long length = u16() - 2;
     while (length > 0) {
       const int index = byte(), val = byte();
       length -= 2;
       if (index >= 32) fail("bad DAC table index");
-      if (index < 16 && (val & 15) > (val >> 4)) fail("bad DAC value");
+      if (index >= 16) {
+        arith_ac_k_[index - 16] = val;
+      } else {
+        arith_dc_l_[index] = val & 15;
+        arith_dc_u_[index] = val >> 4;
+        if ((val & 15) > (val >> 4)) fail("bad DAC value");
+      }
     }
     if (length != 0) fail("bad DAC segment length");
   }
@@ -600,7 +745,9 @@ class Decoder {
       cp.v = hv & 15;
       cp.tq = byte();
     }
-    progressive_ = m == 0xC2;
+    progressive_ = m == 0xC2 || m == 0xCA;
+    arith_ = m == 0xC9 || m == 0xCA;
+    lossless_ = m == 0xC3;
     frame_marker_ = m;
     saw_sof_ = true;
   }
@@ -667,17 +814,19 @@ class Decoder {
              "x" + std::to_string(vmax_) + " (" + marker_name(m) + ") is not supported");
       }
     }
-    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    // A lossless file's data unit is one sample (jdinput.c: data_unit 1).
+    const int unit = lossless_ ? 1 : 8;
+    mcux_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcuy_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
     for (int c = 0; c < ncomp_; ++c) {
       Component& cp = comp_[c];
       cp.width = static_cast<int>((static_cast<int64_t>(width_) * cp.h + hmax_ - 1) / hmax_);
       cp.height = static_cast<int>((static_cast<int64_t>(height_) * cp.v + vmax_ - 1) / vmax_);
-      cp.wb = (cp.width + 7) / 8;
-      cp.hb = (cp.height + 7) / 8;
+      cp.wb = (cp.width + unit - 1) / unit;
+      cp.hb = (cp.height + unit - 1) / unit;
       cp.bw = mcux_ * cp.h;
       cp.bh = mcuy_ * cp.v;
-      cp.stride = cp.bw * 8;
+      cp.stride = cp.bw * unit;
       std::fill(cp.coef_bits, cp.coef_bits + 64, -1);
       std::fill(cp.prev_bits, cp.prev_bits + 64, -1);
       std::fill(cp.qt, cp.qt + 64, static_cast<uint16_t>(0));
@@ -697,6 +846,10 @@ class Decoder {
                "MCU)");
         }
       }
+    }
+    if (lossless_) {
+      start_lossless_scan();
+      return;
     }
     for (int i = 0; i < ns_; ++i) {
       Component& cp = *sc_[i];
@@ -724,7 +877,7 @@ class Decoder {
         }
         for (int k = ss_; k <= se_; ++k) cp.coef_bits[k] = al_;
       }
-      for (int i = 0; i < ns_; ++i) {
+      for (int i = 0; i < ns_ && !arith_; ++i) {
         Component& cp = *sc_[i];
         if (dc) {
           if (ah_ == 0) make_table(true, cp.td, dc_tab_[cp.td]);
@@ -732,7 +885,7 @@ class Decoder {
           make_table(false, cp.ta, ac_tab_[cp.ta]);
         }
       }
-    } else {
+    } else if (!arith_) {
       for (int i = 0; i < ns_; ++i) {
         make_table(true, sc_[i]->td, dc_tab_[sc_[i]->td]);
         make_table(false, sc_[i]->ta, ac_tab_[sc_[i]->ta]);
@@ -744,6 +897,33 @@ class Decoder {
     insufficient_ = false;
     eobrun_ = 0;
     restarts_to_go_ = restart_interval_;
+    if (arith_) arith_reset();
+  }
+
+  // jdlossls.c start_pass_lossless, jdlhuff.c start_pass_lhuff_decoder,
+  // jddiffct.c start_input_pass.
+  void start_lossless_scan() {
+    if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= precision_) {
+      fail("bad lossless scan (predictor " + std::to_string(ss_) + ", Se " + std::to_string(se_) +
+           ", Ah " + std::to_string(ah_) + ", point transform " + std::to_string(al_) + ")");
+    }
+    for (int i = 0; i < ns_; ++i) {  // jdlhuff.c substitutes no standard table
+      const int t = sc_[i]->td;
+      if (t >= 4 || !dc_spec_[t].defined) {
+        fail("a lossless scan uses an undefined Huffman table (" + std::to_string(t) + ")");
+      }
+      derive(dc_spec_[t], true, dc_tab_[t], 16);
+    }
+    mcus_per_row_ = ns_ > 1 ? mcux_ : sc_[0]->wb;
+    if (restart_interval_ % mcus_per_row_ != 0) {
+      fail("a lossless restart interval (" + std::to_string(restart_interval_) +
+           ") that is not a whole number of MCU rows (" + std::to_string(mcus_per_row_) + ")");
+    }
+    restart_rows_to_go_ = restart_interval_ / mcus_per_row_;
+    for (int c = 0; c < ncomp_; ++c) comp_[c].predictor = 0;
+    bits_left_ = 0;
+    get_buffer_ = 0;
+    insufficient_ = false;
   }
 
   void make_table(bool dc, int index, Huffman& t) {
@@ -867,6 +1047,16 @@ class Decoder {
   }
 
   void scan() {
+    if (lossless_) {
+      lossless_scan();
+      return;
+    }
+    no_suspend_ = arith_;
+    scan_blocks();
+    no_suspend_ = false;
+  }
+
+  void scan_blocks() {
     int16_t* blocks[10];
     if (ns_ == 1) {  // non-interleaved: the component's own blocks
       Component& cp = *sc_[0];
@@ -907,6 +1097,10 @@ class Decoder {
       for (int b = 0; b < n; ++b) std::fill(blocks[b], blocks[b] + 64, static_cast<int16_t>(0));
     }
     if (!insufficient_) last_good_row_ = imcu_row;
+    if (arith_) {
+      arith_mcu(blocks, n);
+      return;
+    }
     if (restart_interval_ && restarts_to_go_ == 0) restart();
     if (!progressive_) {
       if (!insufficient_) sequential_mcu(blocks, n);
@@ -1043,6 +1237,313 @@ class Decoder {
     }
   }
 
+  // ---- arithmetic-coded scans: jdarith.c -------------------------------------
+  // start_pass / process_restart: the scan's statistics, DC predictions and
+  // contexts, and the coder (two bytes are read at its first decision).
+  void arith_reset() {
+    for (int i = 0; i < ns_; ++i) {
+      const Component& cp = *sc_[i];
+      if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+        std::fill(dc_stats_[cp.td], dc_stats_[cp.td] + 64, static_cast<uint8_t>(0));
+        last_dc_[i] = 0;
+        dc_context_[i] = 0;
+      }
+      if (!progressive_ || ss_ != 0) {
+        std::fill(ac_stats_[cp.ta], ac_stats_[cp.ta] + 256, static_cast<uint8_t>(0));
+      }
+    }
+    arith_c_ = 0;
+    arith_a_ = 0;
+    arith_ct_ = -16;
+  }
+
+  void arith_restart() {  // read_restart_marker, which may not suspend here
+    if (unread_marker_ == 0) next_marker();
+    if (unread_marker_ == 0xD0 + next_restart_) {
+      unread_marker_ = 0;
+    } else {
+      resync(next_restart_);
+    }
+    next_restart_ = (next_restart_ + 1) & 7;
+    arith_reset();
+    restarts_to_go_ = restart_interval_;
+  }
+
+  // arith_decode: T.81 D.2's decoder with jdarith.c's byte input (a stuffed
+  // zero dropped; from a marker on, zeros).
+  int arith_decode(uint8_t* st) {
+    while (arith_a_ < 0x8000) {
+      if (--arith_ct_ < 0) {
+        int data = 0;
+        if (unread_marker_ == 0) {
+          data = byte();
+          if (data == 0xFF) {
+            do {
+              data = byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              unread_marker_ = data;
+              data = 0;
+            }
+          }
+        }
+        arith_c_ = (arith_c_ << 8) | data;
+        if ((arith_ct_ += 8) < 0 && ++arith_ct_ == 0) arith_a_ = 0x8000;  // the first two bytes
+      }
+      arith_a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = arith_a_ - qe;
+    arith_a_ = temp;
+    temp <<= arith_ct_;
+    if (arith_c_ >= temp) {
+      arith_c_ -= temp;
+      if (arith_a_ < qe) {  // conditional LPS exchange
+        arith_a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        arith_a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (arith_a_ < 0x8000) {  // conditional MPS exchange
+      if (arith_a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // One MCU of the scan (decode_mcu, decode_mcu_DC_first / _DC_refine /
+  // _AC_first / _AC_refine). A magnitude or a run past the band sets the
+  // coder's error state (ct = -1): the MCUs up to the next restart are left
+  // as they are, zero in a sequential file. A DC refinement ignores it.
+  void arith_mcu(int16_t** blocks, int n) {
+    if (restart_interval_) {
+      if (restarts_to_go_ == 0) arith_restart();
+      --restarts_to_go_;
+    }
+    if (progressive_ && ss_ == 0 && ah_ != 0) {
+      for (int b = 0; b < n; ++b) {
+        if (arith_decode(&fixed_bin_)) blocks[b][0] = static_cast<int16_t>(blocks[b][0] | (1 << al_));
+      }
+      return;
+    }
+    if (arith_ct_ == -1) return;
+    if (!progressive_ || ss_ == 0) {
+      for (int b = 0; b < n; ++b) {
+        const int ci = component_of(b);
+        if (!arith_dc(ci, blocks[b])) return;
+        if (!progressive_ && !arith_ac(sc_[ci]->ta, blocks[b], 1, 63, 0)) return;
+      }
+    } else if (ah_ == 0) {
+      arith_ac(sc_[0]->ta, blocks[0], ss_, se_, al_);
+    } else {
+      arith_ac_refine(blocks[0]);
+    }
+  }
+
+  // F.1.4.4.1: a DC difference in the context of the last one (DAC's L, U).
+  bool arith_dc(int ci, int16_t* blk) {
+    const int tbl = sc_[ci]->td;
+    uint8_t* st = dc_stats_[tbl] + dc_context_[ci];
+    if (arith_decode(st) == 0) {
+      dc_context_[ci] = 0;
+    } else {
+      const int sign = arith_decode(st + 1);
+      st += 2 + sign;
+      int m = arith_decode(st);
+      if (m != 0) {
+        st = dc_stats_[tbl] + 20;  // X1
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            arith_ct_ = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      if (m < ((1 << arith_dc_l_[tbl]) >> 1)) {
+        dc_context_[ci] = 0;
+      } else if (m > ((1 << arith_dc_u_[tbl]) >> 1)) {
+        dc_context_[ci] = 12 + sign * 4;
+      } else {
+        dc_context_[ci] = 4 + sign * 4;
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1) {
+        if (arith_decode(st)) v |= m;
+      }
+      v += 1;
+      if (sign) v = -v;
+      last_dc_[ci] = (last_dc_[ci] + v) & 0xFFFF;
+    }
+    blk[0] = shifted(last_dc_[ci], progressive_ ? al_ : 0);
+    return true;
+  }
+
+  // F.1.4.4.2: the coefficients ss..se of a block (sequential: 1..63).
+  bool arith_ac(int tbl, int16_t* blk, int ss, int se, int al) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // end of block
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          arith_ct_ = -1;
+          return false;
+        }
+      }
+      const int sign = arith_decode(&fixed_bin_);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0 && arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats_[tbl] + (k <= arith_ac_k_[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            arith_ct_ = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1) {
+        if (arith_decode(st)) v |= m;
+      }
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = shifted(v, al);
+    }
+    return true;
+  }
+
+  // G.1.3.3: correction bits of the nonzero coefficients, new ones of +-1.
+  void arith_ac_refine(int16_t* blk) {
+    const int tbl = sc_[0]->ta;
+    const int p1 = 1 << al_, m1 = -(1 << al_);
+    int kex = se_;  // the previous stage's end of band
+    for (; kex > 0; --kex) {
+      if (blk[kNatural[kex]]) break;
+    }
+    for (int k = ss_; k <= se_; ++k) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;
+      for (;;) {
+        int16_t* c = blk + kNatural[k];
+        if (*c) {
+          if (arith_decode(st + 2)) *c = static_cast<int16_t>(*c + (*c < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *c = static_cast<int16_t>(arith_decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se_) {
+          arith_ct_ = -1;
+          return;
+        }
+      }
+    }
+  }
+
+  // ---- lossless scans: jddiffct.c, jdlhuff.c, jdlossls.c ---------------------
+  static int last_rows(const Component& cp) {
+    const int r = cp.hb % cp.v;
+    return r ? r : cp.v;
+  }
+
+  // decompress_data: an iMCU row's MCU rows decoded (a restart checked
+  // before each), then each of its component rows undifferenced and scaled.
+  // A restart that falls inside a non-interleaved scan's iMCU row resets
+  // the predictors before any of its rows is undifferenced, as libjpeg does.
+  void lossless_scan() {
+    for (int i = 0; i < ns_; ++i) {
+      Component& cp = *sc_[i];
+      if (cp.plane.empty()) cp.plane.assign(static_cast<size_t>(cp.stride) * cp.bh, 0);
+      cp.diff.assign(static_cast<size_t>(cp.v) * cp.bw, 0);
+      cp.undiff.assign(static_cast<size_t>(cp.v) * cp.bw, 0);
+    }
+    const int initial = 1 << (precision_ - al_ - 1);
+    for (int row = 0; row < mcuy_; ++row) {
+      const bool last = row == mcuy_ - 1;
+      const int mcu_rows = ns_ > 1 ? 1 : last ? last_rows(*sc_[0]) : sc_[0]->v;
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval_ && restart_rows_to_go_ == 0) {
+          restart();
+          for (int c = 0; c < ncomp_; ++c) comp_[c].predictor = 0;
+          restart_rows_to_go_ = restart_interval_ / mcus_per_row_;
+        }
+        lossless_mcus(y);
+        if (restart_interval_) --restart_rows_to_go_;
+      }
+      for (int i = 0; i < ns_; ++i) {
+        Component& cp = *sc_[i];
+        const int rows = last ? last_rows(cp) : cp.v;
+        for (int r = 0, prev = cp.v - 1; r < rows; prev = r, ++r) {
+          int32_t* out = cp.undiff.data() + static_cast<size_t>(r) * cp.bw;
+          undifference_row(cp.diff.data() + static_cast<size_t>(r) * cp.bw,
+                           cp.undiff.data() + static_cast<size_t>(prev) * cp.bw, out, cp.width,
+                           cp.predictor, initial);
+          cp.predictor = ss_;
+          scale_row(out, cp.plane.data() + static_cast<size_t>(row * cp.v + r) * cp.stride,
+                    cp.width, al_);
+        }
+      }
+    }
+  }
+
+  // decode_mcus for MCU row y of the iMCU row: SSSS 16 is 32768 with no
+  // extra bits. Once the data has run into a marker, every later row's
+  // differences are zero and the predictors restart (CENTERJSAMPLE rows).
+  void lossless_mcus(int y) {
+    if (insufficient_) {
+      for (int i = 0; i < ns_; ++i) {
+        Component& cp = *sc_[i];
+        const int rows = ns_ > 1 ? cp.v : 1;
+        std::fill(cp.diff.begin() + static_cast<size_t>(y) * cp.bw,
+                  cp.diff.begin() + static_cast<size_t>(y + rows) * cp.bw, 0);
+      }
+      for (int c = 0; c < ncomp_; ++c) comp_[c].predictor = 0;
+      return;
+    }
+    if (ns_ == 1) {
+      Component& cp = *sc_[0];
+      int32_t* d = cp.diff.data() + static_cast<size_t>(y) * cp.bw;
+      for (int x = 0; x < mcus_per_row_; ++x) d[x] = lossless_diff(dc_tab_[cp.td]);
+      return;
+    }
+    for (int mx = 0; mx < mcus_per_row_; ++mx) {
+      for (int i = 0; i < ns_; ++i) {
+        Component& cp = *sc_[i];
+        for (int v = 0; v < cp.v; ++v) {
+          int32_t* d = cp.diff.data() + static_cast<size_t>(v) * cp.bw + mx * cp.h;
+          for (int h = 0; h < cp.h; ++h) d[h] = lossless_diff(dc_tab_[cp.td]);
+        }
+      }
+    }
+  }
+
+  int lossless_diff(const Huffman& t) {
+    int s = huff(t);
+    if (s == 16) return 32768;
+    return s ? extend(get_bits(s), s) : 0;
+  }
+
   // ---- coefficients to samples: jdcoefct.c -------------------------------
   // smoothing_ok: DC known for every component, the quantisers used nonzero,
   // and some AC coefficient among the first nine short of its last bit.
@@ -1063,6 +1564,13 @@ class Decoder {
   }
 
   void planes() {
+    if (lossless_) {  // the scans wrote the samples
+      for (int c = 0; c < ncomp_; ++c) {
+        Component& cp = comp_[c];
+        if (cp.plane.empty()) cp.plane.assign(static_cast<size_t>(cp.stride) * cp.bh, 0);
+      }
+      return;
+    }
     const bool smooth = smoothing_ok();
     const int total_rows = mcuy_;  // iMCU rows
     for (int c = 0; c < ncomp_; ++c) {
@@ -1193,7 +1701,7 @@ class Decoder {
   // ---- upsampling and colour: jdsample.c, jdcolor.c -------------------
   void upsampled_row(const Component& cp, int y, uint8_t* row) const {
     upsample_row(cp.plane.data(), cp.stride, cp.width, cp.height, hmax_ / cp.h, vmax_ / cp.v, y,
-                 width_, row);
+                 width_, row, !lossless_);
   }
 
   void output(uint8_t* out) const {
@@ -1219,8 +1727,9 @@ class Decoder {
     auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
     // libjpeg's default colour space. Three components: JFIF means YCbCr;
     // else an Adobe marker's transform 0 means RGB; else component ids 'R',
-    // 'G', 'B' mean RGB. Four: an Adobe transform other than 0 means YCCK,
-    // else CMYK.
+    // 'G', 'B' mean RGB (any ids, in a lossless file). Four: an Adobe
+    // transform other than 0 means YCCK, else CMYK. A lossless file is never
+    // converted: jdcolor.c refuses.
     // A TIFF's strips and tiles name their colour space in the TIFF's tags
     // instead (libtiff's JPEGPreDecode): colour_ 1 is YCbCr -> RGB, 2 leaves
     // every component as coded (JCS_UNKNOWN, no inversion).
@@ -1231,9 +1740,15 @@ class Decoder {
       convert = colour_ == 1;
     } else if (nc == 3 && !saw_jfif_) {
       convert = saw_adobe_ ? adobe_transform_ != 0
-                           : !(comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B');
+                           : !lossless_ && !(comp_[0].id == 'R' && comp_[1].id == 'G' &&
+                                             comp_[2].id == 'B');
     } else if (nc == 4) {
       convert = saw_adobe_ && adobe_transform_ != 0;
+    }
+    if (lossless_ && convert) {
+      fail(std::string("lossless JPEG (SOF3) whose ") +
+           (nc == 4 ? "YCCK" : colour_ == 1 ? "TIFF's YCbCr" : saw_jfif_ ? "JFIF YCbCr" : "YCbCr") +
+           " would need a colour conversion, which libjpeg refuses for lossless data");
     }
     const size_t room = static_cast<size_t>(width_) + 2;
     std::vector<uint8_t> rows(4 * room);
@@ -1278,7 +1793,19 @@ class Decoder {
   int ns_ = 0, ss_ = 0, se_ = 0, ah_ = 0, al_ = 0;
   int scan_number_ = 0, next_restart_ = 0;
   int restart_interval_ = 0, restarts_to_go_ = 0;
-  bool progressive_ = false, multiple_ = false;
+  bool progressive_ = false, multiple_ = false, arith_ = false, lossless_ = false;
+  size_t limit_;  // the end of the 64 KiB blocks PIL has handed libjpeg
+  bool no_suspend_ = false;
+  // Arithmetic decoding: DAC's conditioning, the statistics of each table,
+  // each scan component's DC context, and the coder's registers.
+  int arith_dc_l_[16] = {0}, arith_dc_u_[16] = {0}, arith_ac_k_[16] = {0};
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  uint8_t fixed_bin_ = 113;
+  int dc_context_[4] = {0, 0, 0, 0};
+  int64_t arith_c_ = 0, arith_a_ = 0;
+  int arith_ct_ = 0;
+  // Lossless decoding: MCUs per MCU row, MCU rows to the next restart.
+  int mcus_per_row_ = 1, restart_rows_to_go_ = 0;
   int last_dc_[4] = {0, 0, 0, 0};
   unsigned eobrun_ = 0;
   int last_good_row_ = 0;
@@ -1365,6 +1892,31 @@ int w3d_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out
 int w3d_jpeg_idct(const int16_t* coef, const uint16_t* qt, int64_t n, uint8_t* out) {
   for (int64_t b = 0; b < n; ++b) idct_islow(coef + 64 * b, qt, out + 64 * b, 8);
   return 0;
+}
+
+int w3d_jpeg_undifference(const int32_t* diff, int64_t rows, int32_t width, int32_t predictor,
+                          int32_t point_transform, int32_t initial, int32_t reset_every,
+                          uint8_t* out, char* msg, int32_t msg_len) {
+  try {
+    if (rows < 1 || width < 1 || predictor < 1 || predictor > 7 || point_transform < 0 ||
+        point_transform > 15 || reset_every < 0) {
+      fail("bad undifferencing arguments");
+    }
+    std::vector<int32_t> a(static_cast<size_t>(width)), b(static_cast<size_t>(width));
+    for (int64_t r = 0; r < rows; ++r) {
+      const bool first = r == 0 || (reset_every && r % reset_every == 0);
+      undifference_row(diff + r * width, b.data(), a.data(), width, first ? 0 : predictor,
+                       initial);
+      scale_row(a.data(), out + r * width, width, point_transform);
+      std::swap(a, b);
+    }
+    return 0;
+  } catch (const DecodeError& e) {
+    set_message(msg, msg_len, e.msg);
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+  }
+  return -1;
 }
 
 int w3d_jpeg_upsample(const uint8_t* plane, int64_t stride, int32_t width, int32_t height,

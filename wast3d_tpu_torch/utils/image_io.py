@@ -6,10 +6,12 @@ dispatching on the file's signature, never on its extension:
 
 - `\\x89PNG\\r\\n\\x1a\\n`: PNG, every colour type at every bit depth
   (`utils/png.decode_png`);
-- `FF D8`: JPEG, baseline or progressive, 1, 3 or 4 components, any
-  integral sampling, after JpegImagePlugin's own walk over the markers
-  (`_jpeg_walk`), damaged and partly refined files as libjpeg-turbo reads
-  them (`native.decode_jpeg`);
+- `FF D8`: JPEG, Huffman-coded baseline or progressive, arithmetic-coded
+  sequential or progressive (within PIL's 64 KiB read blocks, which
+  libjpeg's arithmetic decoder cannot wait past), or lossless, 1, 3 or 4
+  components, any integral sampling, after JpegImagePlugin's own walk over
+  the markers (`_jpeg_walk`), damaged and partly refined files as
+  libjpeg-turbo 3.1.3 reads them (`native.decode_jpeg`);
 - `BM`: BMP (`decode_bmp`): BmpImagePlugin's modes (1/4/8-bit palettes as
   "P" indices, or "1" / "L" when the palette is black and white or the
   identity greys; 16-, 24- and 32-bit BI_RGB as RGB; BI_BITFIELDS layouts
@@ -86,7 +88,8 @@ The byte loops are native (`native/image.cpp`, `native/jpeg.cpp`,
 with no fallback); numpy here turns samples into PIL's arrays. The plain versions
 the tests hold the native routines to are here too (`bmp_rle_reference`,
 `lzw_reference`, `packbits_reference`, `jpeg_upsample_reference`,
-`jpeg_idct_reference`, `ccitt_reference`, `ycbcr_to_rgb_reference`,
+`jpeg_idct_reference`, `jpeg_undifference_reference`, `ccitt_reference`,
+`ycbcr_to_rgb_reference`,
 `gif_lzw_reference`, `vp8_idct_reference`, `yuv_to_rgba_reference`,
 `tga_rle_reference`, `qoi_reference`), in `utils/png.py`, in
 `utils/zstd.py` (`zstd_reference`), in `utils/image_formats.py`
@@ -1792,6 +1795,29 @@ def jpeg_idct_reference(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
     ws[dc_only] = w16(dq[dc_only, :1] * 4).repeat(8, 1)
     out = sat((one_d(ws.transpose(0, 2, 1)) + (1 << 17)) >> 18).transpose(0, 2, 1)
     return (np.clip(out, -128, 127) + 128).astype(np.uint8)
+
+
+def jpeg_undifference_reference(diff: np.ndarray, predictor: int, point_transform: int = 0,
+                                reset_every: int = 0) -> np.ndarray:
+    """Plain version of `native.jpeg_undifference`: lossless JPEG's
+    predictions (H.1.2.1) row by row, each sum kept to 16 bits, then the
+    point transform undone into 8 bits."""
+    diff = np.asarray(diff, np.int64)
+    out = np.zeros(diff.shape, np.int64)
+    initial = 1 << (7 - point_transform)
+    for r in range(diff.shape[0]):
+        if r == 0 or (reset_every and r % reset_every == 0):
+            # Ra = (diff + Ra) & 0xFFFF from `initial`: a running sum
+            out[r] = (np.cumsum(diff[r]) + initial) & 0xFFFF
+            continue
+        prev, row = out[r - 1], out[r]
+        row[0] = (diff[r, 0] + prev[0]) & 0xFFFF
+        for x in range(1, diff.shape[1]):
+            ra, rb, rc = int(row[x - 1]), int(prev[x]), int(prev[x - 1])
+            p = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                 (ra + rb) >> 1)[predictor - 1]
+            row[x] = (diff[r, x] + p) & 0xFFFF
+    return ((out << point_transform) & 0xFF).astype(np.uint8)
 
 
 def jpeg_upsample_reference(plane: np.ndarray, rh: int, rv: int, out_width: int,
