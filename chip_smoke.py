@@ -25,9 +25,16 @@ the K2 + K3 gradient against the oracle (`oracle_cases`), the
 200k-Gaussian / 800x800 scene of `bench.py` timed (K1 with its counts of
 walked entries and a hash of its output, and held to less than 0.85 of its
 device time with the cull off; then in the bf16 tier, K1f and K1 timed in
-one call, K1f held to the same share of its own walk of every entry), and
-the user's render entry point (`wast3d_tpu_torch.cli.render`, by default
-in the bf16 tier, then with `--no-fast`, then with `--batch 3`), and
+one call, K1f held to the same share of its own walk of every entry; both on
+the direct route, `quad_power=False`), then the quad route (`quad_routes`:
+K1q and K1fq, the matrix-unit form of power that jitter-off renders through
+the kernels take, as JAX's do, bit for bit against their plain versions,
+run to run and against their walks of every entry, on the cases and at
+200k / 800x800, each quad frame within JAX's bound of the direct frame,
+each timed beside K1 and K1f; again at 1M and 4M in `scale_1m`,
+`scale_4m`), and the user's render entry point
+(`wast3d_tpu_torch.cli.render`, by default in the bf16 tier, K1fq, then
+with `--no-fast`, K1q, then with `--batch 3`), and
 `api.render`'s colour and covariance options at that size, with the
 gradient of the precomputed colours through K2 and K3 (`api_options`).
 Then the training
@@ -205,6 +212,24 @@ CLI_TIER_TOL = 3e-2  # `cli.render` --fast against --no-fast, the tier's own bou
 # the tile's pixels (f32 19): f32 45, bf16 15.
 K1F_OPS_PER_PAIR = {"f32": 27, "bf16": 6}
 K2F_OPS_PER_PAIR = {"f32": 45, "bf16": 15}
+# The quad route per contributing pair (csrc/blend_fwd.cu): each bf16 part's
+# chain is a product, four FMAs (2 operations each) and a sum, 10; the parts'
+# sums (2 in K1q, 1 in K1fq) and JAX's clamp (a difference, two compares, a
+# sum: 4). K1q: three parts, 36, in place of the direct power's ~8 of K1's
+# 26: 54. K1fq: two parts, 25, in place of K1f's f32 dx, dy and power (11):
+# f32 41, bf16 6.
+K1Q_OPS_PER_PAIR = 26 - 8 + 36
+K1FQ_OPS_PER_PAIR = {"f32": 27 - 11 + 25, "bf16": 6}
+# The quad frame against the direct frame, colour and final_T: JAX's own
+# bounds, 2e-4 in the f32 tier (tests/test_pallas_blend.py:503-516) and the
+# bf16 tier's 3e-2.
+QUAD_VS_DIRECT_TOL = {False: 2e-4, True: CLI_TIER_TOL}
+# The quad route's error in power (derived beside `cull_prelude` in
+# csrc/blend_fwd.cu): |power - P| <= 12.2u S in K1q and 1.05 2^-16 S in
+# K1fq, P the exact power on the row's tile-local mean and S its
+# `blend.quad_term_bound`; held on the pixels `quad_power_witness` samples.
+QUAD_POWER_ERR = {False: 12.2 * 2.0 ** -24, True: 1.05 * 2.0 ** -16}
+QUAD_WITNESS_PIXELS = 64
 BF16X2_OPS_PER_S = 2 * F32_OPS_PER_S
 FAST_ROW_BYTES = 32  # [K, 16] bf16 rows
 
@@ -224,18 +249,19 @@ def hbm_ms(count):
     return count / HBM_BYTES_PER_S * 1e3
 
 
-def k1_bound_ms(K, tiles, w, h, pairs):
-    """K1: [K, 12] f32 rows, the tile ranges, bg in; colour, depth and T
-    out; K1_OPS_PER_PAIR a (pixel, entry) pair."""
+def k1_bound_ms(K, tiles, w, h, pairs, ops_per_pair=K1_OPS_PER_PAIR):
+    """K1 (K1q with K1Q_OPS_PER_PAIR): [K, 12] f32 rows, the tile ranges, bg
+    in; colour, depth and T out; `ops_per_pair` a (pixel, entry) pair."""
     return (hbm_ms(48 * K + 8 * tiles + 12 + 20 * w * h),
-            K1_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3)
+            ops_per_pair * pairs / F32_OPS_PER_S * 1e3)
 
 
-def k1f_bound_ms(K, tiles, w, h, contributing_pairs, table_bytes):
-    """K1f: [K, 16] bf16 rows and the tables in; the bf16 tier's operations
-    a contributing pair."""
+def k1f_bound_ms(K, tiles, w, h, contributing_pairs, table_bytes,
+                 ops_per_pair=K1F_OPS_PER_PAIR):
+    """K1f (K1fq with K1FQ_OPS_PER_PAIR): [K, 16] bf16 rows and the tables
+    in; the bf16 tier's operations a contributing pair."""
     return (hbm_ms(FAST_ROW_BYTES * K + table_bytes + 8 * tiles + 12 + 20 * w * h),
-            fast_ops_ms(K1F_OPS_PER_PAIR, contributing_pairs))
+            fast_ops_ms(ops_per_pair, contributing_pairs))
 
 
 def k2_bound_ms(K, tiles, w, h, evaluated_pairs):
@@ -394,11 +420,12 @@ def kernel_inputs(scene, cam, offsets=None, fast=False):
     return rows, binning.tile_start, binning.tile_end, cam.width, cam.height, offsets
 
 
-def k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast=False):
-    """K1 (K1f with `fast`) with its cull off (`w3d_blend_fwd_walk_all`,
-    `w3d_blend_fwd_fast_walk_all`: every warp walks every entry), on inputs
-    the wrapper has checked. Launched only here, to show that the cull
-    changes no bit; counted nowhere."""
+def k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast=False, quad=False):
+    """K1 (K1f with `fast`; K1q, K1fq with `quad`, K1q's frame at image
+    row 0) with its cull off (every warp walks every entry), on inputs the
+    wrapper has checked.
+    Launched only here, to show that the cull changes no bit; counted
+    nowhere."""
     from wast3d_tpu_torch import _build
     from wast3d_tpu_torch.ops.rasterizer.binning import tile_grid
     from wast3d_tpu_torch.ops.rasterizer.blend import BlendOutput, fast_tables
@@ -407,12 +434,16 @@ def k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast=False):
     dev = rows.device
     out = BlendOutput(*(torch.empty(shape, device=dev) for shape in ((h, w, 3), (h, w), (h, w))))
     grid_x, grid_y = tile_grid(w, h)
-    entry = lib.w3d_blend_fwd_fast_walk_all if fast else lib.w3d_blend_fwd_walk_all
+    entry = {(False, False): lib.w3d_blend_fwd_walk_all,
+             (True, False): lib.w3d_blend_fwd_fast_walk_all,
+             (False, True): lib.w3d_blend_fwd_quad_walk_all,
+             (True, True): lib.w3d_blend_fwd_fast_quad_walk_all}[fast, quad]
     tables = (fast_tables(dev).data_ptr(),) if fast else ()
+    row0 = (0,) if quad and not fast else ()
     err = entry(
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         None if offsets is None else offsets.data_ptr(), bg.data_ptr(), *tables,
-        *(t.data_ptr() for t in out), w, h, grid_x, grid_x * grid_y,
+        *(t.data_ptr() for t in out), w, h, grid_x, grid_x * grid_y, *row0,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -422,6 +453,18 @@ def k1_walk_all(rows, starts, ends, w, h, bg, offsets, fast=False):
 
 def bitwise_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def same_bits(a, b) -> bool:
+    """Every field of a and b the same float32 bits, NaN at the same places
+    (any NaN's bits)."""
+    for x, y in zip(a, b):
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        zero = torch.zeros_like(x)
+        if not (torch.equal(nx, ny) and torch.equal(torch.where(nx, zero, x).view(torch.int32),
+                                                    torch.where(ny, zero, y).view(torch.int32))):
+            return False
+    return True
 
 
 def sha256_of(tensors) -> str:
@@ -522,7 +565,7 @@ def k1_cases(device, fast=False):
     return bg, cases
 
 
-def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9, fast=False):
+def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9, fast=False, finite=False):
     """K1 inputs (K1f's with `fast`: the same rows recentred and rounded by
     `render_path.fast_rows`) built as rows, to test the cull at its edges: per tile,
     thin rotated splats (|B| near sqrt(AC)) with opacities from 1/255 to
@@ -531,7 +574,9 @@ def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9, fast=False):
     positive definite, infinite A or B, and A too large for the cull's
     terms. Each infinite row's mean lies beyond every sample of its tile,
     so that dx and dy are never 0 and kernel and plain version take the
-    same infinities. Returns (inputs, index of the hand-made rows)."""
+    same infinities. `finite` leaves the infinite rows out (the quad
+    route's power on them is NaN, as JAX's is, and would hide every other
+    row's pixel). Returns (inputs, index of the hand-made rows)."""
     from wast3d_tpu_torch.ops.rasterizer.binning import TILE, tile_grid
 
     rng = np.random.default_rng(seed)
@@ -570,6 +615,8 @@ def cull_edges_case(device, w=64, h=48, per_tile=150, seed=9, fast=False):
             [ox, oy, 0.1, 0.0, inf, 0.8],
             [ox, oy, 1e32, 0.0, 0.1, 0.8],  # finite, but past the cull's 1e30 bound on terms
         ])
+        if finite:
+            hand = hand[np.isfinite(hand).all(axis=1)]
         extra = np.zeros((len(hand), 12))
         extra[:, :6] = hand
         extra[:, 6] = rng.uniform(1, 5, len(hand))
@@ -878,7 +925,8 @@ def phase_oracle_cases(device, n=ORACLE_N, res=ORACLE_RES):
     """The per-pixel oracle on the card as a second check of K1 and K2 that
     does not rest on their plain versions: the golden gate through the
     oracle; K1 (`api.render`, renderer "pallas") against the oracle on
-    seeded scenes of `n` Gaussians at res x res, jitter off and on, within
+    seeded scenes of `n` Gaussians at res x res, jitter off (K1q, the quad
+    route) and on (K1), within
     K1's limits; and the xyz gradient through K2 and K3 against the
     oracle's on JAX's own case (40 Gaussians at 32x32) within its 5e-5,
     with the largest difference at 200 Gaussians / 64x64 reported.
@@ -962,8 +1010,8 @@ def phase_api_options(device, n=FULL_N, res=FULL_RES):
     (and whether they are bit-equal); then the gradient with respect to
     `override_color` through K2 and K3 against renderer "tiled" on the
     card, each column within OPTION_GRAD_TOL of its max. The counts are set
-    to 0 just before and read just after: K1, K2 and K3 must launch.
-    Returns {kernel name: launches}."""
+    to 0 just before and read just after: K1q (the route of these jitter-off
+    renders), K2 and K3 must launch. Returns {kernel name: launches}."""
     from wast3d_tpu_torch.ops.rasterizer import api
 
     t0 = time.perf_counter()
@@ -1014,7 +1062,7 @@ def phase_api_options(device, n=FULL_N, res=FULL_RES):
     if not (max(rel) <= OPTION_GRAD_TOL and bool(torch.isfinite(g_k).all())):
         raise AssertionError(f"override_color gradient, K2 + K3 vs tiled: {rel} of the "
                              f"column max (limit {OPTION_GRAD_TOL})")
-    if any(launches[k] == 0 for k in TRAIN_KERNELS):
+    if any(launches[k] == 0 for k in QUAD_TRAIN_KERNELS):
         raise AssertionError(f"api options: a kernel was never launched: {launches}")
     emit("api_options", t0, n_gaussians=n, width=res, height=res,
          vs_default_render=renders, override_color_grad_rel_err=rel,
@@ -1051,8 +1099,10 @@ def host_ms(fn, reps):
 
 
 def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
-    """Frames through `api.render`, then K1 alone against its plain version
-    and its bound at this frame's inputs. Returns K1's kernels-line entry."""
+    """Frames through `api.render` on the direct route (`quad_power=False`:
+    K1; `quad_routes` has the default route's frames), then K1 alone
+    against its plain version and its bound at this frame's inputs. Returns
+    K1's kernels-line entry."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
     from wast3d_tpu_torch.ops.rasterizer.blend import (
         blend_fwd, blend_fwd_reference, warp_walk_counts)
@@ -1061,7 +1111,7 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="cuda")
+    settings = api.RasterizeSettings(renderer="cuda", quad_power=False)
     t_setup = time.perf_counter() - t0
 
     out, frame_ms, launched = timed_frames(cam, scene, bg, settings, device, warmup, frames)
@@ -1130,8 +1180,9 @@ def phase_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAME
 
 
 def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
-    """Frames through `api.render` in the bf16 tier (`fast_chain`), then K1f
-    alone at this frame's inputs (its bf16 rows): against its plain version
+    """Frames through `api.render` in the bf16 tier (`fast_chain`) on the
+    direct route (`quad_power=False`: K1f), then K1f alone at this frame's
+    inputs (its bf16 rows): against its plain version
     and against K1 on the same frame's f32 rows, both kernels timed in this
     call by events and by device. Returns K1f's kernels-line entry."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
@@ -1142,7 +1193,7 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="pallas", fast_chain=True)
+    settings = api.RasterizeSettings(renderer="pallas", fast_chain=True, quad_power=False)
 
     out, frame_ms, launched = timed_frames(cam, scene, bg, settings, device, warmup, frames)
     if launched != only(blend_fwd_fast=warmup + frames):
@@ -1193,9 +1244,306 @@ def phase_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=
     return {"name": "blend_fwd_fast", "route": "cuda",
             "source": "wast3d_tpu_torch/csrc/blend_fwd.cu",
             "replaces": "wast3d_tpu/ops/rasterizer/pallas_blend.py:276",
-            "launches": None, "max_abs_err": max(e[0] for e in errs.values()),
+            "launches": None,  # the main paths' (main()); these frames are not one
+            "max_abs_err": max(e[0] for e in errs.values()),
             "ms": k1f_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+# ---- the quad route (K1q, K1fq) ---------------------------------------------
+
+def quad_kernels(fast):
+    """(kernel wrapper, plain version, the tier's direct kernel, name) of
+    K1q, or of K1fq with `fast`."""
+    from wast3d_tpu_torch.ops.rasterizer import blend
+
+    if fast:
+        return (blend.blend_fwd_fast_quad, blend.blend_fwd_fast_reference,
+                blend.blend_fwd_fast, "K1fq")
+    return blend.blend_fwd_quad, blend.blend_fwd_reference, blend.blend_fwd, "K1q"
+
+
+def compare_quad(inputs, bg, fast=False, timing=None, hold_direct=True):
+    """K1q (K1fq with `fast`) twice, with its cull off, and its plain
+    version on the same inputs (offsets left out: the route samples integer
+    positions); raises if any two differ in a bit, or on a value that is not
+    finite. Then the tier's direct kernel on the same inputs: with
+    `hold_direct`, colour and final_T within QUAD_VS_DIRECT_TOL of it.
+    Returns ({field: (max, mean, values past QUAD_VS_DIRECT_TOL)} against
+    the direct frame, the kernel's output, the direct kernel's output, the
+    largest difference from the plain version); the plain version's ms go
+    to timing["plain_ms"]."""
+    fwd, plain, direct, name = quad_kernels(fast)
+    args = tuple(inputs[:5]) + (bg,)
+    k, again = fwd(*args), fwd(*args)
+    walk_all = k1_walk_all(*args, None, fast, quad=True)
+    p = event_timed(lambda: plain(*args, quad=True), timing)
+    d = direct(*args)
+    torch.cuda.synchronize()
+    bits = {"plain": same_bits(k, p), "run_to_run": same_bits(k, again),
+            "walk_all": same_bits(k, walk_all)}
+    if not all(bits.values()):
+        raise AssertionError(f"{name}: bits differ: {bits}")
+    if not all(torch.isfinite(t).all() for t in k):
+        raise AssertionError(f"{name}: non-finite values")
+    plain_err = max((float((a - b).abs().max()) if a.numel() else 0.0) for a, b in zip(k, p))
+    vs_direct = {}
+    tol = QUAD_VS_DIRECT_TOL[fast]
+    for field, a, b in zip(("color", "depth", "final_T"), k, d):
+        e = (a - b).abs()
+        vs_direct[field] = ((float(e.max()), float(e.mean()), int((e > tol).sum()))
+                            if e.numel() else (0.0, 0.0, 0))
+    if hold_direct:
+        for field in ("color", "final_T"):
+            if not vs_direct[field][0] <= tol:
+                raise AssertionError(f"{name} {field} against the direct route: max "
+                                     f"{vs_direct[field][0]} (JAX's bound {tol})")
+    return vs_direct, k, d, plain_err
+
+
+def quad_entry_numbers(inputs, bg, fast, reps, hold_direct=True):
+    """K1q (K1fq) and the tier's direct kernel at one frame's inputs: both
+    timed in this call by events and by device, the quad kernel held to its
+    plain version (`compare_quad`, also to JAX's bound of the direct frame
+    with `hold_direct`), its walk's counts and its bound; with the direct
+    kernel's counts and bound beside it."""
+    from wast3d_tpu_torch.ops.rasterizer.blend import fast_tables, warp_walk_counts
+
+    fwd, _, direct, name = quad_kernels(fast)
+    rows, starts, ends, w, h = inputs[:5]
+    args = (rows, starts, ends, w, h, bg)
+    timing = {}
+    vs_direct, k, d, plain_err = compare_quad(args[:5], bg, fast, timing, hold_direct)
+    kname = "blend_fwd_fast_kernel" if fast else "blend_fwd_kernel"
+    walk_all_device_ms = kernel_device_ms(lambda: k1_walk_all(*args, None, fast, quad=True),
+                                          kname, reps)
+    counts = warp_walk_counts(*args[:5], fast=fast, quad=True)
+    direct_counts = warp_walk_counts(*args[:5], fast=fast)
+    K, tiles = int(rows.shape[0]), int(starts.shape[0])
+    if fast:
+        table = fast_tables(rows.device).numel() * 2
+        bound = k1f_bound_ms(K, tiles, w, h, counts.contributing_pairs, table,
+                             K1FQ_OPS_PER_PAIR)
+        direct_bound = k1f_bound_ms(K, tiles, w, h, direct_counts.contributing_pairs, table)
+    else:
+        bound = k1_bound_ms(K, tiles, w, h, counts.contributing_pairs, K1Q_OPS_PER_PAIR)
+        direct_bound = k1_bound_ms(K, tiles, w, h, direct_counts.contributing_pairs)
+    entry = kernel_entry(lambda: fwd(*args), kname, reps, bound,
+                         plain_ms=timing["plain_ms"], walk_all_device_ms=walk_all_device_ms,
+                         vs_direct_max={f: e[0] for f, e in vs_direct.items()},
+                         vs_direct_mean={f: e[1] for f, e in vs_direct.items()},
+                         vs_direct_past_jax_bound={f: e[2] for f, e in vs_direct.items()},
+                         duplicates_K=K, **counts._asdict())
+    entry["direct"] = kernel_entry(lambda: direct(*args), kname, reps, direct_bound,
+                                   **direct_counts._asdict())
+    entry["name"], entry["max_abs_err"] = name, plain_err
+    if not hold_direct:
+        entry["f64_witness"] = quad_power_witness(args[:5], bg, k, d, fast)
+    return entry
+
+
+def quad_power_witness(inputs, bg, k, d, fast, top=QUAD_WITNESS_PIXELS):
+    """A second witness, in float64, that the quad frame's distance from the
+    direct frame is the quad route's own error: at the `top` pixels where
+    K1q's (K1fq's) colour `k` is furthest from the direct kernel's `d`,
+    every entry of the pixel's tile. Raises where the route's power (its
+    plain version's, which the kernel equals bit for bit) lies further than
+    QUAD_POWER_ERR S from the exact power P (float64, on the same tile-local
+    mean), or on a power that is not finite where P is. Reports the largest
+    |power - P| / (u S), u = 2^-24, beside the direct form's largest |power -
+    P| (f32 tier: on image coordinates, as K1 takes them), and in the f32
+    tier each route's colour at those pixels against the colour composed in
+    float64 from P (the skip, clamp and stop rules, one entry at a time)."""
+    from wast3d_tpu_torch.ops.rasterizer import blend
+    from wast3d_tpu_torch.ops.rasterizer.binning import TILE, tile_grid
+
+    rows, starts, ends, w, h = inputs[:5]
+    dev = rows.device
+    grid_x = tile_grid(w, h)[0]
+    gap = (k.color - d.color).abs().amax(-1).flatten()
+    pix = torch.topk(gap, min(top, gap.numel())).indices
+    y, x = pix // w, pix % w
+    tile = (y // TILE) * grid_x + x // TILE
+    lo, n = starts.long()[tile], (ends.long() - starts.long())[tile]
+    owner = torch.repeat_interleave(torch.arange(len(pix), device=dev), n)
+    first = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    entry = lo[owner] + torch.arange(int(n.sum()), device=dev) - first
+    r = rows[entry].float()
+    mx, my, a, b, c = (r[:, i] for i in range(5))
+    px, py = (x % TILE).float()[owner], (y % TILE).float()[owner]
+    if not fast:  # K1q recentres the image mean on the tile, one rounding
+        mx = mx - (tile % grid_x * TILE).float()[owner]
+        my = my - (tile // grid_x * TILE).float()[owner]
+    power = blend._quad_sum(blend._quad_coefficients(mx, my, a, b, c), px, py, fast).double()
+    dx, dy = mx.double() - px.double(), my.double() - py.double()
+    exact = -0.5 * (a.double() * dx * dx + c.double() * dy * dy) - b.double() * dx * dy
+    s = blend.quad_term_bound(mx.double(), my.double(), a.double(), b.double(), c.double())
+    finite = torch.isfinite(exact) & torch.isfinite(s)
+    err = (power - exact).abs()
+    past = finite & ~(err <= QUAD_POWER_ERR[fast] * s)
+    if bool(past.any()):
+        i = int(torch.nonzero(past)[0])
+        raise AssertionError(f"{'K1fq' if fast else 'K1q'}: power {float(power[i])} against "
+                             f"float64 {float(exact[i])}, past {QUAD_POWER_ERR[fast]} S = "
+                             f"{QUAD_POWER_ERR[fast] * float(s[i])} ({int(past.sum())} pairs)")
+    live = finite & (s > 0)
+    out = {"pixels": len(pix), "pairs": int(n.sum()), "finite_pairs": int(finite.sum()),
+           "quad_err_max": float(err[finite].max()) if bool(finite.any()) else 0.0,
+           "quad_err_max_over_u_S": (float((err[live] / s[live]).max()) * 2.0 ** 24
+                                     if bool(live.any()) else 0.0),
+           "quad_err_bound_over_u_S": QUAD_POWER_ERR[fast] * 2.0 ** 24,
+           "gap_at_pixels_max": float(gap[pix].max()) if len(pix) else 0.0}
+    if fast:
+        return out
+    # K1's direct power on image coordinates against float64
+    ix, iy = x.float()[owner], y.float()[owner]
+    r64 = r.double()
+    ddx, ddy = r[:, 0] - ix, r[:, 1] - iy
+    direct = -0.5 * (a * ddx * ddx + c * ddy * ddy) - b * ddx * ddy
+    dx64, dy64 = r64[:, 0] - ix.double(), r64[:, 1] - iy.double()
+    exact_img = (-0.5 * (r64[:, 2] * dx64 * dx64 + r64[:, 4] * dy64 * dy64)
+                 - r64[:, 3] * dx64 * dy64)
+    ok = torch.isfinite(exact_img)
+    out["direct_err_max"] = float((direct.double() - exact_img).abs()[ok].max()) if bool(
+        ok.any()) else 0.0
+    # each route's colour against the colour composed from P in float64
+    bg64 = bg.double()
+    kq, kd = k.color.reshape(-1, 3)[pix].double(), d.color.reshape(-1, 3)[pix].double()
+    want = torch.empty_like(kq)
+    for i in range(len(pix)):
+        sel = owner == i
+        p64, row = exact[sel], r64[sel]
+        alpha = torch.clamp_max(row[:, 5] * torch.exp(p64), 0.99)
+        alpha = torch.where((p64 > 0) | (alpha < 1.0 / 255.0) | ~torch.isfinite(p64),
+                            torch.zeros_like(alpha), alpha)
+        # T before each entry and after the last; the walk stops before the
+        # first entry where T (1 - alpha) < 1e-4
+        t_all = torch.cumprod(torch.cat([alpha.new_ones(1), 1 - alpha]), 0)
+        stop = torch.nonzero(t_all[1:] < 1e-4)
+        end = int(stop[0]) if len(stop) else len(alpha)
+        wgt = alpha[:end] * t_all[:end]
+        want[i] = (wgt[:, None] * row[:end, 7:10]).sum(0) + t_all[end] * bg64
+    for key, got in (("quad", kq), ("direct", kd)):
+        e = (got - want).abs().amax(-1)
+        out[f"{key}_vs_f64_colour_max"] = float(e.max()) if len(pix) else 0.0
+        out[f"{key}_vs_f64_colour_mean"] = float(e.mean()) if len(pix) else 0.0
+    return out
+
+
+def quad_kernels_line_entry(numbers, fast):
+    """The kernels line's entry of K1q (K1fq with `fast`) from
+    `quad_entry_numbers`; its launches are filled in by the caller."""
+    return {"name": "blend_fwd_fast_quad" if fast else "blend_fwd_quad", "route": "cuda",
+            "source": "wast3d_tpu_torch/csrc/blend_fwd.cu",
+            "replaces": ("wast3d_tpu/ops/rasterizer/pallas_blend.py:341" if fast
+                         else "wast3d_tpu/ops/rasterizer/pallas_blend.py:172"),
+            "launches": None, "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"], "library_ms": None}
+
+
+def quad_edges_case(device, w=64, h=48, per_warp=26, seed=5, fast=False):
+    """Rows at the edge of the quad route's cull: per warp, narrow splats
+    (A, C in [30, 100], |B| up to 0.3 sqrt(AC)) centred just beyond the
+    sample of the warp's box nearest the tile's far corner, where the
+    expansion's terms are hundreds of times Q, with alpha there within 5% of
+    1/255 (`tests/test_torch_blend_quad.py::quad_threshold_rows`: in the
+    bf16 tier, K1f's margin without the quad margin drops entries that
+    pixels take on such rows). K1's inputs, or K1f's bf16 rows with `fast`;
+    no offsets."""
+    from wast3d_tpu_torch.ops.rasterizer.binning import TILE, tile_grid
+
+    rng = np.random.default_rng(seed)
+    grid_x, grid_y = tile_grid(w, h)
+    rows, starts = [], []
+    for t in range(grid_x * grid_y):
+        tx, ty = (t % grid_x) * TILE, (t // grid_x) * TILE
+        for warp in range(8):
+            x1, y1 = tx + 8 * (warp % 2) + 7, ty + 4 * (warp // 2) + 3
+            r = np.zeros((per_warp, 12))
+            r[:, 0] = x1 + rng.uniform(0.02, 0.15, per_warp)
+            r[:, 1] = y1 + rng.uniform(0.02, 0.15, per_warp)
+            r[:, 2], r[:, 4] = rng.uniform(30, 100, per_warp), rng.uniform(30, 100, per_warp)
+            r[:, 3] = rng.uniform(-0.3, 0.3, per_warp) * np.sqrt(r[:, 2] * r[:, 4])
+            r = r.astype(np.float32).astype(np.float64)
+            dx, dy = r[:, 0] - x1, r[:, 1] - y1
+            q = r[:, 2] * dx * dx + 2 * r[:, 3] * dx * dy + r[:, 4] * dy * dy
+            r[:, 5] = np.minimum(np.exp(q / 2 + rng.uniform(-0.05, 0.05, per_warp)) / 255.0, 1.0)
+            r[:, 6] = rng.uniform(1, 5, per_warp)
+            r[:, 7:10] = rng.uniform(0.1, 0.9, (per_warp, 3))
+            rows.append(r)
+        starts.append(t * 8 * per_warp)
+    starts = np.array(starts, np.int32)
+    as_t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(device)  # noqa: E731
+    rows = as_t(np.concatenate(rows), np.float32)
+    if fast:
+        from wast3d_tpu_torch.ops.rasterizer.render_path import fast_rows
+
+        tiles = torch.repeat_interleave(torch.arange(len(starts), device=device),
+                                        torch.full((len(starts),), 8 * per_warp, device=device))
+        rows = fast_rows(rows, tiles, w)
+    return rows, as_t(starts, np.int32), as_t(starts + 8 * per_warp, np.int32), w, h, None
+
+
+def phase_quad_routes(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
+    """The quad route in both tiers: K1q and K1fq against their plain
+    versions bit for bit, run to run and against their walks of every entry,
+    on the seven K1 cases (offsets left out; `cull_edges` without its
+    infinite rows), on `quad_edges` and at 200k / 800x800; each quad frame
+    within JAX's own bound of the tier's direct frame (`cull_edges` and
+    `quad_edges` reported, not held: their rows are built at the culls'
+    edges, non-positive-definite conics among them, where JAX's clamp takes
+    what the direct form skips). Frames
+    through `api.render` in both tiers (quad_power on, its default), then
+    each quad kernel beside the tier's direct kernel at this frame's inputs,
+    timed in this call. Returns K1q's and K1fq's kernels-line entries (the
+    max_abs_err against the plain version at 200k, where the bits are
+    held)."""
+    from wast3d_tpu_torch.ops.rasterizer import api, render_path
+
+    t0 = time.perf_counter()
+    cases = {}
+    for fast in (False, True):
+        bg, tier = k1_cases(device, fast)
+        tier["cull_edges"] = cull_edges_case(device, fast=fast, finite=True)[0]
+        tier["quad_edges"] = quad_edges_case(device, fast=fast)
+        for name, inputs in tier.items():
+            vs_direct, k, _, _ = compare_quad(
+                inputs, bg, fast, hold_direct=name not in ("cull_edges", "quad_edges"))
+            cases[f"{'K1fq' if fast else 'K1q'}_{name}"] = {
+                "K": int(inputs[0].shape[0]), "final_T_min": float(k.final_T.min()),
+                **{f"vs_direct_{f}_max": e[0] for f, e in vs_direct.items()},
+                **{f"vs_direct_{f}_mean": e[1] for f, e in vs_direct.items()}}
+    t_cases = time.perf_counter() - t0
+
+    scene = make_scene(bench_scene(n), device)
+    cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
+    bg = torch.zeros(3, device=device)
+    full, entries = {}, []
+    for fast in (False, True):
+        settings = api.RasterizeSettings(renderer="pallas", fast_chain=fast)
+        out, frame_ms, launched = timed_frames(cam, scene, bg, settings, device, warmup, frames)
+        want = (only(blend_fwd_fast_quad=warmup + frames) if fast
+                else only(blend_fwd_quad=warmup + frames))
+        if launched != want:
+            raise AssertionError(f"launches {launched} for {warmup + frames} quad frames")
+        if out["render"].shape != (res, res, 3) or not torch.isfinite(out["render"]).all():
+            raise AssertionError("quad frame: wrong shape or non-finite values")
+        with torch.no_grad():
+            prep = api.preprocess_scene(cam, scene)
+            binning, rows = render_path.bin_and_pack(prep, res, res, fast=fast)
+        inputs = (rows, binning.tile_start, binning.tile_end, res, res)
+        numbers = quad_entry_numbers(inputs, bg, fast, 50)
+        numbers.update(frame_ms=ms_summary(frame_ms),
+                       output_sha256=sha256_of(quad_kernels(fast)[0](*inputs, bg)))
+        full[numbers["name"]] = numbers
+        entries.append(quad_kernels_line_entry(numbers, fast))
+    emit("quad_routes", t0, cases=cases, cases_s=t_cases, n_gaussians=n, width=res,
+         height=res, full_width=full,
+         tolerance={"kernel_vs_plain": "bitwise",
+                    "vs_direct": {"f32": QUAD_VS_DIRECT_TOL[False],
+                                  "bf16": QUAD_VS_DIRECT_TOL[True]}})
+    return entries
 
 
 # ---- entry point -------------------------------------------------------------
@@ -1257,16 +1605,32 @@ def rendered_pngs(model, split, count, res):
     return out
 
 
+def plain_quad_render(cam, scene, bg, fast=False):
+    """[H, W, 3]: the plain version of the path `cli.render` takes for this
+    view (jitter off, `quad_power` on): preprocess, binning and the gather,
+    then K1fq's plain version (K1q's without `fast`)."""
+    from wast3d_tpu_torch.ops.rasterizer import api, blend, render_path
+
+    with torch.no_grad():
+        prep = api.preprocess_scene(cam, scene)
+        binning, rows = render_path.bin_and_pack(prep, cam.width, cam.height, fast=fast,
+                                                 plain=True)
+        plain = blend.blend_fwd_fast_reference if fast else blend.blend_fwd_reference
+        return plain(rows, binning.tile_start, binning.tile_end, cam.width, cam.height,
+                     bg, quad=True).color
+
+
 def phase_entry_point(device, n=FULL_N, res=FULL_RES):
     """The user's render entry point in both tiers: `cli.render` as a user
-    calls it (the bf16 tier, K1f, by default), then with `--no-fast` (K1),
-    then by default with `--batch 3` (views in groups of three through
-    `render_batch`), with every kernel's count set to 0 just before each
-    and read just after. Each tier's PNGs are held to its plain renders
-    (the dataset's ground truth for K1; the plain fast render of each
-    camera for K1f), the two tiers to each other, and `--batch 3`'s PNGs
-    must equal the default run's bit for bit. Returns ({kernel name:
-    launches} of the default run, of the --no-fast run)."""
+    calls it (the bf16 tier on the quad route, K1fq, by default), then with
+    `--no-fast` (K1q), then by default with `--batch 3` (views in groups of
+    three through `render_batch`), with every kernel's count set to 0 just
+    before each and read just after. Each tier's PNGs are held to plain
+    renders (the dataset's ground truth, plain renders of the direct route,
+    for K1q; the plain version of K1fq's path for each camera for K1fq),
+    the two tiers to each other, and `--batch 3`'s PNGs must equal the
+    default run's bit for bit. Returns ({kernel name: launches} of the
+    default run, of the --no-fast run)."""
     import shutil
 
     from wast3d_tpu_torch.cli import render as cli
@@ -1287,16 +1651,14 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
                                      "point_cloud.ply"))
         shutil.copytree(models["fast"], models["f32"])
         shutil.copytree(models["fast"], models["fast_batch3"])
-        # the plain fast renders of the same cameras, as PNG bytes
+        # the plain renders of K1fq's path for the same cameras, as PNG bytes
         info = datasets.load_scene_info(src, eval_split=True)
         plain_fast = {}
         for split, infos in (("train", info.train_cameras), ("test", info.test_cameras)):
             for i, (cam, _) in enumerate(datasets.build_cameras(infos, device=device)):
-                out = api.render(cam, scene, torch.zeros(3), device=device,
-                                 settings=api.RasterizeSettings(renderer="torch",
-                                                                fast_chain=True))
+                color = plain_quad_render(cam, scene, torch.zeros(3, device=device), fast=True)
                 path = os.path.join(tmp, f"plain_fast_{split}_{i}.png")
-                save_image(path, out["render"].cpu().numpy())
+                save_image(path, color.cpu().numpy())
                 plain_fast[split, f"{i:05d}.png"] = read_png(path).astype(np.int32)
         t_setup = time.perf_counter() - t0
 
@@ -1326,11 +1688,11 @@ def phase_entry_point(device, n=FULL_N, res=FULL_RES):
                 b = fast[f][0]
                 worst["fast"] = max(worst["fast"], int(np.abs(b - plain_fast[split, f]).max()))
                 tiers_worst = max(tiers_worst, int(np.abs(a - b).max()))
-    if (launches["fast"] != only(blend_fwd_fast=views)
-            or launches["f32"] != only(blend_fwd=views)
-            or launches["fast_batch3"] != only(blend_fwd_fast=views)):
-        raise AssertionError(f"launches {launches} for {views} views (want K1f, then K1, "
-                             f"then K1f, once each)")
+    if (launches["fast"] != only(blend_fwd_fast_quad=views)
+            or launches["f32"] != only(blend_fwd_quad=views)
+            or launches["fast_batch3"] != only(blend_fwd_fast_quad=views)):
+        raise AssertionError(f"launches {launches} for {views} views (want K1fq, then K1q, "
+                             f"then K1fq, once each)")
     if not batch_equal:
         raise AssertionError("cli.render --batch 3 wrote other PNGs than --batch 1")
     if max(worst.values()) > 2:
@@ -1414,8 +1776,10 @@ def step_blend_inputs(scene, cam, gt, bg, opt_cfg):
 
 def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=FRAMES):
     """`train_step` on the 200k / 800x800 scene (jitter off, as `bench.py`
-    times it), then K2 and K3 alone at that step's inputs against their
-    plain versions and bounds. Returns the kernels-line entries of K2, K3."""
+    times it, on the direct route, `quad_power=False`: K1 forward, the
+    route of every earlier run of this phase), then K2 and K3 alone at that
+    step's inputs against their plain versions and bounds. Returns the
+    kernels-line entries of K2, K3."""
     from wast3d_tpu_torch.config import OptimizationConfig
     from wast3d_tpu_torch.ops.rasterizer import api, grad_reduce
     from wast3d_tpu_torch.ops.rasterizer.blend import (
@@ -1426,7 +1790,7 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="cuda")
+    settings = api.RasterizeSettings(renderer="cuda", quad_power=False)
     opt_cfg = OptimizationConfig()
     with torch.no_grad():
         gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
@@ -1564,8 +1928,9 @@ def phase_train_full_width(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=
 
 def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, steps=FRAMES):
     """`train_step` in the bf16 tier (K1f forward, K2f backward, K3) on the
-    200k / 800x800 scene, jitter off, with every kernel's count set to 0
-    just before the steps and read just after; then K2f alone at that
+    200k / 800x800 scene, jitter off, on the direct route (`quad_power=False`),
+    with every kernel's count set to 0 just before the steps and read just
+    after; then K2f alone at that
     step's inputs, timed as K2 is (and K2 beside it), against its plain
     version and bound. Returns K2f's kernels-line entry, with its launches
     from the steps."""
@@ -1581,11 +1946,12 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="pallas", fast_chain=True)
+    settings = api.RasterizeSettings(renderer="pallas", fast_chain=True, quad_power=False)
     opt_cfg = OptimizationConfig()
     with torch.no_grad():
         gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
-                        settings=api.RasterizeSettings(renderer="cuda"), device=device)["render"]
+                        settings=api.RasterizeSettings(renderer="cuda", quad_power=False),
+                        device=device)["render"]
     state = R.init_train_state(scene, opt_cfg, 1.0)
 
     reset_kernel_counts()
@@ -1651,6 +2017,7 @@ def phase_train_full_width_fast(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, s
 
 
 TRAIN_KERNELS = ("blend_fwd", "blend_bwd", "segment_sum")
+QUAD_TRAIN_KERNELS = ("blend_fwd_quad", "blend_bwd", "segment_sum")  # jitter-off steps
 
 
 def _counted():
@@ -1661,6 +2028,8 @@ def _counted():
 
     return {"blend_fwd": blend.blend_fwd, "blend_bwd": blend.blend_bwd,
             "blend_fwd_fast": blend.blend_fwd_fast, "blend_bwd_fast": blend.blend_bwd_fast,
+            "blend_fwd_quad": blend.blend_fwd_quad,
+            "blend_fwd_fast_quad": blend.blend_fwd_fast_quad,
             "segment_sum": segment_sum, "desc_loss": desc_loss, "desc_grad": desc_grad,
             "pack_gather": pack_gather}
 
@@ -1751,12 +2120,13 @@ def phase_train_entry_point(device, n=FULL_N, res=FULL_RES, iters=TRAIN_ITERS):
         raise AssertionError(f"train loss did not fall: {losses}")
     if n_final == N_INIT or not finite:
         raise AssertionError(f"N {N_INIT} -> {n_final}, finite {finite}")
-    want = only(blend_fwd=iters + report_renders, blend_bwd=iters, segment_sum=iters)
+    want = only(blend_fwd=iters, blend_fwd_quad=report_renders, blend_bwd=iters,
+                segment_sum=iters)
     if launches != want:
-        raise AssertionError(f"launches {launches}, want {want} (one K1, K2, K3 per step, "
-                             f"plus K1 for {report_renders} report renders)")
+        raise AssertionError(f"launches {launches}, want {want} (one K1, K2, K3 per jittered "
+                             f"step, plus K1q for {report_renders} report renders)")
     emit("train_entry_point", t0, views=views, width=res, height=res, iterations=iters,
-         launches=launches, launches_per_step={k: (v - (report_renders if k == "blend_fwd"
+         launches=launches, launches_per_step={k: (v - (report_renders if k == "blend_fwd_quad"
                                                        else 0)) / iters
                                                for k, v in launches.items()},
          losses=losses, densify_n=densify, n_init=N_INIT, n_final=n_final,
@@ -1846,13 +2216,17 @@ def kg_rows_vs_fast_rows(kg_rows, fast_rows, rows32):
 
 
 def scale_serving(device, scene, cam, bg, warmup, frames, reps):
-    """Frames through `api.render` in the f32 tier (K1) and in the bf16
-    serving tier (K1f on Kg's rows), then each kernel alone at this frame's
-    inputs against its plain version and its bound: K1 within its limits,
-    Kg and K1f (on Kg's rows) bit for bit; Kg's rows against the
-    non-packed ones (`kg_rows_vs_fast_rows`), and the Kg frame's distance
-    from the frame without it beside JAX's bounds. Returns (numbers,
-    launches of the frames)."""
+    """Frames through `api.render` in the f32 tier and in the bf16 serving
+    tier (on Kg's rows), both on the quad route, the default without jitter
+    (K1q, K1fq), then each kernel alone at this frame's inputs against its
+    plain version and its bound: K1 within its limits, Kg and K1f (on Kg's
+    rows) bit for bit, K1q and K1fq (on Kg's rows) bit for bit, each beside
+    the tier's direct kernel in this call (`quad_entry_numbers`; the quad
+    frame's distance from the direct frame reported beside JAX's bound,
+    not held to it); Kg's rows
+    against the non-packed ones (`kg_rows_vs_fast_rows`), and the Kg
+    frame's distance from the frame without it beside JAX's bounds. Returns
+    (numbers, launches of the frames)."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
     from wast3d_tpu_torch.ops.rasterizer.binning import compute_rects, tile_grid
     from wast3d_tpu_torch.ops.rasterizer.blend import (
@@ -1865,8 +2239,8 @@ def scale_serving(device, scene, cam, bg, warmup, frames, reps):
     fast = api.RasterizeSettings(renderer="pallas", fast_chain=True)
     served, served_ms, served_launches = timed_frames(
         cam, scene, bg, fast._replace(pack_gather=True), device, warmup, frames)
-    if (f32_launches != only(blend_fwd=warmup + frames)
-            or served_launches != only(blend_fwd_fast=warmup + frames,
+    if (f32_launches != only(blend_fwd_quad=warmup + frames)
+            or served_launches != only(blend_fwd_fast_quad=warmup + frames,
                                        pack_gather=warmup + frames)):
         raise AssertionError(f"launches {f32_launches} (f32), {served_launches} (bf16 + Kg) "
                              f"for {warmup + frames} frames each")
@@ -1906,6 +2280,11 @@ def scale_serving(device, scene, cam, bg, warmup, frames, reps):
         k1_bound_ms(K, tiles, w, h, counts.contributing_pairs), plain_ms=timing["plain_ms"],
         max_err={f: e[0] for f, e in errs.items()}, mean_err={f: e[1] for f, e in errs.items()},
         bit_equal_to_plain=bits, **counts._asdict())
+    # The quad frames against the direct ones are reported beside JAX's 80 x 48
+    # bound, not held to it: on the ladder's sub-pixel splats (A in the
+    # hundreds) the expansion's terms, and so the route's error, are far
+    # larger than on JAX's scene (PERF.md §6).
+    numbers["k1q"] = quad_entry_numbers(args[:5], bg, False, reps, hold_direct=False)
 
     # Kg, then K1f on Kg's rows: the serving frame's inputs
     kargs = (prep.means2d, prep.conics, prep.opacities, prep.depths, prep.colors,
@@ -1936,6 +2315,7 @@ def scale_serving(device, scene, cam, bg, warmup, frames, reps):
         lambda: blend_fwd_fast(*fargs), "blend_fwd_fast_kernel", reps,
         k1f_bound_ms(K, tiles, w, h, counts.contributing_pairs, fast_tables(device).numel() * 2),
         plain_ms=timing["plain_ms"], bit_equal_to_plain=bits, **counts._asdict())
+    numbers["k1fq"] = quad_entry_numbers(fargs[:5], bg, True, reps, hold_direct=False)
 
     # The Kg frame against the frame without it, beside JAX's bounds
     # (PACK_TOL, PACK_DEPTH_TOL: its test scene at 80 x 48, which the
@@ -1957,7 +2337,8 @@ def scale_serving(device, scene, cam, bg, warmup, frames, reps):
 
 
 def scale_training(device, arrays, scene, cam, bg, warmup, steps, reps, densify):
-    """Train steps (jitter off) against the f32 render of a copy perturbed
+    """Train steps (jitter off, on the direct route: `quad_power=False`, K1
+    forward) against the f32 render of a copy perturbed
     by sigma = 0.002, with every kernel's count set to 0 just before the
     steps and read just after; the stage split; K2 and K3 alone at one
     step's inputs against their plain versions and bounds; with `densify`,
@@ -1970,7 +2351,7 @@ def scale_training(device, arrays, scene, cam, bg, warmup, steps, reps, densify)
     from wast3d_tpu_torch.train import reconstruct as R
 
     w, h = cam.width, cam.height
-    settings = api.RasterizeSettings(renderer="cuda")
+    settings = api.RasterizeSettings(renderer="cuda", quad_power=False)
     opt_cfg = OptimizationConfig()
     with torch.no_grad():
         gt = api.render(cam, make_scene(perturbed(arrays), device), bg, settings=settings,
@@ -2952,8 +3333,9 @@ def kg_other_call(args):
 
 def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAMES):
     """Kg against its plain version on seeded cases and at 200k / 800²,
-    then K1f frames with `pack_gather` (the main path of Kg) against the
-    frame without it, and Kg's times beside the f32 gather + `fast_rows`
+    then frames with `pack_gather` (the main path of Kg; K1fq, the quad
+    route of these jitter-off frames) against the frame without it, and
+    Kg's times beside the f32 gather + `fast_rows`
     that it replaces. Returns Kg's kernels-line entry."""
     from wast3d_tpu_torch.ops.rasterizer import api, render_path
     from wast3d_tpu_torch.ops.rasterizer.pack_gather import (
@@ -3026,7 +3408,7 @@ def phase_pack_gather(device, n=FULL_N, res=FULL_RES, warmup=WARMUP, frames=FRAM
          timing_s=time.perf_counter() - t0 - split["cases_s"] - split["frames_s"], **split)
     if not all(all(v) for v in cases.values()):
         raise AssertionError(f"Kg against its plain version / itself: {cases}")
-    if launched != only(blend_fwd_fast=warmup + frames, pack_gather=warmup + frames):
+    if launched != only(blend_fwd_fast_quad=warmup + frames, pack_gather=warmup + frames):
         raise AssertionError(f"launches {launched} for {warmup + frames} pack_gather frames")
     if not (diffs["render"] <= PACK_TOL and diffs["final_T"] <= PACK_TOL and depth_ok):
         raise AssertionError(f"pack_gather frame beyond JAX's bounds of the fast frame: {diffs}")
@@ -3111,10 +3493,11 @@ def gui_camera_render(req, scene, settings, bg, device):
 def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
     """The viewers at full width, each with the launch counts set to 0 just
     before it and read just after: the web viewer (`web.serve_scene`, three
-    800² orbits through K1f, bit-equal to in-process renders), `cli.view` as
-    a subprocess, the SIBR server (`network_gui`, K1), `cli.train --port` on
-    the COLMAP + JPEG fixture with a live-view client, the nerfstudio
-    outputs (K1), and `utils.profiling`."""
+    800² orbits through K1fq, bit-equal to in-process renders), `cli.view`
+    as a subprocess, the SIBR server (`network_gui`, K1q), `cli.train
+    --port` on the COLMAP + JPEG fixture with a live-view client, the
+    nerfstudio outputs (K1q), and `utils.profiling`. Every frame here is a
+    jitter-off render through the kernels, so on the quad route."""
     import importlib.util
     import shutil
     import socket
@@ -3134,7 +3517,7 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
     bg = torch.zeros(3, device=device)
     view_settings = api.RasterizeSettings(renderer="pallas", dup_capacity=1 << 21,
                                           fast_chain=True)  # cli.view's defaults
-    f32 = api.RasterizeSettings()  # the training settings: K1
+    f32 = api.RasterizeSettings()  # the training settings: K1q without jitter
 
     # -- the web viewer, in process
     t1 = time.perf_counter()
@@ -3179,7 +3562,7 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
                    frame_http_round_trip_ms_median=statistics.median(http_ms),
                    web_s=time.perf_counter() - t1)
     if (info != {"num_gaussians": n} or not all(web_equal) or not_found != 404
-            or web_launches != only(blend_fwd_fast=len(VIEWER_ORBITS))):
+            or web_launches != only(blend_fwd_fast_quad=len(VIEWER_ORBITS))):
         raise AssertionError(f"web viewer: {numbers}")
 
     with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_view_") as tmp:
@@ -3222,7 +3605,7 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
         if view_info != {"num_gaussians": n} or not view_equal:
             raise AssertionError(f"cli.view: info {view_info}, frame equal {view_equal}")
 
-        # -- the SIBR server, at 800 x 800, through K1
+        # -- the SIBR server, at 800 x 800, through K1q
         t1 = time.perf_counter()
         verify = "/chip_smoke/model"
         canonical = dict(SIBR_CANONICAL, resolution_x=res, resolution_y=res)
@@ -3267,7 +3650,7 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
                        sibr_keep_alive=keep, sibr_launches=sibr_launches,
                        sibr_frame_mean=float(want.mean()), sibr_s=time.perf_counter() - t1)
         if (not sibr_equal or not canonical_equal or got_verify != verify
-                or keep != (None, verify) or sibr_launches != only(blend_fwd=2)
+                or keep != (None, verify) or sibr_launches != only(blend_fwd_quad=2)
                 or want.max() == 0):
             raise AssertionError(f"SIBR server: {numbers}")
 
@@ -3324,9 +3707,10 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
             live["stop"] = True
         cli_s = time.perf_counter() - t1
         train_launches = kernel_counts()
-        # Every frame served is a K1 launch beyond the steps and the reports:
-        # let the client read each of them, then unblock its last request.
-        served = train_launches["blend_fwd"] - GUI_TRAIN_ITERS - report_renders
+        # Every frame served is a K1q launch beyond the reports (the jittered
+        # steps launch K1): let the client read each of them, then unblock its
+        # last request.
+        served = train_launches["blend_fwd_quad"] - report_renders
         deadline = time.perf_counter() + 10
         while live["frames"] < served and client.is_alive() and time.perf_counter() < deadline:
             time.sleep(0.01)
@@ -3342,7 +3726,7 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
         reports = [(e["iter"], e["psnr_train"]) for e in log if "psnr_train" in e]
         losses = [(e["iter"], e["loss"]) for e in log if "loss" in e]
     frames = live["frames"]
-    want_launches = only(blend_fwd=GUI_TRAIN_ITERS + frames + report_renders,
+    want_launches = only(blend_fwd=GUI_TRAIN_ITERS, blend_fwd_quad=frames + report_renders,
                          blend_bwd=GUI_TRAIN_ITERS, segment_sum=GUI_TRAIN_ITERS)
     numbers.update(train_iterations=GUI_TRAIN_ITERS, train_frames_served=frames,
                    train_framing_ok=live["framing_ok"], train_client_errors=live["errors"],
@@ -3352,7 +3736,7 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
             or len(reports) != 2 or not reports[1][1] > reports[0][1]):
         raise AssertionError(f"cli.train --port: {numbers}, want launches {want_launches}")
 
-    # -- nerfstudio's outputs, through K1, against the plain render's
+    # -- nerfstudio's outputs, through K1q, against the plain render's
     t1 = time.perf_counter()
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     with torch.no_grad():
@@ -3365,9 +3749,9 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
             device=device)
     ns_diff = {k: float((ns[k] - plain[k]).abs().max()) for k in ns}
     ns_mean = {k: float((ns[k] - plain[k]).abs().mean()) for k in ns}
-    depth = api.render(cam, scene, bg, settings=f32, device=device)["depth"]  # K1's, raw
+    depth = api.render(cam, scene, bg, settings=f32, device=device)["depth"]  # K1q's, raw
     # The near-plane clamp (depth < 2 -> 1e10) is a step: a pixel whose depth
-    # K1 and the plain version put on either side of 2 (within K1's depth
+    # K1q and the plain version put on either side of 2 (within K1's depth
     # limit of it) flips between 1/2 and 1e-10. Hold the inverse depth where
     # both sides agree on the clamp, and the flips to that band.
     clamped_k1, clamped_plain = (ns["depth"][..., 0] < 1e-9), (plain["depth"][..., 0] < 1e-9)
@@ -3386,12 +3770,12 @@ def phase_viewer_entry_point(device, n=FULL_N, res=FULL_RES):
                    ns_clamp_flips=int(flips.sum()), ns_clamp_flips_within_depth_limit=flips_in_band,
                    ns_normals_unit_err=unit_err, ns_foreground_pixels=int(inner.sum()),
                    ns_s=time.perf_counter() - t1)
-    if (ns_launches != only(blend_fwd=1) or ns_diff["rgb1"] > TOL_MAX
+    if (ns_launches != only(blend_fwd_quad=1) or ns_diff["rgb1"] > TOL_MAX
             or ns_diff["depth"] > TOL_DEPTH or not flips_in_band or unit_err > 1e-5
             or int(inner.sum()) == 0):
         raise AssertionError(f"nerfstudio outputs: {numbers}")
 
-    # -- utils.profiling around one K1f frame
+    # -- utils.profiling around one K1fq frame
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="w3d_chip_smoke_trace_") as tmp:
         with profiling.trace(tmp):
@@ -3432,8 +3816,8 @@ def phase_pipeline_entry_point(device, iters=PIPELINE_ITERS, frames=PIPELINE_FRA
     `iters` each and from 60 turntable frames to `frames`; `clusters` style
     clusters, so that cluster 0 holds more than 2,048 points and K4/K5 carry
     its fit. Every kernel's count is set to 0 just before the CLI and read
-    just after: K1, K2, K3 (training, report renders, turntable), K4, K5
-    (stylization). Returns {kernel name: launches}."""
+    just after: K1, K2, K3 (training), K1q (report renders, turntable: jitter
+    off), K4, K5 (stylization). Returns {kernel name: launches}."""
     from wast3d_tpu_torch.cli import pipeline as cli
     from wast3d_tpu_torch.core.sh import sh_to_rgb
     from wast3d_tpu_torch.scene.datasets import store_ply_points
@@ -3476,11 +3860,11 @@ def phase_pipeline_entry_point(device, iters=PIPELINE_ITERS, frames=PIPELINE_FRA
         written = sorted(os.listdir(turntable))
         lit = [int(read_png(os.path.join(turntable, f)).max()) for f in written]
         shapes = {read_png(os.path.join(turntable, f)).shape for f in written}
-    want_zero = ("blend_fwd_fast", "blend_bwd_fast", "pack_gather")
+    want_zero = ("blend_fwd_fast", "blend_bwd_fast", "blend_fwd_fast_quad", "pack_gather")
     if (any(launches[k] == 0 for k in launches if k not in want_zero)
             or any(launches[k] for k in want_zero)
             or not launches["blend_bwd"] == launches["segment_sum"] == 2 * iters):
-        raise AssertionError(f"launches {launches}: want K1-K5 all launched, K2 = K3 = "
+        raise AssertionError(f"launches {launches}: want K1-K5 and K1q all launched, K2 = K3 = "
                              f"{2 * iters} (two reconstructions), no bf16-tier kernel")
     if cluster0 <= KERNEL_MIN_MP or not finite or out.capacity == 0:
         raise AssertionError(f"cluster 0 has {cluster0} points (want > {KERNEL_MIN_MP}); stylized "
@@ -3536,8 +3920,9 @@ def unguarded_convolutions():
 def phase_eval_entry_point(device, n=FULL_N, res=FULL_RES):
     """The evaluation chain as a user runs it, with the TF32 flags at
     PyTorch's defaults: `cli.render` of the bench shell on a 6-view 800x800
-    Blender dataset of its jittered copy, in both tiers (K1f by default, K1 with --no-fast), then
-    `render_set(save_depth=True)` of the test split (K1), then `cli.metrics
+    Blender dataset of its jittered copy, in both tiers, on the quad route
+    (K1fq by default, K1q with --no-fast), then `render_set(save_depth=True)`
+    of the test split (K1q), then `cli.metrics
     -m` on both models. Each has the kernel counts set to 0 just before and
     read just after. The card's metrics are held to `evaluate_dir` on the
     CPU on the same PNGs (`EVAL_TOL`). Returns {step: launches}."""
@@ -3608,8 +3993,9 @@ def phase_eval_entry_point(device, n=FULL_N, res=FULL_RES):
             unguarded = float(LPIPS(device=device)(*pair))
         unguarded_rel = rel_diff(unguarded, cpu["f32"]["per_view"]["LPIPS_PROXY"]["00000.png"])
     n_test = len(test_cams)
-    want = {"render_fast": only(blend_fwd_fast=views), "render_f32": only(blend_fwd=views),
-            "render_set_depth": only(blend_fwd=n_test), "metrics": only()}
+    want = {"render_fast": only(blend_fwd_fast_quad=views),
+            "render_f32": only(blend_fwd_quad=views),
+            "render_set_depth": only(blend_fwd_quad=n_test), "metrics": only()}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     if (depth_files != [f"{i:05d}.png" for i in range(n_test)]
@@ -3661,9 +4047,10 @@ def procedural_style_image(res, seed=5):
 def phase_refine_entry_point(device, n=FULL_N, res=FULL_RES, steps=REFINE_STEPS,
                              k=TELEPORT_K, style_n=STYLE_SCENE_N):
     """`refine.drivers.refine` in its five modes with the default settings
-    on the 200k shell at 800x800 (3 views; ground truth a K1 render of the
+    on the 200k shell at 800x800 (3 views; ground truth a K1q render of the
     sigma = 0.002 jittered copy, the target depth that render's depth
-    blurred, a seeded procedural style image), `steps` steps each, with the
+    blurred, a seeded procedural style image), `steps` steps each (K1q, the
+    quad route of these jitter-off renders, K2 and K3 once a step), with the
     counts set to 0 just before each mode and read just after; then
     `cluster_teleport` of the pipeline's 60k torus onto the shell (K = 500)
     and `get_intracluster_stats` on the result. Each step's time is taken on
@@ -3728,7 +4115,7 @@ def phase_refine_entry_point(device, n=FULL_N, res=FULL_RES, steps=REFINE_STEPS,
     finally:
         drivers.refine_step = plain_step
 
-    want = only(blend_fwd=steps, blend_bwd=steps, segment_sum=steps)
+    want = only(blend_fwd_quad=steps, blend_bwd=steps, segment_sum=steps)
     bad = {m: v for m, v in launches.items() if v != want}
     if bad:
         raise AssertionError(f"launches {bad}, want {want} in every mode")
@@ -4304,7 +4691,7 @@ def phase_stylize_entry_point(device, spacing, fit_steps=STYLE_CLI_FIT_STEPS,
             rendered = {"launches": kernel_counts(), "shape": list(frame.shape),
                         "finite": bool(torch.isfinite(frame).all()),
                         "mean": float(frame.mean())}
-            if (rendered["launches"] != only(blend_fwd=1) or not rendered["finite"]
+            if (rendered["launches"] != only(blend_fwd_quad=1) or not rendered["finite"]
                     or tuple(frame.shape) != (render_res[1], render_res[0], 3)):
                 raise AssertionError(f"the stylized PLY's render: {rendered}")
 
@@ -4806,14 +5193,15 @@ def phase_parallel_cases(device, n=FULL_N, res=FULL_RES):
     """`parallel/` on two gloo ranks sharing cuda:0, on the 200k / 800x800
     shell (jitter off): (a) `render_tile_sharded`'s stitched strips against
     `api.render` within K1's limits, bit equality reported, in the f32 tier
-    and (bf16) against the K1f frame; (b) one tile-sharded step's gradients
+    and (bf16) against the K1fq frame, both on the quad route (K1q, K1fq: the
+    strip path takes it, as JAX's does); (b) one tile-sharded step's gradients
     of every parameter, gathered, against the single-device step's within
     K2's bound (1e-3 of each column's max), and 23 steps; (c)
     `ring_mean_sq_dist_to_3nn` at 200k against `ops.knn.mean_sq_dist_to_3nn`
     (rtol 1e-4, atol 1e-6); (d) `photometric_loss_sharded` of the strips
     against `photometric_loss` of the frame, on a uniform random target as
     JAX's test takes (rtol 1e-5); (e) the f32 frame on a one-rank nccl
-    group. K1, K2 and K3 must launch on each rank. Times are two ranks
+    group. K1q, K2 and K3 must launch on each rank. Times are two ranks
     sharing one H100 through gloo's host staging, not scaling figures."""
     from wast3d_tpu_torch.ops.image_losses import photometric_loss
     from wast3d_tpu_torch.ops.knn import mean_sq_dist_to_3nn
@@ -4867,7 +5255,8 @@ def phase_parallel_cases(device, n=FULL_N, res=FULL_RES):
     fast_max, fast_mean = _frame_diff(fast, fast_want)
     fast_bits = bool(np.array_equal(fast, fast_want))
     if not (fast_max <= TOL_MAX and fast_mean <= TOL_MEAN):
-        raise AssertionError(f"tile-sharded bf16 frame vs the K1f frame: {fast_max} / {fast_mean}")
+        raise AssertionError(f"tile-sharded bf16 frame vs the K1fq frame: {fast_max} / "
+                             f"{fast_mean}")
 
     grad_err = {}
     for k, g in grads.items():
@@ -4888,12 +5277,13 @@ def phase_parallel_cases(device, n=FULL_N, res=FULL_RES):
         raise AssertionError(f"sharded loss {[r['sharded_loss'] for r in ranks]} vs {loss_ref}")
     steps = PAR_WARMUP + PAR_REPS
     for r in ranks:
-        if r["frame_launches"] != only(blend_fwd=1):
-            raise AssertionError(f"a strip render launched {r['frame_launches']}, want K1 once")
-        if r["grad_launches"] != only(blend_fwd=1, blend_bwd=1, segment_sum=1):
+        if r["frame_launches"] != only(blend_fwd_quad=1):
+            raise AssertionError(f"a strip render launched {r['frame_launches']}, want K1q once")
+        if r["grad_launches"] != only(blend_fwd_quad=1, blend_bwd=1, segment_sum=1):
             raise AssertionError(f"a step's gradients launched {r['grad_launches']}, "
-                                 "want K1, K2, K3 once each")
-        if r["step_launches"] != only(blend_fwd=steps, blend_bwd=steps, segment_sum=steps):
+                                 "want K1q, K2, K3 once each")
+        if r["step_launches"] != only(blend_fwd_quad=steps, blend_bwd=steps,
+                                      segment_sum=steps):
             raise AssertionError(f"{steps} steps launched {r['step_launches']}")
     if not ranks[0]["step_losses"][-1] < ranks[0]["step_losses"][0]:
         raise AssertionError(f"tile-sharded steps: loss {ranks[0]['step_losses']}")
@@ -4906,7 +5296,7 @@ def phase_parallel_cases(device, n=FULL_N, res=FULL_RES):
     nccl_bits = bool(np.array_equal(nccl["frame"][:h], want["render"]))
     nccl_loss_rel = abs(nccl["loss"] - loss_ref) / abs(loss_ref)
     if (not (nccl_max <= TOL_MAX and nccl_mean <= TOL_MEAN) or nccl_loss_rel > SHARDED_LOSS_RTOL
-            or nccl["launches"] != only(blend_fwd=1)):
+            or nccl["launches"] != only(blend_fwd_quad=1)):
         raise AssertionError(f"nccl frame vs api.render: {nccl_max} / {nccl_mean}, loss "
                              f"{nccl_loss_rel}, launches {nccl['launches']}")
     emit("parallel_cases", t0, ranks=PAR_RANKS, backend="gloo (CUDA tensors staged through the "
@@ -5196,7 +5586,7 @@ def kernel_group(name: str) -> str:
 
 def phase_profile_train(device, n=FULL_N, res=FULL_RES, warmup=5, steps=10):
     """`torch.profiler` over `steps` train steps at 200k / 800x800 (jitter
-    off): device busy and idle share of the window, kernels per step, and
+    off, the direct route): device busy and idle share of the window, kernels per step, and
     device time by kernel group and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -5208,7 +5598,7 @@ def phase_profile_train(device, n=FULL_N, res=FULL_RES, warmup=5, steps=10):
     scene = make_scene(bench_scene(n), device)
     cam = view_camera(res, res, device, eye=(0, 0, -3), fov=0.9)
     bg = torch.zeros(3, device=device)
-    settings = api.RasterizeSettings(renderer="cuda")
+    settings = api.RasterizeSettings(renderer="cuda", quad_power=False)
     opt_cfg = OptimizationConfig()
     with torch.no_grad():
         gt = api.render(cam, make_scene(perturbed(bench_scene(n)), device), bg,
@@ -5307,6 +5697,7 @@ def main() -> int:
              "k3_cases": lambda: phase_k3_cases(device),
              "full_width": lambda: phase_full_width(device),
              "full_width_fast": lambda: phase_full_width_fast(device),
+             "quad_routes": lambda: phase_quad_routes(device),
              "entry_point": lambda: phase_entry_point(device),
              "train_full_width": lambda: phase_train_full_width(device),
              "train_full_width_fast": lambda: phase_train_full_width_fast(device),
@@ -5349,10 +5740,11 @@ def main() -> int:
     phase_oracle_cases(device)
     k1 = phase_full_width(device)
     k1f = phase_full_width_fast(device)
+    k1q, k1fq = phase_quad_routes(device)
     kg = phase_pack_gather(device)
     serve_fast, serve = phase_entry_point(device)
-    if serve_fast["blend_fwd_fast"] == 0 or serve["blend_fwd"] == 0:
-        raise AssertionError(f"K1f or K1 was never launched on the serving path: "
+    if serve_fast["blend_fwd_fast_quad"] == 0 or serve["blend_fwd_quad"] == 0:
+        raise AssertionError(f"K1fq or K1q was never launched on the serving path: "
                              f"{serve_fast}, {serve}")
     phase_api_options(device)
     k2, k3 = phase_train_full_width(device)
@@ -5384,14 +5776,19 @@ def main() -> int:
     phase_refine_entry_point(device)
     phase_parallel_cases(device)
     phase_parallel_entry_point(device, domain, spacing)
-    kernels = [k1, k1f, k2, k2f, k3, k4, k5, kg]
-    # The main paths' launches: the entry points', plus the BASELINE ladder's
-    # frames and steps at 1M and 4M and its 1M stylization (K2f's and Kg's
-    # entries already hold those of their own phases).
+    kernels = [k1, k1f, k1q, k1fq, k2, k2f, k3, k4, k5, kg]
+    # The main paths' launches: the entry points' (`cli.render` by default,
+    # K1fq, and with --no-fast, K1q; `cli.train`'s K1 steps, K1q reports, K2
+    # and K3; `cli.stylize`'s K4 and K5), plus the BASELINE ladder's frames
+    # and steps at 1M and 4M and its 1M stylization (K2f's and Kg's entries
+    # already hold those of their own phases). K1f has left these paths:
+    # jitter-off renders take K1fq, so its count is 0 here.
     k1f["launches"] = serve_fast["blend_fwd_fast"]
+    k1fq["launches"] = serve_fast["blend_fwd_fast_quad"]
+    k1q["launches"] = serve["blend_fwd_quad"] + train["blend_fwd_quad"]
     for k in (k1, k2, k3, k4, k5):
         k["launches"] = (style if k["name"] in ("desc_loss", "desc_grad") else train)[k["name"]]
-    for k in (k1, k1f, k2, k3, k4, k5, kg):
+    for k in (k1, k1f, k1q, k1fq, k2, k3, k4, k5, kg):
         k["launches"] += sum(run[k["name"]] for run in scales + [style_1m])
 
     print(json.dumps({"total_seconds": time.perf_counter() - t_start}), flush=True)

@@ -38,7 +38,8 @@ import pytest
 import torch
 
 from tests.test_rasterizer import _cam, _random_scene
-from tests.test_torch_parallel_ranks import EYE, RANKS, H, W, camera, parallel_cases
+from tests.test_torch_parallel_ranks import (
+    EYE, FIELDS, RANKS, TALL_H, H, W, camera, parallel_cases)
 from wast3d_tpu.ops.rasterizer import api as japi
 from wast3d_tpu.parallel.mesh import make_mesh as j_make_mesh
 from wast3d_tpu_torch.ops.rasterizer import api as tapi
@@ -48,6 +49,18 @@ BG = np.array([0.1, 0.2, 0.3], np.float32)
 PARAMS = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")
 TILED = japi.RasterizeSettings(renderer="tiled", dup_capacity=1 << 14, max_per_tile=512,
                                chunk=16, grad_reduce="scatter")
+
+
+def _tall_scene(n=64):
+    """Large splats whose means lie near the top of a W x TALL_H image (image
+    y in about [-20, 20]) and reach its last tile rows."""
+    rng = np.random.default_rng(11)
+    base = _random_scene(n=n, seed=9)
+    arrays = {f: np.array(getattr(base, f))[:n] for f in FIELDS}
+    arrays["xyz"] = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-2.6, -1.6, n),
+                              rng.uniform(-0.5, 0.5, n)], 1).astype(np.float32)
+    arrays["scaling"] = np.log(rng.uniform(0.8, 1.6, (n, 3))).astype(np.float32)
+    return arrays
 
 
 def _inputs():
@@ -63,9 +76,9 @@ def _inputs():
         loss_strip=strip, loss_gt=rng.uniform(0, 1, (48, 64, 3)).astype(np.float32),
         full_strip=rng.uniform(0, 1, (64, 32, 3)).astype(np.float32),
         full_gt=rng.uniform(0, 1, (64, 32, 3)).astype(np.float32),
-        scene={f: np.asarray(getattr(scene, f))[:201] for f in
-               ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")},
+        scene={f: np.asarray(getattr(scene, f))[:201] for f in FIELDS},
         target=rng.uniform(0, 1, (H, W, 3)).astype(np.float32),
+        tall_scene=_tall_scene(),
     )
 
 
@@ -255,9 +268,22 @@ def single_device(inputs, spawned):
                                 list(params.values()))
     fast = tapi.render(cam, scene, torch.from_numpy(BG), device="cpu",
                        settings=tapi.RasterizeSettings(renderer="pallas", fast_chain=True))
+    tall_cam = camera(W, TALL_H, EYE)
+    tall_scene = from_arrays(**inputs["tall_scene"], device="cpu")
+    tall = tapi.render(tall_cam, tall_scene, torch.from_numpy(BG), device="cpu",
+                       settings=tapi.RasterizeSettings(renderer="pallas"))
+    # means that rank 1's tile rows take (at image rows 64 and 80) and that
+    # a shift by its first row (48) and then the tile's (16, 32) rounds
+    # otherwise than one recentring on the tile's image origin
+    prep = tapi.preprocess_scene(tall_cam, tall_scene)
+    my, reach = prep.means2d[:, 1], prep.means2d[:, 1] + prep.radii.float()
+    twice = sum(int(((reach >= 48 + d) & ((my - 48) - d != my - (48 + d))).sum())
+                for d in (16, 32))
     return dict(out={k: out[k].detach().numpy() for k in ("render", "depth", "final_T")},
                 radii=out["radii"].numpy(), fast=fast["render"].numpy(),
-                grads={k: g.numpy() for k, g in zip(params, grads)})
+                grads={k: g.numpy() for k, g in zip(params, grads)},
+                tall={k: tall[k].numpy() for k in ("render", "depth", "final_T")},
+                tall_rounds_twice=twice)
 
 
 def test_tile_sharded_frame_equals_single_device(rank_results, single_device):
@@ -273,6 +299,19 @@ def test_tile_sharded_frame_equals_single_device(rank_results, single_device):
 
 def test_tile_sharded_bf16_frame_equals_single_device(rank_results, single_device):
     np.testing.assert_array_equal(_cat(rank_results, "render_fast")[:H], single_device["fast"])
+
+
+def test_tile_sharded_quad_strips_recentre_once(rank_results, single_device):
+    """The f32 quad route on strips of 48 rows (W x TALL_H): rank 1 takes
+    splats whose means lie above image row 24, half its first row, where
+    shifting a mean by 48 and then by its tile's row rounds twice; K1q's
+    plain version recentres the unshifted mean on the tile's image origin
+    once, as the single-device path and JAX's strip path do, so the
+    stitched strips equal the single-device frame bit for bit."""
+    assert single_device["tall_rounds_twice"] > 0
+    for key in ("render", "depth", "final_T"):
+        np.testing.assert_array_equal(_cat([r["render_tall"] for r in rank_results], key)[:TALL_H],
+                                      single_device["tall"][key], err_msg=key)
 
 
 def test_tile_sharded_gradients_equal_single_device(rank_results, single_device):

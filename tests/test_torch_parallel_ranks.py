@@ -1,4 +1,5 @@
-"""The rank side of `test_torch_parallel.py` and `test_torch_train_sharded.py`.
+"""The rank side of `test_torch_parallel.py`, `test_torch_train_sharded.py`
+and `test_torch_blend_quad.py`.
 
 Those files spawn two gloo ranks (`parallel.multihost.spawn`) that import
 the function they run by name. This module holds those functions and what
@@ -20,6 +21,7 @@ from wast3d_tpu_torch.train import reconstruct as TR
 
 RANKS = 2
 W, H = 64, 48  # the tile-sharded render's image (strips of 32 rows)
+TALL_H = 96  # the tall quad strips' image height (strips of 48 rows)
 EYE = (0.2, -0.1, -5)
 RES = 32  # the train steps' and trainers' images (strips of 16 rows)
 LR_SCALE = 2.0
@@ -60,6 +62,46 @@ def state_numpy(st):
                 mu={k: v.numpy() for k, v in st.opt_state.mu.items()},
                 nu={k: v.numpy() for k, v in st.opt_state.nu.items()},
                 stats=[a.numpy() for a in st.stats])
+
+
+# The tile-sharded render's settings whose routes `strip_routes` records.
+STRIP_ROUTE_SETTINGS = {
+    "pallas": RasterizeSettings(renderer="pallas"),
+    "cuda": RasterizeSettings(renderer="cuda"),
+    "pallas_fast": RasterizeSettings(renderer="pallas", fast_chain=True),
+    "pallas_quad_power_off": RasterizeSettings(renderer="pallas", quad_power=False),
+    "tiled": PLAIN,
+}
+
+
+def strip_routes(inp):
+    """`render_tile_sharded` of `inp["scene"]` on a one-rank gloo group,
+    once with each of STRIP_ROUTE_SETTINGS: {name: [(fast, quad) of each
+    plain blend walk it ran]} (on the CPU every blend takes a plain version,
+    `blend._walk`)."""
+    from wast3d_tpu_torch.ops.rasterizer import blend
+    from wast3d_tpu_torch.parallel import make_mesh
+    from wast3d_tpu_torch.parallel.render_sharded import render_tile_sharded
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(data=1)
+    scene = from_arrays(**inp["scene"], device="cpu")
+    walks, plain_walk = [], blend._walk
+
+    def spy(*args, **kwargs):
+        walks.append((kwargs.get("fast", False), kwargs.get("quad", False)))
+        return plain_walk(*args, **kwargs)
+
+    out = {}
+    blend._walk = spy
+    try:
+        for name, settings in STRIP_ROUTE_SETTINGS.items():
+            walks.clear()
+            render_tile_sharded(camera(W, H, EYE), scene, torch.zeros(3), mesh, settings)
+            out[name] = list(walks)
+    finally:
+        blend._walk = plain_walk
+    return out
 
 
 def parallel_cases(inp):
@@ -136,6 +178,12 @@ def parallel_cases(inp):
     fast = render_tile_sharded(cam, scene, torch.from_numpy(inp["bg"]), mesh,
                                RasterizeSettings(renderer="pallas", fast_chain=True))
     out["render_fast"] = fast["render"].numpy()
+    tall = inp["tall_scene"]
+    tall = from_arrays(**{k: v[scene_sharding(mesh, len(v))] for k, v in tall.items()},
+                       device="cpu")
+    res = render_tile_sharded(camera(W, TALL_H, EYE), tall, torch.from_numpy(inp["bg"]), mesh,
+                              RasterizeSettings(renderer="pallas"))
+    out["render_tall"] = {k: res[k].numpy() for k in ("render", "depth", "final_T")}
     return out
 
 

@@ -56,6 +56,13 @@ SIGNATURES = {
     # walk of every entry (only chip_smoke.py calls the latter, as for K1).
     "w3d_blend_fwd_fast": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_fwd_fast_walk_all": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
+    # K1q and K1fq, the quad route: K1's and K1f's arguments, offsets null,
+    # K1q's with the frame's first image row (row0) after num_tiles; their
+    # walks of every entry, as for K1 (only chip_smoke.py calls them).
+    "w3d_blend_fwd_quad": ([_p] * 8 + [_i] * 6 + [_p], _i),
+    "w3d_blend_fwd_quad_walk_all": ([_p] * 8 + [_i] * 6 + [_p], _i),
+    "w3d_blend_fwd_fast_quad": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
+    "w3d_blend_fwd_fast_quad_walk_all": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
     # K2f: K2's arguments with the tables after `bg`, as K1f takes them.
     "w3d_blend_bwd_fast": ([_p] * 13 + [_i, _i, _i, _i, _i, _p], _i),

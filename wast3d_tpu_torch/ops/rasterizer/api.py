@@ -64,9 +64,14 @@ class RasterizeSettings(NamedTuple):
     fast_chain: the bf16 tier of the blend, K1f forward and K2f backward
     (`blend.py`); off by default, as in the JAX package, where the serving
     CLIs turn it on.
-    quad_power: the JAX package's MXU route of the bf16 blend's power,
-    accepted with its default; it changes nothing here (K1f takes power in
-    f32, which is what `quad_power` computes at f32 class).
+    quad_power: the quad route of the blend's power (`blend.py`): JAX's
+    matrix-unit form, split-bf16 coefficients times each pixel's monomials
+    (a triple split in the f32 tier, K1q; a double split in the bf16 tier,
+    K1fq), then JAX's clamp and skip allowance. Taken, as JAX takes it, by
+    renders through the kernels ("pallas", "cuda") without jitter; on by
+    default, as in JAX. The direct form (K1, K1f) serves jittered renders,
+    `quad_power=False` and "tiled"; the backward recomputes the direct form
+    on either route.
     pack_gather: the bf16 tier's serving gather, Kg (`pack_gather.py`):
     24-byte split-bf16 rows gathered by rank and recentred with JAX's
     roundings (`pallas_path.py:150-190`); forward only (it raises under
@@ -207,7 +212,8 @@ def render(
                             use_kernel=use_kernel,
                             grad_reduce=settings.grad_reduce,
                             fast_chain=settings.fast_chain,
-                            pack_gather=settings.pack_gather)
+                            pack_gather=settings.pack_gather,
+                            quad_power=settings.quad_power)
         color, depth, final_t = out.color, out.depth, out.final_T
         b = out.binning
         overflow, overflow_emit, overflow_rect = b.overflow, b.overflow_emit, b.overflow_rect

@@ -47,9 +47,8 @@ plus jitter, in f32). Per (pixel, entry), in this order, with bf(x) x rounded
 to bfloat16 (to nearest, ties to even) and E, L the tables below:
   power   f32 from the row's values in JAX's direct form, (Ah dx) dx +
           (Ch dy) dy + (Bn dx) dy with Ah = -A/2, Ch = -C/2, Bn = -B
-          (`pallas_blend.py:238-239`), then bf(power) (JAX's serving route,
-          `quad_power`, rounds power so, `pallas_blend.py:385`; the port
-          keeps the direct form of power);
+          (`pallas_blend.py:238-239`), then bf(power) (the quad route below
+          computes power another way and rounds it so too);
   alpha = min(bf(0.99), bf(opa E[bf(power)])), bf(0.99) = 0.98828125;
           skipped where power > 0 or alpha < 1/255 (f32 compares);
   s     = L[alpha];
@@ -79,6 +78,36 @@ accumulator stay f32, and the row gradient is rounded to bf16 into [K, 16]
 test is JAX's in both tiers, alpha < 0.99 in f32, which the bf16 clamp
 0.98828125 always passes: in this tier an alpha at the clamp keeps its power
 and opacity gradient, as in JAX's fast backward (ROADMAP queue 3).
+
+The quad route (JAX's `quad_power`, `pallas_blend.py:172-226`, `:341-388`),
+taken in both tiers by jitter-off renders through the kernels:
+`blend_fwd_quad` (K1q) and `blend_fwd_fast_quad` (K1fq), with the plain
+versions `blend_fwd_reference(..., quad=True)` and
+`blend_fwd_fast_reference(..., quad=True)`, evaluate power as JAX's matrix
+unit does, from each pixel's monomials m = (px^2, py^2, px py, px, py, 1) at
+tile-local integer coordinates (exact: px, py < 16) and each entry's
+coefficients, from the mean recentred on the tile's pixel origin (the f32
+tier's rows are in image coordinates: mx - tile x and my - tile y in f32, one
+rounding each, as JAX packs them, the tile's y taken in the image, where a
+tile-sharded strip's frame starts at image row `row0`), each operation
+rounded:
+  c = (Ah, Ch, Bn, (-2 Ah) mx - Bn my, (-2 Ch) my - Bn mx,
+       ((Ah mx) mx + (Ch my) my) + (Bn mx) my);
+each coefficient is split into bf16 parts, hi = bf(c), mid = bf(c - hi),
+lo = bf((c - hi) - mid) in the f32 tier and hi, lo = bf(c - hi) in the bf16
+tier (`_split2`, `pallas_blend.py:102-105`); each part's sum is taken in the
+order of m, d = ((((c0 m0 + c1 m1) + c2 m2) + c3 m3) + c4 m4) + c5, where
+every product is exact in f32 (bf16 times an integer below 256), so a chain
+of FMAs gives the same bits; power = (d_hi + d_mid) + d_lo (d_hi + d_lo),
+then JAX's clamp, power = min(power, 0) + max(power - eps, 0), eps = 1e-3
+(0.05) in f32, NaN kept. An entry is skipped where this power > 0, so one
+whose power lies in (0, eps] is taken at alpha = opa. Past power the bf16
+tier is the one above; the f32 tier is the direct one with NaN kept by the
+clamp at 0.99 and every operation rounded: T and colour are carried one
+entry at a time in walk order (T <- T (1 - alpha), colour += w rgb), so that
+K1q equals its plain version bit for bit. The backward recomputes the direct
+form in both tiers, on the outputs of the quad forward, as JAX's does
+(`pallas_blend.py:891-895`).
 """
 
 from __future__ import annotations
@@ -129,6 +158,15 @@ LOG_LO, LOG_HI = 0x3B81, 0x3F7E
 EXP_SIZE = EXP_HI - EXP_LO + 2  # 1 below the range, 0 above it
 TABLE_USED = EXP_SIZE + LOG_HI - LOG_LO
 TABLE_SIZE = -(-TABLE_USED // 8) * 8
+# The quad route (module docstring), by tier (fast): bf16 parts of each
+# coefficient, JAX's skip allowance eps as a float32 value, and the quad
+# cull's margin on Q per unit of `quad_term_bound` (derived beside
+# `cull_prelude` in csrc/blend_fwd.cu).
+QUAD_PARTS = {False: 3, True: 2}
+QUAD_EPS = {False: float(torch.tensor(1e-3, dtype=torch.float32)),
+            True: float(torch.tensor(0.05, dtype=torch.float32))}
+QUAD_MARGIN = {False: 64.0 * U, True: 2.0 ** -14}
+QUAD_SPAN = TILE - 1  # the largest tile-local pixel coordinate
 
 
 def _from_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -177,10 +215,18 @@ class BlendOutput(NamedTuple):
     final_T: torch.Tensor  # [H, W]
 
 
-def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False, fast=False):
+def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False, fast=False,
+                  quad=False, row0=0):
     """Validate the kernels' inputs: [K, 12] f32 rows, or [K, 16] bf16 rows
     in the bf16 tier (`fast`). The plain f32 versions (`plain=True`) also
-    take float64 rows, bg and offsets, for finite-difference checks."""
+    take float64 rows, bg and offsets, for finite-difference checks. The
+    quad route (`quad`) samples integer pixel positions: no offsets. `row0`,
+    the f32 quad route's first image row, is a non-negative multiple of 16."""
+    if quad and offsets is not None:
+        raise ValueError("the quad route samples integer pixel positions: offsets must be None")
+    if row0 and (fast or not quad or row0 < 0 or row0 % TILE):
+        raise ValueError(f"row0 {row0}: the f32 quad route's first image row, a "
+                         f"non-negative multiple of {TILE}")
     dev = rows.device
     grid_x, grid_y = tile_grid(width, height)
     num_tiles = grid_x * grid_y
@@ -210,10 +256,11 @@ def _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=False, f
 
 
 def _kernel_call(entry, rows, starts, ends, offsets, bg, fast, outs, width, height,
-                 num_tiles):
-    """Call the C entry `entry` of K1, K1f, K2 or K2f on CUDA tensors: the
-    inputs, the bf16 tier's tables, the tensors `outs`, then the sizes,
-    device and stream; raises on a failed launch."""
+                 num_tiles, extra=()):
+    """Call the C entry `entry` of K1, K1f, K2 or K2f (or their quad
+    forwards) on CUDA tensors: the inputs, the bf16 tier's tables, the
+    tensors `outs`, then the sizes, the ints `extra` (K1q's row0), device and
+    stream; raises on a failed launch."""
     from wast3d_tpu_torch import _build
 
     dev = rows.device
@@ -226,7 +273,7 @@ def _kernel_call(entry, rows, starts, ends, offsets, bg, fast, outs, width, heig
         rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
         None if offsets is None else offsets.data_ptr(), bg.data_ptr(), *tables,
         *(t.data_ptr() for t in outs), width, height, tile_grid(width, height)[0],
-        num_tiles, index, torch.cuda.current_stream(dev).cuda_stream,
+        num_tiles, *extra, index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -234,11 +281,13 @@ def _kernel_call(entry, rows, starts, ends, offsets, bg, fast, outs, width, heig
             f"({lib.w3d_error_string(err).decode()})")
 
 
-def _launch_fwd(entry, rows, starts, ends, width, height, bg, offsets, num_tiles, fast):
-    """Launch K1 or K1f (the C entry `entry`) on CUDA tensors."""
+def _launch_fwd(entry, rows, starts, ends, width, height, bg, offsets, num_tiles, fast,
+                extra=()):
+    """Launch K1, K1f, K1q or K1fq (the C entry `entry`) on CUDA tensors."""
     out = BlendOutput(*(torch.empty(shape, dtype=torch.float32, device=rows.device)
                         for shape in ((height, width, 3), (height, width), (height, width))))
-    _kernel_call(entry, rows, starts, ends, offsets, bg, fast, out, width, height, num_tiles)
+    _kernel_call(entry, rows, starts, ends, offsets, bg, fast, out, width, height, num_tiles,
+                 extra)
     return out
 
 
@@ -277,20 +326,116 @@ def blend_fwd_fast(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
 blend_fwd_fast.launches = 0
 
 
+def blend_fwd_quad(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                   width: int, height: int, bg: torch.Tensor,
+                   offsets: Optional[torch.Tensor] = None, row0: int = 0) -> BlendOutput:
+    """K1q, K1 on the quad route (module docstring), on K1's rows; `offsets`
+    must be None. The frame is image rows [row0, row0 + height) (row0 a
+    multiple of 16: a tile-sharded strip's first row), the rows' means in
+    image coordinates. CUDA tensors launch the kernel (counted in
+    `blend_fwd_quad.launches`); CPU tensors take `blend_fwd_reference(...,
+    quad=True)`."""
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets, quad=True,
+                              row0=row0)
+    if rows.device.type == "cpu":
+        return blend_fwd_reference(rows, starts, ends, width, height, bg, quad=True, row0=row0)
+    out = _launch_fwd("w3d_blend_fwd_quad", rows, starts, ends, width, height, bg, None,
+                      num_tiles, fast=False, extra=(row0,))
+    blend_fwd_quad.launches += 1
+    return out
+
+
+blend_fwd_quad.launches = 0
+
+
+def blend_fwd_fast_quad(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                        width: int, height: int, bg: torch.Tensor,
+                        offsets: Optional[torch.Tensor] = None) -> BlendOutput:
+    """K1fq, K1f on the quad route (module docstring), on K1f's bf16 rows;
+    `offsets` must be None. CUDA tensors launch the kernel (counted in
+    `blend_fwd_fast_quad.launches`); CPU tensors take
+    `blend_fwd_fast_reference(..., quad=True)`."""
+    num_tiles = _check_inputs(rows, starts, ends, width, height, bg, offsets, fast=True,
+                              quad=True)
+    if rows.device.type == "cpu":
+        return blend_fwd_fast_reference(rows, starts, ends, width, height, bg, quad=True)
+    out = _launch_fwd("w3d_blend_fwd_fast_quad", rows, starts, ends, width, height, bg, None,
+                      num_tiles, fast=True)
+    blend_fwd_fast_quad.launches += 1
+    return out
+
+
+blend_fwd_fast_quad.launches = 0
+
+
 def _bf(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bfloat16 (to nearest, ties to even) and back to x's
     dtype: one rounding point of the bf16 tier."""
     return x.to(torch.bfloat16).to(x.dtype)
 
 
-def _running_sum(init: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _running_sum(init: torch.Tensor, x: torch.Tensor, product: bool = False) -> torch.Tensor:
     """[..., G + 1]: init, init + x[..., 0], (init + x[..., 0]) + x[..., 1],
     ..., added one at a time in x's dtype, as the kernels add (a cumsum may
-    add in another order or in a wider type)."""
+    add in another order or in a wider type); multiplied with `product`."""
     out = [init]
     for g in range(x.shape[-1]):
-        out.append(out[-1] + x[..., g])
+        out.append(out[-1] * x[..., g] if product else out[-1] + x[..., g])
     return torch.stack(out, dim=-1)
+
+
+def _quad_coefficients(mx, my, a, b, c):
+    """[..., 6]: the quad route's coefficients of power in the pixel
+    monomials (module docstring) for tile-local means, each operation
+    rounded in the inputs' dtype (JAX's c8, `pallas_blend.py:198-206`)."""
+    ah, ch, bn = -0.5 * a, -0.5 * c, -b
+    return torch.stack([ah, ch, bn, (-2.0 * ah) * mx - bn * my, (-2.0 * ch) * my - bn * mx,
+                        ((ah * mx) * mx + (ch * my) * my) + (bn * mx) * my], dim=-1)
+
+
+def _split(c: torch.Tensor, parts: int):
+    """c as `parts` bf16 values (in c's dtype): hi = bf(c), then the
+    rounding of what is left, (c - hi) - mid, ... (`_split2`)."""
+    out, rest = [], c
+    for _ in range(parts):
+        out.append(_bf(rest))
+        rest = rest - out[-1]
+    return out
+
+
+def _quad_sum(coef, px, py, fast):
+    """The quad route's power before JAX's clamp (module docstring), from
+    coef [..., 6] (the entries' coefficients) at tile-local samples px, py
+    broadcast against coef's leading dimensions."""
+    mono = (px * px, py * py, px * py, px, py)
+    power = None
+    for part in _split(coef, QUAD_PARTS[fast]):
+        d = part[..., 0] * mono[0]
+        for k in range(1, 5):
+            d = d + part[..., k] * mono[k]
+        d = d + part[..., 5]
+        power = d if power is None else power + d
+    return power
+
+
+def _quad_power(coef, px, py, fast):
+    """`_quad_sum` clamped with the tier's allowance."""
+    power = _quad_sum(coef, px, py, fast)
+    zero = torch.zeros_like(power)
+    eps = torch.tensor(QUAD_EPS[fast], dtype=power.dtype, device=power.device)
+    return torch.minimum(power, zero) + torch.maximum(power - eps, zero)
+
+
+def quad_term_bound(mx, my, a, b, c):
+    """The quad cull's bound on the magnitudes of power's expansion over a
+    tile (tile-local means; `cull_prelude` in csrc/blend_fwd.cu): S = 225
+    (|A|/2 + |C|/2 + |B|) + 15 (|A mx| + |B my| + |C my| + |B mx|) + |A|/2
+    mx^2 + |C|/2 my^2 + |B mx my|."""
+    ah, ch, bb = 0.5 * a.abs(), 0.5 * c.abs(), b.abs()
+    s = float(QUAD_SPAN)
+    return ((s * s) * (ah + ch + bb)
+            + s * ((a * mx).abs() + (b * my).abs() + (c * my).abs() + (b * mx).abs())
+            + (ah * mx * mx + ch * my * my + bb * (mx * my).abs()))
 
 
 def _pixel_coords(width, height, offsets, device, local=False):
@@ -326,28 +471,40 @@ class WalkCounts(NamedTuple):
     contributing_pairs: int  # (pixel, entry) pairs that add weight alpha T
 
 
-def _chunk(rows, idx, in_range, px, py, state, fast):
+def _chunk(rows, idx, in_range, px, py, state, fast, quad=False, origin=None):
     """The recompute of one chunk of CHUNK entry slots for A tiles, shared by
     the plain forward and backward. idx [A, G] entries, each tile's last
-    entry in place of those out of range (`in_range`), px, py [A, P] samples, state [A, P] the T carried in (log T
-    with `fast`). Returns the rows r [A, G, width] (f32 values in the bf16
-    tier), dx, dy, alpha (0 where skipped), skip, T before each entry and the
-    stop test, all [A, P, G], and in the bf16 tier the running log T
-    [A, P, G + 1] (else None)."""
+    entry in place of those out of range (`in_range`), px, py [A, P] samples
+    (tile-local in the bf16 tier and on the quad route), state [A, P] the T
+    carried in (log T with `fast`); `quad` takes the quad route's power, on
+    means recentred by `origin` (x [A], y [A], the tiles' pixel origins) in
+    the f32 tier. Returns the rows r [A, G, width] (f32 values in the bf16
+    tier), dx, dy (None on the quad route), alpha (0 where skipped), skip, T
+    before each entry and the stop test, all [A, P, G], and where T is
+    carried one entry at a time (the bf16 tier: the running log T; the f32
+    quad route: the running T) that sequence [A, P, G + 1] (else None)."""
     r = rows[idx]
     if fast:
         r = r.to(torch.float32)
-    dx = r[:, None, :, R_MX] - px[:, :, None]  # [A, P, G]
-    dy = r[:, None, :, R_MY] - py[:, :, None]
     a = r[:, None, :, R_A]
     b = r[:, None, :, R_B]
     c = r[:, None, :, R_C]
     opa = r[:, None, :, R_OPA]
-    if fast:
-        ah, bn, ch = -0.5 * a, -b, -0.5 * c
-        power = (ah * dx) * dx + (ch * dy) * dy + (bn * dx) * dy
+    if quad:
+        dx = dy = None
+        mx, my = r[..., R_MX], r[..., R_MY]
+        if not fast:
+            mx, my = mx - origin[0][:, None], my - origin[1][:, None]
+        coef = _quad_coefficients(mx, my, r[..., R_A], r[..., R_B], r[..., R_C])
+        power = _quad_power(coef[:, None], px[:, :, None], py[:, :, None], fast)
     else:
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        dx = r[:, None, :, R_MX] - px[:, :, None]  # [A, P, G]
+        dy = r[:, None, :, R_MY] - py[:, :, None]
+        if fast:
+            ah, bn, ch = -0.5 * a, -b, -0.5 * c
+            power = (ah * dx) * dx + (ch * dy) * dy + (bn * dx) * dy
+        else:
+            power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
     if fast:
         tables = fast_tables(rows.device)
         alpha = torch.clamp_max(_bf(opa * exp_table(power.to(torch.bfloat16), tables)),
@@ -364,21 +521,29 @@ def _chunk(rows, idx, in_range, px, py, state, fast):
         test_t = _bf(t_prev * _bf(1.0 - alpha))
         return r, dx, dy, alpha, skip, t_prev, test_t, log_prev
     one_m = 1.0 - alpha
+    if quad:
+        t_seq = _running_sum(state, one_m, product=True)  # [A, P, G + 1]
+        return r, dx, dy, alpha, skip, t_seq[..., :-1], t_seq[..., 1:], t_seq
     cp = torch.cumprod(one_m, dim=-1)
     t_prev = state[..., None] * torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
     return r, dx, dy, alpha, skip, t_prev, t_prev * one_m, None
 
 
-def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False):
+def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False, quad=False,
+          row0=0):
     """The plain blend over all pixels of all tiles at once, CHUNK entry
-    slots per step (`_chunk`); T (log T with `fast`) and `done` carry from
-    chunk to chunk. Returns per-tile colour, depth, T and the `WalkCounts`
-    (the warp counts only when `keep`, [K, WARPS] bool from
-    `warp_keep_reference`, is given; else 0)."""
+    slots per step (`_chunk`, on the quad route with `quad`, the tiles'
+    origins in the image whose row `row0` is the frame's first); T (log T with
+    `fast`) and `done` carry from chunk to chunk. Returns per-tile colour,
+    depth, T and the `WalkCounts` (the warp counts only when `keep`, [K,
+    WARPS] bool from `warp_keep_reference`, is given; else 0)."""
     dev = rows.device
     dt = torch.float32 if fast else rows.dtype
-    px, py, inside = _pixel_coords(width, height, offsets, dev, local=fast)
+    px, py, inside = _pixel_coords(width, height, offsets, dev, local=fast or quad)
     num_tiles = px.shape[0]
+    grid_x = tile_grid(width, height)[0]
+    tiles = torch.arange(num_tiles, device=dev)
+    origins = ((tiles % grid_x * TILE).to(dt), (row0 + tiles // grid_x * TILE).to(dt))
     starts, ends = starts.long(), ends.long()
     lengths = ends - starts
     # T, or log T in the bf16 tier
@@ -398,25 +563,25 @@ def _walk(rows, starts, ends, width, height, offsets, keep=None, fast=False):
             break
         idx = starts[ti, None] + c0 + slot[None, :]  # [A, G]
         in_range = idx < ends[ti, None]
-        r, _, _, alpha, skip, t_prev, test_t, log_prev = _chunk(
+        r, _, _, alpha, skip, t_prev, test_t, running = _chunk(
             rows, torch.minimum(idx, ends[ti, None] - 1), in_range, px[ti], py[ti],
-            t_run[ti], fast)
+            t_run[ti], fast, quad, (origins[0][ti], origins[1][ti]))
         done_before = done[ti][..., None]
         stop = torch.cumsum((test_t < T_EPS).to(torch.int32), dim=-1) > 0
         done_g = done_before | stop
         w = alpha * t_prev
         w = torch.where(done_g, torch.zeros_like(alpha), _bf(w) if fast else w)
-        if fast:
+        if running is not None:
             # one entry at a time, in walk order, as the kernel adds
             rgbd = r[..., [R_R, R_G, R_B2, R_DEPTH]]  # [A, G, 4]
             acc = torch.cat([color[ti], depth[ti][..., None]], dim=-1)  # [A, P, 4]
             for g in range(w.shape[-1]):
                 acc = acc + w[..., g, None] * rgbd[:, None, g]
             color[ti], depth[ti] = acc[..., :3], acc[..., 3]
-            # logT after the chunk: the sum up to the pixel's stop (done_g is
-            # a prefix of False then True along the chunk)
+            # T (log T) after the chunk: the running value up to the pixel's
+            # stop (done_g is a prefix of False then True along the chunk)
             taken = (~done_g).sum(dim=-1, keepdim=True)
-            t_run[ti] = log_prev.gather(-1, taken)[..., 0]
+            t_run[ti] = running.gather(-1, taken)[..., 0]
         else:
             color[ti] += torch.einsum("apg,agc->apc", w, r[..., R_R:R_B2 + 1])
             depth[ti] += torch.einsum("apg,ag->ap", w, r[..., R_DEPTH])
@@ -451,27 +616,32 @@ def _untile(x, width, height):
 def blend_fwd_reference(rows: torch.Tensor, starts: torch.Tensor,
                         ends: torch.Tensor, width: int, height: int,
                         bg: torch.Tensor,
-                        offsets: Optional[torch.Tensor] = None) -> BlendOutput:
+                        offsets: Optional[torch.Tensor] = None,
+                        quad: bool = False, row0: int = 0) -> BlendOutput:
     """Plain PyTorch version of K1: same inputs, same outputs, same skip and
     stop rules in the same order; runs on any device, in float32 or
-    float64."""
-    return _blend_plain(rows, starts, ends, width, height, bg, offsets, fast=False)
+    float64. `quad`: the plain version of K1q, the quad route (module
+    docstring; no offsets), with its `row0`."""
+    return _blend_plain(rows, starts, ends, width, height, bg, offsets, False, quad, row0)
 
 
 def blend_fwd_fast_reference(rows: torch.Tensor, starts: torch.Tensor,
                              ends: torch.Tensor, width: int, height: int,
                              bg: torch.Tensor,
-                             offsets: Optional[torch.Tensor] = None) -> BlendOutput:
+                             offsets: Optional[torch.Tensor] = None,
+                             quad: bool = False) -> BlendOutput:
     """Plain PyTorch version of K1f: the bf16 tier's rows, tables and
     rounding points (module docstring), its sums of log-transmittance, colour
     and depth added one entry at a time in walk order as the kernel adds
-    them."""
-    return _blend_plain(rows, starts, ends, width, height, bg, offsets, fast=True)
+    them. `quad`: the plain version of K1fq, the quad route (no offsets)."""
+    return _blend_plain(rows, starts, ends, width, height, bg, offsets, True, quad)
 
 
-def _blend_plain(rows, starts, ends, width, height, bg, offsets, fast):
-    _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True, fast=fast)
-    color, depth, t_run, _ = _walk(rows, starts, ends, width, height, offsets, fast=fast)
+def _blend_plain(rows, starts, ends, width, height, bg, offsets, fast, quad=False, row0=0):
+    _check_inputs(rows, starts, ends, width, height, bg, offsets, plain=True, fast=fast,
+                  quad=quad, row0=row0)
+    color, depth, t_run, _ = _walk(rows, starts, ends, width, height, offsets, fast=fast,
+                                   quad=quad, row0=row0)
     color = color + t_run[..., None] * bg
     return BlendOutput(
         color=_untile(color, width, height).contiguous(),
@@ -509,12 +679,14 @@ def warp_boxes(width: int, height: int,
                         torch.where(inside, py, -inf).amax(-1)], dim=-1)
 
 
-def _culled(r, box, fast=False):
+def _culled(r, box, fast=False, quad=False):
     """K1's cull (`cull_prelude` and `culled` in csrc/blend_fwd.cu, where the
     margin is derived), in float32 in the kernel's order of operations: r
     [E, >= 6] rows (f32 values), box [E, W, 4]; [E, W] True where no sample
     of the box can take the entry. `fast`: K1f's cull, with the bf16 tier's
-    wider margin and its opacity threshold, 1/255 itself."""
+    wider margin and its opacity threshold, 1/255 itself. `quad`: the quad
+    route's, on tile-local means and boxes, its margin wider by the tier's
+    `QUAD_MARGIN` times `quad_term_bound`."""
     # per entry: 1/A, 1/C and tau' (+inf: never culled; -inf: culled by opa)
     mx, my, a, b, c, opa = (r[:, i, None] for i in range(6))
     cullable = (torch.isfinite(r[:, :6]).all(dim=1)[:, None] & (a > CONIC_MIN)
@@ -523,6 +695,8 @@ def _culled(r, box, fast=False):
     tau = tau + 8.0 * U * tau.abs()
     if fast:
         tau = tau + (TAU_FAST + TAU_FAST_REL * tau.abs())
+    if quad:
+        tau = tau + QUAD_MARGIN[fast] * quad_term_bound(mx, my, a, b, c)
     opa_cull = ALPHA_MIN if fast else OPA_CULL
     tau = torch.where(cullable, torch.where(opa < opa_cull, -math.inf, tau), math.inf)
     ia, ic = 1.0 / a, 1.0 / c
@@ -553,12 +727,15 @@ def _culled(r, box, fast=False):
 def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
                         ends: torch.Tensor, width: int, height: int,
                         offsets: Optional[torch.Tensor] = None,
-                        fast: bool = False) -> torch.Tensor:
+                        fast: bool = False, quad: bool = False) -> torch.Tensor:
     """[K, WARPS] bool: K1's cull (K1f's with `fast`, on its bf16 rows and
-    tile-local samples), plain. keep[k, w] is True where entry k lies in a
-    tile's range, warp w of that tile has a pixel inside the image, and the
-    entry is not culled for the warp's sample box (`_culled`): the (entry,
-    warp) pairs the kernel walks until the warp's pixels stop."""
+    tile-local samples; K1q's or K1fq's with `quad`, on tile-local means and
+    samples), plain. keep[k, w] is True where entry k lies in a tile's
+    range, warp w of that tile has a pixel inside the image, and the entry is
+    not culled for the warp's sample box (`_culled`): the (entry, warp) pairs
+    the kernel walks until the warp's pixels stop."""
+    if quad and offsets is not None:
+        raise ValueError("the quad route samples integer pixel positions: offsets must be None")
     rows = rows.to(torch.float32)
     dev = rows.device
     starts, ends = starts.long(), ends.long()
@@ -567,23 +744,28 @@ def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
     # the rows of every range, in order: start + position within the range
     first = torch.cumsum(counts, 0) - counts  # each range's first position
     entry = starts[tile] + torch.arange(len(tile), device=dev) - first[tile]
-    boxes = warp_boxes(width, height, offsets, dev, local=fast)[tile]  # [E, W, 4]
+    boxes = warp_boxes(width, height, offsets, dev, local=fast or quad)[tile]  # [E, W, 4]
     live = boxes[..., 0] <= boxes[..., 1]  # the warp has a pixel inside
+    r = rows[entry]
+    if quad and not fast:  # the means recentred on the tile, as K1q stages them
+        grid_x = tile_grid(width, height)[0]
+        r = torch.cat([r[:, :1] - (tile % grid_x * TILE).to(r.dtype)[:, None],
+                       r[:, 1:2] - (tile // grid_x * TILE).to(r.dtype)[:, None], r[:, 2:]], 1)
     keep = torch.zeros((rows.shape[0], WARPS), dtype=torch.bool, device=dev)
-    keep[entry] = live & ~_culled(rows[entry], boxes, fast)
+    keep[entry] = live & ~_culled(r, boxes, fast, quad)
     return keep
 
 
 def warp_walk_counts(rows: torch.Tensor, starts: torch.Tensor,
                      ends: torch.Tensor, width: int, height: int,
                      offsets: Optional[torch.Tensor] = None,
-                     fast: bool = False) -> WalkCounts:
-    """K1's (K1f's with `fast`) work on these inputs (`WalkCounts`), from its
-    plain versions: (warp, entry) iterations without and with the cull, and
-    the (pixel, entry) pairs evaluated and contributing. For PERF.md's
-    counts and the kernel's bounds."""
-    keep = warp_keep_reference(rows, starts, ends, width, height, offsets, fast)
-    return _walk(rows, starts, ends, width, height, offsets, keep, fast)[3]
+                     fast: bool = False, quad: bool = False) -> WalkCounts:
+    """K1's (K1f's with `fast`; on the quad route with `quad`) work on these
+    inputs (`WalkCounts`), from its plain versions: (warp, entry) iterations
+    without and with the cull, and the (pixel, entry) pairs evaluated and
+    contributing. For PERF.md's counts and the kernel's bounds."""
+    keep = warp_keep_reference(rows, starts, ends, width, height, offsets, fast, quad)
+    return _walk(rows, starts, ends, width, height, offsets, keep, fast, quad)[3]
 
 
 # ---- K2: backward -----------------------------------------------------------
@@ -769,7 +951,8 @@ def _bwd_plain(rows, starts, ends, width, height, bg, offsets, out, grads, fast)
     return drows
 
 
-# (forward, backward) by (use_kernel, fast)
+# (forward, backward) by (use_kernel, fast); the quad route's forwards are
+# K1q and K1fq (their plain versions on CPU tensors), its backward the pair's
 _PAIRS = {(True, False): (blend_fwd, blend_bwd),
           (False, False): (blend_fwd_reference, blend_bwd_reference),
           (True, True): (blend_fwd_fast, blend_bwd_fast),
@@ -777,12 +960,19 @@ _PAIRS = {(True, False): (blend_fwd, blend_bwd),
 
 
 class _Blend(torch.autograd.Function):
-    """K1 forward, K2 backward (K1f, K2f with `fast`; or their plain
-    versions); see `blend`."""
+    """K1 forward, K2 backward (K1f, K2f with `fast`; K1q or K1fq forward
+    with `quad`; or their plain versions); see `blend`. `image_rows`, K1q's
+    input, are `rows` with the means unshifted by `row0`."""
 
     @staticmethod
-    def forward(ctx, rows, starts, ends, width, height, bg, offsets, use_kernel, fast):
-        out = _PAIRS[use_kernel, fast][0](rows, starts, ends, width, height, bg, offsets)
+    def forward(ctx, rows, starts, ends, width, height, bg, offsets, use_kernel, fast, quad,
+                image_rows, row0):
+        if quad and fast:
+            out = blend_fwd_fast_quad(rows, starts, ends, width, height, bg)
+        elif quad:
+            out = blend_fwd_quad(image_rows, starts, ends, width, height, bg, row0=row0)
+        else:
+            out = _PAIRS[use_kernel, fast][0](rows, starts, ends, width, height, bg, offsets)
         ctx.save_for_backward(rows, starts, ends, bg, offsets, *out)
         ctx.width, ctx.height, ctx.pair = width, height, (use_kernel, fast)
         return tuple(out)
@@ -795,17 +985,30 @@ class _Blend(torch.autograd.Function):
             rows, starts, ends, ctx.width, ctx.height, bg, offsets,
             BlendOutput(color, depth, final_t),
             BlendOutput(dcolor.contiguous(), ddepth.contiguous(), dfinal_t.contiguous()))
-        return drows, None, None, None, None, None, None, None, None
+        return (drows,) + (None,) * 11
 
 
 def blend(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
           width: int, height: int, bg: torch.Tensor,
           offsets: Optional[torch.Tensor] = None,
-          use_kernel: bool = True, fast: bool = False) -> BlendOutput:
+          use_kernel: bool = True, fast: bool = False, quad_power: bool = False,
+          row0: int = 0) -> BlendOutput:
     """The differentiable blend: K1 forward and K2 backward, gradient to
     `rows` only; `fast` takes the bf16 tier, K1f and K2f, on [K, 16] bf16
-    rows (whose gradient is bf16 too). `use_kernel=False`
-    runs the plain versions (on any device); with `use_kernel=True` each
-    wrapper still takes its plain version for CPU tensors."""
-    return BlendOutput(*_Blend.apply(rows, starts, ends, width, height, bg,
-                                     offsets, use_kernel, fast))
+    rows (whose gradient is bf16 too). `quad_power` takes the quad route's
+    forward, K1q or K1fq, with the tier's backward, where JAX takes it:
+    through the kernels (`use_kernel`) and without jitter (`offsets` None).
+    `use_kernel=False` runs the plain versions (on any device); with
+    `use_kernel=True` each wrapper still takes its plain version for CPU
+    tensors. `row0`: the frame's first image row (a multiple of 16: a
+    tile-sharded strip's); f32 rows keep their means in image coordinates,
+    which the direct route takes shifted up by row0 and K1q recentres on
+    each tile's image origin, one rounding, as JAX's strip path does; bf16
+    rows are tile-local already and take no shift."""
+    quad = quad_power and use_kernel and offsets is None
+    shifted = rows
+    if row0 and not fast:
+        shifted = torch.cat([rows[:, :1], rows[:, 1:2] - float(row0), rows[:, 2:]], 1)
+    return BlendOutput(*_Blend.apply(shifted, starts, ends, width, height, bg, offsets,
+                                     use_kernel, fast, quad, rows.detach(),
+                                     row0 if quad and not fast else 0))

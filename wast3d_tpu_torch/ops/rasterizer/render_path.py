@@ -10,6 +10,10 @@ tile's pixel origin in f32 and then rounded to bf16 (`fast_rows`, JAX
 x ~ 800, where bf16's spacing is 4. K1 composites the background and writes
 the image layout itself, so no untile pass follows.
 
+Without jitter, a render through the kernels evaluates power on the quad
+route (K1q, K1fq; `blend.py`) when `quad_power` is set, as JAX's does; the
+backward is the tier's.
+
 Gradients (JAX `_sorted_gather`, `pallas_path.py:24-97`): the blend's
 backward is K2 (`blend.blend`); the K-row gather's backward is the
 per-Gaussian reduction of `grad_reduce` (K3 by default) on the binning
@@ -169,14 +173,17 @@ def render_sorted(
     grad_reduce: str = reduce_mod.DEFAULT,
     fast_chain: bool = False,
     pack_gather: bool = False,
+    quad_power: bool = False,
 ) -> RenderOutput:
     """Bin, gather and blend. `use_kernel=False` calls the plain versions
     of K1, K2, K3 and Kg directly (renderer="torch"); `fast_chain` blends in
-    the bf16 tier, on rows from Kg with `pack_gather`."""
+    the bf16 tier, on rows from Kg with `pack_gather`. `quad_power` takes the
+    quad route's forward (K1q, K1fq) where JAX takes it
+    (`pallas_path.py:254-259`): through the kernels and without jitter."""
     binning, rows = bin_and_pack(prep, width, height,
                                  sampling_offsets is not None, tile_cull,
                                  grad_reduce, plain=not use_kernel, fast=fast_chain,
                                  pack_gather=pack_gather)
     out = blend_mod.blend(rows, binning.tile_start, binning.tile_end, width,
-                          height, bg_color, sampling_offsets, use_kernel, fast_chain)
+                          height, bg_color, sampling_offsets, use_kernel, fast_chain, quad_power)
     return RenderOutput(out.color, out.depth, out.final_T, binning)

@@ -17,9 +17,14 @@ axis, `padded_grid`):
      contiguous row slices is the single-device order (tile, depth, row);
   4. it blends its strip with K1 (K1f under `fast_chain`), called as
      `render_path.render_sorted` calls them, on the strip as an image of its
-     own: means shifted up by the strip's first pixel row, a multiple of
-     16, in the f32 tier; the bf16 tier's rows are recentred on each
-     tile's origin (`render_path.fast_rows`) before the shift matters.
+     own, whose first image row (a multiple of 16) `blend` takes as
+     `row0`: on the direct route the f32 means are shifted up by it; the
+     bf16 tier's rows are recentred on each tile's origin
+     (`render_path.fast_rows`) before the shift matters. Through the
+     kernels it takes the quad route (K1q, K1fq) whenever `quad_power` is
+     set, as JAX's strip path does; K1q recentres the unshifted f32 means
+     on each tile's image origin, one rounding, as JAX's strip path
+     subtracts the global tile origin (`parallel/render_sharded.py:169-173`).
 The render comes back as this rank's strip; `render` / `depth` /
 `final_T` of rank r are rows [r h, (r + 1) h) of the padded image.
 
@@ -110,14 +115,14 @@ def render_tile_sharded(
     tile = tile[order]
     bounds = torch.searchsorted(tile, torch.arange(tiles_per_shard + 1, device=dev)).to(
         torch.int32)
+    blend_rows = rows_sorted
     if settings.fast_chain:
         blend_rows = render_path.fast_rows(rows_sorted, tile + me * tiles_per_shard, width)
-    else:
-        y0 = float(me * strip_h)
-        blend_rows = torch.cat([rows_sorted[:, :1], rows_sorted[:, 1:2] - y0,
-                                rows_sorted[:, 2:]], 1)
+    # the quad route whenever quad_power is set (no jitter here), as JAX's
+    # strip path takes it (`parallel/render_sharded.py:184-187`)
     out = blend_mod.blend(blend_rows, bounds[:-1].contiguous(), bounds[1:].contiguous(),
-                          width, strip_h, bg, None, use_kernel, settings.fast_chain)
+                          width, strip_h, bg, None, use_kernel, settings.fast_chain,
+                          settings.quad_power, row0=me * strip_h)
     false = torch.zeros((), dtype=torch.bool, device=dev)
     return {
         "render": out.color,
