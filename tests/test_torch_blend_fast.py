@@ -10,12 +10,18 @@ Gaussians, the Pallas kernels in interpret mode): colour and final_T within
 loss with respect to xyz within max 0.15 and mean 5e-3 of the f32
 gradient's largest value. The port's tier is also held to its own f32 plain
 version at the same bounds. Without jitter the port's "pallas" frame, on the
-quad route as JAX's is, is held to JAX `fast_chain=True` at mean 2e-6. Measured on the three fixtures: colour within
-1.6e-2 and final_T within 1.9e-2 of JAX `fast_chain=True`, gradients within
-1.9e-2 (max) and 6.3e-4 (mean) of it, in units of the f32 gradient's
-largest value (2.4e-2, 2.3e-2, 3.6e-2 and 9.4e-4 when the tier read f32
-rows in image coordinates and took exp of f32 power); 1.8e-2 in colour and
-4.5e-2 / 8.5e-4 in gradient from the f32 tier. The tables
+quad route as JAX's is, is held to JAX `fast_chain=True` at mean 2e-6; with
+jitter, on the direct route, so is the port's frame, since its power is
+JAX's bf16 chain op by op (`blend._fast_power`), which this file also holds
+to JAX's power stage bit for bit on the same scenes. Measured (seeds 0-2,
+jittered): colour and final_T within max 1.2e-7 and mean 2.6-3.0e-9 of JAX
+`fast_chain=True` (max 1.3-1.9e-2, mean 6.2e-4 to 1.2e-3 when power was
+taken in f32 and rounded once); the jittered gradient within 3.0e-3 (max)
+and 3.8e-5 (mean) of JAX's, in units of the f32 gradient's largest value
+(1.9e-2 and 6.3e-4 before; held at 1e-2 and 2e-4), the unjittered ones, whose
+forwards differ in route (the port's "tiled" frame against JAX's quad
+route), within 9.8e-3 and 2.1e-4. Other gaps: 1.8e-2 in colour and 4.5e-2 /
+8.5e-4 in gradient from the f32 tier. The tables
 are bf(exp) and bf(log1p(-a)) over every bf16 argument, and the rows keep a
 splat near x = 790 subpixel-exact (recentred, then rounded). K1f's cull
 (`warp_keep_reference(..., fast=True)`) must never drop an entry that some
@@ -64,6 +70,9 @@ IMG_TOL = 3e-2
 # at 1.5-3.6e-5; `tests/test_torch_blend_quad.py`).
 QUAD_MEAN_TOL = 2e-6
 GRAD_MAX, GRAD_MEAN = 0.15, 5e-3
+# The jittered gradient against JAX `fast_chain=True` (the same bf16 chain
+# in both forwards), in units of the f32 gradient's largest value.
+CHAIN_GRAD_MAX, CHAIN_GRAD_MEAN = 1e-2, 2e-4
 
 
 def offsets(jitter, seed):
@@ -135,7 +144,88 @@ def test_fast_gradients_match_jax(seed, jitter):
         d = np.abs(g_fast - want) / scale
         assert d.max() < GRAD_MAX, (name, d.max())
         assert d.mean() < GRAD_MEAN, (name, d.mean())
+    if jitter:
+        d = np.abs(g_fast - g_jf) / scale
+        assert d.max() < CHAIN_GRAD_MAX and d.mean() < CHAIN_GRAD_MEAN, (d.max(), d.mean())
     assert not np.array_equal(g_fast, g32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_jittered_fast_frame_is_jaxs(seed):
+    """With jitter the port's bf16 frame (the direct route, JAX's bf16 chain
+    op by op) is JAX `fast_chain=True`'s within the quad route's mean."""
+    js = _random_scene(n=120, seed=seed)
+    off = offsets(True, seed)
+    f = port_out(js, FAST._replace(renderer="pallas"), off)
+    jf = jax_out(js, PALLAS._replace(fast_chain=True), off)
+    for key in ("render", "final_T"):
+        d = np.abs(f[key].numpy() - np.asarray(jf[key]))
+        assert d.max() <= IMG_TOL and d.mean() <= QUAD_MEAN_TOL, (key, d.max(), d.mean())
+
+
+class _FirstExp:
+    """jax.numpy with `exp` recording its first argument: the bf16 chain's
+    power, which `_chunk_quantities_fast` exponentiates first."""
+
+    def __init__(self):
+        self.first = None
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def exp(self, x):
+        if self.first is None:
+            self.first = x
+        return jnp.exp(x)
+
+
+def jax_fast_stage(rows, px, py):
+    """JAX's bf16 power and alpha [P, n] (`_chunk_quantities_fast`, called
+    directly) for n <= G bf16 rows at one tile's samples px, py [P]."""
+    n, g = rows.shape[0], pallas_blend.G
+    data = np.zeros((16, g), np.float32)
+    data[:10, :n] = rows[:, :10].float().numpy().T
+    spy, saved = _FirstExp(), pallas_blend.jnp
+    pallas_blend.jnp = spy
+    try:
+        out = pallas_blend._chunk_quantities_fast(
+            jnp.asarray(data).astype(jnp.bfloat16), jnp.asarray(px.numpy()[:, None]),
+            jnp.asarray(py.numpy()[:, None]), jnp.zeros((pallas_blend.P, 1)),
+            jnp.zeros((pallas_blend.P, 1)), 0, n, 0)
+    finally:
+        pallas_blend.jnp = saved
+    return (np.asarray(spy.first.astype(jnp.float32))[:, :n],
+            np.asarray(out[0].astype(jnp.float32))[:, :n])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fast_power_stage_is_jaxs(seed):
+    """The bf16 chain's power on the jittered scenes' rows, tile by tile,
+    equals JAX's bit for bit, and so do alpha and the skip mask."""
+    js = _random_scene(n=120, seed=seed)
+    off = torch.from_numpy(offsets(True, seed))
+    prep = tapi.preprocess_scene(port_cam(w=W, h=H), port_scene(js))
+    binning, rows = render_path.bin_and_pack(prep, W, H, jittered=True, fast=True)
+    rows = rows.detach()
+    px, py, _ = tblend._pixel_coords(W, H, off, "cpu", local=True)
+    starts, ends = binning.tile_start.long(), binning.tile_end.long()
+    pairs = 0
+    for t in range(len(starts)):
+        for c0 in range(int(starts[t]), int(ends[t]), pallas_blend.G):
+            r = rows[c0:min(c0 + pallas_blend.G, int(ends[t]))]
+            j_power, j_alpha = jax_fast_stage(r, px[t], py[t])
+            f = r.float()
+            power = tblend._fast_power(f[None, :, 0], f[None, :, 1], f[None, :, 2],
+                                       f[None, :, 3], f[None, :, 4], px[t][:, None],
+                                       py[t][:, None])
+            n = r.shape[0]
+            alpha = tblend._chunk(rows, torch.arange(c0, c0 + n)[None],
+                                  torch.ones(1, n, dtype=torch.bool), px[t][None], py[t][None],
+                                  torch.zeros(1, tblend.PIXELS), True)[3][0]
+            np.testing.assert_array_equal(power.numpy(), j_power)
+            np.testing.assert_array_equal(alpha.numpy(), j_alpha)
+            pairs += power.numel()
+    assert pairs > 10_000
 
 
 def test_fast_saturating_scene_matches_jax():

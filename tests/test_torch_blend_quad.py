@@ -552,6 +552,62 @@ def test_quad_cull_drops_no_entry_a_pixel_takes(tier, name):
     assert 0 < int(keep.sum()) < keep.numel() and bool(takes.any())
 
 
+def quad_takes_within_mma_error(rows, starts, ends, w, h, fast):
+    """`quad_takes` for any raw power within `blend.quad_mma_bound` of the
+    plain version's (what K1q and K1fq may compute on the tensor cores): a
+    pixel may take an entry if some power p in [raw - b, raw + b] is not
+    skipped, that is p <= eps and the alpha of its clamp, min(p, 0), reaches
+    1/255 (alpha grows with p, so p = min(raw + b, eps) decides), or if the
+    raw power is NaN, which JAX's clamp keeps. Also the entries' indices."""
+    px, py, inside = tblend._pixel_coords(w, h, None, "cpu", local=True)
+    starts, ends = starts.long(), ends.long()
+    idx = starts[:, None] + torch.arange(int((ends - starts).max()))[None, :]
+    in_range = idx < ends[:, None]
+    idx = torch.minimum(idx, ends[:, None] - 1)
+    r = rows[idx].float()  # [T, L, width]
+    mx, my = r[..., 0], r[..., 1]
+    if not fast:  # K1q's recentring on the tile, one rounding
+        t = torch.arange(len(starts))
+        grid_x = (w + TILE - 1) // TILE
+        mx = mx - (t % grid_x * TILE).float()[:, None]
+        my = my - (t // grid_x * TILE).float()[:, None]
+    coef = tblend._quad_coefficients(mx, my, r[..., 2], r[..., 3], r[..., 4])[:, None]
+    pxe, pye = px[:, :, None], py[:, :, None]  # [T, 256, 1]
+    raw = tblend._quad_sum(coef, pxe, pye, fast)  # [T, 256, L]
+    bound = tblend.quad_mma_bound(coef, pxe, pye, fast)
+    power = torch.clamp_max(raw + bound, 0.0)
+    opa = r[:, None, :, 5]
+    if fast:
+        e = tblend.exp_table(power.to(torch.bfloat16), tblend.fast_tables())
+        alpha = torch.clamp_max(tblend._bf(opa * e), tblend.ALPHA_MAX_BF16)
+    else:
+        alpha = torch.clamp_max(opa * torch.exp(power), tblend.ALPHA_MAX)
+    may = (raw - bound <= tblend.QUAD_EPS[fast]) & (alpha >= tblend.ALPHA_MIN)
+    may = (may | torch.isnan(raw)) & in_range[:, None, :] & inside[..., None]
+    return may, idx, bound
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("name", ["random", "saturating", "nonmultiple", "thin", "threshold",
+                                  "quad_threshold"])
+def test_quad_cull_covers_the_tensor_cores_error(tier, name):
+    """No (entry, warp) that the quad cull drops may be taken at a pixel of
+    the warp under any power within the MMA error model of the plain power
+    (`quad_takes_within_mma_error`): the re-derived margins cover what the
+    tensor cores' sum may change, so K1q's and K1fq's culls change no bit."""
+    fast = TIERS[tier]
+    rows, starts, ends, w, h = quad_cull_inputs(name, fast)
+    keep = tblend.warp_keep_reference(rows, starts, ends, w, h, None, fast, quad=True)
+    may, idx, bound = quad_takes_within_mma_error(rows, starts, ends, w, h, fast)
+    for warp in range(tblend.WARPS):
+        dropped = ~keep[idx, warp]  # [T, L]
+        taken = may[:, tblend.WARP_PIXELS[warp], :].any(dim=1)  # [T, L]
+        assert not bool((dropped & taken).any()), f"warp {warp} drops an entry it may take"
+    takes, _ = quad_takes(rows, starts, ends, w, h, fast)
+    assert bool((may | ~takes).all())  # the plain version's own takes among them
+    assert 0 < int(keep.sum()) < keep.numel() and bool((bound > 0).any())
+
+
 @pytest.mark.parametrize("tier", sorted(TIERS))
 def test_quad_cull_changes_no_bit(tier):
     """The quad blend as K1q (K1fq) computes it with its cull: each warp's
@@ -576,6 +632,46 @@ def test_quad_cull_changes_no_bit(tier):
     assert not bool(keep.all())
 
 
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("name", ["thin", "threshold", "quad_threshold"])
+def test_quad_flip_walks_hold_the_plain_version(tier, name):
+    """chip_smoke's allowance for K1q (K1fq) past its max limits
+    (`quad_flip_outputs`, `quad_flip_explains`): at the sampled pixels the
+    plain quad version's output is one of the walks that flipped decisions
+    allow (within 1e-5 in the f32 tier, the tier's 3e-2 in the bf16 tier,
+    whose float64 walk does not round T to bf16); the plain version explains
+    itself; and a gap of four times the limit where no decision can flip is
+    not explained. Every thirteenth pixel, so that all 16 x 16 positions of
+    a tile and every tile are sampled."""
+    import chip_smoke as cs
+
+    fast = TIERS[tier]
+    rows, starts, ends, w, h = quad_cull_inputs(name, fast)
+    inputs = (rows, starts, ends, w, h)
+    bg = torch.tensor([0.2, 0.5, 0.9])
+    plain = (tblend.blend_fwd_fast_reference if fast else tblend.blend_fwd_reference)(
+        rows, starts, ends, w, h, bg, quad=True)
+    tol_max, _, tol_depth = cs.QUAD_TOL[fast]
+    exact = None
+    for pixel in range(0, w * h, 13):
+        y, x = divmod(pixel, w)
+        walks = cs.quad_flip_outputs(inputs, pixel, fast, bg)
+        assert walks is not None, pixel
+        leaves, allowances = walks
+        want = np.array([*plain.color[y, x].tolist(), float(plain.depth[y, x]),
+                         float(plain.final_T[y, x])])
+        assert float(np.abs(leaves - want).max(-1).min()) <= (3e-2 if fast else 1e-5), pixel
+        assert cs.quad_flip_explains(inputs, pixel, fast, bg, plain, plain, tol_max, tol_depth)
+        if exact is None and len(leaves) == 1 and not allowances.any():
+            exact = pixel
+    if name == "thin":
+        y, x = divmod(exact, w)
+        color = plain.color.clone()
+        color[y, x, 1] += 4 * tol_max
+        wrong = tblend.BlendOutput(color, plain.depth, plain.final_T)
+        assert not cs.quad_flip_explains(inputs, exact, fast, bg, wrong, plain, tol_max, tol_depth)
+
+
 def test_quad_cull_keeps_what_the_direct_cull_keeps():
     """The quad margin only widens the direct cull's: every (entry, warp)
     the direct cull keeps, the quad cull keeps (tile-local means in the f32
@@ -591,7 +687,7 @@ def test_quad_cull_keeps_what_the_direct_cull_keeps():
 def test_quad_walk_all_is_a_test_hook_only():
     """K1q and K1fq take K1's and K1f's arguments (offsets null; K1q also
     its row0); their walks of every entry have the same signatures, and
-    only chip_smoke.py calls them."""
+    only chip_smoke.py calls them and the probe of their power."""
     import ctypes
     from pathlib import Path
 
@@ -607,7 +703,8 @@ def test_quad_walk_all_is_a_test_hook_only():
     src = (_build.SOURCE_DIR / "blend_fwd.cu").read_text()
     files = (sorted((root / "wast3d_tpu_torch").rglob("*.py")) + sorted(root.glob("*.py"))
              + sorted((root / "tools").glob("*.py")))
-    for name in ("w3d_blend_fwd_quad_walk_all", "w3d_blend_fwd_fast_quad_walk_all"):
+    for name in ("w3d_blend_fwd_quad_walk_all", "w3d_blend_fwd_fast_quad_walk_all",
+                 "w3d_blend_quad_power_probe"):
         assert f"int {name}(" in src
         naming = {p.relative_to(root).as_posix() for p in files if name in p.read_text()}
         assert naming == {"wast3d_tpu_torch/_build.py", "chip_smoke.py"}, name

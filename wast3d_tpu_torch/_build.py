@@ -63,6 +63,10 @@ SIGNATURES = {
     "w3d_blend_fwd_quad_walk_all": ([_p] * 8 + [_i] * 6 + [_p], _i),
     "w3d_blend_fwd_fast_quad": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
     "w3d_blend_fwd_fast_quad_walk_all": ([_p] * 9 + [_i, _i, _i, _i, _i, _p], _i),
+    # The quad route's raw power on the tensor cores for a list of entries
+    # (rows, entries, tiles, out; n, grid_x, row0, fast, device, stream); only
+    # chip_smoke.py calls it, for its float64 witness of K1q's and K1fq's power.
+    "w3d_blend_quad_power_probe": ([_p] * 4 + [_i] * 5 + [_p], _i),
     "w3d_blend_bwd": ([_p] * 12 + [_i, _i, _i, _i, _i, _p], _i),
     # K2f: K2's arguments with the tables after `bg`, as K1f takes them.
     "w3d_blend_bwd_fast": ([_p] * 13 + [_i, _i, _i, _i, _i, _p], _i),
@@ -97,17 +101,23 @@ def nvcc_path() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def nvcc_commands(out: Path) -> Tuple[List[List[str]], List[str]]:
+def nvcc_flags(defines: Tuple[str, ...] = ()) -> List[str]:
+    """NVCC_FLAGS with a -D for each of `defines` (instrumented builds, such as
+    the section timers of `csrc/blend_fwd.cu`; the default build has none)."""
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def nvcc_commands(out: Path, defines: Tuple[str, ...] = ()) -> Tuple[List[List[str]], List[str]]:
     """One compile command per source, into an object beside `out`, and the
     command that links those objects into the shared library `out`."""
     objects = [out.with_name(f"{out.name}.{src.stem}.o") for src in sources()]
-    compiles = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    compiles = [[nvcc_path(), *nvcc_flags(defines), "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(sources(), objects)]
     return compiles, [nvcc_path(), *ARCH, "-shared", "-o", str(out), *map(str, objects)]
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(nvcc_flags(defines)).encode())
     for src in sources() + sorted(SOURCE_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -122,16 +132,17 @@ def _compile(cmd: List[str], tool: str = "nvcc", timeout: int = NVCC_TIMEOUT_S) 
     return log
 
 
-def build() -> Built:
-    """Compile the kernels unless the library for these sources exists."""
-    out = library_path()
+def build(defines: Tuple[str, ...] = ()) -> Built:
+    """Compile the kernels (with `defines`) unless the library for these
+    sources and flags exists."""
+    out = library_path(defines)
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         lib = Path(tmp) / out.name
-        compiles, link = nvcc_commands(lib)
+        compiles, link = nvcc_commands(lib, defines)
         # Every compile runs to its end before the first failure is raised
         # (`pool.map` would cancel those not yet started).
         with ThreadPoolExecutor(len(compiles)) as pool:
@@ -143,10 +154,10 @@ def build() -> Built:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every entry
-    point's argtypes and restype."""
-    lib = ctypes.CDLL(str(build().path))
+def load_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build if needed (with `defines`), load once per process, and declare
+    every entry point's argtypes and restype."""
+    lib = ctypes.CDLL(str(build(defines).path))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -67,12 +67,14 @@
 // `blend_bwd_fast_kernel`: it replaces the `fast=True` body of the same TPU
 // kernel (`pallas_blend.py:543`, its fast branches at :571 and :644-690) on
 // JAX's bf16 rows (`blend_fast.cuh`), with K2's walk, groups and butterfly.
-// It recomputes alpha, T and the stops with K1f's arithmetic and tables, so
-// its stops are K1f's, and rounds q = dcolour . rgb + ddepth depth (the four
-// products in two bf16x2 products of the row's (depth, r) and (g, b) words
-// with the rounded cotangents, then three sums, in the order r, g, b, depth),
-// and (q T, q w) in one bf16x2 product; q w is added to the f32 prefix. The
-// division, dL/dpower, the moment sums, the butterfly and the accumulators
+// It recomputes alpha, T and the stops with K1f's arithmetic and tables (power
+// in JAX's bf16 chain, `power_one`: `power_pair`'s for one entry), so its
+// stops are K1f's, takes the moments of dL/dpower on f32 dx and dy (mx - px,
+// as JAX's backward takes them, `pallas_blend.py:714-715`), and rounds q =
+// dcolour . rgb + ddepth depth (the four products in two bf16x2 products of
+// the row's (depth, r) and (g, b) words with the rounded cotangents, then
+// three sums, in the order r, g, b, depth), and (q T, q w) in one bf16x2
+// product; q w is added to the f32 prefix. The division, dL/dpower, the moment sums, the butterfly and the accumulators
 // stay f32, and the row gradient is rounded to bf16 into [K, 16] rows, half
 // of K2's output bytes (JAX rounds it to its rows' dtype). Like K1f it
 // converts each batch entry's geometry to f32 once per block, behind one more
@@ -314,7 +316,8 @@ blend_bwd_fast_kernel(const uint4* __restrict__ rows,  // [K, 2] uint4 = [K, 16]
   extern __shared__ uint4 smem_fast[];
   __shared__ int s_live[kWarps];
   uint4* const batches = smem_fast;  // [2][kBatch * 2]
-  // The batch's mx, my, Ah, Bn and Ch (`power_rn`) in f32, prepared once per block
+  // The batch's mx, my, Ah, Bn and Ch (`power_coefficients`) in f32, prepared once
+  // per block
   float4* const geom = reinterpret_cast<float4*>(batches + 2 * kBatch * 2);  // [kBatch]
   float* const ch = reinterpret_cast<float*>(geom + kBatch);                  // [kBatch]
   float* const partial = ch + kBatch;  // [warp][entry][kVals]
@@ -350,6 +353,9 @@ blend_bwd_fast_kernel(const uint4* __restrict__ rows,  // [K, 2] uint4 = [K, 16]
               gb * (color[3 * p + 2] - t_fin * bg[2]) + gd * depth[p] +
               t_fin * dt_eff;
   }
+  // the samples as the bf16 chain takes them (dx, dy above stay f32, as JAX's
+  // backward takes them)
+  const float pxb = bf_rn(px), pyb = bf_rn(py);
   // q's cotangents rounded to bf16, paired as the row's words (depth, r), (g, b)
   const uint32_t gdr = pack_rn(gd, gr), ggb = pack_rn(gg, gb);
 
@@ -405,12 +411,15 @@ blend_bwd_fast_kernel(const uint4* __restrict__ rows,  // [K, 2] uint4 = [K, 16]
           const uint32_t c = w[2];  // (C, opa)
           const float dx = __fsub_rn(gm.x, px);
           const float dy = __fsub_rn(gm.y, py);
-          const float power = power_rn(gm.z, gm.w, ch[j], dx, dy);
+          // K1f's bf16 chain for one entry (the same bits as K1f's)
+          const uint32_t pw = power_one(bits_of(gm.z), bits_of(gm.w), bits_of(ch[j]),
+                                        bits_rn(__fsub_rn(gm.x, pxb)),
+                                        bits_rn(__fsub_rn(gm.y, pyb)));
           // Written as K1f's tests, negated, so that the two agree on every input.
-          if (!(power > 0.0f)) {
+          if (!(lo_f(pw) > 0.0f)) {
             // alpha, then 1 - alpha, in the high halves (opa's half of `c`)
             const uint32_t aw =
-                min2(mul2(c, static_cast<uint32_t>(tab.exp_one(bits_rn(power))) << 16),
+                min2(mul2(c, static_cast<uint32_t>(tab.exp_one(pw & 0xffffu)) << 16),
                      kAlphaMax2);
             // alpha < 1/255 from alpha's bits, as K1f reads it
             if (!(static_cast<int>(aw) < kAlphaMinBits)) {
@@ -488,18 +497,6 @@ blend_bwd_fast_kernel(const uint4* __restrict__ rows,  // [K, 2] uint4 = [K, 16]
   }
 }
 
-// Dynamic shared memory past 48 KB needs the attribute, set once per device
-// and kernel (devices 0-31; any other on every call).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, int device, unsigned& configured) {
-  const unsigned bit = device < 32 ? 1u << device : 0u;
-  if ((configured & bit) && bit != 0u) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) configured |= bit;
-  return err;
-}
-
 }  // namespace
 
 extern "C" {
@@ -515,7 +512,7 @@ int w3d_blend_bwd(const void* rows, const void* starts, const void* ends,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   static unsigned configured = 0;
-  err = allow_smem(blend_bwd_kernel, kSmemBytes, device, configured);
+  err = w3d_fast::allow_smem(blend_bwd_kernel, kSmemBytes, device, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles > 0) {
     blend_bwd_kernel<<<num_tiles, kBlock, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
@@ -542,7 +539,7 @@ int w3d_blend_bwd_fast(const void* rows, const void* starts, const void* ends,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   static unsigned configured = 0;
-  err = allow_smem(blend_bwd_fast_kernel, kFastSmemBytes, device, configured);
+  err = w3d_fast::allow_smem(blend_bwd_fast_kernel, kFastSmemBytes, device, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles > 0) {
     blend_bwd_fast_kernel<<<num_tiles, kBlock, kFastSmemBytes,

@@ -11,9 +11,12 @@
 // (its module docstring has the function). The product of two bf16 values is
 // exact in f32, so one `mul.rn.bf16x2` rounds exactly where the plain version
 // rounds its f32 product; the `.rn` forms also keep the compiler from fusing a
-// product and a sum into one FMA, which would drop a rounding. f32 power is
-// computed with __fmul_rn / __fadd_rn in the plain version's order for the
-// same reason, so that K1f's power equals the plain version's.
+// product and a sum into one FMA, which would drop a rounding. Power is JAX's
+// bf16 chain, one operation at a time as XLA evaluates a bf16 operation (the
+// f32 operation, then one rounding to bf16): its products with
+// `mul.rn.bf16x2`, its sums as an f32 `__fadd_rn` and then `cvt.rn` (a native
+// bf16 add would round once where XLA rounds twice), so that K1f's and K2f's
+// power equals the plain version's.
 //
 // E[x] = bf(exp(x)) and L[a] = bf(log1p(-a)) are read from one bf16 table
 // that the wrapper passes (`blend.fast_tables`, built once; the plain
@@ -25,6 +28,8 @@
 // registers (`Tables`).
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -148,13 +153,58 @@ __device__ __forceinline__ uint32_t mul2_dup(unsigned short t, uint32_t b) {
   return d;
 }
 
-// power = (Ah dx) dx + (Ch dy) dy + (Bn dx) dy, JAX's form of -1/2 (A dx^2 +
-// C dy^2) - B dx dy with Ah = -A/2, Ch = -C/2, Bn = -B (the direct form of
-// `pallas_blend.py:238-239`), each operation rounded as the plain version
-// rounds it, with dx = __fsub_rn(mx, px) and dy likewise.
-__device__ __forceinline__ float power_rn(float Ah, float Bn, float Ch, float dx, float dy) {
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(Ah, dx), dx), __fmul_rn(__fmul_rn(Ch, dy), dy));
-  return __fadd_rn(q, __fmul_rn(__fmul_rn(Bn, dx), dy));
+// x rounded to bf16 (to nearest, ties to even), as f32.
+__device__ __forceinline__ float bf_rn(float x) {
+  return __uint_as_float(static_cast<uint32_t>(bits_rn(x)) << 16);
+}
+
+// power = ((Ah dx) dx + (Ch dy) dy) + (Bn dx) dy for two entries at once,
+// JAX's bf16 chain (`_chunk_quantities_fast`, `pallas_blend.py:301-310`)
+// with Ah = bf(-A/2), Ch = bf(-C/2), Bn = -B and dx = bf(mx - bf(px)), dy
+// likewise: every operand a bf16x2 word (entry 1 in the low half), every
+// product and sum rounded to bf16 as the plain version rounds it. Returns
+// both powers, bf16, in one word.
+__device__ __forceinline__ uint32_t power_pair(uint32_t ah, uint32_t bn, uint32_t ch,
+                                               uint32_t dx, uint32_t dy) {
+  const uint32_t t1 = mul2(mul2(ah, dx), dx);
+  const uint32_t t2 = mul2(mul2(ch, dy), dy);
+  const uint32_t t3 = mul2(mul2(bn, dx), dy);
+  const uint32_t s = pack_rn(__fadd_rn(lo_f(t1), lo_f(t2)), __fadd_rn(hi_f(t1), hi_f(t2)));
+  return pack_rn(__fadd_rn(lo_f(s), lo_f(t3)), __fadd_rn(hi_f(s), hi_f(t3)));
+}
+
+// One bf16 product, rounded once: either half of `mul2`.
+__device__ __forceinline__ unsigned short mul1(unsigned short a, unsigned short b) {
+  unsigned short d;
+  asm("mul.rn.bf16 %0, %1, %2;" : "=h"(d) : "h"(a), "h"(b));
+  return d;
+}
+
+// The bf16 bits of x, a bf16-valued f32.
+__device__ __forceinline__ unsigned short bits_of(float x) {
+  return static_cast<unsigned short>(__float_as_uint(x) >> 16);
+}
+
+// `power_pair`'s chain for one entry, in the same operations and order (the
+// same bits as either half): operands and result bf16 bits.
+__device__ __forceinline__ unsigned short power_one(unsigned short ah, unsigned short bn,
+                                                    unsigned short ch, unsigned short dx,
+                                                    unsigned short dy) {
+  const float t1 = lo_f(mul1(mul1(ah, dx), dx));
+  const float t2 = lo_f(mul1(mul1(ch, dy), dy));
+  const float t3 = lo_f(mul1(mul1(bn, dx), dy));
+  return bits_rn(__fadd_rn(lo_f(bits_rn(__fadd_rn(t1, t2))), t3));
+}
+
+// The bf16 halves of two bf16-valued f32s (the low 16 bits of each are 0), in
+// one word: a's in the low half.
+__device__ __forceinline__ uint32_t pair_of(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// dx = bf(mx - pxb) for two entries' mx, in one word; pxb = bf(px).
+__device__ __forceinline__ uint32_t offset_pair(float m1, float m2, float pxb) {
+  return pack_rn(__fsub_rn(m1, pxb), __fsub_rn(m2, pxb));
 }
 
 // The row's first 16 bytes (words (mx, my), (A, B), ...) as f32 (mx, my, A, B).
@@ -162,9 +212,23 @@ __device__ __forceinline__ float4 geometry(const uint4 v) {
   return make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
 }
 
-// power's coefficients of a row whose first 16 bytes are `v`: (Ah, Bn, Ch).
+// power's coefficients of a row whose first 16 bytes are `v`: (Ah, Bn, Ch),
+// each bf16-valued (JAX's bf(-0.5) A, rounded as XLA rounds it).
 __device__ __forceinline__ float3 power_coefficients(const uint4 v) {
-  return make_float3(__fmul_rn(-0.5f, lo_f(v.y)), -hi_f(v.y), __fmul_rn(-0.5f, lo_f(v.z)));
+  return make_float3(bf_rn(__fmul_rn(-0.5f, lo_f(v.y))), -hi_f(v.y),
+                     bf_rn(__fmul_rn(-0.5f, lo_f(v.z))));
+}
+
+// Dynamic shared memory past 48 KB needs the attribute, set once per device
+// and kernel (devices 0-31; any other on every call).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int device, unsigned& configured) {
+  const unsigned bit = device < 32 ? 1u << device : 0u;
+  if ((configured & bit) && bit != 0u) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) configured |= bit;
+  return err;
 }
 
 }  // namespace w3d_fast

@@ -45,10 +45,14 @@ kernels, with the plain versions `blend_fwd_fast_reference` and
 and sample each pixel at its tile-local position (x - tile x, y - tile y,
 plus jitter, in f32). Per (pixel, entry), in this order, with bf(x) x rounded
 to bfloat16 (to nearest, ties to even) and E, L the tables below:
-  power   f32 from the row's values in JAX's direct form, (Ah dx) dx +
-          (Ch dy) dy + (Bn dx) dy with Ah = -A/2, Ch = -C/2, Bn = -B
-          (`pallas_blend.py:238-239`), then bf(power) (the quad route below
-          computes power another way and rounds it so too);
+  power   JAX's bf16 chain (`_chunk_quantities_fast`,
+          `pallas_blend.py:301-310`), each operation evaluated as XLA
+          evaluates a bf16 operation, the f32 operation and then bf():
+          dx = bf(mx - bf(px)), dy = bf(my - bf(py)), Ah = bf(-A/2),
+          Ch = bf(-C/2), Bn = -B, then power = bf(bf(bf(bf(Ah dx) dx) +
+          bf(bf(Ch dy) dy)) + bf(bf(Bn dx) dy)) (`_fast_power`; the quad
+          route below computes power in f32 another way and then rounds it
+          once, bf(power));
   alpha = min(bf(0.99), bf(opa E[bf(power)])), bf(0.99) = 0.98828125;
           skipped where power > 0 or alpha < 1/255 (f32 compares);
   s     = L[alpha];
@@ -69,7 +73,9 @@ plain versions with `.to(torch.bfloat16)`.
 `fast_tables` builds both once, in f32 with `torch.exp` / `torch.log1p`, and
 the kernels and the plain versions read the same tensor, so their
 transcendentals agree bit for bit. The backward recomputes alpha and T
-exactly so (its stops are the forward's), and takes q = dcolour . rgb +
+exactly so (its stops are the forward's), takes the moments of dL/dpower on
+f32 dx = mx - px and dy = my - py, as JAX's backward does
+(`pallas_blend.py:714-715`), and takes q = dcolour . rgb +
 ddepth depth with every product and sum rounded (r, g, b, depth order; the
 cotangents rounded first), q w = bf(q w) and its prefix as an f32 running
 sum, q T = bf(q T); the division, dL/dpower, the moment sums and every
@@ -99,15 +105,35 @@ tier (`_split2`, `pallas_blend.py:102-105`); each part's sum is taken in the
 order of m, d = ((((c0 m0 + c1 m1) + c2 m2) + c3 m3) + c4 m4) + c5, where
 every product is exact in f32 (bf16 times an integer below 256), so a chain
 of FMAs gives the same bits; power = (d_hi + d_mid) + d_lo (d_hi + d_lo),
-then JAX's clamp, power = min(power, 0) + max(power - eps, 0), eps = 1e-3
+JAX's own grouping, then JAX's clamp, power = min(power, 0) + max(power - eps, 0), eps = 1e-3
 (0.05) in f32, NaN kept. An entry is skipped where this power > 0, so one
 whose power lies in (0, eps] is taken at alpha = opa. Past power the bf16
 tier is the one above; the f32 tier is the direct one with NaN kept by the
 clamp at 0.99 and every operation rounded: T and colour are carried one
-entry at a time in walk order (T <- T (1 - alpha), colour += w rgb), so that
-K1q equals its plain version bit for bit. The backward recomputes the direct
-form in both tiers, on the outputs of the quad forward, as JAX's does
-(`pallas_blend.py:891-895`).
+entry at a time in walk order (T <- T (1 - alpha), colour += w rgb). The
+backward recomputes the direct form in both tiers, on the
+outputs of the quad forward, as JAX's does (`pallas_blend.py:891-895`).
+
+K1q and K1fq sum the parts' products on the tensor cores (`mma.sync`, bf16
+in, f32 accumulation: K1q hi|mid in one m16n8k16 and lo in one m16n8k8 onto
+that sum, K1fq hi|lo in one m16n8k16), as JAX's matrix unit sums them, in
+the hardware's order and rounding, so they are not bit-equal to the plain
+versions. The error model of that sum, from Fasi, Higham, Mikaitis and
+Pranesh ("Numerical behavior of NVIDIA tensor cores", PeerJ Computer
+Science 7:e330, 2021), taken conservatively for Hopper: products of bf16
+values are exact; the products and the accumulator C are added in blocks,
+their significands aligned to the block's largest exponent and truncated,
+and the block's sum truncated to f32; the paper found blocks of 4 (V100,
+T4) and 8 (A100), Hopper's are not published, so take blocks of one
+product, each costing at most two units of 2^-23 of the magnitudes summed:
+an MMA of depth K lands within 2 K 2^-23 (|C| + sum |a_i b_i|) of its exact
+sum (`MMA_UNIT`, `QUAD_MMA_DEPTHS`). Against the exact power P on the
+tile-local mean, with S = `quad_term_bound`, the kernels' power is within
+105 u S (K1q) and 1.28 2^-16 S (K1fq), u = 2^-24 (`QUAD_POWER_ERR`: the
+coefficients' roundings, the split's remainder and the MMA, derived beside
+`cull_prelude` in csrc/blend_fwd.cu), and within `quad_mma_bound` of the
+plain version's power; the quad cull's margin (`QUAD_MARGIN`) is over twice
+what that moves Q = -2 power.
 """
 
 from __future__ import annotations
@@ -141,12 +167,15 @@ OPA_CULL = float(torch.tensor(1.0 / 255.0, dtype=torch.float32)
                  * torch.tensor(1.0 - 64.0 * U, dtype=torch.float32))
 CONIC_MIN = float(torch.tensor(1e-30, dtype=torch.float32))
 TERM_MAX = float(torch.tensor(1e30, dtype=torch.float32))
-# The bf16 tier: its rows, its clamp, and K1f's cull, whose margin covers the
-# bf16 roundings of power, exp and the product with opacity (derived beside
-# `cull_prelude` in csrc/blend_fwd.cu).
+# The bf16 tier: its rows, its clamp, and K1f's cull, whose margins cover the
+# bf16 roundings of exp and the product with opacity (on tau), of the samples
+# (the box widened by FAST_BOX of its largest coordinate) and of power's chain
+# (FAST_TERM of the box's largest term sum); derived beside `cull_prelude` in
+# csrc/blend_fwd.cu.
 ROW_FAST = 16
 ALPHA_MAX_BF16 = float(torch.tensor(ALPHA_MAX).to(torch.bfloat16))  # 0.98828125
 TAU_FAST, TAU_FAST_REL = 2.0 ** -5, 2.0 ** -7
+FAST_BOX, FAST_TERM = 2.0 ** -8, 2.0 ** -4
 # The tables (module docstring), one bf16 tensor: E at [0, EXP_SIZE), L at
 # [EXP_SIZE, TABLE_USED), zeros to TABLE_SIZE (a whole number of 16-byte
 # words). A bf16 value's bits: EXP_LO of 2^-9, EXP_HI of 16, LOG_LO of the
@@ -159,13 +188,18 @@ EXP_SIZE = EXP_HI - EXP_LO + 2  # 1 below the range, 0 above it
 TABLE_USED = EXP_SIZE + LOG_HI - LOG_LO
 TABLE_SIZE = -(-TABLE_USED // 8) * 8
 # The quad route (module docstring), by tier (fast): bf16 parts of each
-# coefficient, JAX's skip allowance eps as a float32 value, and the quad
-# cull's margin on Q per unit of `quad_term_bound` (derived beside
-# `cull_prelude` in csrc/blend_fwd.cu).
+# coefficient, JAX's skip allowance eps as a float32 value, the depths of the
+# MMAs that sum the parts' products on the tensor cores and their error per
+# unit of depth (two units of 2^-23), the kernels' error in power per unit of
+# `quad_term_bound`, and the quad cull's margin on Q per unit of it (derived
+# beside `cull_prelude` in csrc/blend_fwd.cu).
 QUAD_PARTS = {False: 3, True: 2}
 QUAD_EPS = {False: float(torch.tensor(1e-3, dtype=torch.float32)),
             True: float(torch.tensor(0.05, dtype=torch.float32))}
-QUAD_MARGIN = {False: 64.0 * U, True: 2.0 ** -14}
+QUAD_MMA_DEPTHS = {False: (16, 8), True: (16,)}
+MMA_UNIT = 2.0 * 2.0 ** -23
+QUAD_POWER_ERR = {False: 105.0 * U, True: 1.28 * 2.0 ** -16}
+QUAD_MARGIN = {False: 2.0 ** -15, True: 2.0 ** -13}
 QUAD_SPAN = TILE - 1  # the largest tile-local pixel coordinate
 
 
@@ -384,6 +418,16 @@ def _running_sum(init: torch.Tensor, x: torch.Tensor, product: bool = False) -> 
     return torch.stack(out, dim=-1)
 
 
+def _fast_power(mx, my, a, b, c, px, py):
+    """The bf16 tier's direct power (module docstring), JAX's bf16 chain
+    with each operation evaluated in f32 and rounded to bf16, from the rows'
+    bf16 values as f32 and f32 samples px, py (broadcast together); f32
+    values, each a bf16."""
+    dx, dy = _bf(mx - _bf(px)), _bf(my - _bf(py))
+    ah, ch, bn = _bf(-0.5 * a), _bf(-0.5 * c), -b
+    return _bf(_bf(_bf(_bf(ah * dx) * dx) + _bf(_bf(ch * dy) * dy)) + _bf(_bf(bn * dx) * dy))
+
+
 def _quad_coefficients(mx, my, a, b, c):
     """[..., 6]: the quad route's coefficients of power in the pixel
     monomials (module docstring) for tile-local means, each operation
@@ -416,6 +460,23 @@ def _quad_sum(coef, px, py, fast):
         d = d + part[..., 5]
         power = d if power is None else power + d
     return power
+
+
+def quad_mma_bound(coef, px, py, fast):
+    """The most by which K1q's (K1fq's with `fast`) raw power can differ
+    from `_quad_sum`'s, broadcast as `_quad_sum`: the kernel's MMAs
+    (`QUAD_MMA_DEPTHS`, each within MMA_UNIT times its depth of the
+    magnitudes it sums, at most those of every part's terms, M = sum over
+    parts and monomials of |part| m) and the plain version's own f32 sums
+    (five a part and the parts' two, within 8u M), from the exact sum of the
+    parts' products."""
+    mono = (px * px, py * py, px * py, px, py, torch.ones_like(px))
+    m = None
+    for part in _split(coef, QUAD_PARTS[fast]):
+        for k in range(6):
+            t = (part[..., k] * mono[k]).abs()
+            m = t if m is None else m + t
+    return (MMA_UNIT * sum(QUAD_MMA_DEPTHS[fast]) + 8.0 * U) * m
 
 
 def _quad_power(coef, px, py, fast):
@@ -501,8 +562,8 @@ def _chunk(rows, idx, in_range, px, py, state, fast, quad=False, origin=None):
         dx = r[:, None, :, R_MX] - px[:, :, None]  # [A, P, G]
         dy = r[:, None, :, R_MY] - py[:, :, None]
         if fast:
-            ah, bn, ch = -0.5 * a, -b, -0.5 * c
-            power = (ah * dx) * dx + (ch * dy) * dy + (bn * dx) * dy
+            power = _fast_power(r[:, None, :, R_MX], r[:, None, :, R_MY], a, b, c,
+                                px[:, :, None], py[:, :, None])
         else:
             power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
     if fast:
@@ -684,9 +745,11 @@ def _culled(r, box, fast=False, quad=False):
     margin is derived), in float32 in the kernel's order of operations: r
     [E, >= 6] rows (f32 values), box [E, W, 4]; [E, W] True where no sample
     of the box can take the entry. `fast`: K1f's cull, with the bf16 tier's
-    wider margin and its opacity threshold, 1/255 itself. `quad`: the quad
-    route's, on tile-local means and boxes, its margin wider by the tier's
-    `QUAD_MARGIN` times `quad_term_bound`."""
+    wider margin and its opacity threshold, 1/255 itself, and (not on the
+    quad route) for the bf16 chain the box widened by FAST_BOX of its
+    largest coordinate and FAST_TERM of its largest term sum on the
+    threshold. `quad`: the quad route's, on tile-local means and boxes, its
+    margin wider by the tier's `QUAD_MARGIN` times `quad_term_bound`."""
     # per entry: 1/A, 1/C and tau' (+inf: never culled; -inf: culled by opa)
     mx, my, a, b, c, opa = (r[:, i, None] for i in range(6))
     cullable = (torch.isfinite(r[:, :6]).all(dim=1)[:, None] & (a > CONIC_MIN)
@@ -702,6 +765,11 @@ def _culled(r, box, fast=False, quad=False):
     ia, ic = 1.0 / a, 1.0 / c
     # per box
     x0, x1, y0, y1 = box.unbind(-1)
+    chain = fast and not quad
+    if chain:  # the bf16 chain's samples, bf(px) and bf(py)
+        sx = FAST_BOX * torch.maximum(x0.abs(), x1.abs())
+        sy = FAST_BOX * torch.maximum(y0.abs(), y1.abs())
+        x0, x1, y0, y1 = x0 - sx, x1 + sx, y0 - sy, y1 + sy
     dx0, dx1 = mx - x1, mx - x0
     dy0, dy1 = my - y1, my - y0
     ex = torch.maximum(dx0.abs(), dx1.abs())
@@ -721,7 +789,10 @@ def _culled(r, box, fast=False, quad=False):
                    quad(clamp(-b * dy1 * ia, dx0, dx1), dy1)))
     mean_inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
     qmin = torch.where(mean_inside, torch.zeros_like(qmin), qmin)
-    return (tmax < TERM_MAX) & (qmin > tau + 64.0 * U * (tmax + 1.0))
+    threshold = tau + 64.0 * U * (tmax + 1.0)
+    if chain:
+        threshold = threshold + FAST_TERM * tmax
+    return (tmax < TERM_MAX) & (qmin > threshold)
 
 
 def warp_keep_reference(rows: torch.Tensor, starts: torch.Tensor,
