@@ -3216,6 +3216,54 @@ def jpeg_arith_decode_times():
     return checks, numbers
 
 
+def plugin_decode_times():
+    """Decode milliseconds (median of 3) at a dataset's sizes of the formats
+    of `utils/image_plugins.py` and of old-style JPEG TIFF, each file built
+    here from the 1296x832 view or from seeds (`tools.make_torch_fixtures.
+    plugin_scenes`, `tools/image_writers.py`): an old-style JPEG TIFF in the
+    table form, a BLP2 of DXT1 blocks and a 768x512 PhotoCD base image, each
+    held to the dtype, shape and SHA-256 of PIL's decode
+    (`pil_decode/<name>.json`); a FITS of BITPIX -32 (held to its samples as
+    PIL reads them: little-endian, rows bottom-up), an IM RGB and a PIXAR
+    raster of the view (held to the view). Returns (checks, numbers)."""
+    import hashlib
+
+    from tools import image_writers as iw
+    from tools.make_torch_fixtures import plugin_scenes
+    from wast3d_tpu_torch.utils import png
+    from wast3d_tpu_torch.utils.image_io import decode_image
+
+    checks, numbers = {}, {}
+    view = png.read_png(os.path.join(FIXTURES, "pil_decode", "scene_1296x832_420.png"))
+    h, w = view.shape[:2]
+    t = time.perf_counter()
+    files = plugin_scenes(view)
+    grey = view.astype(np.float32).mean(axis=2) / 7
+    fits = iw.fits_bytes(grey, -32)
+    planes = np.ascontiguousarray(view[::-1].transpose(0, 2, 1))
+    files.update(scene_1296x832_fits_m32=fits,
+                 scene_1296x832_im_rgb=iw.im_bytes("RGB image", w, h, planes.tobytes()),
+                 scene_1296x832_pixar=iw.pixar_bytes(view))
+    numbers["plugin_files_build_s"] = time.perf_counter() - t
+    for name, blob in files.items():
+        got, sec = median_s(lambda: decode_image(blob, name), 3)
+        numbers[f"decode_ms {name}"] = sec * 1e3
+        numbers[f"bytes {name}"] = len(blob)
+        if name.endswith(("fits_m32", "im_rgb", "pixar")):
+            want = (np.frombuffer(fits, "<f4", w * h, 2880).reshape(h, w)[::-1]
+                    if name.endswith("fits_m32") else view)
+            checks[f"decode {name} = its samples"] = (got.dtype == want.dtype
+                                                      and got.shape == want.shape
+                                                      and got.tobytes() == want.tobytes())
+            continue
+        with open(os.path.join(FIXTURES, "pil_decode", name + ".json")) as f:
+            record = json.load(f)
+        checks[f"decode {name} = PIL's sha256"] = record == {
+            "dtype": str(got.dtype), "shape": list(got.shape),
+            "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+    return checks, numbers
+
+
 def jpeg2000_decode_times():
     """Decode milliseconds (median of 3) of the committed 1296x832 JPEG 2000
     views (`tests/torch_fixtures/jpeg2000/`: a lossless 5/3 JP2, a 9/7 JP2
@@ -3337,7 +3385,8 @@ def train_cli(src, images, device, model):
 
 def metrics_on(kind, device, tmp):
     """`cli.metrics` on a method directory of `kind` files ("jpeg", "webp",
-    "tga_ppm", "zstd_psd", "jpeg2000" or "jpeg_arith": tests/format_fixtures/metrics_<kind>),
+    "tga_ppm", "zstd_psd", "jpeg2000", "jpeg_arith" or "plugins": old-style
+    JPEG TIFF and PIXAR; tests/format_fixtures/metrics_<kind>),
     then the port's metrics
     (`evaluate_dir`) on PIL's decode of the same files (its .npy), in this
     call: the per-view scores must be equal. Returns (checks, numbers)."""
@@ -3371,7 +3420,8 @@ def metrics_on(kind, device, tmp):
     names = {"jpeg": ["00000.jpg", "00001.jpg"], "webp": ["00000.webp", "00001.webp"],
              "tga_ppm": ["00000.tga", "00001.ppm"], "zstd_psd": ["00000.tif", "00001.psd"],
              "jpeg2000": ["00000.jp2", "00001.j2k"],
-             "jpeg_arith": ["00000.jpg", "00001.jpg"]}[kind]
+             "jpeg_arith": ["00000.jpg", "00001.jpg"],
+             "plugins": ["00000.tif", "00001.pxr"]}[kind]
     checks = {f"metrics {kind} names": list(per_view["PSNR"]) == names,
               f"metrics {kind} = PIL's decode": per_view == pil,
               f"metrics {kind} finite": all(math.isfinite(v) for m in per_view.values()
@@ -3408,9 +3458,14 @@ def phase_images(device):
     refined JPEG and a YCbCr LZW TIFF, on six views that are a ZSTD TIFF, a
     tiled YCbCr ZSTD TIFF, PSD, SGI, PCX and Sun raster, on six JPEG 2000
     views of six kinds, on six arithmetic-coded and lossless JPEG views
-    (`colmap_jpeg_arith`), and `cli.metrics` on JPEGs, on WebPs, on TGA /
-    PPM, on ZSTD TIFF / PSD, on JPEG 2000 and on arithmetic-coded and
-    lossless JPEG ground truths
+    (`colmap_jpeg_arith`), on six views that are old-style JPEG TIFFs (the
+    interchange and the table form), BLP1 JPEG, BLP2, IM RGB and PIXAR
+    (`colmap_plugins`), with the decode times of an old-style JPEG TIFF, a
+    BLP2 DXT1, a FITS -32, an IM RGB and a PIXAR at 1296x832 and a PhotoCD
+    base image at 768x512 (`plugin_decode_times`), and `cli.metrics` on
+    JPEGs, on WebPs, on TGA / PPM, on ZSTD TIFF / PSD, on JPEG 2000, on
+    arithmetic-coded and lossless JPEG and on old-style JPEG TIFF / PIXAR
+    ground truths
     against the port's metrics on PIL's decode, with PIL unimportable.
     Returns the numbers."""
     from wast3d_tpu_torch import native
@@ -3476,6 +3531,9 @@ def phase_images(device):
         more, times = jpeg_arith_decode_times()
         checks.update(more)
         numbers.update(times)
+        more, times = plugin_decode_times()
+        checks.update(more)
+        numbers.update(times)
     numbers.update(paeth_800_rgba_decode_s=paeth_s, paeth_png_bytes=len(blob),
                    resize_1959_to_1600_s=resize_s, numpy_resize_1959_to_1600_s=numpy_resize_s)
 
@@ -3501,6 +3559,8 @@ def phase_images(device):
         write_views_colmap(colmap_jpeg2000, "colmap_jpeg2000", "images_jpeg2000")
         colmap_arith = os.path.join(tmp, "colmap_jpeg_arith")
         write_views_colmap(colmap_arith, "colmap_jpeg_arith", "images_arith")
+        colmap_plugins = os.path.join(tmp, "colmap_plugins")
+        write_views_colmap(colmap_plugins, "colmap_plugins", "images_plugins")
         for key, src, images in (("train", colmap, "images_progressive"),
                                  ("train 440", colmap, "images_440"),
                                  ("train blender16", blender, None),
@@ -3509,12 +3569,13 @@ def phase_images(device):
                                  ("train codecs", colmap_codecs, "images_codecs"),
                                  ("train readers", colmap_readers, "images_readers"),
                                  ("train jpeg2000", colmap_jpeg2000, "images_jpeg2000"),
-                                 ("train jpeg_arith", colmap_arith, "images_arith")):
+                                 ("train jpeg_arith", colmap_arith, "images_arith"),
+                                 ("train plugins", colmap_plugins, "images_plugins")):
             more, got = train_cli(src, images, device,
                                   os.path.join(tmp, "model_" + key.replace(" ", "_")))
             checks.update({f"{key} {k}": v for k, v in more.items()})
             numbers.update({f"{key.replace(' ', '_')}_{k}": v for k, v in got.items()})
-        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd", "jpeg2000", "jpeg_arith"):
+        for kind in ("jpeg", "webp", "tga_ppm", "zstd_psd", "jpeg2000", "jpeg_arith", "plugins"):
             more, got = metrics_on(kind, device, tmp)
             checks.update(more)
             numbers.update(got)

@@ -333,15 +333,20 @@ def test_damaged_files_raise_where_pil_raises():
 
 
 def test_formats_still_left_raise_naming_file_and_bytes():
-    """BLP, AVIF and the rest of PIL's signature list wait for later work
-    (ICNS and JPEG 2000 are read: tests/test_torch_image_jpeg2000.py); each
-    raises naming the file and its first bytes, as does an ICNS file that
-    PIL's plugin declines (no entries)."""
-    for blob in (b"icns\x00\x00\x01\x00" + bytes(64), b"BLP2" + bytes(64), b"FTEX" + bytes(64),
-                 b"\x00\x00\x00\x1cftypavif" + bytes(64)):
+    """AVIF waits for AV1's tables (JPEG 2000 and ICNS are read:
+    tests/test_torch_image_jpeg2000.py); it raises naming the file and its
+    first bytes, as does an ICNS file that PIL's plugin declines (no
+    entries). The BLP2 and FTEX headers of zeros, which used to stand for
+    formats still to come, are read now: each gives PIL's outcome (both
+    refuse: BLP2 of size 0 is declined by every format, FTEX of no formats
+    fails PIL's assertion)."""
+    for blob in (b"icns\x00\x00\x01\x00" + bytes(64), b"\x00\x00\x00\x1cftypavif" + bytes(64)):
         with pytest.raises(ValueError, match=r"^x\.img: not an image this reader knows .*Sun "
-                                             r"raster.*starts with"):
+                                             r"raster.*XVThumb\); it starts with"):
             image_io.decode_image(blob, "x.img")
+    for blob in (b"BLP2" + bytes(64), b"FTEX" + bytes(64)):
+        assert _pil(blob) is None
+        assert not _same_as_pil(blob, "x.img")
 
 
 def test_colmap_scene_of_reader_views_equals_jaxs(tmp_path):

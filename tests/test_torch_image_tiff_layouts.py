@@ -67,7 +67,7 @@ def test_tiff_fixture_is_pils_array(path):
 def test_tiff_fixtures_cover_every_layout_and_kind():
     seen = set()
     for p in NEW:
-        _, tags = image_io._tiff_tags(p.read_bytes(), p.name)
+        _, tags, _ = image_io._tiff_tags(p.read_bytes(), p.name)
         one = {k: v[0] for k, v in tags.items() if k != 347 and len(v) >= 1}
         compression, planar = one.get(259, 1), one.get(284, 1)
         seen.add(("tiles" if 322 in tags else "strips", planar, compression != 1))

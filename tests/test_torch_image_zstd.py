@@ -68,7 +68,7 @@ def _pil_zstd(img, **kw):
 
 def _frames(blob):
     """Each strip's or tile's bytes of a TIFF."""
-    _, tags = image_io._tiff_tags(blob, "f")
+    _, tags, _ = image_io._tiff_tags(blob, "f")
     offsets, counts = tags.get(273) or tags.get(324), tags.get(279) or tags.get(325)
     return [blob[o:o + c] for o, c in zip(offsets, counts)]
 

@@ -73,9 +73,10 @@ def test_native_builds_into_the_build_dir():
     compiles, link = _build.native_commands(Path("/x/lib.so"))
     assert {"-O3", "-shared", "-fPIC"} <= set(link) and link[link.index("-o") + 1] == "/x/lib.so"
     assert [Path(c[-1]).name for c in compiles] == ["image.cpp", "io.cpp", "j2k.cpp", "jpeg.cpp",
-                                                     "raster.cpp", "webp.cpp", "zstd.cpp"]
+                                                     "plugins.cpp", "raster.cpp", "webp.cpp",
+                                                     "zstd.cpp"]
     assert all({"-O3", "-fPIC", "-c"} <= set(c) for c in compiles)
-    assert [Path(c) for c in link[-7:]] == [Path(c[c.index("-o") + 1]) for c in compiles]
+    assert [Path(c) for c in link[-8:]] == [Path(c[c.index("-o") + 1]) for c in compiles]
     assert not (ROOT / "wast3d_tpu_torch" / "native" / "_w3d_io.so").exists()
 
 

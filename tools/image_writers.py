@@ -1317,6 +1317,119 @@ def _box_mean(plane: np.ndarray, sh: int, sv: int) -> np.ndarray:
     return np.round(m).astype(plane.dtype)[..., None]
 
 
+def tiff_entries_bytes(entries: Sequence[Tuple], data: Sequence[bytes] = (),
+                       byteorder: str = "<") -> bytes:
+    """A classic TIFF of one directory with exactly `entries` = (tag, type,
+    values) (type 3 SHORT, 4 LONG, 7 UNDEFINED bytes) and `data` blobs after
+    it. A value given as ("data", k) or ("data", k, d) is the offset of blob
+    k (plus d), filled in once the layout is known."""
+    fmt = {3: "H", 4: "I", 7: "B"}
+    entries = sorted(entries, key=lambda e: e[0])
+    head = 8 + 2 + 12 * len(entries) + 4
+    sizes = [len(v) * struct.calcsize(fmt[t]) for _, t, v in entries]
+    values_size = sum(n + n % 2 for n in sizes if n > 4)
+    starts, pos = [], head + values_size
+    for blob in data:
+        starts.append(pos)
+        pos += len(blob)
+
+    def resolve(v):
+        return starts[v[1]] + (v[2] if len(v) > 2 else 0) if isinstance(v, tuple) else v
+
+    ifd, values = struct.pack(byteorder + "H", len(entries)), b""
+    for (tag, typ, vals), n in zip(entries, sizes):
+        vals = [resolve(v) for v in vals]
+        packed = bytes(vals) if typ == 7 else struct.pack(byteorder + fmt[typ] * len(vals), *vals)
+        if n > 4:
+            ifd += struct.pack(byteorder + "HHII", tag, typ, len(vals), head + len(values))
+            values += packed + b"\x00" * (n % 2)
+        else:
+            ifd += struct.pack(byteorder + "HHI", tag, typ, len(vals)) + packed.ljust(4, b"\x00")
+    top = (b"II*\x00" if byteorder == "<" else b"MM\x00*") + struct.pack(byteorder + "I", 8)
+    return top + ifd + b"\x00" * 4 + values + b"".join(data)
+
+
+def _jpeg_segments(blob: bytes):
+    """A sequential JPEG -> ({DQT index: 64 bytes}, {(class, index): 16
+    counts + values}, the entropy-coded data after SOS cut at its RST
+    markers)."""
+    qt, ht, pos = {}, {}, 2
+    while blob[pos + 1] != 0xDA:
+        n = struct.unpack_from(">H", blob, pos + 2)[0]
+        seg = blob[pos + 4:pos + 2 + n]
+        if blob[pos + 1] == 0xDB:
+            while seg:
+                qt[seg[0] & 15], seg = seg[1:65], seg[65:]
+        elif blob[pos + 1] == 0xC4:
+            while seg:
+                count = 16 + sum(seg[1:17])
+                ht[(seg[0] >> 4, seg[0] & 15)], seg = seg[1:1 + count], seg[1 + count:]
+        pos += 2 + n
+    pos += 2 + struct.unpack_from(">H", blob, pos + 2)[0]
+    data = blob[pos:blob.rindex(b"\xff\xd9")]
+    return qt, ht, re.split(b"\xff[\xd0-\xd7]", data)
+
+
+def ojpeg_tiff_bytes(samples: np.ndarray, sampling: Sequence[Tuple[int, int]],
+                     form: str = "interchange", photometric: int = 6, quality: int = 90,
+                     rows_per_strip: Optional[int] = None,
+                     subsampling: Optional[Tuple[int, int]] = None, strips: bool = False,
+                     jpeg_proc: int = 1, restart: Optional[int] = None,
+                     tags: Sequence[Tuple] = ()) -> bytes:
+    """[H, W, 3] YCbCr (or [H, W] grey) samples -> an old-style JPEG TIFF
+    (Compression 6) of one baseline stream of `jpeg_bytes` at `sampling`.
+
+    `form` "interchange": JPEGInterchangeFormat / Length (513 / 514) point at
+    the whole stream; `strips` also writes one strip holding it (as many
+    writers did). `form` "tables": the stream's tables go into JPEGQTables,
+    JPEGDCTables and JPEGACTables (519-521: one offset a component, component
+    0 the luma tables), JPEGProc (512) = `jpeg_proc`, and the entropy-coded
+    data into strips of `rows_per_strip` rows (whole MCU rows; the stream is
+    coded with a restart interval of one strip, JPEGRestartInterval (515) =
+    `restart` or that interval, and each strip is one interval without its
+    RST marker). `subsampling` writes YCbCrSubsampling (530); `tags` adds
+    (tag, type, values) entries (they replace the writer's own; values None
+    leaves the tag out)."""
+    samples = np.asarray(samples, np.uint8)
+    h, w = samples.shape[:2]
+    spp = 1 if samples.ndim == 2 else samples.shape[2]
+    sv = max(v for _, v in sampling)
+    hmax = max(f for f, _ in sampling)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [6]),
+               262: (3, [photometric]), 277: (3, [spp])}
+    if subsampling:
+        entries[530] = (3, list(subsampling))
+    if form == "interchange":
+        stream = jpeg_bytes(samples, sampling, quality)
+        data = [stream]
+        entries[513] = (4, [("data", 0)])
+        entries[514] = (4, [len(stream)])
+        if strips:
+            entries.update({273: (4, [("data", 0)]), 278: (4, [h]), 279: (4, [len(stream)])})
+    else:
+        rows = rows_per_strip or h
+        assert rows % (8 * sv) == 0 or rows >= h
+        interval = -(-w // (8 * hmax)) * (-(-min(rows, h) // (8 * sv)))
+        stream = jpeg_bytes(samples, sampling, quality, restart_interval=interval)
+        qt, ht, parts = _jpeg_segments(stream)
+        tables = [qt[0], qt.get(1, qt[0])]
+        dc = [ht[(0, 0)], ht.get((0, 1), ht[(0, 0)])]
+        ac = [ht[(1, 0)], ht.get((1, 1), ht[(1, 0)])]
+        data = tables + dc + ac + parts
+        n = len(parts)
+        entries.update({
+            512: (3, [jpeg_proc]), 515: (3, [interval if restart is None else restart]),
+            519: (4, [("data", min(c, 1)) for c in range(spp)]),
+            520: (4, [("data", 2 + min(c, 1)) for c in range(spp)]),
+            521: (4, [("data", 4 + min(c, 1)) for c in range(spp)]),
+            273: (4, [("data", 6 + i) for i in range(n)]), 278: (4, [rows]),
+            279: (4, [len(p) for p in parts])})
+    for tag, typ, vals in tags:
+        entries[tag] = (typ, None if vals is None else list(vals))
+    return tiff_entries_bytes([(t, typ, v) for t, (typ, v) in entries.items()
+                               if v is not None], data)
+
+
 def ycbcr_units(block: np.ndarray, sh: int, sv: int) -> np.ndarray:
     """[rows, W, 3] uint8 YCbCr -> the chunky data units of TIFF 6.0
     section 21: per unit the sh x sv luma samples by rows, then Cb and Cr."""
@@ -2162,3 +2275,346 @@ def icns_bytes(entries: Sequence[Tuple[bytes, bytes]]) -> bytes:
     8-bit masks."""
     body = b"".join(t + struct.pack(">I", 8 + len(p)) + p for t, p in entries)
     return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+# ---- the formats of utils/image_plugins.py that PIL does not write ------------------------
+
+def fits_bytes(samples: np.ndarray, bitpix: int, cards: Sequence[str] = (),
+               naxis: Optional[int] = None) -> bytes:
+    """A FITS primary HDU: SIMPLE, BITPIX, NAXIS (2, or `naxis` with the
+    array's own axes), NAXISn, `cards` ("KEY     = value" strings), END,
+    then the samples big-endian as given (rows in the array's order), each
+    part padded to 2880 bytes."""
+    samples = np.asarray(samples)
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    axes = samples.shape[::-1]
+    n = len(axes) if naxis is None else naxis
+    head = [f"SIMPLE  = {'T':>20}", f"BITPIX  = {bitpix:>20}", f"NAXIS   = {n:>20}"]
+    head += [f"NAXIS{i + 1:<3}= {a:>20}" for i, a in enumerate(axes[:n])]
+    head += list(cards) + ["END"]
+    text = "".join(c.ljust(80)[:80] for c in head).encode("ascii")
+    data = samples.astype(dt).tobytes()
+    return text.ljust(-(-len(text) // 2880) * 2880, b" ") + data.ljust(
+        -(-len(data) // 2880) * 2880, b"\x00")
+
+
+def fits_gzip_bytes(samples: np.ndarray, zbitpix: int) -> bytes:
+    """A FITS of an empty primary HDU and a GZIP_1 tile-compressed BINTABLE
+    extension (ZIMAGE) holding [H, W] samples, each stored as a big-endian
+    32-bit word in one gzip heap after an 8-byte table row (what PIL's
+    `fits_gzip` decoder reads: the last |ZBITPIX| / 8 bytes of each word)."""
+    import gzip
+
+    samples = np.asarray(samples)
+    h, w = samples.shape
+
+    def header(cards):
+        text = "".join(c.ljust(80)[:80] for c in cards + ["END"]).encode("ascii")
+        return text.ljust(-(-len(text) // 2880) * 2880, b" ")
+
+    primary = header([f"SIMPLE  = {'T':>20}", f"BITPIX  = {8:>20}", f"NAXIS   = {0:>20}"])
+    table = header(["XTENSION= 'BINTABLE'", f"BITPIX  = {8:>20}", f"NAXIS   = {2:>20}",
+                    f"NAXIS1  = {8:>20}", f"NAXIS2  = {1:>20}", f"ZIMAGE  = {'T':>20}",
+                    "ZCMPTYPE= 'GZIP_1  '", f"ZBITPIX = {zbitpix:>20}", f"ZNAXIS  = {2:>20}",
+                    f"ZNAXIS1 = {w:>20}", f"ZNAXIS2 = {h:>20}"])
+    return primary + table + bytes(8) + gzip.compress(samples.astype(">u4").tobytes(), mtime=0)
+
+
+def fli_chunk(kind: int, payload: bytes) -> bytes:
+    """A subchunk of a frame: size, type, payload (padded to even size)."""
+    payload += b"\x00" * (len(payload) % 2)
+    return struct.pack("<IH", 6 + len(payload), kind) + payload
+
+
+def fli_brun(img: np.ndarray, run_min: int = 3) -> bytes:
+    """BRUN (15) lines: runs of `run_min` or more equal bytes as (n, v),
+    literals as (-n, bytes), each line's packet count byte first."""
+    out = b""
+    for row in np.asarray(img, np.uint8):
+        packets, x, w = [], 0, len(row)
+        while x < w:
+            n = 1
+            while x + n < w and n < 127 and row[x + n] == row[x]:
+                n += 1
+            if n >= run_min:
+                packets.append(bytes([n, row[x]]))
+                x += n
+                continue
+            n = 1
+            while x + n < w and n < 127 and not (x + n + 2 < w and row[x + n] == row[x + n + 1]
+                                                  == row[x + n + 2]):
+                n += 1
+            packets.append(bytes([256 - n]) + row[x:x + n].tobytes())
+            x += n
+        out += bytes([len(packets) & 255]) + b"".join(packets)
+    return out
+
+
+def fli_lc(img: np.ndarray, y0: int = 0, skip: int = 0, run: bool = True) -> bytes:
+    """LC (12) byte deltas of rows `y0`... of `img`: per line one packet that
+    skips `skip` pixels, then (when `run`) a run of the next 2 pixels' first
+    value and a literal of the rest."""
+    img = np.asarray(img, np.uint8)
+    out = struct.pack("<HH", y0, img.shape[0] - y0)
+    for row in img[y0:]:
+        rest = row[skip:]
+        if run and len(rest) > 2:
+            out += bytes([2, skip, 256 - 2, rest[0], 0, len(rest) - 2]) + rest[2:].tobytes()
+        else:
+            out += bytes([1, skip, len(rest)]) + rest.tobytes()
+    return out
+
+
+def fli_ss2(img: np.ndarray, skip_lines: int = 0, odd_last: bool = False) -> bytes:
+    """SS2 (7) word deltas: per line a packet of a word run (the first two
+    pixels) and a literal of the other words, after a skip-lines word for
+    the first line when `skip_lines`; `odd_last` sets each line's last byte
+    with a 0x8000 word."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape
+    out = struct.pack("<H", h - skip_lines)
+    for y in range(skip_lines, h):
+        row = img[y]
+        line = b""
+        if y == skip_lines and skip_lines:
+            line += struct.pack("<H", 65536 - skip_lines)
+        if odd_last:
+            line += struct.pack("<H", 0x8000 | int(row[-1]))
+        words = row[:w // 2 * 2]
+        line += struct.pack("<H", 2) + bytes([0, 256 - 1]) + words[:2].tobytes()
+        line += bytes([0, len(words) // 2 - 1]) + words[2:].tobytes()
+        out += line
+    return out
+
+
+def fli_color(palette: np.ndarray, skip: int = 0, six_bits: bool = False) -> bytes:
+    """A COLOR256 (4) or COLOR64 (11) payload of one packet."""
+    pal = np.asarray(palette, np.uint8)
+    n = len(pal)
+    return struct.pack("<H", 1) + bytes([skip, n & 255]) + (pal >> 2 if six_bits else pal).tobytes()
+
+
+def fli_bytes(width: int, height: int, chunks: Sequence[Tuple[int, bytes]], flc: bool = True,
+              frames: int = 1, prefix: bool = False) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file whose first frame holds `chunks`
+    = (type, payload); `frames` > 1 repeats an empty frame; `prefix` puts a
+    0xF100 prefix chunk first (PIL then reads it as the first frame)."""
+    frame_body = b"".join(fli_chunk(k, p) for k, p in chunks)
+    frame = struct.pack("<IHH8x", 16 + len(frame_body), 0xF1FA, len(chunks)) + frame_body
+    rest = struct.pack("<IHH8x", 16, 0xF1FA, 0) * (frames - 1)
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(frame) + len(rest),
+                     0xAF12 if flc else 0xAF11, frames, width, height, 8, 3 if flc else 0, 5)
+    pre = struct.pack("<IH10x", 16, 0xF100) if prefix else b""
+    return bytes(head) + pre + frame + rest
+
+
+def ftex_bytes(width: int, height: int, fmt: int, payload: bytes, version: int = 1) -> bytes:
+    """An FTEX texture of one format (0 DXT1, 1 raw RGB) and one mipmap."""
+    head = b"FTEX" + struct.pack("<i2i2i2i", version, width, height, 1, 1, fmt, 32)
+    return head + struct.pack("<i", len(payload)) + payload
+
+
+def gbr_bytes(pixels: np.ndarray, version: int = 2, comment: bytes = b"brush",
+              spacing: int = 25) -> bytes:
+    """A GIMP brush of [H, W] (depth 1) or [H, W, 4] (depth 4) pixels."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else 4
+    extra = b"GIMP" + struct.pack(">I", spacing) if version == 2 else b""
+    size = 20 + len(extra) + len(comment) + 1
+    return (struct.pack(">5I", size, version, w, h, depth) + extra + comment + b"\x00"
+            + pixels.tobytes())
+
+
+def im_bytes(image_type: str, width: int, height: int, data: bytes,
+             lut: Optional[np.ndarray] = None, lines: Sequence[str] = ()) -> bytes:
+    """An IM file: "Image type: <image_type>" and size lines, `lines`, a
+    "Lut" line when `lut` ([256, 3]) is given, the header padded to 511
+    bytes with NULs and a 0x1A, the LUT planes, then `data` as given."""
+    head = f"Image type: {image_type}\r\nImage size (x*y): {width}*{height}\r\n"
+    head += "".join(f"{line}\r\n" for line in lines)
+    if lut is not None:
+        head += "Lut: 1\r\n"
+    out = head.encode("latin-1")
+    out += b"\x00" * (511 - len(out)) + b"\x1a"
+    if lut is not None:
+        out += np.asarray(lut, np.uint8).T.tobytes()
+    return out + data
+
+
+def imt_bytes(pixels: np.ndarray, comment: bytes = b"* made for the tests") -> bytes:
+    """An IM Tools file of 8-bit grey pixels."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape
+    return (comment + b"\n" + b"width %d\nheight %d\npixel n8\n" % (w, h) + b"\x0c"
+            + pixels.tobytes())
+
+
+def iptc_record(record: int, dataset: int, data: bytes) -> bytes:
+    if len(data) < 32768:
+        return bytes([0x1C, record, dataset]) + struct.pack(">H", len(data)) + data
+    return bytes([0x1C, record, dataset, 0x84]) + struct.pack(">I", len(data)) + data
+
+
+def iptc_bytes(data: bytes, width: int, height: int, layers: int = 1, component: int = 0,
+               band: Optional[int] = None, compression: int = 1, parts: int = 1) -> bytes:
+    """An IPTC / NAA image: 3:60 (layers, component), 3:65 (band + 1), 3:20
+    / 3:30 (size), 3:120 (compression) and the data in `parts` 8:10
+    records."""
+    out = iptc_record(3, 60, bytes([layers, component]))
+    if band is not None:
+        out += iptc_record(3, 65, bytes([band + 1]))
+    out += iptc_record(3, 20, struct.pack(">I", width)) + iptc_record(3, 30, struct.pack(
+        ">I", height)) + iptc_record(3, 120, bytes([compression]))
+    step = -(-len(data) // parts)
+    for i in range(0, len(data), step):
+        out += iptc_record(8, 10, data[i:i + step])
+    return out + iptc_record(9, 10, b"\x00")
+
+
+def mcidas_bytes(samples: np.ndarray, prefix: int = 0, offset: int = 256) -> bytes:
+    """A McIdas area of one band: [H, W] uint8, >u2 or >u4 samples, each
+    line after `prefix` bytes, the data at `offset`."""
+    samples = np.asarray(samples)
+    h, w = samples.shape
+    size = samples.dtype.itemsize
+    words = [0] * 65
+    words[2], words[9], words[10], words[11], words[14], words[15], words[34] = (
+        4, h, w, size, 1, prefix, offset)
+    head = struct.pack(">64i", *words[1:])
+    rows = samples.astype(samples.dtype.newbyteorder(">")).reshape(h, -1).view(np.uint8)
+    body = b"".join(bytes(prefix) + r.tobytes() for r in rows)
+    return head + bytes(offset - 256) + body
+
+
+def msp_bytes(bits: np.ndarray, version: int = 2, run_min: int = 3) -> bytes:
+    """Windows Paint: [H, W] bool (True white). Version 1 raw rows, version
+    2 a row map and rows of runs (0, count, value) and literals."""
+    bits = np.asarray(bits, bool)
+    h, w = bits.shape
+    rows = np.packbits(bits, axis=1)
+    words = [0] * 16
+    words[0:2] = struct.unpack("<HH", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3] = w, h
+    words[12] = 0
+    for v in words[:12] + words[13:]:
+        words[12] ^= v
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    lines = []
+    for row in rows:
+        out, x = b"", 0
+        while x < len(row):
+            n = 1
+            while x + n < len(row) and n < 255 and row[x + n] == row[x]:
+                n += 1
+            if n >= run_min:
+                out += bytes([0, n, row[x]])
+            else:
+                n = min(n, 255)
+                out += bytes([n]) + row[x:x + n].tobytes()
+            x += n
+        lines.append(out)
+    return head + struct.pack(f"<{h}H", *map(len, lines)) + b"".join(lines)
+
+
+def pcd_bytes(y: np.ndarray, c1: np.ndarray, c2: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD file's base image: luma [512, 768], chroma [256, 384] each,
+    "PCD_" at 2048 and the orientation bits at 2048 + 1538, the pixels at
+    96 * 2048 as pairs of luma rows and their chroma rows."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    y, c1, c2 = (np.asarray(a, np.uint8) for a in (y, c1, c2))
+    pairs = np.concatenate([y.reshape(256, 2 * 768), c1, c2], axis=1)
+    return bytes(head) + pairs.tobytes()
+
+
+def pixar_bytes(rgb: np.ndarray) -> bytes:
+    """A PIXAR raster of RGB pixels (mode 14, 2) at offset 1024."""
+    rgb = np.asarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + rgb.tobytes()
+
+
+_XPM_CHARS = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789+@$%&*=-;:>,<1"
+
+
+def xpm_bytes(indices: np.ndarray, palette: np.ndarray, bpp: int = 1,
+              none: Optional[int] = None, pixels_comment: bool = True) -> bytes:
+    """An XPM of palette indices ([H, W]) and `palette` ([n, 3]), keys of
+    `bpp` characters; `none` makes that entry transparent ("c None")."""
+    indices = np.asarray(indices)
+    h, w = indices.shape
+    n = len(palette)
+    chars = [_XPM_CHARS[i:i + 1] for i in range(len(_XPM_CHARS))]
+    keys = []
+    for i in range(n):
+        k, key = i, b""
+        for _ in range(bpp):
+            key += chars[k % len(chars)]
+            k //= len(chars)
+        keys.append(key)
+    out = b"/* XPM */\nstatic char *image[] = {\n/* width height colors cpp */\n"
+    out += b'"%d %d %d %d",\n' % (w, h, n, bpp)
+    for i, (key, rgb) in enumerate(zip(keys, np.asarray(palette, np.uint8))):
+        colour = b"None" if i == none else b"#%02X%02X%02X" % tuple(int(v) for v in rgb)
+        out += b'"' + key + b" c " + colour + b'",\n'
+    if pixels_comment:
+        out += b"/* pixels */\n"
+    for r, row in enumerate(indices):
+        out += b'"' + b"".join(keys[int(i)] for i in row) + (b'",\n' if r < h - 1 else b'"\n')
+    return out + b"};\n"
+
+
+def xvthumb_bytes(indices: np.ndarray, comments: Sequence[bytes] = (b"#made for the tests",)
+                  ) -> bytes:
+    """An XV thumbnail ("P7 332") of 8-bit 3-3-2 indices."""
+    indices = np.asarray(indices, np.uint8)
+    h, w = indices.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments) + b"#END_OF_COMMENTS\n"
+            + b"%d %d 255\n" % (w, h) + indices.tobytes())
+
+
+def dcx_bytes(pages: Sequence[bytes]) -> bytes:
+    """A DCX of PCX `pages`."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for p in pages:
+        offsets.append(at)
+        at += len(p)
+    return (struct.pack("<I", 0x3ADE68B1) + struct.pack(f"<{len(pages) + 1}I", *offsets, 0)
+            + b"".join(pages))
+
+
+def blp_bytes(version: int, width: int, height: int, payload: bytes,
+              palette: Optional[np.ndarray] = None, compression: int = 1, encoding: int = 1,
+              alpha: int = 0, alpha_encoding: int = 0, jpeg_header: Optional[bytes] = None,
+              gap: int = 0) -> bytes:
+    """A BLP1 or BLP2 file with one mipmap: `payload` (palette indices, DXT
+    blocks or a JPEG's rest) and, for BLP1 JPEG (compression 0), the shared
+    `jpeg_header`; `palette` [256, 4] BGRA for the palette kinds; `gap`
+    bytes between the header and the mipmap's offset."""
+    pal = (np.zeros((256, 4), np.uint8) if palette is None
+           else np.asarray(palette, np.uint8)).tobytes()
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, width, height, encoding, 0)
+        start = 28 + 128
+        if compression == 0:
+            body = struct.pack("<I", len(jpeg_header)) + jpeg_header + bytes(gap)
+        else:
+            body = pal
+        offset = start + len(body)
+        return (head + struct.pack("<16I", offset, *[0] * 15)
+                + struct.pack("<16I", len(payload), *[0] * 15) + body + payload)
+    head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 0,
+                                 width, height)
+    offset = 20 + 128 + 1024 + gap
+    return (head + struct.pack("<16I", offset, *[0] * 15)
+            + struct.pack("<16I", len(payload), *[0] * 15) + pal + bytes(gap) + payload)

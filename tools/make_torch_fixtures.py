@@ -8,6 +8,7 @@
     python3 tools/make_torch_fixtures.py --readers   # only the ZSTD TIFF, ICO ... Sun ones
     python3 tools/make_torch_fixtures.py --jpeg2000  # only the JPEG 2000 and ICNS ones
     python3 tools/make_torch_fixtures.py --jpeg-arith  # only the arithmetic / lossless JPEGs
+    python3 tools/make_torch_fixtures.py --plugins   # only old-style JPEG TIFF, BLP ... XVThumb
 
 Needs PIL (it writes the JPEGs and records PIL's decode of each), so it runs
 where the tests run, not on the card. It writes, from seeds:
@@ -1729,10 +1730,222 @@ def write_jpeg_arith(src):
             f.write("\n")
 
 
+# The 1296 x 832 files the card times and holds to PIL's SHA-256
+# (`pil_decode/<name>.json`), all built from seeds or the view by
+# `plugin_scenes`: (name, what).
+PLUGIN_SCENES = ("scene_1296x832_ojpeg_tables", "scene_1296x832_blp2_dxt1",
+                 "scene_768x512_pcd")
+
+
+def plugin_scenes(view):
+    """{name: bytes} of the files in PLUGIN_SCENES: an old-style JPEG TIFF
+    (table form, 4:2:0, 64-row strips) of the 1296 x 832 view, a BLP2 of
+    seeded DXT1 blocks at that size, and a PhotoCD base image of seeded
+    planes (orientation 0)."""
+    from tools import image_writers as iw
+
+    rng = np.random.default_rng(31)
+    blocks = rng.integers(0, 256, 324 * 208 * 8, dtype=np.uint8).tobytes()
+    planes = (rng.integers(0, 256, (512, 768), dtype=np.uint8),
+              rng.integers(0, 256, (256, 384), dtype=np.uint8),
+              rng.integers(0, 256, (256, 384), dtype=np.uint8))
+    return {"scene_1296x832_ojpeg_tables": iw.ojpeg_tiff_bytes(
+                iw.rgb_to_ycc(view), ((2, 2), (1, 1), (1, 1)), form="tables", quality=90,
+                rows_per_strip=64, subsampling=(2, 2)),
+            "scene_1296x832_blp2_dxt1": iw.blp_bytes(2, 1296, 832, blocks, encoding=2,
+                                                     alpha=8, alpha_encoding=0),
+            "scene_768x512_pcd": iw.pcd_bytes(*planes)}
+
+
+def _pil_save(img, fmt, **kw):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    (img if isinstance(img, Image.Image) else Image.fromarray(img)).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def _jpeg_halves(blob):
+    at = blob.index(b"\xff\xda")
+    return blob[:at], blob[at:]
+
+
+def plugin_cases(crop, alpha):
+    """(name, bytes) of the committed files of `utils/image_plugins.py`'s
+    formats and of old-style JPEG TIFF: each kind at most 64 x 48."""
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    rng = np.random.default_rng(27)
+    rgb = crop
+    grey = np.asarray(Image.fromarray(crop).convert("L"))
+    rgba = np.concatenate([crop, alpha[..., None]], axis=2)
+    h, w = grey.shape
+    quant = Image.fromarray(crop).quantize(64)
+    idx = np.asarray(quant)
+    bgra = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    s420, s422 = ((2, 2), (1, 1), (1, 1)), ((2, 1), (1, 1), (1, 1))
+    ycc = iw.rgb_to_ycc(rgb)
+    head, rest = _jpeg_halves(_pil_save(rgb, "JPEG", quality=90))
+    blocks = lambda n: rng.integers(0, 256, (-(-w // 4)) * (-(-h // 4)) * n,  # noqa: E731
+                                    dtype=np.uint8).tobytes()
+    rows = lambda a: np.ascontiguousarray(a[::-1])  # noqa: E731  (IM rows bottom-up)
+    palette = rng.integers(0, 256, (256, 3))
+    return [
+        ("ojpeg_interchange_420.tif", iw.ojpeg_tiff_bytes(ycc, s420)),
+        ("ojpeg_interchange_422_strip.tif", iw.ojpeg_tiff_bytes(ycc, s422, strips=True,
+                                                                subsampling=(2, 2))),
+        ("ojpeg_tables_420.tif", iw.ojpeg_tiff_bytes(ycc, s420, form="tables",
+                                                     rows_per_strip=16, subsampling=(2, 2))),
+        ("ojpeg_tables_444_photo2.tif", iw.ojpeg_tiff_bytes(ycc, ((1, 1),) * 3, form="tables",
+                                                            rows_per_strip=8, photometric=2,
+                                                            subsampling=(1, 1))),
+        ("ojpeg_grey.tif", iw.ojpeg_tiff_bytes(grey, ((1, 1),), form="tables",
+                                               rows_per_strip=16, photometric=1)),
+        ("dib_pil_rgb.dib", _pil_save(rgb, "DIB")),
+        ("dib_pal8.dib", iw.bmp_bytes(idx, 8, palette=np.asarray(quant.getpalette()[:768],
+                                                                  np.uint8).reshape(-1, 3))[14:]),
+        ("blp1_jpeg.blp", iw.blp_bytes(1, w, h, rest, compression=0, encoding=5,
+                                       jpeg_header=head)),
+        ("blp1_palette.blp", iw.blp_bytes(1, w, h, idx.tobytes(), palette=bgra, encoding=4)),
+        ("blp2_pil.blp", _pil_save(quant, "BLP")),
+        ("blp2_dxt1.blp", iw.blp_bytes(2, w, h, blocks(8), encoding=2, alpha=8,
+                                       alpha_encoding=0)),
+        ("blp2_dxt3.blp", iw.blp_bytes(2, w, h, blocks(16), encoding=2, alpha=8,
+                                       alpha_encoding=1)),
+        ("blp2_dxt5.blp", iw.blp_bytes(2, w, h, blocks(16), encoding=2, alpha=8,
+                                       alpha_encoding=7)),
+        ("dcx_pcx.dcx", iw.dcx_bytes([_pil_save(rgb, "PCX"), _pil_save(idx, "PCX")])),
+        ("fits_8.fits", iw.fits_bytes(grey, 8)),
+        ("fits_16.fits", iw.fits_bytes(grey.astype(np.int16) * 100 - 9000, 16,
+                                       cards=["BZERO   =                32768"])),
+        ("fits_m32.fits", iw.fits_bytes(grey.astype(np.float32) / 3 - 7, -32)),
+        ("fits_m64.fits", iw.fits_bytes(grey.astype(np.float64) / 9, -64)),
+        ("flc_brun.flc", iw.fli_bytes(w, h, [(4, iw.fli_color(palette)),
+                                             (15, iw.fli_brun(idx))])),
+        ("fli_ss2_lc.fli", iw.fli_bytes(w, h, [(11, iw.fli_color(palette, six_bits=True)),
+                                               (7, iw.fli_ss2(idx)), (12, iw.fli_lc(idx, 5, 3))],
+                                        flc=False)),
+        ("ftex_dxt1.ftc", iw.ftex_bytes(w, h, 0, blocks(8))),
+        ("ftex_rgb.ftu", iw.ftex_bytes(w, h, 1, rgb.tobytes())),
+        ("gbr_v2_rgba.gbr", iw.gbr_bytes(rgba)),
+        ("gbr_v1_l.gbr", iw.gbr_bytes(grey, version=1)),
+        ("im_pil_rgb.im", _pil_save(rgb, "IM")),
+        ("im_pil_p.im", _pil_save(quant, "IM")),
+        ("im_rgb3.im", iw.im_bytes("RGB3 image", w, h, np.concatenate(
+            [rows(rgb[..., c]).ravel() for c in (1, 0, 2)]).tobytes())),
+        ("im_pa_lut.im", iw.im_bytes("PA image", w, h, np.ascontiguousarray(
+            rows(rgba[..., :2]).transpose(0, 2, 1)).tobytes(), lut=palette)),
+        ("im_bits12.im", iw.im_bytes("L*12 image", w, h, rng.integers(
+            0, 256, (w * 12 + 7) // 8 * h, dtype=np.uint8).tobytes())),
+        ("im_l16b.im", iw.im_bytes("L 16B image", w, h, rows(grey.astype(">u2") * 255)
+                                   .tobytes())),
+        ("imt_l.imt", iw.imt_bytes(grey)),
+        ("iptc_l.iim", iw.iptc_bytes(grey.tobytes(), w, h, parts=2)),
+        ("iptc_rgb_band2.iim", iw.iptc_bytes(grey.tobytes(), w, h, 3, 1, band=1)),
+        ("mcidas_i16.mcidas", iw.mcidas_bytes(grey.astype(">u2") * 257, prefix=4)),
+        ("msp_v1.msp", _pil_save(grey > 120, "MSP")),
+        ("msp_v2.msp", iw.msp_bytes(grey > 120)),
+        ("pixar.pxr", iw.pixar_bytes(rgb)),
+        ("spider.spider", _pil_save(Image.fromarray(grey.astype(np.float32) / 5), "SPIDER")),
+        ("xbm.xbm", _pil_save(grey > 120, "XBM")),
+        ("xpm_p.xpm", iw.xpm_bytes(idx, np.asarray(quant.getpalette()[:192]).reshape(64, 3),
+                                   bpp=2)),
+        ("xpm_rgb.xpm", iw.xpm_bytes(rng.integers(0, 300, (h, w)),
+                                     rng.integers(0, 256, (300, 3)), bpp=2)),
+        ("xvthumb.xvthumb", iw.xvthumb_bytes(idx)),
+    ]
+
+
+def plugin_views(views):
+    """The six COLMAP views of `colmap_plugins/`: old-style JPEG TIFFs in
+    the interchange and table forms, a BLP1 JPEG, a BLP2 (PIL's writer, 256
+    colours), an IM RGB (PIL's writer) and a PIXAR raster."""
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    s420 = ((2, 2), (1, 1), (1, 1))
+    head, rest = _jpeg_halves(_pil_save(views[2], "JPEG", quality=90))
+    h, w = views[2].shape[:2]
+    return [("view_0.tif", iw.ojpeg_tiff_bytes(iw.rgb_to_ycc(views[0]), s420, strips=True)),
+            ("view_1.tif", iw.ojpeg_tiff_bytes(iw.rgb_to_ycc(views[1]), s420, form="tables",
+                                               rows_per_strip=32, subsampling=(2, 2))),
+            ("view_2.blp", iw.blp_bytes(1, w, h, rest, compression=0, encoding=5,
+                                        jpeg_header=head)),
+            ("view_3.blp", _pil_save(Image.fromarray(views[3]).quantize(256), "BLP")),
+            ("view_4.im", _pil_save(views[4], "IM")),
+            ("view_5.pxr", iw.pixar_bytes(views[5]))]
+
+
+def write_plugins(src):
+    """The old-style JPEG TIFF and image-plugin fixtures (module docstring);
+    `src` is the 1296x832 view's decode."""
+    import hashlib
+    import json
+
+    from PIL import Image
+
+    from tools import image_writers as iw
+
+    def save(path, blob):
+        with open(path, "wb") as f:
+            f.write(blob)
+        np.save(os.path.splitext(path)[0] + ".npy", np.asarray(Image.open(path)))
+
+    crop = src[380:428, 200:264]
+    y, x = np.mgrid[0:48, 0:64]
+    alpha = ((x * 4 + y * 3) % 256).astype(np.uint8)
+    for name, blob in plugin_cases(crop, alpha):
+        save(os.path.join(FORMATS, name), blob)
+    views_dir = os.path.join(FORMATS, "colmap_plugins")
+    shutil.rmtree(views_dir, ignore_errors=True)
+    os.makedirs(views_dir)
+    views = [np.asarray(Image.open(os.path.join(OUT, "colmap_jpeg", "images", f"view_{i}.jpg")))
+             for i in range(VIEWS)]
+    for name, blob in plugin_views(views):
+        save(os.path.join(views_dir, name), blob)
+    metrics = os.path.join(FORMATS, "metrics_plugins")
+    shutil.rmtree(metrics, ignore_errors=True)
+    for d in ("renders", "gt", "pil"):
+        os.makedirs(os.path.join(metrics, d))
+    s420 = ((2, 2), (1, 1), (1, 1))
+    for i, (yy, xx) in enumerate(((300, 520), (620, 900))):
+        render, gt = src[yy:yy + 48, xx:xx + 64], src[yy + 2:yy + 50, xx + 2:xx + 66]
+        for d, img in (("renders", render), ("gt", gt)):
+            if i == 0:
+                name = "00000.tif"
+                blob = (iw.ojpeg_tiff_bytes(iw.rgb_to_ycc(img), s420, form="tables",
+                                            rows_per_strip=16, subsampling=(2, 2))
+                        if d == "renders" else iw.ojpeg_tiff_bytes(iw.rgb_to_ycc(img), s420))
+            else:
+                name = "00001.pxr"
+                blob = iw.pixar_bytes(img)
+            path = os.path.join(metrics, d, name)
+            with open(path, "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(metrics, "pil", f"{d}_{os.path.splitext(name)[0]}.npy"),
+                    np.asarray(Image.open(path)))
+    for name, blob in plugin_scenes(src).items():
+        import io
+
+        pil = np.asarray(Image.open(io.BytesIO(blob)))
+        with open(os.path.join(OUT, "pil_decode", name + ".json"), "w") as f:
+            json.dump({"dtype": str(pil.dtype), "shape": list(pil.shape),
+                       "sha256": hashlib.sha256(pil.tobytes()).hexdigest()}, f, indent=1)
+            f.write("\n")
+
+
 def main(argv=None) -> int:
     from PIL import Image, ImageFile
 
     args = argv or sys.argv[1:]
+    if "--plugins" in args:
+        write_plugins(np.asarray(Image.open(os.path.join(OUT, "jpeg", "scene_1296x832_420.jpg"))))
+        return 0
     if "--jpeg-arith" in args:
         write_jpeg_arith(np.asarray(Image.open(os.path.join(OUT, "jpeg",
                                                             "scene_1296x832_420.jpg"))))
@@ -1755,6 +1968,7 @@ def main(argv=None) -> int:
             write_readers(decoded)
             write_jpeg2000(decoded)
             write_jpeg_arith(decoded)
+            write_plugins(decoded)
         write_raster(decoded)
         return 0
 
@@ -1821,6 +2035,7 @@ def main(argv=None) -> int:
     write_readers(decoded)
     write_jpeg2000(decoded)
     write_jpeg_arith(decoded)
+    write_plugins(decoded)
     write_raster(decoded)
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(OUT) for f in fs)
     print(f"wrote {OUT}: {total} bytes")

@@ -22,11 +22,16 @@ chunks (`webp_alpha`) and GIF's LZW (`gif_lzw`); TIFF's ZSTD strips
 PCX / Sun readers (`raster.cpp`: `bcn_decode`, `packbits_rows`, `sgi_rle`,
 `pcx_rle`, `sun_rle`); and JPEG 2000's tier-1, wavelets, colour transforms
 and DC shift as OpenJPEG 2.5.4 computes them (`j2k.cpp`: `j2k_t1`,
-`j2k_idwt`, `j2k_mct`, `j2k_level`). A JPEG inside a TIFF
-goes through the same decoder with the TIFF's colour space
-(`decode_jpeg(..., colour=...)`, `jpeg_frame`). `utils/image_io.py`,
-`utils/png.py`, `utils/zstd.py`, `utils/image_formats.py` and
-`utils/jpeg2000.py` hold the plain version of each stage that stands alone.
+`j2k_idwt`, `j2k_mct`, `j2k_level`); and the loops of the readers of
+`utils/image_plugins.py` (`plugins.cpp`: FLI / FLC chunks `fli_decode`, MSP
+runs `msp_rows`, the PhotoCD base image `pcd_decode`, XBM hex
+`xbm_decode`, XPM palette keys `xpm_lookup`, IM's n-bit samples
+`bit_decode`). A JPEG inside a TIFF goes through the same decoder with the
+TIFF's colour space (`decode_jpeg(..., colour=...)`, `jpeg_frame`), or, for
+old-style JPEG, as libjpeg's raw data (`jpeg_raw_planes`). `utils/image_io.py`,
+`utils/png.py`, `utils/zstd.py`, `utils/image_formats.py`,
+`utils/image_plugins.py` and `utils/jpeg2000.py` hold the plain version of
+each stage that stands alone.
 
 The library is built lazily by `_build.build_native` (one `g++ -c` a
 source, all at once, then a link, in a private temporary directory under
@@ -108,6 +113,8 @@ _SIGNATURES = {
     "w3d_jpeg_undifference": ([_c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32,
                                _c.c_int32, _c.c_int32, _c.c_void_p, _c.c_char_p, _c.c_int32],
                               _c.c_int),
+    "w3d_jpeg_decode_raw": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_int64,
+                             _c.POINTER(_c.c_int32), _c.c_char_p, _c.c_int32], _c.c_int),
     "w3d_jpeg_decode_as": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_int64,
                             _c.c_char_p, _c.c_int32], _c.c_int),
     "w3d_tga_rle": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int64, _c.c_int64, _c.c_void_p,
@@ -130,6 +137,20 @@ _SIGNATURES = {
     "w3d_j2k_mct": ([_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int32], _c.c_int),
     "w3d_j2k_level": ([_c.c_void_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_int32,
                        _c.c_void_p], _c.c_int),
+    "w3d_fli_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_void_p,
+                        _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_msp_rows": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_void_p,
+                      _c.c_int64, _c.c_char_p, _c.c_int32], _c.c_int64),
+    "w3d_pcd_decode": ([_c.c_char_p, _c.c_int64, _c.c_void_p, _c.c_void_p, _c.c_char_p,
+                        _c.c_int32], _c.c_int),
+    "w3d_xbm_decode": ([_c.c_char_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_void_p,
+                        _c.c_char_p, _c.c_int32], _c.c_int),
+    "w3d_xpm_lookup": ([_c.c_char_p, _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_char_p,
+                        _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_void_p, _c.c_int64,
+                        _c.c_char_p, _c.c_int32], _c.c_int64),
+    "w3d_bit_decode": ([_c.c_char_p, _c.c_int64, _c.c_int32, _c.c_int32, _c.c_int32, _c.c_int32,
+                        _c.c_int64, _c.c_int64, _c.c_int32, _c.c_void_p, _c.c_char_p,
+                        _c.c_int32], _c.c_int),
 }
 
 
@@ -239,6 +260,30 @@ def decode_jpeg(data: bytes, name: str = "<bytes>", colour: int = 0) -> np.ndarr
                               len(msg)) != 0:
         raise ValueError(f"{name}: {_message(msg)}")
     return out
+
+
+def jpeg_raw_planes(data: bytes, name: str = "<bytes>") -> Tuple[list, int]:
+    """A JPEG stream's components as libjpeg's raw data output leaves them
+    (libtiff's old-style JPEG codec reads them so): each uint8 [rows,
+    columns] in whole MCUs, before upsampling and colour conversion; and the
+    iMCU row where libtiff's source fails (-1: none), as libtiff runs it:
+    reading past the data, or a restart marker out of turn, is an error
+    there, and the rows from it are left as they were (zeros)."""
+    w, h, factors = jpeg_frame(data, name)
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    shapes = [(mcuy * v * 8, mcux * fh * 8) for fh, v in factors]
+    out = np.empty(sum(a * b for a, b in shapes), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    failed = ctypes.c_int32(-1)
+    if library().w3d_jpeg_decode_raw(data, len(data), out.ctypes.data, out.nbytes,
+                                     ctypes.byref(failed), msg, len(msg)) != 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    planes, at = [], 0
+    for a, b in shapes:
+        planes.append(out[at:at + a * b].reshape(a, b))
+        at += a * b
+    return planes, failed.value
 
 
 def jpeg_frame(data: bytes, name: str = "<bytes>") -> Tuple[int, int, Tuple[Tuple[int, int], ...]]:
@@ -641,3 +686,79 @@ def j2k_level(buf: np.ndarray, reversible: bool, shift: int, lo: int, hi: int) -
     library().w3d_j2k_level(buf.ctypes.data, buf.size, int(reversible), shift, lo, hi,
                             out.ctypes.data)
     return out
+
+
+def _counted(fn: str, name: str, *args) -> int:
+    msg = ctypes.create_string_buffer(256)
+    n = getattr(library(), fn)(*args, msg, len(msg))
+    if n < 0:
+        raise ValueError(f"{name}: {_message(msg)}")
+    return n
+
+
+def fli_decode(frame: bytes, width: int, height: int, image: np.ndarray,
+               name: str = "<bytes>") -> np.ndarray:
+    """One FLI / FLC frame chunk applied to `image` (uint8 [height, width],
+    the picture before it) as Pillow's FliDecode.c applies it, in place
+    (`plugins.cpp`; `utils/image_plugins.fli_reference` is its plain
+    version)."""
+    assert image.shape == (height, width) and image.dtype == np.uint8
+    assert image.flags.c_contiguous
+    _call("w3d_fli_decode", name, bytes(frame), len(frame), width, height, image.ctypes.data)
+    return image
+
+
+def msp_rows(data: bytes, rowmap: np.ndarray, width: int, cap: int,
+             name: str = "<bytes>") -> Tuple[np.ndarray, int]:
+    """MSP version 2 rows (after the row map) as Pillow's MspDecoder
+    expands them -> (the first `cap` bytes made, the count made)
+    (`plugins.cpp`; `utils/image_plugins.msp_reference`)."""
+    rowmap = np.ascontiguousarray(rowmap, np.uint16)
+    out = np.zeros(cap, np.uint8)
+    n = _counted("w3d_msp_rows", name, bytes(data), len(data), rowmap.ctypes.data, rowmap.size,
+                 width, out.ctypes.data, cap)
+    return out[:min(n, cap)], n
+
+
+def pcd_decode(data: bytes, tables: np.ndarray, name: str = "<bytes>") -> np.ndarray:
+    """A PhotoCD base image (from 96 * 2048 on) -> uint8 [512, 768, 3] as
+    Pillow's PcdDecode.c and "YCC;P" unpacker give it, with `tables` int16
+    [5, 256] (`plugins.cpp`; `utils/image_plugins.pcd_reference`)."""
+    tables = np.ascontiguousarray(tables, np.int16)
+    out = np.empty((512, 768, 3), np.uint8)
+    _call("w3d_pcd_decode", name, bytes(data), len(data), tables.ctypes.data, out.ctypes.data)
+    return out
+
+
+def xbm_decode(data: bytes, width: int, height: int, name: str = "<bytes>") -> np.ndarray:
+    """XBM hex bytes as Pillow's XbmDecode.c reads them -> uint8 [height,
+    (width + 7) // 8] rows (`plugins.cpp`; `utils/image_plugins.xbm_reference`)."""
+    out = np.empty((height, (width + 7) // 8), np.uint8)
+    _call("w3d_xbm_decode", name, bytes(data), len(data), width, height, out.ctypes.data)
+    return out
+
+
+def xpm_lookup(data: bytes, ends: np.ndarray, bpp: int, keys, pixels: int,
+               name: str = "<bytes>") -> Tuple[np.ndarray, int]:
+    """XPM pixel lines (`data`, each line's end in `ends`) cut into keys of
+    `bpp` characters and looked up among `keys` as XpmDecoder does, until
+    `pixels` keys -> (int32 indices, at most `pixels`; the count made)
+    (`plugins.cpp`; `utils/image_plugins.xpm_reference`)."""
+    ends = np.ascontiguousarray(ends, np.int64)
+    key_ends = np.cumsum([len(k) for k in keys], dtype=np.int64)
+    out = np.zeros(pixels, np.int32)
+    n = _counted("w3d_xpm_lookup", name, bytes(data), ends.ctypes.data, ends.size, bpp,
+                 b"".join(keys), key_ends.ctypes.data, len(keys), pixels, out.ctypes.data, pixels)
+    return out[:min(n, pixels)], n
+
+
+def bit_decode(data: bytes, bits: int, width: int, height: int, pad: int = 8, fill: int = 3,
+               sign: int = 0, ystep: int = -1, name: str = "<bytes>") -> np.ndarray:
+    """Samples of `bits` bits as Pillow's BitDecode.c reads them (IM's
+    "L*n" modes) -> float32 [height, width] (`plugins.cpp`;
+    `utils/image_plugins.bit_reference`)."""
+    out = np.zeros((height, width), np.float32)
+    _call("w3d_bit_decode", name, bytes(data), len(data), bits, pad, fill, sign, width, height,
+          ystep, out.ctypes.data)
+    return out
+

@@ -90,8 +90,15 @@
 //   w3d_jpeg_decode(data, size, out, out_size, msg, msg_len)
 //   w3d_jpeg_decode_as(data, size, colour, out, out_size, msg, msg_len): the
 //     colour space given, as a TIFF gives it (0: the file's own markers, 1:
-//     YCbCr -> RGB, 2: the components as coded); 1 and 2 read the data as
-//     libtiff's JPEG source does, a fake EOI where it ends
+//     YCbCr -> RGB, 2: the components as coded, 3: each component's plane
+//     in whole MCUs as the IDCT leaves it, for libtiff's old-style JPEG
+//     codec); 1-3 read the data as libtiff's JPEG source does, a fake EOI
+//     where it ends
+//   w3d_jpeg_decode_raw(data, size, out, out_size, &failed_row, msg, msg_len):
+//     colour 3 as libtiff's old-style JPEG codec runs libjpeg: where the data
+//     runs out (libjpeg asks its source for more: "Premature end of JPEG
+//     data") or a restart marker is not the one expected (its resync is an
+//     error), decoding stops and failed_row is that iMCU row (else -1)
 //   w3d_jpeg_frame(data, size, info, msg, msg_len): a TIFF's stream's
 //     width, height, components, then 16 h + v of each component's sampling
 //     factors
@@ -136,6 +143,9 @@ struct DecodeError {
 // The data ended where libjpeg's suspending source (PIL's) would wait for
 // more bytes.
 struct Suspend {};
+// libtiff's old-style JPEG source (colour 3) fails where libjpeg would read
+// past its data or resync a restart marker.
+struct RawFailure {};
 
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError{msg}; }
 
@@ -507,9 +517,16 @@ class Decoder {
     try {
       start_scan();
       if (!multiple_) {
-        scan();
-        // jpeg_finish_decompress: markers up to EOI; running out is fine.
+        scanning_ = true;
         try {
+          scan();
+        } catch (const RawFailure&) {
+          failed_row_ = current_row_;
+        }
+        scanning_ = false;
+        // jpeg_finish_decompress: markers up to EOI; running out is fine.
+        // (libtiff's old-style JPEG codec, colour 3, never calls it.)
+        if (colour_ != 3) try {
           for (;;) {
             const int r = read_markers();
             if (r == kReachedEoi) break;
@@ -542,6 +559,17 @@ class Decoder {
   int width() const { return width_; }
   int height() const { return height_; }
   int channels() const { return ncomp_; }
+  // Colour 3: the iMCU row in which libtiff's source failed, or -1.
+  int failed_row() const { return failed_row_; }
+  // Colour 3 (raw data): each component's whole plane as the IDCT left it (whole
+  // MCUs, no upsampling, no colour), one after the other: what libjpeg's
+  // raw_data_out hands libtiff's old-style JPEG codec.
+  int64_t raw_size() const {
+    if (lossless_) fail("raw data out of a lossless JPEG (libjpeg refuses it)");
+    int64_t n = 0;
+    for (int c = 0; c < ncomp_; ++c) n += static_cast<int64_t>(comp_[c].stride) * comp_[c].bh * 8;
+    return n;
+  }
 
  private:
   static constexpr int kReachedSos = 1, kReachedEoi = 2;
@@ -563,6 +591,7 @@ class Decoder {
     }
     if (pos_ < size_) return data_[pos_++];
     if (!fake_eoi_) throw Suspend{};
+    if (colour_ == 3 && scanning_) throw RawFailure{};  // "Premature end of JPEG data"
     return (fake_++ & 1) ? 0xD9 : 0xFF;  // libtiff's source: FF D9 for ever
   }
 
@@ -1008,6 +1037,7 @@ class Decoder {
     if (unread_marker_ == 0xD0 + next_restart_) {
       unread_marker_ = 0;
     } else {
+      if (colour_ == 3) throw RawFailure{};  // libtiff's resync_to_restart: an error
       resync(next_restart_);
     }
     next_restart_ = (next_restart_ + 1) & 7;
@@ -1093,6 +1123,7 @@ class Decoder {
   }
 
   void mcu(int16_t** blocks, int n, int imcu_row) {
+    current_row_ = imcu_row;
     if (!multiple_) {  // decompress_onepass zeroes the MCU first
       for (int b = 0; b < n; ++b) std::fill(blocks[b], blocks[b] + 64, static_cast<int16_t>(0));
     }
@@ -1705,6 +1736,14 @@ class Decoder {
   }
 
   void output(uint8_t* out) const {
+    if (colour_ == 3) {
+      for (int c = 0; c < ncomp_; ++c) {
+        const size_t n = comp_[c].plane.size();
+        memcpy(out, comp_[c].plane.data(), n);
+        out += n;
+      }
+      return;
+    }
     if (ncomp_ == 1) {
       for (int y = 0; y < height_; ++y) {
         memcpy(out + static_cast<size_t>(y) * width_,
@@ -1812,6 +1851,8 @@ class Decoder {
   bool saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = 0;
   int colour_ = 0;
+  bool scanning_ = false;
+  int current_row_ = 0, failed_row_ = -1;
   uint64_t get_buffer_ = 0;
   int bits_left_ = 0;
   bool insufficient_ = false;
@@ -1869,12 +1910,34 @@ int w3d_jpeg_decode_as(const uint8_t* data, int64_t size, int32_t colour, uint8_
     Decoder d(data, static_cast<size_t>(size));
     d.set_colour(colour);
     d.header();
-    int64_t need = static_cast<int64_t>(d.width()) * d.height() * d.channels();
+    int64_t need = colour == 3 ? d.raw_size()
+                               : static_cast<int64_t>(d.width()) * d.height() * d.channels();
     if (out_size < need) {
       set_message(msg, msg_len, "output buffer too small");
       return -1;
     }
     d.decode(out);
+    return 0;
+  } catch (const DecodeError& e) {
+    set_message(msg, msg_len, e.msg);
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+  }
+  return -1;
+}
+
+int w3d_jpeg_decode_raw(const uint8_t* data, int64_t size, uint8_t* out, int64_t out_size,
+                        int32_t* failed_row, char* msg, int32_t msg_len) {
+  try {
+    Decoder d(data, static_cast<size_t>(size));
+    d.set_colour(3);
+    d.header();
+    if (out_size < d.raw_size()) {
+      set_message(msg, msg_len, "output buffer too small");
+      return -1;
+    }
+    d.decode(out);
+    *failed_row = d.failed_row();
     return 0;
   } catch (const DecodeError& e) {
     set_message(msg, msg_len, e.msg);

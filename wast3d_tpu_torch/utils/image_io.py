@@ -2,7 +2,8 @@
 
 `read_image(path)` / `decode_image(blob, name)` return exactly what
 `np.asarray(PIL.Image.open(path))` returns (dtype, shape and values),
-dispatching on the file's signature, never on its extension:
+trying the formats in PIL's order (its preinit six, then `Image.ID`) on
+the file's bytes, never on its extension:
 
 - `\\x89PNG\\r\\n\\x1a\\n`: PNG, every colour type at every bit depth
   (`utils/png.decode_png`);
@@ -30,7 +31,10 @@ dispatching on the file's signature, never on its extension:
   libtiff's codec over libzstd 1.5.7 decodes it, damaged frames too), CCITT
   RLE / Group 3 / Group 4 (2, 3, 4: `native.ccitt_decode`) or JPEG (7:
   abbreviated streams after the JPEGTables, YCbCr turned to RGB by
-  libjpeg's upsampling and colour tables, other colour spaces as coded);
+  libjpeg's upsampling and colour tables, other colour spaces as coded) or
+  old-style JPEG (6: `_tiff_ojpeg`, as libtiff 4.7.1's OJPEG codec builds
+  its stream from JPEGInterchangeFormat or the table tags and strips,
+  libjpeg's raw data units through TIFFYCbCrToRGB, its strip failures);
   YCbCr under any other compression through libtiff's RGBA reader (data
   units at 1x1-4x4 subsampling, in strips or, as TIFFReadRGBATile reads
   them, in tiles with the edge tiles cropped; TIFFYCbCrToRGB's tables:
@@ -71,17 +75,21 @@ dispatching on the file's signature, never on its extension:
   reads it (`utils/image_formats.py`); a reader that declines a file (PIL's
   SyntaxError: a CUR without cursors, an ICO without entries, a PCX of no
   size, ...) lets it go on to the next format, as PIL does;
-- TGA (`decode_tga`), which has no signature: tried last, with
-  TgaImageFile's header checks, as PIL tries it after every format with
-  one: types 1/2/3 and their run-length forms 9/10/11 at 1, 8, 16, 24 and
-  32 bits, colour maps from a first entry index, the ID field, the origin
-  and right-to-left bits, run-length literals that run across rows.
+- TGA (`decode_tga`), which has no signature: tried where PIL tries it,
+  with TgaImageFile's header checks: types 1/2/3 and their run-length
+  forms 9/10/11 at 1, 8, 16, 24 and 32 bits, colour maps from a first entry
+  index, the ID field, the origin and right-to-left bits, run-length
+  literals that run across rows;
+- DIB, BLP, DCX, FITS, FLI / FLC, FTEX, GBR, IM, IMT, IPTC, McIdas, MSP,
+  PCD, PIXAR, SPIDER, XBM, XPM and XVThumb (`utils/image_plugins.py`),
+  each at its place in PIL's order; IM, IMT, IPTC, PCD and SPIDER, which
+  have no signature, run their header checks on whatever reaches them.
 
-Anything else raises `ValueError` naming the file and, for an unknown
-signature, its first bytes: AVIF, BLP, DIB and the rest of PIL's list are
-still to come. A TIFF outside these names the tag and its
-value (old-style JPEG compression, YCbCr subsampling libtiff has no
-routine for, 24-bit samples, ...). A file of more pixels than PIL opens
+EPS, MPEG, HDF5, BUFR, GRIB and WMF, which PIL opens and cannot decode
+here, raise `ValueError` naming the file, as does anything else (AVIF,
+which waits for AV1's tables, with the file's first bytes). A TIFF
+outside these names the tag and its value (YCbCr subsampling libtiff has
+no routine for, 24-bit samples, tiled old-style JPEG, ...). A file of more pixels than PIL opens
 (twice `PIL.Image.MAX_IMAGE_PIXELS`) raises before anything is allocated.
 The byte loops are native (`native/image.cpp`, `native/jpeg.cpp`,
 `native/webp.cpp`, `native/zstd.cpp`, `native/raster.cpp`, `native/j2k.cpp`,
@@ -101,10 +109,11 @@ the tests hold the native routines to are here too (`bmp_rle_reference`,
 from __future__ import annotations
 
 import bisect
+import functools
 import lzma
 import struct
 import zlib
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -112,34 +121,95 @@ from wast3d_tpu_torch.utils import jpeg2000, png
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 _WEBP_FIRST = (b"VP8 ", b"VP8L", b"VP8X")
-# The formats of `utils/image_formats.py`, in PIL's order (CUR, PCX, DDS, ICNS, ICO,
-# PSD, SGI, SUN): each reader's signature test and name. A reader that
-# declines (None) lets the file go on to the next, as PIL goes on.
-_READERS = ((lambda b: b[:4] == b"\x00\x00\x02\x00", "decode_cur"),
+# What PIL opens and this reader reads, for the message of anything else.
+KNOWN = ("PNG, JPEG, BMP, DIB, GIF, Netpbm, BLP, CUR, PCX, DCX, DDS, FITS, FLI, FTEX, GBR, "
+         "JPEG 2000, ICNS, ICO, IM, IMT, IPTC, McIdas, TIFF, MSP, PCD, PIXAR, PSD, QOI, SGI, "
+         "SPIDER, Sun raster, TGA, WebP, XBM, XPM or XVThumb")
+
+
+def _late(module, reader: str):
+    """Another module's reader, looked up there at each call (a reader
+    replaced there is the one called)."""
+    return lambda blob, name: getattr(module, reader)(blob, name)
+
+
+def _refusing(why: str):
+    """A reader of a format PIL opens and cannot decode here: it raises `why`."""
+    def refuse(blob: bytes, name: str):
+        raise ValueError(f"{name}: {why}")
+    return refuse
+
+
+@functools.lru_cache(maxsize=None)
+def _chain():
+    """Image.ID's order after its first pass (BMP, DIB, GIF, JPEG, PPM, PNG):
+    (signature test, reader) of each format; a reader that returns None
+    declines the file (PIL's SyntaxError) and the next is tried. The five
+    formats without a signature test (IM, IMT, IPTC, PCD, SPIDER) and TGA
+    run their header checks on any bytes that reach them. The formats PIL
+    opens and cannot decode here (no Ghostscript, no handler registered)
+    raise; AVIF, which waits for AV1's tables, is not a format this reader
+    knows."""
+    from wast3d_tpu_torch.utils import image_formats as f, image_plugins as p
+
+    anything = lambda b: True  # noqa: E731
+    return ((lambda b: b[4:8] == b"ftyp" and b[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
+             _unknown),
+            (p.accepts_blp, _late(p, "decode_blp")),
+            (lambda b: b[:4] in (b"BUFR", b"ZCZC"),
+             _refusing("a BUFR file, which PIL opens and cannot load (no BUFR handler)")),
+            (lambda b: b[:4] == b"\x00\x00\x02\x00", _late(f, "decode_cur")),
             (lambda b: b[:1] == b"\x0a" and b[1:2] in (b"\x00", b"\x02", b"\x03", b"\x05"),
-             "decode_pcx"),
-            (lambda b: b[:4] == b"DDS ", "decode_dds"),
-            (lambda b: b[:4] == b"icns", "decode_icns"),
-            (lambda b: b[:4] == b"\x00\x00\x01\x00", "decode_ico"),
-            (lambda b: b[:4] == b"8BPS", "decode_psd"),
-            (lambda b: b[:2] == b"\x01\xda", "decode_sgi"),
-            (lambda b: b[:4] == b"\x59\xa6\x6a\x95", "decode_sun"))
-# Signatures of the formats PIL tries before TGA that this reader does not
-# read (BLP, FITS, MSP, EPS, PIXAR, MPEG, McIdas, HDF5, BUFR, FTEX, DCX, and
-# the TIFF byte orders PIL accepts and never reads); TGA's header checks
-# would take some of them.
-_OTHER_SIGNATURES = (b"BLP1", b"BLP2",
-                     b"SIMPLE", b"DanM", b"LinS", b"%!PS", b"\xc5\xd0\xd3\xc6", b"\x80\xe8\x00\x00",
-                     b"\x00\x00\x01\xb3", b"\x00" * 7 + b"\x04", b"\x89HDF\r\n\x1a\n", b"BUFR",
-                     b"ZCZC", b"FTEX", b"\xb1\x68\xde\x3a", b"II\x00*", b"MM*\x00")
+             _late(f, "decode_pcx")),
+            (p.accepts_dcx, _late(p, "decode_dcx")),
+            (lambda b: b[:4] == b"DDS ", _late(f, "decode_dds")),
+            (lambda b: b[:4] == b"%!PS" or b[:4] == b"\xc5\xd0\xd3\xc6",
+             _refusing("an EPS file, which PIL opens and cannot load here (no Ghostscript)")),
+            (p.accepts_fits, _late(p, "decode_fits")),
+            (p.accepts_fli, _late(p, "decode_fli")),
+            (p.accepts_ftex, _late(p, "decode_ftex")),
+            (p.accepts_gbr, _late(p, "decode_gbr")),
+            (lambda b: b[:4] == b"GRIB" and b[7:8] == b"\x01",
+             _refusing("a GRIB file, which PIL opens and cannot load (no GRIB handler)")),
+            (lambda b: b[:8] == b"\x89HDF\r\n\x1a\n",
+             _refusing("an HDF5 file, which PIL opens and cannot load (no HDF5 handler)")),
+            (lambda b: b[:4] == jpeg2000.J2K_SIGNATURE or b[:12] == jpeg2000.JP2_SIGNATURE,
+             _late(jpeg2000, "decode_jpeg2000")),
+            (lambda b: b[:4] == b"icns", _late(f, "decode_icns")),
+            (lambda b: b[:4] == b"\x00\x00\x01\x00", _late(f, "decode_ico")),
+            (anything, _late(p, "decode_im")),
+            (anything, _late(p, "decode_imt")),
+            (anything, _late(p, "decode_iptc")),
+            (p.accepts_mcidas, _late(p, "decode_mcidas")),
+            (lambda b: b[:4] == b"\x00\x00\x01\xb3",
+             _refusing("an MPEG stream, which PIL identifies and cannot load")),
+            (lambda b: b[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"),
+             decode_tiff),
+            (lambda b: b[:4] in (b"II\x00*", b"MM*\x00"),
+             _refusing("a TIFF header PIL accepts and never reads")),
+            (p.accepts_msp, _late(p, "decode_msp")),
+            (anything, _late(p, "decode_pcd")),
+            (p.accepts_pixar, _late(p, "decode_pixar")),
+            (lambda b: b[:4] == b"8BPS", _late(f, "decode_psd")),
+            (lambda b: b[:4] == b"qoif", decode_qoi),
+            (lambda b: b[:2] == b"\x01\xda", _late(f, "decode_sgi")),
+            (anything, _late(p, "decode_spider")),
+            (lambda b: b[:4] == b"\x59\xa6\x6a\x95", _late(f, "decode_sun")),
+            (lambda b: _tga_header(b) is not None, decode_tga),
+            (lambda b: b[:4] == b"RIFF" and b[8:12] == b"WEBP" and b[12:16] in _WEBP_FIRST,
+             decode_webp),
+            (lambda b: b[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or b[:4] == b"\x01\x00\x00\x00"
+             and b[40:44] == b" EMF",
+             _refusing("a Windows metafile, which PIL opens and cannot load here (no WMF "
+                       "handler)")),
+            (p.accepts_xbm, _late(p, "decode_xbm")),
+            (p.accepts_xpm, _late(p, "decode_xpm")),
+            (p.accepts_xvthumb, _late(p, "decode_xvthumb")))
 
 
-def _claimed_before_tga(blob: bytes) -> bool:
-    """Whether a format PIL tries before TGA, and this reader does not read,
-    takes these bytes: a signature above, FLI (0xAF11 / 0xAF12 at 4) or an
-    IPTC record (0x1C, then a record number)."""
-    return (blob.startswith(_OTHER_SIGNATURES) or blob[4:6] in (b"\x11\xaf", b"\x12\xaf")
-            or blob[:1] == b"\x1c" and blob[1:2] != b"" and (1 <= blob[1] <= 9 or blob[1] == 240))
+def _unknown(blob: bytes, name: str):
+    raise ValueError(f"{name}: not an image this reader knows ({KNOWN}); it starts with "
+                     f"{blob[:8]!r}")
 
 
 def read_image(path: str) -> np.ndarray:
@@ -150,42 +220,33 @@ def read_image(path: str) -> np.ndarray:
 
 def decode_image(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     """`np.asarray(PIL.Image.open(io.BytesIO(blob)))`, without PIL; `name`
-    names the file in errors."""
+    names the file in errors. The formats are tried in PIL's order: the
+    ones PIL loads first (BMP, DIB, GIF, JPEG, PPM, PNG), then the rest of
+    Image.ID (`_chain`)."""
     from wast3d_tpu_torch import native
+    from wast3d_tpu_torch.utils import image_plugins
 
-    if blob[:8] == _PNG:
-        return png.decode_png(blob, name)
+    if blob[:2] == b"BM":
+        return decode_bmp(blob, name)
+    if image_plugins.accepts_dib(blob):
+        out = image_plugins.decode_dib(blob, name)
+        if out is not None:
+            return out
+    if blob[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(blob, name)
     if blob[:2] == b"\xff\xd8":
         _jpeg_walk(blob, name)
         return native.decode_jpeg(blob, name)
-    if blob[:2] == b"BM":
-        return decode_bmp(blob, name)
-    if blob[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        return decode_tiff(blob, name)
-    if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP" and blob[12:16] in _WEBP_FIRST:
-        return decode_webp(blob, name)
-    if blob[:6] in (b"GIF87a", b"GIF89a"):
-        return decode_gif(blob, name)
     if blob[:1] == b"P" and blob[1:2] and blob[1] in b"0123456fy":
         return decode_pnm(blob, name)
-    if blob[:4] == b"qoif":
-        return decode_qoi(blob, name)
-    if blob[:4] == jpeg2000.J2K_SIGNATURE or blob[:12] == jpeg2000.JP2_SIGNATURE:
-        return jpeg2000.decode_jpeg2000(blob, name)
-    from wast3d_tpu_torch.utils import image_formats
-
-    for accepts, reader in _READERS:
+    if blob[:8] == _PNG:
+        return png.decode_png(blob, name)
+    for accepts, reader in _chain():
         if accepts(blob):
-            out = getattr(image_formats, reader)(blob, name)
+            out = reader(blob, name)
             if out is not None:
                 return out
-    # TGA has no signature: PIL tries its header checks after every format
-    # that has one, so a file another of PIL's formats claims is not a TGA.
-    if not _claimed_before_tga(blob) and _tga_header(blob) is not None:
-        return decode_tga(blob, name)
-    raise ValueError(f"{name}: not an image this reader knows (PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     f"Netpbm, QOI, JPEG 2000, CUR, PCX, DDS, ICNS, ICO, PSD, SGI, Sun raster or "
-                     f"TGA); it starts with {blob[:8]!r}")
+    _unknown(blob, name)
 
 
 # PIL refuses (DecompressionBombError) more pixels than twice MAX_IMAGE_PIXELS.
@@ -559,8 +620,15 @@ _TAG_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample", 259: 
               323: "TileLength", 324: "TileOffsets", 325: "TileByteCounts",
               338: "ExtraSamples", 339: "SampleFormat", 347: "JPEGTables",
               530: "YCbCrSubsampling", 274: "Orientation", 320: "ColorMap", 292: "T4Options",
-              293: "T6Options", 529: "YCbCrCoefficients", 532: "ReferenceBlackWhite"}
+              293: "T6Options", 529: "YCbCrCoefficients", 532: "ReferenceBlackWhite",
+              512: "JPEGProc", 513: "JPEGInterchangeFormat",
+              514: "JPEGInterchangeFormatLength", 515: "JPEGRestartInterval",
+              519: "JPEGQTables", 520: "JPEGDCTables", 521: "JPEGACTables"}
 _RATIONAL_TAGS = (529, 532)
+# The tags whose unreadable entry fails libtiff's directory: ImageWidth,
+# ImageLength, BitsPerSample, Compression, SamplesPerPixel,
+# PlanarConfiguration, TileWidth, TileLength.
+_CORE_TAGS = (256, 257, 258, 259, 277, 284, 322, 323)
 # Bits per pixel of each raw mode (Pillow's unpackers); a one-letter raw mode
 # is one band of a separate-planes file read without libtiff.
 _RAW_MODE_BITS = {"1": 1, "1;I": 1, "L;2": 2, "L;2I": 2, "L;4": 4, "L;4I": 4, "L": 8, "L;I": 8,
@@ -582,16 +650,37 @@ _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[:
            7: lambda a: a[::-1, ::-1].swapaxes(0, 1), 8: lambda a: a[:, ::-1].swapaxes(0, 1)}
 
 
-def _tiff_tags(blob: bytes, name: str) -> Tuple[str, Dict[int, tuple]]:
+class _Skipped(NamedTuple):
+    """A directory entry `_tiff_tags` leaves out, and why."""
+    tag: int
+    past_end: bool  # its values run past the end of the file (else: a type not read here)
+    why: str
+    values: tuple = ()  # what libtiff reads of it: an integer entry of another width or
+    # sign, or of StripOffsets and StripByteCounts the values inside the file
+    typ: int = 0
+
+
+# The integer types libtiff reads a number from, whatever the tag's own type.
+_INTEGER_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}
+
+
+def _tiff_tags(blob: bytes, name: str) -> Tuple[str, Dict[int, tuple], list]:
     """The first directory's entries for the tags read here: SHORT or LONG
     values (BigTIFF: LONG8 too; JPEGTables: UNDEFINED bytes;
     YCbCrCoefficients and ReferenceBlackWhite: RATIONAL, as (numerator,
-    denominator) pairs). Such a tag of any other type, or twice, is refused:
-    PIL reads bytes, text and fractions where it wants integers, keeps the
-    last of two entries where libtiff keeps the first, and libtiff refuses
-    the types it does not expect. A BigTIFF (version 43) has 8-byte offsets
-    and counts and 20-byte entries; PIL reads it only little-endian (a
-    big-endian one it takes for a classic TIFF and fails on)."""
+    denominator) pairs; JPEGInterchangeFormat / Length, which only libtiff
+    reads: any 8-32-bit integer). Such a tag twice is refused (PIL keeps
+    the last of two entries where libtiff keeps the first), and so is an
+    XMP (700) that is not bytes (Pillow fails on it). A BigTIFF (version
+    43) has 8-byte offsets and counts and 20-byte entries; PIL reads it
+    only little-endian (a big-endian one it takes for a classic TIFF and
+    fails on). An entry of another type (PIL reads bytes, text and
+    fractions where it wants integers; libtiff refuses the types it does
+    not expect), or whose values lie past the end of the file, is left out
+    and listed (`_Skipped`) in the third value returned, for the caller to
+    raise or not (for an old-style JPEG file libtiff reads integers of any
+    width and sign, and passes over the rest; it reads no more of
+    StripOffsets and StripByteCounts than one value a strip)."""
     bo = "<" if blob[:2] == b"II" else ">"
     if len(blob) < 8:
         raise ValueError(f"{name}: TIFF header truncated")
@@ -609,29 +698,46 @@ def _tiff_tags(blob: bytes, name: str) -> Tuple[str, Dict[int, tuple]]:
     (n,) = struct.unpack_from(bo + cnt, blob, ifd)
     if ifd + head + entry * n > len(blob):
         raise ValueError(f"{name}: TIFF directory past the end of the file")
-    tags = {}
+    tags, skipped = {}, []
     for i in range(n):
         at = ifd + head + entry * i
         tag, typ, count = struct.unpack_from(bo + "HH" + ofs, blob, at)
+        if tag == 700 and 1 < typ <= 18 and typ != 7:  # Pillow reads XMP as bytes only
+            raise ValueError(f"{name}: TIFF XMP (tag 700) of type {typ}, which Pillow fails on")
         if tag not in _TAG_NAMES:
             continue
         what = f"{name}: TIFF {_TAG_NAMES[tag]} (tag {tag})"
+        allowed = ((7,) if tag == 347 else (5,) if tag in _RATIONAL_TAGS else
+                   (1, 3, 4, 6, 8, 9) if tag in (513, 514) else (3, 4))
+        # UNDEFINED; RATIONAL; SHORT, LONG (or LONG8); only libtiff reads 513
+        # and 514, and it takes any 8-32-bit integer
+        fmt = (None if typ not in allowed + ((16,) if big and tag not in _RATIONAL_TAGS + (347,)
+                                             else ())
+               else {5: "II", 7: "B"}.get(typ) or _INTEGER_TYPES[typ])
+        odd = fmt is None and _INTEGER_TYPES.get(typ)
+        if fmt is None and not odd:
+            skipped.append(_Skipped(tag, False, f"{what} of type {typ} is not supported"))
+            continue
         if tag in tags:
             raise ValueError(f"{what} twice")
-        allowed = ((7,) if tag == 347 else (5,) if tag in _RATIONAL_TAGS else
-                   (3, 4, 16) if big else (3, 4))
-        if typ not in allowed:  # UNDEFINED; RATIONAL; SHORT, LONG (or LONG8)
-            raise ValueError(f"{what} of type {typ} is not supported")
-        fmt = {3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}[typ]
-        size = struct.calcsize(fmt) * count
+        size = struct.calcsize(fmt or odd) * count
         at += 4 + word
         if size > word:
             (at,) = struct.unpack_from(bo + ofs, blob, at)
+        if odd:
+            values = (struct.unpack_from(bo + odd * count, blob, at)
+                      if at + size <= len(blob) else ())
+            skipped.append(_Skipped(tag, False, f"{what} of type {typ} is not supported",
+                                    values, typ))
+            continue
         if at + size > len(blob):
-            raise ValueError(f"{what} past the end of the file")
+            fit = max(len(blob) - at, 0) // struct.calcsize(fmt) if tag in (273, 279) else 0
+            skipped.append(_Skipped(tag, True, f"{what} past the end of the file",
+                                    struct.unpack_from(bo + fmt * fit, blob, at) if fit else ()))
+            continue
         tags[tag] = (blob[at:at + size] if typ == 7
                      else struct.unpack_from(bo + fmt * count, blob, at))
-    return bo, tags
+    return bo, tags, skipped
 
 
 def _refuse(name: str, tag: int, value, why: str = "is not supported") -> None:
@@ -677,15 +783,31 @@ def _tiff_strip(data: bytes, compression: int, size: int, name: str,
 
 def _tiff_setup(blob: bytes, name: str) -> Dict:
     """TiffImageFile._setup: the tags PIL reads, its mode and raw mode."""
-    bo, tags = _tiff_tags(blob, name)
-    t = dict(bo=bo, tags=tags)
-    compression = _one(tags, 259, 1)
-    if compression not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000):
+    bo, tags, skipped = _tiff_tags(blob, name)
+    t = dict(bo=bo, tags=tags, skipped=skipped)
+    compression = _one(tags, 259)
+    if compression is None:  # none, or of another integer type (libtiff reads it)
+        compression = next((s.values[0] for s in skipped if s.tag == 259 and s.values), 1)
+    if compression == 6:  # libtiff reads integers of any width and sign: not past 32 bits
+        # (but strip arrays), nor bytes in a tag Pillow reads itself
+        tags.update((s.tag, s.values) for s in skipped if not s.past_end and s.values
+                    and min(s.values) >= 0 and (s.tag in (273, 279) or max(s.values) < 2 ** 32)
+                    and not (s.typ == 1 and s.tag in _CORE_TAGS))
+    # libtiff's directory fails on a core tag left out, and on strip offsets
+    # or counts of an unknown type; only its old-style JPEG codec reads on
+    # past the other entries skipped (but RowsPerStrip's: Pillow fails).
+    core = [s.why for s in skipped if s.tag not in tags and (
+        s.tag in _CORE_TAGS + (278,) or s.tag in (273, 279) and not s.past_end)]
+    if core or skipped and compression != 6:
+        raise ValueError((core or [s.why for s in skipped])[0])
+    if compression not in (1, 2, 3, 4, 5, 6, 7, 8, 32773, 32946, 34925, 50000):
         _refuse(name, 259, compression)
     planar = _one(tags, 284, 1)
     if planar not in (1, 2):
         _refuse(name, 284, planar)
-    photo = _one(tags, 262, 0)
+    # Pillow takes an old-style JPEG file (6) for YCbCr whatever its tag says
+    # (libtiff goes by the tag), and three samples a pixel by default.
+    photo = 6 if compression == 6 else _one(tags, 262, 0)
     fill = _one(tags, 266, 1)
     w, h = _one(tags, 256), _one(tags, 257)
     if not isinstance(w, int) or not isinstance(h, int):
@@ -696,7 +818,7 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
         sf = (1,)
     bps, extra = tags.get(258, (1,)), tags.get(338, ())
     bps_count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
-    spp = _one(tags, 277, 1)
+    spp = _one(tags, 277, 3 if compression == 6 else 1)
     if not isinstance(spp, int) or spp > 6:
         _refuse(name, 277, spp)
     if spp < len(bps):
@@ -732,7 +854,7 @@ def _tiff_setup(blob: bytes, name: str) -> Dict:
     if photo == 6 and compression == 7 and planar != 1:
         _refuse(name, 262, f"6 (YCbCr) with Compression 7, PlanarConfiguration {planar}",
                 "is not supported; JPEG YCbCr is read in one plane")
-    if photo == 6 and compression not in (1, 7):  # Pillow reads it through TIFFRGBAImage
+    if photo == 6 and compression not in (1, 6, 7):  # Pillow reads it through TIFFRGBAImage
         sub = tuple(tags.get(530, (2, 2))[:2])
         if bps != (8, 8, 8):
             _refuse(name, 258, bps, "of YCbCr is not something PIL reads (libtiff's RGBA "
@@ -1008,6 +1130,306 @@ def _tiff_jpeg(data: bytes, t: Dict, expect: list, width: int, rows: int, last: 
         raise ValueError(f"{name}: a {w}x{h} JPEG stream for a {width}x{rows} TIFF strip or tile")
     out = native.decode_jpeg(data, name, colour=1 if t["photo"] == 6 else 2)
     return out[:rows].reshape(rows, -1)
+
+
+def _tiff_ojpeg(blob: bytes, t: Dict, name: str) -> np.ndarray:
+    """An old-style JPEG file (Compression 6) as Pillow reads it through
+    libtiff 4.7.1's OJPEG codec and RGBA reader (`_ojpeg_stream`: the one
+    baseline stream libtiff hands libjpeg). libjpeg gives libtiff the
+    components raw (no upsampling, no colour conversion); three components
+    become data units of the stream's luma sampling and go through
+    TIFFYCbCrToRGB (`native.ycbcr_to_rgb`) whatever PhotometricInterpretation
+    (2, 6 or none) says; one component of a one-sample file is the grey
+    plane. A strip whose read fails leaves its rows as zeroed data units when
+    it is the last (the RGBA reader goes on past errors); a failure before
+    the last, or any in a grey file (read strip by strip), is Pillow's error.
+    What libtiff or Pillow refuses raises, naming the tag."""
+    from wast3d_tpu_torch import native
+
+    tags, w, h, spp = t["tags"], t["w"], t["h"], t["spp"]
+    photo = _one(tags, 262) if len(tags.get(262, (0,))) == 1 else None  # more: passed over
+    if t["bps"] != (8,) * spp:
+        _refuse(name, 258, t["bps"], "with old-style JPEG is not something PIL reads (libtiff "
+                "takes 8-bit samples)")
+    # Three samples are YCbCr to libtiff's OJPEG codec whether the tag says
+    # 2, 6 or nothing; one is a grey plane under any other tag.
+    if (spp not in (1, 3) or (photo in (None, 2, 6)) != (spp == 3)) or t["planar"] != 1:
+        _refuse(name, 262, f"{photo} with {spp} samples in PlanarConfiguration {t['planar']}",
+                "is not something PIL reads with old-style JPEG (Compression 6)")
+    if 322 in tags:
+        _refuse(name, 322, _one(tags, 322), "with old-style JPEG is not supported (tiled "
+                "old-style JPEG)")
+    for tag in (277, 278, 284):  # libtiff's directory takes one value of each
+        if len(tags.get(tag, (0,))) != 1:
+            _refuse(name, tag, tags[tag], "is not one value (libtiff refuses the directory)")
+    # Pillow's strip buffer holds RowsPerStrip rows of RGBA (grey: under 2**31
+    # rows), 2**32 - 1 standing for the whole image; libtiff refuses 0.
+    rows = _one(tags, 278, h)
+    if rows == 0 or ((2 ** 31 - 1) // 4 // w if spp == 3 else 2 ** 31 - 1) < rows < 2 ** 32 - 1:
+        _refuse(name, 278, rows, "is not something Pillow reads with old-style JPEG (decoder "
+                "error -9 or -2)")
+    rows = min(rows, h)
+    stream = _ojpeg_stream(blob, t, rows, name)
+    _, frame_h, factors = native.jpeg_frame(stream, name)
+    if len(factors) != spp:
+        raise ValueError(f"{name}: old-style JPEG stream of {len(factors)} components in a TIFF "
+                         f"of {spp} samples (libtiff refuses it)")
+    (fh, fv), rest = factors[0], factors[1:]
+    if rows < h and rows % (8 * fv if spp == 3 else 8):
+        _refuse(name, 278, rows, f"is not a multiple of the {8 * fv}-row MCUs of its old-style "
+                "JPEG (libtiff: incompatible vertical subsampling and image strip length)")
+    if (fh, fv) not in _YCBCR_UNITS or any(f != (1, 1) for f in rest):
+        raise ValueError(f"{name}: old-style JPEG sampling {factors}, which libtiff would "
+                         "upsample itself or has no RGBA routine for (Pillow: decoder error -2)")
+    planes, failed_row = native.jpeg_raw_planes(stream, name)
+    failed = None if failed_row < 0 else min(failed_row * 8 * fv // rows, -(-h // rows) - 1)
+    if failed is not None and (spp == 1 or failed + 1 < -(-h // rows)):
+        raise ValueError(f"{name}: old-style JPEG data fails in strip {failed} (libtiff: "
+                         "premature end of JPEG data, or a restart marker out of turn)")
+    if spp == 1:
+        return _ojpeg_past_frame(planes[0], frame_h, rows, h, w)
+    # libjpeg gives no rows past its frame's (whose height wraps past 65535),
+    # and libtiff's buffer of one iMCU row keeps the last for every later
+    # one, with the row before's data where the last's blocks pass the
+    # frame's height (libjpeg writes none there)
+    more = -(-h // (8 * fv)) - planes[0].shape[0] // (8 * fv)
+    if more > 0:
+        for p, (_, v) in zip(planes, factors):
+            real = -(-frame_h * v // fv // 8) * 8
+            if p.shape[0] >= 16 * v:
+                p[real:] = p[real - 8 * v:p.shape[0] - 8 * v]
+        planes = [np.concatenate([p, np.tile(p[-8 * v:], (more, 1))])
+                  for p, (_, v) in zip(planes, factors)]
+    uy, ux = -(-h // fv), -(-w // fh)
+    luma = planes[0][:uy * fv, :ux * fh].reshape(uy, fv, ux, fh).transpose(0, 2, 1, 3)
+    units = np.concatenate([luma.reshape(uy, ux, fv * fh), planes[1][:uy, :ux, None],
+                            planes[2][:uy, :ux, None]], -1)
+    if failed is not None:  # the last strip's read failed: its buffer, zeroed
+        units[failed * rows // fv:] = 0
+    tables = ycbcr_tables(_rationals(tags.get(529), (0.299, 0.587, 0.114)),
+                          _rationals(tags.get(532), (0, 255, 128, 255, 128, 255)), name)
+    return native.ycbcr_to_rgb(units, fh, fv, w, h, tables, name)
+
+
+def _ojpeg_past_frame(plane: np.ndarray, frame_h: int, rows: int, h: int, w: int) -> np.ndarray:
+    """A grey old-style JPEG as Pillow reads it strip by strip into one
+    buffer: libjpeg gives no scanlines past its frame's height (which wraps
+    past 65535), so there each strip keeps the rows of the strip before."""
+    if frame_h >= h:
+        return np.ascontiguousarray(plane[:h, :w])
+    buf, out = np.zeros((rows, w), np.uint8), np.empty((h, w), np.uint8)
+    for y in range(0, h, rows):
+        n = min(max(frame_h - y, 0), rows)
+        buf[:n] = plane[y:y + n, :w]
+        out[y:y + rows] = buf[:min(rows, h - y)]
+    return out
+
+
+# The markers libtiff's OJPEG codec reads before SOS.
+_OJPEG_MARKERS = {0xD8, 0xDB, 0xC4, 0xDD, 0xC0, 0xC1, 0xDA, 0xFE} | set(range(0xE0, 0xF0))
+
+
+def _ojpeg_walk(stream: bytes, spp: int, name: str) -> Tuple[int, Optional[bytes], bool]:
+    """OJPEGReadHeaderInfoSec's walk over the source up to SOS: any marker
+    but SOI, APPn, COM, DQT, DHT, DRI, SOF0 / SOF1 and SOS is refused. A
+    byte other than 0xFF where a marker should start ends the walk: after an
+    SOF libtiff's stream then fails (Pillow: decoder error -2), before one
+    libtiff builds the header from the table tags and the data starts at
+    that byte. SOS must be of one component a sample, and the source hold
+    it up to its last table selector: libtiff skips the three bytes after
+    (Ss, Se, Ah / Al) and writes 0, 63, 0 there itself. Returns where the
+    entropy-coded data starts, the stream's own header as libtiff hands it
+    on (None: the header comes from the tables), and whether it has a
+    DRI."""
+    pos, marks = 0, set()
+    while True:
+        if pos < len(stream) and stream[pos] != 0xFF:
+            if marks & {0xC0, 0xC1}:
+                raise ValueError(f"{name}: old-style JPEG header broken off at byte {pos} of its "
+                                 "stream, before its SOS (Pillow: decoder error -2)")
+            return pos, None, False
+        while pos < len(stream) and stream[pos] == 0xFF:
+            pos += 1
+        if pos >= len(stream):
+            raise ValueError(f"{name}: old-style JPEG data without SOS (libtiff refuses it)")
+        m = stream[pos]
+        marks.add(m)
+        pos += 1
+        if m not in _OJPEG_MARKERS:
+            raise ValueError(f"{name}: old-style JPEG data with marker 0xFF{m:02X}, which "
+                             "libtiff's OJPEG codec refuses (Unknown marker type)")
+        if m != 0xD8 and pos + 2 > len(stream):
+            raise ValueError(f"{name}: old-style JPEG data cut short in its markers")
+        if m == 0xDA:
+            if stream[pos:pos + 3] != struct.pack(">HB", 6 + 2 * spp, spp):
+                raise ValueError(f"{name}: old-style JPEG SOS not of {spp} components (libtiff: "
+                                 "corrupt SOS marker)")
+            if pos + 3 + 2 * spp > len(stream):
+                raise ValueError(f"{name}: old-style JPEG data cut short in its SOS segment")
+            sos = stream[pos - 2:pos + 3 + 2 * spp] + b"\x00\x3f\x00"
+            return min(pos + 6 + 2 * spp, len(stream)), stream[:pos - 2] + sos, 0xDD in marks
+        if m != 0xD8:
+            pos += stream[pos] << 8 | stream[pos + 1]
+
+
+def _ojpeg_stream(blob: bytes, t: Dict, rows: int, name: str) -> bytes:
+    """The stream libtiff's OJPEG codec hands libjpeg. Its source is the
+    JPEGInterchangeFormat (513) bytes (when 513 is inside the file;
+    JPEGInterchangeFormatLength 0 or too long runs to the end), then each
+    strip's (cut at the end of the file; a byte count of 0 runs to it; a
+    strip at offset 0 or past the end gives nothing; without
+    StripByteCounts only the interchange form reads). If the source starts
+    with a marker, its markers up to SOS are the header (with libtiff's own
+    DRI, `_ojpeg_restart`, where it has none); else libtiff builds one: a
+    DQT and two DHTs a component from JPEGQTables / DCTables / ACTables
+    (519-521), the DRI, SOF0 at the YCbCrSubsampling (530, default 2x2) for
+    component 0 and 1x1 for the others, SOS (JPEGProc changes nothing).
+    Then the rest of the source, an RST marker after each strip's data
+    while any strip follows and EOI after the last's (so a strip without
+    data shifts the later ones' data a restart interval early). Where the
+    stream runs out before its EOI, libjpeg asks for more ("Premature end
+    of JPEG data"), and libtiff's source makes a restart marker out of turn
+    an error too: the strip being read then fails (`native.jpeg_raw_planes`
+    reports where)."""
+    from wast3d_tpu_torch import native
+
+    tags, w, h, spp = t["tags"], t["w"], t["h"], t["spp"]
+    segments = []  # (strip index or None, bytes)
+    start = _one(tags, 513, 0)
+    if isinstance(start, int) and 0 < start < len(blob):
+        length = _one(tags, 514, 0)
+        length = length if isinstance(length, int) and 0 < length <= len(blob) - start else \
+            len(blob) - start
+        segments.append((None, blob[start:start + length]))
+    strips = -(-h // rows)
+    # libtiff reads one value a strip of StripOffsets and StripByteCounts, so
+    # arrays that run past the end of the file hold if those values fit
+    # (Pillow reads neither for YCbCr; a grey file's offsets it needs whole)
+    inside = {s.tag: s.values for s in t["skipped"] if s.past_end and len(s.values) >= strips}
+    offsets = tags.get(273) or (inside.get(273, ()) if spp == 3 else ())
+    if offsets:  # libtiff's strips are the rows': more offsets are cut off, fewer padded with 0
+        offsets = (tuple(offsets) + (0,) * strips)[:strips]
+    counts = tags.get(279) or inside.get(279)
+    if offsets and counts is None and spp == 1:  # read strip by strip, past its estimate
+        raise ValueError(f"{name}: grey old-style JPEG without StripByteCounts (tag 279): "
+                         "libtiff's estimate of its strips runs past the file")
+    for i, off in enumerate(offsets):
+        cnt = counts[i] if counts and i < len(counts) else 0
+        data = blob[off:off + cnt] if cnt else blob[off:]
+        segments.append((i, data if 0 < off < len(blob) else b""))
+    source = b"".join(d for _, d in segments)
+    at, head, dri = _ojpeg_walk(source, spp, name) if source[:1] == b"\xff" else (0, None, False)
+    if head is None and offsets and counts is None:
+        raise ValueError(f"{name}: old-style JPEG in the table form without StripByteCounts "
+                         "(tag 279), which Pillow fails to read (decoder error -2)")
+    if head is None:  # its SOF: the TIFF's size, 16 bits each
+        return b"".join([_ojpeg_tables(blob, t, rows, name)] + _ojpeg_data(segments, at, strips))
+    sw, sh, factors = native.jpeg_frame(head, name)
+    if sw != w or sh < h:
+        raise ValueError(f"{name}: a {sw}x{sh} old-style JPEG stream in a {w}x{h} TIFF (libtiff "
+                         "refuses it)")
+    if not dri:  # libtiff's own restart interval, where the stream gives none
+        sos = len(head) - 8 - 2 * spp
+        head = head[:sos] + _ojpeg_restart(t, rows, factors[0] if spp == 3 else (1, 1)) + head[sos:]
+    return b"".join([head] + _ojpeg_data(segments, at, strips))
+
+
+def _ojpeg_data(segments: list, at: int, strips: int) -> list:
+    """The source's data from `at` on, an RST marker after each strip's while
+    any strip follows, and EOI after the last's."""
+    out, restarts, pos = [], 0, 0
+    for i, data in segments:
+        lo = max(at - pos, 0)
+        pos += len(data)
+        if lo >= len(data):
+            continue
+        out.append(data[lo:])
+        if i is None:
+            continue
+        if i + 1 < strips:
+            out.append(bytes([0xFF, 0xD0 + restarts % 8]))
+            restarts += 1
+        else:
+            out.append(b"\xff\xd9")
+            break
+    return out
+
+
+def _ojpeg_restart(t: Dict, rows: int, sub: Tuple[int, int]) -> bytes:
+    """The DRI segment libtiff's OJPEG codec writes unless the stream has its
+    own: one strip's MCUs at the luma sampling `sub` in a file of more than
+    one strip, else JPEGRestartInterval (515) where it is one value (kept
+    as 16 bits; 0, or no tag: no DRI)."""
+    w, h = t["w"], t["h"]
+    if rows < h:
+        interval = -(-w // (8 * sub[0])) * (rows // (8 * sub[1]))
+    else:
+        interval = _one(t["tags"], 515, 0)
+        interval = interval & 65535 if isinstance(interval, int) else 0
+    return b"\xff\xdd\x00\x04" + struct.pack(">H", interval & 65535) if interval else b""
+
+
+def _ojpeg_sampling(t: Dict) -> Tuple[int, int]:
+    """YCbCrSubsampling as libtiff's OJPEG codec keeps it (a byte each)."""
+    sub = t["tags"].get(530, (2, 2)) if t["spp"] == 3 else (1, 1)
+    return (sub[0] & 255, sub[1] & 255) if len(sub) >= 2 else (2, 2)
+
+
+def _ojpeg_tables(blob: bytes, t: Dict, rows: int, name: str) -> bytes:
+    """The header libtiff's OJPEG codec builds from the table tags."""
+    tags, w, h, spp = t["tags"], t["w"], t["h"], t["spp"]
+    missing = [f"{_TAG_NAMES[k]} (tag {k})" for k in (519, 520, 521) if k not in tags]
+    if missing:
+        _refuse(name, 259, 6, f"without JPEGInterchangeFormat (tag 513) or {', '.join(missing)} "
+                "is not something PIL reads (libtiff: missing JPEG tables)")
+    for tag in (519, 520, 521):  # libtiff takes up to 3 (0 past the count)
+        if len(tags[tag]) > 3:
+            _refuse(name, tag, tags.get(tag), "is more than 3 table offsets (libtiff: incorrect "
+                    "count)")
+    if w > 65535:
+        _refuse(name, 256, w, "does not fit the 16 bits of the SOF libtiff writes (Pillow: "
+                "decoder error -2)")
+    sub = _ojpeg_sampling(t)
+    if sub not in _YCBCR_UNITS:
+        _refuse(name, 530, sub, "with old-style JPEG is not something PIL reads (libtiff has no "
+                "routine for it)")
+    q, dc, ac = (_ojpeg_table_ids((tags[tag] + (0,) * spp)[:spp], tag, name)
+                 for tag in (519, 520, 521))
+    out = b"\xff\xd8"
+    for c in set(q):
+        at = tags[519][c]
+        if at + 64 > len(blob):
+            _refuse(name, 519, tags[519], "points past the end of the file")
+        out += b"\xff\xdb\x00\x43" + bytes([c]) + blob[at:at + 64]
+    for cls, tag, ids in ((0, 520, dc), (1, 521, ac)):
+        for c in set(ids):
+            at = tags[tag][c]
+            if at + 16 > len(blob) or at + 16 + sum(blob[at:at + 16]) > len(blob):
+                _refuse(name, tag, tags[tag], "points past the end of the file")
+            table = blob[at:at + 16 + sum(blob[at:at + 16])]
+            out += b"\xff\xc4" + struct.pack(">H", 3 + len(table)) + bytes([cls << 4 | c]) + table
+    # libtiff writes the DRI and SOF fields a byte at a time from wider counts
+    out += _ojpeg_restart(t, rows, sub)
+    out += b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * spp, 8, h & 65535, w & 65535, spp) + b"".join(
+        bytes([c + 1, (sub[0] << 4 | sub[1]) if c == 0 else 0x11, q[c]]) for c in range(spp))
+    return out + b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp) + b"".join(
+        bytes([c + 1, dc[c] << 4 | ac[c]]) for c in range(spp)) + b"\x00\x3f\x00"
+
+
+def _ojpeg_table_ids(offsets: tuple, tag: int, name: str) -> list:
+    """Each component's table, as libtiff's OJPEG codec reads the offsets of
+    one table tag: an offset of 0, or the component before's, takes the
+    component before's table; one of an earlier component is refused."""
+    ids = []
+    for c, at in enumerate(offsets):
+        if c and (not at or at == offsets[c - 1]):
+            ids.append(ids[-1])
+        elif not at or at in offsets[:max(c - 1, 0)]:
+            _refuse(name, tag, offsets, "is not a table offset a component (libtiff: missing "
+                    "JPEG tables, or a corrupt table tag)")
+        else:
+            ids.append(c)
+    return ids
 
 
 def _tiff_predicted(seg: np.ndarray, t: Dict, predictor: int, spp: int, name: str) -> np.ndarray:
@@ -1352,7 +1774,8 @@ def decode_tiff(blob: bytes, name: str = "<bytes>") -> np.ndarray:
     (module docstring)."""
     t = _tiff_setup(blob, name)
     _check_pixels(t["w"], t["h"], name)
-    img = (_tiff_raw if t["compression"] == 1 else _tiff_libtiff)(blob, t, name)
+    img = (_tiff_raw if t["compression"] == 1 else _tiff_ojpeg if t["compression"] == 6
+           else _tiff_libtiff)(blob, t, name)
     if t["mode"] == "1":
         img = img.view(bool)
     orient = _ORIENT.get(t["orientation"])
